@@ -3,14 +3,19 @@
 PAGANI adaptive cubature on one NVIDIA GPU: the scalar host loop of
 ``Workspace.integrate`` in plain PyTorch, with the Genz-Malik rule
 evaluation as a hand-written CUDA kernel (ops/cuda_rule.py,
-csrc/rule_eval.cu).  The JAX package ``gpuintegration_tpu`` is the
-reference; this package imports torch and numpy only, never JAX.
+csrc/rule_eval.cu).  m-CUBES/VEGAS Monte Carlo: ``mcubes.integrate``
+(also ``mcubes.vegas``, ``mcubes.simple_integrate``, ``mcubes.VegasState``)
+with its sampler, histogram, bin-resolve and edge-lookup kernels in CUDA
+(mcubes/cuda_vegas.py, mcubes/cuda_lookup.py, csrc/vegas_*.cu).  The JAX
+package ``gpuintegration_tpu`` is the reference; this package imports torch
+and numpy only, never JAX.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from gpuintegration_torch.types import IntegrationResult, Volume, unit_volume
 from gpuintegration_torch.integrand import make_integrand
 from gpuintegration_torch.pagani.workspace import Workspace
+from gpuintegration_torch import mcubes
 
 __all__ = [
     "IntegrationResult",
@@ -18,6 +23,7 @@ __all__ = [
     "unit_volume",
     "make_integrand",
     "Workspace",
+    "mcubes",
 ]
 
 __version__ = "0.1.0"

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gpuintegration_torch.mcubes.vegas import VegasState
 from gpuintegration_torch.models import genz
 
 
@@ -53,3 +54,26 @@ def genz_from_reference(name: str, ndim: int, **params) -> genz.GenzIntegrand:
         raise ValueError(f"unknown Genz family {name!r}; "
                          f"one of {sorted(genz.FAMILIES)}") from None
     return make(ndim, **params)
+
+
+def vegas_state_from_reference(xi, si, swgt, schi, it0, n_acc, *,
+                               dtype=torch.float64, device=None) -> VegasState:
+    """The port's ``VegasState`` from the fields of a reference
+    ``mcubes.VegasState`` (``xi`` as a NumPy array, the rest Python
+    numbers), so that ``mcubes.vegas(state=...)`` continues a run the
+    reference adapted: the grid is taken bit for bit, and ``it0`` keeps
+    the continuation's streams apart from the iterations already counted."""
+    return VegasState(
+        xi=torch.as_tensor(np.array(xi), dtype=dtype, device=device),
+        si=float(si), swgt=float(swgt), schi=float(schi), it0=int(it0),
+        n_acc=int(n_acc))
+
+
+def poly_from_reference(p_coeffs, q_coeffs, *, device=None):
+    """Chebyshev coefficients of a reference importance map
+    (``poly_importance.fit_importance_poly``, f64 NumPy) as the f32 tensors
+    the port's samplers take; the cast is the reference's own."""
+    return (torch.as_tensor(np.array(p_coeffs), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(np.array(q_coeffs), dtype=torch.float32,
+                            device=device))

@@ -26,13 +26,15 @@
 // tensor cores and no TF32, because the null-rule sums cancel and a
 // reduced-precision contraction would destroy them.
 //
-// Built by ops/cuda_rule.py with
+// Built by ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // and called through ctypes (plain C entry point below).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "genz.cuh"
 
 namespace {
 
@@ -63,62 +65,26 @@ struct RuleArgs {
   T s0, s1;             // F1: offset | F2: 1/a^2, b | F4: a*a, b | F5: a, b
 };
 
-__device__ __forceinline__ float m_exp(float x) { return expf(x); }
-__device__ __forceinline__ double m_exp(double x) { return exp(x); }
-__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
-__device__ __forceinline__ double m_cos(double x) { return cos(x); }
-__device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
-__device__ __forceinline__ double m_abs(double x) { return fabs(x); }
-
 // max that propagates NaN, like jnp.maximum / torch.maximum
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {
   return (a != a || b != b) ? (a != a ? a : b) : (a > b ? a : b);
 }
 
-// The Genz integrand at rule point p of a region with global-space center
-// cen[] and length len[] (shared memory), families F1..F6 as in
-// gpuintegration_torch/models/genz.py.
+// The Genz integrand (genz.cuh) at rule point p of a region with
+// global-space center cen[] and length len[] (shared memory).
 template <int FAMILY, typename T>
 __device__ __forceinline__ T genz_value(const RuleArgs<T>& a, const T* cen,
                                         const T* len, const T* coeffs,
                                         const T* bounds, int p) {
   const T* gen = a.gen;
   const int feval = a.feval;
-  T s = T(0);
-  T prod = T(1);
-  bool inside = true;
+  GenzState<T> g;
   for (int d = 0; d < a.ndim; ++d) {
     const T x = cen[d] - __ldg(gen + d * feval + p) * len[d];
-    if (FAMILY == 1 || FAMILY == 3) {
-      s += x * coeffs[d];
-    } else if (FAMILY == 2) {
-      const T t = x - a.s1;
-      prod *= a.s0 + t * t;
-    } else if (FAMILY == 4) {
-      const T t = x - a.s1;
-      s += a.s0 * (t * t);
-    } else if (FAMILY == 5) {
-      s += m_abs(x - a.s1);
-    } else {  // FAMILY == 6
-      inside = inside && (x <= bounds[d]);
-      s += x * coeffs[d];
-    }
+    genz_axis<FAMILY, T>(g, x, coeffs[d], bounds[d], a.s0, a.s1);
   }
-  if (FAMILY == 1) return m_cos(a.s0 + s);
-  if (FAMILY == 2) return T(1) / prod;
-  if (FAMILY == 3) {
-    // (1 + s)^-(ndim+1) by squaring, then one divide
-    T base = T(1) + s, r = T(1);
-    for (int e = a.ndim + 1; e > 0; e >>= 1) {
-      if (e & 1) r *= base;
-      base *= base;
-    }
-    return T(1) / r;
-  }
-  if (FAMILY == 4) return m_exp(-s);
-  if (FAMILY == 5) return m_exp(-a.s0 * s);
-  return inside ? m_exp(s) : T(0);
+  return genz_finish<FAMILY, T>(g, a.ndim, a.s0);
 }
 
 template <typename T>

@@ -1,0 +1,592 @@
+"""mcubes: VEGAS (importance sampling + stratification) on one device
+(PyTorch port of ``gpuintegration_tpu/mcubes/vegas.py``; reference:
+cuda/mcubes/vegasT.cuh:644-1021 ``vegas``, kernels vegas_kernel:401-490 and
+vegas_kernelF:492-619).
+
+  CUDA thread = chunkSize stratified sub-cubes  -> one thread per sub-cube in
+                                                   the sampler kernel
+                                                   (mcubes/cuda_vegas.py)
+  per-cube reseeded Custom_generator LCG        -> the Philox stream keyed on
+                                                   (seed; cube, iteration,
+                                                   slot) (mcubes/stream.py)
+  atomicAdd histogram d[bin,dim]                -> the deterministic histogram
+                                                   kernel (mcubes/cuda_lookup.py)
+  atomicAdd of block-reduced fb/f2b             -> ordered f64 block sums
+  host-side xi/d round trip + smoothing + rebin -> the same, in NumPy
+                                                   (mcubes/grid.py)
+
+The cube axis is processed in chunks of ``chunk_cubes`` cubes by a Python
+loop, so device memory is bounded by the chunk size whatever ``ncall`` is.
+An iteration accumulates (ti, tsi) and the histogram on the device and is
+read by the host once, in one transfer.
+
+Scalar integrands, one device, host-refined grid.  Not ported yet, each
+raising NotImplementedError: ``mesh=`` (ROADMAP A16), ``refine='device'``
+(A13), vector integrands (A9).  The reference's device-resident
+multi-iteration phases (``_frozen_phase``, ``_adjust_phase``) hide a
+dispatch latency of its remote runtime; frozen iterations here run through
+the same host loop with the histogram off, which is iteration-equivalent
+(ROADMAP A10 holds the fused form).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from gpuintegration_torch.integrand import deduce_ncomp, make_integrand
+from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
+from gpuintegration_torch.mcubes import grid as vgrid
+from gpuintegration_torch.mcubes import stream
+from gpuintegration_torch.mcubes.cuda_lookup import HIST_CAP as _HIST_CAP
+from gpuintegration_torch.mcubes.poly_importance import (
+    eval_map_and_weight, fit_importance_poly)
+from gpuintegration_torch.ops import cuda_rule
+from gpuintegration_torch.types import IntegrationResult, Volume
+from gpuintegration_torch.utils.stats import chi2_prob
+
+SAMPLERS = ("torch", "fused", "hybrid")
+# activations of one chunk, (chunk, npg, ndim) values in a few copies
+CHUNK_BYTES_BUDGET = 1024 * 1024 * 1024
+DEFAULT_MAX_CHUNK = 1 << 20
+
+
+def compute_ncubes(ncall: float, ndim: int) -> tuple[int, int]:
+    """(ng, ncubes): stratification intervals per axis and total sub-cubes
+    (reference: vegasT.cuh:708-720, vegas_utils.cuh:180-190)."""
+    ng = max(int((ncall / 2.0 + 0.25) ** (1.0 / ndim)), 1)
+    return ng, ng ** ndim
+
+
+def samples_per_cube(ncall: float, ncubes: int) -> int:
+    """(vegas_utils.cuh:192-197)."""
+    return max(int(ncall / ncubes), 2)
+
+
+def get_status(estimate, errorest, iteration, epsrel, epsabs) -> int:
+    """0 = converged (needs >= 5 iterations), 1 = not
+    (vegas_utils.cuh:225-248).  A zero estimate (e.g. a peak so narrow
+    every f64 sample underflows) can only converge through epsabs."""
+    if estimate == 0.0:
+        ok = errorest <= epsabs
+    else:
+        ok = (abs(errorest / estimate) <= epsrel) or (errorest <= epsabs)
+    return 0 if (ok and iteration >= 5) else 1
+
+
+def adjust_params(ncall: float, total_iters: int) -> tuple[float, int, bool]:
+    """Escalation schedule for extended runs (vegas_utils.cuh:272-296)."""
+    if ncall >= 8e9 and total_iters >= 100:
+        return ncall, total_iters, False
+    if ncall >= 8e9:
+        return ncall, total_iters + 10, True
+    if ncall >= 1e9:
+        return ncall + 1e9, total_iters, True
+    return ncall * 10.0, total_iters, True
+
+
+_decode_cube = stream.decode_cube
+
+
+def _hist_accum(d, chunk_hist):
+    """Add one chunk's adaptation histogram, saturating at HIST_CAP
+    (cuda_lookup.HIST_CAP note)."""
+    return torch.clamp(d + chunk_hist, max=_HIST_CAP)
+
+
+def _cube_sums(fx, valid, npg: int):
+    """[sum over cubes of fb, of f2b] for per-sample values fx (C, npg) in
+    the accumulator type: fb = sum fx, and the per-cube variance proxy
+    sqrt(sum f^2 * npg) -> (s-fb)(s+fb) = npg*sum(f^2) - fb^2 with TINY
+    floor (vegasT.cuh:382-387).  ``valid`` (C,) masks the cubes beyond the
+    lattice, or is None when the chunk has none.  Returns (sums (2,), f2)."""
+    if valid is not None:
+        fx = torch.where(valid[:, None], fx, torch.zeros_like(fx))
+    f2 = fx * fx
+    fb = torch.sum(fx, dim=-1)
+    s = torch.sqrt(torch.sum(f2, dim=-1) * npg)
+    f2b = (s - fb) * (s + fb)
+    f2b = torch.where(f2b <= 0.0, torch.full_like(f2b, vgrid.TINY), f2b)
+    if valid is not None:
+        f2b = torch.where(valid, f2b, torch.zeros_like(f2b))
+    return torch.stack([torch.sum(fb), torch.sum(f2b)]), f2
+
+
+def _chunk_valid(c: int, chunk_cubes: int, ncubes: int, device):
+    """(first global cube id, validity mask or None) of chunk ``c``."""
+    cube0 = c * chunk_cubes
+    if cube0 + chunk_cubes <= ncubes:
+        return cube0, None
+    ids = cube0 + torch.arange(chunk_cubes, dtype=torch.int64, device=device)
+    return cube0, ids < ncubes
+
+
+def _vegas_iteration(
+    f,
+    ndim: int,
+    ng: int,
+    npg: int,
+    chunk_cubes: int,
+    num_chunks: int,
+    nbins: int,
+    accumulate_hist: bool,
+    dtype,
+    seed: int,
+    iteration: int,
+    xi,           # (ndim, nbins+1) tensor
+    regn_lo,      # (ndim,)
+    dx,           # (ndim,)
+    xjac: float,  # prod(dx)/calls
+    ncubes: int,
+    *,
+    eval_dtype=None,
+    plain: bool = False,
+    bits=None,
+):
+    """One full VEGAS iteration with the grid map (importance='grid').
+
+    Returns (sums, d): ``sums`` the (2,) tensor [ti, tsi_raw] in ``dtype``
+    (tsi_raw must still be scaled by dv2g on the host, vegasT.cuh:849-851)
+    and ``d`` the (ndim, nbins) f32 f^2 histogram (zeros when
+    ``accumulate_hist`` is False).
+
+    The bin resolve and the histogram are the kernels of
+    mcubes/cuda_lookup.py on a CUDA grid and their plain versions on a CPU
+    grid; ``plain=True`` takes the plain versions on any device.  The
+    sampling machinery is f32 as in the reference: the estimator is
+    unbiased as long as coordinates and weight derive from the SAME table
+    values.  ``eval_dtype``: type the integrand is EVALUATED in
+    (accumulators stay in ``dtype``).  ``iteration`` is the absolute
+    iteration index of the stream; ``bits`` ((npg*ndim, chunk_cubes) words,
+    single-chunk iterations only) replaces the stream.
+    """
+    ed = eval_dtype or dtype
+    f32 = torch.float32
+    dev = xi.device
+    xi32 = xi.to(f32).contiguous()
+    xnd32 = torch.tensor(float(nbins), dtype=f32, device=dev)
+    sums = torch.zeros(2, dtype=dtype, device=dev)
+    d = torch.zeros((ndim, nbins), dtype=f32, device=dev)
+    lo_col, dx_col = regn_lo[:, None], dx[:, None]
+    for c in range(num_chunks):
+        cube0, valid = _chunk_valid(c, chunk_cubes, ncubes, dev)
+        # stratified + importance point (Setup_Integrand_Eval,
+        # vegasT.cuh:188-235): xn in [1, nbins+1), bin ia, position inside
+        resolve = (cuda_lookup.bin_resolve_stratified_plain if plain
+                   else cuda_lookup.bin_resolve_stratified)
+        rc, xo, ia = resolve(xi32, nbins, ng, npg, chunk_cubes, cube0,
+                             ncubes, seed, iteration,
+                             with_ia=accumulate_hist, bits=bits)
+        if ed == dtype:
+            x = lo_col + rc.to(dtype) * dx_col                  # (ndim, N)
+            wgt = xjac * torch.prod((xo * xnd32).to(dtype), dim=0)
+        else:
+            # f32 eval path: point arithmetic and the importance-weight
+            # product stay in f32 (rc is f32-granular either way); only
+            # the per-cube/global accumulation below is in ``dtype``
+            x = lo_col.to(ed) + rc.to(ed) * dx_col.to(ed)
+            wgt = xjac * torch.prod(xo * xnd32, dim=0).to(dtype)
+        fx = (f(x.T).to(dtype) * wgt).view(chunk_cubes, npg)
+        chunk_sums, f2 = _cube_sums(fx, valid, npg)
+        sums = sums + chunk_sums
+        if accumulate_hist:
+            # deterministic replacement for atomicAdd(&d[bin,dim], f^2)
+            # (vegasT.cuh:309-313); the histogram only steers grid
+            # adaptation, so f32 suffices
+            h = cuda_lookup.hist_plain if plain else cuda_lookup.hist
+            d = _hist_accum(d, h(ia - 1, f2.to(f32).reshape(-1), nbins))
+    return sums, d
+
+
+def _vegas_iteration_poly(
+    f,
+    integrand,
+    ndim: int,
+    ng: int,
+    npg: int,
+    chunk_cubes: int,
+    num_chunks: int,
+    nbins: int,
+    accumulate_hist: bool,
+    dtype,
+    seed: int,
+    iteration: int,
+    p_coeffs,     # (ndim, kp) f32: importance map P per dim, Cheb series
+    q_coeffs,     # (ndim, kq) f32: q per dim; P' = q^2
+    regn_lo,      # (ndim,)
+    dx,           # (ndim,)
+    xjac: float,
+    ncubes: int,
+    *,
+    eval_dtype=None,
+    sampler: str = "torch",
+    bits=None,
+):
+    """One full VEGAS iteration with the polynomial inverse-CDF map
+    (mcubes.poly_importance).  Same stratification, accumulators,
+    histogram and returns as ``_vegas_iteration``; coordinates and weights
+    come from Chebyshev recurrences instead of grid lookups.
+
+    ``sampler='torch'``: the plain PyTorch chunk body (the reference's
+    'xla'): unit-space map in f32, then x = lo + P(s) dx in the evaluation
+    type, histogram by ``hist_plain``.  ``'fused'`` (the reference's
+    'pallas'): the whole chunk body in the sampler kernel
+    (cuda_vegas.sample_chunk), the integrand ``integrand`` being a Genz
+    family evaluated in f32.  ``'hybrid'``: the kernel runs only the
+    sampling machinery and emits f32 coordinates and weights; the batched
+    callable ``f`` is evaluated here in the evaluation type with per-cube
+    accumulation in ``dtype``.  On a CPU device 'fused' and 'hybrid' take
+    the kernels' plain versions."""
+    ed = eval_dtype or dtype
+    f32 = torch.float32
+    dev = p_coeffs.device
+    sums = torch.zeros(2, dtype=dtype, device=dev)
+    d = torch.zeros((ndim, nbins), dtype=f32, device=dev)
+    pmap = (cuda_vegas.fold_map(p_coeffs, q_coeffs, regn_lo, dx)
+            if sampler != "torch" else None)
+    for c in range(num_chunks):
+        cube0, valid = _chunk_valid(c, chunk_cubes, ncubes, dev)
+        if sampler == "fused":
+            chunk_sums, ia, f2 = cuda_vegas.sample_chunk(
+                pmap, integrand, ng, npg, chunk_cubes, nbins,
+                accumulate_hist, xjac, cube0, ncubes, seed, iteration,
+                bits=bits)
+            sums = sums + chunk_sums.to(dtype)
+            if accumulate_hist:
+                d = _hist_accum(d, cuda_lookup.hist(ia, f2, nbins))
+            continue
+        if sampler == "hybrid":
+            xs, wt, ia = cuda_vegas.sample_chunk(
+                pmap, None, ng, npg, chunk_cubes, nbins, accumulate_hist,
+                xjac, cube0, ncubes, seed, iteration, bits=bits,
+                emit_points=True)
+            # integrand evaluation in the evaluation type on the emitted
+            # dims-major f32 coordinates
+            fx = f(xs.to(ed).T).to(dtype) * (wt.to(dtype) * xjac)
+            hist_fn = cuda_lookup.hist
+        else:
+            cube = cube0 + torch.arange(chunk_cubes, dtype=torch.int64,
+                                        device=dev)
+            kg = _decode_cube(cube, ng, ndim)                    # (C, ndim)
+            if bits is None:
+                words = stream.stream_bits(seed, iteration, cube, npg, ndim)
+            else:
+                words = bits
+            ran = stream.bits_to_uniform(words).reshape(
+                npg, ndim, chunk_cubes).permute(2, 0, 1)         # (C, npg, ndim)
+            # stratified position in [0,1): s = (kg - ran)/ng
+            s = (kg[:, None, :].to(f32) - ran) * (1.0 / ng)
+            rc, wgt_imp = eval_map_and_weight(p_coeffs, q_coeffs, s)
+            if ed == dtype:
+                x = regn_lo + rc.to(dtype) * dx
+            else:
+                x = regn_lo.to(ed) + rc.to(ed) * dx.to(ed)
+            fx = (f(x).to(dtype) * (xjac * wgt_imp.to(dtype))).reshape(-1)
+            if accumulate_hist:
+                ia = torch.clamp((s * nbins).to(torch.int32), 0, nbins - 1)
+            hist_fn = cuda_lookup.hist_plain
+        chunk_sums, f2 = _cube_sums(fx.view(chunk_cubes, npg), valid, npg)
+        sums = sums + chunk_sums
+        if accumulate_hist:
+            d = _hist_accum(d, hist_fn(ia, f2.to(f32).reshape(-1), nbins))
+    return sums, d
+
+
+@dataclasses.dataclass
+class VegasState:
+    """Checkpointable integrator state: the grid plus the iteration-weighted
+    accumulators (si, swgt, schi) -- the analogue of the reference's
+    host-resident xi + si/swgt/schi scalars (vegasT.cuh:679-706).
+
+    ``it0`` counts iterations already folded into the accumulators: a
+    resumed run puts ``it0 + it`` into the stream's counter, so
+    continuation iterations draw samples INDEPENDENT of the prior run's --
+    replaying the same streams would re-add bit-identical (ti, tsi) pairs
+    as if they were new information, halving the reported variance for
+    free."""
+    xi: torch.Tensor
+    si: float = 0.0
+    swgt: float = 0.0
+    schi: float = 0.0
+    it0: int = 0
+    # iterations actually ACCUMULATED into si/swgt/schi across segments
+    # (skip windows excluded): the chi^2/dof denominator on resume
+    n_acc: int = 0
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "vegas runs on the CUDA card by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return device
+
+
+def _has_kernel_twin(integrand) -> bool:
+    try:
+        cuda_rule.kernel_params(integrand)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def _resolve_sampler(sampler, importance: str, device_type: str, eval_dtype,
+                     integrand):
+    """The sampler a run takes (see ``vegas``): for the grid map None (the
+    kernels on the card) or 'torch'; for the poly map one of SAMPLERS,
+    AUTO choosing by device, evaluation type and integrand."""
+    if importance == "grid":
+        if sampler not in (None, "torch"):
+            raise ValueError(
+                f"sampler={sampler!r} needs importance='poly'; the grid map "
+                "takes None (the bin-resolve and histogram kernels on the "
+                "card) or 'torch' (their plain versions)")
+        return sampler
+    if sampler is None:
+        if device_type != "cuda":
+            return "torch"
+        if eval_dtype == torch.float32 and _has_kernel_twin(integrand):
+            return "fused"
+        return "hybrid"
+    if sampler not in SAMPLERS:
+        raise ValueError(
+            f"sampler {sampler!r}: 'torch', 'fused' or 'hybrid'")
+    if sampler == "fused" and not _has_kernel_twin(integrand):
+        raise NotImplementedError(
+            "sampler='fused' evaluates the integrand inside the CUDA "
+            "kernel, which knows the Genz families F1-F6 "
+            "(gpuintegration_torch.models.genz) only; pass "
+            "sampler='hybrid' for any other callable")
+    return sampler
+
+
+def vegas(
+    integrand: Callable,
+    epsrel: float = 1e-3,
+    epsabs: float = 1e-12,
+    ncall: float = 1e6,
+    vol: Volume | None = None,
+    *,
+    ndim: int | None = None,
+    total_iters: int = 15,
+    adjust_iters: int = 15,
+    skip_iters: int = 5,
+    seed: int = 0,
+    dtype=torch.float64,
+    chunk_cubes: int | None = None,
+    state: VegasState | None = None,
+    nbins: int = vgrid.NDMX,
+    debug_logger=None,
+    importance: str | None = None,
+    poly_degree: int = 14,
+    eval_dtype=None,
+    refine: str = "host",
+    mesh=None,
+    sampler: str | None = None,
+    eval_cost: float = 1.0,
+    device=None,
+) -> IntegrationResult:
+    """Full m-CUBES run: ``adjust_iters`` grid-adjustment iterations followed
+    by frozen-grid iterations up to ``total_iters`` (vegasT.cuh:789-1001),
+    with the iteration-weighted combination and chi^2 consistency measure.
+
+    ``device``: None or "cuda" runs on the card and raises if there is
+    none; "cpu" runs every route through the kernels' plain versions.
+
+    ``importance``: 'grid' evaluates the importance map by table lookup
+    (reference parity); 'poly' uses the polynomial inverse-CDF
+    (mcubes.poly_importance) -- identical statistics (unbiased for any
+    monotone map), marginally less optimal variance on extremely peaked
+    integrands.  Default (None) is 'poly', as in the reference.  On the
+    card the grid map always goes through the bin-resolve and histogram
+    kernels (unless ``sampler='torch'``).
+
+    ``eval_dtype``: type the integrand is EVALUATED in (default: same as
+    ``dtype``); accumulators and the weighted combination stay in
+    ``dtype``.  Sample coordinates are f32-granular on every path.
+
+    ``refine``: 'host' refines the grid in exact-f64 NumPy every adjustment
+    iteration (vegasT.cuh:797-846 round trip).  'device' is not ported.
+
+    ``sampler`` (importance='poly'), with the reference's names beside:
+    'torch' = the reference's 'xla', the plain PyTorch chunk body;
+    'fused' = 'pallas', the whole chunk body in the CUDA sampler kernel,
+    integrand in f32 -- needs a Genz family (models.genz), any other
+    callable raises NotImplementedError; 'hybrid' = 'hybrid', the kernel
+    emits points and weights and the integrand, any batched torch
+    callable, is evaluated in ``eval_dtype``.  Default (None) is AUTO: on
+    the card 'fused' when ``eval_dtype`` is float32 and the integrand has
+    a kernel twin, else 'hybrid'; on the CPU 'torch'.  The kernel loops
+    over the samples of a cube at run time and carries cube ids in 64
+    bits, so AUTO never leaves the kernels for a large npg or lattice.
+    With importance='grid' only None and 'torch' are accepted.  All
+    samplers and both maps draw the same Philox stream (mcubes/stream.py):
+    a fixed seed repeats bitwise, on the card and on the CPU alike.
+
+    ``eval_cost`` is accepted and ignored: the reference uses it to keep
+    one device dispatch under a ceiling of its remote runtime, which has
+    no counterpart here.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "vegas(mesh=...) is not ported to gpuintegration_torch yet "
+            "(ROADMAP A16)")
+    if refine not in ("host", "device"):
+        raise ValueError(f"refine {refine!r}: 'host' or 'device'")
+    if refine == "device":
+        raise NotImplementedError(
+            "vegas(refine='device') is not ported to gpuintegration_torch "
+            "yet (ROADMAP A13); refine='host' is the default")
+    dev = _resolve_device(device)
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"dtype {dtype} (float64 or float32)")
+    f, ndim = make_integrand(integrand, ndim)
+    if vol is None:
+        vol = Volume(ndim=ndim)
+    ed = eval_dtype if eval_dtype is not None else dtype
+    try:
+        deduce_ncomp(f, ndim, dtype, dev)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{e} (ROADMAP A9)") from None
+
+    ng, ncubes = compute_ncubes(ncall, ndim)
+    npg = samples_per_cube(ncall, ncubes)
+    calls = float(npg) * float(ncubes)
+    dv2g = (calls * (1.0 / ng) ** ndim) ** 2 / npg / npg / (npg - 1.0)
+    xjac = (1.0 / calls) * vol.jacobian
+
+    if chunk_cubes is None:
+        # bound (chunk, npg, ndim) activations; a power of two
+        per_cube = npg * ndim * torch.finfo(dtype).bits // 8 * 6
+        budget = max(CHUNK_BYTES_BUDGET // per_cube, 1024)
+        chunk_cubes = 1 << (int(budget).bit_length() - 1)
+        chunk_cubes = int(min(chunk_cubes, DEFAULT_MAX_CHUNK))
+        if chunk_cubes >= ncubes:
+            chunk_cubes = ncubes  # single chunk: exact size, no padding
+    num_chunks = -(-ncubes // chunk_cubes)
+
+    if nbins < 2:
+        raise ValueError("nbins must be >= 2 (grid adjustment "
+                         "redistributes mass between bins)")
+    st = state or VegasState(xi=vgrid.uniform_grid(ndim, nbins, dtype, dev))
+    if tuple(st.xi.shape) != (ndim, nbins + 1):
+        raise ValueError(
+            f"state grid has shape {tuple(st.xi.shape)}; expected ({ndim}, "
+            f"{nbins + 1}) -- pass nbins={st.xi.shape[1] - 1} to match it")
+    xi = vgrid.as_numpy(st.xi)          # refined on the host
+    si, swgt, schi = st.si, st.swgt, st.schi
+    it_offset = int(st.it0)
+    acc_prior = int(st.n_acc)
+
+    if importance is None:
+        importance = "poly"
+    if importance not in ("grid", "poly"):
+        raise ValueError(f"importance {importance!r}: 'grid' or 'poly'")
+    sampler = _resolve_sampler(sampler, importance, dev.type, ed, integrand)
+
+    regn_lo = torch.as_tensor(vol.lows, dtype=dtype, device=dev)
+    dx = torch.as_tensor(vol.highs - vol.lows, dtype=dtype, device=dev)
+    res = IntegrationResult(status=1)
+    tgral = sd = chi2a = 0.0
+
+    it = 1
+    while it <= total_iters and res.status == 1:
+        adjusting = it <= adjust_iters
+        stream_it = it_offset + it      # fresh streams on resume
+        if importance == "poly":
+            p_np, q_np = fit_importance_poly(xi, poly_degree)
+            sums, d = _vegas_iteration_poly(
+                f, integrand, ndim, ng, npg, chunk_cubes, num_chunks, nbins,
+                adjusting, dtype, seed, stream_it,
+                torch.as_tensor(p_np, dtype=torch.float32, device=dev),
+                torch.as_tensor(q_np, dtype=torch.float32, device=dev),
+                regn_lo, dx, xjac, ncubes, eval_dtype=ed, sampler=sampler)
+        else:
+            sums, d = _vegas_iteration(
+                f, ndim, ng, npg, chunk_cubes, num_chunks, nbins, adjusting,
+                dtype, seed, stream_it,
+                torch.as_tensor(xi, dtype=dtype, device=dev), regn_lo, dx,
+                xjac, ncubes, eval_dtype=ed, plain=sampler == "torch")
+        # one D2H read per iteration: [ti, tsi] and, while adjusting, the
+        # histogram (f32 -> f64 is exact)
+        f64 = torch.float64
+        parts = [sums.to(f64)] + ([d.to(f64).reshape(-1)] if adjusting
+                                  else [])
+        out = torch.cat(parts).cpu().numpy()
+        ti, tsi = float(out[0]), float(out[1])
+        d_np = out[2:].reshape(ndim, nbins) if adjusting else None
+        if adjusting:
+            # grid refinement on host in exact f64, like the reference's
+            # per-iteration xi/d round trip (vegasT.cuh:797-927); ~32 KB
+            xi = vgrid.smooth_and_refine(xi, d_np)
+        tsi = tsi * dv2g
+        res.neval += int(calls)
+
+        if it > skip_iters:
+            wgt = 1.0 / tsi
+            si = si + wgt * ti
+            schi = schi + wgt * ti * ti
+            swgt = swgt + wgt
+            tgral = si / swgt
+            # dof excludes the skip window (vegasT.cuh:859 divides by
+            # it - 0.9999 while accumulating only when it > skip)
+            chi2a = np.maximum(
+                (schi - si * tgral)
+                / max(acc_prior + it - skip_iters - 0.9999, 1e-4), 0.0)
+            sd = np.sqrt(1.0 / swgt)
+            res.status = get_status(float(tgral), float(sd), it, epsrel,
+                                    epsabs)
+        if debug_logger is not None:
+            # per-iteration capture (IterDataLogger parity,
+            # verbose_utils.cuh:22-181)
+            debug_logger.record(
+                it=it, ti=ti, tsi=tsi, tgral=tgral, sd=sd, chi2a=chi2a,
+                xi=np.array(xi, copy=True), d=d_np)
+        res.iters += 1
+        it += 1
+
+    st.xi = torch.as_tensor(xi, dtype=dtype, device=dev)
+    st.si, st.swgt, st.schi = si, swgt, schi
+    st.it0 = it_offset + res.iters
+    st.n_acc = acc_prior + max(res.iters - skip_iters, 0)
+    # chi-squared probability (cubacpp integration_result::prob): the
+    # stored chi2a is per-dof with the reference's (it - 0.9999) divisor
+    # (vegasT.cuh:859), so the total is recovered with the SAME
+    # (n_acc - 0.9999) factor; dof = n_acc - 1 is only the CDF's degrees
+    # of freedom.
+    dof = float(st.n_acc - 1)
+    chi2_factor = max(float(st.n_acc) - 0.9999, 0.0)
+    res.estimate = float(tgral)
+    res.errorest = float(sd)
+    res.chi_sq = float(chi2a)
+    res.prob = chi2_prob(res.chi_sq * chi2_factor, dof)
+    res.lastPhase = 1 if it > adjust_iters else 0
+    return res
+
+
+def integrate(integrand, epsrel=1e-3, epsabs=1e-12, ncall=1e6, vol=None,
+              total_iters=15, adjust_iters=15, skip_iters=5, **kw):
+    """Parity wrapper for cuda_mcubes::integrate (vegasT.cuh:1023-1054)."""
+    return vegas(integrand, epsrel, epsabs, ncall, vol,
+                 total_iters=total_iters, adjust_iters=adjust_iters,
+                 skip_iters=skip_iters, **kw)
+
+
+def simple_integrate(integrand, epsrel=1e-3, epsabs=1e-12, ncall=1e6,
+                     vol=None, total_iters=15, adjust_iters=15,
+                     skip_iters=5, **kw):
+    """Retry loop escalating ncall/iterations until convergence or the
+    8e9-call / 100-iteration caps (vegasT.cuh:1100-1135,
+    vegas_utils.cuh:272-296)."""
+    while True:
+        res = vegas(integrand, epsrel, epsabs, ncall, vol,
+                    total_iters=total_iters, adjust_iters=adjust_iters,
+                    skip_iters=skip_iters, **kw)
+        if res.status == 0:
+            return res
+        ncall, total_iters, can_continue = adjust_params(ncall, total_iters)
+        if not can_continue:
+            return res

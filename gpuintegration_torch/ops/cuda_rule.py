@@ -20,79 +20,41 @@ NotImplementedError on a CUDA pool -- pass ``rule_backend="torch"`` to the
 Workspace to run the plain version on the card instead.
 
 The library is compiled with nvcc at first use into ``build/`` beside this
-package, from the package's own source; a failed build raises.
+package, from the package's own source (ops/cuda_build.py); a failed build
+raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from gpuintegration_torch.ops import rule_eval
+from gpuintegration_torch.ops import cuda_build, rule_eval
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rule_eval.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCE = "rule_eval.cu"
 MAX_NDIM = 16
 
 # Launches of the kernel since the count was last set to 0; callers reset
 # it and read it to show that a run went through the kernel.
 launches = 0
 
-_lib = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    candidates = [shutil.which("nvcc")]
-    if CUDA_HOME:
-        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
-    for c in candidates:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found (no CUDA toolkit): the CUDA rule "
-                       "kernel cannot be built")
-
 
 def build() -> Path:
     """Compile csrc/rule_eval.cu into build/ (once per source content) and
-    return the library's path.  nvcc's report (ptxas registers and spills
-    per kernel) is kept beside it, ``<library>.log``.  Raises RuntimeError
+    return the library's path (``cuda_build.build``).  Raises RuntimeError
     if nvcc fails."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    out = _BUILD_DIR / f"librule_eval_{digest}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return cuda_build.build(_SOURCE)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.rule_eval_launch
-        fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
-                       + [ctypes.c_void_p] * 4)
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _configure(lib):
+    fn = lib.rule_eval_launch
+    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
 
 
 def kernel_params(integrand) -> tuple[int, np.ndarray]:
@@ -176,7 +138,7 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
     hp = params.ctypes.data_as(ctypes.c_void_p)
     stream = torch.cuda.current_stream(lows.device).cuda_stream
-    rc = _load().rule_eval_launch(
+    rc = cuda_build.load(_SOURCE, _configure).rule_eval_launch(
         kind, int(dtype == torch.float64), ndim, tables.feval, cap, n,
         int(bool(blocked)), lows.data_ptr(), lengths.data_ptr(),
         global_lo.data_ptr(), global_range.data_ptr(), gen_t.data_ptr(),

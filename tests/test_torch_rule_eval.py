@@ -29,7 +29,7 @@ from gpuintegration_tpu.pagani import region_pool as jax_region_pool
 from gpuintegration_torch import Workspace
 from gpuintegration_torch.integrand import make_integrand
 from gpuintegration_torch.models import genz
-from gpuintegration_torch.ops import cuda_rule, rule_eval
+from gpuintegration_torch.ops import cuda_build, cuda_rule, rule_eval
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ["f1_oscillatory", "f2_product_peak", "f3_corner_peak",
@@ -237,12 +237,12 @@ def test_kernel_params_of_each_family():
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(cuda_rule, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no such architecture' >&2\n"
                     "exit 2\n")
     fake.chmod(0o755)
-    monkeypatch.setattr(cuda_rule, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(fake))
     with pytest.raises(RuntimeError, match="no such architecture"):
         cuda_rule.build()
     assert not list((tmp_path / "build").glob("*.so"))
@@ -250,10 +250,10 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 def test_missing_nvcc_raises(monkeypatch):
     import torch.utils.cpp_extension as ext
-    monkeypatch.setattr(cuda_rule.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_rule._nvcc()
+        cuda_build._nvcc()
 
 
 def test_workspace_without_card_raises(monkeypatch):
