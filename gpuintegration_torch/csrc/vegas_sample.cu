@@ -20,24 +20,48 @@
 // With a histogram wanted, the per-dimension bin ids of s (and, fused,
 // fx^2) are written too.
 //
-// Design.  One thread per sub-cube (grid-stride), the sample slots and the
-// dimensions run-time loops; the Chebyshev coefficients and the bounds sit
-// in shared memory, where every thread of a warp reads the same word.  The
-// uniforms come from the Philox stream of philox.cuh, or from a tensor of
-// bits (the parity hook).  Sampling arithmetic is f32 throughout, as in the
-// TPU kernel.  Sums over cubes are f64: each thread adds its cubes, a warp
-// shuffle tree and then the warps in order give one (fb, f2b) pair per
-// block, written to a (n_blocks, 2) buffer that the wrapper sums.  No
-// atomics, so two runs agree bit for bit.  Emitted arrays are dims-major
-// (ndim, N) in the flat order n = cube * npg + sample.
+// Two kernels compute it; mcubes/cuda_vegas.py chooses by the shape alone.
+// Both: one thread per sub-cube (grid-stride); uniforms from the Philox
+// stream of philox.cuh, or from a tensor of bits (the parity hook);
+// sampling arithmetic f32 throughout, as in the TPU kernel; sums over cubes
+// f64, each thread adding its cubes, then a warp shuffle tree and the warps
+// in order, one (fb, f2b) pair per block written to a (n_blocks, 2) buffer
+// that the wrapper sums.  No atomics, so two runs agree bit for bit.
+// Emitted arrays are dims-major (ndim, N) in the flat order
+// n = cube * npg + sample.
 //
-// What bounds it: about kp + kq multiply-adds per (sample, dimension) for
-// the recurrence plus the generator's rounds, against 4 (ndim + 1) bytes
-// written per sample in emit mode (8 ndim + 4 with bin ids) and nothing
-// but block sums in fused mode.  At the default degree the fused mode is
-// bound by f32 operations and the emit modes lie near the crossover; the
-// design keeps every intermediate in registers and writes each output
-// once.
+// What bounds the work: about kp + kq multiply-adds per (sample, dimension)
+// for the recurrence plus the generator's rounds, against 4 (ndim + 1)
+// bytes written per sample in emit mode (8 ndim + 4 with bin ids) and
+// nothing but block sums in fused mode.  At the default degree the fused
+// mode is bound by f32 operations and the emit modes lie near the
+// crossover.  Every intermediate stays in registers and each output is
+// written once.
+//
+// The PAIRED route (sample_pair_kernel; ndim 3..8, any degree) is built
+// so that the multiply-adds are most of what a thread executes:
+//   * ndim is a template argument: digits, Genz state and the loop over
+//     dimensions are registers and straight code;
+//   * the coefficients are packed by the host (cuda_vegas.pack_map): four
+//     terms of P and four of q to a pair of 16-byte shared-memory loads, q
+//     padded with zeros to a multiple of four terms (adding 0 * T_i is
+//     exact), then P's remaining terms alone; the loops run four terms a
+//     pass with no test of the term index;
+//   * a cube's samples go through the recurrence two at a time: one load
+//     feeds two independent chains, and one chain's latency hides under the
+//     other's.  The order of operations within a chain is the generic
+//     kernel's, so coordinates and weights keep their bits;
+//   * the cube id is decoded with 32-bit arithmetic and the reciprocal of
+//     ng (cuda_vegas.decode_reciprocal) when the lattice has fewer than
+//     2^32 cubes; 64-bit divisions remain for larger lattices;
+//   * a pair's outputs are stored as 8-byte words when npg is even, so a
+//     warp writes whole sectors.
+//
+// The GENERIC route (sample_kernel; every ndim 1..16): sample slots,
+// dimensions and terms are run-time loops, a coefficient is one 4-byte
+// shared-memory load per multiply-add, the decode is 64-bit.  It takes the
+// dimensions the paired route is not compiled for and is the kernel the
+// paired route is timed against.
 //
 // Built by ops/cuda_build.py; called through ctypes (C entry point below).
 
@@ -56,6 +80,7 @@ constexpr float kTiny = 1.0e-30f;   // per-cube variance floor
 
 struct SampleArgs {
   const float* map;       // P folded (ndim*kp) | q (ndim*kq) | lo | hi
+                          // (generic) or the packed map (paired)
   const unsigned* bits;   // (npg*ndim, chunk_cubes) words, or null: Philox
   double* partial;        // fused: (n_blocks, 2) block sums of fb, f2b
   float* xs;              // emit: (ndim, N) coordinates
@@ -65,6 +90,8 @@ struct SampleArgs {
   long long cube0;        // global id of the chunk's first cube
   long long ncubes;       // cubes of the whole lattice
   int chunk_cubes, ndim, ng, npg, kp, kq, nbins;
+  int kp4, kq4;           // paired: terms of P and q padded to fours
+  unsigned recip;         // paired: min(floor(2^32 / ng), 2^32 - 1)
   float inv_ng, xjac;
   unsigned key0, key1, iteration;
   float coeffs[kMaxNdim];  // Genz per-axis a_i
@@ -91,6 +118,37 @@ __device__ __forceinline__ void cheb_joint(const float* p, const float* q,
   out_p = acc_p;
   out_q = acc_q;
 }
+
+// The block's f64 sums of fb and f2b in a fixed order: a shuffle tree per
+// warp, then the warps in order; one pair per block into ``partial``.
+__device__ __forceinline__ void block_sums(double sum_fb, double sum_f2b,
+                                           double (*s_part)[2],
+                                           double* partial) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sum_fb += __shfl_down_sync(0xffffffffu, sum_fb, off);
+    sum_f2b += __shfl_down_sync(0xffffffffu, sum_f2b, off);
+  }
+  if (lane == 0) {
+    s_part[warp][0] = sum_fb;
+    s_part[warp][1] = sum_f2b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t0 = s_part[0][0], t1 = s_part[0][1];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      t0 += s_part[w][0];
+      t1 += s_part[w][1];
+    }
+    partial[2 * blockIdx.x] = t0;
+    partial[2 * blockIdx.x + 1] = t1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The generic route.
 
 template <int FAMILY>
 __global__ void __launch_bounds__(kThreads)
@@ -192,39 +250,269 @@ sample_kernel(const SampleArgs a) {
     }
   }
 
-  if (FAMILY == 0) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (FAMILY != 0) block_sums(sum_fb, sum_f2b, s_part, a.partial);
+}
+
+// ---------------------------------------------------------------------------
+// The paired route.
+
+// One term of the joint recurrence for S chains: T_next = 2t T_cur - T_prev,
+// then P (and, JOINT, q) take their term.
+template <int S, bool JOINT>
+__device__ __forceinline__ void cheb_term(float cp, float cq,
+                                          const float (&t2)[S],
+                                          float (&t_prev)[S],
+                                          float (&t_cur)[S],
+                                          float (&acc_p)[S],
+                                          float (&acc_q)[S]) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum_fb += __shfl_down_sync(0xffffffffu, sum_fb, off);
-    sum_f2b += __shfl_down_sync(0xffffffffu, sum_f2b, off);
+  for (int k = 0; k < S; ++k) {
+    const float t_next = t2[k] * t_cur[k] - t_prev[k];
+    acc_p[k] += cp * t_next;
+    if (JOINT) acc_q[k] += cq * t_next;
+    t_prev[k] = t_cur[k];
+    t_cur[k] = t_next;
   }
-  if (lane == 0) {
-    s_part[warp][0] = sum_fb;
-    s_part[warp][1] = sum_f2b;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double t0 = s_part[0][0], t1 = s_part[0][1];
+}
+
+// The joint recurrence of one dimension at S points t[] from its packed
+// coefficients m: groups of (4 terms of P, 4 of q) up to kq4 terms, then
+// groups of 4 terms of P up to kp4.
+template <int S>
+__device__ __forceinline__ void cheb_packed(const float4* m, int kp4, int kq4,
+                                            const float (&t)[S],
+                                            float (&acc_p)[S],
+                                            float (&acc_q)[S]) {
+  float t2[S], t_prev[S], t_cur[S];
+  float4 p = m[0], q = m[1];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      t0 += s_part[w][0];
-      t1 += s_part[w][1];
+  for (int k = 0; k < S; ++k) {
+    acc_p[k] = p.x + p.y * t[k];
+    // the generic kernel's first q term is a product, then a sum (its
+    // kq > 1 test keeps the two apart); rounded alike here
+    acc_q[k] = q.x + __fmul_rn(q.y, t[k]);
+    t_prev[k] = 1.0f;
+    t_cur[k] = t[k];
+    t2[k] = t[k] + t[k];
+  }
+  cheb_term<S, true>(p.z, q.z, t2, t_prev, t_cur, acc_p, acc_q);
+  cheb_term<S, true>(p.w, q.w, t2, t_prev, t_cur, acc_p, acc_q);
+  const int gq = kq4 >> 2, gp = kp4 >> 2;
+  for (int g = 1; g < gq; ++g) {
+    p = m[2 * g];
+    q = m[2 * g + 1];
+    cheb_term<S, true>(p.x, q.x, t2, t_prev, t_cur, acc_p, acc_q);
+    cheb_term<S, true>(p.y, q.y, t2, t_prev, t_cur, acc_p, acc_q);
+    cheb_term<S, true>(p.z, q.z, t2, t_prev, t_cur, acc_p, acc_q);
+    cheb_term<S, true>(p.w, q.w, t2, t_prev, t_cur, acc_p, acc_q);
+  }
+  const float4* mp = m + 2 * gq;
+  for (int g = gq; g < gp; ++g) {
+    p = mp[g - gq];
+    cheb_term<S, false>(p.x, 0.0f, t2, t_prev, t_cur, acc_p, acc_q);
+    cheb_term<S, false>(p.y, 0.0f, t2, t_prev, t_cur, acc_p, acc_q);
+    cheb_term<S, false>(p.z, 0.0f, t2, t_prev, t_cur, acc_p, acc_q);
+    cheb_term<S, false>(p.w, 0.0f, t2, t_prev, t_cur, acc_p, acc_q);
+  }
+}
+
+// Store the first ``live`` of a pair of neighbouring values at dst: one
+// 8-byte word for the pair when ``wide`` says dst is 8-byte aligned.
+template <typename V>
+__device__ __forceinline__ void store_slots(V* dst, const V (&v)[2], int live,
+                                            bool wide) {
+  if (live == 2 && wide) {
+    struct alignas(8) Pair { V a, b; };
+    *reinterpret_cast<Pair*>(dst) = Pair{v[0], v[1]};
+  } else {
+    dst[0] = v[0];
+    if (live == 2) dst[1] = v[1];
+  }
+}
+
+// Sample slots ps and ps + 1 of one cube with digits kg[], through the
+// recurrence together: outputs written, fb and f2s advanced (fused).  With
+// ``live`` 1 (the last slot of an odd npg) the second chain runs on the
+// first's uniforms and is dropped.
+template <int FAMILY, int NDIM>
+__device__ __forceinline__ void sample_slots(
+    const SampleArgs& a, const float* s_map, const float (&kg)[NDIM],
+    long long cube, int local, int ps, int live, long long n,
+    long long n_total, bool wide, float& fb, float& f2s) {
+  constexpr int S = 2;
+  const int per_dim = a.kp4 + a.kq4;
+  const float* s_lo = s_map + NDIM * per_dim;
+  const float* s_hi = s_lo + NDIM;
+  const float nbins_f = static_cast<float>(a.nbins);
+  float w[S];
+  GenzState<float> g[S];
+  uint4 block[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    w[k] = 1.0f;
+    block[k] = make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) {
+    float s[S], t[S], cp[S], cq[S], x[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int slot = ps + (k < live ? k : 0);
+      unsigned word;
+      if (a.bits) {
+        word = a.bits[static_cast<long long>(slot * NDIM + d) * a.chunk_cubes
+                      + local];
+      } else {
+        if ((d & 3) == 0)
+          block[k] = vegas_block(cube, a.iteration, slot, d, a.key0, a.key1);
+        word = block_word(block[k], d);
+      }
+      const float u = word_uniform(word);
+      s[k] = (kg[d] + (1.0f - u)) * a.inv_ng;
+      t[k] = 2.0f * s[k] - 1.0f;
     }
-    a.partial[2 * blockIdx.x] = t0;
-    a.partial[2 * blockIdx.x + 1] = t1;
+    cheb_packed<S>(reinterpret_cast<const float4*>(s_map + d * per_dim),
+                   a.kp4, a.kq4, t, cp, cq);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      x[k] = fminf(fmaxf(cp[k], s_lo[d]), s_hi[d]);
+      w[k] *= cq[k] * cq[k];
+      if (FAMILY != 0)
+        genz_axis<FAMILY, float>(g[k], x[k], a.coeffs[d], a.bounds[d], a.s0,
+                                 a.s1);
+    }
+    if (a.ia) {
+      int bin[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k)
+        bin[k] = min(max(static_cast<int>(s[k] * nbins_f), 0), a.nbins - 1);
+      store_slots(a.ia + d * n_total + n, bin, live, wide);
+    }
+    if (FAMILY == 0) store_slots(a.xs + d * n_total + n, x, live, wide);
+  }
+  if (FAMILY == 0) {
+    store_slots(a.wt + n, w, live, wide);
+  } else {
+    float f2[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const float fx = genz_finish<FAMILY, float>(g[k], NDIM, a.s0)
+                       * (w[k] * a.xjac);
+      f2[k] = fx * fx;
+      if (k < live) {
+        fb += fx;
+        f2s += f2[k];
+      }
+    }
+    if (a.f2) store_slots(a.f2 + n, f2, live, wide);
+  }
+}
+
+template <int FAMILY, int NDIM>
+__global__ void __launch_bounds__(kThreads)
+sample_pair_kernel(const SampleArgs a) {
+  extern __shared__ __align__(16) float s_map[];
+  __shared__ double s_part[kWarps][2];
+
+  const int npg = a.npg;
+  const int map_words = NDIM * (a.kp4 + a.kq4 + 2);
+  for (int i = threadIdx.x; i < map_words; i += kThreads) s_map[i] = a.map[i];
+  __syncthreads();
+  const float* s_lo = s_map + NDIM * (a.kp4 + a.kq4);
+  const long long n_total = static_cast<long long>(a.chunk_cubes) * npg;
+  const bool wide = (npg & 1) == 0;   // every pair starts at an even n
+  const bool small = a.ncubes <= 0xffffffffLL;
+  const unsigned ng = static_cast<unsigned>(a.ng);
+
+  double sum_fb = 0.0, sum_f2b = 0.0;
+  for (int local = blockIdx.x * kThreads + threadIdx.x; local < a.chunk_cubes;
+       local += gridDim.x * kThreads) {
+    const long long cube = a.cube0 + local;
+    const long long n0 = static_cast<long long>(local) * npg;
+    if (cube >= a.ncubes) {
+      // beyond the lattice: a point inside the volume with weight 0
+      for (int ps = 0; ps < npg; ++ps) {
+        const long long n = n0 + ps;
+#pragma unroll
+        for (int d = 0; d < NDIM; ++d) {
+          if (FAMILY == 0) a.xs[d * n_total + n] = s_lo[d];
+          if (a.ia) a.ia[d * n_total + n] = 0;
+        }
+        if (FAMILY == 0) a.wt[n] = 0.0f;
+        if (FAMILY != 0 && a.f2) a.f2[n] = 0.0f;
+      }
+      continue;
+    }
+
+    // mixed-radix digits of the cube, most significant first, 0-based
+    float kg[NDIM];
+    if (small) {
+      // q = floor(m / ng) from the reciprocal: the estimate is q or q - 1
+      unsigned m = static_cast<unsigned>(cube);
+#pragma unroll
+      for (int d = NDIM - 1; d >= 0; --d) {
+        unsigned q = __umulhi(m, a.recip);
+        unsigned r = m - q * ng;
+        if (r >= ng) {
+          r -= ng;
+          ++q;
+        }
+        kg[d] = static_cast<float>(r);
+        m = q;
+      }
+    } else {
+      unsigned long long m = static_cast<unsigned long long>(cube);
+#pragma unroll
+      for (int d = NDIM - 1; d >= 0; --d) {
+        const unsigned long long t = m / ng;
+        kg[d] = static_cast<float>(m - t * ng);
+        m = t;
+      }
+    }
+
+    float fb = 0.0f, f2s = 0.0f;
+    for (int ps = 0; ps < npg; ps += 2)
+      sample_slots<FAMILY, NDIM>(a, s_map, kg, cube, local, ps,
+                                 min(2, npg - ps), n0 + ps, n_total, wide, fb,
+                                 f2s);
+    if (FAMILY != 0) {
+      // npg * sum(f^2) - fb^2 in the cancellation-safe form
+      const float sq = sqrtf(f2s * static_cast<float>(npg));
+      float f2b = (sq - fb) * (sq + fb);
+      if (f2b <= 0.0f) f2b = kTiny;
+      sum_fb += static_cast<double>(fb);
+      sum_f2b += static_cast<double>(f2b);
+    }
+  }
+  if (FAMILY != 0) block_sums(sum_fb, sum_f2b, s_part, a.partial);
+}
+
+template <int NDIM>
+void launch_pair(int family, const SampleArgs& a, dim3 grid, size_t smem,
+                 cudaStream_t s) {
+  switch (family) {
+    case 0: sample_pair_kernel<0, NDIM><<<grid, kThreads, smem, s>>>(a); break;
+    case 1: sample_pair_kernel<1, NDIM><<<grid, kThreads, smem, s>>>(a); break;
+    case 2: sample_pair_kernel<2, NDIM><<<grid, kThreads, smem, s>>>(a); break;
+    case 3: sample_pair_kernel<3, NDIM><<<grid, kThreads, smem, s>>>(a); break;
+    case 4: sample_pair_kernel<4, NDIM><<<grid, kThreads, smem, s>>>(a); break;
+    case 5: sample_pair_kernel<5, NDIM><<<grid, kThreads, smem, s>>>(a); break;
+    default: sample_pair_kernel<6, NDIM><<<grid, kThreads, smem, s>>>(a); break;
   }
 }
 
 }  // namespace
 
-// C entry point for ctypes.  family 0 emits points (xs, wt[, ia]); 1..6
-// fuses that Genz family (partial[, ia, f2]).  Pointers are device pointers
+// C entry point for ctypes.  route 0 is the generic kernel and ``map`` the
+// table of fold_map; route 1 the paired kernel (ndim 3..8) and
+// ``map`` the packed table of pack_map with kp4, kq4 its padded term counts
+// and recip = min(floor(2^32 / ng), 2^32 - 1).  family 0 emits points (xs,
+// wt[, ia]); 1..6 fuses that Genz family (partial[, ia, f2]).  Pointers are device pointers
 // (null where a mode has no such array) except genz (34 host doubles:
 // coeffs[16], bounds[16], s0, s1; may be null for family 0).  Returns
 // cudaGetLastError() after the launch (0 on success); never synchronises.
 extern "C" int vegas_sample_launch(
-    int family, int n_blocks, const void* map, const void* bits,
+    int route, int kp4, int kq4, unsigned recip, int family, int n_blocks, const void* map, const void* bits,
     void* partial, void* xs, void* wt, void* ia, void* f2,
     long long cube0, long long ncubes, int chunk_cubes, int ndim, int ng,
     int npg, int kp, int kq, int nbins, float inv_ng, float xjac,
@@ -232,7 +520,10 @@ extern "C" int vegas_sample_launch(
     void* stream) {
   if (ndim < 1 || ndim > kMaxNdim || family < 0 || family > 6 || kp < 2 ||
       kq < 1 || kq > kp || npg < 1 || chunk_cubes < 1 || n_blocks < 1 ||
-      (family != 0 && genz == nullptr))
+      (family != 0 && genz == nullptr) || route < 0 || route > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1 && (kp4 < kp || kq4 < kq || kq4 > kp4 || kp4 % 4 || kq4 % 4 ||
+                     kq4 < 4 || ng < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   SampleArgs a;
   a.map = static_cast<const float*>(map);
@@ -251,6 +542,9 @@ extern "C" int vegas_sample_launch(
   a.kp = kp;
   a.kq = kq;
   a.nbins = nbins;
+  a.kp4 = kp4;
+  a.kq4 = kq4;
+  a.recip = recip;
   a.inv_ng = inv_ng;
   a.xjac = xjac;
   a.key0 = key0;
@@ -263,10 +557,25 @@ extern "C" int vegas_sample_launch(
   a.s0 = genz ? static_cast<float>(genz[2 * kMaxNdim]) : 0.0f;
   a.s1 = genz ? static_cast<float>(genz[2 * kMaxNdim + 1]) : 0.0f;
 
-  const size_t smem = sizeof(float) * ndim * (kp + kq + 2);
+  const size_t smem = sizeof(float) * ndim *
+                      (route == 1 ? kp4 + kq4 + 2 : kp + kq + 2);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_blocks);
+  if (route == 1) {
+    // the dimensions the paired route is compiled for
+    // (cuda_vegas.PAIRED_NDIMS)
+    switch (ndim) {
+      case 3: launch_pair<3>(family, a, grid, smem, s); break;
+      case 4: launch_pair<4>(family, a, grid, smem, s); break;
+      case 5: launch_pair<5>(family, a, grid, smem, s); break;
+      case 6: launch_pair<6>(family, a, grid, smem, s); break;
+      case 7: launch_pair<7>(family, a, grid, smem, s); break;
+      case 8: launch_pair<8>(family, a, grid, smem, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (family) {
     case 0: sample_kernel<0><<<grid, kThreads, smem, s>>>(a); break;
     case 1: sample_kernel<1><<<grid, kThreads, smem, s>>>(a); break;

@@ -10,6 +10,26 @@ coordinates and weights for an integrand evaluated outside in the
 accumulator type -- the emit mode.  With ``with_hist`` the per-dimension
 bin ids (and, fused, f^2) come out too.
 
+Two kernels compute it, and ``sampler_route`` chooses between them by the
+shape alone (never by catching a failure):
+
+* ``'paired'``, for ndim in ``PAIRED_NDIMS`` and a map whose packed form
+  fits the kernel's shared memory: ndim is a compile-time constant; the
+  coefficients come packed (``pack_map``: four terms of P and four of q to
+  a pair of 16-byte loads, q zero-padded to a multiple of four terms) so
+  that the loops run four terms a pass without a test of the term index; a
+  cube's samples go through the recurrence two at a time, one load feeding
+  two independent chains; the cube id is decoded in 32-bit arithmetic with
+  the reciprocal of ng (``decode_reciprocal``) when the lattice has fewer
+  than 2^32 cubes; a pair's outputs are stored as 8-byte words.  Within a
+  chain the order of operations is the generic kernel's.
+* ``'generic'``, every ndim 1..16: run-time loops over sample slots,
+  dimensions and terms, one 4-byte coefficient load per multiply-add, a
+  64-bit decode.  It is also the kernel the paired route is timed against.
+
+``launches`` counts every launch since it was last set to 0, and
+``route_launches`` the same per route; ``reset_launches()`` zeroes both.
+
 What changed against the TPU kernel, and why:
 
 * outputs are in the flat order n = cube * npg + sample, dims-major
@@ -17,7 +37,7 @@ What changed against the TPU kernel, and why:
 * the sums over cubes are f64 and come back as one (2,) tensor
   [sum fb, sum f2b]; the TPU kernel wrote f32 lanes and widened outside;
 * npg is a run-time loop and cube ids are 64-bit, so neither npg > 8 nor
-  a lattice of 2^31 cubes needs another route;
+  a lattice of 2^31 cubes leaves the kernels;
 * the uniforms are the Philox stream of mcubes/stream.py (``rng='device'``)
   or a tensor of words (``bits=``, the parity hook);
 * a cube beyond the lattice (the padding of the last chunk) gives neutral
@@ -43,14 +63,28 @@ MAX_NDIM = 16
 THREADS = 256
 MAX_BLOCKS = 1 << 16
 MAX_CHUNK_CUBES = 1 << 30
+ROUTES = ("paired", "generic")
+# The dimensions csrc/vegas_sample.cu compiles the paired route for: the
+# same as the rule kernel's tile route (cuda_rule.TILE_NDIMS).
+PAIRED_NDIMS = (3, 4, 5, 6, 7, 8)
+SMEM_BYTES = 48 * 1024          # the map's room in a block's shared memory
 
-# Launches of the kernel since the count was last set to 0.
+# Launches of the kernels since the counts were last set to 0.
 launches = 0
+route_launches = {r: 0 for r in ROUTES}
+
+
+def reset_launches():
+    global launches
+    launches = 0
+    for r in ROUTES:
+        route_launches[r] = 0
 
 
 def _configure(lib):
     fn = lib.vegas_sample_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_uint]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 2 + [ctypes.c_uint] * 3
                    + [ctypes.c_void_p] * 2)
@@ -61,11 +95,14 @@ def _configure(lib):
 class PolyMap:
     """The importance map as the sampler takes it: one f32 tensor holding
     the volume-folded P series (ndim*kp), the q series (ndim*kq), and the
-    volume's low and high corners (ndim each)."""
+    volume's low and high corners (ndim each).  ``packed`` is the same
+    map in the paired kernel's layout (``pack_map``); ``fold_map`` fills
+    it once per map, so that a launch does not."""
     table: torch.Tensor
     ndim: int
     kp: int
     kq: int
+    packed: torch.Tensor | None = None
 
     def parts(self):
         n, kp, kq = self.ndim, self.kp, self.kq
@@ -85,7 +122,72 @@ def fold_map(p_coeffs, q_coeffs, regn_lo, dx) -> PolyMap:
     ndim, kp = pf.shape
     table = torch.cat([pf.reshape(-1), q_coeffs.to(f32).reshape(-1), lo32,
                        lo32 + dx32]).contiguous()
-    return PolyMap(table, ndim, kp, q_coeffs.shape[1])
+    pmap = PolyMap(table, ndim, kp, q_coeffs.shape[1])
+    return dataclasses.replace(pmap, packed=pack_map(pmap))
+
+
+def padded_terms(kp: int, kq: int) -> tuple[int, int]:
+    """(kp4, kq4): the terms of P and of q padded to multiples of four."""
+    return 4 * -(-kp // 4), 4 * -(-kq // 4)
+
+
+def pack_map(pmap: PolyMap) -> torch.Tensor:
+    """The map in the paired kernel's layout, one f32 tensor: per
+    dimension kq4/4 groups of (four terms of P, four of q), then
+    (kp4 - kq4)/4 groups of four terms of P alone, both series padded with
+    zeros; then the low and the high corners.  kp4 + kq4 words per
+    dimension, each group 16-byte aligned."""
+    n, kp, kq = pmap.ndim, pmap.kp, pmap.kq
+    kp4, kq4 = padded_terms(kp, kq)
+    p, q, lo, hi = pmap.parts()
+    pf = torch.nn.functional.pad(p, (0, kp4 - kp))
+    qf = torch.nn.functional.pad(q, (0, kq4 - kq))
+    joint = torch.stack([pf[:, :kq4].reshape(n, -1, 4),
+                         qf.reshape(n, -1, 4)], dim=2)     # (n, kq4/4, 2, 4)
+    body = torch.cat([joint.reshape(n, -1), pf[:, kq4:]], dim=1)
+    return torch.cat([body.reshape(-1), lo, hi]).contiguous()
+
+
+def unpack_map(packed: torch.Tensor, ndim: int, kp: int, kq: int):
+    """(p (ndim, kp), q (ndim, kq), lo, hi) from ``pack_map``'s tensor, as
+    the kernel reads it."""
+    kp4, kq4 = padded_terms(kp, kq)
+    body = packed[:ndim * (kp4 + kq4)].view(ndim, kp4 + kq4)
+    joint = body[:, :2 * kq4].reshape(ndim, -1, 2, 4)
+    p = torch.cat([joint[:, :, 0].reshape(ndim, -1), body[:, 2 * kq4:]],
+                  dim=1)
+    q = joint[:, :, 1].reshape(ndim, -1)
+    rest = packed[ndim * (kp4 + kq4):]
+    return p[:, :kp], q[:, :kq], rest[:ndim], rest[ndim:]
+
+
+def decode_reciprocal(ng: int) -> int:
+    """The 32-bit word M = min(floor(2^32 / ng), 2^32 - 1) with which the
+    paired kernel divides by ng: for every m < 2^32, (m * M) >> 32 is
+    floor(m / ng) or one less (``reciprocal_divmod``)."""
+    if not 1 <= ng < 2 ** 32:
+        raise ValueError(f"ng={ng} (1 .. 2^32 - 1)")
+    return min(2 ** 32 // ng, 2 ** 32 - 1)
+
+
+def reciprocal_divmod(m, ng: int, recip: int):
+    """(m // ng, m % ng) of 32-bit words ``m`` (a uint64 array of values
+    below 2^32) by the kernel's steps: the high word of m * recip, one
+    multiply and subtract, and one correction."""
+    m = np.asarray(m, dtype=np.uint64)
+    q = (m * np.uint64(recip)) >> np.uint64(32)
+    r = m - q * np.uint64(ng)
+    over = r >= np.uint64(ng)
+    return q + over, r - over * np.uint64(ng)
+
+
+def sampler_route(ndim: int, kp: int, kq: int) -> str:
+    """The kernel a map of this shape takes: 'paired' where the source
+    compiles the dimension and the packed map fits the shared memory, else
+    'generic'."""
+    kp4, kq4 = padded_terms(kp, kq)
+    fits = 4 * ndim * (kp4 + kq4 + 2) <= SMEM_BYTES
+    return "paired" if ndim in PAIRED_NDIMS and fits else "generic"
 
 
 def _cheb_joint(p, q, t):
@@ -167,10 +269,14 @@ def n_blocks(chunk_cubes: int) -> int:
 def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
                  chunk_cubes: int, nbins: int, with_hist: bool, xjac: float,
                  cube0: int, ncubes: int, seed: int, iteration: int, *,
-                 bits=None, emit_points: bool = False):
+                 bits=None, emit_points: bool = False,
+                 route: str | None = None):
     """One chunk of ``chunk_cubes`` sub-cubes, global ids ``cube0``...,
     through the sampler.  On a CPU map the plain version; on a CUDA map
-    one kernel launch.
+    one kernel launch, by the route ``sampler_route`` gives the map's
+    shape.  Naming a ``route`` runs that kernel (the checks and timings
+    hold the two against each other) and raises if it does not take the
+    shape.
 
     ``emit_points``: returns (xs (ndim, N) f32, wt (N,) f32, ia) with
     N = chunk_cubes * npg; ``integrand`` is not used.  Otherwise returns
@@ -194,9 +300,19 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
                          f"not {ndim}")
     if not 1 <= chunk_cubes <= MAX_CHUNK_CUBES or npg < 1:
         raise ValueError(f"chunk_cubes={chunk_cubes}, npg={npg}")
-    if 4 * ndim * (kp + kq + 2) > 48 * 1024:
+    if 4 * ndim * (kp + kq + 2) > SMEM_BYTES:
         raise ValueError(f"a map of {ndim} x ({kp} + {kq}) coefficients "
                          "does not fit the kernel's shared memory")
+    if not 1 <= ng < 2 ** 31:
+        raise ValueError(f"ng={ng} (1 .. 2^31 - 1)")
+    if route is None:
+        route = sampler_route(ndim, kp, kq)
+    if route not in ROUTES or (route == "paired"
+                               and sampler_route(ndim, kp, kq) != "paired"):
+        raise ValueError(f"route {route!r} does not take a map of {ndim} x "
+                         f"({kp} + {kq}) coefficients (paired: ndim in "
+                         f"{PAIRED_NDIMS}, the packed map within "
+                         f"{SMEM_BYTES} bytes)")
     if (pmap.table.dtype != torch.float32 or not pmap.table.is_contiguous()
             or pmap.table.numel() != ndim * (kp + kq + 2)):
         raise ValueError("PolyMap.table: need the contiguous float32 tensor "
@@ -234,16 +350,29 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
 
     k0, k1 = stream.seed_key(seed)
     gp = None if genz is None else genz.ctypes.data_as(ctypes.c_void_p)
+    kp4, kq4 = padded_terms(kp, kq)
+    if route == "paired":
+        table = pmap.packed if pmap.packed is not None else pack_map(pmap)
+        if (table.device != dev or table.dtype != torch.float32
+                or not table.is_contiguous()
+                or table.numel() != ndim * (kp4 + kq4 + 2)):
+            raise ValueError("PolyMap.packed: need the contiguous float32 "
+                             "tensor of pack_map")
+    else:
+        table = pmap.table
     rc = cuda_build.load(_SOURCE, _configure).vegas_sample_launch(
-        family, blocks, pmap.table.data_ptr(), ptr(bits), ptr(partial),
+        int(route == "paired"), kp4, kq4, decode_reciprocal(ng),
+        family, blocks, table.data_ptr(), ptr(bits), ptr(partial),
         ptr(xs), ptr(wt), ptr(ia), ptr(f2), int(cube0), int(ncubes),
         chunk_cubes, ndim, ng, npg, kp, kq, nbins,
         float(np.float32(1.0 / ng)), float(np.float32(xjac)), k0, k1,
         int(iteration) & stream.MASK32, gp,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA sampler kernel launch failed: error {rc}")
+        raise RuntimeError(f"CUDA sampler kernel ({route} route) launch "
+                           f"failed: error {rc}")
     launches += 1
+    route_launches[route] += 1
     if emit_points:
         return xs, wt, ia
     return partial.sum(dim=0), ia, f2

@@ -16,9 +16,23 @@ own rounding scale:
 * weight w = prod q_d^2: ``prod_d (sum_i |q_di|)^2``;
 * a fused sample value fx = f(x) w xjac: ``u = |fx| + sum_d |dfx/dx_d| S_d``
   (f amplifies the rounding of x: F4's exponent is ~600 times more
-  sensitive than f; the derivative comes from autograd), f^2: ``2 |fx| u``;
+  sensitive than f; the derivative comes from autograd);
+* one sample's f^2 = fx^2: fx also carries the weight's rounding, whose
+  scale lies well above the weight itself where the q series cancel (some 30
+  times at the default degree), so ``v = u + |f(x) xjac| prod_d (sum_i
+  |q_di|)^2``, and an error of r ulps of v in fx moves f^2 by
+  ``2 |fx| r v + (r v)^2``: the reading is the r that solves this for the
+  difference found (the square matters where fx crosses zero);
 * the chunk's sums: ``sum fb``: ``sum_n u_n``; ``sum f2b``:
-  ``sum_n 2 |npg fx_n - fb_c| u_n + sum_c npg sum f^2``.
+  ``sum_n 2 |npg fx_n - fb_c| u_n + sum_c npg sum f^2``.  The weights'
+  roundings average out over a chunk, so the sums are held to u, not v.
+  f2b is floored: a cube whose ``npg sum f^2 - fb^2`` lies within its own
+  rounding of zero (or whose f^2 fall below the f32 normal range) may take
+  the floor TINY in one computation and not in the other.  With t such
+  cubes in the chunk, the nearest whole number of TINY, at most t, is taken
+  off the difference before it is read (``f2b_floor_steps`` of
+  ``f2b_floor_ties``; ``f2b_ulps_before_floor_ties`` is the reading with
+  nothing taken off).
 
 ULPS holds the limits, a small factor above the largest readings taken on
 an H100 (PERF.md).  The histogram is held to the plain version within
@@ -32,13 +46,17 @@ import torch
 
 from gpuintegration_torch.integrand import make_integrand
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
+from gpuintegration_torch.mcubes import stream
 from gpuintegration_torch.mcubes import vegas as V
+from gpuintegration_torch.mcubes.grid import TINY
 from gpuintegration_torch.mcubes.poly_importance import fit_importance_poly
 
 ULPS = {"x": 16.0, "w": 8.0, "f2": 16.0, "fb": 1.0, "f2b": 1.0}
 HIST_RTOL = 1e-6
 RC_ULP = 2
 EPS32 = float(torch.finfo(torch.float32).eps)
+TINY32 = float(torch.finfo(torch.float32).tiny)
+DENORM32 = 2.0 ** -149     # the spacing of f32 below its normal range
 
 
 def random_grid(ndim: int, nbins: int, seed: int) -> np.ndarray:
@@ -102,18 +120,21 @@ def _case_bits(case, seed: int):
 
 
 def check_sampler(case, integrand=None, *, with_hist: bool, rng: str,
-                  seed: int = 0, iteration: int = 1):
-    """One sampler launch against ``sample_chunk_plain``: emit mode when
-    ``integrand`` is None, else fused with that Genz family.  ``rng``:
-    'device' (the Philox stream of (seed, iteration)) or 'input' (the same
-    words given to both as a tensor)."""
+                  seed: int = 0, iteration: int = 1,
+                  route: str | None = None):
+    """One sampler launch (by ``route``; None: the route the shape takes)
+    against ``sample_chunk_plain``: emit mode when ``integrand`` is None,
+    else fused with that Genz family.  ``rng``: 'device' (the Philox
+    stream of (seed, iteration)) or 'input' (the same words given to both
+    as a tensor)."""
     pmap = case["pmap"]
     args = (pmap, integrand, case["ng"], case["npg"], case["chunk_cubes"],
             case["nbins"], with_hist, case["xjac"], case["cube0"],
             case["ncubes"], seed, iteration)
     kw = {"bits": _case_bits(case, seed) if rng == "input" else None,
           "emit_points": integrand is None}
-    k = cuda_vegas.sample_chunk(*args, **kw)
+    named = {} if route is None else {"route": route}
+    k = cuda_vegas.sample_chunk(*args, **kw, **named)
     if pmap.table.is_cuda:
         torch.cuda.synchronize()
     p = cuda_vegas.sample_chunk_plain(*args, **kw)
@@ -137,26 +158,30 @@ def check_sampler(case, integrand=None, *, with_hist: bool, rng: str,
         # rounding scale of each sample value, from the plain emit mode
         xs, wt, _ = cuda_vegas.sample_chunk_plain(
             *args[:6], False, *args[7:], bits=kw["bits"], emit_points=True)
-        f, _ = make_integrand(integrand, ndim)
-        x = xs.T.detach().requires_grad_(True)
-        with torch.enable_grad():
-            fx = f(x) * (wt * case["xjac"])
-            (grad,) = torch.autograd.grad(fx.sum(), x)
-        fx = fx.detach()
-        u = fx.abs() + (grad.abs() * s_x[None, :]).sum(dim=1)
+        s_w = float(torch.prod(q.abs().sum(dim=1) ** 2))
+        fx, u, v = _value_scales(integrand, xs, wt, case["xjac"], s_x, s_w)
         fx_c, u_c = fx.view(-1, npg), u.view(-1, npg)
         fb = fx_c.sum(dim=1, keepdim=True)
         s_fb = float(u.double().sum())
-        s_f2b = float((2.0 * (npg * fx_c - fb).abs() * u_c).double().sum()
-                      + npg * (fx * fx).double().sum())
-        tiny = float(torch.finfo(torch.float32).tiny)
-        out["fb_ulps"] = abs(float(k[0][0] - p[0][0])) / (EPS32 * s_fb + tiny)
-        out["f2b_ulps"] = abs(float(k[0][1] - p[0][1])) / (EPS32 * s_f2b
-                                                            + tiny)
+        s_f2b_c = ((2.0 * (npg * fx_c - fb).abs() * u_c).double().sum(dim=1)
+                   + npg * (fx_c * fx_c).double().sum(dim=1))
+        unit = EPS32 * float(s_f2b_c.sum()) + TINY32
+        out["fb_ulps"] = abs(float(k[0][0] - p[0][0])) / (EPS32 * s_fb
+                                                          + TINY32)
+        # cubes that may take the floor on one side only
+        f2b_c = (npg * (fx_c.double() ** 2).sum(dim=1)
+                 - fx_c.double().sum(dim=1) ** 2)
+        cube = case["cube0"] + torch.arange(fx_c.shape[0], device=fx.device)
+        ties = int(((f2b_c <= EPS32 * s_f2b_c + npg * npg * DENORM32)
+                    & (cube < case["ncubes"])).sum())
+        diff = float(k[0][1] - p[0][1])
+        steps = max(-ties, min(ties, round(diff / TINY)))
+        out["f2b_ulps"] = abs(diff - steps * TINY) / unit
+        out["f2b_ulps_before_floor_ties"] = abs(diff) / unit
+        out["f2b_floor_ties"], out["f2b_floor_steps"] = ties, steps
         out["sum_fb"], out["sum_f2b"] = float(k[0][0]), float(k[0][1])
         if with_hist:
-            out["f2_ulps"] = _top((k[2] - p[2]).abs()
-                                  / (EPS32 * 2.0 * fx.abs() * u + tiny))
+            out["f2_ulps"] = _top(_square_ulps(k[2], p[2], fx, v))
     for key, limit in (("x_ulps", ULPS["x"]), ("w_ulps", ULPS["w"]),
                        ("f2_ulps", ULPS["f2"]), ("fb_ulps", ULPS["fb"]),
                        ("f2b_ulps", ULPS["f2b"])):
@@ -166,7 +191,139 @@ def check_sampler(case, integrand=None, *, with_hist: bool, rng: str,
     return out
 
 
-def check_stream(case, *, seed: int = 0, iteration: int = 1):
+def _value_scales(integrand, xs, wt, xjac, s_x, s_w):
+    """(fx, u, v) of the plain emit mode's samples: the value
+    fx = f(x) w xjac in f32, its rounding scale u (its own size and the
+    coordinates' roundings through df/dx, by autograd) and v = u + the
+    weight's rounding scale |f(x) xjac| s_w."""
+    f, _ = make_integrand(integrand, xs.shape[0])
+    x = xs.T.detach().requires_grad_(True)
+    with torch.enable_grad():
+        fval = f(x)
+        fx = fval * (wt * xjac)
+        (grad,) = torch.autograd.grad(fx.sum(), x)
+    fx = fx.detach()
+    u = fx.abs() + (grad.abs() * s_x[None, :]).sum(dim=1)
+    return fx, u, u + (fval.detach() * xjac).abs() * s_w
+
+
+def _square_ulps(a, b, fx, v):
+    """The difference of two f32 values of fx^2 as an error of fx, in ulps
+    of fx's rounding scale ``v``: the r >= 0 with
+    |a - b| = 2 |fx| (r eps v) + (r eps v)^2, the first term carrying the
+    f32 normal range's floor.  Where |fx| is well above its error this is
+    |a - b| / (eps 2 |fx| v)."""
+    d = (a - b).abs().double()
+    lin = EPS32 * 2.0 * fx.abs().double() * v.double() + TINY32
+    quad = (EPS32 * v.double()) ** 2
+    # equal values read 0 whatever the scale (a peak's f32 scale overflows)
+    r = 2.0 * d / (lin + torch.sqrt(lin * lin + 4.0 * quad * d))
+    return torch.where(d > 0.0, r, torch.zeros_like(r))
+
+
+def sampler_f64_witness(case, integrand, *, rng: str, seed: int = 0,
+                        iteration: int = 1, route: str | None = None):
+    """A second witness for the fused mode: the sampler's function evaluated
+    in f64 from the f32 stratified positions (which kernel and plain
+    version share bit for bit), with the map's f32 coefficients.  Returns
+    how far the kernel's and the plain version's f^2 lie from it, in ulps
+    of the rounding scale v, and how far their sums of f2b lie from the
+    f64 sum, in units of the floor TINY: the f64 values take the floor only
+    at an exact zero, so each figure is the number of cubes that computation
+    floored, up to the roundings."""
+    pmap, ndim, npg = case["pmap"], case["pmap"].ndim, case["npg"]
+    dev, chunk = pmap.table.device, case["chunk_cubes"]
+    args = (pmap, integrand, case["ng"], npg, chunk, case["nbins"], True,
+            case["xjac"], case["cube0"], case["ncubes"], seed, iteration)
+    bits = _case_bits(case, seed) if rng == "input" else None
+    k = cuda_vegas.sample_chunk(*args, bits=bits,
+                                **({} if route is None else {"route": route}))
+    p = cuda_vegas.sample_chunk_plain(*args, bits=bits)
+    xs, wt, _ = cuda_vegas.sample_chunk_plain(
+        *args[:6], False, *args[7:], bits=bits, emit_points=True)
+
+    # the f32 positions as the plain version forms them, then f64
+    cube = case["cube0"] + torch.arange(chunk, dtype=torch.int64, device=dev)
+    valid = cube < case["ncubes"]
+    kg = (stream.decode_cube(cube, case["ng"], ndim) - 1).T.to(torch.float32)
+    words = bits if bits is not None else stream.stream_bits(
+        seed, iteration, cube, npg, ndim)
+    uni = stream.bits_to_uniform(words).reshape(npg, ndim, chunk)
+    s32 = (kg[None] + (1.0 - uni)) * (1.0 / case["ng"])
+    pf, q, lo, hi = (t.double() for t in pmap.parts())
+    x64, w64 = [], 1.0
+    for d in range(ndim):
+        acc_p, acc_q = cuda_vegas._cheb_joint(
+            pf[d], q[d], (2.0 * s32[:, d] - 1.0).double())
+        x64.append(torch.minimum(torch.maximum(acc_p, lo[d]), hi[d]))
+        w64 = w64 * (acc_q * acc_q)
+    f, _ = make_integrand(integrand, ndim)
+    fx64 = f(torch.stack(x64, dim=-1)) * (
+        w64 * float(np.float32(case["xjac"])))                  # (npg, C)
+    fx64 = torch.where(valid[None], fx64, torch.zeros_like(fx64))
+    f2b64 = npg * (fx64 * fx64).sum(dim=0) - fx64.sum(dim=0) ** 2
+    f2b64 = torch.where(f2b64 <= 0.0, torch.full_like(f2b64, TINY), f2b64)
+    sum64 = float(torch.where(valid, f2b64, torch.zeros_like(f2b64)).sum())
+
+    s_x = pmap.parts()[0].abs().sum(dim=1)
+    s_w = float(torch.prod(pmap.parts()[1].abs().sum(dim=1) ** 2))
+    fx, _, v = _value_scales(integrand, xs, wt, case["xjac"], s_x, s_w)
+    f2_64 = (fx64 * fx64).T.reshape(-1)
+    return {"samples": chunk * npg,
+            "kernel_f2_ulps": _top(_square_ulps(k[2], f2_64, fx, v)),
+            "plain_f2_ulps": _top(_square_ulps(p[2], f2_64, fx, v)),
+            "kernel_f2b_floors": (float(k[0][1]) - sum64) / TINY,
+            "plain_f2b_floors": (float(p[0][1]) - sum64) / TINY,
+            "sum_f2b_f64": sum64}
+
+
+def check_sampler_routes(case, integrand=None, *, with_hist: bool, rng: str,
+                         seed: int = 0, iteration: int = 1):
+    """The two routes of the sampler on one chunk against each other, each
+    launched twice.  A route must repeat its bits.  Between the routes the
+    bin ids must be EQUAL; within a chain both keep the same order of
+    operations, so coordinates, weights, f^2 and the sums are read in f32
+    ulps of the larger value (f64 ulps for the sums) and reported: 0 where
+    the compiler contracts both alike.  Meaningful on CUDA tensors only."""
+    pmap = case["pmap"]
+    args = (pmap, integrand, case["ng"], case["npg"], case["chunk_cubes"],
+            case["nbins"], with_hist, case["xjac"], case["cube0"],
+            case["ncubes"], seed, iteration)
+    kw = {"bits": _case_bits(case, seed) if rng == "input" else None,
+          "emit_points": integrand is None}
+    label = (f"sampler {'emit' if integrand is None else integrand.name} "
+             f"hist={with_hist} rng={rng}")
+    outs = {}
+    for route in cuda_vegas.ROUTES:
+        a, b = (cuda_vegas.sample_chunk(*args, **kw, route=route)
+                for _ in range(2))
+        if pmap.table.is_cuda:
+            torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            if x is not None and not torch.equal(x, y):
+                raise AssertionError(f"{label}: two launches of the {route} "
+                                     "route differ")
+        outs[route] = a
+    names = ("xs", "wt", "ia") if integrand is None else ("sums", "ia", "f2")
+    out = {"samples": case["chunk_cubes"] * case["npg"]}
+    for name, x, y in zip(names, outs["paired"], outs["generic"]):
+        if x is None:
+            continue
+        if name == "ia":
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: {int((x != y).sum())} bin ids "
+                                     "differ between the routes")
+            out["ia_equal"] = True
+            continue
+        eps = float(torch.finfo(x.dtype).eps)
+        size = torch.maximum(x.abs(), y.abs()).clamp_min(
+            float(torch.finfo(x.dtype).tiny))
+        out[f"{name}_ulps"] = _top((x - y).abs() / (eps * size))
+    return out
+
+
+def check_stream(case, *, seed: int = 0, iteration: int = 1,
+                 route: str | None = None):
     """The kernel's generator against the plain one, word for word: under
     the identity map (P(s) = s, q = 1, unit volume) no multiply-add rounds
     differently, so the emitted coordinate is the stratified position
@@ -183,7 +340,8 @@ def check_stream(case, *, seed: int = 0, iteration: int = 1):
     args = (ident, None, case["ng"], case["npg"], case["chunk_cubes"],
             case["nbins"], True, case["xjac"], case["cube0"], case["ncubes"],
             seed, iteration)
-    k = cuda_vegas.sample_chunk(*args, emit_points=True)
+    k = cuda_vegas.sample_chunk(*args, emit_points=True,
+                                **({} if route is None else {"route": route}))
     p = cuda_vegas.sample_chunk_plain(*args, emit_points=True)
     for name, a, b in zip(("xs", "wt", "ia"), k, p):
         if not torch.equal(a, b):

@@ -3,8 +3,8 @@
 Each source is compiled with nvcc for ``sm_90a`` at first use into
 ``build/`` beside this package, into a shared library with a plain C
 interface that ``ctypes`` loads.  The library's name carries a digest of
-the source and of every header in csrc/, so an edited file is rebuilt and
-an unchanged one is reused.  A failed build raises.
+the flags, the source and every header in csrc/, so an edited file is
+rebuilt and an unchanged one is reused.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -13,12 +13,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+# --split-compile 0 (CUDA 12.1 on) optimises a source's kernels on all the
+# host's cores: the templates make some hundred kernels of two sources.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "--split-compile", "0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -36,7 +40,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / name).read_bytes())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{Path(name).stem}_{h.hexdigest()[:16]}.so"
@@ -45,10 +50,12 @@ def _target(name: str) -> Path:
 def build_many(names) -> list[Path]:
     """Compile csrc/<name> for each name, all nvcc processes started
     together, and return the libraries' paths in order.  nvcc's report
-    (ptxas registers and spills per kernel) is kept beside each library,
-    ``<library>.log``.  Raises RuntimeError if any build fails."""
+    (ptxas registers and spills per kernel, and the seconds until this
+    source was done) is kept beside each library, ``<library>.log``.
+    Raises RuntimeError if any build fails."""
     outs = [_target(n) for n in names]
     running = []
+    t0 = time.perf_counter()
     for name, out in zip(names, outs):
         if out.exists():
             continue
@@ -64,7 +71,9 @@ def build_many(names) -> list[Path]:
             failures.append(f"nvcc failed on {name} ({proc.returncode}):\n"
                             f"{err}")
             continue
-        out.with_suffix(".log").write_text(err)
+        out.with_suffix(".log").write_text(
+            err + f"nvcc: {name} built in {time.perf_counter() - t0:.2f} s "
+                  "(all sources started together)\n")
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))

@@ -51,6 +51,9 @@ _A2 = 0.2030285873691198677998034402373279133258
 _A3 = 0.4476273546261781288207704806530998539285
 _A4 = 0.125
 _AL = 0.3430378987808781457001426145164678603407  # "l" corner generator
+# Every non-zero |abscissa| of the rule, in the order of the orbits that
+# introduce them: a point's coordinate is 0 or +-one of these five.
+GENERATORS = (_A1, _A2, _A3, _A4, _AL)
 
 
 def feval_per_region(ndim: int) -> int:

@@ -179,8 +179,10 @@ def compare_outputs(kernel, plain, integrand, tables: rule_eval.RuleTables,
 def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
                         lengths, global_lo, global_range, *,
                         n: int | None = None, blocked: bool = False,
-                        min_agree: float = 0.999, chunk: int = 4096):
-    """One kernel launch over a CUDA pool against
+                        min_agree: float = 0.999, chunk: int = 4096,
+                        route: str | None = None):
+    """One kernel launch (by ``route``; None: the route the shape takes)
+    over a CUDA pool against
     ``rule_eval.apply_rule_plain`` on the same pool: the padding slots
     must hold est = err = 0, and the real slots pass ``judge``, read in
     chunks of ``chunk`` regions (a chunk's rule values are held in
@@ -188,7 +190,8 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
     summary."""
     k = cuda_rule.cuda_apply_rule(integrand, tables, lows, lengths,
                                   global_lo, global_range, n=n,
-                                  blocked=blocked)
+                                  blocked=blocked,
+                                  **({} if route is None else {"route": route}))
     torch.cuda.synchronize()
     p = rule_eval.apply_rule_plain(integrand, tables, lows, lengths,
                                    global_lo, global_range, chunk_size=4096,
@@ -215,3 +218,40 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
              "abs_est", "est", "err", "err_direct", "gate_tie", "err_resolved",
              "tie_gap")}
     return judge(r, name=name, dtype=lows.dtype, min_agree=min_agree)
+
+
+def check_routes(integrand, tables: rule_eval.RuleTables, lows, lengths,
+                 global_lo, global_range, *, n: int | None = None,
+                 blocked: bool = False):
+    """The two routes of the kernel on one CUDA pool against each other.
+    Every rule value has the same bits on both, so split_dim must be EQUAL
+    in every slot; est and err are sums taken in another order and are
+    held to the plain version by ``check_against_plain``, so here they are
+    only read: the largest |difference| relative to the pool's largest
+    |value|.  Each route launched twice must repeat its bits.  Raises
+    AssertionError on a disagreement; returns the readings."""
+    name = getattr(integrand, "name", "integrand")
+    outs = {}
+    for route in cuda_rule.ROUTES:
+        a, b = (cuda_rule.cuda_apply_rule(
+            integrand, tables, lows, lengths, global_lo, global_range, n=n,
+            blocked=blocked, route=route) for _ in range(2))
+        torch.cuda.synchronize()
+        for what, x, y in zip(("est", "err", "split_dim"), a, b):
+            if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                raise AssertionError(f"{name}: two launches of the {route} "
+                                     f"route differ in {what}")
+        outs[route] = a
+    t, g = outs["tile"], outs["generic"]
+    differ = int((t[2] != g[2]).sum())
+    if differ:
+        raise AssertionError(f"{name}: split_dim differs between the routes "
+                             f"in {differ} of {t[2].numel()} slots")
+
+    def rel(x, y):
+        top = float(y.abs().nan_to_num(0.0).amax()) if y.numel() else 0.0
+        d = (x - y).abs().nan_to_num(0.0)
+        return float(d.amax()) / top if top > 0 else 0.0
+
+    return {"slots": t[2].numel(), "split_dim_equal": True,
+            "est_rel": rel(t[0], g[0]), "err_rel": rel(t[1], g[1])}

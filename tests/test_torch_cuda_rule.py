@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from gpuintegration_torch.models import genz
-from gpuintegration_torch.ops import kernel_check, rule_eval
+from gpuintegration_torch.ops import cuda_rule, kernel_check, rule_eval
 
 
 def _pool(ndim, cap, seed):
@@ -38,3 +38,89 @@ def test_kernel_matches_plain_on_card(dtype):
     for g in genz.genz_suite(ndim):
         kernel_check.check_against_plain(g, tables, *t, n=n, blocked=True,
                                          min_agree=0.0)
+
+
+def _card_pool(ndim, cap, dtype, seed=1):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return [torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in _pool(ndim, cap, seed)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", cuda_rule.TILE_NDIMS)
+def test_both_routes_match_plain_and_each_other_on_card(ndim, dtype):
+    """Every dimension the tile route is compiled for, every family: each
+    route against the plain version with kernel_check's unchanged limits,
+    and against the other route (split_dim EQUAL, each twice the same
+    bits), on plain and blocked pools with ragged tiles and with none."""
+    cap = 1024
+    t = _card_pool(ndim, cap, dtype)
+    tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+    for g in genz.genz_suite(ndim):
+        for n, blocked in ((cap, False), (771, False), (900, True),
+                           (6, True), (0, False)):
+            for route in cuda_rule.ROUTES:
+                kernel_check.check_against_plain(
+                    g, tables, *t, n=n, blocked=blocked, min_agree=0.0,
+                    route=route)
+            r = kernel_check.check_routes(g, tables, *t, n=n,
+                                          blocked=blocked)
+            assert r["split_dim_equal"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ndim", [2, 9, 10])
+def test_generic_route_takes_the_other_dimensions_on_card(ndim):
+    """A dimension outside the tile route's set goes through the generic
+    kernel, is counted there, and naming the tile route raises."""
+    cap = 512
+    t = _card_pool(ndim, cap, torch.float64)
+    tables = rule_eval.rule_tables(ndim, "float64")
+    assert cuda_rule.rule_route(ndim) == "generic"
+    cuda_rule.reset_launches()
+    for g in genz.genz_suite(ndim):
+        kernel_check.check_against_plain(g, tables, *t, n=400, blocked=True,
+                                         min_agree=0.0)
+    assert cuda_rule.route_launches == {"tile": 0, "generic": 6}
+    with pytest.raises(ValueError, match="does not take ndim"):
+        cuda_rule.cuda_apply_rule(genz.f4_gaussian(ndim), tables, *t,
+                                  route="tile")
+
+
+@pytest.mark.gpu
+def test_unaligned_pool_takes_ordinary_loads_on_card():
+    """A pool whose rows are not 16-byte aligned (an odd capacity) cannot
+    be fetched by bulk copies; the tile route reads it by ordinary loads
+    and gives the same answers."""
+    ndim, cap = 5, 1021
+    t = _card_pool(ndim, cap, torch.float64)
+    tables = rule_eval.rule_tables(ndim, "float64")
+    g = genz.f4_gaussian(ndim)
+    kernel_check.check_against_plain(g, tables, *t, n=1000, blocked=False,
+                                     min_agree=0.0, route="tile")
+    kernel_check.check_routes(g, tables, *t, n=1000, blocked=False)
+
+
+@pytest.mark.gpu
+def test_nan_and_inf_values_take_the_same_branch_on_card():
+    """A pool holding a NaN corner and a region far outside the peak (an
+    integrand that underflows to 0 everywhere: no positive fourth
+    difference): both routes give the plain version's split axis there
+    (the widest axis) and NaN estimates where it has them."""
+    ndim, cap = 5, 256
+    lows, lengths, gl, gr = _card_pool(ndim, cap, torch.float64)
+    lows[2, 7] = float("nan")
+    lows[:, 9] = 40.0
+    lengths[:, 9] = torch.tensor([0.1, 0.3, 0.2, 0.25, 0.05],
+                                 dtype=torch.float64, device="cuda")
+    tables = rule_eval.rule_tables(ndim, "float64")
+    g = genz.f4_gaussian(ndim)
+    plain = rule_eval.apply_rule_plain(g, tables, lows, lengths, gl, gr)
+    for route in cuda_rule.ROUTES:
+        k = cuda_rule.cuda_apply_rule(g, tables, lows, lengths, gl, gr,
+                                      route=route)
+        assert torch.isnan(k[0][7]) and torch.isnan(plain[0][7])
+        assert int(k[2][7]) == int(plain[2][7])
+        assert float(k[0][9]) == 0.0 and int(k[2][9]) == int(plain[2][9]) == 1

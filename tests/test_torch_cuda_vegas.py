@@ -136,3 +136,112 @@ def test_other_routes_on_card():
     r = integrate(lambda x: torch.cos(x[..., 0]), ndim=1, epsrel=1e-3,
                   ncall=2e4, seed=5)
     assert abs(r.estimate - math.sin(1.0)) <= 5 * r.errorest
+
+
+# (ndim, ncall, chunk, degree): the paired route's dimensions, npg 2 and
+# odd npg (3 at 6D, 5 at 8D), degrees whose term counts are and are not
+# multiples of four; the production lattice (6D, ncall 1e8, degree 14) and
+# a lattice of 20^8 cubes, where cubes take the variance floor and f^2 falls
+# below the f32 normal range
+PAIRED_SHAPES = [(3, 5e4, 4096, 8), (4, 1e6, 1 << 14, 8),
+                 (5, 2e5, 4096, 8), (6, 3e6, 1 << 14, 8),
+                 (6, 3e6, 1 << 14, 5), (7, 1e7, 4096, 8), (8, 1e7, 4096, 8),
+                 (6, 1e8, 1 << 14, 14), (8, 5.2e10, 4096, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("position", ["end", "middle"])
+@pytest.mark.parametrize("ndim,ncall,chunk,degree", PAIRED_SHAPES)
+def test_both_sampler_routes_match_plain_and_each_other_on_card(
+        ndim, ncall, chunk, degree, position):
+    """Each route against the plain version with kernel_check's unchanged
+    limits and against the other route (bin ids EQUAL, each twice the same
+    bits), emit mode and every fused family, uniforms from a tensor and
+    from the stream; the generator word for word on both routes."""
+    _card()
+    case = kernel_check.sampler_case(ndim, ncall, chunk, nbins=100,
+                                     degree=degree, position=position)
+    pmap = case["pmap"]
+    assert cuda_vegas.sampler_route(ndim, pmap.kp, pmap.kq) == "paired"
+    for integrand in [None] + genz.genz_suite(ndim):
+        for rng in ("input", "device"):
+            for route in cuda_vegas.ROUTES:
+                kernel_check.check_sampler(case, integrand, with_hist=True,
+                                           rng=rng, route=route)
+            r = kernel_check.check_sampler_routes(case, integrand,
+                                                  with_hist=True, rng=rng)
+            assert r["ia_equal"]
+        kernel_check.check_sampler_routes(case, integrand, with_hist=False,
+                                          rng="device")
+    for route in cuda_vegas.ROUTES:
+        kernel_check.check_stream(case, route=route)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ndim,ncall,chunk,degree", [
+    (6, 1e8, 1 << 16, 14), (4, 1e6, 1 << 14, 14), (8, 1e7, 4096, 0),
+    (3, 2e5, 4096, 1), (6, 1e8, 1 << 14, 40), (8, 5.2e10, 4096, 8)])
+def test_sampler_routes_at_other_degrees_on_card(ndim, ncall, chunk, degree):
+    """The production shape (6D, degree 14), the identity-like degrees 0
+    and 1, a high degree, and a lattice of 20^8 > 2^32 cubes (the 64-bit
+    decode): emit mode and a fused family on both routes."""
+    _card()
+    fused = (genz.f3_corner_peak(ndim) if ncall > 1e10
+             else genz.f4_gaussian(ndim))
+    for position in ("end", "middle"):
+        case = kernel_check.sampler_case(ndim, ncall, chunk, degree=degree,
+                                         position=position)
+        for integrand in (None, fused):
+            for route in cuda_vegas.ROUTES:
+                kernel_check.check_sampler(case, integrand, with_hist=True,
+                                           rng="device", route=route)
+            kernel_check.check_sampler_routes(case, integrand, with_hist=True,
+                                              rng="input")
+
+
+@pytest.mark.gpu
+def test_sampler_launches_are_counted_by_route_on_card():
+    """A 9D map goes through the generic kernel and a 6D one through the
+    paired kernel; naming the paired route for 9D raises."""
+    _card()
+    cuda_vegas.reset_launches()
+    for ndim, route in ((9, "generic"), (6, "paired")):
+        case = kernel_check.sampler_case(ndim, 2e5, 4096, nbins=50, degree=8)
+        kernel_check.check_sampler(case, None, with_hist=True, rng="device")
+        assert cuda_vegas.route_launches[route] == 1
+    assert cuda_vegas.launches == 2
+    case = kernel_check.sampler_case(9, 2e5, 4096, nbins=50, degree=8)
+    with pytest.raises(ValueError, match="does not take a map"):
+        kernel_check.check_sampler(case, None, with_hist=True, rng="device",
+                                   route="paired")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", cuda_vegas.ROUTES)
+@pytest.mark.parametrize("ndim,ncall,chunk,degree,position,family", [
+    (6, 1e8, 1 << 20, 14, "end", "f1_oscillatory"),
+    (6, 1e8, 1 << 14, 14, "end", "f3_corner_peak"),
+    (6, 1e8, 1 << 14, 14, "end", "f5_c0"),
+    (8, 5.2e10, 4096, 8, "middle", "f3_corner_peak")])
+def test_sampler_against_the_f64_witness_on_card(ndim, ncall, chunk, degree,
+                                                 position, family, route):
+    """Where f^2 and the sum of f2b are hardest to read (fx crossing zero,
+    weights far below their rounding scale, cubes at the variance floor):
+    each kernel lies as near the f64 evaluation as the plain version does,
+    and where the whole sum of f2b is floors, each side's distance from the
+    f64 sum is a whole number of them."""
+    _card()
+    nbins = 500 if degree == 14 else 100
+    case = kernel_check.sampler_case(ndim, ncall, chunk, nbins=nbins,
+                                     degree=degree, position=position)
+    g = genz.FAMILIES[family](ndim)
+    for rng in ("input", "device"):
+        kernel_check.check_sampler(case, g, with_hist=True, rng=rng,
+                                   route=route)
+        w = kernel_check.sampler_f64_witness(case, g, rng=rng, route=route)
+        assert w["kernel_f2_ulps"] <= kernel_check.ULPS["f2"]
+        assert w["kernel_f2_ulps"] <= 2.0 * w["plain_f2_ulps"] + 1.0
+        if w["sum_f2b_f64"] < 1e-3 * kernel_check.TINY:
+            for side in ("kernel", "plain"):
+                floors = w[f"{side}_f2b_floors"]
+                assert abs(floors - round(floors)) < 1e-3
