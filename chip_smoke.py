@@ -8,11 +8,12 @@ VEGAS ``mcubes.integrate`` at 6D through them, and times them.  Imports no
 JAX.  Phases (any failure exits non-zero and prints no result line; each
 prints its seconds):
 
-The rule kernel and the sampler each have two routes, chosen by the shape:
-the one built for this card ('tile', 'paired') and the generic one, which
-takes every shape and is the earlier design.  The main paths must go
-through the first; the generic routes are held at shapes only they take,
-and timed beside the others in the same run.
+The rule kernel, the sampler, the histogram and the bin resolve each have
+two routes, chosen by the shape: the one built for this card ('tile',
+'paired', 'grouped', 'sample') and the generic one, which is the earlier
+design.  The main paths must go through the first; the generic routes are
+held against the first and the plain versions, and timed beside the
+others in the same run.
 
 1. the card's name and power limit; the nvcc builds (all sources started
    together), their seconds and ptxas's registers and spills; the
@@ -44,6 +45,10 @@ and timed beside the others in the same run.
    against an f64 evaluation where f^2 and the sum of f2b are hardest to
    read; the generic route at 9D, degree 8, which the paired route does
    not take; histogram, bin resolve and edge lookup at 500 and 50 bins;
+   both routes of the histogram (each against the plain version, twice
+   the same bits, the accumulating form from bins near the cap) and of the
+   bin resolve (rc, xo, ia EQUAL between the routes, drawing xn at the
+   centre and at the lattice's end, and given xn over a ragged row);
 6. the VEGAS main path, 6D Genz F4 (a = 25), epsabs 1e-40: (1) the
    default ``integrate(f, epsrel=1e-3, ncall=1e8)`` (f64, poly map,
    sampler 'hybrid'); (2) ``eval_dtype=float32, ncall=1e9, total_iters=10,
@@ -51,17 +56,25 @@ and timed beside the others in the same run.
    ncall=1e8``.  Each must end status 0 with |est - truth| <= 5 errorest
    and errorest/|est| <= epsrel, having launched its kernels (counts set
    to 0 before and read after each run), the sampler's all through the
-   paired route; run 1 repeated must give the same bits; run 2 repeated
+   paired route, the histogram's through the grouped route, the bin
+   resolve's through the sample route; run 1 repeated must give the same
+   bits; run 3 repeated on the generic lookups says whether its estimate
+   is the grouped run's and the one of the tree before the lookups' new
+   routes (commit 756fd3a); run 2 repeated
    with CUDA events around every launch says what the events cost and what
    share of the wall the launches are; a 3D run on the card must agree with the same run on the
    CPU;
-7. the VEGAS kernels' times at the main path's shapes, the sampler on both
-   routes, best of 5 (CUDA events), beside the plain versions', a bound, and one PyTorch call
-   computing the same function where there is one;
+7. the VEGAS kernels' times at the main path's shapes, the sampler, the
+   histogram (accumulating, as the main paths call it) and the bin resolve
+   (drawing xn, and given xn) on both routes in turns, best of 5 series of
+   launches back to back (``queued_ms``), beside the plain versions', a
+   bound, and one PyTorch call computing the same function where there is
+   one;
 8. the ``kernels`` JSON line, then the card line and the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -255,6 +268,9 @@ def compare(label, *args, **kw):
 
 VEGAS_NDIM = 6
 VEGAS_CHUNK = 1 << 20
+# VEGAS run 3's estimate as this script printed it on an NVIDIA H100 80GB
+# HBM3 at commit 756fd3a, when the lookups had only their generic routes
+GENERIC_RUN3_ESTIMATE = 1.2700805996066006e-07
 GENZ_AXIS_OPS = {1: 2, 2: 4, 3: 2, 4: 4, 5: 3, 6: 3}
 
 
@@ -394,6 +410,36 @@ def vegas_checks(dev):
         if nbins == 500:
             err.update(vegas_hist=h["max_abs"], vegas_bin_resolve=max(
                 b["max_abs"], bs["max_abs"]), vegas_edge_lookup=e["max_abs"])
+        # both routes of the histogram and the bin resolve
+        try:
+            hr = vegas_check.check_hist_routes(VEGAS_NDIM, n, nbins,
+                                               device=dev)
+            rr = vegas_check.check_resolve_routes(VEGAS_NDIM, 1e8,
+                                                  VEGAS_CHUNK, nbins,
+                                                  device=dev)
+        except AssertionError as exc:
+            fail(str(exc))
+        if hr["routes"] != ["grouped", "generic"] or rr["routes"] != [
+                "sample", "generic"]:
+            fail(f"nbins {nbins}: the main path's shapes should take both "
+                 f"routes, got {hr['routes']} and {rr['routes']}")
+        print(f"phase 5: nbins {nbins}, {n} samples: histogram grouped "
+              f"route max rel {hr['grouped']['max_rel']:.3g}, accumulating "
+              f"from bins near the cap {hr['grouped']['accum_max_rel']:.3g}; "
+              f"generic route {hr['generic']['max_rel']:.3g}, "
+              f"{hr['generic']['accum_max_rel']:.3g} (limit "
+              f"{vegas_check.HIST_RTOL:g}); between the routes "
+              f"{hr['between_routes_max_rel']:.3g}; each route twice the "
+              f"same bits, f2 in f64 as in f32, the accumulating form EQUAL "
+              f"to min(d + its histogram, cap); bin resolve sample vs "
+              f"generic route, drawing xn at the centre and the lattice's "
+              f"end, given xn over {rr['samples']} and {rr['samples'] - 3} "
+              f"samples: rc, xo, ia EQUAL, rc {rr['rc_ulps']} ulps from the "
+              f"plain version", flush=True)
+        if nbins == 500:
+            err["vegas_hist"] = max(err["vegas_hist"],
+                                    hr["grouped"]["max_abs"],
+                                    hr["generic"]["max_abs"])
     return err
 
 
@@ -405,13 +451,13 @@ class LaunchCounts:
 
     def __enter__(self):
         cuda_vegas.reset_launches()
-        cuda_lookup.hist_launches = 0
-        cuda_lookup.bin_resolve_launches = 0
-        cuda_lookup.edge_lookup_launches = 0
+        cuda_lookup.reset_launches()
         return self
 
     def __exit__(self, *exc):
         self.sampler_routes = dict(cuda_vegas.route_launches)
+        self.hist_routes = dict(cuda_lookup.hist_route_launches)
+        self.resolve_routes = dict(cuda_lookup.resolve_route_launches)
         self.launches = {"vegas_sample": cuda_vegas.launches,
                          "vegas_hist": cuda_lookup.hist_launches,
                          "vegas_bin_resolve": cuda_lookup.bin_resolve_launches,
@@ -425,7 +471,7 @@ class LaunchEvents:
     launches, the host's time to launch included.  The events cost the host
     time of their own, so a run's wall is read without them and this only
     says what share of a wall the launches are."""
-    NAMES = ((cuda_vegas, "sample_chunk"), (cuda_lookup, "hist"),
+    NAMES = ((cuda_vegas, "sample_chunk"), (cuda_lookup, "hist_accum"),
              (cuda_lookup, "bin_resolve_stratified"))
 
     def __enter__(self):
@@ -455,14 +501,34 @@ class LaunchEvents:
         return False
 
 
-def vegas_run(label, g, expect, events=False, **kw):
+class GenericLookups:
+    """While entered, the histogram and the bin resolve take their generic
+    routes (the first design's kernels, and around the histogram the
+    first design's PyTorch steps) whatever the shape."""
+
+    def __enter__(self):
+        self.kept = (cuda_lookup.hist_route, cuda_lookup.resolve_route)
+        cuda_lookup.hist_route = lambda *a: "generic"
+        cuda_lookup.resolve_route = lambda *a: "generic"
+        return self
+
+    def __exit__(self, *exc):
+        cuda_lookup.hist_route, cuda_lookup.resolve_route = self.kept
+        return False
+
+
+def vegas_run(label, g, expect, events=False, lookups="card", **kw):
     """One VEGAS run through the entry point; requires status 0, the truth
     within 5 errorest, errorest/|est| <= epsrel and a launch of every
-    kernel in ``expect``.  Returns (result, launches, wall seconds).  With
-    ``events`` the launches run between CUDA events, and their share of
-    that run's (longer) wall is printed."""
+    kernel in ``expect``, the sampler's all by the paired route and the
+    lookups' all by the routes built for the card ('grouped', 'sample'),
+    or with ``lookups='generic'`` all by their generic routes.  Returns
+    (result, launches, wall seconds).  With ``events`` the launches run
+    between CUDA events, and their share of that run's (longer) wall is
+    printed."""
     torch.cuda.synchronize()
-    with LaunchCounts() as clock:
+    with LaunchCounts() as clock, (GenericLookups() if lookups == "generic"
+                                   else contextlib.nullcontext()):
         if events:
             with LaunchEvents() as between:
                 t0 = time.perf_counter()
@@ -483,8 +549,9 @@ def vegas_run(label, g, expect, events=False, **kw):
           f"errorest {res.errorest!r} truth {g.true_value!r} pull "
           f"{pull:.3f} chi_sq {res.chi_sq:.4f} prob {res.prob:.4f} iters "
           f"{res.iters} neval {res.neval} wall {wall:.3f} s samples/s "
-          f"{res.neval / wall:.4e} launches {clock.launches} (sampler by "
-          f"route {clock.sampler_routes})", flush=True)
+          f"{res.neval / wall:.4e} launches {clock.launches} (by route: "
+          f"sampler {clock.sampler_routes}, histogram {clock.hist_routes}, "
+          f"bin resolve {clock.resolve_routes})", flush=True)
     if res.status != 0 or not pull <= 5.0 or not (
             res.errorest / abs(res.estimate) <= kw["epsrel"]):
         fail(f"{label}: status {res.status}, pull {pull}, errorest "
@@ -496,6 +563,14 @@ def vegas_run(label, g, expect, events=False, **kw):
     if clock.sampler_routes["paired"] != clock.launches["vegas_sample"]:
         fail(f"{label}: the sampler's launches by route are "
              f"{clock.sampler_routes}; all should take the paired route")
+    hist_route, resolve_route = (("generic", "generic") if lookups == "generic"
+                                 else ("grouped", "sample"))
+    if (clock.hist_routes[hist_route] != clock.launches["vegas_hist"]
+            or clock.resolve_routes[resolve_route]
+            != clock.launches["vegas_bin_resolve"]):
+        fail(f"{label}: the lookups' launches by route are histogram "
+             f"{clock.hist_routes}, bin resolve {clock.resolve_routes}; all "
+             f"should take the {hist_route} and the {resolve_route} route")
     return res, clock.launches, wall
 
 
@@ -518,9 +593,23 @@ def vegas_main_path(dev):
     vegas_run("run 2 with an event pair around each launch", g6, sh,
               events=True, epsrel=1e-3, ncall=1e9, eval_dtype=torch.float32,
               total_iters=10, adjust_iters=5)
-    _, l3, walls["run3"] = vegas_run(
+    r3, l3, walls["run3"] = vegas_run(
         "run 3, f64 grid ncall 1e8", g6, {"vegas_bin_resolve", "vegas_hist"},
         epsrel=1e-3, ncall=1e8, importance="grid")
+    # the same run on the first design's lookups: the bin resolve's routes
+    # agree bit for bit, so any other estimate comes from the histogram's
+    # order of addition
+    r3g, _, walls["run3_generic"] = vegas_run(
+        "run 3 with both lookups forced to 'generic'", g6,
+        {"vegas_bin_resolve", "vegas_hist"}, lookups="generic", epsrel=1e-3,
+        ncall=1e8, importance="grid")
+    same = (r3g.estimate, r3g.errorest) == (r3.estimate, r3.errorest)
+    print(f"phase 6: run 3 on the generic lookups: estimate {r3g.estimate!r} "
+          f"errorest {r3g.errorest!r}, {'EQUAL to' if same else 'not equal to'}"
+          f" the grouped/sample run's; run 3 at commit 756fd3a (the same "
+          f"generic lookups) gave {GENERIC_RUN3_ESTIMATE!r}: "
+          f"{'equal' if r3g.estimate == GENERIC_RUN3_ESTIMATE else 'NOT equal'}",
+          flush=True)
 
     g3 = genz.f4_gaussian(3, a=5.0)
     kw = dict(epsrel=1e-3, ncall=5e4, total_iters=10, adjust_iters=6, seed=2)
@@ -599,20 +688,56 @@ def vegas_times(dev, err, launches, walls):
         "modes_ms": {k: v[0] for k, v in sampler_ms.items()},
         "modes_generic_route_ms": {k: v[4] for k, v in sampler_ms.items()}})
 
-    # the histogram on the ids and f^2 that the fused sampler emits
+    def both_routes(routed, first):
+        """(first route's ms, generic route's ms, the four series): the two
+        routes in turns, first, generic, generic, first, in this call."""
+        t = [queued_ms(routed(r), 5)
+             for r in (first, "generic", "generic", first)]
+        return min(t[0], t[3]), min(t[1], t[2]), t
+
+    # the histogram as the main path calls it: accumulating, on the ids and
+    # f^2 the fused sampler emits (run 2), and on 1-based ids with f^2 in
+    # f64 (runs 1 and 3 have f64 values; run 3 1-based ids)
     _, ia, f2 = cuda_vegas.sample_chunk(
         pmap, g4, case["ng"], npg, case["chunk_cubes"], nbins, True, *tail)
-    ia64 = ia.to(torch.int64)
-    ms = queued_ms(lambda: cuda_lookup.hist(ia, f2, nbins), 5)
-    plain = time_ms(lambda: cuda_lookup.hist_plain(ia, f2, nbins), 2)
-    lib = queued_ms(lambda: [torch.bincount(ia64[d], weights=f2,
-                                            minlength=nbins)
-                             for d in range(ndim)], 5)
-    hist_ms = ms
-    b = bytes_bound_ms(n * (4 * ndim + 4) + 4 * ndim * nbins)
-    print(f"phase 7: histogram, {n} samples: kernel {ms:.4f} ms, plain "
-          f"{plain:.3f} ms, torch.bincount per dimension {lib:.4f} ms, bound "
-          f"{b:.4f} ms (bytes, {100 * b / ms:.1f}% of it)", flush=True)
+    ia1, f2_64 = ia + 1, f2.double()
+    acc = torch.zeros((ndim, nbins), dtype=torch.float32, device=dev)
+    hist_ms = {}
+    for form, ids, vals, base in (("fused", ia, f2, 0),
+                                  ("grid", ia1, f2_64, 1)):
+        ms, generic, t = both_routes(
+            lambda route: lambda: cuda_lookup.hist_accum(
+                acc, ids, vals, nbins, base=base, route=route), "grouped")
+        plain = time_ms(lambda: cuda_lookup.hist_accum_plain(
+            acc, ids, vals, nbins, base=base), 2)
+        ids64 = (ids - base).to(torch.int64)
+        vals32 = vals.to(torch.float32)
+        lib = queued_ms(lambda: torch.clamp(acc + torch.stack([
+            torch.bincount(ids64[d], weights=vals32, minlength=nbins)
+            for d in range(ndim)]), max=cuda_lookup.HIST_CAP), 5)
+        b = bytes_bound_ms(n * (4 * ndim + vals.element_size())
+                           + 2 * 4 * ndim * nbins)
+        hist_ms[form] = (ms, generic, plain, lib, b)
+        warps, clusters = cuda_lookup.hist_plan(n, ndim, nbins)
+        print(f"phase 7: histogram accumulating, {form} form ({n} samples, "
+              f"ids {base}-based, f2 {vals.dtype}): grouped route {ms:.4f} "
+              f"ms (two series {t[0]:.4f}, {t[3]:.4f}), generic route "
+              f"{generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}; its kernel, the sum "
+              f"over blocks, the add and the clamp{', ids - 1 and f2 to f32' if base else ''}), "
+              f"plain {plain:.3f} ms, torch.bincount per dimension + add + "
+              f"clamp {lib:.4f} ms, bound {b:.4f} ms (bytes, "
+              f"{100 * b / ms:.1f}% of it; generic {100 * b / generic:.1f}%); "
+              f"grouped launch: {clusters} clusters of "
+              f"{cuda_lookup.HIST_CLUSTER} blocks of {warps} warps",
+              flush=True)
+    # what a grouped launch costs whatever its size: zeroing the rows, the
+    # reductions over warps, blocks and clusters
+    small_ids, small_vals = ia[:, :4096].contiguous(), f2[:4096].contiguous()
+    small = queued_ms(lambda: cuda_lookup.hist_accum(acc, small_ids,
+                                                     small_vals, nbins), 5)
+    print(f"phase 7: histogram accumulating, grouped route on 4096 samples "
+          f"(a launch's cost whatever its size): {small:.4f} ms", flush=True)
+    ms, generic, plain, lib, b = hist_ms["fused"]
     entries.append({
         "name": "vegas_hist", "route": "cuda",
         "source": "gpuintegration_torch/csrc/vegas_lookup.cu",
@@ -620,33 +745,48 @@ def vegas_times(dev, err, launches, walls):
         "launches": launches["run1"]["vegas_hist"],
         "launches_by_run": {r: c["vegas_hist"] for r, c in launches.items()},
         "max_abs_err": err["vegas_hist"], "ms": ms, "plain_ms": plain,
-        "bound_ms": b, "bound_by": "bytes", "library_ms": lib})
+        "bound_ms": b, "bound_by": "bytes", "library_ms": lib,
+        "generic_route_ms": generic,
+        "grid_form_ms": hist_ms["grid"][0],
+        "grid_form_generic_route_ms": hist_ms["grid"][1],
+        "launch_of_4096_samples_ms": small})
 
-    # the bin resolve as run 3 launches it: xn drawn in the kernel, ids out
+    # the bin resolve as run 3 launches it: xn drawn in the kernel, ids out;
+    # and given xn
     xi32 = torch.as_tensor(vegas_check.random_grid(ndim, nbins, 0),
                            dtype=torch.float32, device=dev)
     rargs = (xi32, nbins, case["ng"], npg, case["chunk_cubes"],
              case["cube0"], case["ncubes"], 0, 1)
-    ms = queued_ms(lambda: cuda_lookup.bin_resolve_stratified(
-        *rargs, with_ia=True), 5)
+    ms, generic, t = both_routes(
+        lambda route: lambda: cuda_lookup.bin_resolve_stratified(
+            *rargs, with_ia=True, route=route), "sample")
     plain = time_ms(lambda: cuda_lookup.bin_resolve_stratified_plain(
         *rargs, with_ia=True), 2)
     xn, _ = cuda_lookup.stratified_xn_plain(
         ndim, case["ng"], npg, nbins, case["chunk_cubes"], case["cube0"],
         case["ncubes"], 0, 1, dev)
     xn = xn.contiguous()
-    ms_given = queued_ms(lambda: cuda_lookup.bin_resolve(xi32, xn, nbins,
-                                                         with_ia=True), 5)
+    given, given_generic, tg = both_routes(
+        lambda route: lambda: cuda_lookup.bin_resolve(
+            xi32, xn, nbins, with_ia=True, route=route), "sample")
     idx = torch.clamp(xn.to(torch.int64), 1, nbins)
     idx_lo = idx - 1
     lib = queued_ms(lambda: (torch.gather(xi32, 1, idx_lo),
                              torch.gather(xi32, 1, idx)), 5)
     resolve_ms = ms
-    b = bytes_bound_ms(n * ndim * 12 + 4 * ndim * (nbins + 1))
-    print(f"phase 7: bin resolve, {n} samples x {ndim}: kernel drawing xn "
-          f"{ms:.4f} ms, given xn {ms_given:.4f} ms, plain {plain:.2f} ms, "
-          f"two torch.gather {lib:.4f} ms, bound {b:.4f} ms (bytes, "
-          f"{100 * b / ms:.1f}% of it)", flush=True)
+    edges = 4 * ndim * (nbins + 1)
+    b = bytes_bound_ms(n * ndim * 12 + edges)
+    b_given = bytes_bound_ms(n * ndim * 16 + edges)
+    print(f"phase 7: bin resolve drawing xn, {n} samples x {ndim}: sample "
+          f"route {ms:.4f} ms (two series {t[0]:.4f}, {t[3]:.4f}), generic "
+          f"route {generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain "
+          f"{plain:.2f} ms, bound {b:.4f} ms (bytes, {100 * b / ms:.1f}% of "
+          f"it; generic {100 * b / generic:.1f}%); given xn: sample route "
+          f"{given:.4f} ms ({tg[0]:.4f}, {tg[3]:.4f}), generic route "
+          f"{given_generic:.4f} ms ({tg[1]:.4f}, {tg[2]:.4f}), bound "
+          f"{b_given:.4f} ms ({100 * b_given / given:.1f}%), two "
+          f"torch.gather (the edges alone, no rc, xo or ia) {lib:.4f} ms",
+          flush=True)
     entries.append({
         "name": "vegas_bin_resolve", "route": "cuda",
         "source": "gpuintegration_torch/csrc/vegas_lookup.cu",
@@ -655,15 +795,17 @@ def vegas_times(dev, err, launches, walls):
         "launches_by_run": {r: c["vegas_bin_resolve"]
                             for r, c in launches.items()},
         "max_abs_err": err["vegas_bin_resolve"], "ms": ms, "plain_ms": plain,
-        "bound_ms": b, "bound_by": "bytes", "library_ms": lib,
-        "given_xn_ms": ms_given})
+        "bound_ms": b, "bound_by": "bytes", "library_ms": None,
+        "generic_route_ms": generic,
+        "given_xn_ms": given, "given_xn_generic_route_ms": given_generic,
+        "given_xn_library_ms_edges_only": lib})
 
     ids = idx.T.reshape(case["chunk_cubes"], npg, ndim).to(
         torch.int32).contiguous()
     ms = queued_ms(lambda: cuda_lookup.edge_lookup(xi32, ids, nbins), 5)
     plain = time_ms(lambda: cuda_lookup.edge_lookup_plain(xi32, ids, nbins),
                     2)
-    b = bytes_bound_ms(n * ndim * 12 + 4 * ndim * (nbins + 1))
+    b = bytes_bound_ms(n * ndim * 12 + edges)
     print(f"phase 7: edge lookup, {n} samples x {ndim}: kernel {ms:.4f} ms, "
           f"plain {plain:.3f} ms, two torch.gather {lib:.4f} ms, bound "
           f"{b:.4f} ms (bytes, {100 * b / ms:.1f}% of it)", flush=True)
@@ -681,14 +823,14 @@ def vegas_times(dev, err, launches, walls):
     # what the card was busy with in each run: launches times the time of a
     # kernel alone, against the run's wall
     adj = {"run1": (sampler_ms["emit+hist (run 1, adjusting)"][0],
-                    sampler_ms["emit (run 1, frozen)"][0]),
+                    sampler_ms["emit (run 1, frozen)"][0], "grid"),
            "run2": (sampler_ms["fused F4+hist (run 2, adjusting)"][0],
-                    sampler_ms["fused F4 (run 2, frozen)"][0]),
-           "run3": (resolve_ms, resolve_ms)}
-    for run, (with_hist_ms, bare_ms) in adj.items():
+                    sampler_ms["fused F4 (run 2, frozen)"][0], "fused"),
+           "run3": (resolve_ms, resolve_ms, "grid")}
+    for run, (with_hist_ms, bare_ms, form) in adj.items():
         c = launches[run]
         first = c["vegas_sample"] + c["vegas_bin_resolve"]
-        busy = (c["vegas_hist"] * (with_hist_ms + hist_ms)
+        busy = (c["vegas_hist"] * (with_hist_ms + hist_ms[form][0])
                 + (first - c["vegas_hist"]) * bare_ms) / 1e3
         print(f"phase 7: {run}: its kernels alone would take {busy:.4f} s "
               f"({first} + {c['vegas_hist']} launches at the times above) of "

@@ -52,8 +52,9 @@
 //     other's.  The order of operations within a chain is the generic
 //     kernel's, so coordinates and weights keep their bits;
 //   * the cube id is decoded with 32-bit arithmetic and the reciprocal of
-//     ng (cuda_vegas.decode_reciprocal) when the lattice has fewer than
-//     2^32 cubes; 64-bit divisions remain for larger lattices;
+//     ng (stream.decode_reciprocal) when the lattice has fewer than
+//     2^32 cubes; 64-bit divisions remain for larger lattices (philox.cuh
+//     cube_digits, which the bin resolve shares);
 //   * a pair's outputs are stored as 8-byte words when npg is even, so a
 //     warp writes whole sectors.
 //
@@ -445,30 +446,11 @@ sample_pair_kernel(const SampleArgs a) {
     }
 
     // mixed-radix digits of the cube, most significant first, 0-based
+    unsigned digit[NDIM];
+    cube_digits<NDIM>(cube, ng, a.recip, small, digit);
     float kg[NDIM];
-    if (small) {
-      // q = floor(m / ng) from the reciprocal: the estimate is q or q - 1
-      unsigned m = static_cast<unsigned>(cube);
 #pragma unroll
-      for (int d = NDIM - 1; d >= 0; --d) {
-        unsigned q = __umulhi(m, a.recip);
-        unsigned r = m - q * ng;
-        if (r >= ng) {
-          r -= ng;
-          ++q;
-        }
-        kg[d] = static_cast<float>(r);
-        m = q;
-      }
-    } else {
-      unsigned long long m = static_cast<unsigned long long>(cube);
-#pragma unroll
-      for (int d = NDIM - 1; d >= 0; --d) {
-        const unsigned long long t = m / ng;
-        kg[d] = static_cast<float>(m - t * ng);
-        m = t;
-      }
-    }
+    for (int d = 0; d < NDIM; ++d) kg[d] = static_cast<float>(digit[d]);
 
     float fb = 0.0f, f2s = 0.0f;
     for (int ps = 0; ps < npg; ps += 2)

@@ -20,9 +20,9 @@ shape alone (never by catching a failure):
   that the loops run four terms a pass without a test of the term index; a
   cube's samples go through the recurrence two at a time, one load feeding
   two independent chains; the cube id is decoded in 32-bit arithmetic with
-  the reciprocal of ng (``decode_reciprocal``) when the lattice has fewer
-  than 2^32 cubes; a pair's outputs are stored as 8-byte words.  Within a
-  chain the order of operations is the generic kernel's.
+  the reciprocal of ng (``stream.decode_reciprocal``) when the lattice has
+  fewer than 2^32 cubes; a pair's outputs are stored as 8-byte words.
+  Within a chain the order of operations is the generic kernel's.
 * ``'generic'``, every ndim 1..16: run-time loops over sample slots,
   dimensions and terms, one 4-byte coefficient load per multiply-add, a
   64-bit decode.  It is also the kernel the paired route is timed against.
@@ -159,26 +159,6 @@ def unpack_map(packed: torch.Tensor, ndim: int, kp: int, kq: int):
     q = joint[:, :, 1].reshape(ndim, -1)
     rest = packed[ndim * (kp4 + kq4):]
     return p[:, :kp], q[:, :kq], rest[:ndim], rest[ndim:]
-
-
-def decode_reciprocal(ng: int) -> int:
-    """The 32-bit word M = min(floor(2^32 / ng), 2^32 - 1) with which the
-    paired kernel divides by ng: for every m < 2^32, (m * M) >> 32 is
-    floor(m / ng) or one less (``reciprocal_divmod``)."""
-    if not 1 <= ng < 2 ** 32:
-        raise ValueError(f"ng={ng} (1 .. 2^32 - 1)")
-    return min(2 ** 32 // ng, 2 ** 32 - 1)
-
-
-def reciprocal_divmod(m, ng: int, recip: int):
-    """(m // ng, m % ng) of 32-bit words ``m`` (a uint64 array of values
-    below 2^32) by the kernel's steps: the high word of m * recip, one
-    multiply and subtract, and one correction."""
-    m = np.asarray(m, dtype=np.uint64)
-    q = (m * np.uint64(recip)) >> np.uint64(32)
-    r = m - q * np.uint64(ng)
-    over = r >= np.uint64(ng)
-    return q + over, r - over * np.uint64(ng)
 
 
 def sampler_route(ndim: int, kp: int, kq: int) -> str:
@@ -361,7 +341,7 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
     else:
         table = pmap.table
     rc = cuda_build.load(_SOURCE, _configure).vegas_sample_launch(
-        int(route == "paired"), kp4, kq4, decode_reciprocal(ng),
+        int(route == "paired"), kp4, kq4, stream.decode_reciprocal(ng),
         family, blocks, table.data_ptr(), ptr(bits), ptr(partial),
         ptr(xs), ptr(wt), ptr(ia), ptr(f2), int(cube0), int(ncubes),
         chunk_cubes, ndim, ng, npg, kp, kq, nbins,

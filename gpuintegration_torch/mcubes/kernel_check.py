@@ -36,8 +36,10 @@ own rounding scale:
 
 ULPS holds the limits, a small factor above the largest readings taken on
 an H100 (PERF.md).  The histogram is held to the plain version within
-HIST_RTOL per bin, and to itself bitwise across two launches.  The bin
-resolve's ``rc`` is held to RC_ULP ulps of its value.
+HIST_RTOL per bin, and to itself bitwise across two launches; its routes
+add in different orders, so they agree within HIST_RTOL, not bitwise.  The
+bin resolve's ``rc`` is held to RC_ULP ulps of its value; its routes
+compute alike and must be EQUAL.
 """
 from __future__ import annotations
 
@@ -351,17 +353,23 @@ def check_stream(case, *, seed: int = 0, iteration: int = 1,
     return {"samples": k[1].numel(), "uniforms": k[0].numel()}
 
 
+def _hist_case(ndim: int, n: int, nbins: int, seed: int, device):
+    """Bin ids (ndim, n) int32 and f2 (n,) f32 of a wide dynamic range, an
+    inf and a value above the cap among them."""
+    rng = np.random.default_rng(seed)
+    ia = torch.as_tensor(rng.integers(0, nbins, (ndim, n), dtype=np.int32),
+                         device=device)
+    f2_np = rng.random(n, dtype=np.float32) ** 8
+    f2_np[:2] = [np.inf, 1e38]
+    return ia, torch.as_tensor(f2_np, device=device)
+
+
 def check_hist(ndim: int, n: int, nbins: int, *, seed: int = 0,
                device="cuda"):
     """The histogram kernel against ``hist_plain`` within HIST_RTOL per
     bin, two launches bitwise equal, and an inf and a value above the cap
     in f2 leaving every bin finite."""
-    rng = np.random.default_rng(seed)
-    ia = torch.as_tensor(rng.integers(0, nbins, (ndim, n), dtype=np.int32),
-                         device=device)
-    f2_np = rng.random(n, dtype=np.float32) ** 8      # a wide dynamic range
-    f2_np[:2] = [np.inf, 1e38]
-    f2 = torch.as_tensor(f2_np, device=device)
+    ia, f2 = _hist_case(ndim, n, nbins, seed, device)
     k1 = cuda_lookup.hist(ia, f2, nbins)
     k2 = cuda_lookup.hist(ia, f2, nbins)
     p = cuda_lookup.hist_plain(ia, f2, nbins)
@@ -375,6 +383,66 @@ def check_hist(ndim: int, n: int, nbins: int, *, seed: int = 0,
                              f"version's, beyond {HIST_RTOL:g}")
     return {"samples": n, "max_rel": rel, "repeat_bitwise": True,
             "max_abs": _top((k1 - p).abs())}
+
+
+def _hist_rel(k, p) -> float:
+    return _top((k - p).abs() / p.abs().clamp_min(1e-30))
+
+
+def check_hist_routes(ndim: int, n: int, nbins: int, *, seed: int = 0,
+                      device="cuda"):
+    """Each histogram route that takes the shape (``hist_route`` names the
+    shape's own) against ``hist_plain`` within HIST_RTOL per bin, two
+    launches bitwise equal, every bin finite; f2 in f64 giving the bits of
+    f2 in f32.  The accumulating form, from an accumulator whose bins lie
+    near HIST_CAP, 0 and in between, with ids 1-based (base 1): within
+    HIST_RTOL of ``hist_accum_plain``, twice the same bits, and EQUAL to
+    min(d + the route's own histogram, HIST_CAP).  Returns the readings
+    per route."""
+    ia, f2 = _hist_case(ndim, n, nbins, seed, device)
+    p = cuda_lookup.hist_plain(ia, f2, nbins)
+    rng = np.random.default_rng(seed + 1)
+    d0 = rng.random((ndim, nbins)) * cuda_lookup.HIST_CAP
+    d0[:, ::3] = 0.0
+    d0[:, 1::3] *= 1e-30
+    d0 = torch.as_tensor(d0, dtype=torch.float32, device=device)
+    acc_p = cuda_lookup.hist_accum_plain(d0, ia + 1, f2, nbins, base=1)
+    routes = [r for r in cuda_lookup.HIST_ROUTES
+              if r == "generic" or cuda_lookup.hist_route(ndim, nbins) == r]
+    out = {"samples": n, "routes": routes}
+    for route in routes:
+        label = f"histogram ({route} route)"
+        k1, k2 = (cuda_lookup.hist(ia, f2, nbins, route=route)
+                  for _ in range(2))
+        a1, a2 = (cuda_lookup.hist_accum(d0.clone(), ia + 1, f2, nbins,
+                                         base=1, route=route)
+                  for _ in range(2))
+        if not (torch.equal(k1, k2) and torch.equal(a1, a2)):
+            raise AssertionError(f"{label}: two launches on one input differ")
+        if route == "grouped" and not torch.equal(
+                cuda_lookup.hist(ia, f2.double(), nbins, route=route), k1):
+            raise AssertionError(f"{label}: f2 in f64 gives other bits than "
+                                 "f2 in f32")
+        if not (bool(torch.isfinite(k1).all())
+                and bool(torch.isfinite(a1).all())):
+            raise AssertionError(f"{label}: a non-finite bin")
+        if not torch.equal(a1, torch.clamp(d0 + k1,
+                                           max=cuda_lookup.HIST_CAP)):
+            raise AssertionError(f"{label}: the accumulating form is not "
+                                 "min(d + the histogram, HIST_CAP)")
+        rel, rel_acc = _hist_rel(k1, p), _hist_rel(a1, acc_p)
+        if not max(rel, rel_acc) <= HIST_RTOL:
+            raise AssertionError(f"{label}: a bin {max(rel, rel_acc):.3g} "
+                                 "from the plain version's, beyond "
+                                 f"{HIST_RTOL:g}")
+        out[route] = {"max_rel": rel, "accum_max_rel": rel_acc,
+                      "max_abs": _top((k1 - p).abs()), "hist": k1}
+    if len(routes) == 2:
+        out["between_routes_max_rel"] = _hist_rel(out["grouped"]["hist"],
+                                                  out["generic"]["hist"])
+    for route in routes:
+        del out[route]["hist"]
+    return out
 
 
 def _ulp_gap(a, b) -> int:
@@ -428,6 +496,59 @@ def _judge_resolve(label, k, p, n):
                              f"version's, beyond {RC_ULP}")
     return {"samples": n, "rc_ulps": gap,
             "max_abs": _top((k[0] - p[0]).abs())}
+
+
+def check_resolve_routes(ndim: int, ncall: float, chunk_cubes: int,
+                         nbins: int, *, seed: int = 0, iteration: int = 1,
+                         device="cuda"):
+    """The bin-resolve routes against each other: rc, xo and ia EQUAL,
+    drawing xn at the chunk around the volume's centre and at the last
+    chunk shifted beyond the lattice's end, and given xn over n samples and
+    n - 3 (a ragged row); each also against the plain version (ia, xo
+    EQUAL, rc within RC_ULP)."""
+    ng, ncubes = V.compute_ncubes(ncall, ndim)
+    npg = V.samples_per_cube(ncall, ncubes)
+    chunk_cubes = min(chunk_cubes, ncubes)
+    xi32 = torch.as_tensor(random_grid(ndim, nbins, seed), dtype=torch.float32,
+                           device=device)
+    routes = [r for r in cuda_lookup.RESOLVE_ROUTES if r == "generic"
+              or cuda_lookup.resolve_route(ndim, nbins, chunk_cubes * npg) == r]
+    out = {"samples": chunk_cubes * npg, "routes": routes, "rc_ulps": 0}
+    cases = []
+    for position in ("middle", "end"):
+        args = (xi32, nbins, ng, npg, chunk_cubes,
+                _chunk_start(ng, ndim, ncubes, chunk_cubes, position), ncubes,
+                seed, iteration)
+        cases.append((f"drawing xn, chunk at the {position}",
+                      lambda route, args=args: cuda_lookup
+                      .bin_resolve_stratified(*args, with_ia=True,
+                                              route=route),
+                      cuda_lookup.bin_resolve_stratified_plain(
+                          *args, with_ia=True)))
+    rng = np.random.default_rng(seed)
+    for n in (chunk_cubes * npg, chunk_cubes * npg - 3):
+        xn = torch.as_tensor((1.0 + rng.random((ndim, n)) * nbins).astype(
+            np.float32), device=device).clamp_(max=float(np.nextafter(
+                np.float32(nbins + 1), np.float32(0))))
+        cases.append((f"given xn, {n} samples",
+                      lambda route, xn=xn: cuda_lookup.bin_resolve(
+                          xi32, xn, nbins, with_ia=True, route=route),
+                      cuda_lookup.bin_resolve_plain(xi32, xn, nbins,
+                                                    with_ia=True)))
+    for label, run, plain in cases:
+        got = {}
+        for route in routes:
+            got[route] = run(route)
+            r = _judge_resolve(f"bin_resolve ({route} route, {label})",
+                               got[route], plain, out["samples"])
+            out["rc_ulps"] = max(out["rc_ulps"], r["rc_ulps"])
+        for name, a, b in zip(("rc", "xo", "ia"), got[routes[0]],
+                              got[routes[-1]]):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"bin_resolve ({label}): {int((a != b).sum())} of "
+                    f"{a.numel()} {name} differ between the routes")
+    return out
 
 
 def check_edge_lookup(ndim: int, cubes: int, npg: int, nbins: int, *,

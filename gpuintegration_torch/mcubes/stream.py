@@ -1,6 +1,8 @@
 """The VEGAS sampling stream in plain PyTorch: the Philox4x32-10
 counter-based generator and the cube decode, word for word what
-csrc/philox.cuh computes on the card.
+csrc/philox.cuh computes on the card; beside the decode, the host side of
+the kernels' 32-bit reciprocal division (``decode_reciprocal``,
+``reciprocal_divmod``).
 
 The reference draws from Threefry (XLA path) or the TPU's hardware PRNG
 (Pallas path); neither exists here.  Philox has no state: the key is the
@@ -20,6 +22,7 @@ is split so that nothing exceeds 2^49.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -91,3 +94,23 @@ def decode_cube(cube_id, ng: int, ndim: int):
         digits.append(1 + t)
         m = m - t * p
     return torch.stack(digits, dim=-1)
+
+
+def decode_reciprocal(ng: int) -> int:
+    """The 32-bit word M = min(floor(2^32 / ng), 2^32 - 1) with which the
+    kernels divide by ng (philox.cuh): for every m < 2^32, (m * M) >> 32 is
+    floor(m / ng) or one less (``reciprocal_divmod``)."""
+    if not 1 <= ng < 2 ** 32:
+        raise ValueError(f"ng={ng} (1 .. 2^32 - 1)")
+    return min(2 ** 32 // ng, 2 ** 32 - 1)
+
+
+def reciprocal_divmod(m, ng: int, recip: int):
+    """(m // ng, m % ng) of 32-bit words ``m`` (a uint64 array of values
+    below 2^32) by the kernels' steps: the high word of m * recip, one
+    multiply and subtract, and one correction."""
+    m = np.asarray(m, dtype=np.uint64)
+    q = (m * np.uint64(recip)) >> np.uint64(32)
+    r = m - q * np.uint64(ng)
+    over = r >= np.uint64(ng)
+    return q + over, r - over * np.uint64(ng)

@@ -92,7 +92,8 @@ _decode_cube = stream.decode_cube
 
 def _hist_accum(d, chunk_hist):
     """Add one chunk's adaptation histogram, saturating at HIST_CAP
-    (cuda_lookup.HIST_CAP note)."""
+    (cuda_lookup.HIST_CAP note): the JAX package's ``_hist_accum``, which
+    ``cuda_lookup.hist_accum`` and ``hist_accum_plain`` compute."""
     return torch.clamp(d + chunk_hist, max=_HIST_CAP)
 
 
@@ -194,9 +195,10 @@ def _vegas_iteration(
         if accumulate_hist:
             # deterministic replacement for atomicAdd(&d[bin,dim], f^2)
             # (vegasT.cuh:309-313); the histogram only steers grid
-            # adaptation, so f32 suffices
-            h = cuda_lookup.hist_plain if plain else cuda_lookup.hist
-            d = _hist_accum(d, h(ia - 1, f2.to(f32).reshape(-1), nbins))
+            # adaptation, so f32 suffices.  ia is 1-based.
+            accum = (cuda_lookup.hist_accum_plain if plain
+                     else cuda_lookup.hist_accum)
+            d = accum(d, ia, f2, nbins, base=1)
     return sums, d
 
 
@@ -231,7 +233,7 @@ def _vegas_iteration_poly(
 
     ``sampler='torch'``: the plain PyTorch chunk body (the reference's
     'xla'): unit-space map in f32, then x = lo + P(s) dx in the evaluation
-    type, histogram by ``hist_plain``.  ``'fused'`` (the reference's
+    type, histogram by ``hist_accum_plain``.  ``'fused'`` (the reference's
     'pallas'): the whole chunk body in the sampler kernel
     (cuda_vegas.sample_chunk), the integrand ``integrand`` being a Genz
     family evaluated in f32.  ``'hybrid'``: the kernel runs only the
@@ -255,7 +257,7 @@ def _vegas_iteration_poly(
                 bits=bits)
             sums = sums + chunk_sums.to(dtype)
             if accumulate_hist:
-                d = _hist_accum(d, cuda_lookup.hist(ia, f2, nbins))
+                d = cuda_lookup.hist_accum(d, ia, f2, nbins)
             continue
         if sampler == "hybrid":
             xs, wt, ia = cuda_vegas.sample_chunk(
@@ -265,7 +267,7 @@ def _vegas_iteration_poly(
             # integrand evaluation in the evaluation type on the emitted
             # dims-major f32 coordinates
             fx = f(xs.to(ed).T).to(dtype) * (wt.to(dtype) * xjac)
-            hist_fn = cuda_lookup.hist
+            accum = cuda_lookup.hist_accum
         else:
             cube = cube0 + torch.arange(chunk_cubes, dtype=torch.int64,
                                         device=dev)
@@ -286,11 +288,11 @@ def _vegas_iteration_poly(
             fx = (f(x).to(dtype) * (xjac * wgt_imp.to(dtype))).reshape(-1)
             if accumulate_hist:
                 ia = torch.clamp((s * nbins).to(torch.int32), 0, nbins - 1)
-            hist_fn = cuda_lookup.hist_plain
+            accum = cuda_lookup.hist_accum_plain
         chunk_sums, f2 = _cube_sums(fx.view(chunk_cubes, npg), valid, npg)
         sums = sums + chunk_sums
         if accumulate_hist:
-            d = _hist_accum(d, hist_fn(ia, f2.to(f32).reshape(-1), nbins))
+            d = accum(d, ia, f2, nbins)
     return sums, d
 
 

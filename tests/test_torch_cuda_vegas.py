@@ -93,11 +93,16 @@ def test_run_on_card_matches_cpu_and_launches_kernels(kw, cpu_sampler, counts):
     args = dict(epsrel=1e-3, ncall=5e4, total_iters=10, adjust_iters=6,
                 seed=2, **kw)
     cuda_vegas.launches = 0
-    cuda_lookup.hist_launches = cuda_lookup.bin_resolve_launches = 0
+    cuda_lookup.reset_launches()
     on_card = integrate(g, **args)
     got = (cuda_vegas.launches > 0, cuda_lookup.hist_launches > 0,
            cuda_lookup.bin_resolve_launches > 0)
     assert got == counts
+    # every launch of the lookups by the route built for the card
+    assert cuda_lookup.hist_route_launches == {
+        "grouped": cuda_lookup.hist_launches, "generic": 0}
+    assert cuda_lookup.resolve_route_launches == {
+        "sample": cuda_lookup.bin_resolve_launches, "generic": 0}
     again = integrate(g, **args)
     assert (again.estimate, again.errorest) == (on_card.estimate,
                                                 on_card.errorest)
@@ -245,3 +250,66 @@ def test_sampler_against_the_f64_witness_on_card(ndim, ncall, chunk, degree,
             for side in ("kernel", "plain"):
                 floors = w[f"{side}_f2b_floors"]
                 assert abs(floors - round(floors)) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ndim,nbins", [(6, 50), (6, 500), (6, 2048),
+                                        (1, 11), (8, 500), (8, 2048),
+                                        (16, 500), (8, 908), (8, 1815),
+                                        (8, 1816)])
+@pytest.mark.parametrize("n", [30_011, 1 << 18])
+def test_both_hist_routes_match_plain_on_card(ndim, nbins, n):
+    """Each histogram route against the plain version within HIST_RTOL,
+    twice the same bits, f2 in f64 as in f32, the accumulating form from
+    bins near the cap EQUAL to min(d + the route's histogram, cap).  At 8D
+    the rows of 4 warps fill the shared memory up to 1815 bins (908: 8
+    warps' rows would fill it exactly, so 4 warps take it); from 1816 bins
+    they do not fit beside the kernel's static shared memory, and 16D is
+    not compiled: those shapes take the generic route."""
+    _card()
+    r = kernel_check.check_hist_routes(ndim, n, nbins)
+    fits = cuda_lookup.hist_route(ndim, nbins) == "grouped"
+    assert fits == ((ndim, nbins) not in ((8, 2048), (16, 500), (8, 1816)))
+    assert r["routes"] == (["grouped", "generic"] if fits else ["generic"])
+    if fits:
+        assert r["between_routes_max_rel"] <= 2 * kernel_check.HIST_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins", [50, 500, 2048])
+@pytest.mark.parametrize("ndim,ncall,chunk", [
+    (6, 1e8, 1 << 16), (6, 3e6, 4099), (3, 5e4, 999), (1, 2e4, 4096),
+    (8, 1e7, 4096), (8, 5.2e10, 4096), (9, 4e6, 2048)])
+def test_resolve_routes_equal_on_card(ndim, ncall, chunk, nbins):
+    """rc, xo, ia EQUAL between the routes, drawing xn (the main path's
+    lattice, odd npg and chunk, one dimension, a lattice of 20^8 > 2^32
+    cubes) at the centre and at the lattice's ragged end, and given xn over
+    a row of a multiple of 4 samples and a ragged one; each route against
+    the plain version.  9D has the generic route only."""
+    _card()
+    r = kernel_check.check_resolve_routes(ndim, ncall, chunk, nbins)
+    assert r["routes"] == (["sample", "generic"] if ndim <= 8
+                           else ["generic"])
+    assert r["rc_ulps"] <= kernel_check.RC_ULP
+
+
+@pytest.mark.gpu
+def test_lookup_launches_are_counted_by_route_on_card():
+    """The main path's shapes take the grouped and the sample routes; a
+    named route runs that kernel; a route that lacks the shape raises."""
+    _card()
+    cuda_lookup.reset_launches()
+    kernel_check.check_hist(6, 4096, 500)
+    assert cuda_lookup.hist_route_launches == {"grouped": 2, "generic": 0}
+    kernel_check.check_bin_resolve(6, 4096, 500)
+    assert cuda_lookup.resolve_route_launches == {"sample": 1, "generic": 0}
+    ia = torch.zeros((8, 64), dtype=torch.int32, device="cuda")
+    f2 = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError, match="does not take"):
+        cuda_lookup.hist(ia, f2, 2048, route="grouped")
+    xi = torch.zeros((9, 51), device="cuda")
+    with pytest.raises(ValueError, match="does not take"):
+        cuda_lookup.bin_resolve(xi, torch.ones((9, 64), device="cuda"), 50,
+                                route="sample")
+    assert cuda_lookup.hist_launches == 2
+    assert cuda_lookup.bin_resolve_launches == 1

@@ -186,11 +186,11 @@ def test_packed_map_unpacks_to_the_map(ndim, kp, kq):
 def test_reciprocal_divmod_is_exact(ng, m):
     """The kernel's division by ng (high word of the product with the
     reciprocal, one correction) equals // and % on every 32-bit word."""
-    recip = cuda_vegas.decode_reciprocal(ng)
+    recip = stream.decode_reciprocal(ng)
     assert 1 <= recip < 2 ** 32
     for word in (m, ng - 1, ng, min(ng + 1, 2 ** 32 - 1), 2 ** 32 - 1,
                  (m // ng) * ng, max((m // ng) * ng - 1, 0)):
-        q, r = cuda_vegas.reciprocal_divmod([word], ng, recip)
+        q, r = stream.reciprocal_divmod([word], ng, recip)
         assert (int(q[0]), int(r[0])) == divmod(word, ng)
 
 
@@ -205,11 +205,11 @@ def test_reciprocal_decode_gives_the_cube_digits(ng):
     rng = np.random.default_rng(ng)
     cubes = np.unique(np.concatenate([
         rng.integers(0, ncubes, 2000), [0, ncubes - 1, ncubes // 2]]))
-    recip = cuda_vegas.decode_reciprocal(ng)
+    recip = stream.decode_reciprocal(ng)
     m = cubes.astype(np.uint64)
     digits = np.zeros((cubes.size, ndim), dtype=np.int64)
     for d in range(ndim - 1, -1, -1):
-        m, r = cuda_vegas.reciprocal_divmod(m, ng, recip)
+        m, r = stream.reciprocal_divmod(m, ng, recip)
         digits[:, d] = r.astype(np.int64)
     want = stream.decode_cube(torch.as_tensor(cubes, dtype=torch.int64), ng,
                               ndim).numpy() - 1
