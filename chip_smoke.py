@@ -4,16 +4,17 @@
 
 Builds the CUDA kernels from the sources, holds each against its plain
 PyTorch version, drives PAGANI's ``Workspace.integrate`` at 8D and the
-VEGAS ``mcubes.integrate`` at 6D through them, and times them.  Imports no
-JAX.  Phases (any failure exits non-zero and prints no result line; each
+VEGAS ``mcubes.integrate`` at 6D and the differentiable estimates of
+``gpuintegration_torch.diff`` at 6D through them, and times them.  Imports
+no JAX.  Phases (any failure exits non-zero and prints no result line; each
 prints its seconds):
 
-The rule kernel, the sampler, the histogram and the bin resolve each have
-two routes, chosen by the shape: the one built for this card ('tile',
-'paired', 'grouped', 'sample') and the generic one, which is the earlier
-design.  The main paths must go through the first; the generic routes are
-held against the first and the plain versions, and timed beside the
-others in the same run.
+The rule kernel, the sampler, the histogram, the bin resolve and the edge
+lookup each have two routes, chosen by the shape: the one built for this
+card ('tile', 'paired', 'grouped', 'sample', 'vector') and the generic one,
+which is the earlier design.  The main paths must go through the first; the
+generic routes are held against the first and the plain versions, and
+timed beside the others in the same run.
 
 1. the card's name and power limit; the nvcc builds (all sources started
    together), their seconds and ptxas's registers and spills; the
@@ -48,7 +49,10 @@ others in the same run.
    both routes of the histogram (each against the plain version, twice
    the same bits, the accumulating form from bins near the cap) and of the
    bin resolve (rc, xo, ia EQUAL between the routes, drawing xn at the
-   centre and at the lattice's end, and given xn over a ragged row);
+   centre and at the lattice's end, and given xn over a ragged row) and of
+   the edge lookup (EQUAL to the plain version and to each other, on
+   random ids, on ids off a 16-byte boundary and on a chunk's stratified
+   ids);
 6. the VEGAS main path, 6D Genz F4 (a = 25), epsabs 1e-40: (1) the
    default ``integrate(f, epsrel=1e-3, ncall=1e8)`` (f64, poly map,
    sampler 'hybrid'); (2) ``eval_dtype=float32, ncall=1e9, total_iters=10,
@@ -65,12 +69,26 @@ others in the same run.
    share of the wall the launches are; a 3D run on the card must agree with the same run on the
    CPU;
 7. the VEGAS kernels' times at the main path's shapes, the sampler, the
-   histogram (accumulating, as the main paths call it) and the bin resolve
-   (drawing xn, and given xn) on both routes in turns, best of 5 series of
+   histogram (accumulating, as the main paths call it), the bin resolve
+   (drawing xn, and given xn) and the edge lookup (a chunk's stratified ids
+   and uniformly random ids) on both routes in turns, best of 5 series of
    launches back to back (``queued_ms``), beside the plain versions', a
    bound, and one PyTorch call computing the same function where there is
    one;
-8. the ``kernels`` JSON line, then the card line and the result line.
+8. the diff path, 6D, 500 bins, gauss(x, a) = exp(-a sum (x - 1/2)^2) at
+   a = 25: ``train_grid`` (ncall 1e7, 10 adjusting iterations, sampler and
+   histogram by their card routes); ``frozen_grid_estimate`` on 2^24
+   samples (within 5 errorests of the closed form), its ``torch.func.grad``
+   (within 5 % of dI/da and 1e-5 of the common-random-number central
+   difference), a ``vmap`` over 4 thetas (the loop's numbers within
+   1e-12), the edge lookups counted (set to 0 before and read after; all
+   by the vector route, one inside ``grad`` at least) and timed at this
+   shape; ``fixed_mesh_integral`` on 6^6 regions (estimate within 1e-9 and
+   gradient within 1e-7 of the closed forms: the JAX package reads
+   2.0e-11 and 2.7e-9 there on the CPU); the checkpoint pipeline, a 3D
+   ``Workspace`` run, ``make_checkpoint``, ``mesh_from_checkpoint``,
+   ``fixed_mesh_integral``;
+9. the ``kernels`` JSON line, then the card line and the result line.
 """
 from __future__ import annotations
 
@@ -85,7 +103,7 @@ import time
 import numpy as np
 import torch
 
-from gpuintegration_torch import Workspace, mcubes
+from gpuintegration_torch import Workspace, diff, mcubes
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
 from gpuintegration_torch.mcubes import kernel_check as vegas_check
 from gpuintegration_torch.models import genz
@@ -298,6 +316,19 @@ def bytes_bound_ms(nbytes: int) -> float:
     return 1e3 * nbytes / PEAK_BYTES_PER_S
 
 
+def stratified_ids(nbins: int, dev):
+    """The bin ids (C, npg, ndim) int32 of the chunk of 2^20 cubes around
+    the centre of the 6D ncall = 1e8 lattice, as the grid map draws them."""
+    case = vegas_check.sampler_case(VEGAS_NDIM, 1e8, VEGAS_CHUNK,
+                                    position="middle", device=dev)
+    c, npg = case["chunk_cubes"], case["npg"]
+    xn, _ = cuda_lookup.stratified_xn_plain(
+        VEGAS_NDIM, case["ng"], npg, nbins, c, case["cube0"], case["ncubes"],
+        0, 1, dev)
+    ids = torch.clamp(xn.to(torch.int32), 1, nbins)
+    return ids.T.reshape(c, npg, VEGAS_NDIM).contiguous()
+
+
 def vegas_checks(dev):
     """Phase 5; returns the largest absolute difference read per kernel."""
     g4 = genz.f4_gaussian(VEGAS_NDIM)
@@ -398,15 +429,26 @@ def vegas_checks(dev):
                                               device=dev)
             bs = vegas_check.check_bin_resolve_stratified(
                 VEGAS_NDIM, 1e8, VEGAS_CHUNK, nbins, device=dev)
-            e = vegas_check.check_edge_lookup(VEGAS_NDIM, VEGAS_CHUNK, 2,
-                                              nbins, device=dev)
+            # both edge-lookup routes: uniformly random ids, the same 1
+            # element off a 16-byte boundary, a chunk's stratified ids
+            e = [vegas_check.check_edge_routes(
+                VEGAS_NDIM, VEGAS_CHUNK, 2, nbins, offset=offset, ia=ids,
+                device=dev) for offset, ids in (
+                    (0, None), (1, None), (0, stratified_ids(nbins, dev)))]
         except AssertionError as exc:
             fail(str(exc))
+        if any(r["routes"] != ["vector", "generic"] for r in e):
+            fail(f"nbins {nbins}: the edge lookup should take both routes, "
+                 f"got {[r['routes'] for r in e]}")
+        e = e[0]
         print(f"phase 5: nbins {nbins}, {n} samples: histogram max rel "
               f"{h['max_rel']:.3g} (limit {vegas_check.HIST_RTOL:g}), two "
               f"launches bitwise equal; bin resolve ia, xo equal, rc "
               f"{b['rc_ulps']} ulps given xn and {bs['rc_ulps']} drawing xn "
-              f"(limit {vegas_check.RC_ULP}); edge lookup equal", flush=True)
+              f"(limit {vegas_check.RC_ULP}); edge lookup vector and generic "
+              f"routes EQUAL to the plain version and to each other on "
+              f"random ids, random ids 1 element off a 16-byte boundary and "
+              f"the stratified ids of the chunk at the centre", flush=True)
         if nbins == 500:
             err.update(vegas_hist=h["max_abs"], vegas_bin_resolve=max(
                 b["max_abs"], bs["max_abs"]), vegas_edge_lookup=e["max_abs"])
@@ -800,25 +842,40 @@ def vegas_times(dev, err, launches, walls):
         "given_xn_ms": given, "given_xn_generic_route_ms": given_generic,
         "given_xn_library_ms_edges_only": lib})
 
+    # the edge lookup, both routes in turns, on the chunk's stratified ids
+    # and on uniformly random ones (more bank conflicts in the pair table)
     ids = idx.T.reshape(case["chunk_cubes"], npg, ndim).to(
         torch.int32).contiguous()
-    ms = queued_ms(lambda: cuda_lookup.edge_lookup(xi32, ids, nbins), 5)
+    rand_ids = vegas_check.edge_ids(case["chunk_cubes"], npg, ndim, nbins,
+                                    device=dev)
+    edge = {}
+    for label, e_ids in (("stratified", ids), ("random", rand_ids)):
+        edge[label] = both_routes(
+            lambda route: lambda: cuda_lookup.edge_lookup(
+                xi32, e_ids, nbins, route=route), "vector")
+    ms, generic, t = edge["stratified"]
     plain = time_ms(lambda: cuda_lookup.edge_lookup_plain(xi32, ids, nbins),
                     2)
     b = bytes_bound_ms(n * ndim * 12 + edges)
-    print(f"phase 7: edge lookup, {n} samples x {ndim}: kernel {ms:.4f} ms, "
-          f"plain {plain:.3f} ms, two torch.gather {lib:.4f} ms, bound "
-          f"{b:.4f} ms (bytes, {100 * b / ms:.1f}% of it)", flush=True)
+    r_ms, r_generic, rt = edge["random"]
+    print(f"phase 7: edge lookup, {n} samples x {ndim}, stratified ids: "
+          f"vector route {ms:.4f} ms (two series {t[0]:.4f}, {t[3]:.4f}), "
+          f"generic route {generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}); "
+          f"uniformly random ids: vector {r_ms:.4f} ms ({rt[0]:.4f}, "
+          f"{rt[3]:.4f}), generic {r_generic:.4f} ms ({rt[1]:.4f}, "
+          f"{rt[2]:.4f}); plain {plain:.3f} ms, two torch.gather {lib:.4f} "
+          f"ms, bound {b:.4f} ms (bytes; vector {100 * b / ms:.1f}% of it, "
+          f"{100 * b / r_ms:.1f}% on random ids; generic "
+          f"{100 * b / generic:.1f}%)", flush=True)
     entries.append({
         "name": "vegas_edge_lookup", "route": "cuda",
         "source": "gpuintegration_torch/csrc/vegas_lookup.cu",
         "replaces": "gpuintegration_tpu/mcubes/pallas_lookup.py:86",
-        "launches": launches["run1"]["vegas_edge_lookup"],
-        "launches_by_run": {r: c["vegas_edge_lookup"]
-                            for r, c in launches.items()},
-        "on_main_path": False,
+        "launches": None,     # set by the diff path's run (phase 8)
         "max_abs_err": err["vegas_edge_lookup"], "ms": ms, "plain_ms": plain,
-        "bound_ms": b, "bound_by": "bytes", "library_ms": lib})
+        "bound_ms": b, "bound_by": "bytes", "library_ms": lib,
+        "generic_route_ms": generic, "random_ids_ms": r_ms,
+        "random_ids_generic_route_ms": r_generic})
 
     # what the card was busy with in each run: launches times the time of a
     # kernel alone, against the run's wall
@@ -837,6 +894,197 @@ def vegas_times(dev, err, launches, walls):
               f"the {walls[run]:.3f} s wall = {100 * busy / walls[run]:.1f}%",
               flush=True)
     return entries
+
+
+# ---------------------------------------------------------------------------
+# The diff path (phase 8)
+
+DIFF_NDIM = 6
+DIFF_A = 25.0            # gauss at a = 25 is Genz F4 at a = 5
+DIFF_SEED = 7
+DIFF_NCALL = 1 << 24
+
+
+def gauss(x, a):
+    """exp(-a sum((x - 1/2)^2)) on the unit cube."""
+    return torch.exp(-a * torch.sum((x - 0.5) ** 2, dim=-1))
+
+
+def gauss_truth(a: float, ndim: int) -> tuple[float, float]:
+    """(I(a), dI/da) in closed form: I = c^ndim with
+    c = sqrt(pi/a) erf(sqrt(a)/2), and dc/da = (exp(-a/4) - c) / (2a)."""
+    c = math.sqrt(math.pi / a) * math.erf(math.sqrt(a) / 2.0)
+    dc = (math.exp(-a / 4.0) - c) / (2 * a)
+    return c ** ndim, ndim * c ** (ndim - 1) * dc
+
+
+def timed(fn):
+    """(fn's result, seconds of host clock until the card is done)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def diff_path(dev):
+    """Phase 8: ``gpuintegration_torch.diff`` at full width on the card.
+    Returns the edge lookup's launches and launches by route on the frozen
+    estimate's run, its largest difference from the plain version on the
+    path's ids, and its fields for the ``kernels`` line."""
+    ndim, a0 = DIFF_NDIM, DIFF_A
+    truth, dtruth = gauss_truth(a0, ndim)
+    t_phase = time.perf_counter()
+
+    # train the grid: VEGAS adjustment, the sampler in emit mode and the
+    # histogram (no kernel twin for a callable: the 'hybrid' sampler)
+    with LaunchCounts() as clock:
+        xi, train_s = timed(lambda: diff.train_grid(
+            gauss, ndim, theta=a0, ncall=1e7, adjust_iters=10))
+    if (clock.launches["vegas_sample"] == 0 or clock.launches["vegas_hist"]
+            == 0 or clock.sampler_routes["paired"]
+            != clock.launches["vegas_sample"]
+            or clock.hist_routes["grouped"] != clock.launches["vegas_hist"]):
+        fail(f"train_grid: launches {clock.launches}, sampler by route "
+             f"{clock.sampler_routes}, histogram {clock.hist_routes}; the "
+             "sampler should take the paired route, the histogram the "
+             "grouped one")
+    print(f"phase 8: train_grid {ndim}D a={a0:g} ncall 1e7, 10 adjusting "
+          f"iterations: {train_s:.3f} s, launches {clock.launches}",
+          flush=True)
+
+    est_fn = diff.frozen_grid_estimate(gauss, xi, ndim, ncall=DIFF_NCALL)
+    a = torch.tensor(a0, dtype=torch.float64, device=dev)
+    h = 1e-4
+    thetas = torch.tensor([20.0, 25.0, 30.0, 35.0], dtype=torch.float64,
+                          device=dev)
+    # the first torch.func.grad of a process imports torch._dynamo and more:
+    # taken once on a scalar, before anything is timed
+    _, import_s = timed(lambda: torch.func.grad(lambda t: t * t)(a))
+    cuda_lookup.reset_launches()
+    t_path = time.perf_counter()
+    (est, err), fwd_s = timed(lambda: est_fn(a, DIFF_SEED))
+    counted = cuda_lookup.edge_route_launches["vector"]
+    g, grad_s = timed(lambda: torch.func.grad(
+        lambda t: est_fn(t, DIFF_SEED)[0])(a))
+    in_grad = cuda_lookup.edge_route_launches["vector"] - counted
+    fd = (float(est_fn(a + h, DIFF_SEED)[0])
+          - float(est_fn(a - h, DIFF_SEED)[0])) / (2 * h)
+    (scan, scan_err), scan_s = timed(lambda: torch.func.vmap(
+        lambda t: est_fn(t, DIFF_SEED))(thetas))
+    loop = [est_fn(t, DIFF_SEED) for t in thetas]
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = cuda_lookup.edge_lookup_launches
+    by_route = dict(cuda_lookup.edge_route_launches)
+    est, err, g = float(est), float(err), float(g)
+    pull = (est - truth) / err
+    scan_rel = max(max(abs(float(scan[i]) / float(e) - 1),
+                       abs(float(scan_err[i]) / float(r) - 1))
+                   for i, (e, r) in enumerate(loop))
+    print(f"phase 8: frozen_grid_estimate, {DIFF_NCALL} samples x {ndim}: "
+          f"estimate {est!r} errorest {err!r} truth {truth!r} pull "
+          f"{pull:.3f}; forward {fwd_s:.4f} s, torch.func.grad (forward and "
+          f"backward) {grad_s:.4f} s (the first grad of the process, its "
+          f"imports, took {import_s:.3f} s before): {g!r} against dI/da "
+          f"{dtruth!r} "
+          f"(rel {abs(g / dtruth - 1):.3e}, limit 0.05) and the common-"
+          f"random-number central difference (h {h:g}) {fd!r} (rel "
+          f"{abs(g / fd - 1):.3e}, limit 1e-5); vmap over {len(loop)} "
+          f"thetas {scan_s:.4f} s, against the loop max rel {scan_rel:.3e} "
+          f"(limit 1e-12); edge lookups {launches} (by route {by_route}), "
+          f"{in_grad} inside torch.func.grad", flush=True)
+    if abs(pull) > 5:
+        fail(f"frozen estimate {est} is {pull:.2f} errorests from {truth}")
+    if not abs(g / dtruth - 1) <= 0.05 or not abs(g / fd - 1) <= 1e-5:
+        fail(f"frozen gradient {g}: dI/da {dtruth}, difference {fd}")
+    if not scan_rel <= 1e-12:
+        fail(f"vmap scan differs from the loop by {scan_rel}")
+    if in_grad < 1 or by_route["vector"] != launches or launches < 1:
+        fail(f"the edge lookup on the diff path: {launches} launches by "
+             f"route {by_route}, {in_grad} inside torch.func.grad; all "
+             "should take the vector route, one inside grad at least")
+
+    # the draws alone, which the forward makes before the lookup: the same
+    # seed, so the ids the path looked up; on them both routes EQUAL to the
+    # plain version (launches after the counts were read, so uncounted),
+    # then both alone in turns
+    (ia, _), draws_s = timed(lambda: diff.frozen_draws(
+        DIFF_SEED, DIFF_NCALL, ndim, xi.shape[1] - 1, dev))
+    xi32 = xi.to(torch.float32).contiguous()
+    nbins = xi.shape[1] - 1
+    want = cuda_lookup.edge_lookup_plain(xi32, ia, nbins)
+    path_err = 0.0
+    for r in ("vector", "generic"):
+        got = cuda_lookup.edge_lookup(xi32, ia, nbins, route=r)
+        equal = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+        d = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+        path_err = max(path_err, d)
+        print(f"phase 8: edge lookup {r} route on the path's {ia.numel()} "
+              f"ids against the plain version: "
+              f"{'EQUAL' if equal else 'DIFFERENT'} (max abs {d!r})",
+              flush=True)
+        if not equal:
+            fail(f"edge lookup, {r} route, on the diff path's ids differs "
+                 f"from the plain version by up to {d!r}")
+    del want, got
+    t = [queued_ms(lambda r=r: cuda_lookup.edge_lookup(xi32, ia, nbins,
+                                                       route=r), 3, 5)
+         for r in ("vector", "generic", "generic", "vector")]
+    ms, generic = min(t[0], t[3]), min(t[1], t[2])
+    b = bytes_bound_ms(ia.numel() * 12 + 4 * ndim * (nbins + 1))
+    print(f"phase 8: the draws alone (Philox4x32-10 in plain PyTorch, "
+          f"diff.frozen_draws): {draws_s:.4f} s of the {fwd_s:.4f} s forward",
+          flush=True)
+    print(f"phase 8: edge lookup at this shape ({ia.numel()} ids): vector "
+          f"route {ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), generic "
+          f"{generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), bound {b:.4f} ms "
+          f"(bytes, {100 * b / ms:.1f}% of it); its {launches} launches "
+          f"{launches * ms / 1e3:.4f} s of the estimate's {path_s:.3f} s "
+          f"(forward, gradient, difference, scan, loop) = "
+          f"{100 * launches * ms / 1e3 / path_s:.2f}%", flush=True)
+    del ia
+
+    # the fixed mesh: 6 partitions a dimension, the plain rule
+    fm = diff.fixed_mesh_integral(gauss, ndim, partitions_per_axis=6)
+    (m_est, m_err), m_s = timed(lambda: fm(a))
+    m_g, m_grad_s = timed(lambda: torch.func.grad(lambda t: fm(t)[0])(a))
+    m_est, m_err, m_g = float(m_est), float(m_err), float(m_g)
+    m_rel, m_grel = abs(m_est / truth - 1), abs(m_g / dtruth - 1)
+    print(f"phase 8: fixed_mesh_integral {ndim}D, 6 partitions "
+          f"({6 ** ndim} regions x {rule_eval.rule_tables(ndim).feval} "
+          f"points): estimate {m_est!r} errorest {m_err!r} (rel "
+          f"{m_rel:.3e}, limit 1e-9), {m_s:.4f} s; gradient {m_g!r} (rel "
+          f"{m_grel:.3e}, limit 1e-7), {m_grad_s:.4f} s", flush=True)
+    if not (m_rel <= 1e-9 and m_grel <= 1e-7 and math.isfinite(m_err)):
+        fail(f"fixed mesh: estimate {m_est} against {truth}, gradient {m_g} "
+             f"against {dtruth}")
+
+    # the checkpoint pipeline (tests/test_diff.py's): tolerances out of
+    # reach, so that the checkpoint is a complete partition
+    ws = Workspace(3, chunk_size=1024)
+    ws.integrate(genz.f4_gaussian(3, a=5.0), epsrel=1e-12, epsabs=1e-200,
+                 max_iterations=6)
+    regions = diff.mesh_from_checkpoint(ws.make_checkpoint())
+    fm3 = diff.fixed_mesh_integral(gauss, 3, regions=regions)
+    c_est, c_err = (float(v) for v in fm3(a))
+    c_g = float(torch.func.grad(lambda t: fm3(t)[0])(a))
+    truth3, _ = gauss_truth(a0, 3)
+    print(f"phase 8: checkpoint pipeline, 3D F4 a=5, 6 iterations -> "
+          f"{regions[0].shape[0]} regions -> fixed_mesh_integral at a=25: "
+          f"{c_est!r} errorest {c_err!r} truth {truth3!r}, gradient {c_g!r}",
+          flush=True)
+    if (abs(c_est - truth3) > max(3 * c_err, 1e-5 * truth3)
+            or not math.isfinite(c_g)):
+        fail(f"checkpoint mesh: {c_est} against {truth3}, gradient {c_g}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 8: the edge lookup's {launches} launches x {ms:.4f} ms = "
+          f"{launches * ms / 1e3:.4f} s of this phase's {phase_s:.3f} s "
+          f"({100 * launches * ms / 1e3 / phase_s:.3f}%; the first grad's "
+          f"imports {import_s:.3f} s of it)", flush=True)
+    return launches, by_route, path_err, {
+        "diff_path_ms": ms, "diff_path_generic_route_ms": generic,
+        "diff_path_bound_ms": b, "diff_path_max_abs_err": path_err}
 
 
 def main() -> int:
@@ -1074,7 +1322,17 @@ def main() -> int:
     vegas_kernels = vegas_times(dev, vegas_err, vegas_launches, vegas_walls)
     phase_done("phase 7")
 
-    # -- phase 8: the kernels line -------------------------------------------
+    # -- phase 8: the diff path ----------------------------------------------
+    edge_launches, edge_routes, edge_err, edge_fields = diff_path(dev)
+    for entry in vegas_kernels:
+        if entry["name"] == "vegas_edge_lookup":
+            entry.update(launches=edge_launches,
+                         launches_by_route=edge_routes,
+                         max_abs_err=max(entry["max_abs_err"], edge_err),
+                         **edge_fields)
+    phase_done("phase 8")
+
+    # -- the kernels line ----------------------------------------------------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",

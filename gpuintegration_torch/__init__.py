@@ -6,7 +6,12 @@ evaluation as a hand-written CUDA kernel (ops/cuda_rule.py,
 csrc/rule_eval.cu).  m-CUBES/VEGAS Monte Carlo: ``mcubes.integrate``
 (also ``mcubes.vegas``, ``mcubes.simple_integrate``, ``mcubes.VegasState``)
 with its sampler, histogram, bin-resolve and edge-lookup kernels in CUDA
-(mcubes/cuda_vegas.py, mcubes/cuda_lookup.py, csrc/vegas_*.cu).  The JAX
+(mcubes/cuda_vegas.py, mcubes/cuda_lookup.py, csrc/vegas_*.cu).
+Differentiable estimates (``torch.func.grad`` / ``vmap`` over integrand
+parameters) on a fixed PAGANI mesh or a frozen VEGAS grid: ``diff``
+(``fixed_mesh_integral``, ``frozen_grid_estimate``, ``mesh_from_checkpoint``,
+``train_grid``); the frozen grid's bin edges come from the edge-lookup
+kernel.  The JAX
 package ``gpuintegration_tpu`` is the reference; this package imports torch
 and numpy only, never JAX.
 
@@ -16,6 +21,9 @@ from gpuintegration_torch.types import IntegrationResult, Volume, unit_volume
 from gpuintegration_torch.integrand import make_integrand
 from gpuintegration_torch.pagani.workspace import Workspace
 from gpuintegration_torch import mcubes
+from gpuintegration_torch.diff import (
+    fixed_mesh_integral, frozen_grid_estimate, mesh_from_checkpoint,
+    train_grid)
 
 __all__ = [
     "IntegrationResult",
@@ -24,6 +32,10 @@ __all__ = [
     "make_integrand",
     "Workspace",
     "mcubes",
+    "fixed_mesh_integral",
+    "frozen_grid_estimate",
+    "mesh_from_checkpoint",
+    "train_grid",
 ]
 
 __version__ = "0.1.0"

@@ -11,6 +11,8 @@ import torch
 
 from gpuintegration_torch.mcubes.vegas import VegasState
 from gpuintegration_torch.models import genz
+from gpuintegration_torch.utils.checkpoint import (PaganiCheckpoint,
+                                                   scalar_or_array)
 
 
 def pool_from_reference(lows, lengths, n: int, blocked: bool, *,
@@ -41,6 +43,24 @@ def ledger_from_reference(ledger) -> tuple:
     ``Workspace.integrate``."""
     est, err, nregions, iters, neval = ledger
     return float(est), float(err), int(nregions), int(iters), int(neval)
+
+
+def checkpoint_from_reference(ck) -> PaganiCheckpoint:
+    """The port's ``PaganiCheckpoint`` of a reference one
+    (``Workspace.make_checkpoint()`` of the JAX package, its arrays as
+    NumPy): the same pool, ledger and per-region sweep, so that
+    ``Workspace.integrate(initial_regions=..., ledger=ck.ledger)`` and
+    ``diff.mesh_from_checkpoint`` take it as they take the port's own."""
+    def arr(a):
+        return None if a is None else np.array(a)
+
+    return PaganiCheckpoint(
+        lows=arr(ck.lows), lengths=arr(ck.lengths),
+        estimate=scalar_or_array(ck.estimate),
+        errorest=scalar_or_array(ck.errorest), nregions=int(ck.nregions),
+        iters=int(ck.iters), neval=int(ck.neval),
+        region_estimates=arr(ck.region_estimates),
+        region_errorests=arr(ck.region_errorests))
 
 
 def genz_from_reference(name: str, ndim: int, **params) -> genz.GenzIntegrand:

@@ -8,7 +8,7 @@
 // The TPU kernels select table entries with two levels of one-hot
 // products because that chip has no gather; here a lookup is a load from
 // a table in shared memory.  mcubes/cuda_lookup.py chooses each kernel's
-// route by the shape alone (hist_route, resolve_route).
+// route by the shape alone (hist_route, resolve_route, edge_route).
 //
 // Histogram.  out[d, b] = sum over samples n with ia[d, n] - base == b of
 // min(f2[n], cap); the accumulating form writes min(acc + that, cap) into
@@ -76,8 +76,24 @@
 //     per element, a block per (range, dimension) filling that dimension's
 //     edges.
 //
-// Edge lookup (edge_kernel), one thread per (sample, dimension) of a
-// cube-major (N, ndim) id array: (xi[d, ia-1], xi[d, ia]).  Bound by bytes.
+// Edge lookup, per element of a cube-major (N, ndim) id array:
+// (xi[d, ia-1], xi[d, ia]), ia clamped to [1, nbins].  Both outputs are
+// copies of table entries, so both routes give the same bits.  Bound by
+// bytes: 4 read and 8 written per element.
+//   * VECTOR route (edge_vector_kernel, every ndim whose edge pairs fit a
+//     block's shared memory; the frozen-grid estimate's).  A persistent
+//     grid; each block stages the table once as (lo, hi) pairs per bin, a
+//     float2, so one 8-byte shared load gives both edges of an element.  A
+//     thread owns 4 consecutive elements: one 16-byte load of ia, one
+//     16-byte store each of lo and hi.  Its dimension is carried from
+//     element to element and from quad to quad in 32 bits, no modulo in
+//     the loop.  Up to 3 head elements before ia's first 16-byte boundary
+//     are taken one by one by block 0, the ragged last quad element by
+//     element; where lo and hi do not share ia's 16-byte phase (a view of
+//     ia at an odd offset) the stores are 4-byte ones.
+//   * GENERIC route (edge_kernel, the first design): one thread per
+//     element, the table of ndim * (nbins + 1) floats copied by every
+//     block of a grid of up to 65536 blocks, a 64-bit modulo per element.
 //
 // Built by ops/cuda_build.py; called through ctypes (C entry points below).
 
@@ -638,31 +654,42 @@ resolve_sample_kernel(const ResolveArgs a) {
   }
 }
 
-// The sample route's kernel for NDIM (drawing xn, or given it): with
-// ``blocks`` > 0 launched on that many blocks, with 0 the number of its
-// blocks the card holds at once into ``blocks``.
+// The sample route's kernel for NDIM (drawing xn, or given it) on
+// ``blocks`` blocks.
 template <int NDIM>
-cudaError_t launch_sample(const ResolveArgs& a, size_t smem, int& blocks,
+cudaError_t launch_sample(const ResolveArgs& a, size_t smem, int blocks,
                           cudaStream_t stream) {
   const auto kernel = a.xn ? resolve_sample_kernel<NDIM, false>
                            : resolve_sample_kernel<NDIM, true>;
-  cudaError_t e = a.xn ? allow_smem<resolve_sample_kernel<NDIM, false>>(smem)
-                       : allow_smem<resolve_sample_kernel<NDIM, true>>(smem);
+  const cudaError_t e =
+      a.xn ? allow_smem<resolve_sample_kernel<NDIM, false>>(smem)
+           : allow_smem<resolve_sample_kernel<NDIM, true>>(smem);
   if (e != cudaSuccess) return e;
-  if (blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-      return e;
-    blocks = sms * per_sm;
-    return cudaSuccess;
-  }
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// How many blocks of ``Kernel`` with ``smem`` bytes of dynamic shared
+// memory the card holds at once (> 0), or minus a CUDA error.
+template <auto Kernel>
+int resident_blocks(size_t smem) {
+  cudaError_t e = allow_smem<Kernel>(smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                      kThreads, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return sms * per_sm > 0 ? sms * per_sm
+                          : -static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+template <int NDIM>
+int sample_resident_blocks(bool draw, size_t smem) {
+  return draw ? resident_blocks<resolve_sample_kernel<NDIM, true>>(smem)
+              : resident_blocks<resolve_sample_kernel<NDIM, false>>(smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -685,6 +712,89 @@ edge_kernel(const float* __restrict__ xi, const int* __restrict__ ia,
     const float* row = s_xi + d * (nbins + 1);
     lo[e] = row[bin - 1];
     hi[e] = row[bin];
+  }
+}
+
+struct EdgeArgs {
+  const float* xi;     // (ndim, nbins + 1) bin edges
+  const int* ia;       // (total,) bin ids, element e of dimension e % ndim
+  float* lo;           // (total,)
+  float* hi;           // (total,)
+  long long total;
+  int ndim, nbins;
+  int head;            // elements before ia's first 16-byte boundary, 0..3
+  int vec_out;         // lo + head and hi + head are 16-byte aligned
+};
+
+// The edge pair of one element: ``pairs`` (ndim, nbins) of (lo, hi).
+__device__ __forceinline__ float2 edge_pair(const float2* pairs, int d,
+                                            int nbins, int id) {
+  return pairs[d * nbins + min(max(id, 1), nbins) - 1];
+}
+
+__global__ void __launch_bounds__(kThreads)
+edge_vector_kernel(const EdgeArgs a) {
+  extern __shared__ float2 s_pair[];   // (ndim, nbins): (xi[d, b], xi[d, b+1])
+  const int nb = a.nbins;
+  for (int i = threadIdx.x; i < a.ndim * nb; i += kThreads) {
+    const int d = i / nb;
+    const float* src = a.xi + d + i;   // xi[d, i - d * nb]
+    s_pair[i] = make_float2(src[0], src[1]);
+  }
+  __syncthreads();
+
+  if (blockIdx.x == 0 && threadIdx.x < a.head) {
+    const int e = threadIdx.x;
+    const float2 p = edge_pair(s_pair, e % a.ndim, nb, a.ia[e]);
+    a.lo[e] = p.x;
+    a.hi[e] = p.y;
+  }
+  // the body: quads of 4 elements from ia's first 16-byte boundary; the
+  // wrapper keeps their count below 2^31, so q + stride cannot wrap
+  const long long body = a.total - a.head;
+  const unsigned quads = static_cast<unsigned>((body + 3) >> 2);
+  const int* ia = a.ia + a.head;
+  float* lo = a.lo + a.head;
+  float* hi = a.hi + a.head;
+  const unsigned stride = gridDim.x * kThreads;
+  unsigned q = blockIdx.x * kThreads + threadIdx.x;
+  // the dimension of the quad's first element, and what a step adds to it
+  int d = static_cast<int>((a.head + 4ull * q) % a.ndim);
+  const int step = static_cast<int>((4ull * stride) % a.ndim);
+  for (; q < quads; q += stride) {
+    const long long e0 = 4ll * q;
+    const int live = body - e0 < 4 ? static_cast<int>(body - e0) : 4;
+    int id[4];
+    if (live == 4) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(ia + e0));
+      id[0] = v.x; id[1] = v.y; id[2] = v.z; id[3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) id[k] = k < live ? ia[e0 + k] : 1;
+    }
+    float2 p[4];
+    int dk = d;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      p[k] = edge_pair(s_pair, dk, nb, id[k]);
+      if (++dk == a.ndim) dk = 0;
+    }
+    if (live == 4 && a.vec_out) {
+      __stcs(reinterpret_cast<float4*>(lo + e0),
+             make_float4(p[0].x, p[1].x, p[2].x, p[3].x));
+      __stcs(reinterpret_cast<float4*>(hi + e0),
+             make_float4(p[0].y, p[1].y, p[2].y, p[3].y));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < live) {
+          lo[e0 + k] = p[k].x;
+          hi[e0 + k] = p[k].y;
+        }
+      }
+    }
+    d += step;
+    if (d >= a.ndim) d -= a.ndim;
   }
 }
 
@@ -752,9 +862,7 @@ extern "C" int vegas_hist_grouped_launch(
 // kernel on n_blocks x ndim blocks; route 1 the sample kernel (ndim 1..8,
 // n < 2^31) on n_blocks blocks, with recip_ng and recip_npg =
 // min(floor(2^32 / x), 2^32 - 1) and vec = n % 4 == 0 with every pointer
-// 16-byte aligned.  Route 1 with n_blocks 0 launches nothing and returns
-// how many of its blocks (drawing xn when xn is null) the card holds at
-// once (> 0), or minus a CUDA error.
+// 16-byte aligned.
 extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
                                     void* rc, void* xo, void* ia, long long n,
                                     long long cube0, long long ncubes,
@@ -763,9 +871,8 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
                                     unsigned iteration, unsigned recip_ng,
                                     unsigned recip_npg, int vec, int n_blocks,
                                     void* stream) {
-  const bool query = route == 1 && n_blocks == 0;
-  if (n < 1 || ndim < 1 || nbins < 1 || ng < 1 || npg < 1 ||
-      (n_blocks < 1 && !query) || route < 0 || route > 1)
+  if (n < 1 || ndim < 1 || nbins < 1 || ng < 1 || npg < 1 || n_blocks < 1 ||
+      route < 0 || route > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   ResolveArgs a;
   a.xi = static_cast<const float*>(xi);
@@ -793,21 +900,18 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
     if (smem > static_cast<size_t>(kMaxSmem) || n >= (1LL << 31))
       return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t e;
-    int blocks = n_blocks;
     switch (ndim) {   // the dimensions the sample route is compiled for
-      case 1: e = launch_sample<1>(a, smem, blocks, s); break;
-      case 2: e = launch_sample<2>(a, smem, blocks, s); break;
-      case 3: e = launch_sample<3>(a, smem, blocks, s); break;
-      case 4: e = launch_sample<4>(a, smem, blocks, s); break;
-      case 5: e = launch_sample<5>(a, smem, blocks, s); break;
-      case 6: e = launch_sample<6>(a, smem, blocks, s); break;
-      case 7: e = launch_sample<7>(a, smem, blocks, s); break;
-      case 8: e = launch_sample<8>(a, smem, blocks, s); break;
+      case 1: e = launch_sample<1>(a, smem, n_blocks, s); break;
+      case 2: e = launch_sample<2>(a, smem, n_blocks, s); break;
+      case 3: e = launch_sample<3>(a, smem, n_blocks, s); break;
+      case 4: e = launch_sample<4>(a, smem, n_blocks, s); break;
+      case 5: e = launch_sample<5>(a, smem, n_blocks, s); break;
+      case 6: e = launch_sample<6>(a, smem, n_blocks, s); break;
+      case 7: e = launch_sample<7>(a, smem, n_blocks, s); break;
+      case 8: e = launch_sample<8>(a, smem, n_blocks, s); break;
       default: e = cudaErrorInvalidValue;
     }
-    if (!query) return static_cast<int>(e);
-    if (e != cudaSuccess) return -static_cast<int>(e);
-    return blocks > 0 ? blocks : -static_cast<int>(cudaErrorInvalidConfiguration);
+    return static_cast<int>(e);
   }
   const size_t smem = sizeof(float) * (nbins + 1);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -815,22 +919,74 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ia, lo, hi: (N, ndim) cube-major, total = N * ndim elements.
-extern "C" int vegas_edge_launch(const void* xi, const void* ia, void* lo,
-                                 void* hi, long long total, int ndim,
-                                 int nbins, int n_blocks, void* stream) {
-  if (total < 1 || ndim < 1 || nbins < 1 || n_blocks < 1)
+// Edge lookup.  ia, lo, hi: (N, ndim) cube-major, total = N * ndim
+// elements.  route 0 is the generic kernel on n_blocks blocks; route 1 the
+// vector kernel on n_blocks blocks, with ``head`` (0..3) elements before
+// ia's first 16-byte boundary, ``vec_out`` = lo + head and hi + head
+// 16-byte aligned, and fewer than 2^31 quads after the head.
+extern "C" int vegas_edge_launch(int route, const void* xi, const void* ia,
+                                 void* lo, void* hi, long long total, int ndim,
+                                 int nbins, int head, int vec_out,
+                                 int n_blocks, void* stream) {
+  if (total < 1 || ndim < 1 || nbins < 1 || n_blocks < 1 || route < 0 ||
+      route > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * ndim * (nbins + 1);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        edge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    const size_t smem = sizeof(float2) * ndim * nbins;
+    if (smem > static_cast<size_t>(kMaxSmem) || head < 0 || head > 3 ||
+        head > total || ((total - head + 3) >> 2) >= (1LL << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = allow_smem<edge_vector_kernel>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
+    EdgeArgs a;
+    a.xi = static_cast<const float*>(xi);
+    a.ia = static_cast<const int*>(ia);
+    a.lo = static_cast<float*>(lo);
+    a.hi = static_cast<float*>(hi);
+    a.total = total;
+    a.ndim = ndim;
+    a.nbins = nbins;
+    a.head = head;
+    a.vec_out = vec_out;
+    edge_vector_kernel<<<n_blocks, kThreads, smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  edge_kernel<<<n_blocks, kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = sizeof(float) * ndim * (nbins + 1);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_smem<edge_kernel>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  edge_kernel<<<n_blocks, kThreads, smem, s>>>(
       static_cast<const float*>(xi), static_cast<const int*>(ia),
       static_cast<float*>(lo), static_cast<float*>(hi), total, ndim, nbins);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many blocks of a persistent-grid kernel the card holds at once for
+// ndim dimensions and nbins bins (> 0), or minus a CUDA error; launches
+// nothing.  kernel 0 is the bin resolve's sample route given xn, 1 the
+// same drawing xn, 2 the edge lookup's vector route.
+extern "C" int vegas_resident_blocks(int kernel, int ndim, int nbins) {
+  const int invalid = -static_cast<int>(cudaErrorInvalidValue);
+  if (ndim < 1 || nbins < 1 || kernel < 0 || kernel > 2) return invalid;
+  if (kernel == 2) {
+    const size_t smem = sizeof(float2) * ndim * nbins;
+    if (smem > static_cast<size_t>(kMaxSmem)) return invalid;
+    return resident_blocks<edge_vector_kernel>(smem);
+  }
+  const size_t smem = sizeof(float) * ndim * (nbins + 1);
+  if (smem > static_cast<size_t>(kMaxSmem)) return invalid;
+  const bool draw = kernel == 1;
+  switch (ndim) {   // the dimensions the sample route is compiled for
+    case 1: return sample_resident_blocks<1>(draw, smem);
+    case 2: return sample_resident_blocks<2>(draw, smem);
+    case 3: return sample_resident_blocks<3>(draw, smem);
+    case 4: return sample_resident_blocks<4>(draw, smem);
+    case 5: return sample_resident_blocks<5>(draw, smem);
+    case 6: return sample_resident_blocks<6>(draw, smem);
+    case 7: return sample_resident_blocks<7>(draw, smem);
+    case 8: return sample_resident_blocks<8>(draw, smem);
+    default: return invalid;
+  }
 }

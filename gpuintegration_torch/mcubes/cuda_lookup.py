@@ -13,16 +13,19 @@ its plain PyTorch version beside it:
   card; ``stratified_xn_plain`` is that draw in plain PyTorch;
 * ``edge_lookup`` / ``edge_lookup_plain`` -- bin ids to their edge pairs;
   replaces ``::edge_lookup_pallas``.  Like its TPU counterpart it lies on
-  no path of ``vegas``: only tests and the smoke run call it.
+  no path of ``vegas``; it is the bin-edge fetch of the frozen-grid
+  estimate (``gpuintegration_torch.diff.frozen_grid_estimate``).
 
-The histogram and the bin resolve each have two kernels, and
-``hist_route`` / ``resolve_route`` choose between them by the shape alone:
-``'grouped'`` (a block per range of samples and all dimensions, lanes of one
-bin grouped, thread-block clusters) against ``'generic'`` for the
-histogram, ``'sample'`` (a persistent grid, a thread per 4 samples of all
-dimensions) against ``'generic'`` for the bin resolve.  The generic kernels
-are the first design and what the others are timed against.  A wrapper's
-``route=`` runs one by name; a route that does not take the shape raises.
+Each kernel has two, and ``hist_route`` / ``resolve_route`` /
+``edge_route`` choose between them by the shape alone: ``'grouped'`` (a
+block per range of samples and all dimensions, lanes of one bin grouped,
+thread-block clusters) against ``'generic'`` for the histogram,
+``'sample'`` (a persistent grid, a thread per 4 samples of all dimensions)
+against ``'generic'`` for the bin resolve, ``'vector'`` (a persistent grid,
+the table as edge pairs, a thread per 4 elements) against ``'generic'`` for
+the edge lookup.  The generic kernels are the first design and what the
+others are timed against.  A wrapper's ``route=`` runs one by name; a route
+that does not take the shape raises.
 
 A wrapper takes the plain version only for tensors on the CPU, whatever
 route is named; on CUDA tensors it launches its kernel or raises.  The
@@ -31,8 +34,9 @@ the source's header); its two routes add in different orders and agree
 within rounding.  ``ia``, the edges and ``xo`` equal the plain versions'
 bit for bit on every route; ``rc`` is held to 2 ulp.  ``hist_launches``,
 ``bin_resolve_launches`` and ``edge_lookup_launches`` count the launches,
-``hist_route_launches`` and ``resolve_route_launches`` the same per route;
-``reset_launches()`` zeroes them all.  The library is built at first use
+``hist_route_launches``, ``resolve_route_launches`` and
+``edge_route_launches`` the same per route; ``reset_launches()`` zeroes them
+all.  The library is built at first use
 (ops/cuda_build.py).
 """
 from __future__ import annotations
@@ -61,6 +65,7 @@ MAX_BLOCKS = 1 << 16
 SMEM_BYTES = 227 * 1024    # shared memory one block may have
 HIST_ROUTES = ("grouped", "generic")
 RESOLVE_ROUTES = ("sample", "generic")
+EDGE_ROUTES = ("vector", "generic")
 HIST_CLUSTER = 8           # blocks of a grouped-histogram cluster
 # the most clusters of a grouped launch: as many as an H100 SXM holds at
 # once at the main path's shape (6D, 500 bins, 8 warps a block)
@@ -80,12 +85,14 @@ bin_resolve_launches = 0
 edge_lookup_launches = 0
 hist_route_launches = {r: 0 for r in HIST_ROUTES}
 resolve_route_launches = {r: 0 for r in RESOLVE_ROUTES}
+edge_route_launches = {r: 0 for r in EDGE_ROUTES}
 
 
 def reset_launches():
     global hist_launches, bin_resolve_launches, edge_lookup_launches
     hist_launches = bin_resolve_launches = edge_lookup_launches = 0
-    for counts in (hist_route_launches, resolve_route_launches):
+    for counts in (hist_route_launches, resolve_route_launches,
+                   edge_route_launches):
         for r in counts:
             counts[r] = 0
 
@@ -99,9 +106,12 @@ def _configure(lib):
     lib.vegas_resolve_launch.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, ll,
                                          i, i, i, i, f, u, u, u, u, u, i, i,
                                          vp]
-    lib.vegas_edge_launch.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
+    lib.vegas_edge_launch.argtypes = [i, vp, vp, vp, vp, ll, i, i, i, i, i,
+                                      vp]
+    lib.vegas_resident_blocks.argtypes = [i, i, i]
     for fn in (lib.vegas_hist_launch, lib.vegas_hist_grouped_launch,
-               lib.vegas_resolve_launch, lib.vegas_edge_launch):
+               lib.vegas_resolve_launch, lib.vegas_edge_launch,
+               lib.vegas_resident_blocks):
         fn.restype = ctypes.c_int
 
 
@@ -376,19 +386,20 @@ def _pick_resolve_route(ndim: int, nbins: int, n: int, route):
 
 
 _resident: dict = {}
+# the persistent-grid kernels vegas_resident_blocks knows, by its number
+_PERSISTENT = {"resolve given xn": 0, "resolve drawing xn": 1,
+               "edge vector": 2}
 
 
-def _resident_blocks(dev, ndim: int, nbins: int, draw: bool) -> int:
-    """How many blocks of the sample route's kernel the card holds at once,
-    asked of the CUDA runtime once per shape."""
-    key = (dev.index, ndim, nbins, draw)
+def _resident_blocks(dev, kernel: str, ndim: int, nbins: int) -> int:
+    """How many blocks of a persistent-grid ``kernel`` the card holds at
+    once, asked of the CUDA runtime once per device and shape."""
+    key = (dev.index, kernel, ndim, nbins)
     if key not in _resident:
-        got = _lib().vegas_resolve_launch(
-            1, None, None if draw else 1, None, None, None, 1, 0, 1, ndim,
-            nbins, 1, 1, 1.0, 0, 0, 0, 0, 0, 0, 0, None)
+        got = _lib().vegas_resident_blocks(_PERSISTENT[kernel], ndim, nbins)
         if got <= 0:
-            raise RuntimeError(f"CUDA bin resolve: no block of the sample "
-                               f"route fits (error {-got})")
+            raise RuntimeError(f"CUDA {kernel}: no block of the kernel fits "
+                               f"(error {-got})")
         _resident[key] = got
     return _resident[key]
 
@@ -409,7 +420,8 @@ def _launch_resolve(xi32, xn, n, with_ia, nbins, route, cube0=0, ncubes=0,
         # a persistent grid: a thread per 4 samples, no more blocks than the
         # card holds at once
         blocks = min(-(-n // (4 * THREADS)),
-                     _resident_blocks(dev, ndim, nbins, xn is None))
+                     _resident_blocks(dev, "resolve drawing xn" if xn is None
+                                      else "resolve given xn", ndim, nbins))
     else:
         blocks = min(-(-n // THREADS), MAX_BLOCKS)
     _check(_lib().vegas_resolve_launch(
@@ -486,9 +498,46 @@ def edge_lookup_plain(xi32, ia, nbins: int):
     return xi32[dims, idx - 1], xi32[dims, idx]
 
 
-def edge_lookup(xi32, ia, nbins: int):
-    """``edge_lookup_plain`` on CPU tensors; on CUDA tensors one kernel
-    launch (ia int32)."""
+def edge_route(ndim: int, nbins: int) -> str:
+    """The edge-lookup kernel a shape takes: 'vector' where the table's
+    edge pairs (8 ndim nbins bytes) fit a block's shared memory; else
+    'generic'."""
+    return "vector" if 8 * ndim * nbins <= SMEM_BYTES else "generic"
+
+
+def _pick_edge_route(ndim: int, nbins: int, route):
+    shape_route = edge_route(ndim, nbins)
+    if route is None:
+        route = shape_route
+    if route not in EDGE_ROUTES or (route == "vector"
+                                    and shape_route != "vector"):
+        raise ValueError(f"edge-lookup route {route!r} does not take "
+                         f"{ndim} x {nbins} bins (vector: the edge pairs, "
+                         f"8 ndim nbins bytes, within {SMEM_BYTES} bytes)")
+    if route == "generic" and 4 * ndim * (nbins + 1) > SMEM_BYTES:
+        raise ValueError(f"a grid of {ndim} x {nbins + 1} edges does not fit "
+                         "the edge-lookup kernel's shared memory")
+    return route
+
+
+def edge_plan(total: int, ia_ptr: int, lo_ptr: int, hi_ptr: int):
+    """(head, quads, vec_out) of a vector-route launch over ``total`` int32
+    ids at address ``ia_ptr``: the head elements before ia's first 16-byte
+    boundary (block 0 takes them one by one), the quads of 4 elements after
+    it (the last one ragged where the rest is not a multiple of 4), and
+    whether lo and hi at the head are 16-byte aligned too, so that a quad's
+    edges go out as 16-byte stores (else as 4-byte ones)."""
+    head = min((-(ia_ptr // 4)) % 4, total)
+    quads = -(-(total - head) // 4)
+    vec_out = (lo_ptr + 4 * head) % 16 == 0 and (hi_ptr + 4 * head) % 16 == 0
+    return head, quads, vec_out
+
+
+def edge_lookup(xi32, ia, nbins: int, *, route: str | None = None):
+    """``edge_lookup_plain`` on CPU tensors, whatever ``route`` says; on
+    CUDA tensors one launch of the route ``edge_route`` gives the shape (or
+    ``route``).  ia: int32 (..., ndim), contiguous, any offset in its
+    storage."""
     global edge_lookup_launches
     dev = ia.device
     if dev.type == "cpu":
@@ -496,15 +545,25 @@ def edge_lookup(xi32, ia, nbins: int):
     ndim = xi32.shape[0]
     _need("xi", xi32, torch.float32, (ndim, nbins + 1), dev)
     _need("ia", ia, torch.int32, tuple(ia.shape[:-1]) + (ndim,), dev)
-    if 4 * ndim * (nbins + 1) > 227 * 1024:
-        raise ValueError(f"a grid of {ndim} x {nbins + 1} edges does not fit "
-                         "the edge-lookup kernel's shared memory")
+    route = _pick_edge_route(ndim, nbins, route)
     lo = torch.empty(ia.shape, dtype=torch.float32, device=dev)
     hi = torch.empty_like(lo)
     total = ia.numel()
+    if route == "vector":
+        head, quads, vec_out = edge_plan(total, ia.data_ptr(), lo.data_ptr(),
+                                         hi.data_ptr())
+        if quads >= 2 ** 31:
+            raise ValueError(f"{total} ids: the vector route takes fewer "
+                             "than 2^33")
+        blocks = min(-(-quads // THREADS),
+                     _resident_blocks(dev, "edge vector", ndim, nbins))
+    else:
+        head, vec_out, blocks = 0, False, min(-(-total // THREADS),
+                                               MAX_BLOCKS)
     _check(_lib().vegas_edge_launch(
-        xi32.data_ptr(), ia.data_ptr(), lo.data_ptr(), hi.data_ptr(), total,
-        ndim, nbins, min(-(-total // THREADS), MAX_BLOCKS), _stream(dev)),
-        "edge-lookup")
+        int(route == "vector"), xi32.data_ptr(), ia.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), total, ndim, nbins, head, int(vec_out), max(blocks, 1),
+        _stream(dev)), f"edge-lookup ({route} route)")
     edge_lookup_launches += 1
+    edge_route_launches[route] += 1
     return lo, hi

@@ -551,19 +551,52 @@ def check_resolve_routes(ndim: int, ncall: float, chunk_cubes: int,
     return out
 
 
-def check_edge_lookup(ndim: int, cubes: int, npg: int, nbins: int, *,
-                      seed: int = 0, device="cuda"):
-    """The edge-lookup kernel against ``edge_lookup_plain``: EQUAL."""
+def edge_ids(cubes: int, npg: int, ndim: int, nbins: int, *, seed: int = 0,
+             offset: int = 0, device="cuda"):
+    """Uniformly random bin ids in [1, nbins], (cubes, npg, ndim) int32, as
+    a view ``offset`` elements into its storage (an offset of 1-3 leaves
+    the data off a 16-byte boundary)."""
     rng = np.random.default_rng(seed)
+    flat = torch.as_tensor(rng.integers(1, nbins + 1, offset + cubes * npg
+                                        * ndim, dtype=np.int32), device=device)
+    return flat[offset:].view(cubes, npg, ndim)
+
+
+def check_edge_lookup(ndim: int, cubes: int, npg: int, nbins: int, *,
+                      route: str | None = None, offset: int = 0,
+                      seed: int = 0, ia=None, device="cuda"):
+    """The edge-lookup kernel (the route ``edge_route`` gives the shape, or
+    ``route``) against ``edge_lookup_plain``: EQUAL.  The ids are ``ia``,
+    or ``edge_ids(cubes, npg, ndim, nbins, seed=, offset=)``.  Returns the
+    kernel's (lo, hi) beside the counts."""
     xi32 = torch.as_tensor(random_grid(ndim, nbins, seed), dtype=torch.float32,
                            device=device)
-    ia = torch.as_tensor(
-        rng.integers(1, nbins + 1, (cubes, npg, ndim), dtype=np.int32),
-        device=device)
-    k = cuda_lookup.edge_lookup(xi32, ia, nbins)
+    if ia is None:
+        ia = edge_ids(cubes, npg, ndim, nbins, seed=seed, offset=offset,
+                      device=device)
+    k = cuda_lookup.edge_lookup(xi32, ia, nbins, route=route)
     p = cuda_lookup.edge_lookup_plain(xi32, ia, nbins)
     for name, a, b in zip(("lo", "hi"), k, p):
         if not torch.equal(a, b):
-            raise AssertionError(f"edge_lookup: {int((a != b).sum())} of "
-                                 f"{a.numel()} {name} edges differ")
-    return {"samples": cubes * npg, "max_abs": 0.0}
+            raise AssertionError(f"edge_lookup ({route or 'default'} route): "
+                                 f"{int((a != b).sum())} of {a.numel()} "
+                                 f"{name} edges differ")
+    return {"samples": ia.numel() // ndim, "max_abs": 0.0, "edges": k}
+
+
+def check_edge_routes(ndim: int, cubes: int, npg: int, nbins: int, *,
+                      offset: int = 0, seed: int = 0, ia=None, device="cuda"):
+    """Every edge-lookup route that takes the shape, each against
+    ``edge_lookup_plain`` and the routes against each other: EQUAL."""
+    routes = [r for r in cuda_lookup.EDGE_ROUTES if r == "generic"
+              or cuda_lookup.edge_route(ndim, nbins) == r]
+    got = {r: check_edge_lookup(ndim, cubes, npg, nbins, route=r,
+                                offset=offset, seed=seed, ia=ia,
+                                device=device)["edges"] for r in routes}
+    for name, a, b in zip(("lo", "hi"), got[routes[0]], got[routes[-1]]):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"edge_lookup: {int((a != b).sum())} of {a.numel()} {name} "
+                "edges differ between the routes")
+    return {"samples": got[routes[0]][0].numel() // ndim, "routes": routes,
+            "max_abs": 0.0}

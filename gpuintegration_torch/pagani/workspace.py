@@ -20,6 +20,7 @@ from __future__ import annotations
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from gpuintegration_torch.integrand import deduce_ncomp, make_integrand
@@ -27,6 +28,7 @@ from gpuintegration_torch.ops import rule_eval
 from gpuintegration_torch.pagani import region_pool, two_level
 from gpuintegration_torch.pagani.classifier import HeuristicClassifier
 from gpuintegration_torch.types import IntegrationResult, Volume
+from gpuintegration_torch.utils.checkpoint import PaganiCheckpoint
 
 MAX_ITERATIONS = 700  # (Workspace.cuh:182)
 
@@ -397,3 +399,31 @@ class Workspace:
 
         cum.nregions = result_nregions + n
         return cum
+
+    def make_checkpoint(self):
+        """The last run's live pool and ledger as a resumable
+        ``utils.checkpoint.PaganiCheckpoint`` (NumPy, region-major).
+
+        The stored ledger EXCLUDES the final pool's own sweep: every exit
+        of ``integrate`` folds that sweep into its result, and resuming
+        re-evaluates the same pool.  Resume with ``integrate(...,
+        initial_regions=(ck.lows, ck.lengths), ledger=ck.ledger)`` and add
+        ``ck.estimate``/``ck.errorest`` to the resumed result for the
+        complete integral.  ``region_estimates``/``region_errorests`` are
+        the pool's sweep per region (estimates and two-level refined
+        errors), in pool order."""
+        if self.final_pool is None:
+            raise ValueError("no resumable pool: run integrate() first")
+        est, err, nregions, iters, neval = self._ledger_excl_pool
+        lows, lengths, n, blocked = self.final_pool
+        keep = region_pool.block_mask(lows.shape[1], n, blocked,
+                                      lows.device).nonzero()[:, 0]
+
+        def host(a):
+            return np.ascontiguousarray(a[..., keep].cpu().numpy().T)
+
+        reg_est, reg_err = self.final_pool_errors
+        return PaganiCheckpoint(
+            lows=host(lows), lengths=host(lengths), estimate=est,
+            errorest=err, nregions=nregions, iters=iters, neval=neval,
+            region_estimates=host(reg_est), region_errorests=host(reg_err))

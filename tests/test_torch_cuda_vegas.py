@@ -15,6 +15,7 @@ import torch
 
 from gpuintegration_torch.mcubes import integrate, kernel_check
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
+from gpuintegration_torch.mcubes import vegas as V
 from gpuintegration_torch.models import genz
 
 
@@ -293,6 +294,37 @@ def test_resolve_routes_equal_on_card(ndim, ncall, chunk, nbins):
     assert r["rc_ulps"] <= kernel_check.RC_ULP
 
 
+# (cubes, npg, offset): a total that is a multiple of 4 or not, ia off a
+# 16-byte boundary by 1, 2 and 3 elements (head elements; 4-byte stores),
+# a single sample, and some 4M ids, several strides of the persistent grid
+EDGE_CASES = [(1009, 3, 0), (1000, 4, 0), (1001, 1, 1), (257, 2, 2),
+              (333, 3, 3), (1, 1, 0), (1, 1, 3), ((1 << 21) + 1, 2, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins", [50, 500, 2048])
+@pytest.mark.parametrize("ndim", range(1, 9))
+def test_edge_routes_equal_on_card(ndim, nbins):
+    """Both edge-lookup routes EQUAL to the plain version and to each
+    other on uniformly random ids, over totals and offsets of every kind
+    (EDGE_CASES), and on the stratified ids of a VEGAS chunk."""
+    _card()
+    assert cuda_lookup.edge_route(ndim, nbins) == "vector"
+    for cubes, npg, offset in EDGE_CASES:
+        cubes = min(cubes, (1 << 22) // (npg * ndim) + 1)
+        r = kernel_check.check_edge_routes(ndim, cubes, npg, nbins,
+                                           offset=offset, seed=ndim)
+        assert r["routes"] == ["vector", "generic"]
+    ng, ncubes = V.compute_ncubes(1e6, ndim)
+    npg = V.samples_per_cube(1e6, ncubes)
+    chunk = min(4096, ncubes)
+    xn, _ = cuda_lookup.stratified_xn_plain(ndim, ng, npg, nbins, chunk, 0,
+                                            ncubes, 0, 1, "cuda")
+    ids = torch.clamp(xn.to(torch.int32), 1, nbins).T.contiguous()
+    kernel_check.check_edge_routes(ndim, chunk, npg, nbins,
+                                   ia=ids.view(chunk, npg, ndim))
+
+
 @pytest.mark.gpu
 def test_lookup_launches_are_counted_by_route_on_card():
     """The main path's shapes take the grouped and the sample routes; a
@@ -311,5 +343,14 @@ def test_lookup_launches_are_counted_by_route_on_card():
     with pytest.raises(ValueError, match="does not take"):
         cuda_lookup.bin_resolve(xi, torch.ones((9, 64), device="cuda"), 50,
                                 route="sample")
+    kernel_check.check_edge_lookup(6, 512, 2, 500)
+    kernel_check.check_edge_lookup(6, 512, 2, 500, route="generic")
+    assert cuda_lookup.edge_route_launches == {"vector": 1, "generic": 1}
+    with pytest.raises(ValueError, match="does not take"):
+        cuda_lookup.edge_lookup(torch.zeros((16, 2049), device="cuda"),
+                                torch.ones((4, 16), dtype=torch.int32,
+                                           device="cuda"), 2048,
+                                route="vector")
     assert cuda_lookup.hist_launches == 2
     assert cuda_lookup.bin_resolve_launches == 1
+    assert cuda_lookup.edge_lookup_launches == 2

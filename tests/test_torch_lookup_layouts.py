@@ -325,7 +325,14 @@ def test_route_argument_is_ignored_on_the_cpu():
         got = cuda_lookup.bin_resolve_stratified(*args, with_ia=True,
                                                  route=route)
         assert all(torch.equal(a, b) for a, b in zip(got, strat))
+    ids = torch.as_tensor(rng.integers(1, nbins + 1, (n, ndim)),
+                          dtype=torch.int32)
+    edges = cuda_lookup.edge_lookup_plain(xi32, ids, nbins)
+    for route in (None, "vector", "generic", "no such route"):
+        got = cuda_lookup.edge_lookup(xi32, ids, nbins, route=route)
+        assert all(torch.equal(a, b) for a, b in zip(got, edges))
     assert cuda_lookup.hist_launches == cuda_lookup.bin_resolve_launches == 0
+    assert cuda_lookup.edge_lookup_launches == 0
 
 
 def test_launch_counts_reset():
@@ -334,11 +341,13 @@ def test_launch_counts_reset():
     cuda_lookup.edge_lookup_launches = 1
     cuda_lookup.hist_route_launches["grouped"] = 3
     cuda_lookup.resolve_route_launches["sample"] = 2
+    cuda_lookup.edge_route_launches["vector"] = 1
     cuda_lookup.reset_launches()
     assert (cuda_lookup.hist_launches, cuda_lookup.bin_resolve_launches,
             cuda_lookup.edge_lookup_launches) == (0, 0, 0)
     assert cuda_lookup.hist_route_launches == {"grouped": 0, "generic": 0}
     assert cuda_lookup.resolve_route_launches == {"sample": 0, "generic": 0}
+    assert cuda_lookup.edge_route_launches == {"vector": 0, "generic": 0}
 
 
 @pytest.mark.parametrize("ndim,nbins", [(6, 50), (8, 2048)])
@@ -409,3 +418,110 @@ def test_grid_step_is_the_f32_quotient(nbins):
     got = torch.tensor([cuda_lookup.grid_step(nbins, int(g)) for g in ng],
                        dtype=torch.float32)
     assert torch.equal(got, want)
+
+
+# -- the edge lookup's vector route ----------------------------------------------
+
+@pytest.mark.parametrize("ndim,nbins,route", [
+    (6, 500, "vector"), (1, 11, "vector"), (8, 2048, "vector"),
+    (16, 500, "vector"), (8, 3632, "vector"), (8, 3633, "generic"),
+    (16, 2048, "generic"), (2, 20000, "generic")])
+def test_edge_route_by_shape(ndim, nbins, route):
+    """The vector route wherever the edge pairs, 8 ndim nbins bytes, fit a
+    block's 227 KB (8D at 3632 bins exactly); the generic route else."""
+    assert cuda_lookup.edge_route(ndim, nbins) == route
+
+
+def test_edge_route_names_are_checked():
+    pick = cuda_lookup._pick_edge_route
+    assert pick(6, 500, None) == "vector"
+    assert pick(6, 500, "generic") == "generic"
+    assert pick(16, 2048, None) == "generic"
+    with pytest.raises(ValueError, match="does not take"):
+        pick(16, 2048, "vector")
+    with pytest.raises(ValueError, match="does not take"):
+        pick(6, 500, "sample")
+    with pytest.raises(ValueError, match="shared memory"):
+        pick(8, 8000, None)
+
+
+@pytest.mark.parametrize("total,ia_off,out_off,want", [
+    (100, 0, 0, (0, 25, True)),        # aligned, a multiple of 4
+    (103, 0, 0, (0, 26, True)),        # a ragged last quad
+    (100, 4, 0, (3, 25, False)),       # ia 1 element past a boundary
+    (100, 8, 0, (2, 25, False)),
+    (100, 12, 0, (1, 25, False)),
+    (100, 12, 12, (1, 25, True)),      # outputs in ia's phase
+    (2, 4, 0, (2, 0, False)),          # all of it head
+    (1, 0, 0, (0, 1, True))])
+def test_edge_plan(total, ia_off, out_off, want):
+    base = 1 << 20
+    assert cuda_lookup.edge_plan(total, base + ia_off, base + out_off,
+                                 2 * base + out_off) == want
+
+
+def edge_walk(total: int, ndim: int, head: int, blocks: int):
+    """For each element, (times visited, dimension the thread carried
+    there), as edge_vector_kernel walks: block 0 takes the head elements
+    one by one, then thread t of the grid takes quads t, t + stride, ...
+    after the head, carrying its dimension from quad to quad by a step of
+    (4 stride) % ndim and from element to element by one, in 32 bits."""
+    visits = np.zeros(total, np.int64)
+    dims = np.full(total, -1, np.int64)
+    visits[:head] += 1
+    dims[:head] = np.arange(head) % ndim
+    body = total - head
+    quads = -(-body // 4)
+    stride = blocks * cuda_lookup.THREADS
+    q = np.arange(stride, dtype=np.int64)
+    d = (head + 4 * q) % ndim
+    step = (4 * stride) % ndim
+    while (q < quads).any():
+        dk = d.copy()
+        for k in range(4):
+            e = head + 4 * q + k
+            ok = (q < quads) & (e < total)
+            np.add.at(visits, e[ok], 1)
+            dims[e[ok]] = dk[ok]
+            dk = np.where(dk + 1 == ndim, 0, dk + 1)
+        d = d + step
+        d = np.where(d >= ndim, d - ndim, d)
+        q = q + stride
+    return visits, dims
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3, 5, 6, 7, 8, 16])
+@pytest.mark.parametrize("total,head,blocks", [
+    (1, 0, 1), (3, 3, 1), (4099, 1, 1), (6 * 2501, 2, 2), (30011, 3, 3),
+    (1 << 14, 0, 5)])
+def test_edge_walk_takes_every_element_once_in_its_dimension(
+        total, head, blocks, ndim):
+    visits, dims = edge_walk(total, ndim, min(head, total), blocks)
+    assert (visits == 1).all()
+    assert np.array_equal(dims, np.arange(total) % ndim)
+
+
+def test_edge_route_check_on_cpu():
+    r = kernel_check.check_edge_routes(6, 100, 2, 500, offset=3,
+                                       device="cpu")
+    assert r["routes"] == ["vector", "generic"] and r["samples"] == 200
+    assert kernel_check.check_edge_routes(16, 10, 1, 2048, device="cpu")[
+        "routes"] == ["generic"]
+    ids = kernel_check.edge_ids(7, 3, 4, 50, offset=2, device="cpu")
+    assert ids.shape == (7, 3, 4) and ids.storage_offset() == 2
+    assert int(ids.min()) >= 1 and int(ids.max()) <= 50
+
+
+def test_edge_route_check_catches_another_edge(monkeypatch):
+    plain = cuda_lookup.edge_lookup
+
+    def by_route(xi32, ia, nbins, *, route=None):
+        lo, hi = plain(xi32, ia, nbins)
+        if route == "vector":
+            hi = hi.clone()
+            hi.view(-1)[7] = lo.view(-1)[7]
+        return lo, hi
+
+    monkeypatch.setattr(cuda_lookup, "edge_lookup", by_route)
+    with pytest.raises(AssertionError, match="hi edges differ"):
+        kernel_check.check_edge_routes(3, 20, 2, 50, device="cpu")
