@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources, holds each against its plain
-PyTorch version, drives PAGANI's ``Workspace.integrate`` at 8D and the
-VEGAS ``mcubes.integrate`` at 6D and the differentiable estimates of
+PyTorch version, drives PAGANI's ``Workspace.integrate`` at 8D (a Genz
+family through the fused rule kernel, a plain callable through the split
+route), its ``integrate_to_convergence`` at 8D and 1e-5, the VEGAS
+``mcubes.integrate`` at 6D and the differentiable estimates of
 ``gpuintegration_torch.diff`` at 6D through them, and times them.  Imports
 no JAX.  Phases (any failure exits non-zero and prints no result line; each
 prints its seconds):
@@ -88,7 +90,38 @@ timed beside the others in the same run.
    2.0e-11 and 2.7e-9 there on the CPU); the checkpoint pipeline, a 3D
    ``Workspace`` run, ``make_checkpoint``, ``mesh_from_checkpoint``,
    ``fixed_mesh_integral``;
-9. the ``kernels`` JSON line, then the card line and the result line.
+9. the rule's split route (any torch callable: the points kernel, the
+   callable, the contraction kernel; csrc/rule_split.cu) against its plain
+   version (ops.kernel_check.check_split_against_plain): 8D pools of 2^16
+   regions, blocked with padding slots, f64 and f32, ``misc.sin_sum(8)``,
+   ``misc.g_function(8)`` and Genz F4 as a plain batched and a per-axis
+   callable; ``misc.gauss9d()`` at 9D and ``misc.diagonal_ridge_2d()``
+   in their volumes.  Points EQUAL (bits and strides), values EQUAL,
+   est/err/split_dim by kernel_check's limits; a NaN region takes the
+   widest axis; ``misc.oscillatory(8)`` on the split route against
+   ``f1_oscillatory(8, ones)`` on the tile route within 1e-12;
+10. the two split kernels alone at the Workspace's 8D f64 chunk (4096
+   regions), best of 5 series back to back (``queued_ms``), beside their
+   bytes bounds, their plain versions, ``torch.addcmul`` (the points) and
+   ``torch.matmul`` against the TPU kernel's column matrix (the rule sums
+   only);
+11. PAGANI's main path with Genz F4 as a plain callable
+   (``Workspace(8).integrate(f4_plain, 1e-3)``, f64): status 0 within 1e-3
+   of the truth, every rule evaluation through the split kernels (counts
+   set to 0 before and read after), beside phase 3's run, with CUDA events
+   around each launch and call for the shares of the points kernel, the
+   callable, the contraction kernel and the rest; then ``misc.sin_sum(8)``
+   at 1e-11;
+12. the continuation, the reference's flagship:
+   ``Workspace(8).integrate_to_convergence(f4_gaussian(8), 1e-5,
+   max_wall_s=600)`` (status 0 within 1e-5 of the truth; wall, rounds,
+   slices, stage times), which at the 16M-region pool budget certifies in
+   round 1; the same at a budget of 2^22 regions (``CONT_POOL``), where
+   round 1 walls and the partitioned continuation must carry the run; then
+   that continuation stopped before its first slice, saved
+   (``state_path``) and resumed from the file, which must give the
+   uninterrupted run's estimate, errorest and neval;
+13. the ``kernels`` JSON line, then the card line and the result line.
 """
 from __future__ import annotations
 
@@ -106,11 +139,12 @@ import torch
 from gpuintegration_torch import Workspace, diff, mcubes
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
 from gpuintegration_torch.mcubes import kernel_check as vegas_check
-from gpuintegration_torch.models import genz
+from gpuintegration_torch.models import genz, misc
 from gpuintegration_torch.ops import (cuda_build, cuda_rule, kernel_check,
                                       rule_eval)
 from gpuintegration_torch.pagani import region_pool
 from gpuintegration_torch.tools import sass_report
+from gpuintegration_torch.utils.profiling import StageTimer
 
 NDIM = 8
 # H100 SXM data sheet, dense, outside the tensor cores; HBM3 rate.
@@ -1087,6 +1121,367 @@ def diff_path(dev):
         "diff_path_bound_ms": b, "diff_path_max_abs_err": path_err}
 
 
+# ---------------------------------------------------------------------------
+# The rule's split route (phases 9-11) and the continuation (phase 12)
+
+SPLIT_CHUNK = 4096        # Workspace(8)'s chunk in f64: 256 MB of points
+SIN_SUM_EPSREL = 1e-11    # sin_sum(8) certifies there in 12 iterations
+
+
+def f4_plain(x):
+    """Genz F4 at 8D (a = 25, b = 1/2) as a plain batched callable: the
+    expression of ``genz.f4_gaussian(8)`` without its family id, so it
+    takes the split route."""
+    return torch.exp(-torch.sum((25.0 * 25.0) * (x - 0.5) ** 2, dim=-1))
+
+
+def f4_axes(x0, x1, x2, x3, x4, x5, x6, x7):
+    """The same integrand in the scalar-per-axis form."""
+    s = 0.0
+    for u in (x0, x1, x2, x3, x4, x5, x6, x7):
+        s = s + 625.0 * (u - 0.5) ** 2
+    return torch.exp(-s)
+
+
+def compare_split(label, *args, **kw):
+    """kernel_check.check_split_against_plain, printed on one line; a
+    disagreement fails the run."""
+    try:
+        r = kernel_check.check_split_against_plain(*args, **kw)
+    except AssertionError as e:
+        fail(str(e))
+    print(f"{label}: {r['regions']} regions, points EQUAL (bits and "
+          f"strides), values EQUAL; max|d est| {r['max_abs_est']:.3e}; "
+          f"beyond rtol, in ulps of the roundoff scale (limits "
+          f"{kernel_check.ULPS['est']:g}/{kernel_check.ULPS['err']:g}): est "
+          f"{r['est_ulps']:.3g}, err {r['err_ulps']:.3g} "
+          f"({r['err_ulps_without_gate_ties']:.3g} before {r['gate_ties']} "
+          f"gate ties); split_dim EQUAL in {r['split_dim_equal']} of "
+          f"{r['regions']}", flush=True)
+    return r
+
+
+def split_checks(dev):
+    """Phase 9: the split route against its plain version.  Returns the
+    largest |d est| read."""
+    cap = 1 << 16
+    n = cap - (cap >> 3)           # blocked pool with padding slots
+    worst = 0.0
+    for dtype in (torch.float64, torch.float32):
+        tables = rule_eval.rule_tables(NDIM, rule_eval.dtype_name(dtype))
+        lows, lengths = random_pool(NDIM, cap, 1, dtype, dev)
+        gl = torch.zeros(NDIM, dtype=dtype, device=dev)
+        gr = torch.ones(NDIM, dtype=dtype, device=dev)
+        for label, f in (("sin_sum", misc.sin_sum(NDIM)),
+                         ("g_function", misc.g_function(NDIM)),
+                         ("F4 as a batched callable", f4_plain),
+                         ("F4 as a per-axis callable", f4_axes)):
+            r = compare_split(f"phase 9: {NDIM}D {label} {str(dtype)[6:]}", f,
+                              tables, lows, lengths, gl, gr, n=n,
+                              blocked=True, chunk_size=SPLIT_CHUNK)
+            worst = max(worst, r["max_abs_est"])
+    # other dimensions, in their volumes: the 9D Gaussian, the 2D ridge
+    for (g, vol), small_cap in ((misc.gauss9d(), 1 << 12),
+                                (misc.diagonal_ridge_2d(), 1 << 14)):
+        tables = rule_eval.rule_tables(g.ndim, "float64")
+        lows, lengths = random_pool(g.ndim, small_cap, 3, torch.float64, dev)
+        gl = torch.as_tensor(vol.lows, device=dev)
+        gr = torch.as_tensor(vol.highs - vol.lows, device=dev)
+        r = compare_split(f"phase 9: {g.ndim}D {g.name} float64", g, tables,
+                          lows, lengths, gl, gr,
+                          n=small_cap - (small_cap >> 3), blocked=True,
+                          chunk_size=SPLIT_CHUNK)
+        worst = max(worst, r["max_abs_est"])
+
+    # a NaN region takes the widest axis, as in the plain version
+    tables = rule_eval.rule_tables(NDIM, "float64")
+    lows, lengths = random_pool(NDIM, 256, 4, torch.float64, dev)
+    gl = torch.zeros(NDIM, dtype=torch.float64, device=dev)
+    gr = torch.ones(NDIM, dtype=torch.float64, device=dev)
+    lows[2, 7] = float("nan")
+    g = misc.sin_sum(NDIM)
+    k = cuda_rule.cuda_apply_rule_split(g, tables, lows, lengths, gl, gr)
+    p = rule_eval.apply_rule_plain(g, tables, lows, lengths, gl, gr)
+    widest = int(torch.argmax(lengths[:, 7]))
+    print(f"phase 9: NaN region: est {float(k[0][7])} (plain "
+          f"{float(p[0][7])}), split_dim {int(k[2][7])} (plain "
+          f"{int(p[2][7])}, widest axis {widest}); split_dim EQUAL in "
+          f"{int((k[2] == p[2]).sum())} of 256", flush=True)
+    if not (math.isnan(float(k[0][7])) and int(k[2][7]) == widest
+            == int(p[2][7]) and torch.equal(k[2], p[2])):
+        fail("the split route's NaN region does not take the widest axis")
+
+    # cos(sum x): the split route against Genz F1 (unit coefficients) on
+    # the tile route, the same rule to rounding
+    lows, lengths = random_pool(NDIM, cap, 1, torch.float64, dev)
+    split = cuda_rule.cuda_apply_rule_split(
+        misc.oscillatory(NDIM), tables, lows, lengths, gl, gr, n=n,
+        blocked=True, chunk_size=SPLIT_CHUNK)
+    tile = cuda_rule.cuda_apply_rule(
+        genz.f1_oscillatory(NDIM, np.ones(NDIM)), tables, lows, lengths, gl,
+        gr, n=n, blocked=True)
+    top = float(tile[0].abs().max())
+    d_est = float((split[0] - tile[0]).abs().max()) / top
+    d_err = float((split[1] - tile[1]).abs().max()) / top
+    sd = int((split[2] == tile[2]).sum())
+    print(f"phase 9: oscillatory(8) on the split route vs f1_oscillatory(8, "
+          f"ones) on the tile route, {n} regions: max|d est| {d_est:.3g}, "
+          f"max|d err| {d_err:.3g} of the largest |est| (limit 1e-12); "
+          f"split_dim EQUAL in {sd}", flush=True)
+    if not (d_est <= 1e-12 and d_err <= 1e-12):
+        fail(f"oscillatory: split and tile routes differ by {d_est}, {d_err}")
+    return worst
+
+
+def split_times(dev):
+    """Phase 10: the two split kernels alone at the Workspace's 8D f64
+    chunk, beside their bytes bounds, their plain versions and a PyTorch
+    call that computes the same (the points) or a part (the rule sums)."""
+    ndim, c = NDIM, SPLIT_CHUNK
+    tables = rule_eval.rule_tables(ndim, "float64")
+    feval = tables.feval
+    lows, lengths = random_pool(ndim, c, 5, torch.float64, dev)
+    gl = torch.zeros(ndim, dtype=torch.float64, device=dev)
+    gr = torch.ones(ndim, dtype=torch.float64, device=dev)
+    args = (tables, lows, lengths, gl, gr)
+    x = cuda_rule.split_points(*args, 0, c)
+    vals = f4_plain(x).to(torch.float64)
+    out = cuda_rule.split_contract(vals, *args, 0)
+    t = {}
+    t["points"] = queued_ms(lambda: cuda_rule.split_points(*args, 0, c), 5, 10)
+    t["contract"] = queued_ms(
+        lambda: cuda_rule.split_contract(vals, *args, 0, out=out), 5)
+    t["callable"] = queued_ms(lambda: f4_plain(x), 3, 5)
+    t["plain_points"] = time_ms(lambda: rule_eval.rule_points(*args), 3)
+    t["plain_contract"] = time_ms(
+        lambda: rule_eval.rule_outputs(vals, tables, lengths, gr), 3)
+    _, cen, ln = rule_eval.rule_points(*args)
+    gen = rule_eval.device_tables(ndim, torch.float64, dev)[0]
+    cen3, ln3 = cen.T[:, None, :], ln.T[:, None, :]
+    t["addcmul"] = queued_ms(lambda: torch.addcmul(cen3, gen[None], ln3,
+                                                   value=-1), 5, 10)
+    # the TPU kernel's (P, 6 + 2n) contraction matrix: the five rule
+    # weights, the centre, the single-axis pairs of orbits 1 and 2
+    m = np.zeros((feval, 6 + 2 * ndim))
+    m[:, :5] = tables.wts[:feval, :5]
+    m[0, 5] = 1.0
+    for d in range(ndim):
+        m[1 + 2 * d:3 + 2 * d, 6 + d] = 1.0
+        m[1 + 2 * ndim + 2 * d:3 + 2 * ndim + 2 * d, 6 + ndim + d] = 1.0
+    mt = torch.as_tensor(m, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t["matmul"] = queued_ms(lambda: torch.matmul(vals, mt), 5)
+    item = 8
+    points_bytes = c * feval * ndim * item + 2 * ndim * c * item \
+        + feval * ndim * item + 2 * ndim * item
+    contract_bytes = c * feval * item + ndim * c * item + c * (2 * item + 4)
+    b_points = bytes_bound_ms(points_bytes)
+    b_contract = bytes_bound_ms(contract_bytes)
+    print(f"phase 10: points kernel, {c} regions x {feval} points x {ndim} "
+          f"(f64): {t['points']:.4f} ms, bound {b_points:.4f} ms "
+          f"({points_bytes / 1e6:.1f} MB, bytes; "
+          f"{100 * b_points / t['points']:.1f}"
+          f"% of it); plain rule_points {t['plain_points']:.4f} ms; "
+          f"torch.addcmul {t['addcmul']:.4f} ms", flush=True)
+    print(f"phase 10: contraction kernel: {t['contract']:.4f} ms, bound "
+          f"{b_contract:.4f} ms ({contract_bytes / 1e6:.1f} MB, bytes; "
+          f"{100 * b_contract / t['contract']:.1f}% of it); plain "
+          f"rule_outputs {t['plain_contract']:.4f} ms; the sums alone by "
+          f"torch.matmul against the ({feval}, {6 + 2 * ndim}) column matrix "
+          f"{t['matmul']:.4f} ms; the F4 callable on the chunk's points "
+          f"{t['callable']:.4f} ms", flush=True)
+    return t, b_points, b_contract
+
+
+class SplitEvents:
+    """CUDA events around every launch of the two split kernels and every
+    call of the integrand (``f``, the integrand wrapped) while entered:
+    ``seconds``, the time between the events of each part."""
+
+    def __init__(self, integrand):
+        self.integrand = integrand
+        self.events = {"points": [], "callable": [], "contract": []}
+
+    def _timed(self, what, fn):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events[what].append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.kept = (cuda_rule._points_launch, cuda_rule._contract_launch)
+        cuda_rule._points_launch = self._timed("points", self.kept[0])
+        cuda_rule._contract_launch = self._timed("contract", self.kept[1])
+        self.f = self._timed("callable", self.integrand)
+        return self
+
+    def __exit__(self, *exc):
+        cuda_rule._points_launch, cuda_rule._contract_launch = self.kept
+        torch.cuda.synchronize()
+        self.seconds = {k: sum(s.elapsed_time(e) for s, e in v) / 1e3
+                        for k, v in self.events.items()}
+        return False
+
+
+def split_main_path(dev, tile_run):
+    """Phase 11: PAGANI's main path with its integrand as a plain callable,
+    every rule evaluation through the split route, CUDA events around each
+    kernel launch and each call of the callable; then a zoo integrand.
+    Returns the split kernels' launches on the first run."""
+    g4 = genz.f4_gaussian(NDIM)
+    torch.cuda.synchronize()
+    cuda_rule.reset_launches()
+    with SplitEvents(f4_plain) as ev:
+        t0 = time.perf_counter()
+        res = Workspace(NDIM).integrate(ev.f, epsrel=1e-3, epsabs=1e-40)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cuda_rule.split_launches)
+    fused = cuda_rule.launches
+    rel = abs(res.estimate - g4.true_value) / g4.true_value
+    parts = ev.seconds
+    rest = wall - sum(parts.values())
+    print(f"phase 11: f64 8D F4 as a plain callable, epsrel 1e-3: status "
+          f"{res.status} estimate {res.estimate!r} errorest {res.errorest!r} "
+          f"rel.err {rel:.3e} iters {res.iters} nregions {res.nregions} neval "
+          f"{res.neval} wall {wall:.3f} s evals/s {res.neval / wall:.4e}; "
+          f"split kernels' launches {launches}, fused kernel's {fused}; "
+          f"phase 3 (tile route, the same integrand): iters "
+          f"{tile_run.iters} nregions {tile_run.nregions} neval "
+          f"{tile_run.neval}", flush=True)
+    print(f"phase 11: the wall by CUDA events around each launch and call "
+          f"(they cost host time of their own): points kernel "
+          f"{parts['points']:.4f} s, the callable {parts['callable']:.4f} s, "
+          f"contraction kernel {parts['contract']:.4f} s, the rest (pool "
+          f"stages, host) {rest:.4f} s = "
+          f"{100 * parts['points'] / wall:.1f} / "
+          f"{100 * parts['callable'] / wall:.1f} / "
+          f"{100 * parts['contract'] / wall:.1f} / {100 * rest / wall:.1f} %",
+          flush=True)
+    if res.status != 0 or not rel <= 1e-3:
+        fail(f"split main path: status {res.status}, rel.err {rel}")
+    if fused or not launches["points"] or \
+            launches["points"] != launches["contract"]:
+        fail(f"split main path: launches {launches}, fused {fused}; every "
+             "rule evaluation should take the split route")
+
+    g = misc.sin_sum(NDIM)
+    cuda_rule.reset_launches()
+    t0 = time.perf_counter()
+    res = Workspace(NDIM).integrate(g, epsrel=SIN_SUM_EPSREL, epsabs=1e-40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rel = abs(res.estimate - g.true_value) / abs(g.true_value)
+    print(f"phase 11: f64 8D sin_sum (models.misc), epsrel "
+          f"{SIN_SUM_EPSREL:g}: status {res.status} estimate "
+          f"{res.estimate!r} truth {g.true_value!r} rel.err {rel:.3e} iters "
+          f"{res.iters} nregions {res.nregions} neval {res.neval} wall "
+          f"{wall:.3f} s; launches {dict(cuda_rule.split_launches)}, fused "
+          f"{cuda_rule.launches}", flush=True)
+    if res.status != 0 or not rel <= SIN_SUM_EPSREL or cuda_rule.launches \
+            or not cuda_rule.split_launches["points"]:
+        fail(f"sin_sum main path: status {res.status}, rel.err {rel}")
+    return launches
+
+
+CONT_POOL = 1 << 22      # a pool budget at which 8D F4's round 1 walls
+
+
+def convergence_run(label, g, ws, **kw):
+    """``ws.integrate_to_convergence(g, 1e-5, ...)`` with a stage timer and
+    its ``integrate`` calls counted; printed, wall first.  Returns the
+    result, its stages and its wall."""
+    timer = StageTimer()
+    runs = [0]
+    integrate = ws.integrate
+
+    def counted(*args, **kwargs):
+        runs[0] += 1
+        return integrate(*args, **kwargs)
+
+    ws.integrate = counted
+    cuda_rule.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ws.integrate_to_convergence(g, epsrel=1e-5, epsabs=1e-40,
+                                      max_wall_s=600, stage_timer=timer,
+                                      **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rel = abs(res.estimate - g.true_value) / g.true_value
+    rounds = sum(1 for k in timer.times if "round" in k)
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in timer.report().items())
+    stages += (f", outside the stages (checkpoints, slicing, the queue) "
+               f"{wall - sum(timer.times.values()):.3f} s")
+    print(f"phase 12: wall {wall:.3f} s: {label}: status {res.status} "
+          f"estimate {res.estimate!r} errorest {res.errorest!r} truth "
+          f"{g.true_value!r} rel.err {rel:.3e}; {rounds} rounds, "
+          f"{runs[0] - rounds} slices; iters {res.iters} nregions "
+          f"{res.nregions} neval {res.neval} evals/s {res.neval / wall:.4e}; "
+          f"stages: {stages}; rule launches {dict(cuda_rule.route_launches)}",
+          flush=True)
+    if res.status != 0 or not rel <= 1e-5:
+        fail(f"{label}: status {res.status}, rel.err {rel}")
+    return res, timer.times, wall
+
+
+def continuation_path(dev):
+    """Phase 12: the reference's flagship, 8D Genz F4 at epsrel 1e-5, by
+    ``integrate_to_convergence``, as it is (the 16M-region pool budget);
+    then with the pool budget cut to CONT_POOL regions, where round 1 walls
+    and the partitioned continuation must carry it; then that
+    continuation stopped before its first slice (a passed deadline), saved,
+    and resumed from the file."""
+    g = genz.f4_gaussian(NDIM)
+    ws = Workspace(NDIM)
+    _, stages, wall = convergence_run(
+        f"integrate_to_convergence, f64 8D f4_gaussian epsrel 1e-5, pool "
+        f"budget {ws.max_pool_regions}", g, ws)
+    engaged = ("engaged" if "slices" in stages
+               else "did not engage: round 1 certified")
+    print(f"phase 12: at the {ws.max_pool_regions}-region budget the "
+          f"continuation {engaged}", flush=True)
+    ws = Workspace(NDIM, max_pool_regions=CONT_POOL)
+    res, stages, _ = convergence_run(
+        f"the same, pool budget {CONT_POOL}", g, ws)
+    if "slices" not in stages:
+        fail(f"pool budget {CONT_POOL}: stages {sorted(stages)}; the "
+             "partitioned continuation should engage")
+
+    sp = cuda_build.BUILD_DIR / "continuation_state"
+    ws2 = Workspace(NDIM, max_pool_regions=CONT_POOL)
+    t0 = time.perf_counter()
+    r1 = ws2.integrate(g, epsrel=1e-5, epsabs=1e-40)
+    ck = ws2.make_checkpoint()
+    ws2.final_pool = ws2.final_pool_errors = None
+    cut = ws2._partitioned_continuation(
+        g, 1e-5, 1e-40, None, ck, r1, 15, deadline=time.monotonic() - 1.0,
+        state_path=sp)
+    saved = (sp.parent / (sp.name + ".npz")).exists()
+    resumed = Workspace(NDIM, max_pool_regions=CONT_POOL
+                        ).integrate_to_convergence(
+        g, epsrel=1e-5, epsabs=1e-40, max_wall_s=600, state_path=sp)
+    torch.cuda.synchronize()
+    same = (resumed.estimate, resumed.errorest, resumed.neval,
+            resumed.nregions) == (res.estimate, res.errorest, res.neval,
+                                  res.nregions)
+    print(f"phase 12: stopped before the first slice (status {cut.status}, "
+          f"state saved: {saved}), resumed from the file: status "
+          f"{resumed.status} estimate {resumed.estimate!r} errorest "
+          f"{resumed.errorest!r} neval {resumed.neval}: "
+          f"{'the same' if same else 'NOT the same'} as the uninterrupted "
+          f"run; {time.perf_counter() - t0:.3f} s", flush=True)
+    if not (saved and resumed.status == 0 and same):
+        fail("the continuation resumed from its state file differs from the "
+             "uninterrupted run")
+    return wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -1100,7 +1495,8 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     phase_t0 = t0 = time.perf_counter()
-    sources = ["rule_eval.cu", "vegas_sample.cu", "vegas_lookup.cu"]
+    sources = ["rule_eval.cu", "vegas_sample.cu", "vegas_lookup.cu",
+               "rule_split.cu"]
     libs = cuda_build.build_many(sources)
     print(f"phase 1: built {len(libs)} libraries with nvcc in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -1332,6 +1728,16 @@ def main() -> int:
                          **edge_fields)
     phase_done("phase 8")
 
+    # -- phases 9-12: the split route, the continuation ----------------------
+    split_err = split_checks(dev)
+    phase_done("phase 9")
+    split_ms, b_points, b_contract = split_times(dev)
+    phase_done("phase 10")
+    split_launches = split_main_path(dev, res)
+    phase_done("phase 11")
+    continuation_path(dev)
+    phase_done("phase 12")
+
     # -- the kernels line ----------------------------------------------------
     kernels = [{
         "name": "rule_eval",
@@ -1349,7 +1755,34 @@ def main() -> int:
         "bound_ms": b_main,
         "bound_by": by_main,
         "library_ms": None,
-    }] + vegas_kernels
+    }] + vegas_kernels + [{
+        "name": "rule_split_points",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/rule_split.cu",
+        "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+        "held_against_plain_in": "phase 9 (EQUAL to rule_eval.rule_points)",
+        "launches": split_launches["points"],
+        "max_abs_err": 0.0,
+        "ms": split_ms["points"],
+        "plain_ms": split_ms["plain_points"],
+        "bound_ms": b_points,
+        "bound_by": "bytes",
+        "library_ms": split_ms["addcmul"],
+    }, {
+        "name": "rule_split_contract",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/rule_split.cu",
+        "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+        "held_against_plain_in": "phase 9 (rule_eval.rule_outputs)",
+        "launches": split_launches["contract"],
+        "max_abs_err": split_err,
+        "ms": split_ms["contract"],
+        "plain_ms": split_ms["plain_contract"],
+        "bound_ms": b_contract,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "sums_only_matmul_ms": split_ms["matmul"],
+    }]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,14 @@
 
 PAGANI adaptive cubature on one NVIDIA GPU: the scalar host loop of
 ``Workspace.integrate`` in plain PyTorch, with the Genz-Malik rule
-evaluation as a hand-written CUDA kernel (ops/cuda_rule.py,
-csrc/rule_eval.cu).  m-CUBES/VEGAS Monte Carlo: ``mcubes.integrate``
+evaluation in hand-written CUDA kernels (ops/cuda_rule.py): a Genz family
+fused into one kernel (csrc/rule_eval.cu), any other torch callable between
+a points kernel and a contraction kernel (csrc/rule_split.cu).
+``Workspace.integrate_to_convergence`` carries deep tolerances past one
+run's pool wall (checkpoint-resume rounds, then a partitioned continuation
+whose state ``utils.checkpoint.ContinuationState`` saves; stage times by
+``utils.profiling.StageTimer``).  The reference's integrand zoo is
+``models.misc``, the Genz families ``models.genz``.  m-CUBES/VEGAS Monte Carlo: ``mcubes.integrate``
 (also ``mcubes.vegas``, ``mcubes.simple_integrate``, ``mcubes.VegasState``)
 with its sampler, histogram, bin-resolve and edge-lookup kernels in CUDA
 (mcubes/cuda_vegas.py, mcubes/cuda_lookup.py, csrc/vegas_*.cu).

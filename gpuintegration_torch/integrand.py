@@ -93,7 +93,7 @@ def deduce_ncomp(batched_f: Callable, ndim: int, dtype: torch.dtype,
     if len(shape) == 2 and shape[0] == 3:
         raise NotImplementedError(
             f"vector-valued integrands (ncomp={shape[1]}) are not ported to "
-            "gpuintegration_torch yet; use gpuintegration_tpu")
+            "gpuintegration_torch yet (ROADMAP A9); use gpuintegration_tpu")
     raise ValueError(
         f"integrand maps (3, {ndim}) -> {shape}; expected (3,) for a "
         f"scalar integrand")

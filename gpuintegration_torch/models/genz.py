@@ -5,9 +5,10 @@ Each family is a batched torch callable over (..., ndim) tensors plus a
 closed-form ``true_value``.  The arithmetic forms follow the reference
 (F2 takes one division of the denominator product, F3 an integer power),
 so the port and the JAX package evaluate the same expressions.  Every
-``GenzIntegrand`` also carries its family ``kind`` (1..6) and parameters,
-from which the CUDA rule kernel (ops/cuda_rule.py) builds the same
-function on the card.
+family's ``GenzIntegrand`` also carries its ``kind`` (1..6) and parameters,
+from which the fused CUDA rule kernel (ops/cuda_rule.py) builds the same
+function on the card; one that carries none (``kind=None``, the integrands
+of ``models.misc``) takes the rule's split route there.
 
 Default parameters match the reference's 8D/7D/6D/5D instances:
   F1 oscillatory:   cos(offset + sum a_i x_i), a_i = i+1
@@ -31,17 +32,20 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class GenzIntegrand:
     """A batched integrand, its exact integral over [0,1]^n, and the
-    family id and parameters the CUDA kernel needs.
+    family id and parameters the fused CUDA kernel needs (None for an
+    integrand of no Genz family).
 
     ``params``: ``coeffs`` (per-axis a_i, F1/F3/F6), ``offset`` (F1),
-    ``a``/``b`` (scalar F2/F4/F5), ``bounds`` (per-axis b_i, F6)."""
+    ``a``/``b`` (scalar F2/F4/F5), ``bounds`` (per-axis b_i, F6).
+    ``truth_exact``: False when ``true_value`` is a high-accuracy numeric
+    estimate rather than a closed form."""
 
     name: str
     ndim: int
     f: Callable
     true_value: float
-    kind: int
-    params: dict
+    kind: int | None = None
+    params: dict | None = None
     truth_exact: bool = True
 
     def __call__(self, x):
@@ -51,13 +55,23 @@ class GenzIntegrand:
 # ---------------------------------------------------------------------------
 # closed forms (unit cube)
 
-def _osc_truth(coeffs: np.ndarray, offset: float = 0.0) -> float:
-    """Integral of cos(offset + sum a_i x_i) over [0,1]^n:
-    Re[ e^{i offset} prod_j (e^{i a_j} - 1)/(i a_j) ]."""
+def _phase_integral(coeffs: np.ndarray, offset: float) -> complex:
+    """Integral of e^{i (offset + sum a_i x_i)} over [0,1]^n:
+    e^{i offset} prod_j (e^{i a_j} - 1)/(i a_j)."""
     z = np.exp(1j * offset)
     for a in coeffs:
         z = z * (np.exp(1j * a) - 1.0) / (1j * a)
-    return float(z.real)
+    return z
+
+
+def _osc_truth(coeffs: np.ndarray, offset: float = 0.0) -> float:
+    """Integral of cos(offset + sum a_i x_i) over [0,1]^n."""
+    return float(_phase_integral(coeffs, offset).real)
+
+
+def _sin_sum_truth(coeffs: np.ndarray, offset: float = 0.0) -> float:
+    """Integral of sin(offset + sum a_i x_i) over [0,1]^n."""
+    return float(_phase_integral(coeffs, offset).imag)
 
 
 def _product_peak_truth(a: float, b: float, ndim: int) -> float:

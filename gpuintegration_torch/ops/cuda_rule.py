@@ -33,16 +33,21 @@ address arithmetic and the search for a point's orbit.  No tensor cores, no
 TF32: the null-rule sums cancel.
 
 Both know the integrand as a Genz family id (F1..F6) and its parameters
-(models.genz.GenzIntegrand); any other callable raises NotImplementedError
-on a CUDA pool -- pass ``rule_backend="torch"`` to the Workspace to run the
-plain version on the card instead.
+(models.genz.GenzIntegrand).  Any other integrand takes a third route,
+``'split'`` (``cuda_apply_rule_split``, csrc/rule_split.cu): chunk by chunk,
+a points kernel writes every rule point, the callable runs on them as
+ordinary torch operations, and a contraction kernel reduces its values to
+est, err and split_dim.  ``rule_route(ndim, integrand)`` chooses the route
+from the integrand and the shape.
 
-``launches`` counts every launch since it was last set to 0, and
-``route_launches`` the same per route; ``reset_launches()`` zeroes both.
+``launches`` counts every launch of the fused kernels since it was last set
+to 0, and ``route_launches`` the same per route; ``split_launches`` counts
+the split route's two kernels, ``'points'`` and ``'contract'``;
+``reset_launches()`` zeroes them all.
 
-The library is compiled with nvcc at first use into ``build/`` beside this
-package, from the package's own source (ops/cuda_build.py); a failed build
-raises.
+The libraries are compiled with nvcc at first use into ``build/`` beside
+this package, from the package's own sources (ops/cuda_build.py); a failed
+build or launch raises, and nothing falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -53,10 +58,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gpuintegration_torch.integrand import make_integrand
 from gpuintegration_torch.ops import cuda_build, rule_eval
 from gpuintegration_torch.ops.genz_malik import GENERATORS
 
 _SOURCE = "rule_eval.cu"
+_SPLIT_SOURCE = "rule_split.cu"
 MAX_NDIM = 16
 ROUTES = ("tile", "generic")
 # The dimensions csrc/rule_eval.cu compiles the tile route for: every one
@@ -71,6 +78,7 @@ CODE_BITS = 4                   # bits of a (point, axis) code
 # them to show that a run went through the kernel, and by which route.
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
+split_launches = {"points": 0, "contract": 0}
 
 
 def reset_launches():
@@ -78,6 +86,8 @@ def reset_launches():
     launches = 0
     for r in ROUTES:
         route_launches[r] = 0
+    for k in split_launches:
+        split_launches[k] = 0
 
 
 def build() -> Path:
@@ -100,17 +110,36 @@ def _configure(lib):
     fn.restype = ctypes.c_int
 
 
+def _configure_split(lib):
+    head = ([ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+            + [ctypes.c_longlong] * 2)
+    fn = lib.rule_split_points_launch
+    fn.argtypes = head + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    fn = lib.rule_split_contract_launch
+    fn.argtypes = (head + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 6
+                   + [ctypes.c_double, ctypes.c_void_p]
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+
+
+def is_genz_family(integrand) -> bool:
+    """Whether the fused routes know ``integrand``: a Genz family id F1..F6
+    with its parameters (models.genz.GenzIntegrand)."""
+    return (getattr(integrand, "kind", None) in (1, 2, 3, 4, 5, 6)
+            and getattr(integrand, "params", None) is not None)
+
+
 def kernel_params(integrand) -> tuple[int, np.ndarray]:
     """(family id, 34 host doubles: coeffs[16], bounds[16], s0, s1) of a
     Genz integrand; NotImplementedError for a callable the kernel lacks."""
-    kind = getattr(integrand, "kind", None)
-    params = getattr(integrand, "params", None)
-    if kind not in (1, 2, 3, 4, 5, 6) or params is None:
+    if not is_genz_family(integrand):
         raise NotImplementedError(
-            "the CUDA rule kernel evaluates the Genz families F1-F6 "
-            "(gpuintegration_torch.models.genz) only; for another integrand "
-            "on the card pass rule_backend='torch' to the Workspace (the "
-            "plain PyTorch rule evaluation)")
+            "the fused rule kernels evaluate the Genz families F1-F6 "
+            "(gpuintegration_torch.models.genz) only; another integrand "
+            "takes the split route (cuda_apply_rule_split), as "
+            "rule_eval.apply_rule chooses by rule_route")
+    kind, params = integrand.kind, integrand.params
     p = np.zeros(2 * MAX_NDIM + 2, dtype=np.float64)
     if kind in (1, 3, 6):
         coeffs = np.asarray(params["coeffs"], dtype=np.float64)
@@ -135,10 +164,14 @@ def kernel_params(integrand) -> tuple[int, np.ndarray]:
 # ---------------------------------------------------------------------------
 # Host-side layouts of the tile route
 
-def rule_route(ndim: int) -> str:
-    """The kernel a pool of this dimension takes: 'tile' where the source
-    compiles it, else 'generic'.  The working type does not enter: both
-    routes are compiled for float64 and float32."""
+def rule_route(ndim: int, integrand=None) -> str:
+    """The route a pool of this dimension takes: 'split' for an integrand
+    that is not a Genz family (``is_genz_family``); for a Genz family (or
+    no integrand named) 'tile' where the source compiles it, else
+    'generic'.  The working type does not enter: every route is compiled
+    for float64 and float32."""
+    if integrand is not None and not is_genz_family(integrand):
+        return "split"
     return "tile" if ndim in TILE_NDIMS else "generic"
 
 
@@ -225,34 +258,14 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     ndim = tables.ndim
     if getattr(integrand, "ndim", ndim) != ndim:
         raise ValueError(f"integrand ndim {integrand.ndim} != rule {ndim}")
-    if not 2 <= ndim <= MAX_NDIM:
-        raise ValueError(f"the CUDA rule kernel takes ndim 2..{MAX_NDIM}, "
-                         f"not {ndim}")
     if route is None:
         route = rule_route(ndim)
     if route not in ROUTES or (route == "tile" and ndim not in TILE_NDIMS):
         raise ValueError(f"route {route!r} does not take ndim {ndim} "
                          f"(tile: {TILE_NDIMS}; generic: 2..{MAX_NDIM})")
-    if lows.device.type != "cuda":
-        raise ValueError(f"cuda_apply_rule needs CUDA tensors, got "
-                         f"{lows.device}")
+    cap, n = _check_pool("cuda_apply_rule", tables, lows, lengths, global_lo,
+                         global_range, n, blocked)
     dtype = lows.dtype
-    if dtype not in (torch.float64, torch.float32):
-        raise ValueError(f"dtype {dtype} (float64 or float32)")
-    cap = lows.shape[1]
-    for name, t, shape in (("lows", lows, (ndim, cap)),
-                           ("lengths", lengths, (ndim, cap)),
-                           ("global_lo", global_lo, (ndim,)),
-                           ("global_range", global_range, (ndim,))):
-        if (t.device != lows.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: need a contiguous {dtype} tensor of shape {shape} "
-                f"on {lows.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
-    n = cap if n is None else int(n)
-    if not 0 <= n <= cap or (blocked and (n % 2 or cap % 2)):
-        raise ValueError(f"n={n} for a pool of {cap} (blocked={blocked})")
     if cap >= 2 ** 31 // ndim:
         raise ValueError(f"pool of {cap} regions is too large for int32 "
                          "indexing")
@@ -293,6 +306,197 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     launches += 1
     route_launches[route] += 1
     return est, err, sdim
+
+
+def _check_pool(what: str, tables: rule_eval.RuleTables, lows, lengths,
+                global_lo, global_range, n, blocked) -> tuple[int, int]:
+    """(cap, n) of a pool that the kernels take; ValueError for one they do
+    not: another device than CUDA, another type than f64/f32, a shape,
+    device or type that differs, a non-contiguous tensor, or an ``n`` that
+    the layout cannot hold."""
+    ndim = tables.ndim
+    if not 2 <= ndim <= MAX_NDIM:
+        raise ValueError(f"the CUDA rule kernel takes ndim 2..{MAX_NDIM}, "
+                         f"not {ndim}")
+    if lows.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {lows.device}")
+    dtype = lows.dtype
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"dtype {dtype} (float64 or float32)")
+    cap = lows.shape[1]
+    for name, t, shape in (("lows", lows, (ndim, cap)),
+                           ("lengths", lengths, (ndim, cap)),
+                           ("global_lo", global_lo, (ndim,)),
+                           ("global_range", global_range, (ndim,))):
+        if (t.device != lows.device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: need a contiguous {dtype} tensor of shape {shape} "
+                f"on {lows.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    n = cap if n is None else int(n)
+    if not 0 <= n <= cap or (blocked and (n % 2 or cap % 2)):
+        raise ValueError(f"n={n} for a pool of {cap} (blocked={blocked})")
+    return cap, n
+
+
+# ---------------------------------------------------------------------------
+# The split route: any integrand
+
+def split_chunks(n: int, chunk_size: int | None) -> list[tuple[int, int]]:
+    """[(first real region, regions)] of every chunk the split route walks
+    over ``n`` real regions: ``chunk_size`` at a time (all of them when
+    None), in the order of ``rule_eval.apply_rule_plain``'s chunks.  Real
+    region r lies in pool slot ``split_slots``' r."""
+    step = n if chunk_size is None else max(int(chunk_size), 1)
+    return [(first, min(step, n - first)) for first in range(0, n, step)]
+
+
+def split_slots(cap: int, n: int, blocked: bool, first: int,
+                count: int) -> np.ndarray:
+    """Pool slots of real regions first .. first + count - 1, as the split
+    kernels compute them: [0, n) in the plain layout; in the blocked one
+    the first n/2 slots of each half of the pool (region_pool.block_mask),
+    the first half's before the second's."""
+    r = np.arange(first, first + count, dtype=np.int64)
+    if not blocked:
+        return r
+    return np.where(r >= n // 2, cap // 2 + r - n // 2, r)
+
+
+@functools.lru_cache(maxsize=256)
+def points_strides(count: int, feval: int, ndim: int) -> tuple:
+    """The strides of ``rule_eval.rule_points``' (count, feval, ndim)
+    tensor, which the points kernel writes: PyTorch's layout of that
+    broadcast expression, read from the same expression on meta tensors
+    (for count >= 2 coordinate planes with the region fastest, (1, count,
+    count * feval); for one region points-major)."""
+    c = torch.empty((ndim, count), device="meta")
+    g = torch.empty((feval, ndim), device="meta")
+    return (c.T[:, None, :] - g[None, :, :] * c.T[:, None, :]).stride()
+
+
+def _points_launch(lib, tables, lows, lengths, global_lo, global_range,
+                   cap, n, blocked, first, count):
+    strides = points_strides(count, tables.feval, tables.ndim)
+    x = torch.empty_strided((count, tables.feval, tables.ndim), strides,
+                            dtype=lows.dtype, device=lows.device)
+    gen, _, _, _ = rule_eval.device_tables(tables.ndim, lows.dtype,
+                                           lows.device)
+    rc = lib.rule_split_points_launch(
+        int(lows.dtype == torch.float64), tables.ndim, tables.feval, cap, n,
+        int(bool(blocked)), first, count, *strides, lows.data_ptr(),
+        lengths.data_ptr(), global_lo.data_ptr(), global_range.data_ptr(),
+        gen.data_ptr(), x.data_ptr(),
+        torch.cuda.current_stream(lows.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA rule points kernel launch failed: error "
+                           f"{rc}")
+    split_launches["points"] += 1
+    return x
+
+
+def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
+                     blocked, first, count, est, err, sdim):
+    _, orbit_wts, scale, norm = rule_eval.device_tables(
+        tables.ndim, vals.dtype, vals.device)
+    ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
+    rc = lib.rule_split_contract_launch(
+        int(vals.dtype == torch.float64), tables.ndim, tables.feval, cap, n,
+        int(bool(blocked)), first, count, *vals.stride(), vals.data_ptr(),
+        lengths.data_ptr(), global_range.data_ptr(), orbit_wts.data_ptr(),
+        scale.data_ptr(), norm.data_ptr(), float(tables.ratio),
+        ctypes.cast(ob, ctypes.c_void_p), est.data_ptr(), err.data_ptr(),
+        sdim.data_ptr(), torch.cuda.current_stream(vals.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA rule contraction kernel launch failed: "
+                           f"error {rc}")
+    split_launches["contract"] += 1
+
+
+def _check_chunk(cap, n, first, count):
+    if not (0 <= first and 1 <= count and first + count <= n <= cap):
+        raise ValueError(f"regions {first}..{first + count - 1} of {n} real "
+                         f"in a pool of {cap}")
+
+
+def split_points(tables: rule_eval.RuleTables, lows, lengths, global_lo,
+                 global_range, first: int, count: int, *,
+                 n: int | None = None, blocked: bool = False):
+    """One launch of the points kernel: the rule points (count, feval,
+    ndim) of real regions first .. first + count - 1 of a CUDA pool, EQUAL
+    to ``rule_eval.rule_points`` of the same regions."""
+    cap, n = _check_pool("split_points", tables, lows, lengths, global_lo,
+                         global_range, n, blocked)
+    _check_chunk(cap, n, first, count)
+    return _points_launch(cuda_build.load(_SPLIT_SOURCE, _configure_split),
+                          tables, lows, lengths, global_lo, global_range,
+                          cap, n, blocked, first, count)
+
+
+def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
+                   global_lo, global_range, first: int, *,
+                   n: int | None = None, blocked: bool = False, out=None):
+    """One launch of the contraction kernel: est, err and split_dim of real
+    regions first .. first + C - 1 from their rule values ``vals`` (C,
+    feval), written at their slots of ``out`` = (est, err, split_dim), each
+    (cap,) (new zeroed tensors when None), which it returns.  What
+    ``rule_eval.rule_outputs`` computes."""
+    cap, n = _check_pool("split_contract", tables, lows, lengths, global_lo,
+                         global_range, n, blocked)
+    count = vals.shape[0] if vals.dim() == 2 else 0
+    _check_chunk(cap, n, first, count)
+    _check_vals(vals, count, tables, lows)
+    if out is None:
+        out = _zero_outputs(cap, lows)
+    _contract_launch(cuda_build.load(_SPLIT_SOURCE, _configure_split), tables,
+                     vals, lengths, global_range, cap, n, blocked, first,
+                     count, *out)
+    return out
+
+
+def _check_vals(vals, count, tables, lows):
+    """The values the contraction takes, at any strides (it only reads
+    them): (count, feval) of the pool's type and device."""
+    if (tuple(vals.shape) != (count, tables.feval) or vals.dtype != lows.dtype
+            or vals.device != lows.device):
+        raise ValueError(
+            f"integrand values: need a {lows.dtype} tensor of shape "
+            f"({count}, {tables.feval}) on {lows.device}, got {vals.dtype} "
+            f"{tuple(vals.shape)} on {vals.device}")
+
+
+def _zero_outputs(cap, lows):
+    return (torch.zeros(cap, dtype=lows.dtype, device=lows.device),
+            torch.zeros(cap, dtype=lows.dtype, device=lows.device),
+            torch.zeros(cap, dtype=torch.int32, device=lows.device))
+
+
+def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
+                          lengths, global_lo, global_range, *,
+                          chunk_size: int | None = None,
+                          n: int | None = None, blocked: bool = False):
+    """The split route over the ``n`` real regions of a CUDA pool (all of
+    it when ``n`` is None), ``chunk_size`` regions at a time
+    (``split_chunks``): the points kernel, ``integrand`` (any form ``make_integrand`` takes) on
+    the (C, feval, ndim) points, its values cast to the pool's type, the
+    contraction kernel.  Arguments and outputs as
+    ``rule_eval.apply_rule_plain``: (estimate (cap,), errorest (cap,),
+    split_dim (cap,) int32), zeros in the padding slots."""
+    cap, n = _check_pool("cuda_apply_rule_split", tables, lows, lengths,
+                         global_lo, global_range, n, blocked)
+    batched, _ = make_integrand(integrand, tables.ndim)
+    lib = cuda_build.load(_SPLIT_SOURCE, _configure_split)
+    out = _zero_outputs(cap, lows)
+    for first, count in split_chunks(n, chunk_size):
+        x = _points_launch(lib, tables, lows, lengths, global_lo,
+                           global_range, cap, n, blocked, first, count)
+        vals = batched(x).to(lows.dtype)
+        del x
+        _check_vals(vals, count, tables, lows)
+        _contract_launch(lib, tables, vals, lengths, global_range,
+                         cap, n, blocked, first, count, *out)
+    return out
 
 
 @functools.lru_cache(maxsize=None)

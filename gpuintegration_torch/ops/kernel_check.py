@@ -26,6 +26,14 @@ kernel that gates, scales or normalises differently fails.
 
 A split_dim mismatch must be a near-tie: the two fourth differences within
 TIE ulps of the largest of the 4n+1 values they are made of.
+
+The split route (``cuda_rule.cuda_apply_rule_split``, any integrand) is
+held tighter where it can be: its points kernel must write the plain
+version's points bit for bit and in their layout, so the callable's values
+are EQUAL too; est and err are held to the limits above (only the orbit
+sums are taken in another order); split_dim is read against the same
+near-tie rule, and its exact agreement is counted
+(``check_split_against_plain``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ import torch
 from gpuintegration_torch.integrand import make_integrand
 from gpuintegration_torch.ops import cuda_rule, rule_eval
 from gpuintegration_torch.pagani.region_pool import block_mask
+
+READINGS = ("abs_est", "est", "err", "err_direct", "gate_tie", "err_resolved",
+            "tie_gap")
 
 RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 ULPS = {"est": 1.0, "err": 1.0}
@@ -213,11 +224,83 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
         parts.append(region_readings([o[idx] for o in k],
                                      [o[idx] for o in p], vals, u, tables,
                                      ln, global_range))
-    r = {key: torch.cat([q[key] for q in parts]) if parts
-         else torch.zeros(0, device=lows.device) for key in (
-             "abs_est", "est", "err", "err_direct", "gate_tie", "err_resolved",
-             "tie_gap")}
-    return judge(r, name=name, dtype=lows.dtype, min_agree=min_agree)
+    return judge(_joined(parts, lows.device), name=name, dtype=lows.dtype,
+                 min_agree=min_agree)
+
+
+def _joined(parts, device):
+    return {key: torch.cat([q[key] for q in parts]) if parts
+            else torch.zeros(0, device=device) for key in READINGS}
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, strides and bits (NaN and the sign of 0 included)."""
+    return (a.shape == b.shape and a.stride() == b.stride()
+            and a.dtype == b.dtype and torch.equal(
+                a.contiguous().view(torch.uint8),
+                b.contiguous().view(torch.uint8)))
+
+
+def check_split_against_plain(integrand, tables: rule_eval.RuleTables, lows,
+                              lengths, global_lo, global_range, *,
+                              n: int | None = None, blocked: bool = False,
+                              chunk_size: int = 4096,
+                              min_agree: float = 0.999):
+    """The split route over a CUDA pool, ``chunk_size`` regions at a time,
+    against the plain version: the padding slots must hold zeros; for each
+    chunk the points kernel's points must be EQUAL to ``rule_points``' (bits
+    and strides), the integrand's values on them EQUAL to its values on the
+    plain points, and est/err/split_dim of the whole route's launch must
+    pass ``judge`` against ``rule_outputs`` of those values.  Raises
+    AssertionError on a disagreement; returns the summary, with
+    ``split_dim_equal``, the regions whose split_dim is EQUAL."""
+    name = getattr(integrand, "name", "integrand")
+    k = cuda_rule.cuda_apply_rule_split(integrand, tables, lows, lengths,
+                                        global_lo, global_range,
+                                        chunk_size=chunk_size, n=n,
+                                        blocked=blocked)
+    torch.cuda.synchronize()
+    cap = lows.shape[1]
+    n = cap if n is None else int(n)
+    mask = block_mask(cap, n, blocked, lows.device)
+    if bool((k[0][~mask] != 0).any() | (k[1][~mask] != 0).any()
+            | (k[2][~mask] != 0).any()):
+        raise AssertionError(f"{name}: the split route wrote into padding "
+                             "slots")
+    batched, _ = make_integrand(integrand, tables.ndim)
+    parts, equal = [], 0
+    for first, count in cuda_rule.split_chunks(n, chunk_size):
+        slots = torch.as_tensor(
+            cuda_rule.split_slots(cap, n, blocked, first, count),
+            device=lows.device)
+        lo, ln = lows[:, slots], lengths[:, slots]
+        xk = cuda_rule.split_points(tables, lows, lengths, global_lo,
+                                    global_range, first, count, n=n,
+                                    blocked=blocked)
+        xp, _, _ = rule_eval.rule_points(tables, lo, ln, global_lo,
+                                         global_range)
+        if not same_bits(xk, xp):
+            raise AssertionError(
+                f"{name}: the points kernel's points differ from the plain "
+                f"version's in regions {first}..{first + count - 1} (strides "
+                f"{xk.stride()} and {xp.stride()})")
+        vk = batched(xk).to(lows.dtype)
+        del xk, xp
+        vals, u = value_scales(integrand, tables, lo, ln, global_lo,
+                               global_range)
+        if not same_bits(vk, vals):
+            raise AssertionError(f"{name}: the integrand's values on the "
+                                 "kernel's points differ from its values on "
+                                 "the plain points")
+        plain = rule_eval.rule_outputs(vals, tables, ln, global_range)
+        kern = [o[slots] for o in k]
+        equal += int((kern[2] == plain[2]).sum())
+        parts.append(region_readings(kern, plain, vals, u, tables, ln,
+                                     global_range))
+    out = judge(_joined(parts, lows.device), name=name, dtype=lows.dtype,
+                min_agree=min_agree)
+    out.update(points_equal=True, values_equal=True, split_dim_equal=equal)
+    return out
 
 
 def check_routes(integrand, tables: rule_eval.RuleTables, lows, lengths,

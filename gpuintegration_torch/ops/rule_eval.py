@@ -11,11 +11,16 @@ into the five embedded rule sums (times the jacobian prod(range)), the
 fourth-difference bisection dimension (Sample.cuh:194-218) and the null-rule
 error model (Sample.cuh:264-288).
 
-``apply_rule`` dispatches on the pool's device and on nothing else: a CPU
-pool runs the plain PyTorch version here (``apply_rule_plain``), a CUDA
-pool runs the hand-written kernel (``ops/cuda_rule.py``) or raises.  A
-caller that wants the plain version on the card calls
-``apply_rule_plain`` itself (``Workspace(rule_backend="torch")``).
+``apply_rule`` dispatches on the pool's device: a CPU pool runs the plain
+PyTorch version here (``apply_rule_plain``), a CUDA pool the hand-written
+kernels (``ops/cuda_rule.py``) or raises.  On the card the integrand
+chooses the route (``cuda_rule.rule_route``): a Genz family F1..F6
+(``models.genz``) is fused into the tile or generic kernel; any other
+callable takes the split route, a points kernel, the callable on the
+points as torch operations, and a contraction kernel, chunk by chunk.  The
+split kernels' plain versions are ``rule_points`` and ``rule_outputs``.  A
+caller that wants the plain version on the card calls ``apply_rule_plain``
+itself (``Workspace(rule_backend="torch")``).
 """
 from __future__ import annotations
 
@@ -229,13 +234,18 @@ def apply_rule_plain(f: Callable, tables: RuleTables, lows, lengths,
 def apply_rule(f: Callable, tables: RuleTables, lows, lengths,
                global_lo, global_range, *, chunk_size: int | None = None,
                n: int | None = None, blocked: bool = False):
-    """Rule evaluation over the pool: the plain version for a CPU pool, the
-    CUDA kernel for a pool on the card (which raises for an integrand the
-    kernel lacks).  Arguments and outputs as ``apply_rule_plain``."""
+    """Rule evaluation over the pool: the plain version for a CPU pool; for
+    any other pool the CUDA kernels of the route ``cuda_rule.rule_route``
+    gives the integrand (the split route walks the pool ``chunk_size``
+    regions at a time).  Arguments and outputs as ``apply_rule_plain``."""
     if lows.device.type == "cpu":
         return apply_rule_plain(f, tables, lows, lengths, global_lo,
                                 global_range, chunk_size=chunk_size, n=n,
                                 blocked=blocked)
     from gpuintegration_torch.ops import cuda_rule
+    if cuda_rule.rule_route(tables.ndim, f) == "split":
+        return cuda_rule.cuda_apply_rule_split(
+            f, tables, lows, lengths, global_lo, global_range,
+            chunk_size=chunk_size, n=n, blocked=blocked)
     return cuda_rule.cuda_apply_rule(f, tables, lows, lengths, global_lo,
                                      global_range, n=n, blocked=blocked)

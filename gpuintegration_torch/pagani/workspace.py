@@ -13,10 +13,17 @@
 The pool lives in power-of-two bucket capacities, floored at ``chunk_size``,
 with the same capacity rules as the reference, so that the two packages'
 pools compare slot for slot.  On the card the rule evaluation is the CUDA
-kernel of ops/cuda_rule.py; everything else is plain PyTorch.
+kernels of ops/cuda_rule.py; everything else is plain PyTorch.
+
+``integrate_to_convergence`` carries deep tolerances past one run's pool
+wall: checkpoint-resume rounds, then a partitioned continuation over
+hottest-first slices of the survivors (reference
+``gpuintegration_tpu/pagani/workspace.py:1909-2367``, scalar only).
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Callable
 
@@ -28,7 +35,8 @@ from gpuintegration_torch.ops import rule_eval
 from gpuintegration_torch.pagani import region_pool, two_level
 from gpuintegration_torch.pagani.classifier import HeuristicClassifier
 from gpuintegration_torch.types import IntegrationResult, Volume
-from gpuintegration_torch.utils.checkpoint import PaganiCheckpoint
+from gpuintegration_torch.utils.checkpoint import (
+    ContinuationState, PaganiCheckpoint, npz_path)
 
 MAX_ITERATIONS = 700  # (Workspace.cuh:182)
 
@@ -119,10 +127,12 @@ class Workspace:
                       evaluation (bounds its (chunk, feval, ndim) tensor).
     chunk_budget_bytes: memory budget that sets the default chunk.
     rule_backend:     "cuda" (default): rule evaluation dispatched on the
-                      pool's device -- the CUDA kernel on the card, the
-                      plain version on the CPU.  "torch": the plain
-                      PyTorch version on any device, for integrands the
-                      kernel lacks.
+                      pool's device -- on the card the CUDA kernels (a Genz
+                      family of models.genz fused into the tile or generic
+                      kernel; any other callable through the split route's
+                      points and contraction kernels), on the CPU the plain
+                      version.  "torch": the plain PyTorch version on any
+                      device.
     mesh:             not ported yet (raises NotImplementedError).
     """
 
@@ -136,7 +146,7 @@ class Workspace:
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded (mesh) Workspace is not ported to "
-                "gpuintegration_torch yet")
+                "gpuintegration_torch yet (ROADMAP A16)")
         if rule_backend not in ("cuda", "torch"):
             raise ValueError(f"rule_backend {rule_backend!r}")
         if dtype not in (torch.float64, torch.float32):
@@ -399,6 +409,307 @@ class Workspace:
 
         cum.nregions = result_nregions + n
         return cum
+
+    def integrate_to_convergence(
+        self,
+        integrand: Callable,
+        epsrel: float = 1e-3,
+        epsabs: float = 1e-12,
+        vol: Volume | None = None,
+        *,
+        max_rounds: int = 16,
+        min_err_reduction: float = 0.99,
+        max_wall_s: float | None = None,
+        stage_timer=None,
+        state_path: str | None = None,
+        **kw,
+    ) -> IntegrationResult:
+        """``integrate`` with checkpoint-resume continuation (the
+        reference's, for scalar integrands on one device).
+
+        A single ``integrate`` ends with status 1 at the pool wall or the
+        iteration budget.  Each further round resumes the surviving
+        regions with the cumulative ledger seeded (``ledger=``): fresh
+        parents, a fresh classifier budget against the true cumulative
+        estimate, a fresh iteration budget.  When the survivors are too
+        many to split twice inside ``max_pool_regions`` (4 x survivors >
+        max_pool_regions), it switches to ``_partitioned_continuation``:
+        hottest-first slices of ``max_pool_regions // 16`` regions, each a
+        fresh adaptive run, with a global certificate over the banked
+        totals plus the untouched queue's stored errors.
+
+        Stops on convergence, ``max_rounds``, ``max_wall_s`` seconds of
+        wall clock (passed into every round and slice as ``deadline=``), an
+        empty pool, or when a round fails to bring the error below
+        ``min_err_reduction`` times the previous round's (no-progress
+        guard).
+
+        ``stage_timer``: a ``utils.profiling.StageTimer``; records "round1",
+        "resume_roundN" and "slices" (summed).  ``state_path``: where an
+        unconverged exit with surviving regions saves a
+        ``utils.checkpoint.ContinuationState`` (atomically); a later call
+        with the same path resumes its queue exactly, and certification
+        removes the file.  ``kw`` goes to ``integrate``; ``fused``,
+        ``crease_split``, ``vegas_assisted`` and ``predict_split`` raise as
+        there, vector integrands raise (ROADMAP A9).
+        """
+        for name in ("fused", "predict_split", "vegas_assisted",
+                     "crease_split"):
+            if kw.get(name):
+                raise NotImplementedError(
+                    f"{name}=True is not ported to gpuintegration_torch yet")
+        deadline = (time.monotonic() + max_wall_s
+                    if max_wall_s is not None else None)
+
+        if state_path is not None and os.path.exists(npz_path(state_path)):
+            state = ContinuationState.load(state_path)
+            if not (state.epsrel == epsrel and state.epsabs == epsabs):
+                raise ValueError(
+                    f"state at {state_path} was built for "
+                    f"(epsrel={state.epsrel:g}, epsabs={state.epsabs:g}), "
+                    f"not ({epsrel:g}, {epsabs:g})")
+            kw.pop("initial_regions", None)
+            kw.pop("ledger", None)
+            return self._partitioned_continuation(
+                integrand, epsrel, epsabs, vol, None, None, max_rounds,
+                deadline, min_err_reduction=min_err_reduction,
+                stage_timer=stage_timer, state_path=state_path,
+                resume_state=state, **kw)
+
+        def stage(name):
+            return (stage_timer.stage(name) if stage_timer is not None
+                    else contextlib.nullcontext())
+
+        with stage("round1"):
+            res = self.integrate(integrand, epsrel, epsabs, vol,
+                                 deadline=deadline, **kw)
+        # round 1 consumed a caller's initial_regions/ledger seed; later
+        # rounds and slices bring their own
+        kw.pop("initial_regions", None)
+        kw.pop("ledger", None)
+        rounds = 1
+        while (res.status == 1 and rounds < max_rounds
+               and res.nregions > res.nFinishedRegions
+               and (deadline is None or time.monotonic() < deadline)):
+            if self.final_pool is None:
+                break
+            ckpt = self.make_checkpoint()
+            if ckpt.lows.shape[0] == 0:
+                break
+            # the checkpoint is on the host: free the final pool on the
+            # card (2 x 16M x 8 x 8 B = 2 GB at the 8D wall) before the
+            # resumed round allocates its own
+            self.final_pool = None
+            self.final_pool_errors = None
+            if 4 * ckpt.lows.shape[0] > self.max_pool_regions:
+                return self._partitioned_continuation(
+                    integrand, epsrel, epsabs, vol, ckpt, res,
+                    max_rounds - rounds, deadline,
+                    min_err_reduction=min_err_reduction,
+                    stage_timer=stage_timer, state_path=state_path, **kw)
+            prev_err = res.errorest
+            with stage(f"resume_round{rounds + 1}"):
+                res = self.integrate(
+                    integrand, epsrel, epsabs, vol,
+                    initial_regions=(ckpt.lows, ckpt.lengths),
+                    ledger=ckpt.ledger, deadline=deadline, **kw)
+            rounds += 1
+            if res.status == 1 and res.errorest > min_err_reduction * prev_err:
+                break   # no meaningful progress
+        if (state_path is not None and res.status == 1
+                and self.final_pool is not None):
+            # unconverged in the whole-pool phase: save the survivors as a
+            # fresh slice queue, for a later process to resume
+            ckpt = self.make_checkpoint()
+            if ckpt.lows.shape[0]:
+                self.final_pool = None
+                self.final_pool_errors = None
+                work = self._make_slices(
+                    ckpt.lows, ckpt.lengths, ckpt.region_estimates,
+                    ckpt.region_errorests, res.estimate - ckpt.estimate,
+                    res.errorest - ckpt.errorest, self._slice_cap(), 0)
+                ContinuationState.from_queue(
+                    work, ckpt.estimate, ckpt.errorest, ckpt.iters,
+                    ckpt.neval, ckpt.nregions, ckpt.nregions, False, epsrel,
+                    epsabs).save(state_path)
+        return res
+
+    def _slice_cap(self) -> int:
+        """Regions of a continuation slice: four doublings of headroom."""
+        return max(self.max_pool_regions // 16, 2 * self.chunk_size)
+
+    @staticmethod
+    def _make_slices(lows, lengths, reg_est, reg_err, tot_est, tot_err, cap,
+                     depth):
+        """Cut survivors into slices of <= cap regions, COLDEST FIRST so
+        ``work.pop()`` takes the hottest: (lows, lengths, s_est, s_err,
+        depth, exact).  With per-region arrays the survivors are sorted by
+        refined error (``np.argsort``, as the reference sorts) and each
+        slice carries its exact stored sums; without them the pool order
+        is kept and the in-flight totals are apportioned by region count,
+        flagged inexact so the global certificate never fires off them."""
+        n = lows.shape[0]
+        if n == 0:
+            return []
+        if reg_err is not None:
+            order = np.argsort(reg_err)            # ascending: hot at end
+            lows, lengths = lows[order], lengths[order]
+            reg_est, reg_err = reg_est[order], reg_err[order]
+            return [(lows[i:i + cap], lengths[i:i + cap],
+                     float(reg_est[i:i + cap].sum(axis=0)),
+                     float(reg_err[i:i + cap].sum(axis=0)), depth, True)
+                    for i in range(0, n, cap)]
+        return [(lows[i:i + cap], lengths[i:i + cap],
+                 tot_est * min(cap, n - i) / n,
+                 tot_err * min(cap, n - i) / n, depth, False)
+                for i in range(0, n, cap)]
+
+    def _partitioned_continuation(
+        self, integrand, epsrel, epsabs, vol, ckpt, last_res,
+        rounds_left, deadline=None, min_err_reduction=0.99,
+        stage_timer=None, state_path=None, resume_state=None, **kw,
+    ) -> IntegrationResult:
+        """Divide-and-conquer continuation for split-starved pools (the
+        reference's, scalar).
+
+        The survivors (``ckpt``, or the queue of ``resume_state``) are
+        sorted by refined error and sliced (``_make_slices``); slices run
+        hottest first, each a fresh adaptive integration at the same
+        tolerances, or at a tightened share of the remaining budget where
+        the projected natural exits cannot meet it (then with a volume-
+        apportioned retirement, ``finish_abs_per_vol``).  A slice that
+        stops at its own wall banks its finished ledger and re-queues its
+        survivors while it reduced its stored error (depth <= 12); else
+        its result is banked as it is.  Before every slice the global test
+        runs on the banked totals plus the queue's stored sums, so the
+        loop stops at the earliest certifiable moment; it also stops when
+        the bank alone exceeds the best budget any refinement could reach,
+        after ``max(64 * rounds_left, 4 * slices)`` slice runs, or at the
+        deadline.  The result folds in the untouched queue's stored sums,
+        so its estimate is the whole integral either way."""
+
+        def stage(name):
+            return (stage_timer.stage(name) if stage_timer is not None
+                    else contextlib.nullcontext())
+
+        slice_cap = self._slice_cap()
+        max_depth = 12
+        if resume_state is not None:
+            work = resume_state.to_queue()   # raises for a vector state
+            fin_est = float(resume_state.fin_est[0])
+            fin_err = float(resume_state.fin_err[0])
+            iters, neval = resume_state.iters, resume_state.neval
+            nregions = resume_state.nregions
+            nfinished = resume_state.nfinished
+        else:
+            fin_est, fin_err = float(ckpt.estimate), float(ckpt.errorest)
+            iters, neval = ckpt.iters, ckpt.neval
+            nregions = nfinished = ckpt.nregions
+            work = self._make_slices(
+                ckpt.lows, ckpt.lengths, ckpt.region_estimates,
+                ckpt.region_errorests, last_res.estimate - fin_est,
+                last_res.errorest - fin_err, slice_cap, 0)
+
+        def qsum(col):
+            return sum((w[col] for w in work), 0.0)
+
+        max_runs = max(64 * rounds_left, 4 * len(work))
+        runs = 0
+        status = 1
+        while True:
+            q_est, q_err = qsum(2), qsum(3)
+            budget = max(epsrel * abs(fin_est + q_est), epsabs)
+            if all(w[5] for w in work) and fin_err + q_err <= budget:
+                status = 0               # certified: banked + exact queue
+                break
+            if not work or runs >= max_runs or (
+                    deadline is not None and time.monotonic() >= deadline):
+                break
+            # what the slices' natural exits would bank, and the best
+            # budget any refinement of the queue could reach
+            projected = fin_err + sum(
+                (min(w[3], max(epsrel * abs(w[2]), epsabs)) for w in work),
+                0.0)
+            best_budget = max(epsrel * (abs(fin_est + q_est) + q_err),
+                              epsabs)
+            if fin_err > best_budget:
+                break                    # the bank alone is uncertifiable
+            lows_i, lengths_i, s_est_i, s_err_i, depth, exact = work.pop()
+            needed = budget - fin_err
+            eps_rel_i, eps_abs_i, kw_i = epsrel, epsabs, kw
+            if projected > budget and needed > 0 and q_err > 0 \
+                    and s_err_i > 0:
+                # this slice's share of the remaining budget; an inexact
+                # slice's stored estimate is a uniform share, so it gets a
+                # purely absolute target
+                share = 0.8 * (needed / q_err) * s_err_i
+                vol_i = float(np.prod(lengths_i, axis=1).sum())
+                eps_rel_i = (min(epsrel, share / max(abs(s_est_i), 1e-300))
+                             if exact else 0.0)
+                eps_abs_i = share
+                kw_i = dict(kw)
+                if vol_i > 0.0:
+                    kw_i["finish_abs_per_vol"] = 0.5 * share / vol_i
+            with stage("slices"):
+                r_i = self.integrate(
+                    integrand, eps_rel_i, eps_abs_i, vol,
+                    initial_regions=(lows_i, lengths_i), deadline=deadline,
+                    **kw_i)
+            if r_i.iters == 0:
+                # the deadline passed before the slice's first sweep: it
+                # goes back to the queue untouched
+                work.append((lows_i, lengths_i, s_est_i, s_err_i, depth,
+                             exact))
+                break
+            runs += 1
+            iters += r_i.iters
+            neval += r_i.neval
+            requeued = 0
+            if r_i.status == 1 and depth < max_depth:
+                ck_i = self.make_checkpoint()
+                self.final_pool = None
+                self.final_pool_errors = None
+                new_err = float(ck_i.errorest) + float(
+                    ck_i.region_errorests.sum(axis=0))
+                if ck_i.lows.shape[0] > 0 and \
+                        new_err < min_err_reduction * s_err_i:
+                    # progress: bank the finished ledger and re-queue the
+                    # survivors one level deeper.  ck_i.nregions counts the
+                    # regions retired before the final sweep, whose pool
+                    # is re-queued whole
+                    fin_est += float(ck_i.estimate)
+                    fin_err += float(ck_i.errorest)
+                    nregions += ck_i.nregions
+                    nfinished += ck_i.nregions
+                    sub = self._make_slices(
+                        ck_i.lows, ck_i.lengths, ck_i.region_estimates,
+                        ck_i.region_errorests,
+                        r_i.estimate - ck_i.estimate,
+                        r_i.errorest - ck_i.errorest, slice_cap, depth + 1)
+                    work.extend(sub)
+                    work.sort(key=lambda w: w[3])   # hottest at the end
+                    requeued = len(sub)
+            if not requeued:
+                fin_est += r_i.estimate
+                fin_err += r_i.errorest
+                nregions += r_i.nregions
+                nfinished += r_i.nFinishedRegions
+        if state_path is not None:
+            path = npz_path(state_path)
+            if status == 0 or not work:
+                if os.path.exists(path):
+                    os.remove(path)      # certified or drained: spent
+            else:
+                ContinuationState.from_queue(
+                    work, fin_est, fin_err, iters, neval, nregions,
+                    nfinished, False, epsrel, epsabs).save(state_path)
+        # the untouched queue's stored sums make the estimate the whole
+        # integral either way
+        return IntegrationResult(
+            estimate=fin_est + qsum(2), errorest=fin_err + qsum(3),
+            status=status, iters=iters, neval=neval,
+            nregions=nregions + sum(w[0].shape[0] for w in work),
+            nFinishedRegions=nfinished)
 
     def make_checkpoint(self):
         """The last run's live pool and ledger as a resumable

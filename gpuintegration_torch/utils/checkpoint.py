@@ -6,6 +6,10 @@ state files).
   a ``Workspace`` run (``Workspace.make_checkpoint``); resume feeds the
   pool back into ``Workspace.integrate(initial_regions=..., ledger=...)``,
   and ``diff.mesh_from_checkpoint`` takes the pool as a fixed mesh.
+* ``ContinuationState``: the banked ledger and the slice queue of
+  ``Workspace.integrate_to_convergence``'s partitioned continuation, so a
+  deep-tolerance run stops at a wall-clock budget and resumes in a later
+  process where it left off (``state_path=``).
 * ``save_vegas_state`` / ``load_vegas_state``: a ``mcubes.VegasState``.
 
 Files are plain ``numpy.savez`` archives with the JAX package's field
@@ -15,6 +19,7 @@ NumPy arrays and Python numbers; nothing here depends on a device.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -22,7 +27,7 @@ import torch
 from gpuintegration_torch.mcubes.vegas import VegasState
 
 
-def _norm(path) -> str:
+def npz_path(path) -> str:
     """``np.savez`` appends .npz on save but ``np.load`` does not on load:
     ``save('/x/ck')`` and ``load('/x/ck')`` name the same file."""
     path = str(path)
@@ -68,14 +73,14 @@ class PaganiCheckpoint:
         if self.region_errorests is not None:
             extra = dict(region_estimates=self.region_estimates,
                          region_errorests=self.region_errorests)
-        np.savez(_norm(path), lows=self.lows, lengths=self.lengths,
+        np.savez(npz_path(path), lows=self.lows, lengths=self.lengths,
                  estimate=self.estimate, errorest=self.errorest,
                  nregions=self.nregions, iters=self.iters, neval=self.neval,
                  **extra)
 
     @classmethod
     def load(cls, path) -> "PaganiCheckpoint":
-        z = np.load(_norm(path))
+        z = np.load(npz_path(path))
         return cls(lows=z["lows"], lengths=z["lengths"],
                    estimate=scalar_or_array(z["estimate"]),
                    errorest=scalar_or_array(z["errorest"]),
@@ -87,9 +92,112 @@ class PaganiCheckpoint:
                                      if "region_errorests" in z else None))
 
 
+_NO_VECTOR = ("a vector integrand's continuation state: vector integrands "
+              "are not ported to gpuintegration_torch yet (ROADMAP A9)")
+
+
+@dataclasses.dataclass
+class ContinuationState:
+    """Disk-resumable state of ``Workspace._partitioned_continuation``: the
+    banked ledger and the remaining, error-sorted slice queue.  Integral
+    additivity makes the recombination exact, so a resumed run certifies
+    the same global test it would have reached in one sitting.
+
+    The queue is stored flattened: region blocks concatenated with
+    per-slice counts, per-slice stored (est, err) sums as (nw, 1) arrays,
+    depth and exactness flags (an inexact slice carries apportioned totals
+    that the global certificate must never fire off).  The fields and their
+    npz names are the JAX package's; this port runs scalar integrands
+    only, so ``vec`` is False in every state it writes, and
+    ``Workspace.integrate_to_convergence`` refuses a vector state."""
+
+    fin_est: np.ndarray       # (1,) banked ledger (f64)
+    fin_err: np.ndarray       # (1,)
+    iters: int
+    neval: int
+    nregions: int
+    nfinished: int
+    vec: bool                 # a vector-integrand run's state
+    epsrel: float             # the tolerances the state was built under,
+    epsabs: float             #   checked on resume
+    work_lows: np.ndarray     # (sum n_i, ndim) concatenated slice blocks
+    work_lengths: np.ndarray  # (sum n_i, ndim)
+    work_counts: np.ndarray   # (nw,) regions per slice, in queue order
+                              #   (coldest first: the queue pops the
+                              #   hottest from its end)
+    work_est: np.ndarray      # (nw, 1) stored slice estimate sums
+    work_err: np.ndarray      # (nw, 1)
+    work_depth: np.ndarray    # (nw,) int
+    work_exact: np.ndarray    # (nw,) bool
+
+    @classmethod
+    def from_queue(cls, work: list, fin_est, fin_err, iters, neval,
+                   nregions, nfinished, vec, epsrel, epsabs
+                   ) -> "ContinuationState":
+        """Package the live queue, a list of (lows, lengths, s_est, s_err,
+        depth, exact) in queue order, and the scalar banked ledger (the JAX
+        package's signature; ``vec`` must be False)."""
+        if vec:
+            raise NotImplementedError(_NO_VECTOR)
+        ndim = work[0][0].shape[1] if work else 0
+
+        def cat(i):
+            return (np.concatenate([np.asarray(w[i]) for w in work])
+                    if work else np.zeros((0, ndim)))
+
+        def sums(i):
+            return np.array([float(w[i]) for w in work],
+                            np.float64).reshape(len(work), 1)
+
+        return cls(
+            fin_est=np.array([float(fin_est)]),
+            fin_err=np.array([float(fin_err)]),
+            iters=int(iters), neval=int(neval), nregions=int(nregions),
+            nfinished=int(nfinished), vec=False,
+            epsrel=float(epsrel), epsabs=float(epsabs),
+            work_lows=cat(0), work_lengths=cat(1),
+            work_counts=np.array([w[0].shape[0] for w in work], np.int64),
+            work_est=sums(2), work_err=sums(3),
+            work_depth=np.array([w[4] for w in work], np.int64),
+            work_exact=np.array([w[5] for w in work], bool))
+
+    def to_queue(self) -> list:
+        """The live queue list (queue order preserved), its stored sums as
+        floats.  NotImplementedError for a vector run's state."""
+        if self.vec:
+            raise NotImplementedError(_NO_VECTOR)
+        out, off = [], 0
+        for i, n in enumerate(self.work_counts.tolist()):
+            out.append((self.work_lows[off:off + n],
+                        self.work_lengths[off:off + n],
+                        float(self.work_est[i][0]), float(self.work_err[i][0]),
+                        int(self.work_depth[i]), bool(self.work_exact[i])))
+            off += n
+        return out
+
+    def save(self, path):
+        """Write the npz file atomically: a crash mid-write leaves the
+        previous state in place."""
+        path = npz_path(path)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fh:
+            np.savez(fh, **dataclasses.asdict(self))
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path) -> "ContinuationState":
+        z = np.load(npz_path(path))
+        kw = {f.name: z[f.name] for f in dataclasses.fields(cls)}
+        for k in ("iters", "neval", "nregions", "nfinished"):
+            kw[k] = int(kw[k])
+        kw["vec"] = bool(kw["vec"])
+        kw["epsrel"], kw["epsabs"] = float(kw["epsrel"]), float(kw["epsabs"])
+        return cls(**kw)
+
+
 def save_vegas_state(state: VegasState, path):
     """A ``VegasState`` as an npz file (the grid as a NumPy array)."""
-    np.savez(_norm(path), xi=state.xi.detach().cpu().numpy(), si=state.si,
+    np.savez(npz_path(path), xi=state.xi.detach().cpu().numpy(), si=state.si,
              swgt=state.swgt, schi=state.schi, it0=state.it0,
              n_acc=state.n_acc)
 
@@ -97,7 +205,7 @@ def save_vegas_state(state: VegasState, path):
 def load_vegas_state(path, *, device=None) -> VegasState:
     """The ``VegasState`` of an npz file, its grid on ``device`` (the CPU
     when None) in the type it was stored in."""
-    z = np.load(_norm(path))
+    z = np.load(npz_path(path))
     return VegasState(xi=torch.as_tensor(z["xi"], device=device),
                       si=scalar_or_array(z["si"]),
                       swgt=scalar_or_array(z["swgt"]),

@@ -5,7 +5,8 @@
   reassociation roundoff, split_dim exactly.
 * The same function in f32 against the Pallas kernel in interpret mode.
 * Dispatch: a CPU pool runs the plain version, any other pool the CUDA
-  kernel, which raises for a callable it lacks.  No fallback anywhere.
+  kernels: a Genz family the fused kernel, any other callable the split
+  route.  No fallback anywhere.
 
 XLA on the CPU flushes subnormal f64 results to zero (F4 far from its
 peak underflows into that range); the f64 comparisons run the port with
@@ -215,8 +216,12 @@ def test_device_pool_goes_to_kernel(monkeypatch):
 
 
 def test_kernel_refuses_callable_and_non_cuda():
+    """A callable on a pool off the CPU reaches the split route, whose
+    wrapper refuses a pool that is not on the card (no plain fallback);
+    the fused wrapper refuses it too, and a dimension past 16."""
     tables = rule_eval.rule_tables(3)
-    with pytest.raises(NotImplementedError, match="rule_backend='torch'"):
+    with pytest.raises(ValueError,
+                       match="cuda_apply_rule_split needs CUDA tensors"):
         rule_eval.apply_rule(lambda x, y, z: x * y * z, tables, *_meta_pool())
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         cuda_rule.cuda_apply_rule(genz.f4_gaussian(3), tables, *_meta_pool())
@@ -275,6 +280,15 @@ def test_package_imports_without_jax():
             gpuintegration_torch.__path__, "gpuintegration_torch.")]
         for name in names:
             importlib.import_module(name)
+        from gpuintegration_torch.models import misc
+        from gpuintegration_torch.utils.checkpoint import ContinuationState
+        from gpuintegration_torch.utils.profiling import StageTimer
+        assert {"gpuintegration_torch.models.misc",
+                "gpuintegration_torch.utils.profiling",
+                "gpuintegration_torch.ops.cuda_rule"} <= set(names)
+        assert misc.sin_sum(3).kind is None and StageTimer().times == {}
+        assert ContinuationState.from_queue(
+            [], 0.0, 0.0, 0, 0, 0, 0, False, 1e-3, 0.0).to_queue() == []
         import chip_smoke
         assert not any(k == "jax" or k.startswith("jax.")
                        for k, v in sys.modules.items() if v is not None)
