@@ -19,6 +19,7 @@ import math
 import os
 import shutil
 import time
+import types
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from gpuintegration_tpu.utils import checkpoint as jck
 from gpuintegration_tpu.utils.profiling import StageTimer as JaxStageTimer
 from gpuintegration_torch import Workspace
 from gpuintegration_torch.models import genz
+from gpuintegration_torch.utils import profiling
 from gpuintegration_torch.utils.checkpoint import ContinuationState
 from gpuintegration_torch.utils.profiling import StageTimer
 
@@ -241,13 +243,24 @@ def test_continuation_state_files_cross_and_refuse_vectors(tmp_path):
                                      1e-40)
 
 
-def test_stage_timer_adds_up_stages():
+def test_stage_timer_adds_up_stages(monkeypatch):
+    """On a scripted clock (the ``time`` that utils/profiling.py reads, not
+    the global one): each stage takes its end tick minus its start tick, a
+    repeated stage adds up, and the report is longest first.  Stage "a"
+    (0.625 s) is longer than either run of "b" (0.25 s, 0.5 s) but shorter
+    than their sum, so the order shows that the runs were added."""
+    ticks = [1.0, 1.625, 2.0, 2.25, 3.0, 3.5]
+    clock = iter(ticks)
+    monkeypatch.setattr(profiling, "time",
+                        types.SimpleNamespace(perf_counter=lambda: next(clock)))
     timer = StageTimer()
-    for name in ("a", "b", "a"):
+    for name in ("a", "b", "b"):
         with timer.stage(name):
-            time.sleep(0.002)
+            pass
+    assert next(clock, None) is None           # two ticks a stage, no more
+    assert timer.times == {"a": 0.625, "b": 0.75}
     rep = timer.report()
-    assert list(rep) == ["a", "b"] and rep["a"] > rep["b"] >= 0.002
+    assert list(rep) == ["b", "a"] and rep == {"b": 0.75, "a": 0.625}
 
 
 def test_continuation_refuses_what_is_not_ported():
