@@ -92,26 +92,39 @@ timed beside the others in the same run.
    ``fixed_mesh_integral``;
 9. the rule's split route (any torch callable: the points kernel, the
    callable, the contraction kernel; csrc/rule_split.cu) against its plain
-   version (ops.kernel_check.check_split_against_plain): 8D pools of 2^16
-   regions, blocked with padding slots, f64 and f32, ``misc.sin_sum(8)``,
+   version (ops.kernel_check.check_split_against_plain), every case with
+   the contraction on each of its two routes, 'cluster' and 'generic'
+   (forced by the wrapper's ``route=``): 8D pools of 2^16 regions, blocked
+   with padding slots, f64 and f32, ``misc.sin_sum(8)``,
    ``misc.g_function(8)`` and Genz F4 as a plain batched and a per-axis
-   callable; ``misc.gauss9d()`` at 9D and ``misc.diagonal_ridge_2d()``
-   in their volumes.  Points EQUAL (bits and strides), values EQUAL,
-   est/err/split_dim by kernel_check's limits; a NaN region takes the
+   callable; ``misc.gauss9d()`` at 9D and ``misc.diagonal_ridge_2d()`` in
+   their volumes; ``sin_sum`` and a per-axis cos(sum x) at 12D on the
+   Workspace's 1024-region chunks and at 16D on 256-region chunks, f64 and
+   f32.  Points EQUAL (bits and strides), values EQUAL, est/err by
+   kernel_check's limits, split_dim EQUAL in every region.  Then the
+   contraction alone on values made directly: 16D at its 1024-region
+   chunk (values as rows and as planes, f64; rows f32), odd counts at 12D
+   (their segments off 16-byte units), values of neither layout (the
+   generic route); each route twice the same bits.  A NaN region takes the
    widest axis; ``misc.oscillatory(8)`` on the split route against
    ``f1_oscillatory(8, ones)`` on the tile route within 1e-12;
-10. the two split kernels alone at the Workspace's 8D f64 chunk (4096
-   regions), best of 5 series back to back (``queued_ms``), beside their
-   bytes bounds, their plain versions, ``torch.addcmul`` (the points) and
+10. the points kernel at the Workspace's 8D f64 chunk (4096 regions),
+   best of 5 series back to back (``queued_ms``), beside its bytes bound,
+   its plain version and ``torch.addcmul``; both contraction routes in
+   turns at the Workspace's 8D (f64 and f32), 12D and 16D chunks, values
+   as rows and as planes, beside the bytes bound, ``rule_outputs``,
    ``torch.matmul`` against the TPU kernel's column matrix (the rule sums
-   only);
+   only) and ``torch.sum`` of the values (the same bytes read); at the 8D
+   chunk also with L2 flushed before each launch;
 11. PAGANI's main path with Genz F4 as a plain callable
    (``Workspace(8).integrate(f4_plain, 1e-3)``, f64): status 0 within 1e-3
-   of the truth, every rule evaluation through the split kernels (counts
-   set to 0 before and read after), beside phase 3's run, with CUDA events
-   around each launch and call for the shares of the points kernel, the
-   callable, the contraction kernel and the rest; then ``misc.sin_sum(8)``
-   at 1e-11;
+   of the truth, phase 3's iterations, regions and neval, every rule
+   evaluation through the split kernels and every contraction on the route
+   ``contract_route`` names for its values (the cluster route: counts set
+   to 0 before and read after), with CUDA events around each launch and
+   call for the shares of the points kernel, the callable, the contraction
+   kernel and the rest; the same for ``misc.sin_sum(12)`` at
+   ``SIN12_EPSREL``; then ``misc.sin_sum(8)`` at 1e-11;
 12. the continuation, the reference's flagship:
    ``Workspace(8).integrate_to_convergence(f4_gaussian(8), 1e-5,
    max_wall_s=600)`` (status 0 within 1e-5 of the truth; wall, rounds,
@@ -144,6 +157,7 @@ from gpuintegration_torch.ops import (cuda_build, cuda_rule, kernel_check,
                                       rule_eval)
 from gpuintegration_torch.pagani import region_pool
 from gpuintegration_torch.tools import sass_report
+from gpuintegration_torch.types import Volume
 from gpuintegration_torch.utils.profiling import StageTimer
 
 NDIM = 8
@@ -1143,30 +1157,112 @@ def f4_axes(x0, x1, x2, x3, x4, x5, x6, x7):
     return torch.exp(-s)
 
 
-def compare_split(label, *args, **kw):
-    """kernel_check.check_split_against_plain, printed on one line; a
-    disagreement fails the run."""
+def axes_callable(ndim):
+    """cos(x_1 + ... + x_n) as a per-axis callable of n arguments: its
+    values come back as planes (strides (1, C))."""
+    names = ", ".join(f"x{d}" for d in range(ndim))
+    return eval(f"lambda {names}: torch.cos({names.replace(', ', ' + ')})",
+                {"torch": torch})
+
+
+def compare_split(label, *args, route, **kw):
+    """kernel_check.check_split_against_plain with the contraction on
+    ``route``, printed on one line; a disagreement, a split_dim that is not
+    EQUAL in every region, or a launch on another route fails the run."""
+    cuda_rule.reset_launches()
     try:
-        r = kernel_check.check_split_against_plain(*args, **kw)
+        r = kernel_check.check_split_against_plain(*args, route=route, **kw)
     except AssertionError as e:
         fail(str(e))
-    print(f"{label}: {r['regions']} regions, points EQUAL (bits and "
-          f"strides), values EQUAL; max|d est| {r['max_abs_est']:.3e}; "
-          f"beyond rtol, in ulps of the roundoff scale (limits "
-          f"{kernel_check.ULPS['est']:g}/{kernel_check.ULPS['err']:g}): est "
-          f"{r['est_ulps']:.3g}, err {r['err_ulps']:.3g} "
-          f"({r['err_ulps_without_gate_ties']:.3g} before {r['gate_ties']} "
-          f"gate ties); split_dim EQUAL in {r['split_dim_equal']} of "
-          f"{r['regions']}", flush=True)
+    launched = dict(cuda_rule.contract_route_launches)
+    print(f"{label}, contraction {route}: {r['regions']} regions, points "
+          f"EQUAL (bits and strides), values EQUAL; max|d est| "
+          f"{r['max_abs_est']:.3e}; beyond rtol, in ulps of the roundoff "
+          f"scale (limits {kernel_check.ULPS['est']:g}/"
+          f"{kernel_check.ULPS['err']:g}): est {r['est_ulps']:.3g}, err "
+          f"{r['err_ulps']:.3g} ({r['err_ulps_without_gate_ties']:.3g} "
+          f"before {r['gate_ties']} gate ties); split_dim EQUAL in "
+          f"{r['split_dim_equal']} of {r['regions']}; launches {launched}",
+          flush=True)
+    if r["split_dim_equal"] != r["regions"]:
+        fail(f"{label}: split_dim differs from the plain version's")
+    if not launched[route] or sum(launched.values()) != launched[route]:
+        fail(f"{label}: contraction launches {launched}, all should be "
+             f"{route}")
     return r
 
 
+def direct_values(ndim, count, dtype, layout, dev, seed=6):
+    """Values (count, feval) of a chunk made directly, on the grid k/8 in
+    [0.5, 1.5): every partial sum of an orbit (at most 65,536 values) is
+    exact in f32 and f64, so the orbit sums are the same in any order and
+    both routes are held to the plain version's epilogue alone.  Laid out
+    as 'rows' (strides (feval, 1): a callable that reduces over the axes),
+    'planes' ((1, count): a per-axis callable) or 'strided' (every other
+    element of a wider tensor: neither stride 1)."""
+    feval = rule_eval.rule_tables(ndim).feval
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randint(4, 12, (count, feval), generator=g, device=dev).to(
+        dtype) / 8
+    if layout == "planes":
+        return v.T.contiguous().T
+    if layout == "strided":
+        wide = torch.zeros((count, 2 * feval), dtype=dtype, device=dev)
+        wide[:, ::2] = v
+        return wide[:, ::2]
+    return v
+
+
+def contract_check(label, ndim, count, dtype, layout, dev):
+    """The contraction alone on values made directly (``direct_values``),
+    both routes against rule_eval.rule_outputs: est/err by kernel_check's
+    limits (rounding scales from |values|: no coordinates are rounded; the
+    orbit sums are exact), split_dim EQUAL; two launches of each route the same bits; the route
+    that contract_route names is the one the wrapper takes.  Returns the
+    largest |d est| and the chosen route."""
+    tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+    lows, lengths = random_pool(ndim, count, 7, dtype, dev)
+    gl = torch.zeros(ndim, dtype=dtype, device=dev)
+    gr = torch.full((ndim,), 1.25, dtype=dtype, device=dev)
+    vals = direct_values(ndim, count, dtype, layout, dev)
+    chosen = cuda_rule.contract_route(dtype, ndim, count, tables.feval,
+                                      vals.stride())
+    plain = rule_eval.rule_outputs(vals, tables, lengths, gr)
+    routes = ("cluster", "generic") if chosen == "cluster" else ("generic",)
+    worst = 0.0
+    for route in routes:
+        cuda_rule.reset_launches()
+        a, b = (cuda_rule.split_contract(vals, tables, lows, lengths, gl, gr,
+                                         0, route=route) for _ in range(2))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                   for x, y in zip(a, b))
+        try:
+            r = kernel_check.judge(kernel_check.region_readings(
+                a, plain, vals, vals.abs(), tables, lengths, gr),
+                name=label, dtype=dtype)
+        except AssertionError as e:
+            fail(str(e))
+        equal = int((a[2] == plain[2]).sum())
+        print(f"phase 9: {label} ({count} x {tables.feval}, {layout} "
+              f"strides {tuple(vals.stride())}), contraction {route}: est "
+              f"{r['est_ulps']:.3g}, err {r['err_ulps']:.3g} ulps beyond "
+              f"rtol (limits 1/1); split_dim EQUAL in {equal} of {count}; "
+              f"two launches the same bits: {same}; launches "
+              f"{dict(cuda_rule.contract_route_launches)}", flush=True)
+        if not same or equal != count or \
+                cuda_rule.contract_route_launches[route] != 2:
+            fail(f"{label}: contraction {route} disagrees")
+        worst = max(worst, r["max_abs_est"])
+    return worst, chosen
+
+
 def split_checks(dev):
-    """Phase 9: the split route against its plain version.  Returns the
-    largest |d est| read."""
+    """Phase 9: the split route against its plain version, its contraction
+    on both routes.  Returns the largest |d est| read on each route."""
     cap = 1 << 16
     n = cap - (cap >> 3)           # blocked pool with padding slots
-    worst = 0.0
+    worst = {r: 0.0 for r in cuda_rule.CONTRACT_ROUTES}
     for dtype in (torch.float64, torch.float32):
         tables = rule_eval.rule_tables(NDIM, rule_eval.dtype_name(dtype))
         lows, lengths = random_pool(NDIM, cap, 1, dtype, dev)
@@ -1176,22 +1272,58 @@ def split_checks(dev):
                          ("g_function", misc.g_function(NDIM)),
                          ("F4 as a batched callable", f4_plain),
                          ("F4 as a per-axis callable", f4_axes)):
-            r = compare_split(f"phase 9: {NDIM}D {label} {str(dtype)[6:]}", f,
-                              tables, lows, lengths, gl, gr, n=n,
-                              blocked=True, chunk_size=SPLIT_CHUNK)
-            worst = max(worst, r["max_abs_est"])
-    # other dimensions, in their volumes: the 9D Gaussian, the 2D ridge
-    for (g, vol), small_cap in ((misc.gauss9d(), 1 << 12),
-                                (misc.diagonal_ridge_2d(), 1 << 14)):
-        tables = rule_eval.rule_tables(g.ndim, "float64")
-        lows, lengths = random_pool(g.ndim, small_cap, 3, torch.float64, dev)
-        gl = torch.as_tensor(vol.lows, device=dev)
-        gr = torch.as_tensor(vol.highs - vol.lows, device=dev)
-        r = compare_split(f"phase 9: {g.ndim}D {g.name} float64", g, tables,
-                          lows, lengths, gl, gr,
-                          n=small_cap - (small_cap >> 3), blocked=True,
-                          chunk_size=SPLIT_CHUNK)
-        worst = max(worst, r["max_abs_est"])
+            for route in cuda_rule.CONTRACT_ROUTES:
+                r = compare_split(f"phase 9: {NDIM}D {label} "
+                                  f"{str(dtype)[6:]}", f, tables, lows,
+                                  lengths, gl, gr, n=n, blocked=True,
+                                  chunk_size=SPLIT_CHUNK, route=route)
+                worst[route] = max(worst[route], r["max_abs_est"])
+    # other dimensions, in their volumes: the 9D Gaussian, the 2D ridge;
+    # 12D at its Workspace chunk (1024 regions), 16D on 256-region chunks
+    # (a 1024-region chunk's points are 9.4 GB in f64, and the check holds
+    # the plain version's and their gradients beside them)
+    cases = [(g.name, g.ndim, g, vol, small_cap, SPLIT_CHUNK,
+              (torch.float64,))
+             for (g, vol), small_cap in ((misc.gauss9d(), 1 << 12),
+                                         (misc.diagonal_ridge_2d(), 1 << 14))]
+    for ndim, small_cap, chunk in ((12, 1 << 12, 1024), (16, 1 << 10, 256)):
+        vol = Volume(lows=[0.0] * ndim, highs=[1.0] * ndim)
+        for name, g in (("sin_sum", misc.sin_sum(ndim)),
+                        ("cos_sum per axis", axes_callable(ndim))):
+            cases.append((name, ndim, g, vol, small_cap, chunk,
+                          (torch.float64, torch.float32)))
+    for name, ndim, g, vol, small_cap, chunk, dtypes in cases:
+        for dtype in dtypes:
+            tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+            lows, lengths = random_pool(ndim, small_cap, 3, dtype, dev)
+            gl = torch.as_tensor(vol.lows, dtype=dtype, device=dev)
+            gr = torch.as_tensor(np.asarray(vol.highs) - np.asarray(vol.lows),
+                                 dtype=dtype, device=dev)
+            for route in cuda_rule.CONTRACT_ROUTES:
+                r = compare_split(f"phase 9: {ndim}D {name} "
+                                  f"{str(dtype)[6:]} chunk {chunk}", g,
+                                  tables, lows, lengths, gl, gr,
+                                  n=small_cap - (small_cap >> 3),
+                                  blocked=True, chunk_size=chunk, route=route)
+                worst[route] = max(worst[route], r["max_abs_est"])
+            del lows, lengths
+            torch.cuda.empty_cache()
+
+    # the contraction alone at 16D's Workspace chunk, on values made
+    # directly; a ragged (odd) count; values of neither layout
+    for label, ndim, count, dtype, layout in (
+            ("16D f64", 16, 1024, torch.float64, "rows"),
+            ("16D f64", 16, 1024, torch.float64, "planes"),
+            ("16D f32", 16, 1024, torch.float32, "rows"),
+            ("12D f64 odd count", 12, 1023, torch.float64, "rows"),
+            ("12D f32 odd count", 12, 1021, torch.float32, "planes"),
+            ("12D f64 strided", 12, 1024, torch.float64, "strided")):
+        d, chosen = contract_check(label, ndim, count, dtype, layout, dev)
+        want = "generic" if layout == "strided" else "cluster"
+        if chosen != want:
+            fail(f"{label}: contract_route names {chosen}, not {want}")
+        worst[chosen] = max(worst[chosen], d)
+        torch.cuda.empty_cache()
 
     # a NaN region takes the widest axis, as in the plain version
     tables = rule_eval.rule_tables(NDIM, "float64")
@@ -1233,10 +1365,135 @@ def split_checks(dev):
     return worst
 
 
+def column_matrix(tables):
+    """The TPU kernel's (P, 6 + 2n) contraction matrix: the five rule
+    weights, the centre, the single-axis pairs of orbits 1 and 2."""
+    ndim, feval = tables.ndim, tables.feval
+    m = np.zeros((feval, 6 + 2 * ndim))
+    m[:, :5] = tables.wts[:feval, :5]
+    m[0, 5] = 1.0
+    for d in range(ndim):
+        m[1 + 2 * d:3 + 2 * d, 6 + d] = 1.0
+        m[1 + 2 * ndim + 2 * d:3 + 2 * ndim + 2 * d, 6 + ndim + d] = 1.0
+    return m
+
+
+def flushed_ms(fn, reps: int = 5, inner: int = 10) -> float:
+    """Time of one call of ``fn`` with L2 emptied before it: a write of 128
+    MB (more than the 50 MB L2) before each call, CUDA events around the
+    call alone, the calls queued behind a blocker; the best of reps x
+    inner calls."""
+    if not _blocker:
+        _blocker.append(torch.zeros((6144, 6144), device="cuda"))
+    junk = torch.empty(1 << 27, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        events = []
+        torch.mm(_blocker[0], _blocker[0])
+        for _ in range(inner):
+            junk.fill_(1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        best = min(best, min(s.elapsed_time(e) for s, e in events))
+    return best
+
+
+# The contraction's timed shapes: the Workspace's chunks (8D f64 4096
+# regions, 12D and 16D 1024, 8D f32 8192), values as the callables return
+# them: rows (a reduction over the axes; the split main path's), planes (a
+# per-axis callable) at 8D, 12D and 16D f64.
+CONTRACT_SHAPES = ((8, 4096, torch.float64, "rows"),
+                   (8, 4096, torch.float64, "planes"),
+                   (12, 1024, torch.float64, "rows"),
+                   (12, 1024, torch.float64, "planes"),
+                   (16, 1024, torch.float64, "rows"),
+                   (16, 1024, torch.float64, "planes"),
+                   (8, 8192, torch.float32, "rows"))
+
+
+def contract_times(dev):
+    """Both contraction routes at CONTRACT_SHAPES, in turns (cluster,
+    generic, generic, cluster), best of 5 series back to back
+    (``queued_ms``), beside the bytes bound, the plain rule_outputs and
+    torch.matmul against the column matrix (the rule sums only, TF32 off);
+    at the 8D f64 chunk, whose 36.6 MB fit in L2, also each route with L2
+    flushed before each launch.  Returns one dict a shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for ndim, c, dtype, layout in CONTRACT_SHAPES:
+        tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+        lows, lengths = random_pool(ndim, c, 5, dtype, dev)
+        gl = torch.zeros(ndim, dtype=dtype, device=dev)
+        gr = torch.ones(ndim, dtype=dtype, device=dev)
+        args = (tables, lows, lengths, gl, gr)
+        vals = direct_values(ndim, c, dtype, layout, dev)
+        out = cuda_rule.split_contract(vals, *args, 0)
+
+        def routed(route):
+            return lambda: cuda_rule.split_contract(vals, *args, 0, out=out,
+                                                    route=route)
+
+        t = [queued_ms(routed(r), 5) for r in
+             ("cluster", "generic", "generic", "cluster")]
+        item = torch.finfo(dtype).bits // 8
+        nbytes = c * tables.feval * item + ndim * c * item + c * (2 * item + 4)
+        mt = torch.as_tensor(column_matrix(tables), dtype=dtype, device=dev)
+        k = cuda_rule.cluster_plan(dtype, ndim, c, tables.feval)[0]
+        row = {"ndim": ndim, "count": c, "feval": tables.feval,
+               "dtype": str(dtype)[6:], "layout": layout,
+               "cluster": k, "ctas": -(-c // 32) * k,
+               "co_resident_clusters": cuda_rule.cluster_occupancy(
+                   dtype, layout == "rows", ndim, c, tables.feval),
+               "cluster_ms": min(t[0], t[3]), "generic_ms": min(t[1], t[2]),
+               "series_ms": t, "bytes": nbytes,
+               "bound_ms": bytes_bound_ms(nbytes),
+               "plain_ms": time_ms(lambda: rule_eval.rule_outputs(
+                   vals, tables, lengths, gr), 3),
+               "sums_only_matmul_ms": queued_ms(lambda: torch.matmul(vals, mt),
+                                                5),
+               "torch_sum_ms": queued_ms(lambda: vals.sum(), 5),
+               "named": cuda_rule.contract_route(dtype, ndim, c, tables.feval,
+                                                 vals.stride())}
+        if (ndim, c, dtype, layout) == CONTRACT_SHAPES[0]:
+            row["cluster_l2_flushed_ms"] = flushed_ms(routed("cluster"))
+            row["generic_l2_flushed_ms"] = flushed_ms(routed("generic"))
+        flushed = (f"; with L2 flushed: cluster "
+                   f"{row['cluster_l2_flushed_ms']:.4f} ms, generic "
+                   f"{row['generic_l2_flushed_ms']:.4f} ms"
+                   if "cluster_l2_flushed_ms" in row else "")
+        print(f"phase 10: contraction, {ndim}D {row['dtype']} {c} regions x "
+              f"{tables.feval} points ({layout}, {nbytes / 1e6:.1f} MB; "
+              f"clusters of {k}, {row['ctas']} CTAs, "
+              f"{row['co_resident_clusters']} clusters co-resident): cluster "
+              f"{row['cluster_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['cluster_ms']:.1f}% of the "
+              f"bound), generic {row['generic_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['generic_ms']:.1f}%), series "
+              f"{', '.join(f'{x:.4f}' for x in t)}; bound "
+              f"{row['bound_ms']:.4f} ms (bytes); plain rule_outputs "
+              f"{row['plain_ms']:.4f} ms; the sums alone by torch.matmul "
+              f"against the ({tables.feval}, {6 + 2 * ndim}) column matrix "
+              f"{row['sums_only_matmul_ms']:.4f} ms; torch.sum of the "
+              f"values (the same bytes read) {row['torch_sum_ms']:.4f} ms; "
+              f"contract_route names {row['named']}{flushed}", flush=True)
+        rows.append(row)
+        del vals, out, lows, lengths
+        torch.cuda.empty_cache()
+    return rows
+
+
 def split_times(dev):
-    """Phase 10: the two split kernels alone at the Workspace's 8D f64
-    chunk, beside their bytes bounds, their plain versions and a PyTorch
-    call that computes the same (the points) or a part (the rule sums)."""
+    """Phase 10: the points kernel at the Workspace's 8D f64 chunk, beside
+    its bytes bound, its plain version and torch.addcmul, and the F4
+    callable on those points; then both contraction routes
+    (``contract_times``)."""
     ndim, c = NDIM, SPLIT_CHUNK
     tables = rule_eval.rule_tables(ndim, "float64")
     feval = tables.feval
@@ -1245,52 +1502,29 @@ def split_times(dev):
     gr = torch.ones(ndim, dtype=torch.float64, device=dev)
     args = (tables, lows, lengths, gl, gr)
     x = cuda_rule.split_points(*args, 0, c)
-    vals = f4_plain(x).to(torch.float64)
-    out = cuda_rule.split_contract(vals, *args, 0)
     t = {}
     t["points"] = queued_ms(lambda: cuda_rule.split_points(*args, 0, c), 5, 10)
-    t["contract"] = queued_ms(
-        lambda: cuda_rule.split_contract(vals, *args, 0, out=out), 5)
     t["callable"] = queued_ms(lambda: f4_plain(x), 3, 5)
     t["plain_points"] = time_ms(lambda: rule_eval.rule_points(*args), 3)
-    t["plain_contract"] = time_ms(
-        lambda: rule_eval.rule_outputs(vals, tables, lengths, gr), 3)
     _, cen, ln = rule_eval.rule_points(*args)
     gen = rule_eval.device_tables(ndim, torch.float64, dev)[0]
     cen3, ln3 = cen.T[:, None, :], ln.T[:, None, :]
     t["addcmul"] = queued_ms(lambda: torch.addcmul(cen3, gen[None], ln3,
                                                    value=-1), 5, 10)
-    # the TPU kernel's (P, 6 + 2n) contraction matrix: the five rule
-    # weights, the centre, the single-axis pairs of orbits 1 and 2
-    m = np.zeros((feval, 6 + 2 * ndim))
-    m[:, :5] = tables.wts[:feval, :5]
-    m[0, 5] = 1.0
-    for d in range(ndim):
-        m[1 + 2 * d:3 + 2 * d, 6 + d] = 1.0
-        m[1 + 2 * ndim + 2 * d:3 + 2 * ndim + 2 * d, 6 + ndim + d] = 1.0
-    mt = torch.as_tensor(m, device=dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t["matmul"] = queued_ms(lambda: torch.matmul(vals, mt), 5)
     item = 8
     points_bytes = c * feval * ndim * item + 2 * ndim * c * item \
         + feval * ndim * item + 2 * ndim * item
-    contract_bytes = c * feval * item + ndim * c * item + c * (2 * item + 4)
     b_points = bytes_bound_ms(points_bytes)
-    b_contract = bytes_bound_ms(contract_bytes)
     print(f"phase 10: points kernel, {c} regions x {feval} points x {ndim} "
           f"(f64): {t['points']:.4f} ms, bound {b_points:.4f} ms "
           f"({points_bytes / 1e6:.1f} MB, bytes; "
           f"{100 * b_points / t['points']:.1f}"
           f"% of it); plain rule_points {t['plain_points']:.4f} ms; "
-          f"torch.addcmul {t['addcmul']:.4f} ms", flush=True)
-    print(f"phase 10: contraction kernel: {t['contract']:.4f} ms, bound "
-          f"{b_contract:.4f} ms ({contract_bytes / 1e6:.1f} MB, bytes; "
-          f"{100 * b_contract / t['contract']:.1f}% of it); plain "
-          f"rule_outputs {t['plain_contract']:.4f} ms; the sums alone by "
-          f"torch.matmul against the ({feval}, {6 + 2 * ndim}) column matrix "
-          f"{t['matmul']:.4f} ms; the F4 callable on the chunk's points "
-          f"{t['callable']:.4f} ms", flush=True)
-    return t, b_points, b_contract
+          f"torch.addcmul {t['addcmul']:.4f} ms; the F4 callable on the "
+          f"chunk's points {t['callable']:.4f} ms (values strides "
+          f"{tuple(f4_plain(x).stride())})", flush=True)
+    del x, cen3, ln3
+    return t, b_points, contract_times(dev)
 
 
 class SplitEvents:
@@ -1301,6 +1535,14 @@ class SplitEvents:
     def __init__(self, integrand):
         self.integrand = integrand
         self.events = {"points": [], "callable": [], "contract": []}
+        # the route contract_route names for each contraction's values
+        self.named = {r: 0 for r in cuda_rule.CONTRACT_ROUTES}
+
+    def _contract(self, lib, tables, vals, *rest, **kw):
+        self.named[cuda_rule.contract_route(
+            vals.dtype, tables.ndim, vals.shape[0], tables.feval,
+            vals.stride())] += 1
+        return self.kept[1](lib, tables, vals, *rest, **kw)
 
     def _timed(self, what, fn):
         def timed(*args, **kw):
@@ -1316,7 +1558,7 @@ class SplitEvents:
     def __enter__(self):
         self.kept = (cuda_rule._points_launch, cuda_rule._contract_launch)
         cuda_rule._points_launch = self._timed("points", self.kept[0])
-        cuda_rule._contract_launch = self._timed("contract", self.kept[1])
+        cuda_rule._contract_launch = self._timed("contract", self._contract)
         self.f = self._timed("callable", self.integrand)
         return self
 
@@ -1328,34 +1570,35 @@ class SplitEvents:
         return False
 
 
-def split_main_path(dev, tile_run):
-    """Phase 11: PAGANI's main path with its integrand as a plain callable,
-    every rule evaluation through the split route, CUDA events around each
-    kernel launch and each call of the callable; then a zoo integrand.
-    Returns the split kernels' launches on the first run."""
-    g4 = genz.f4_gaussian(NDIM)
+def events_run(label, ws, f, epsrel, truth):
+    """``ws.integrate(f, epsrel, 1e-40)`` on the split route with CUDA
+    events around each launch and call (``SplitEvents``), printed: the
+    result, the wall and its shares.  Fails unless it certifies within
+    epsrel of ``truth`` and every contraction took the route
+    ``contract_route`` names for its values.  Returns the result, the
+    split kernels' launches and the contraction's by route."""
     torch.cuda.synchronize()
     cuda_rule.reset_launches()
-    with SplitEvents(f4_plain) as ev:
+    with SplitEvents(f) as ev:
         t0 = time.perf_counter()
-        res = Workspace(NDIM).integrate(ev.f, epsrel=1e-3, epsabs=1e-40)
+        res = ws.integrate(ev.f, epsrel=epsrel, epsabs=1e-40)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(cuda_rule.split_launches)
+    routes = dict(cuda_rule.contract_route_launches)
     fused = cuda_rule.launches
-    rel = abs(res.estimate - g4.true_value) / g4.true_value
+    rel = abs(res.estimate - truth) / abs(truth)
     parts = ev.seconds
     rest = wall - sum(parts.values())
-    print(f"phase 11: f64 8D F4 as a plain callable, epsrel 1e-3: status "
-          f"{res.status} estimate {res.estimate!r} errorest {res.errorest!r} "
-          f"rel.err {rel:.3e} iters {res.iters} nregions {res.nregions} neval "
-          f"{res.neval} wall {wall:.3f} s evals/s {res.neval / wall:.4e}; "
-          f"split kernels' launches {launches}, fused kernel's {fused}; "
-          f"phase 3 (tile route, the same integrand): iters "
-          f"{tile_run.iters} nregions {tile_run.nregions} neval "
-          f"{tile_run.neval}", flush=True)
-    print(f"phase 11: the wall by CUDA events around each launch and call "
-          f"(they cost host time of their own): points kernel "
+    print(f"phase 11: {label}, epsrel {epsrel:g}: status {res.status} "
+          f"estimate {res.estimate!r} errorest {res.errorest!r} truth "
+          f"{truth!r} rel.err {rel:.3e} iters {res.iters} nregions "
+          f"{res.nregions} neval {res.neval} wall {wall:.3f} s evals/s "
+          f"{res.neval / wall:.4e}; split kernels' launches {launches}, the "
+          f"contraction's by route {routes} (contract_route named "
+          f"{ev.named}), fused kernel's {fused}", flush=True)
+    print(f"phase 11: {label}: the wall by CUDA events around each launch "
+          f"and call (they cost host time of their own): points kernel "
           f"{parts['points']:.4f} s, the callable {parts['callable']:.4f} s, "
           f"contraction kernel {parts['contract']:.4f} s, the rest (pool "
           f"stages, host) {rest:.4f} s = "
@@ -1363,12 +1606,45 @@ def split_main_path(dev, tile_run):
           f"{100 * parts['callable'] / wall:.1f} / "
           f"{100 * parts['contract'] / wall:.1f} / {100 * rest / wall:.1f} %",
           flush=True)
-    if res.status != 0 or not rel <= 1e-3:
-        fail(f"split main path: status {res.status}, rel.err {rel}")
+    if res.status != 0 or not rel <= epsrel:
+        fail(f"{label}: status {res.status}, rel.err {rel}")
     if fused or not launches["points"] or \
             launches["points"] != launches["contract"]:
-        fail(f"split main path: launches {launches}, fused {fused}; every "
-             "rule evaluation should take the split route")
+        fail(f"{label}: launches {launches}, fused {fused}; every rule "
+             "evaluation should take the split route")
+    if routes != ev.named:
+        fail(f"{label}: contraction launches by route {routes}, but "
+             f"contract_route named {ev.named}")
+    return res, launches, routes
+
+
+SIN12_EPSREL = 1e-8      # sin_sum(12) certifies there in ~2 s (1e-9 does not)
+
+
+def split_main_path(dev, tile_run):
+    """Phase 11: PAGANI's main path with its integrand as a plain callable,
+    every rule evaluation through the split route, CUDA events around each
+    kernel launch and each call of the callable, beside phase 3's run;
+    then ``misc.sin_sum(12)`` the same way, and ``misc.sin_sum(8)`` at
+    1e-11.  Returns the split kernels' launches on the first run and the
+    contraction's by route."""
+    g4 = genz.f4_gaussian(NDIM)
+    res, launches, routes = events_run(
+        f"f64 {NDIM}D F4 as a plain callable", Workspace(NDIM), f4_plain,
+        1e-3, g4.true_value)
+    print(f"phase 11: phase 3 (tile route, the same integrand): iters "
+          f"{tile_run.iters} nregions {tile_run.nregions} neval "
+          f"{tile_run.neval}", flush=True)
+    if (res.iters, res.nregions, res.neval) != (
+            tile_run.iters, tile_run.nregions, tile_run.neval):
+        fail("the split main path did not take phase 3's decisions")
+    if routes["cluster"] != launches["contract"]:
+        fail(f"split main path: contraction launches by route {routes}; all "
+             "should take the cluster route")
+
+    g12 = misc.sin_sum(12)
+    events_run("f64 12D sin_sum (models.misc)", Workspace(12), g12,
+               SIN12_EPSREL, g12.true_value)
 
     g = misc.sin_sum(NDIM)
     cuda_rule.reset_launches()
@@ -1381,12 +1657,13 @@ def split_main_path(dev, tile_run):
           f"{SIN_SUM_EPSREL:g}: status {res.status} estimate "
           f"{res.estimate!r} truth {g.true_value!r} rel.err {rel:.3e} iters "
           f"{res.iters} nregions {res.nregions} neval {res.neval} wall "
-          f"{wall:.3f} s; launches {dict(cuda_rule.split_launches)}, fused "
-          f"{cuda_rule.launches}", flush=True)
+          f"{wall:.3f} s; launches {dict(cuda_rule.split_launches)}, "
+          f"contraction by route {dict(cuda_rule.contract_route_launches)}, "
+          f"fused {cuda_rule.launches}", flush=True)
     if res.status != 0 or not rel <= SIN_SUM_EPSREL or cuda_rule.launches \
             or not cuda_rule.split_launches["points"]:
         fail(f"sin_sum main path: status {res.status}, rel.err {rel}")
-    return launches
+    return launches, routes
 
 
 CONT_POOL = 1 << 22      # a pool budget at which 8D F4's round 1 walls
@@ -1731,9 +2008,9 @@ def main() -> int:
     # -- phases 9-12: the split route, the continuation ----------------------
     split_err = split_checks(dev)
     phase_done("phase 9")
-    split_ms, b_points, b_contract = split_times(dev)
+    split_ms, b_points, contract_rows = split_times(dev)
     phase_done("phase 10")
-    split_launches = split_main_path(dev, res)
+    split_launches, contract_routes = split_main_path(dev, res)
     phase_done("phase 11")
     continuation_path(dev)
     phase_done("phase 12")
@@ -1769,19 +2046,39 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": split_ms["addcmul"],
     }, {
+        # one kernel, two routes (the house pattern of rule_eval above): the
+        # numbers at the split main path's shape, the 8D f64 chunk with its
+        # values as rows, and each route's at every timed shape
         "name": "rule_split_contract",
         "route": "cuda",
         "source": "gpuintegration_torch/csrc/rule_split.cu",
         "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
-        "held_against_plain_in": "phase 9 (rule_eval.rule_outputs)",
+        "held_against_plain_in": "phase 9 (rule_eval.rule_outputs; both "
+                                 "routes, 2D-16D, f64 and f32)",
         "launches": split_launches["contract"],
-        "max_abs_err": split_err,
-        "ms": split_ms["contract"],
-        "plain_ms": split_ms["plain_contract"],
-        "bound_ms": b_contract,
+        "launches_by_route": contract_routes,
+        "max_abs_err": max(split_err.values()),
+        "ms": contract_rows[0]["cluster_ms"],
+        "generic_route_ms": contract_rows[0]["generic_ms"],
+        "l2_flushed_ms": contract_rows[0]["cluster_l2_flushed_ms"],
+        "generic_route_l2_flushed_ms":
+            contract_rows[0]["generic_l2_flushed_ms"],
+        "plain_ms": contract_rows[0]["plain_ms"],
+        "bound_ms": contract_rows[0]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "sums_only_matmul_ms": split_ms["matmul"],
+        "sums_only_matmul_ms": contract_rows[0]["sums_only_matmul_ms"],
+        "by_route": {
+            route: {"launches": contract_routes[route],
+                    "max_abs_err": split_err[route],
+                    "shapes": [{
+                        "shape": f"{r['ndim']}D {r['dtype']} {r['count']} x "
+                                 f"{r['feval']} {r['layout']}",
+                        "ms": r[f"{route}_ms"], "bound_ms": r["bound_ms"],
+                        "plain_ms": r["plain_ms"],
+                        "sums_only_matmul_ms": r["sums_only_matmul_ms"]}
+                        for r in contract_rows]}
+            for route in cuda_rule.CONTRACT_ROUTES},
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -14,51 +14,85 @@
 //      and a callable that reduces over the axes rounds alike only on
 //      tensors of the same strides;
 //   2. the user's callable runs on those points as ordinary torch ops;
-//   3. rule_contract_kernel reduces the values (C, feval) to est, err and
-//      split_dim and writes them into the region's pool slot.
+//   3. a contraction kernel reduces the values (C, feval) to est, err and
+//      split_dim and writes them into the region's pool slot.  This is the
+//      contraction half of the Pallas kernel (its MXU product of the values
+//      against the (P, 6 + 2n) column matrix, pallas_rule.py:86), in one of
+//      two routes that cuda_rule.contract_route chooses by the shape:
+//      rule_contract_cluster_kernel ('cluster') where a region's points or
+//      a point's regions lie contiguous, rule_contract_kernel ('generic',
+//      the first design) at any strides.
 //
-// Both keep the plain version's roundings where the arithmetic is
+// All keep the plain version's roundings where the arithmetic is
 // elementwise, each product and sum rounded on its own (never contracted
 // into a fused multiply-add): center_g and len_g as rule_points forms them,
 // then one rounded multiply and one rounded subtract per coordinate, so the
 // points are EQUAL to the plain version's and the callable sees the same
 // bits; the fourth differences, the weight table, the null-rule terms and
 // the gate as rule_eval.rule_outputs rounds them.  Only the per-orbit sums
-// of the values are taken in another order (16 strided partial sums added
-// in a fixed order).  So split_dim, an argmax of the fourth differences,
-// is the plain version's, NaN included (a NaN difference makes the widest
-// axis the split axis, as torch.amax's NaN does in rule_outputs).
+// of the values are taken in another order, a fixed one.  So split_dim, an
+// argmax of the fourth differences, is the plain version's, NaN included
+// (a NaN difference makes the widest axis the split axis, as torch.amax's
+// NaN does in rule_outputs).
 //
 // What bounds them: both move bytes and do little arithmetic.  The points
 // kernel writes 8 * feval * ndim bytes a region (70.7 KB at 8D f64) and
 // reads a few; the contraction reads 8 * feval bytes a region (8.8 KB) and
 // does some 2 operations a value.  At the Workspace's 8D f64 chunk of 4096
 // regions that is 289.7 MB written (0.0865 ms at 3.35 TB/s) and 36.2 MB
-// read (0.0108 ms).  The design follows the bytes and the planes' layout:
+// read (0.0108 ms); at its 16D chunk of 1024 regions the contraction reads
+// 586 MB (0.175 ms).  The designs follow the bytes and the planes' layout:
 //   * points: a thread per region, neighbouring threads on neighbouring
 //     regions, so a warp's stores of one (point, axis) are one contiguous
 //     row of 32 values.  A block takes 128 regions and a tile of 32 points;
 //     a thread forms its region's centre and length of an axis once and
 //     writes the tile's 32 coordinates of that axis.  The generator is the
 //     same for the whole warp (a broadcast load);
-//   * contraction: the values come back from the callable in the same
-//     layout, point-major planes with the region fastest.  A block takes 32
-//     neighbouring regions, a lane per region, and 16 warps: warp g sums
-//     points g, g + 16, ... of each orbit, so a warp's loads are contiguous
-//     rows; warp 0 adds the 16 partial sums in a fixed order and runs the
-//     epilogue, a lane per region.  The same bits from launch to launch, no
-//     atomics.  Any other strides are read correctly, if less well.
-// Neither uses tensor cores or TF32: the null-rule sums cancel.  Indices
-// are 64-bit: a chunk may hold more than 2^31 coordinates.
+//   * contraction, 'generic': a block takes 32 neighbouring regions, a lane
+//     per region, and 16 warps: warp g sums points g, g + 16, ... of each
+//     orbit; warp 0 adds the 16 partial sums in a fixed order and runs the
+//     epilogue.  Any strides.  At the Workspace's chunks it launches 32 to
+//     512 blocks with about one 8-byte load in flight a thread: 41.7 % of
+//     its bound at 8D, and a quarter of the card at 11-16D;
+//   * contraction, 'cluster': a group of 32 neighbouring regions, a lane
+//     per region; its points are split across the K CTAs of a thread
+//     block cluster, K from (count, feval) alone (cuda_rule.cluster_plan),
+//     so that every chunk shape from 2D to 16D launches at least 224 CTAs,
+//     two an SM, all resident at once from 6D up.  Each CTA streams its stages (128 points of
+//     the 32 regions, 32 KB in f64) through a ring of two in shared memory:
+//     one producer warp keeps bulk asynchronous copies (cp.async.bulk, the
+//     TMA's copy engine) in flight under mbarriers, and eight consumer
+//     warps add from shared memory, warp w the points w, w + 8, ... of each
+//     stage, a running sum per orbit.  The values come from the callable in
+//     one of two layouts: rows (strides (feval, 1): a callable that reduces
+//     over the axes, the common case) or planes ((1, C): a per-axis
+//     callable).  Either way a stage is 32 contiguous segments (a region's
+//     128 points, or a point's 32 regions), each copied in whole 16-byte
+//     units around it, from any address and for any count.  The copies'
+//     size is what bounds the route on the H100 (PERF.md): rows
+//     segments of 1 KB stream near the bound, planes segments of 256 bytes
+//     do not, so planes take this route only from 4096 points a region up.
+//     The leader (rank 0) also holds the 4n + 1 points of orbits 0-2 apart,
+//     for the fourth differences.  The CTA's partial orbit sums are added
+//     in warp order, then the leader adds the cluster's in rank order
+//     through distributed shared memory, and spreads the epilogue over its
+//     nine warps (fourth differences by axis, rule sums by rule, null-rule
+//     terms by term).  No atomics: the same bits from launch to launch, on
+//     any card.
+// None uses tensor cores or TF32: the null-rule sums cancel.  Indices are
+// 64-bit: a chunk may hold more than 2^31 coordinates.
 //
 // Built by ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --split-compile 0 -shared -Xcompiler -fPIC
 // and called through ctypes (plain C entry points below).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -68,6 +102,15 @@ constexpr int kNrules = 5;
 constexpr int kPointThreads = 128;  // regions of a points block
 constexpr int kPointTile = 32;      // points of a points block
 constexpr int kContractGroups = 16; // warps of a contraction block
+// the cluster route
+constexpr int kClusterWarps = 8;     // consumer warps of a CTA
+constexpr int kClusterThreads = 32 * (kClusterWarps + 1);  // + the producer
+constexpr int kMaxStages = 8;        // stages of a CTA's ring, at most
+constexpr int kMaxSmem = 227 * 1024; // dynamic shared memory of a CTA
+// clusters above 8 CTAs are not portable: CUDA refuses them unless a kernel
+// allows them, which this one does not; the argument check lets them through
+// so that the refusal is CUDA's own
+constexpr int kMaxClusterArg = 16;
 
 // Arithmetic rounded as the plain version's separate tensor operations
 // round it: the compiler may not fuse these into a multiply-add.
@@ -277,6 +320,408 @@ rule_contract_kernel(const ContractArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
+// 3. The contraction, cluster route.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// 1-D bulk asynchronous copy global -> shared; its bytes complete on ``bar``
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.  A copy that
+// never completes traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 22)) __trap();
+  }
+}
+
+// Elements of T in 16 bytes: a bulk copy moves whole 16-byte units from a
+// 16-byte address, so a segment of the values is copied with up to this
+// many elements before it and after it (within its 16-byte units: never
+// another page), and read from its offset in the copy.
+template <typename T>
+__host__ __device__ constexpr int slack() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+// The pitch of a tile's segments, in elements: 32 + S a point in the
+// planes' layout, points + S a region in the rows' (S = slack), rounded up
+// to whole 16-byte units, so that each segment starts on a 16-byte
+// boundary.
+template <typename T>
+__host__ __device__ constexpr int seg_pitch(bool rows, int points) {
+  return ((rows ? points : 32) + 2 * slack<T>() - 1) / slack<T>() *
+         slack<T>();
+}
+
+// Elements of a tile that stages ``points`` points of 32 regions, in
+// either layout.
+template <typename T>
+__host__ __device__ constexpr size_t tile_elements(int points) {
+  return static_cast<size_t>(seg_pitch<T>(true, points)) *
+         seg_pitch<T>(false, points);
+}
+
+// The dynamic shared memory of a CTA, in elements of T: the ring of
+// ``stages`` tiles of ``points`` points, the head tile (points 0..4n,
+// orbits 0-2: the leader's), the warps' partial orbit sums [warps][9][32],
+// the CTA's [9][32] and the cluster's [9][32].  The epilogue's rows reuse
+// the warps' partial sums once the CTA's are formed: fourth differences
+// [16][32], rule sums [5][32], null-rule terms [3][32], volumes [32], and
+// two int rows [32] (widest axis, split axis by fourth difference).
+template <typename T>
+struct ClusterSmem {
+  T *ring, *head, *part, *cta, *osum, *fd, *sums, *e, *vol;
+  int *widest, *best;
+
+  static_assert((kMaxNdim + kNrules + 3 + 1) * 32 * sizeof(T) +
+                        2 * 32 * sizeof(int) <=
+                    kClusterWarps * kNsets * 32 * sizeof(T),
+                "the epilogue's rows fit in the warps' partial sums");
+  __host__ __device__ static size_t bytes(int ndim, int points, int stages) {
+    return (stages * tile_elements<T>(points) +
+            tile_elements<T>(4 * ndim + 1) +
+            (kClusterWarps + 2) * kNsets * 32) * sizeof(T);
+  }
+  __device__ ClusterSmem(T* base, int ndim, int points, int stages) {
+    ring = base;
+    head = ring + stages * tile_elements<T>(points);
+    part = head + tile_elements<T>(4 * ndim + 1);
+    cta = part + kClusterWarps * kNsets * 32;
+    osum = cta + kNsets * 32;
+    fd = part;
+    sums = fd + kMaxNdim * 32;
+    e = sums + kNrules * 32;
+    vol = e + 3 * 32;
+    widest = reinterpret_cast<int*>(vol + 32);
+    best = widest + 32;
+  }
+};
+
+// The stages [lo, hi) that cluster rank ``rank`` of ``k`` sums: the points
+// past the head's ``head`` in stages of ``rows``, stage t holding points
+// head + rows t .. (cuda_rule.cluster_partition computes the same).
+__device__ __forceinline__ void rank_stages(int feval, int head, int rows,
+                                            int rank, int k, int& lo,
+                                            int& hi) {
+  const int64_t total = (feval - head + rows - 1) / rows;
+  lo = static_cast<int>(rank * total / k);
+  hi = static_cast<int>((rank + 1) * total / k);
+}
+
+// The values of one group of 32 regions (c0 .. c0 + valid - 1) as
+// contiguous segments: ROWS, a region's points (sp = 1); else the planes,
+// a point's 32 regions (sc = 1).  A tile of ``cap`` points from point p0
+// holds each segment at a 16-byte boundary, its first value ``off`` in.
+template <typename T, bool ROWS>
+struct Segments {
+  const T* vals;
+  int64_t sc, sp, c0;
+  int base_mod;  // the values' address in elements, modulo the slack
+
+  // element index of (region lane, point p) from vals
+  __device__ __forceinline__ int64_t at(int lane, int p) const {
+    return (c0 + lane) * sc + static_cast<int64_t>(p) * sp;
+  }
+  __device__ __forceinline__ int off(int64_t g) const {
+    return static_cast<int>((base_mod + g) & (slack<T>() - 1));
+  }
+  // segment s of a tile (ROWS: region s, else point p0 + s): its element
+  // index, its length, its place in the tile
+  __device__ __forceinline__ int64_t seg_start(int s, int p0) const {
+    return ROWS ? at(s, p0) : at(0, p0 + s);
+  }
+  __device__ __forceinline__ uint32_t seg_bytes(int64_t g, int len) const {
+    return static_cast<uint32_t>(((off(g) + len) * sizeof(T) + 15) / 16 * 16);
+  }
+  // copy the tile's segments (``points`` points from p0, ``valid``
+  // regions), a lane a segment, completing on ``bar``
+  __device__ void load(T* tile, int cap, int p0, int points, int valid,
+                       uint32_t bar, int lane) const {
+    const int segs = ROWS ? valid : points, len = ROWS ? points : valid;
+    uint32_t bytes = 0;
+    for (int s = lane; s < segs; s += 32) bytes += seg_bytes(seg_start(s, p0), len);
+    bytes = __reduce_add_sync(0xffffffffu, bytes);
+    if (lane == 0) {
+      // order the consumers' reads of the tile before the copies' writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, bytes);
+    }
+    __syncwarp();
+    for (int s = lane; s < segs; s += 32) {
+      const int64_t g = seg_start(s, p0);
+      bulk_load(smem_addr(tile + s * seg_pitch<T>(ROWS, cap)),
+                vals + (g - off(g)),
+                seg_bytes(g, len), bar);
+    }
+  }
+  // the value of region ``lane`` at point p0 + j of a tile
+  __device__ __forceinline__ T get(const T* tile, int cap, int p0, int j,
+                                   int lane) const {
+    const int64_t g = at(lane, p0 + j);
+    return ROWS ? tile[lane * seg_pitch<T>(ROWS, cap) + off(g - j) + j]
+                : tile[j * seg_pitch<T>(ROWS, cap) + off(g - lane) + lane];
+  }
+};
+
+// The shape of the cluster route's launch: clusters of ``k`` CTAs, a ring
+// of ``stages`` tiles of ``points`` points (cuda_rule.cluster_plan).
+struct ClusterShape {
+  int k, points, stages;
+};
+
+// A cluster of ``k`` CTAs takes a group of 32 neighbouring regions, a lane
+// per region; its CTAs split the group's points (cuda_rule.cluster_plan).
+// Warp kClusterWarps of a CTA is the producer: it copies the CTA's points
+// into the ring, a segment (ROWS: a region's points of the stage, else a
+// point's 32 regions) a lane.  Warps 0..7 sum them, warp w the points w,
+// w + 8, ... of each stage, a running sum per orbit and region.  Then the
+// warps' sums in warp order, the ranks' in rank order, and the leader's
+// epilogue, rounded as rule_eval.rule_outputs.
+template <typename T, bool ROWS>
+__global__ void __launch_bounds__(kClusterThreads)
+rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
+  extern __shared__ __align__(128) unsigned char s_dyn[];
+  __shared__ unsigned long long s_full[kMaxStages];
+  __shared__ unsigned long long s_empty[kMaxStages];
+  __shared__ unsigned long long s_headbar;
+  __shared__ int s_ob[kNsets + 1];
+  __shared__ T s_jac;
+  const int ndim = a.ndim, feval = a.feval, head_pts = 4 * ndim + 1;
+  const int k = cs.k, R = cs.points, stages = cs.stages;
+  const ClusterSmem<T> sm(reinterpret_cast<T*>(s_dyn), ndim, R, stages);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x / k) * 32;
+  const int valid = static_cast<int>(a.count - c0 < 32 ? a.count - c0 : 32);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Segments<T, ROWS> seg{
+      a.vals, a.sc, a.sp, c0,
+      static_cast<int>((reinterpret_cast<uintptr_t>(a.vals) / sizeof(T)) &
+                       (slack<T>() - 1))};
+  const size_t tile = tile_elements<T>(R);
+  int st_lo, st_hi;
+  rank_stages(feval, head_pts, R, rank, k, st_lo, st_hi);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_addr(&s_full[s]), 1);
+      mbar_init(smem_addr(&s_empty[s]), kClusterWarps);
+    }
+    mbar_init(smem_addr(&s_headbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x <= kNsets) s_ob[threadIdx.x] = a.orbit_bounds[threadIdx.x];
+  __syncthreads();
+
+  if (warp == kClusterWarps) {
+    // ---- producer: the head (leader only), then the stages in turn ----
+    if (rank == 0)
+      seg.load(sm.head, head_pts, 0, head_pts, valid, smem_addr(&s_headbar),
+               lane);
+    for (int t = st_lo; t < st_hi; ++t) {
+      const int use = t - st_lo, slot = use % stages;
+      if (use >= stages)
+        mbar_wait(smem_addr(&s_empty[slot]), ((use / stages) - 1) & 1);
+      const int p0 = head_pts + t * R;
+      seg.load(sm.ring + slot * tile, R, p0, feval - p0 < R ? feval - p0 : R,
+               valid, smem_addr(&s_full[slot]), lane);
+    }
+  } else {
+    // ---- consumers: a running sum per orbit over the warp's points ----
+    T* part = sm.part + warp * kNsets * 32 + lane;
+#pragma unroll
+    for (int s = 0; s < kNsets; ++s) part[s * 32] = T(0);
+    T acc = T(0);
+    int s = 0, bound = s_ob[1];
+    // the warp's points j = warp, warp + 8, ... < points of a tile from
+    // point p0, in order: ROWS, region lane's segment is contiguous (one
+    // offset a tile); planes, point j's segment holds the 32 regions
+    auto sum_tile = [&](const T* t, int cap, int p0, int points) {
+      const int pitch = seg_pitch<T>(ROWS, cap);
+      const T* row = ROWS ? t + lane * pitch + seg.off(seg.at(lane, p0))
+                          : t + lane;
+      for (int j = warp; j < points; j += kClusterWarps) {
+        const T v = ROWS ? row[j] : row[j * pitch + seg.off(seg.at(0, p0 + j))];
+        while (p0 + j >= bound) {
+          part[s * 32] = acc;
+          acc = T(0);
+          bound = s_ob[++s + 1];
+        }
+        acc += v;
+      }
+    };
+    if (rank == 0) {
+      mbar_wait(smem_addr(&s_headbar), 0);
+      sum_tile(sm.head, head_pts, 0, head_pts);
+    }
+    for (int t = st_lo; t < st_hi; ++t) {
+      const int use = t - st_lo, slot = use % stages;
+      const int p0 = head_pts + t * R;
+      mbar_wait(smem_addr(&s_full[slot]), (use / stages) & 1);
+      sum_tile(sm.ring + slot * tile, R, p0, feval - p0 < R ? feval - p0 : R);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&s_empty[slot]));
+    }
+    part[s * 32] = acc;
+  }
+  __syncthreads();
+
+  // the warps' partial sums in warp order: kClusterThreads = 9 * 32
+  // threads, an (orbit, lane) pair each
+  const int i = threadIdx.x;
+  {
+    T v = sm.part[i];
+#pragma unroll
+    for (int w = 1; w < kClusterWarps; ++w) v += sm.part[w * kNsets * 32 + i];
+    sm.cta[i] = v;
+  }
+  cluster.sync();
+  if (rank != 0) {
+    cluster.sync();  // no CTA leaves while the leader reads its sums
+    return;
+  }
+
+  // ---- the leader: the cluster's sums in rank order, then the epilogue
+  // spread over its nine warps, a lane per region, rounded as
+  // rule_eval.rule_outputs ----
+  {
+    T v = sm.cta[i];
+    for (int r = 1; r < k; ++r) v += cluster.map_shared_rank(sm.cta, r)[i];
+    sm.osum[i] = v;
+  }
+  const bool real = lane < valid;
+  const int64_t slot = real_slot(a.first + c0 + lane, a.cap, a.n, a.blocked);
+  // rule_eval.fourth_differences: |c0 f0 + ratio (f1+ + f1-) - (f2+ +
+  // f2-)|, c0 = 2 (1 - ratio), from the head tile; axis d by warp d mod 9
+  {
+    auto h = [&](int p) { return seg.get(sm.head, head_pts, 0, p, lane); };
+    const T c0f0 = r_mul(T(2) * r_sub(T(1), a.ratio), h(0));
+    for (int d = warp; d < ndim; d += kClusterWarps + 1) {
+      const T o1 = r_add(h(1 + 2 * d), h(2 + 2 * d));
+      const T o2 = r_add(h(1 + 2 * ndim + 2 * d), h(2 + 2 * ndim + 2 * d));
+      sm.fd[d * 32 + lane] = r_abs(r_sub(r_add(c0f0, r_mul(a.ratio, o1)), o2));
+    }
+  }
+  if (warp == kClusterWarps) {
+    // the jacobian, and the region's volume and widest axis
+    T jac = a.grange[0];
+    for (int d = 1; d < ndim; ++d) jac = r_mul(jac, a.grange[d]);
+    if (lane == 0) s_jac = jac;
+    if (real) {
+      T vol = a.lengths[slot];
+      T wl = vol;
+      int widest = 0;
+      for (int d = 1; d < ndim; ++d) {
+        const T l = a.lengths[d * a.cap + slot];
+        vol = r_mul(vol, l);
+        // torch.argmax: the first largest, a NaN counting as the largest
+        if (!is_nan(wl) && (is_nan(l) || l > wl)) {
+          wl = l;
+          widest = d;
+        }
+      }
+      sm.vol[lane] = vol;
+      sm.widest[lane] = widest;
+    }
+  }
+  cluster.sync();  // the peers may leave; the leader's rows are all in
+
+  if (warp < kNrules) {
+    // rule sum q = warp
+    const T* o = sm.osum + lane;
+    T v = r_mul(o[0], a.orbit_wts[warp]);
+#pragma unroll
+    for (int s = 1; s < kNsets; ++s)
+      v = r_add(v, r_mul(o[s * 32], a.orbit_wts[s * kNrules + warp]));
+    sm.sums[warp * 32 + lane] = r_mul(v, s_jac);
+  } else if (warp == kNrules) {
+    // the first largest fourth difference (torch.argmax) where it is
+    // positive and none is NaN, else -1: the widest axis
+    int best = 0;
+    bool any_nan = false;
+    T top = T(0);
+    for (int d = 0; d < ndim; ++d) {
+      const T v = sm.fd[d * 32 + lane];
+      if (is_nan(v)) {
+        any_nan = true;
+      } else if (d == 0 || v > top) {
+        top = v;
+        best = d;
+      }
+    }
+    sm.best[lane] = (!any_nan && top > T(0)) ? best : -1;
+  }
+  __syncthreads();
+
+  if (warp < 3) {
+    // null-rule term e_q, q = warp + 1
+    const int q = warp + 1;
+    const T s1 = sm.sums[(q + 1) * 32 + lane], s0 = sm.sums[q * 32 + lane];
+    T m = T(0);
+#pragma unroll
+    for (int s = 0; s < kNsets; ++s) {
+      const T v = r_mul(r_abs(r_add(s1, r_mul(a.scale[s * kNrules + q], s0))),
+                        a.norm[s * kNrules + q]);
+      m = s == 0 ? v : nan_max(m, v);
+    }
+    sm.e[warp * 32 + lane] = m;
+  }
+  __syncthreads();
+
+  if (warp == 0 && real) {
+    const T e0 = sm.e[lane], e1 = sm.e[32 + lane], e2 = sm.e[64 + lane];
+    // the (5,1,5) gate of rule_eval.gate_errors
+    const T gated = (r_mul(T(5), e0) <= e1 && r_mul(T(5), e1) <= e2)
+                        ? e0
+                        : r_mul(T(5), nan_max(nan_max(e0, e1), e2));
+    const T vol = sm.vol[lane];
+    a.est[slot] = r_mul(vol, sm.sums[lane]);
+    a.err[slot] = r_mul(vol, gated);
+    const int best = sm.best[lane];
+    a.split_dim[slot] = best >= 0 ? best : sm.widest[lane];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches.
 
 struct HostArgs {
@@ -313,12 +758,73 @@ int points_launch(const HostArgs& h, const void* lows, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Let the cluster kernel have ``smem`` bytes of dynamic shared memory: the
+// attribute is raised once for each size it grows to, so that a launch
+// spends no host time on it.
+template <typename T, bool ROWS>
+cudaError_t allow_cluster_smem(size_t smem) {
+  static size_t granted = 48 * 1024;  // one for each kernel
+  if (smem <= granted) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      rule_contract_cluster_kernel<T, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess) granted = smem;
+  return e;
+}
+
+// The cluster route's launch configuration: a cluster of ``cs.k`` CTAs for
+// each group of 32 regions.
 template <typename T>
-int contract_launch(const HostArgs& h, const void* vals, const void* lengths,
-                    const void* grange, const void* orbit_wts,
-                    const void* scale, const void* norm, double ratio,
-                    const int* orbit_bounds, void* est, void* err,
-                    int* split_dim, cudaStream_t stream) {
+struct ClusterConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  ClusterConfig(const HostArgs& h, const ClusterShape& cs,
+                cudaStream_t stream) {
+    cfg.gridDim = dim3(static_cast<unsigned>((h.count + 31) / 32 * cs.k));
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = ClusterSmem<T>::bytes(h.ndim, cs.points, cs.stages);
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cs.k;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename T, bool ROWS>
+cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
+                           const ContractArgs<T>& a, cudaStream_t stream) {
+  const ClusterConfig<T> c(h, cs, stream);
+  if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = allow_cluster_smem<T, ROWS>(c.cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchKernelEx(&c.cfg, rule_contract_cluster_kernel<T, ROWS>, a,
+                            cs);
+}
+
+template <typename T, bool ROWS>
+cudaError_t cluster_occupancy(int ndim, const ClusterShape& cs,
+                              int* clusters) {
+  const HostArgs h{ndim, 0, 0, 0, 0, 0, 32 * 1024, 1, 0, 0};
+  const ClusterConfig<T> c(h, cs, nullptr);
+  const cudaError_t e = allow_cluster_smem<T, ROWS>(c.cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(
+      clusters, rule_contract_cluster_kernel<T, ROWS>, &c.cfg);
+}
+
+// One launch of the contraction: the generic kernel where ``cs.k`` is 0,
+// else the cluster kernel of shape ``cs``.
+template <typename T>
+int contract_launch(const HostArgs& h, const ClusterShape& cs, const void* vals,
+                    const void* lengths, const void* grange,
+                    const void* orbit_wts, const void* scale,
+                    const void* norm, double ratio, const int* orbit_bounds,
+                    void* est, void* err, int* split_dim,
+                    cudaStream_t stream) {
   ContractArgs<T> a;
   a.vals = static_cast<const T*>(vals);
   a.lengths = static_cast<const T*>(lengths);
@@ -340,10 +846,18 @@ int contract_launch(const HostArgs& h, const void* vals, const void* lengths,
   a.sp = h.sp;
   a.ratio = static_cast<T>(ratio);
   for (int k = 0; k <= kNsets; ++k) a.orbit_bounds[k] = orbit_bounds[k];
-  const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
-  rule_contract_kernel<T><<<blocks, dim3(32, kContractGroups), 0, stream>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
+  if (cs.k == 0) {
+    const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
+    rule_contract_kernel<T>
+        <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the rows' layout where a region's points are contiguous, else the
+  // planes' (bad_cluster_args)
+  const cudaError_t e = h.sp == 1 ? cluster_launch<T, true>(h, cs, a, stream)
+                                  : cluster_launch<T, false>(h, cs, a, stream);
+  const cudaError_t last = cudaGetLastError();  // and clear it
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 bool bad_args(const HostArgs& h) {
@@ -353,7 +867,22 @@ bool bad_args(const HostArgs& h) {
          h.count >= (int64_t(1) << 36) || h.feval > 65535 * kPointTile;
 }
 
+// What the cluster route takes beyond bad_args: the values as rows (sp =
+// 1, a region's points contiguous) or as planes (sc = 1, a point's regions
+// contiguous), at an address of whole elements, on a grid within 2^31 CTAs.
+bool bad_cluster_args(const HostArgs& h, const ClusterShape& cs,
+                      const void* vals, size_t item) {
+  return cs.k < 1 || cs.k > kMaxClusterArg || cs.stages < 2 ||
+         cs.stages > kMaxStages || cs.points < 1 ||
+         cs.points % (16 / item) || !(h.sp == 1 || h.sc == 1) ||
+         reinterpret_cast<uintptr_t>(vals) % item ||
+         (h.count + 31) / 32 * cs.k > 0x7fffffff;
+}
+
 }  // namespace
+
+static_assert(kClusterThreads == kNsets * 32,
+              "the cluster kernel takes an (orbit, lane) pair a thread");
 
 // C entry points for ctypes.  Pointers are device pointers except
 // orbit_bounds (10 ints, a host array).  Both walk the real regions
@@ -379,23 +908,50 @@ extern "C" int rule_split_points_launch(
 }
 
 // Reads vals (count, feval) at strides (sc, sp) in elements; writes est,
-// err, split_dim at the regions' pool slots and nowhere else.
+// err, split_dim at the regions' pool slots and nowhere else.  ``cluster``
+// 0 takes the generic route (any strides); 1..8 the cluster route on
+// clusters of that many CTAs, each with a ring of ``stages`` tiles of
+// ``points`` points (rows or planes: bad_cluster_args).  A cluster the
+// card cannot launch is refused with the launch's error, never run
+// another way.
 extern "C" int rule_split_contract_launch(
     int is_double, int ndim, int feval, long long cap, long long n,
     int blocked, long long first, long long count, long long sc,
-    long long sp, const void* vals, const void* lengths, const void* grange,
-    const void* orbit_wts, const void* scale, const void* norm, double ratio,
+    long long sp, int cluster, int points, int stages, const void* vals,
+    const void* lengths, const void* grange, const void* orbit_wts,
+    const void* scale, const void* norm, double ratio,
     const int* orbit_bounds, void* est, void* err, int* split_dim,
     void* stream) {
   const HostArgs h{ndim, feval, blocked, cap, n, first, count, sc, sp, 0};
-  if (bad_args(h) || orbit_bounds[kNsets] != feval)
+  const ClusterShape cs{cluster, points, stages};
+  if (bad_args(h) || orbit_bounds[kNsets] != feval ||
+      orbit_bounds[3] != 4 * ndim + 1 ||
+      (cluster != 0 && bad_cluster_args(h, cs, vals, is_double ? 8 : 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double
-             ? contract_launch<double>(h, vals, lengths, grange, orbit_wts,
-                                       scale, norm, ratio, orbit_bounds, est,
-                                       err, split_dim, s)
-             : contract_launch<float>(h, vals, lengths, grange, orbit_wts,
-                                      scale, norm, ratio, orbit_bounds, est,
-                                      err, split_dim, s);
+             ? contract_launch<double>(h, cs, vals, lengths, grange,
+                                       orbit_wts, scale, norm, ratio,
+                                       orbit_bounds, est, err, split_dim, s)
+             : contract_launch<float>(h, cs, vals, lengths, grange,
+                                      orbit_wts, scale, norm, ratio,
+                                      orbit_bounds, est, err, split_dim, s);
+}
+
+// How many clusters of the cluster route's shape (clusters of ``cluster``
+// CTAs, rings of ``stages`` tiles of ``points`` points; type by is_double,
+// layout by rows, head tile by ndim) the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+extern "C" int rule_split_cluster_occupancy(int is_double, int rows, int ndim,
+                                            int cluster, int points,
+                                            int stages) {
+  const ClusterShape cs{cluster, points, stages};
+  int got = 0;
+  const cudaError_t e =
+      is_double ? (rows ? cluster_occupancy<double, true>(ndim, cs, &got)
+                        : cluster_occupancy<double, false>(ndim, cs, &got))
+                : (rows ? cluster_occupancy<float, true>(ndim, cs, &got)
+                        : cluster_occupancy<float, false>(ndim, cs, &got));
+  cudaGetLastError();
+  return e != cudaSuccess ? -static_cast<int>(e) : got;
 }

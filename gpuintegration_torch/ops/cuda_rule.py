@@ -38,12 +38,19 @@ Both know the integrand as a Genz family id (F1..F6) and its parameters
 a points kernel writes every rule point, the callable runs on them as
 ordinary torch operations, and a contraction kernel reduces its values to
 est, err and split_dim.  ``rule_route(ndim, integrand)`` chooses the route
-from the integrand and the shape.
+from the integrand and the shape.  The contraction has two routes of its
+own, which ``contract_route`` chooses from the values' type, shape and
+strides: ``'cluster'`` (the points of each group of 32 regions split
+across a thread block cluster, streamed by bulk copies through a ring in
+shared memory; ``cluster_plan``, ``cluster_partition``) where a region's
+points or a point's regions lie contiguous, ``'generic'`` (the first
+design) at any strides.
 
 ``launches`` counts every launch of the fused kernels since it was last set
 to 0, and ``route_launches`` the same per route; ``split_launches`` counts
-the split route's two kernels, ``'points'`` and ``'contract'``;
-``reset_launches()`` zeroes them all.
+the split route's two kernels, ``'points'`` and ``'contract'``, and
+``contract_route_launches`` the contraction's by route; ``reset_launches()``
+zeroes them all.
 
 The libraries are compiled with nvcc at first use into ``build/`` beside
 this package, from the package's own sources (ops/cuda_build.py); a failed
@@ -73,21 +80,39 @@ TILE_NDIMS = (3, 4, 5, 6, 7, 8)
 TILE_WARPS = 16                 # warps of a persistent block, one per SM
 MAX_TILE = 32                   # regions of a tile: one per lane
 CODE_BITS = 4                   # bits of a (point, axis) code
+# The contraction's cluster route (csrc/rule_split.cu).  Its stage size,
+# ring and launch width were read off the H100 (PERF.md): bulk copies
+# of 1 KB a region's segment or more, two 32 KB stages a CTA so that two
+# CTAs share an SM, and some 224 CTAs, which clusters of up to 8 can keep
+# all resident.
+CONTRACT_ROUTES = ("cluster", "generic")
+CLUSTER_GROUP = 32              # regions of a cluster: one per lane
+CLUSTER_WARPS = 8               # consumer warps of a CTA
+CLUSTER_STAGE_BYTES = 32768     # a stage: 128 f64 or 256 f32 points
+CLUSTER_RING = 2                # stages of a CTA's ring
+# CTAs a launch aims at.  A constant, never the card's SM count: the
+# partition, and so the bits, depend on the shape alone.
+CLUSTER_CTAS = 224
+# Values as planes come in segments of one point's 32 regions (256 bytes
+# in f64), copies too small for the bulk copies to keep up below this many
+# points a region: there the generic route is faster (PERF.md).
+CLUSTER_PLANES_FEVAL = 4096
+MAX_CLUSTER = 8                 # the portable cluster size
 
 # Launches since the counts were last set to 0; callers reset them and read
 # them to show that a run went through the kernel, and by which route.
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
 split_launches = {"points": 0, "contract": 0}
+contract_route_launches = {r: 0 for r in CONTRACT_ROUTES}
 
 
 def reset_launches():
     global launches
     launches = 0
-    for r in ROUTES:
-        route_launches[r] = 0
-    for k in split_launches:
-        split_launches[k] = 0
+    for counts in (route_launches, split_launches, contract_route_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def build() -> Path:
@@ -117,9 +142,12 @@ def _configure_split(lib):
     fn.argtypes = head + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     fn = lib.rule_split_contract_launch
-    fn.argtypes = (head + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 6
-                   + [ctypes.c_double, ctypes.c_void_p]
+    fn.argtypes = (head + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
                    + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    fn = lib.rule_split_cluster_occupancy
+    fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
 
 
@@ -396,22 +424,116 @@ def _points_launch(lib, tables, lows, lengths, global_lo, global_range,
     return x
 
 
+def cluster_plan(dtype: torch.dtype, ndim: int, count: int,
+                 feval: int) -> tuple[int, int, int, int]:
+    """(cluster size K, points per stage, stages, stages of a CTA's ring) of
+    the cluster route for ``count`` regions of ``feval`` values of type
+    ``dtype``: a cluster of K CTAs for each group of CLUSTER_GROUP regions,
+    K the least that brings the launch to CLUSTER_CTAS CTAs, at most
+    MAX_CLUSTER and at most the stages, so that every rank has one.  The
+    stages cut the points past the head's 4 ndim + 1 (orbits 0-2, which the
+    leader holds apart) into CLUSTER_STAGE_BYTES of 32 regions.  The shape
+    alone decides."""
+    item = torch.finfo(dtype).bits // 8
+    points = CLUSTER_STAGE_BYTES // (CLUSTER_GROUP * item)
+    stages = -(-(feval - (4 * ndim + 1)) // points)
+    groups = -(-count // CLUSTER_GROUP)
+    k = max(1, min(MAX_CLUSTER, -(-CLUSTER_CTAS // groups), stages))
+    return k, points, stages, CLUSTER_RING
+
+
+def cluster_partition(dtype: torch.dtype, ndim: int, count: int,
+                      feval: int) -> list[tuple[int, int, int, np.ndarray]]:
+    """[(cluster rank, stage, consumer warp, points)] of one group of
+    regions as the cluster kernel sums them, in its order: the leader's
+    head rows 0 .. 4 ndim (stage -1), then each rank's stages, rank r the
+    stages r T / K .. (r + 1) T / K - 1 (``cluster_plan``); warp w takes
+    rows w, w + CLUSTER_WARPS, ... of a stage.  A warp adds its points in
+    the order listed, a running sum per orbit; the warps' sums are added
+    in warp order, the ranks' in rank order."""
+    k, rows, stages, _ = cluster_plan(dtype, ndim, count, feval)
+    head = 4 * ndim + 1
+    out = [(0, -1, w, np.arange(w, head, CLUSTER_WARPS))
+           for w in range(CLUSTER_WARPS)]
+    for r in range(k):
+        for t in range(r * stages // k, (r + 1) * stages // k):
+            r0 = head + t * rows
+            n_rows = min(rows, feval - r0)
+            out += [(r, t, w, r0 + np.arange(w, n_rows, CLUSTER_WARPS))
+                    for w in range(CLUSTER_WARPS)]
+    return out
+
+
+def contract_route(dtype: torch.dtype, ndim: int, count: int, feval: int,
+                   strides: tuple) -> str:
+    """The contraction's route for values (count, feval) of ``dtype`` at
+    ``strides`` (elements): 'cluster' where a region's points lie
+    contiguous (rows, sp = 1: what a callable that reduces over the axes
+    returns), or a point's regions do (planes, sc = 1: what a per-axis
+    callable returns) and a region has CLUSTER_PLANES_FEVAL points or more;
+    else 'generic'.  Any count and any address: the bulk copies move whole
+    16-byte units around each contiguous segment.  Decided from the shape,
+    never by trying a launch; named, the cluster route takes any values
+    that ``cluster_takes``."""
+    if cluster_takes(dtype, ndim, count, feval, strides) and (
+            strides[1] == 1 or feval >= CLUSTER_PLANES_FEVAL):
+        return "cluster"
+    return "generic"
+
+
+def cluster_takes(dtype: torch.dtype, ndim: int, count: int, feval: int,
+                  strides: tuple) -> bool:
+    """Whether the cluster route can take values (count, feval) at
+    ``strides``: as rows or as planes, on a grid of fewer than 2^31 CTAs."""
+    sc, sp = strides
+    k = cluster_plan(dtype, ndim, count, feval)[0]
+    return (sp == 1 or sc == 1) and -(-count // CLUSTER_GROUP) * k < 2 ** 31
+
+
+def cluster_occupancy(dtype: torch.dtype, rows: bool, ndim: int, count: int,
+                      feval: int) -> int:
+    """How many clusters of the cluster route's launch for this shape
+    (``cluster_plan``; values as rows or as planes) the card holds at once
+    (cudaOccupancyMaxActiveClusters); RuntimeError if the query fails."""
+    lib = cuda_build.load(_SPLIT_SOURCE, _configure_split)
+    k, points, _, ring = cluster_plan(dtype, ndim, count, feval)
+    got = lib.rule_split_cluster_occupancy(int(dtype == torch.float64),
+                                           int(rows), ndim, k, points, ring)
+    if got < 0:
+        raise RuntimeError(f"cluster occupancy query failed: error {-got}")
+    return got
+
+
 def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
-                     blocked, first, count, est, err, sdim):
+                     blocked, first, count, est, err, sdim, route=None):
+    dtype = vals.dtype
+    shape = (dtype, tables.ndim, count, tables.feval)
+    chosen = contract_route(*shape, vals.stride())
+    if route is None:
+        route = chosen
+    elif route not in CONTRACT_ROUTES or (
+            route == "cluster" and not cluster_takes(*shape, vals.stride())):
+        raise ValueError(f"contraction route {route!r} does not take values "
+                         f"of strides {vals.stride()} ({count} regions, "
+                         f"{dtype})")
+    cluster, points, _, ring = (cluster_plan(*shape) if route == "cluster"
+                                else (0, 0, 0, 0))
     _, orbit_wts, scale, norm = rule_eval.device_tables(
-        tables.ndim, vals.dtype, vals.device)
+        tables.ndim, dtype, vals.device)
     ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
     rc = lib.rule_split_contract_launch(
-        int(vals.dtype == torch.float64), tables.ndim, tables.feval, cap, n,
-        int(bool(blocked)), first, count, *vals.stride(), vals.data_ptr(),
-        lengths.data_ptr(), global_range.data_ptr(), orbit_wts.data_ptr(),
-        scale.data_ptr(), norm.data_ptr(), float(tables.ratio),
-        ctypes.cast(ob, ctypes.c_void_p), est.data_ptr(), err.data_ptr(),
-        sdim.data_ptr(), torch.cuda.current_stream(vals.device).cuda_stream)
+        int(dtype == torch.float64), tables.ndim, tables.feval, cap, n,
+        int(bool(blocked)), first, count, *vals.stride(), cluster, points,
+        ring, vals.data_ptr(), lengths.data_ptr(), global_range.data_ptr(),
+        orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
+        float(tables.ratio), ctypes.cast(ob, ctypes.c_void_p), est.data_ptr(),
+        err.data_ptr(), sdim.data_ptr(),
+        torch.cuda.current_stream(vals.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA rule contraction kernel launch failed: "
-                           f"error {rc}")
+        raise RuntimeError(f"CUDA rule contraction kernel ({route} route) "
+                           f"launch failed: error {rc}")
     split_launches["contract"] += 1
+    contract_route_launches[route] += 1
 
 
 def _check_chunk(cap, n, first, count):
@@ -436,12 +558,16 @@ def split_points(tables: rule_eval.RuleTables, lows, lengths, global_lo,
 
 def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
                    global_lo, global_range, first: int, *,
-                   n: int | None = None, blocked: bool = False, out=None):
+                   n: int | None = None, blocked: bool = False, out=None,
+                   route: str | None = None):
     """One launch of the contraction kernel: est, err and split_dim of real
     regions first .. first + C - 1 from their rule values ``vals`` (C,
     feval), written at their slots of ``out`` = (est, err, split_dim), each
     (cap,) (new zeroed tensors when None), which it returns.  What
-    ``rule_eval.rule_outputs`` computes."""
+    ``rule_eval.rule_outputs`` computes.  ``route`` None takes
+    ``contract_route``'s; naming one runs it (the checks and timings hold
+    the two against each other) and raises ValueError where the values'
+    layout does not take it."""
     cap, n = _check_pool("split_contract", tables, lows, lengths, global_lo,
                          global_range, n, blocked)
     count = vals.shape[0] if vals.dim() == 2 else 0
@@ -451,7 +577,7 @@ def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
         out = _zero_outputs(cap, lows)
     _contract_launch(cuda_build.load(_SPLIT_SOURCE, _configure_split), tables,
                      vals, lengths, global_range, cap, n, blocked, first,
-                     count, *out)
+                     count, *out, route=route)
     return out
 
 
@@ -475,14 +601,17 @@ def _zero_outputs(cap, lows):
 def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
                           lengths, global_lo, global_range, *,
                           chunk_size: int | None = None,
-                          n: int | None = None, blocked: bool = False):
+                          n: int | None = None, blocked: bool = False,
+                          route: str | None = None):
     """The split route over the ``n`` real regions of a CUDA pool (all of
     it when ``n`` is None), ``chunk_size`` regions at a time
     (``split_chunks``): the points kernel, ``integrand`` (any form ``make_integrand`` takes) on
     the (C, feval, ndim) points, its values cast to the pool's type, the
     contraction kernel.  Arguments and outputs as
     ``rule_eval.apply_rule_plain``: (estimate (cap,), errorest (cap,),
-    split_dim (cap,) int32), zeros in the padding slots."""
+    split_dim (cap,) int32), zeros in the padding slots.  ``route`` names
+    the contraction's route for every chunk, as ``split_contract``'s
+    does (None: ``contract_route``'s for each)."""
     cap, n = _check_pool("cuda_apply_rule_split", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
     batched, _ = make_integrand(integrand, tables.ndim)
@@ -495,7 +624,7 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
         del x
         _check_vals(vals, count, tables, lows)
         _contract_launch(lib, tables, vals, lengths, global_range,
-                         cap, n, blocked, first, count, *out)
+                         cap, n, blocked, first, count, *out, route=route)
     return out
 
 

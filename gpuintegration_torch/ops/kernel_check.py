@@ -245,8 +245,10 @@ def check_split_against_plain(integrand, tables: rule_eval.RuleTables, lows,
                               lengths, global_lo, global_range, *,
                               n: int | None = None, blocked: bool = False,
                               chunk_size: int = 4096,
-                              min_agree: float = 0.999):
+                              min_agree: float = 0.999,
+                              route: str | None = None):
     """The split route over a CUDA pool, ``chunk_size`` regions at a time,
+    its contraction by ``route`` (None: the one ``contract_route`` names),
     against the plain version: the padding slots must hold zeros; for each
     chunk the points kernel's points must be EQUAL to ``rule_points``' (bits
     and strides), the integrand's values on them EQUAL to its values on the
@@ -258,7 +260,7 @@ def check_split_against_plain(integrand, tables: rule_eval.RuleTables, lows,
     k = cuda_rule.cuda_apply_rule_split(integrand, tables, lows, lengths,
                                         global_lo, global_range,
                                         chunk_size=chunk_size, n=n,
-                                        blocked=blocked)
+                                        blocked=blocked, route=route)
     torch.cuda.synchronize()
     cap = lows.shape[1]
     n = cap if n is None else int(n)

@@ -124,16 +124,24 @@ def fourth_differences(vals: torch.Tensor, ndim: int, ratio: float):
     return torch.abs((2.0 * (1.0 - r)) * f0[:, None] + r * orbit1 - orbit2)
 
 
-def rule_sums(vals, tables: RuleTables, global_range):
-    """The five embedded rule sums of C regions, jacobian applied: (C, 5).
-    Per-orbit segment sums, then the tiny (NSETS, NRULES) weight table:
-    the rule is fully symmetric and the point list orbit-contiguous."""
-    _, orbit_wts, _, _ = device_tables(tables.ndim, vals.dtype, vals.device)
+def orbit_sums(vals, tables: RuleTables):
+    """The values' sum over each orbit of C regions: (C, NSETS)."""
     ob = tables.orbit_bounds
-    orbit_sums = torch.stack(
+    return torch.stack(
         [vals[:, ob[s]:ob[s + 1]].sum(dim=1) for s in range(len(ob) - 1)],
-        dim=1)                                               # (C, NSETS)
-    sums = torch.sum(orbit_sums[:, :, None] * orbit_wts[None, :, :], dim=1)
+        dim=1)
+
+
+def rule_sums(vals, tables: RuleTables, global_range, by_orbit=None):
+    """The five embedded rule sums of C regions, jacobian applied: (C, 5).
+    Per-orbit segment sums (``orbit_sums``, or ``by_orbit`` where given: a
+    kernel's, taken in another order), then the tiny (NSETS, NRULES) weight
+    table: the rule is fully symmetric and the point list
+    orbit-contiguous."""
+    _, orbit_wts, _, _ = device_tables(tables.ndim, vals.dtype, vals.device)
+    if by_orbit is None:
+        by_orbit = orbit_sums(vals, tables)                  # (C, NSETS)
+    sums = torch.sum(by_orbit[:, :, None] * orbit_wts[None, :, :], dim=1)
     return sums * torch.prod(global_range)                   # jacobian
 
 
@@ -160,9 +168,12 @@ def gate_errors(errs):
         _ERRCOEFF[2] * torch.maximum(torch.maximum(e1, e2), e3))
 
 
-def rule_outputs(vals, tables: RuleTables, lengths, global_range):
-    """(estimate, errorest, split_dim) of C regions from their rule values."""
-    sums = rule_sums(vals, tables, global_range)
+def rule_outputs(vals, tables: RuleTables, lengths, global_range,
+                 by_orbit=None):
+    """(estimate, errorest, split_dim) of C regions from their rule values
+    (and, where given, their orbit sums ``by_orbit`` taken in another
+    order)."""
+    sums = rule_sums(vals, tables, global_range, by_orbit)
 
     # Reference semantics: strict '>' scan from maxdiff=0 with fallback to
     # the widest dimension, so when every diff is 0 (or the max is NaN)

@@ -6,6 +6,7 @@ JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda_split.py
 """
+import itertools
 import math
 
 import numpy as np
@@ -118,3 +119,107 @@ def test_workspace_takes_the_split_route_on_card():
     assert on_card.status == 0
     assert math.isclose(on_card.estimate, on_cpu.estimate, rel_tol=1e-12)
     assert abs(on_card.estimate - g.true_value) <= 1e-7 * abs(g.true_value)
+
+
+def _split_pool(ndim, cap, dtype):
+    t = _card_pool(ndim, cap, dtype)
+    return t, rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [8, 12])
+def test_cluster_contraction_matches_plain_on_card(ndim, dtype):
+    """The contraction's cluster route, forced, against the plain version:
+    est/err within kernel_check's limits and split_dim EQUAL in every
+    region, values as rows and as planes, on plain and blocked pools, ragged
+    last groups and an odd last chunk; every launch counted on the cluster
+    route.  The generic route on the same
+    pools gives the same split_dim."""
+    cap = 512
+    t, tables = _split_pool(ndim, cap, dtype)
+    # values as rows (a reduction over the axes) and as planes (per axis)
+    fs = (_gauss if ndim == 8 else misc.sin_sum(ndim), _integrands(ndim)[-1])
+    for f, (n, blocked, chunk) in itertools.product(fs, (
+            (cap, False, 4096), (400, True, 96), (301, False, 100))):
+        cuda_rule.reset_launches()
+        r = kernel_check.check_split_against_plain(
+            f, tables, *t, n=n, blocked=blocked, chunk_size=chunk,
+            min_agree=0.0, route="cluster")
+        chunks = len(cuda_rule.split_chunks(n, chunk))
+        assert cuda_rule.contract_route_launches == {"cluster": chunks,
+                                                     "generic": 0}
+        assert r["regions"] == n and r["split_dim_equal"] == n
+        g = cuda_rule.cuda_apply_rule_split(f, tables, *t, n=n,
+                                            blocked=blocked,
+                                            chunk_size=chunk,
+                                            route="generic")
+        k = cuda_rule.cuda_apply_rule_split(f, tables, *t, n=n,
+                                            blocked=blocked,
+                                            chunk_size=chunk)
+        assert torch.equal(g[2], k[2])
+
+
+def _values(ndim, count, dtype, layout, seed=2):
+    """Values (count, feval) laid out as a callable returns them: 'planes'
+    (strides (1, count), a per-axis callable), 'rows' (strides (feval, 1),
+    one that reduces over the axes), or 'strided' (every other element of a
+    wider tensor: neither stride 1)."""
+    feval = rule_eval.rule_tables(ndim).feval
+    rng = np.random.default_rng(seed)
+    v = torch.as_tensor(rng.standard_normal((count, feval)), dtype=dtype,
+                        device="cuda")
+    if layout == "planes":
+        return v.T.contiguous().T
+    if layout == "rows":
+        return v
+    wide = torch.zeros((count, 2 * feval), dtype=dtype, device="cuda")
+    wide[:, ::2] = v
+    return wide[:, ::2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("count", [1024, 1023])
+def test_cluster_contraction_same_bits_twice_on_card(dtype, count):
+    """Rows and planes, an even and an odd count (segments off their
+    16-byte units): contract_route names the cluster route; two launches
+    on the same values give the same bits, and the generic route the same
+    split_dim; values of neither layout take the generic route."""
+    ndim = 12
+    _, tables = _split_pool(ndim, count, dtype)
+    t = _card_pool(ndim, count, dtype)
+    for layout in ("planes", "rows"):
+        vals = _values(ndim, count, dtype, layout)
+        assert cuda_rule.contract_route(dtype, ndim, count, tables.feval,
+                                        vals.stride()) == "cluster"
+        a, b = (cuda_rule.split_contract(vals, tables, *t, 0) for _ in range(2))
+        g = cuda_rule.split_contract(vals, tables, *t, 0, route="generic")
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        assert torch.equal(g[2], a[2])
+    strided = _values(ndim, count, dtype, "strided")
+    assert cuda_rule.contract_route(dtype, ndim, count, tables.feval,
+                                    strided.stride()) == "generic"
+
+
+@pytest.mark.gpu
+def test_cluster_contraction_refusals_raise_on_card(monkeypatch):
+    """Forcing the cluster route on values it does not take raises
+    ValueError before any launch; a cluster the card refuses (16 CTAs,
+    not portable, not allowed) raises RuntimeError, never falls back."""
+    ndim, count = 8, 256
+    t, tables = _split_pool(ndim, count, torch.float64)
+    cuda_rule.reset_launches()
+    with pytest.raises(ValueError, match="contraction route 'cluster'"):
+        cuda_rule.split_contract(
+            _values(ndim, count, torch.float64, "strided"), tables, *t, 0,
+            route="cluster")
+    plan = cuda_rule.cluster_plan(torch.float64, ndim, count, tables.feval)
+    monkeypatch.setattr(cuda_rule, "cluster_plan",
+                        lambda *a: (16,) + tuple(plan[1:]))
+    with pytest.raises(RuntimeError, match="cluster route"):
+        cuda_rule.split_contract(_values(ndim, count, torch.float64, "rows"),
+                                 tables, *t, 0)
+    assert cuda_rule.contract_route_launches == {"cluster": 0, "generic": 0}

@@ -130,7 +130,7 @@ def _plain_stand_ins(monkeypatch, *, shift=0.0, padding=False):
         return out
 
     def contract(lib, tables, vals, lengths, gr, cap, n, blocked, first,
-                 count, est, err, sdim):
+                 count, est, err, sdim, route=None):
         slots = torch.as_tensor(cuda_rule.split_slots(cap, n, blocked, first,
                                                       count))
         for o, v in zip((est, err, sdim), rule_eval.rule_outputs(
