@@ -134,7 +134,32 @@ timed beside the others in the same run.
    that continuation stopped before its first slice, saved
    (``state_path``) and resumed from the file, which must give the
    uninterrupted run's estimate, errorest and neval;
-13. the ``kernels`` JSON line, then the card line and the result line.
+   phase 9 also holds the components contraction (a vector integrand's
+   values, ``cuda_rule.split_contract_components``) against
+   ``rule_eval.rule_outputs_vector`` at COMPONENT_CASES (8D and 12D at the
+   Workspace's chunks, 3D odd counts, f64 and f32, 2, 3, 4 and 8
+   components, values component-minor and component-major, a NaN region):
+   est/err by kernel_check's limits, split_dim EQUAL, each component bit for
+   bit the generic scalar route's on its plane, two launches the same bits;
+   phase 10 times it at the 8D and 12D f64 chunks of four components beside
+   its bound, rule_outputs_vector, torch.matmul (the sums only) and four
+   cluster-route launches on a component-major copy;
+13. PAGANI's vector main path: ``Workspace(8).integrate`` of the
+   reference's four vector families as one callable (F1 with coefficients
+   1/2, F2 and F4 at a = 5, F5; ``tools/vector_probe.py``) at
+   ``VEC8_EPSREL`` (status 0, every component within epsrel and 5
+   errorests of its closed form, every rule evaluation through the points
+   kernel and the components contraction, CUDA events for the shares);
+   [sin_sum(8), sin_sum(8)] at 1e-11 against the scalar run (the same
+   decisions, both components equal, the estimate within 1e-12, the final
+   pool's first chunk held by kernel_check through both contractions); the
+   vector continuation at ``VCONT`` (slices, status 0, and a
+   stop-save-resume that must give the same bits);
+14. vector VEGAS at run 1's settings on [F4 a=25, F4 a=20] (AUTO must take
+   'hybrid'; B2 emit and B3 launched), the grid map (B4 and B3), and [g, g]
+   against the scalar run of g: the same iterations, the final grid EQUAL,
+   both components equal and within 1e-12 of the scalar estimate;
+15. the ``kernels`` JSON line, then the card line and the result line.
 """
 from __future__ import annotations
 
@@ -151,12 +176,14 @@ import torch
 
 from gpuintegration_torch import Workspace, diff, mcubes
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
+from gpuintegration_torch.mcubes import grid as vegas_grid
+from gpuintegration_torch.mcubes import vegas as vegas_module
 from gpuintegration_torch.mcubes import kernel_check as vegas_check
 from gpuintegration_torch.models import genz, misc
 from gpuintegration_torch.ops import (cuda_build, cuda_rule, kernel_check,
                                       rule_eval)
 from gpuintegration_torch.pagani import region_pool
-from gpuintegration_torch.tools import sass_report
+from gpuintegration_torch.tools import sass_report, vector_probe
 from gpuintegration_torch.types import Volume
 from gpuintegration_torch.utils.profiling import StageTimer
 
@@ -1536,13 +1563,15 @@ class SplitEvents:
         self.integrand = integrand
         self.events = {"points": [], "callable": [], "contract": []}
         # the route contract_route names for each contraction's values
-        self.named = {r: 0 for r in cuda_rule.CONTRACT_ROUTES}
+        self.named = {r: 0 for r in cuda_rule.contract_route_launches}
 
-    def _contract(self, lib, tables, vals, *rest, **kw):
-        self.named[cuda_rule.contract_route(
-            vals.dtype, tables.ndim, vals.shape[0], tables.feval,
-            vals.stride())] += 1
-        return self.kept[1](lib, tables, vals, *rest, **kw)
+    def _named(self, launch):
+        def counted(lib, tables, vals, *rest, **kw):
+            self.named[cuda_rule.contract_route(
+                vals.dtype, tables.ndim, vals.shape[0], tables.feval,
+                vals.stride())] += 1
+            return launch(lib, tables, vals, *rest, **kw)
+        return counted
 
     def _timed(self, what, fn):
         def timed(*args, **kw):
@@ -1556,27 +1585,34 @@ class SplitEvents:
         return timed
 
     def __enter__(self):
-        self.kept = (cuda_rule._points_launch, cuda_rule._contract_launch)
+        self.kept = (cuda_rule._points_launch, cuda_rule._contract_launch,
+                     cuda_rule._contract_comp_launch)
         cuda_rule._points_launch = self._timed("points", self.kept[0])
-        cuda_rule._contract_launch = self._timed("contract", self._contract)
+        cuda_rule._contract_launch = self._timed(
+            "contract", self._named(self.kept[1]))
+        cuda_rule._contract_comp_launch = self._timed(
+            "contract", self._named(self.kept[2]))
         self.f = self._timed("callable", self.integrand)
         return self
 
     def __exit__(self, *exc):
-        cuda_rule._points_launch, cuda_rule._contract_launch = self.kept
+        (cuda_rule._points_launch, cuda_rule._contract_launch,
+         cuda_rule._contract_comp_launch) = self.kept
         torch.cuda.synchronize()
         self.seconds = {k: sum(s.elapsed_time(e) for s, e in v) / 1e3
                         for k, v in self.events.items()}
         return False
 
 
-def events_run(label, ws, f, epsrel, truth):
+def events_run(label, ws, f, epsrel, truth, phase="phase 11"):
     """``ws.integrate(f, epsrel, 1e-40)`` on the split route with CUDA
     events around each launch and call (``SplitEvents``), printed: the
     result, the wall and its shares.  Fails unless it certifies within
     epsrel of ``truth`` and every contraction took the route
-    ``contract_route`` names for its values.  Returns the result, the
-    split kernels' launches and the contraction's by route."""
+    ``contract_route`` names for its values; for a vector integrand
+    (``truth`` an array) every component within epsrel and within 5
+    errorests of its truth.  Returns the result, the split kernels'
+    launches and the contraction's by route."""
     torch.cuda.synchronize()
     cuda_rule.reset_launches()
     with SplitEvents(f) as ev:
@@ -1587,17 +1623,23 @@ def events_run(label, ws, f, epsrel, truth):
     launches = dict(cuda_rule.split_launches)
     routes = dict(cuda_rule.contract_route_launches)
     fused = cuda_rule.launches
-    rel = abs(res.estimate - truth) / abs(truth)
+    vector = np.ndim(truth) == 1
+    est = res.estimates if vector else res.estimate
+    err = res.errorests if vector else res.errorest
+    rel = float(np.max(np.abs(est - truth) / np.abs(truth)))
+    pull = float(np.max(np.abs(est - truth) / err)) if vector else 0.0
     parts = ev.seconds
     rest = wall - sum(parts.values())
-    print(f"phase 11: {label}, epsrel {epsrel:g}: status {res.status} "
-          f"estimate {res.estimate!r} errorest {res.errorest!r} truth "
-          f"{truth!r} rel.err {rel:.3e} iters {res.iters} nregions "
+    print(f"{phase}: {label}, epsrel {epsrel:g}: status {res.status} "
+          f"estimate {est!r} errorest {err!r} truth "
+          f"{truth!r} rel.err {rel:.3e}"
+          f"{f' (largest), pull {pull:.3f} (largest)' if vector else ''} "
+          f"iters {res.iters} nregions "
           f"{res.nregions} neval {res.neval} wall {wall:.3f} s evals/s "
           f"{res.neval / wall:.4e}; split kernels' launches {launches}, the "
           f"contraction's by route {routes} (contract_route named "
           f"{ev.named}), fused kernel's {fused}", flush=True)
-    print(f"phase 11: {label}: the wall by CUDA events around each launch "
+    print(f"{phase}: {label}: the wall by CUDA events around each launch "
           f"and call (they cost host time of their own): points kernel "
           f"{parts['points']:.4f} s, the callable {parts['callable']:.4f} s, "
           f"contraction kernel {parts['contract']:.4f} s, the rest (pool "
@@ -1606,8 +1648,8 @@ def events_run(label, ws, f, epsrel, truth):
           f"{100 * parts['callable'] / wall:.1f} / "
           f"{100 * parts['contract'] / wall:.1f} / {100 * rest / wall:.1f} %",
           flush=True)
-    if res.status != 0 or not rel <= epsrel:
-        fail(f"{label}: status {res.status}, rel.err {rel}")
+    if res.status != 0 or not rel <= epsrel or not pull <= 5.0:
+        fail(f"{label}: status {res.status}, rel.err {rel}, pull {pull}")
     if fused or not launches["points"] or \
             launches["points"] != launches["contract"]:
         fail(f"{label}: launches {launches}, fused {fused}; every rule "
@@ -1757,6 +1799,499 @@ def continuation_path(dev):
         fail("the continuation resumed from its state file differs from the "
              "uninterrupted run")
     return wall
+
+
+# ---------------------------------------------------------------------------
+# Vector integrands: the components contraction (phases 9-10), the vector
+# main paths (phases 13-14)
+
+# (label, ndim, regions, type, components, layout): the Workspace's 8D and
+# 12D f64 chunks, an odd count at 3D, f32; 2, 3, 4 and 8 components;
+# values component-minor (torch.stack(..., -1)) and component-major
+COMPONENT_CASES = (
+    ("8D f64 Workspace chunk", 8, 4096, torch.float64, 4, "minor"),
+    ("8D f64 Workspace chunk", 8, 4096, torch.float64, 4, "major"),
+    ("12D f64 Workspace chunk", 12, 1024, torch.float64, 4, "minor"),
+    ("12D f32", 12, 1024, torch.float32, 3, "major"),
+    ("3D f64 odd count", 3, 4093, torch.float64, 2, "minor"),
+    ("3D f32 odd count", 3, 4091, torch.float32, 8, "major"),
+    ("8D f32 Workspace chunk", 8, 8192, torch.float32, 8, "minor"),
+)
+
+
+def vector_values(ndim, count, dtype, ncomp, layout, dev, seed=8):
+    """A vector integrand's values (count, feval, ncomp) made directly, on
+    the grid k/8 in [0.5, 1.5) (``direct_values``: every orbit sum exact in
+    any order), component-minor (strides (feval ncomp, ncomp, 1), what
+    torch.stack(..., -1) gives) or component-major (a (ncomp, count,
+    feval) tensor with its axis moved)."""
+    feval = rule_eval.rule_tables(ndim).feval
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (count, feval, ncomp) if layout == "minor" else (ncomp, count,
+                                                              feval)
+    v = torch.randint(4, 12, shape, generator=g, device=dev).to(dtype) / 8
+    return v if layout == "minor" else v.movedim(0, -1)
+
+
+def components_check(label, ndim, count, dtype, ncomp, layout, dev,
+                     nan=False):
+    """The components contraction alone on ``vector_values`` against
+    rule_eval.rule_outputs_vector (kernel_check.check_components: est/err
+    of each component by kernel_check's limits, split_dim EQUAL); each
+    component bit for bit the generic scalar route's on its plane; two
+    launches the same bits; contract_route names 'components'.  With
+    ``nan`` one component of region 7 holds a NaN, which must make the
+    widest axis its split axis.  Returns the largest |d est|."""
+    tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+    lows, lengths = random_pool(ndim, count, 9, dtype, dev)
+    gl = torch.zeros(ndim, dtype=dtype, device=dev)
+    gr = torch.full((ndim,), 1.25, dtype=dtype, device=dev)
+    vals = vector_values(ndim, count, dtype, ncomp, layout, dev)
+    if nan:
+        vals[7, 2 + 2 * ndim, ncomp - 1] = float("nan")
+    named = cuda_rule.contract_route(dtype, ndim, count, tables.feval,
+                                     vals.stride())
+    cuda_rule.reset_launches()
+    a, b = (cuda_rule.split_contract_components(vals, tables, lows, lengths,
+                                                gl, gr, 0) for _ in range(2))
+    torch.cuda.synchronize()
+    launched = dict(cuda_rule.contract_route_launches)
+    same = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(a, b))
+    plain = rule_eval.rule_outputs_vector(vals, tables, lengths, gr)
+    try:
+        r = kernel_check.check_components(a, plain, vals, vals.abs(), tables,
+                                          lengths, gr, name=label)
+    except AssertionError as e:
+        fail(str(e))
+    generic_bits = True
+    for k in range(ncomp):
+        e, rr, _ = cuda_rule.split_contract(vals[..., k], tables, lows,
+                                            lengths, gl, gr, 0,
+                                            route="generic")
+        generic_bits &= (torch.equal(a[0][k].view(torch.uint8),
+                                     e.view(torch.uint8))
+                         and torch.equal(a[1][k].view(torch.uint8),
+                                         rr.view(torch.uint8)))
+    widest = int(torch.argmax(lengths[:, 7]))
+    nan_note = (f"; NaN region: est {float(a[0][ncomp - 1][7])}, split_dim "
+                f"{int(a[2][7])} (plain {int(plain[2][7])}, widest axis "
+                f"{widest})" if nan else "")
+    print(f"phase 9: components {label}, {count} x {tables.feval} x "
+          f"{ncomp} ({layout}, strides {tuple(vals.stride())}): est "
+          f"{r['est_ulps']:.3g}, err {r['err_ulps']:.3g} ulps beyond rtol "
+          f"(limits {kernel_check.ULPS['est']:g}/{kernel_check.ULPS['err']:g}"
+          f"; {r['gate_ties']} gate ties); split_dim EQUAL in "
+          f"{r['split_dim_equal']} of {count}; each component bit for bit "
+          f"the generic scalar route's: {generic_bits}; two launches the "
+          f"same bits: {same}; contract_route names {named}; launches "
+          f"{launched}{nan_note}", flush=True)
+    if not (same and generic_bits and named == cuda_rule.COMPONENTS
+            and launched == {"cluster": 0, "generic": 0, "components": 2}):
+        fail(f"components {label}: disagrees")
+    if nan and not (int(a[2][7]) == int(plain[2][7]) == widest
+                    and math.isnan(float(a[0][ncomp - 1][7]))):
+        fail(f"components {label}: the NaN region does not take the widest "
+             "axis")
+    return r["max_abs_est"]
+
+
+def components_checks(dev):
+    """Phase 9 (extended): ``components_check`` at COMPONENT_CASES and a
+    NaN region.  Returns the largest |d est|."""
+    worst = 0.0
+    for case in COMPONENT_CASES:
+        worst = max(worst, components_check(*case, dev))
+        torch.cuda.empty_cache()
+    components_check("8D f64 NaN region", 8, 256, torch.float64, 3, "minor",
+                     dev, nan=True)
+    return worst
+
+
+def components_times(dev):
+    """Phase 10 (extended): the components contraction at the Workspace's
+    8D f64 chunk (4096 x 1105 x 4) and 12D f64 chunk (1024 x 6745 x 4),
+    values component-minor, in turns with the alternative of ncomp
+    launches of the scalar cluster route on a component-major copy (the
+    copy's time included), best of 5 series back to back
+    (``queued_ms``); beside the bytes bound, the plain
+    rule_outputs_vector and torch.matmul of the (C ncomp, feval) values
+    against the column matrix (the rule sums only, TF32 off).  Returns one
+    dict a shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for ndim, c in ((8, 4096), (12, 1024)):
+        dtype, ncomp = torch.float64, 4
+        tables = rule_eval.rule_tables(ndim, "float64")
+        lows, lengths = random_pool(ndim, c, 5, dtype, dev)
+        gl = torch.zeros(ndim, dtype=dtype, device=dev)
+        gr = torch.ones(ndim, dtype=dtype, device=dev)
+        args = (tables, lows, lengths, gl, gr, 0)
+        vals = vector_values(ndim, c, dtype, ncomp, "minor", dev)
+        out = cuda_rule.split_contract_components(vals, *args)
+        outs = [cuda_rule.split_contract(vals[..., k].contiguous(), *args)
+                for k in range(ncomp)]
+
+        def components():
+            cuda_rule.split_contract_components(vals, *args, out=out)
+
+        def cluster_each():
+            planes = vals.movedim(-1, 0).contiguous()
+            for k in range(ncomp):
+                cuda_rule.split_contract(planes[k], *args, out=outs[k],
+                                         route="cluster")
+
+        t = [queued_ms(fn, 5, 10) for fn in (components, cluster_each,
+                                             cluster_each, components)]
+        item = 8
+        nbytes = (c * tables.feval * ncomp * item + ndim * c * item
+                  + c * (2 * ncomp * item + 4))
+        vm = vals.movedim(-1, 0).reshape(ncomp * c, tables.feval).contiguous()
+        mt = torch.as_tensor(column_matrix(tables), dtype=dtype, device=dev)
+        row = {"ndim": ndim, "count": c, "feval": tables.feval,
+               "ncomp": ncomp, "ms": min(t[0], t[3]),
+               "cluster_each_ms": min(t[1], t[2]), "series_ms": t,
+               "bytes": nbytes, "bound_ms": bytes_bound_ms(nbytes),
+               "plain_ms": time_ms(lambda: rule_eval.rule_outputs_vector(
+                   vals, tables, lengths, gr), 3),
+               "sums_only_matmul_ms": queued_ms(
+                   lambda: torch.matmul(vm, mt), 5)}
+        print(f"phase 10: components contraction, {ndim}D f64 {c} regions x "
+              f"{tables.feval} points x {ncomp} components (component-minor, "
+              f"{nbytes / 1e6:.1f} MB): {row['ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound), "
+              f"series {', '.join(f'{x:.4f}' for x in t)}; bound "
+              f"{row['bound_ms']:.4f} ms (bytes); {ncomp} cluster-route "
+              f"launches on a component-major copy, the copy included, "
+              f"{row['cluster_each_ms']:.4f} ms; plain rule_outputs_vector "
+              f"{row['plain_ms']:.4f} ms; the sums alone by torch.matmul of "
+              f"the ({ncomp * c}, {tables.feval}) values against the column "
+              f"matrix {row['sums_only_matmul_ms']:.4f} ms", flush=True)
+        rows.append(row)
+        del vals, vm, out, outs, lows, lengths
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The vector Workspace(8) run's tolerance: the first of 1e-3, 3e-3 and
+# 1e-2 at which tools/vector_probe.py's members certify within 90 s on the
+# card (its 'moderate' set at 1e-3; the reference's own members at their
+# default parameters certify at none: F2 at a = 50 walls the pool, PERF.md)
+VEC8_EPSREL = 1e-3
+
+
+class SweepRecorder:
+    """Every sweep of a Workspace's host loop while entered: (pool size,
+    layout, lows, lengths, split_dim), for a run whose discrete outcomes
+    are to be held against another's."""
+
+    def __init__(self, ws):
+        self.ws, self.sweeps = ws, []
+
+    def __enter__(self):
+        evaluate = self.ws._eval_pool
+
+        def recorded(integrand, tables, lows, lengths, gl, gr, n, blocked,
+                     *rest):
+            out = evaluate(integrand, tables, lows, lengths, gl, gr, n,
+                           blocked, *rest)
+            self.sweeps.append((n, blocked, lows, lengths, out[2]))
+            return out
+
+        self.ws._eval_pool = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.ws._eval_pool
+        return False
+
+
+def first_divergence(a, b, g):
+    """The first sweep where two recorded runs (``SweepRecorder``) part:
+    the iteration, the first region whose split axis differs and how near
+    a tie its two axes' fourth differences are, in ulps of the largest of
+    its 4n+1 values (kernel_check.TIE is the near-tie limit)."""
+    for it, (sa, sb) in enumerate(zip(a.sweeps, b.sweeps)):
+        if sa[0] != sb[0]:
+            return f"iteration {it}: {sa[0]} regions against {sb[0]}"
+        mask = region_pool.block_mask(sa[2].shape[1], sa[0], sa[1],
+                                      sa[2].device)
+        differ = torch.nonzero(mask & (sa[4] != sb[4]))[:, 0]
+        if differ.numel():
+            r = int(differ[0])
+            tables = rule_eval.rule_tables(sa[2].shape[0])
+            dev = sa[2].device
+            gl = torch.zeros(tables.ndim, dtype=torch.float64, device=dev)
+            gr = torch.ones(tables.ndim, dtype=torch.float64, device=dev)
+            v = rule_eval.rule_values(g, tables, sa[2][:, r:r + 1],
+                                      sa[3][:, r:r + 1], gl, gr)
+            fd = rule_eval.fourth_differences(v, tables.ndim, tables.ratio)[0]
+            da, db = int(sa[4][r]), int(sb[4][r])
+            top = float(v[0, :4 * tables.ndim + 1].abs().max())
+            gap = float((fd[da] - fd[db]).abs()) / (
+                torch.finfo(torch.float64).eps * top)
+            tie = "a near-tie" if gap <= kernel_check.TIE else "NOT a near-tie"
+            return (f"iteration {it}, slot {r}: split axes {da} and {db}, "
+                    f"their fourth differences {gap:.3g} ulps of the values "
+                    f"apart ({tie})")
+    return "no sweep differs"
+
+
+def identity_check(dev):
+    """Phase 13.2: [sin_sum(8), sin_sum(8)] as one vector at
+    SIN_SUM_EPSREL against the scalar sin_sum(8) (phase 11's run): the same
+    iterations, regions and neval; both components bit for bit equal; the
+    estimate within kernel_check's rtol of the scalar run's; and the final
+    pool's first chunk through both contractions (the scalar's cluster
+    route, the components route) held to the plain version by
+    kernel_check's limits."""
+    g = misc.sin_sum(NDIM)
+
+    def gg(x):
+        return torch.stack([g(x), g(x)], dim=-1)
+
+    gg.ndim = NDIM
+    ws_s, ws_v = Workspace(NDIM), Workspace(NDIM)
+    with SweepRecorder(ws_s) as rec_s:
+        rs = ws_s.integrate(g, epsrel=SIN_SUM_EPSREL, epsabs=1e-40)
+    cuda_rule.reset_launches()
+    t0 = time.perf_counter()
+    with SweepRecorder(ws_v) as rec_v:
+        rv = ws_v.integrate(gg, epsrel=SIN_SUM_EPSREL, epsabs=1e-40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = dict(cuda_rule.contract_route_launches)
+    rtol = kernel_check.RTOL[torch.float64]
+    d_est = abs(rv.estimates[0] - rs.estimate) / abs(rs.estimate)
+    d_err = abs(rv.errorests[0] - rs.errorest) / rs.errorest
+    same_run = (rv.status, rv.iters, rv.nregions, rv.neval) == (
+        rs.status, rs.iters, rs.nregions, rs.neval)
+    print(f"phase 13: [sin_sum(8), sin_sum(8)] at epsrel {SIN_SUM_EPSREL:g}: "
+          f"status {rv.status} estimates {rv.estimates!r} errorests "
+          f"{rv.errorests!r} iters {rv.iters} nregions {rv.nregions} neval "
+          f"{rv.neval} wall {wall:.3f} s; the scalar sin_sum(8): status "
+          f"{rs.status} estimate {rs.estimate!r} errorest {rs.errorest!r} "
+          f"iters {rs.iters} nregions {rs.nregions} neval {rs.neval}; "
+          f"estimate {d_est:.3g}, errorest {d_err:.3g} relative apart; "
+          f"contraction launches {routes}", flush=True)
+    if not same_run:
+        print(f"phase 13: the runs part at "
+              f"{first_divergence(rec_s, rec_v, g)}", flush=True)
+        fail("[sin_sum(8), sin_sum(8)] does not take the scalar run's "
+             "decisions")
+    if not (rv.estimates[0] == rv.estimates[1]
+            and rv.errorests[0] == rv.errorests[1]):
+        fail("the two equal components differ")
+    if not d_est <= rtol or routes["components"] == 0 or routes["cluster"]:
+        fail(f"[sin_sum(8), sin_sum(8)]: estimate {d_est} apart, launches "
+             f"{routes}")
+
+    # the final pool's first chunk through both routes, each held to the
+    # plain version on the same values by kernel_check's limits
+    lows, lengths, n, blocked = ws_v.final_pool
+    tables = rule_eval.rule_tables(NDIM, "float64")
+    count = min(SPLIT_CHUNK, n)
+    slots = torch.as_tensor(cuda_rule.split_slots(lows.shape[1], n, blocked, 0,
+                                                  count), device=dev)
+    lo, ln = lows[:, slots].contiguous(), lengths[:, slots].contiguous()
+    gl = torch.zeros(NDIM, dtype=torch.float64, device=dev)
+    gr = torch.ones(NDIM, dtype=torch.float64, device=dev)
+    ks = cuda_rule.cuda_apply_rule_split(g, tables, lo, ln, gl, gr)
+    kv = cuda_rule.cuda_apply_rule_split(gg, tables, lo, ln, gl, gr, ncomp=2)
+    vals, u = kernel_check.value_scales(g, tables, lo, ln, gl, gr)
+    try:
+        rsc = kernel_check.judge(kernel_check.region_readings(
+            ks, rule_eval.rule_outputs(vals, tables, ln, gr), vals, u, tables,
+            ln, gr), name="sin_sum", dtype=torch.float64)
+        v2, u2 = torch.stack([vals, vals], -1), torch.stack([u, u], -1)
+        rvc = kernel_check.check_components(
+            kv, rule_eval.rule_outputs_vector(v2, tables, ln, gr), v2, u2,
+            tables, ln, gr, name="[sin_sum, sin_sum]")
+    except AssertionError as e:
+        fail(str(e))
+    print(f"phase 13: the final pool's first {count} regions: the scalar "
+          f"cluster route est {rsc['est_ulps']:.3g}, err {rsc['err_ulps']:.3g}"
+          f" ulps beyond rtol; the components route est "
+          f"{rvc['est_ulps']:.3g}, err {rvc['err_ulps']:.3g} (limits 1/1; "
+          f"split_dim EQUAL in {rvc['split_dim_equal']} of {count})",
+          flush=True)
+
+
+VCONT = dict(ndim=3, epsrel=1e-9, chunk_size=1024, max_pool_regions=1 << 14,
+             finish_epsrel_scale=0.4)
+
+
+def vector_continuation(dev):
+    """Phase 13.3: ``integrate_to_convergence`` of [f4_gaussian(3, a=8),
+    f2_product_peak(3)] at VCONT (the pool budget cut to 2^14 regions, so
+    round 1 walls and the partitioned continuation carries the run): status
+    0, every component within epsrel of its closed form, two slices or
+    more; then the same stopped before its first slice, saved
+    (``state_path``) and resumed, which must give the uninterrupted run's
+    estimates, errorests and neval bit for bit.  Returns the wall."""
+    nd, eps = VCONT["ndim"], VCONT["epsrel"]
+    f, truths = vector_probe.vector([genz.f4_gaussian(nd, a=8.0),
+                                     genz.f2_product_peak(nd)])
+    ws_kw = dict(chunk_size=VCONT["chunk_size"],
+                 max_pool_regions=VCONT["max_pool_regions"])
+    kw = dict(finish_epsrel_scale=VCONT["finish_epsrel_scale"])
+    ws = Workspace(nd, **ws_kw)
+    timer, runs, integrate = StageTimer(), [0], ws.integrate
+
+    def counted(*args, **kwargs):
+        runs[0] += 1
+        return integrate(*args, **kwargs)
+
+    ws.integrate = counted
+    cuda_rule.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ws.integrate_to_convergence(f, epsrel=eps, epsabs=1e-40,
+                                      max_rounds=40, stage_timer=timer, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rounds = sum(1 for k in timer.times if "round" in k)
+    rel = np.abs(res.estimates - truths) / np.abs(truths)
+    print(f"phase 13: wall {wall:.3f} s: vector integrate_to_convergence, "
+          f"[f4_gaussian(3, a=8), f2_product_peak(3)] epsrel {eps:g}, pool "
+          f"budget {VCONT['max_pool_regions']}, chunk {VCONT['chunk_size']}: "
+          f"status {res.status} estimates {res.estimates!r} errorests "
+          f"{res.errorests!r} rel.err {rel}; {rounds} rounds, "
+          f"{runs[0] - rounds} slices; iters {res.iters} nregions "
+          f"{res.nregions} neval {res.neval}; contraction launches "
+          f"{dict(cuda_rule.contract_route_launches)}", flush=True)
+    if res.status != 0 or not np.all(rel <= eps) or runs[0] - rounds < 2:
+        fail(f"vector continuation: status {res.status}, rel.err {rel}, "
+             f"{runs[0] - rounds} slices")
+
+    sp = cuda_build.BUILD_DIR / "vector_continuation_state"
+    ws2 = Workspace(nd, **ws_kw)
+    r1 = ws2.integrate(f, epsrel=eps, epsabs=1e-40, **kw)
+    ck = ws2.make_checkpoint()
+    ws2.final_pool = ws2.final_pool_errors = None
+    cut = ws2._partitioned_continuation(
+        f, eps, 1e-40, None, ck, r1, 39, deadline=time.monotonic() - 1.0,
+        state_path=sp, **kw)
+    saved = (sp.parent / (sp.name + ".npz")).exists()
+    resumed = Workspace(nd, **ws_kw).integrate_to_convergence(
+        f, epsrel=eps, epsabs=1e-40, max_rounds=40, state_path=sp, **kw)
+    same = (list(resumed.estimates) == list(res.estimates)
+            and list(resumed.errorests) == list(res.errorests)
+            and resumed.neval == res.neval)
+    print(f"phase 13: stopped before the first slice (status {cut.status}, "
+          f"state saved: {saved}), resumed from the file: status "
+          f"{resumed.status} estimates {resumed.estimates!r} errorests "
+          f"{resumed.errorests!r} neval {resumed.neval}: "
+          f"{'the same' if same else 'NOT the same'} as the uninterrupted "
+          f"run", flush=True)
+    if not (saved and resumed.status == 0 and same):
+        fail("the vector continuation resumed from its state file differs "
+             "from the uninterrupted run")
+    return wall
+
+
+def vector_main_path(dev):
+    """Phase 13: PAGANI's vector main path at full width: Workspace(8) on
+    four Genz members as one vector (tools/vector_probe.py's 'moderate'
+    set: the reference's vector families, F1 with coefficients 1/2 and F2
+    at a = 5) at VEC8_EPSREL (every rule
+    evaluation through the points kernel and the components contraction,
+    CUDA events around each launch and call), the identity check, the
+    vector continuation.  Returns the split kernels' launches of the first
+    run, the contraction's by route and the walls."""
+    f, truths = vector_probe.vector(vector_probe.members("moderate"))
+    t0 = time.perf_counter()
+    _, launches, routes = events_run(
+        "f64 8D [F1 (coefficients 1/2), F2 (a=5), F4 (a=5), F5] as one "
+        "vector", Workspace(NDIM), f, VEC8_EPSREL, truths, phase="phase 13")
+    walls = {"vec8": time.perf_counter() - t0}
+    if not (routes["components"] == launches["contract"] == launches["points"]
+            and routes["cluster"] == routes["generic"] == 0):
+        fail(f"vector main path: launches {launches}, contraction by route "
+             f"{routes}; every chunk should take the components route")
+    identity_check(dev)
+    walls["continuation"] = vector_continuation(dev)
+    return launches, routes, walls
+
+
+VVEGAS = dict(epsrel=1e-3, ncall=1e8)   # VEGAS run 1's settings, 6D f64
+
+
+def vector_vegas_run(label, f, truths, expect, state=None, **kw):
+    """One vector VEGAS run through the entry point (``LaunchCounts``):
+    status 0, every component within 5 errorests of its truth, a launch
+    of every kernel in ``expect`` and of no other.  Returns the result,
+    the launches and the wall."""
+    torch.cuda.synchronize()
+    with LaunchCounts() as clock:
+        t0 = time.perf_counter()
+        res = mcubes.integrate(f, epsabs=1e-40, state=state, **VVEGAS, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pull = np.abs(res.estimates - truths) / res.errorests
+    print(f"phase 14: {label}: status {res.status} estimates "
+          f"{res.estimates!r} errorests {res.errorests!r} truths "
+          f"{truths!r} pulls {pull} probs {res.probs} prob {res.prob:.4f} "
+          f"chi_sq {res.chi_sq:.4f} iters {res.iters} neval {res.neval} "
+          f"wall {wall:.3f} s samples/s {res.neval / wall:.4e} launches "
+          f"{clock.launches}", flush=True)
+    if res.status != 0 or not np.all(pull <= 5.0):
+        fail(f"{label}: status {res.status}, pulls {pull}")
+    for name in clock.launches:
+        if (clock.launches[name] > 0) != (name in expect):
+            fail(f"{label}: {name} launched {clock.launches[name]} times; "
+                 f"the run should go through {sorted(expect)} only")
+    return res, clock.launches, wall
+
+
+def vector_vegas(dev):
+    """Phase 14: vector VEGAS at run 1's settings (6D, ncall 1e8, f64, the
+    poly map, the AUTO sampler, which must take 'hybrid') on
+    [f4_gaussian(6, a=25), f4_gaussian(6, a=20)]; the same with the grid
+    map (run 3's settings); and [g, g] against the scalar run of g through
+    'hybrid': the same iterations, the final grid EQUAL, both components
+    bit for bit equal and within 1e-12 of the scalar estimate.  The
+    histogram adapts to component 0: its launches are the scalar run's.
+    Returns the launches and walls."""
+    g25 = genz.f4_gaussian(VEGAS_NDIM, a=25.0)
+    f, truths = vector_probe.vector([g25,
+                                     genz.f4_gaussian(VEGAS_NDIM, a=20.0)])
+    picked = vegas_module._resolve_sampler(None, "poly", "cuda",
+                                           torch.float64, f, 2)
+    if picked != "hybrid":
+        fail(f"AUTO picks {picked!r} for a vector integrand on the card")
+    out = {}
+    _, out["poly"], w_poly = vector_vegas_run(
+        "[f4 a=25, f4 a=20] f64 poly AUTO ('hybrid') ncall 1e8", f, truths,
+        {"vegas_sample", "vegas_hist"})
+    _, out["grid"], w_grid = vector_vegas_run(
+        "[f4 a=25, f4 a=20] f64 grid ncall 1e8", f, truths,
+        {"vegas_bin_resolve", "vegas_hist"}, importance="grid")
+
+    gg, _ = vector_probe.vector([g25, g25])
+    st_s = mcubes.VegasState(xi=vegas_grid.uniform_grid(
+        VEGAS_NDIM, vegas_grid.NDMX, torch.float64, dev))
+    st_v = mcubes.VegasState(xi=st_s.xi.clone())
+    with LaunchCounts() as cs:
+        rs = mcubes.integrate(g25, epsabs=1e-40, state=st_s,
+                              sampler="hybrid", **VVEGAS)
+    rv, out["identity"], _ = vector_vegas_run(
+        "[g, g], g = f4 a=25", gg, np.array([g25.true_value] * 2),
+        {"vegas_sample", "vegas_hist"}, state=st_v)
+    d = abs(rv.estimates[0] - rs.estimate) / abs(rs.estimate)
+    same_grid = torch.equal(st_s.xi, st_v.xi)
+    print(f"phase 14: [g, g] against the scalar run of g ('hybrid'): iters "
+          f"{rv.iters}/{rs.iters}, final grid EQUAL: {same_grid}, components "
+          f"bit for bit equal: {rv.estimates[0] == rv.estimates[1]}, "
+          f"estimate {d:.3g} relative from the scalar's {rs.estimate!r}; "
+          f"histogram launches {out['identity']['vegas_hist']} (scalar run "
+          f"{cs.launches['vegas_hist']})", flush=True)
+    if not (rv.iters == rs.iters and same_grid and d <= 1e-12
+            and rv.estimates[0] == rv.estimates[1]
+            and rv.errorests[0] == rv.errorests[1]
+            and out["identity"]["vegas_hist"] == cs.launches["vegas_hist"]):
+        fail("[g, g] does not reproduce the scalar VEGAS run")
+    return out, {"poly": w_poly, "grid": w_grid}
 
 
 def main() -> int:
@@ -2007,13 +2542,23 @@ def main() -> int:
 
     # -- phases 9-12: the split route, the continuation ----------------------
     split_err = split_checks(dev)
+    comp_err = components_checks(dev)
     phase_done("phase 9")
     split_ms, b_points, contract_rows = split_times(dev)
+    comp_rows = components_times(dev)
     phase_done("phase 10")
     split_launches, contract_routes = split_main_path(dev, res)
     phase_done("phase 11")
     continuation_path(dev)
     phase_done("phase 12")
+
+    # -- phases 13-14: vector integrands ------------------------------------
+    vec_launches, vec_routes, vec_walls = vector_main_path(dev)
+    phase_done("phase 13")
+    vegas_vec_launches, vegas_vec_walls = vector_vegas(dev)
+    print(f"phase 14: walls: poly {vegas_vec_walls['poly']:.3f} s, grid "
+          f"{vegas_vec_walls['grid']:.3f} s", flush=True)
+    phase_done("phase 14")
 
     # -- the kernels line ----------------------------------------------------
     kernels = [{
@@ -2079,6 +2624,38 @@ def main() -> int:
                         "sums_only_matmul_ms": r["sums_only_matmul_ms"]}
                         for r in contract_rows]}
             for route in cuda_rule.CONTRACT_ROUTES},
+    }, {
+        # a vector integrand's contraction: the numbers at phase 13's
+        # shape, the 8D f64 chunk of four components, component-minor
+        "name": "rule_contract_components",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/rule_split.cu",
+        "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+        "counterpart_of": "gpuintegration_tpu/ops/rule_eval.py:386 "
+                          "(_eval_chunk_vector, XLA in the reference)",
+        "held_against_plain_in": "phase 9 (rule_eval.rule_outputs_vector; "
+                                 "3D, 8D, 12D, f64 and f32, 2-8 components)",
+        "launches": vec_routes["components"],
+        "max_abs_err": comp_err,
+        "ms": comp_rows[0]["ms"],
+        "plain_ms": comp_rows[0]["plain_ms"],
+        "bound_ms": comp_rows[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "sums_only_matmul_ms": comp_rows[0]["sums_only_matmul_ms"],
+        "cluster_route_each_component_ms": comp_rows[0]["cluster_each_ms"],
+        "shapes": [{
+            "shape": f"{r['ndim']}D float64 {r['count']} x {r['feval']} x "
+                     f"{r['ncomp']} component-minor",
+            "ms": r["ms"], "bound_ms": r["bound_ms"],
+            "plain_ms": r["plain_ms"],
+            "sums_only_matmul_ms": r["sums_only_matmul_ms"],
+            "cluster_route_each_component_ms": r["cluster_each_ms"]}
+            for r in comp_rows],
+        "vector_paths": {"pagani_split_launches": vec_launches,
+                         "pagani_walls_s": vec_walls,
+                         "vegas_launches": vegas_vec_launches,
+                         "vegas_walls_s": vegas_vec_walls},
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

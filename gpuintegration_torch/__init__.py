@@ -1,10 +1,12 @@
 """gpuintegration_torch: the PyTorch/CUDA port of gpuintegration_tpu.
 
-PAGANI adaptive cubature on one NVIDIA GPU: the scalar host loop of
-``Workspace.integrate`` in plain PyTorch, with the Genz-Malik rule
-evaluation in hand-written CUDA kernels (ops/cuda_rule.py): a Genz family
-fused into one kernel (csrc/rule_eval.cu), any other torch callable between
-a points kernel and a contraction kernel (csrc/rule_split.cu).
+PAGANI adaptive cubature on one NVIDIA GPU: the host loops of
+``Workspace.integrate`` (scalar and vector-valued integrands, f: (...,
+ndim) -> (...,) or (..., ncomp)) in plain PyTorch, with the Genz-Malik
+rule evaluation in hand-written CUDA kernels (ops/cuda_rule.py): a Genz
+family fused into one kernel (csrc/rule_eval.cu), any other torch callable
+between a points kernel and a contraction kernel (csrc/rule_split.cu; a
+vector's values through the components contraction).
 ``Workspace.integrate_to_convergence`` carries deep tolerances past one
 run's pool wall (checkpoint-resume rounds, then a partitioned continuation
 whose state ``utils.checkpoint.ContinuationState`` saves; stage times by

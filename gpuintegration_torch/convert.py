@@ -40,9 +40,11 @@ def pool_from_reference(lows, lengths, n: int, blocked: bool, *,
 def ledger_from_reference(ledger) -> tuple:
     """A reference ledger ``(estimate, errorest, nregions, iters, neval)``
     (``Workspace._ledger_excl_pool``) as the ``ledger=`` seed of
-    ``Workspace.integrate``."""
+    ``Workspace.integrate``: floats, or (ncomp,) arrays for a vector
+    integrand's."""
     est, err, nregions, iters, neval = ledger
-    return float(est), float(err), int(nregions), int(iters), int(neval)
+    return (scalar_or_array(est), scalar_or_array(err), int(nregions),
+            int(iters), int(neval))
 
 
 def checkpoint_from_reference(ck) -> PaganiCheckpoint:
@@ -50,7 +52,9 @@ def checkpoint_from_reference(ck) -> PaganiCheckpoint:
     (``Workspace.make_checkpoint()`` of the JAX package, its arrays as
     NumPy): the same pool, ledger and per-region sweep, so that
     ``Workspace.integrate(initial_regions=..., ledger=ck.ledger)`` and
-    ``diff.mesh_from_checkpoint`` take it as they take the port's own."""
+    ``diff.mesh_from_checkpoint`` take it as they take the port's own.  A
+    vector run's (ncomp,) ledger and (n, ncomp) region arrays come across
+    as they are."""
     def arr(a):
         return None if a is None else np.array(a)
 
@@ -80,13 +84,14 @@ def vegas_state_from_reference(xi, si, swgt, schi, it0, n_acc, *,
                                dtype=torch.float64, device=None) -> VegasState:
     """The port's ``VegasState`` from the fields of a reference
     ``mcubes.VegasState`` (``xi`` as a NumPy array, the rest Python
-    numbers), so that ``mcubes.vegas(state=...)`` continues a run the
-    reference adapted: the grid is taken bit for bit, and ``it0`` keeps
-    the continuation's streams apart from the iterations already counted."""
+    numbers, or (ncomp,) arrays for a vector integrand's accumulators), so
+    that ``mcubes.vegas(state=...)`` continues a run the reference
+    adapted: the grid is taken bit for bit, and ``it0`` keeps the
+    continuation's streams apart from the iterations already counted."""
     return VegasState(
         xi=torch.as_tensor(np.array(xi), dtype=dtype, device=device),
-        si=float(si), swgt=float(swgt), schi=float(schi), it0=int(it0),
-        n_acc=int(n_acc))
+        si=scalar_or_array(si), swgt=scalar_or_array(swgt),
+        schi=scalar_or_array(schi), it0=int(it0), n_acc=int(n_acc))
 
 
 def poly_from_reference(p_coeffs, q_coeffs, *, device=None):

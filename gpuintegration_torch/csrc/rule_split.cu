@@ -21,7 +21,11 @@
 //      two routes that cuda_rule.contract_route chooses by the shape:
 //      rule_contract_cluster_kernel ('cluster') where a region's points or
 //      a point's regions lie contiguous, rule_contract_kernel ('generic',
-//      the first design) at any strides.
+//      the first design) at any strides.  A vector integrand's values
+//      (C, feval, ncomp) take rule_contract_comp_kernel ('components'),
+//      the counterpart of the reference's XLA _eval_chunk_vector: est and
+//      err per component, one split axis from all components' fourth
+//      differences.
 //
 // All keep the plain version's roundings where the arithmetic is
 // elementwise, each product and sum rounded on its own (never contracted
@@ -54,6 +58,13 @@
 //     epilogue.  Any strides.  At the Workspace's chunks it launches 32 to
 //     512 blocks with about one 8-byte load in flight a thread: 41.7 % of
 //     its bound at 8D, and a quarter of the card at 11-16D;
+//   * contraction, 'components': the generic design over a vector's
+//     values at any strides, the components in passes of one 32-byte
+//     sector (4 f64 or 8 f32), a lane reading a point's components of the
+//     pass together; each component summed in the generic kernel's order,
+//     so its est and err are that kernel's on the component's plane, bit
+//     for bit.  It reads 8 * feval * ncomp bytes a region: at the
+//     Workspace's 8D f64 chunk and 4 components 144.8 MB (0.0432 ms);
 //   * contraction, 'cluster': a group of 32 neighbouring regions, a lane
 //     per region; its points are split across the K CTAs of a thread
 //     block cluster, K from (count, feval) alone (cuda_rule.cluster_plan),
@@ -202,21 +213,93 @@ rule_points_kernel(const PointArgs<T> a) {
 
 template <typename T>
 struct ContractArgs {
-  const T* vals;       // (count, feval) values at strides sc, sp
+  const T* vals;       // (count, feval[, ncomp]) at strides sc, sp[, sk]
   const T* lengths;    // (ndim, cap) unit-space lengths
   const T* grange;     // (ndim,) global ranges
   const T* orbit_wts;  // (9, 5)
   const T* scale;      // (9, 5)
   const T* norm;       // (9, 5)
-  T* est;              // (cap,)
-  T* err;              // (cap,)
+  T* est;              // (cap,), or (ncomp, cap) for the components kernel
+  T* err;              // the same
   int* split_dim;      // (cap,)
   int64_t cap, n, first, count;
-  int64_t sc, sp;
-  int ndim, feval, blocked;
+  int64_t sc, sp, sk;
+  int ndim, feval, blocked, ncomp;
   T ratio;
   int orbit_bounds[kNsets + 1];
 };
+
+// The jacobian prod(range), the region's unit-space volume prod(lengths)
+// and its widest axis (torch.argmax: the first largest, a NaN counting as
+// the largest), each product rounded on its own as torch.prod's.
+template <typename T>
+__device__ __forceinline__ void region_geometry(const ContractArgs<T>& a,
+                                                int64_t slot, T& jac, T& vol,
+                                                int& widest) {
+  jac = a.grange[0];
+  vol = a.lengths[slot];
+  T wl = vol;
+  widest = 0;
+  for (int d = 1; d < a.ndim; ++d) {
+    jac = r_mul(jac, a.grange[d]);
+    const T l = a.lengths[d * a.cap + slot];
+    vol = r_mul(vol, l);
+    if (!is_nan(wl) && (is_nan(l) || l > wl)) {
+      wl = l;
+      widest = d;
+    }
+  }
+}
+
+// rule_eval.fourth_differences of axis d: |c0 f0 + ratio (f1+ + f1-) -
+// (f2+ + f2-)| with c0f0 = c0 f0, c0 = 2 (1 - ratio), from the values of
+// one region at point stride sp.
+template <typename T>
+__device__ __forceinline__ T fourth_difference(const T* row, int64_t sp,
+                                               int ndim, int d, T c0f0,
+                                               T ratio) {
+  const T o1 = r_add(row[(1 + 2 * d) * sp], row[(2 + 2 * d) * sp]);
+  const T o2 = r_add(row[(1 + 2 * ndim + 2 * d) * sp],
+                     row[(2 + 2 * ndim + 2 * d) * sp]);
+  return r_abs(r_sub(r_add(c0f0, r_mul(ratio, o1)), o2));
+}
+
+// est and err of one region and one component from its nine orbit sums,
+// rounded as rule_eval.rule_outputs: the rule sums from the weight table,
+// the null-rule terms, the (5,1,5) gate of rule_eval.gate_errors, each
+// scaled by the region's volume.
+template <typename T>
+__device__ __forceinline__ void rule_epilogue(const ContractArgs<T>& a,
+                                              const T* orbit_sum, T jac,
+                                              T vol, T& est, T& err) {
+  T sums[kNrules];
+#pragma unroll
+  for (int q = 0; q < kNrules; ++q) {
+    T v = r_mul(orbit_sum[0], a.orbit_wts[q]);
+#pragma unroll
+    for (int k = 1; k < kNsets; ++k)
+      v = r_add(v, r_mul(orbit_sum[k], a.orbit_wts[k * kNrules + q]));
+    sums[q] = r_mul(v, jac);
+  }
+  T e[3];
+#pragma unroll
+  for (int q = 1; q <= 3; ++q) {
+    T m = T(0);
+#pragma unroll
+    for (int k = 0; k < kNsets; ++k) {
+      const T v = r_mul(
+          r_abs(r_add(sums[q + 1], r_mul(a.scale[k * kNrules + q], sums[q]))),
+          a.norm[k * kNrules + q]);
+      m = k == 0 ? v : nan_max(m, v);
+    }
+    e[q - 1] = m;
+  }
+  const T gated = (r_mul(T(5), e[0]) <= e[1] && r_mul(T(5), e[1]) <= e[2])
+                      ? e[0]
+                      : r_mul(T(5), nan_max(nan_max(e[0], e[1]), e[2]));
+  est = r_mul(vol, sums[0]);
+  err = r_mul(vol, gated);
+}
 
 // A block of kContractGroups warps takes 32 neighbouring regions, a lane
 // per region: warp g sums the values of points g, g + kContractGroups, ...
@@ -250,20 +333,15 @@ rule_contract_kernel(const ContractArgs<T> a) {
     for (int k = 1; k < kContractGroups; ++k) v += s_part[k][s][lane];
     orbit_sum[s] = v;
   }
-  // rule_eval.fourth_differences: |c0 f0 + ratio (f1+ + f1-) - (f2+ +
-  // f2-)| with c0 = 2 (1 - ratio); the first largest (torch.argmax), and
-  // whether one is NaN
+  // the first largest fourth difference (torch.argmax), and whether one is
+  // NaN
   const int ndim = a.ndim;
-  const T c0 = T(2) * r_sub(T(1), a.ratio);
-  const T c0f0 = r_mul(c0, row[0]);
+  const T c0f0 = r_mul(T(2) * r_sub(T(1), a.ratio), row[0]);
   int best = 0;
   bool any_nan = false;
   T top = T(0);
   for (int d = 0; d < ndim; ++d) {
-    const T o1 = r_add(row[(1 + 2 * d) * a.sp], row[(2 + 2 * d) * a.sp]);
-    const T o2 = r_add(row[(1 + 2 * ndim + 2 * d) * a.sp],
-                       row[(2 + 2 * ndim + 2 * d) * a.sp]);
-    const T v = r_abs(r_sub(r_add(c0f0, r_mul(a.ratio, o1)), o2));
+    const T v = fourth_difference(row, a.sp, ndim, d, c0f0, a.ratio);
     if (is_nan(v)) {
       any_nan = true;
     } else if (d == 0 || v > top) {
@@ -272,50 +350,114 @@ rule_contract_kernel(const ContractArgs<T> a) {
     }
   }
   const int64_t slot = real_slot(a.first + c, a.cap, a.n, a.blocked);
-  T jac = a.grange[0];
-  T vol = a.lengths[slot];
-  T wl = vol;
-  int widest = 0;
-  for (int d = 1; d < ndim; ++d) {
-    jac = r_mul(jac, a.grange[d]);
-    const T l = a.lengths[d * a.cap + slot];
-    vol = r_mul(vol, l);
-    // torch.argmax: the first largest, a NaN counting as the largest
-    if (!is_nan(wl) && (is_nan(l) || l > wl)) {
-      wl = l;
-      widest = d;
-    }
-  }
-  T sums[kNrules];
-#pragma unroll
-  for (int q = 0; q < kNrules; ++q) {
-    T v = r_mul(orbit_sum[0], a.orbit_wts[q]);
-#pragma unroll
-    for (int k = 1; k < kNsets; ++k)
-      v = r_add(v, r_mul(orbit_sum[k], a.orbit_wts[k * kNrules + q]));
-    sums[q] = r_mul(v, jac);
-  }
-  T e[3];
-#pragma unroll
-  for (int q = 1; q <= 3; ++q) {
-    T m = T(0);
-#pragma unroll
-    for (int k = 0; k < kNsets; ++k) {
-      const T v = r_mul(
-          r_abs(r_add(sums[q + 1], r_mul(a.scale[k * kNrules + q], sums[q]))),
-          a.norm[k * kNrules + q]);
-      m = k == 0 ? v : nan_max(m, v);
-    }
-    e[q - 1] = m;
-  }
-  // the (5,1,5) gate of rule_eval.gate_errors
-  const T gated = (r_mul(T(5), e[0]) <= e[1] && r_mul(T(5), e[1]) <= e[2])
-                      ? e[0]
-                      : r_mul(T(5), nan_max(nan_max(e[0], e[1]), e[2]));
-  a.est[slot] = r_mul(vol, sums[0]);
-  a.err[slot] = r_mul(vol, gated);
+  T jac, vol;
+  int widest;
+  region_geometry(a, slot, jac, vol, widest);
+  rule_epilogue(a, orbit_sum, jac, vol, a.est[slot], a.err[slot]);
   // rule_outputs: the argmax where the largest difference is positive,
   // else (all 0, or a NaN among them) the widest axis
+  a.split_dim[slot] = (!any_nan && top > T(0)) ? best : widest;
+}
+
+// Components of a point the components kernel reads in one pass: one
+// 32-byte sector of them where they lie component-minor (4 f64, 8 f32).
+template <typename T>
+__host__ __device__ constexpr int comp_group() {
+  return 32 / static_cast<int>(sizeof(T));
+}
+
+// The contraction of a vector integrand's values (count, feval, ncomp) at
+// any strides (sc, sp, sk), what rule_eval.rule_outputs_vector computes.
+// The generic kernel's design and order of summation, component by
+// component, so that component k's est and err are bitwise those of
+// rule_contract_kernel on the values' plane k: a block of kContractGroups
+// warps takes 32 neighbouring regions, a lane per region; the components
+// go in passes of comp_group() (any ncomp >= 1), each pass over the same
+// points, a lane reading a point's components of the pass together (one
+// sector where they lie component-minor).  In each pass, orbit by orbit,
+// warp g adds the values of points g, g + kContractGroups, ... of the
+// orbit, a running sum a component; warp k then adds the 16 warps' sums of
+// component k in warp order, and runs that component's epilogue.  After
+// the passes warp 0 takes the split axis from the component-wise maximum
+// of the fourth differences, a NaN in any component propagating (as
+// torch.amax does in the plain version), so that the widest axis is then
+// the split axis.  No atomics.
+template <typename T>
+__global__ void __launch_bounds__(32 * kContractGroups)
+rule_contract_comp_kernel(const ContractArgs<T> a) {
+  constexpr int G = comp_group<T>();
+  static_assert(G <= kContractGroups, "a warp reduces each component");
+  __shared__ T s_part[kContractGroups][G][32];
+  __shared__ T s_osum[G][kNsets][32];
+  const int lane = threadIdx.x, g = threadIdx.y;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * 32 + lane;
+  const bool real = c < a.count;
+  const T* row = a.vals + c * a.sc;
+  const int64_t slot =
+      real ? real_slot(a.first + c, a.cap, a.n, a.blocked) : 0;
+  T jac = T(0), vol = T(0);
+  int widest = 0;
+  if (real) region_geometry(a, slot, jac, vol, widest);
+
+  for (int k0 = 0; k0 < a.ncomp; k0 += G) {
+    const int nk = a.ncomp - k0 < G ? a.ncomp - k0 : G;
+    for (int s = 0; s < kNsets; ++s) {
+      T v[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) v[k] = T(0);
+      if (real)
+        for (int p = a.orbit_bounds[s] + g; p < a.orbit_bounds[s + 1];
+             p += kContractGroups) {
+          const T* pt = row + p * a.sp + k0 * a.sk;
+#pragma unroll
+          for (int k = 0; k < G; ++k)
+            if (k < nk) v[k] += pt[k * a.sk];
+        }
+#pragma unroll
+      for (int k = 0; k < G; ++k) s_part[g][k][lane] = v[k];
+      __syncthreads();
+      if (g < nk) {
+        T w = s_part[0][g][lane];
+        for (int j = 1; j < kContractGroups; ++j) w += s_part[j][g][lane];
+        s_osum[g][s][lane] = w;
+      }
+      __syncthreads();
+    }
+    // the epilogue of component k0 + g; s_osum is written again only after
+    // the next pass's first barrier, which every warp reaches after this
+    if (g < nk && real) {
+      T orbit_sum[kNsets];
+#pragma unroll
+      for (int s = 0; s < kNsets; ++s) orbit_sum[s] = s_osum[g][s][lane];
+      const int64_t at = (k0 + g) * a.cap + slot;
+      rule_epilogue(a, orbit_sum, jac, vol, a.est[at], a.err[at]);
+    }
+  }
+  if (g != 0 || !real) return;
+
+  // the split axis from the component-wise maximum of the fourth
+  // differences: the first largest, the widest axis where the largest is 0
+  // or a NaN is among them
+  const int ndim = a.ndim;
+  const T c0 = T(2) * r_sub(T(1), a.ratio);
+  int best = 0;
+  bool any_nan = false;
+  T top = T(0);
+  for (int d = 0; d < ndim; ++d) {
+    T m = T(0);
+    for (int k = 0; k < a.ncomp; ++k) {
+      const T* rk = row + k * a.sk;
+      const T v = fourth_difference(rk, a.sp, ndim, d, r_mul(c0, rk[0]),
+                                    a.ratio);
+      m = k == 0 ? v : nan_max(m, v);
+    }
+    if (is_nan(m)) {
+      any_nan = true;
+    } else if (d == 0 || m > top) {
+      top = m;
+      best = d;
+    }
+  }
   a.split_dim[slot] = (!any_nan && top > T(0)) ? best : widest;
 }
 
@@ -727,7 +869,8 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
 struct HostArgs {
   int ndim, feval, blocked;
   int64_t cap, n, first, count;
-  int64_t sc, sp, sd;  // strides of x (points) or vals (contraction)
+  int64_t sc, sp, sd;  // strides of x (points) or vals (contraction; sd:
+                       // the components' stride of a vector's values)
 };
 
 template <typename T>
@@ -816,15 +959,13 @@ cudaError_t cluster_occupancy(int ndim, const ClusterShape& cs,
       clusters, rule_contract_cluster_kernel<T, ROWS>, &c.cfg);
 }
 
-// One launch of the contraction: the generic kernel where ``cs.k`` is 0,
-// else the cluster kernel of shape ``cs``.
 template <typename T>
-int contract_launch(const HostArgs& h, const ClusterShape& cs, const void* vals,
-                    const void* lengths, const void* grange,
-                    const void* orbit_wts, const void* scale,
-                    const void* norm, double ratio, const int* orbit_bounds,
-                    void* est, void* err, int* split_dim,
-                    cudaStream_t stream) {
+ContractArgs<T> contract_args(const HostArgs& h, const void* vals,
+                              const void* lengths, const void* grange,
+                              const void* orbit_wts, const void* scale,
+                              const void* norm, double ratio,
+                              const int* orbit_bounds, void* est, void* err,
+                              int* split_dim) {
   ContractArgs<T> a;
   a.vals = static_cast<const T*>(vals);
   a.lengths = static_cast<const T*>(lengths);
@@ -844,8 +985,18 @@ int contract_launch(const HostArgs& h, const ClusterShape& cs, const void* vals,
   a.blocked = h.blocked;
   a.sc = h.sc;
   a.sp = h.sp;
+  a.sk = h.sd;
+  a.ncomp = 1;
   a.ratio = static_cast<T>(ratio);
   for (int k = 0; k <= kNsets; ++k) a.orbit_bounds[k] = orbit_bounds[k];
+  return a;
+}
+
+// One launch of the contraction: the generic kernel where ``cs.k`` is 0,
+// else the cluster kernel of shape ``cs``.
+template <typename T>
+int contract_launch(const HostArgs& h, const ClusterShape& cs,
+                    const ContractArgs<T>& a, cudaStream_t stream) {
   if (cs.k == 0) {
     const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
     rule_contract_kernel<T>
@@ -858,6 +1009,17 @@ int contract_launch(const HostArgs& h, const ClusterShape& cs, const void* vals,
                                   : cluster_launch<T, false>(h, cs, a, stream);
   const cudaError_t last = cudaGetLastError();  // and clear it
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// One launch of the components kernel over ``ncomp`` components.
+template <typename T>
+int contract_comp_launch(const HostArgs& h, ContractArgs<T> a, int ncomp,
+                         cudaStream_t stream) {
+  a.ncomp = ncomp;
+  const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
+  rule_contract_comp_kernel<T>
+      <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_args(const HostArgs& h) {
@@ -930,12 +1092,49 @@ extern "C" int rule_split_contract_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double
-             ? contract_launch<double>(h, cs, vals, lengths, grange,
-                                       orbit_wts, scale, norm, ratio,
-                                       orbit_bounds, est, err, split_dim, s)
-             : contract_launch<float>(h, cs, vals, lengths, grange,
-                                      orbit_wts, scale, norm, ratio,
-                                      orbit_bounds, est, err, split_dim, s);
+             ? contract_launch<double>(
+                   h, cs,
+                   contract_args<double>(h, vals, lengths, grange, orbit_wts,
+                                         scale, norm, ratio, orbit_bounds,
+                                         est, err, split_dim),
+                   s)
+             : contract_launch<float>(
+                   h, cs,
+                   contract_args<float>(h, vals, lengths, grange, orbit_wts,
+                                        scale, norm, ratio, orbit_bounds,
+                                        est, err, split_dim),
+                   s);
+}
+
+// Reads vals (count, feval, ncomp) at strides (sc, sp, sk) in elements;
+// writes est and err (ncomp, cap), component-major, and split_dim (cap,)
+// at the regions' pool slots and nowhere else: the components kernel, any
+// strides, any ncomp >= 1.
+extern "C" int rule_split_contract_comp_launch(
+    int is_double, int ndim, int feval, long long cap, long long n,
+    int blocked, long long first, long long count, int ncomp, long long sc,
+    long long sp, long long sk, const void* vals, const void* lengths,
+    const void* grange, const void* orbit_wts, const void* scale,
+    const void* norm, double ratio, const int* orbit_bounds, void* est,
+    void* err, int* split_dim, void* stream) {
+  const HostArgs h{ndim, feval, blocked, cap, n, first, count, sc, sp, sk};
+  if (bad_args(h) || ncomp < 1 || orbit_bounds[kNsets] != feval ||
+      orbit_bounds[3] != 4 * ndim + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double
+             ? contract_comp_launch<double>(
+                   h,
+                   contract_args<double>(h, vals, lengths, grange, orbit_wts,
+                                         scale, norm, ratio, orbit_bounds,
+                                         est, err, split_dim),
+                   ncomp, s)
+             : contract_comp_launch<float>(
+                   h,
+                   contract_args<float>(h, vals, lengths, grange, orbit_wts,
+                                        scale, norm, ratio, orbit_bounds,
+                                        est, err, split_dim),
+                   ncomp, s);
 }
 
 // How many clusters of the cluster route's shape (clusters of ``cluster``

@@ -9,8 +9,9 @@ Canonical form: a *batched* callable ``f(x)`` mapping a tensor of shape
 * single-argument batched functions; ndim must be supplied or carried as
   an ``ndim`` attribute (``models.genz.GenzIntegrand``).
 
-Only scalar integrands run in this port so far: a callable that returns
-(..., ncomp) is refused by ``deduce_ncomp`` until vector integrands land.
+A callable may also return (..., ncomp): a vector-valued integrand
+(cubacpp's ``array<double,N>``), whose components share one point set;
+``deduce_ncomp`` reads ncomp from one probe call.
 """
 from __future__ import annotations
 
@@ -84,16 +85,15 @@ def make_integrand(f: Callable, ndim: int | None = None) -> tuple[Callable, int]
 def deduce_ncomp(batched_f: Callable, ndim: int, dtype: torch.dtype,
                  device) -> int:
     """Number of components the batched integrand returns per point, from
-    one probe call on three points.  Scalar integrands give 1; a vector
-    integrand (..., ncomp) raises NotImplementedError (not ported yet)."""
+    one probe call on three points: 1 for (...,) scalars, N for (..., N)
+    vectors (the runtime analogue of cubacpp's return-type deduction,
+    cubacpp/integrand_traits.hh:81-93)."""
     probe = torch.full((3, ndim), 0.5, dtype=dtype, device=device)
     shape = tuple(batched_f(probe).shape)
     if shape == (3,):
         return 1
     if len(shape) == 2 and shape[0] == 3:
-        raise NotImplementedError(
-            f"vector-valued integrands (ncomp={shape[1]}) are not ported to "
-            "gpuintegration_torch yet (ROADMAP A9); use gpuintegration_tpu")
+        return int(shape[1])
     raise ValueError(
         f"integrand maps (3, {ndim}) -> {shape}; expected (3,) for a "
-        f"scalar integrand")
+        f"scalar integrand or (3, ncomp) for a vector-valued one")

@@ -24,12 +24,14 @@ from gpuintegration_torch.mcubes import cuda_lookup, stream
 
 @dataclasses.dataclass
 class VegasIterationRecord:
+    """One iteration's numbers: floats, or (ncomp,) arrays for a vector
+    integrand."""
     it: int
-    ti: float                 # raw iteration estimate
-    tsi: float                # scaled variance
-    tgral: float              # running weighted estimate
-    sd: float                 # running error
-    chi2a: float
+    ti: float | np.ndarray    # raw iteration estimate
+    tsi: float | np.ndarray   # scaled variance
+    tgral: float | np.ndarray  # running weighted estimate
+    sd: float | np.ndarray    # running error
+    chi2a: float | np.ndarray
     xi: np.ndarray            # (ndim, nbins+1) grid after refinement
     d: np.ndarray | None      # (ndim, nbins) histogram (adjust phase only)
 
@@ -46,11 +48,20 @@ class VegasDebugLogger:
 
     # -- CSV dumpers (reference file-name parity) ---------------------------
     def dump_iters(self, outfile):
-        print("iter,estimate,errorest,chi_sq,iter_estimate,iter_variance",
+        """One row an iteration; a vector integrand's records one row a
+        component, with a ``component`` column after ``iter``."""
+        vector = any(np.ndim(r.ti) for r in self.records)
+        print("iter," + ("component," if vector else "")
+              + "estimate,errorest,chi_sq,iter_estimate,iter_variance",
               file=outfile)
         for r in self.records:
-            print(f"{r.it},{r.tgral:.15e},{r.sd:.15e},{r.chi2a:.5f},"
-                  f"{r.ti:.15e},{r.tsi:.15e}", file=outfile)
+            cols = [np.broadcast_to(np.asarray(v, np.float64),
+                                    np.shape(r.ti)).reshape(-1)
+                    for v in (r.tgral, r.sd, r.chi2a, r.ti, r.tsi)]
+            for c, (tg, sd, chi, ti, tsi) in enumerate(zip(*cols)):
+                head = f"{r.it},{c}," if vector else f"{r.it},"
+                print(f"{head}{tg:.15e},{sd:.15e},{chi:.5f},{ti:.15e},"
+                      f"{tsi:.15e}", file=outfile)
 
     def dump_bin_bounds(self, outfile):
         print("iter,dim,bin,right_edge", file=outfile)

@@ -20,9 +20,12 @@ loop, so device memory is bounded by the chunk size whatever ``ncall`` is.
 An iteration accumulates (ti, tsi) and the histogram on the device and is
 read by the host once, in one transfer.
 
-Scalar integrands, one device, host-refined grid.  Not ported yet, each
-raising NotImplementedError: ``mesh=`` (ROADMAP A16), ``refine='device'``
-(A13), vector integrands (A9).  The reference's device-resident
+One device, host-refined grid.  A vector-valued integrand, f: (..., ndim)
+-> (..., ncomp), runs on both maps and the 'torch' and 'hybrid' samplers:
+(ncomp,) accumulators, the grid adapted to component 0 (CUBA's
+multi-component VEGAS), status 0 only when every component passes.  Not
+ported yet, each raising NotImplementedError: ``mesh=`` (ROADMAP A16),
+``refine='device'`` (A13).  The reference's device-resident
 multi-iteration phases (``_frozen_phase``, ``_adjust_phase``) hide a
 dispatch latency of its remote runtime; frozen iterations here run through
 the same host loop with the histogram off, which is iteration-equivalent
@@ -98,11 +101,14 @@ def _hist_accum(d, chunk_hist):
 
 
 def _cube_sums(fx, valid, npg: int):
-    """[sum over cubes of fb, of f2b] for per-sample values fx (C, npg) in
-    the accumulator type: fb = sum fx, and the per-cube variance proxy
+    """[sum over cubes of fb, of f2b] for per-sample values fx (C, npg), or
+    a vector integrand's component-major (ncomp, C, npg), in the
+    accumulator type: fb = sum fx, and the per-cube variance proxy
     sqrt(sum f^2 * npg) -> (s-fb)(s+fb) = npg*sum(f^2) - fb^2 with TINY
     floor (vegasT.cuh:382-387).  ``valid`` (C,) masks the cubes beyond the
-    lattice, or is None when the chunk has none.  Returns (sums (2,), f2)."""
+    lattice, or is None when the chunk has none.  Returns (sums (2,) or
+    (2, ncomp), f2 of the histogram: component 0's for a vector, as CUBA
+    adapts the grid to it)."""
     if valid is not None:
         fx = torch.where(valid[:, None], fx, torch.zeros_like(fx))
     f2 = fx * fx
@@ -112,7 +118,15 @@ def _cube_sums(fx, valid, npg: int):
     f2b = torch.where(f2b <= 0.0, torch.full_like(f2b, vgrid.TINY), f2b)
     if valid is not None:
         f2b = torch.where(valid, f2b, torch.zeros_like(f2b))
-    return torch.stack([torch.sum(fb), torch.sum(f2b)]), f2
+    return (torch.stack([torch.sum(fb, dim=-1), torch.sum(f2b, dim=-1)]),
+            f2 if fx.dim() == 2 else f2[0])
+
+
+def _component_major(raw, ncomp: int):
+    """A vector integrand's values (..., ncomp) as a contiguous (ncomp,
+    ...) copy, the layout the accumulators reduce and the histogram takes
+    component 0 from; a scalar's as they are."""
+    return raw if ncomp == 1 else raw.movedim(-1, 0).contiguous()
 
 
 def _chunk_valid(c: int, chunk_cubes: int, ncubes: int, device):
@@ -145,10 +159,12 @@ def _vegas_iteration(
     eval_dtype=None,
     plain: bool = False,
     bits=None,
+    ncomp: int = 1,
 ):
     """One full VEGAS iteration with the grid map (importance='grid').
 
     Returns (sums, d): ``sums`` the (2,) tensor [ti, tsi_raw] in ``dtype``
+    ((2, ncomp) for a vector integrand, ``ncomp`` > 1)
     (tsi_raw must still be scaled by dv2g on the host, vegasT.cuh:849-851)
     and ``d`` the (ndim, nbins) f32 f^2 histogram (zeros when
     ``accumulate_hist`` is False).
@@ -168,7 +184,8 @@ def _vegas_iteration(
     dev = xi.device
     xi32 = xi.to(f32).contiguous()
     xnd32 = torch.tensor(float(nbins), dtype=f32, device=dev)
-    sums = torch.zeros(2, dtype=dtype, device=dev)
+    sums = torch.zeros((2,) + ((ncomp,) if ncomp > 1 else ()), dtype=dtype,
+                       device=dev)
     d = torch.zeros((ndim, nbins), dtype=f32, device=dev)
     lo_col, dx_col = regn_lo[:, None], dx[:, None]
     for c in range(num_chunks):
@@ -189,8 +206,9 @@ def _vegas_iteration(
             # the per-cube/global accumulation below is in ``dtype``
             x = lo_col.to(ed) + rc.to(ed) * dx_col.to(ed)
             wgt = xjac * torch.prod(xo * xnd32, dim=0).to(dtype)
-        fx = (f(x.T).to(dtype) * wgt).view(chunk_cubes, npg)
-        chunk_sums, f2 = _cube_sums(fx, valid, npg)
+        fx = (_component_major(f(x.T).to(dtype), ncomp) * wgt).reshape(
+            -1, chunk_cubes, npg)
+        chunk_sums, f2 = _cube_sums(fx if ncomp > 1 else fx[0], valid, npg)
         sums = sums + chunk_sums
         if accumulate_hist:
             # deterministic replacement for atomicAdd(&d[bin,dim], f^2)
@@ -225,6 +243,7 @@ def _vegas_iteration_poly(
     eval_dtype=None,
     sampler: str = "torch",
     bits=None,
+    ncomp: int = 1,
 ):
     """One full VEGAS iteration with the polynomial inverse-CDF map
     (mcubes.poly_importance).  Same stratification, accumulators,
@@ -240,11 +259,13 @@ def _vegas_iteration_poly(
     sampling machinery and emits f32 coordinates and weights; the batched
     callable ``f`` is evaluated here in the evaluation type with per-cube
     accumulation in ``dtype``.  On a CPU device 'fused' and 'hybrid' take
-    the kernels' plain versions."""
+    the kernels' plain versions.  ``ncomp`` > 1: a vector integrand on
+    'torch' or 'hybrid', (2, ncomp) sums, the histogram of component 0."""
     ed = eval_dtype or dtype
     f32 = torch.float32
     dev = p_coeffs.device
-    sums = torch.zeros(2, dtype=dtype, device=dev)
+    sums = torch.zeros((2,) + ((ncomp,) if ncomp > 1 else ()), dtype=dtype,
+                       device=dev)
     d = torch.zeros((ndim, nbins), dtype=f32, device=dev)
     pmap = (cuda_vegas.fold_map(p_coeffs, q_coeffs, regn_lo, dx)
             if sampler != "torch" else None)
@@ -266,7 +287,8 @@ def _vegas_iteration_poly(
                 emit_points=True)
             # integrand evaluation in the evaluation type on the emitted
             # dims-major f32 coordinates
-            fx = f(xs.to(ed).T).to(dtype) * (wt.to(dtype) * xjac)
+            fx = _component_major(f(xs.to(ed).T).to(dtype), ncomp) * (
+                wt.to(dtype) * xjac)
             accum = cuda_lookup.hist_accum
         else:
             cube = cube0 + torch.arange(chunk_cubes, dtype=torch.int64,
@@ -285,11 +307,13 @@ def _vegas_iteration_poly(
                 x = regn_lo + rc.to(dtype) * dx
             else:
                 x = regn_lo.to(ed) + rc.to(ed) * dx.to(ed)
-            fx = (f(x).to(dtype) * (xjac * wgt_imp.to(dtype))).reshape(-1)
+            fx = _component_major(f(x).to(dtype), ncomp) * (
+                xjac * wgt_imp.to(dtype))
             if accumulate_hist:
                 ia = torch.clamp((s * nbins).to(torch.int32), 0, nbins - 1)
             accum = cuda_lookup.hist_accum_plain
-        chunk_sums, f2 = _cube_sums(fx.view(chunk_cubes, npg), valid, npg)
+        fx = fx.reshape(-1, chunk_cubes, npg)
+        chunk_sums, f2 = _cube_sums(fx if ncomp > 1 else fx[0], valid, npg)
         sums = sums + chunk_sums
         if accumulate_hist:
             d = accum(d, ia, f2, nbins)
@@ -302,6 +326,8 @@ class VegasState:
     accumulators (si, swgt, schi) -- the analogue of the reference's
     host-resident xi + si/swgt/schi scalars (vegasT.cuh:679-706).
 
+    A vector integrand's run holds (ncomp,) arrays in si, swgt and schi.
+
     ``it0`` counts iterations already folded into the accumulators: a
     resumed run puts ``it0 + it`` into the stream's counter, so
     continuation iterations draw samples INDEPENDENT of the prior run's --
@@ -309,9 +335,9 @@ class VegasState:
     as if they were new information, halving the reported variance for
     free."""
     xi: torch.Tensor
-    si: float = 0.0
-    swgt: float = 0.0
-    schi: float = 0.0
+    si: float | np.ndarray = 0.0
+    swgt: float | np.ndarray = 0.0
+    schi: float | np.ndarray = 0.0
     it0: int = 0
     # iterations actually ACCUMULATED into si/swgt/schi across segments
     # (skip windows excluded): the chi^2/dof denominator on resume
@@ -336,10 +362,11 @@ def _has_kernel_twin(integrand) -> bool:
 
 
 def _resolve_sampler(sampler, importance: str, device_type: str, eval_dtype,
-                     integrand):
+                     integrand, ncomp: int = 1):
     """The sampler a run takes (see ``vegas``): for the grid map None (the
     kernels on the card) or 'torch'; for the poly map one of SAMPLERS,
-    AUTO choosing by device, evaluation type and integrand."""
+    AUTO choosing by device, evaluation type and integrand ('hybrid' for
+    a vector integrand on the card)."""
     if importance == "grid":
         if sampler not in (None, "torch"):
             raise ValueError(
@@ -350,12 +377,18 @@ def _resolve_sampler(sampler, importance: str, device_type: str, eval_dtype,
     if sampler is None:
         if device_type != "cuda":
             return "torch"
-        if eval_dtype == torch.float32 and _has_kernel_twin(integrand):
+        if (eval_dtype == torch.float32 and ncomp == 1
+                and _has_kernel_twin(integrand)):
             return "fused"
         return "hybrid"
     if sampler not in SAMPLERS:
         raise ValueError(
             f"sampler {sampler!r}: 'torch', 'fused' or 'hybrid'")
+    if sampler == "fused" and ncomp > 1:
+        raise ValueError(
+            "sampler='fused' evaluates a scalar integrand inside the CUDA "
+            f"kernel; a vector integrand ({ncomp} components) takes "
+            "sampler='hybrid' (or 'torch')")
     if sampler == "fused" and not _has_kernel_twin(integrand):
         raise NotImplementedError(
             "sampler='fused' evaluates the integrand inside the CUDA "
@@ -431,6 +464,12 @@ def vegas(
     ``eval_cost`` is accepted and ignored: the reference uses it to keep
     one device dispatch under a ceiling of its remote runtime, which has
     no counterpart here.
+
+    A vector integrand (..., ncomp) integrates every component on one
+    sample set, the grid adapted to component 0; the result carries
+    ``estimates``, ``errorests`` and ``probs`` (ncomp,), ``estimate`` and
+    ``errorest`` component 0's, ``chi_sq`` and ``prob`` the largest over
+    the components, and status 0 only when every component passes.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -449,10 +488,7 @@ def vegas(
     if vol is None:
         vol = Volume(ndim=ndim)
     ed = eval_dtype if eval_dtype is not None else dtype
-    try:
-        deduce_ncomp(f, ndim, dtype, dev)
-    except NotImplementedError as e:
-        raise NotImplementedError(f"{e} (ROADMAP A9)") from None
+    ncomp = deduce_ncomp(f, ndim, dtype, dev)
 
     ng, ncubes = compute_ncubes(ncall, ndim)
     npg = samples_per_cube(ncall, ncubes)
@@ -480,6 +516,8 @@ def vegas(
             f"{nbins + 1}) -- pass nbins={st.xi.shape[1] - 1} to match it")
     xi = vgrid.as_numpy(st.xi)          # refined on the host
     si, swgt, schi = st.si, st.swgt, st.schi
+    if ncomp > 1 and np.ndim(si) == 0:
+        si, swgt, schi = np.zeros(ncomp), np.zeros(ncomp), np.zeros(ncomp)
     it_offset = int(st.it0)
     acc_prior = int(st.n_acc)
 
@@ -487,12 +525,13 @@ def vegas(
         importance = "poly"
     if importance not in ("grid", "poly"):
         raise ValueError(f"importance {importance!r}: 'grid' or 'poly'")
-    sampler = _resolve_sampler(sampler, importance, dev.type, ed, integrand)
+    sampler = _resolve_sampler(sampler, importance, dev.type, ed, integrand,
+                               ncomp)
 
     regn_lo = torch.as_tensor(vol.lows, dtype=dtype, device=dev)
     dx = torch.as_tensor(vol.highs - vol.lows, dtype=dtype, device=dev)
     res = IntegrationResult(status=1)
-    tgral = sd = chi2a = 0.0
+    tgral = sd = chi2a = 0.0 if ncomp == 1 else np.zeros(ncomp)
 
     it = 1
     while it <= total_iters and res.status == 1:
@@ -505,21 +544,26 @@ def vegas(
                 adjusting, dtype, seed, stream_it,
                 torch.as_tensor(p_np, dtype=torch.float32, device=dev),
                 torch.as_tensor(q_np, dtype=torch.float32, device=dev),
-                regn_lo, dx, xjac, ncubes, eval_dtype=ed, sampler=sampler)
+                regn_lo, dx, xjac, ncubes, eval_dtype=ed, sampler=sampler,
+                ncomp=ncomp)
         else:
             sums, d = _vegas_iteration(
                 f, ndim, ng, npg, chunk_cubes, num_chunks, nbins, adjusting,
                 dtype, seed, stream_it,
                 torch.as_tensor(xi, dtype=dtype, device=dev), regn_lo, dx,
-                xjac, ncubes, eval_dtype=ed, plain=sampler == "torch")
+                xjac, ncubes, eval_dtype=ed, plain=sampler == "torch",
+                ncomp=ncomp)
         # one D2H read per iteration: [ti, tsi] and, while adjusting, the
         # histogram (f32 -> f64 is exact)
         f64 = torch.float64
-        parts = [sums.to(f64)] + ([d.to(f64).reshape(-1)] if adjusting
-                                  else [])
+        parts = [sums.to(f64).reshape(-1)] + (
+            [d.to(f64).reshape(-1)] if adjusting else [])
         out = torch.cat(parts).cpu().numpy()
-        ti, tsi = float(out[0]), float(out[1])
-        d_np = out[2:].reshape(ndim, nbins) if adjusting else None
+        if ncomp == 1:
+            ti, tsi = float(out[0]), float(out[1])
+        else:
+            ti, tsi = out[:ncomp].copy(), out[ncomp:2 * ncomp].copy()
+        d_np = out[2 * ncomp:].reshape(ndim, nbins) if adjusting else None
         if adjusting:
             # grid refinement on host in exact f64, like the reference's
             # per-iteration xi/d round trip (vegasT.cuh:797-927); ~32 KB
@@ -539,8 +583,11 @@ def vegas(
                 (schi - si * tgral)
                 / max(acc_prior + it - skip_iters - 0.9999, 1e-4), 0.0)
             sd = np.sqrt(1.0 / swgt)
-            res.status = get_status(float(tgral), float(sd), it, epsrel,
-                                    epsabs)
+            # every component must pass (CUBA's multi-component semantics)
+            res.status = max(get_status(float(t), float(e), it, epsrel,
+                                        epsabs)
+                             for t, e in zip(np.atleast_1d(tgral),
+                                             np.atleast_1d(sd)))
         if debug_logger is not None:
             # per-iteration capture (IterDataLogger parity,
             # verbose_utils.cuh:22-181)
@@ -561,10 +608,20 @@ def vegas(
     # of freedom.
     dof = float(st.n_acc - 1)
     chi2_factor = max(float(st.n_acc) - 0.9999, 0.0)
-    res.estimate = float(tgral)
-    res.errorest = float(sd)
-    res.chi_sq = float(chi2a)
-    res.prob = chi2_prob(res.chi_sq * chi2_factor, dof)
+    if ncomp == 1:
+        res.estimate = float(tgral)
+        res.errorest = float(sd)
+        res.chi_sq = float(chi2a)
+        res.prob = chi2_prob(res.chi_sq * chi2_factor, dof)
+    else:
+        res.estimates = np.asarray(tgral, float).copy()
+        res.errorests = np.asarray(sd, float).copy()
+        res.probs = np.asarray([chi2_prob(float(c) * chi2_factor, dof)
+                                for c in np.atleast_1d(chi2a)], float)
+        res.estimate = float(res.estimates[0])
+        res.errorest = float(res.errorests[0])
+        res.chi_sq = float(np.max(chi2a))
+        res.prob = float(np.max(res.probs))
     res.lastPhase = 1 if it > adjust_iters else 0
     return res
 

@@ -44,13 +44,17 @@ strides: ``'cluster'`` (the points of each group of 32 regions split
 across a thread block cluster, streamed by bulk copies through a ring in
 shared memory; ``cluster_plan``, ``cluster_partition``) where a region's
 points or a point's regions lie contiguous, ``'generic'`` (the first
-design) at any strides.
+design) at any strides.  A vector-valued integrand, f: (..., ndim) ->
+(..., ncomp), always takes the split route, and its values (C, feval,
+ncomp) the third contraction, ``'components'`` (``split_contract_components``:
+the generic design over the components, in passes of one 32-byte sector,
+each component summed in the generic kernel's order), at any strides.
 
 ``launches`` counts every launch of the fused kernels since it was last set
 to 0, and ``route_launches`` the same per route; ``split_launches`` counts
 the split route's two kernels, ``'points'`` and ``'contract'``, and
-``contract_route_launches`` the contraction's by route; ``reset_launches()``
-zeroes them all.
+``contract_route_launches`` the contraction's by route (``'cluster'``,
+``'generic'``, ``'components'``); ``reset_launches()`` zeroes them all.
 
 The libraries are compiled with nvcc at first use into ``build/`` beside
 this package, from the package's own sources (ops/cuda_build.py); a failed
@@ -85,7 +89,8 @@ CODE_BITS = 4                   # bits of a (point, axis) code
 # of 1 KB a region's segment or more, two 32 KB stages a CTA so that two
 # CTAs share an SM, and some 224 CTAs, which clusters of up to 8 can keep
 # all resident.
-CONTRACT_ROUTES = ("cluster", "generic")
+CONTRACT_ROUTES = ("cluster", "generic")     # a scalar integrand's values
+COMPONENTS = "components"                   # a vector integrand's values
 CLUSTER_GROUP = 32              # regions of a cluster: one per lane
 CLUSTER_WARPS = 8               # consumer warps of a CTA
 CLUSTER_STAGE_BYTES = 32768     # a stage: 128 f64 or 256 f32 points
@@ -104,7 +109,7 @@ MAX_CLUSTER = 8                 # the portable cluster size
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
 split_launches = {"points": 0, "contract": 0}
-contract_route_launches = {r: 0 for r in CONTRACT_ROUTES}
+contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + (COMPONENTS,)}
 
 
 def reset_launches():
@@ -143,6 +148,11 @@ def _configure_split(lib):
     fn.restype = ctypes.c_int
     fn = lib.rule_split_contract_launch
     fn.argtypes = (head + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    fn = lib.rule_split_contract_comp_launch
+    fn.argtypes = (head + [ctypes.c_int] + [ctypes.c_longlong] * 3
                    + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
@@ -192,13 +202,15 @@ def kernel_params(integrand) -> tuple[int, np.ndarray]:
 # ---------------------------------------------------------------------------
 # Host-side layouts of the tile route
 
-def rule_route(ndim: int, integrand=None) -> str:
+def rule_route(ndim: int, integrand=None, ncomp: int = 1) -> str:
     """The route a pool of this dimension takes: 'split' for an integrand
-    that is not a Genz family (``is_genz_family``); for a Genz family (or
-    no integrand named) 'tile' where the source compiles it, else
-    'generic'.  The working type does not enter: every route is compiled
-    for float64 and float32."""
-    if integrand is not None and not is_genz_family(integrand):
+    that is not a Genz family (``is_genz_family``) and for any vector
+    integrand (``ncomp`` > 1: no fused kernel evaluates one); for a Genz
+    family (or no integrand named) 'tile' where the source compiles it,
+    else 'generic'.  The working type does not enter: every route is
+    compiled for float64 and float32."""
+    if ncomp > 1 or (integrand is not None
+                     and not is_genz_family(integrand)):
         return "split"
     return "tile" if ndim in TILE_NDIMS else "generic"
 
@@ -467,7 +479,9 @@ def cluster_partition(dtype: torch.dtype, ndim: int, count: int,
 def contract_route(dtype: torch.dtype, ndim: int, count: int, feval: int,
                    strides: tuple) -> str:
     """The contraction's route for values (count, feval) of ``dtype`` at
-    ``strides`` (elements): 'cluster' where a region's points lie
+    ``strides`` (elements): 'components' for a vector integrand's values
+    (count, feval, ncomp), three strides, whatever they are; 'cluster'
+    where a region's points lie
     contiguous (rows, sp = 1: what a callable that reduces over the axes
     returns), or a point's regions do (planes, sc = 1: what a per-axis
     callable returns) and a region has CLUSTER_PLANES_FEVAL points or more;
@@ -475,6 +489,8 @@ def contract_route(dtype: torch.dtype, ndim: int, count: int, feval: int,
     16-byte units around each contiguous segment.  Decided from the shape,
     never by trying a launch; named, the cluster route takes any values
     that ``cluster_takes``."""
+    if len(strides) == 3:
+        return COMPONENTS
     if cluster_takes(dtype, ndim, count, feval, strides) and (
             strides[1] == 1 or feval >= CLUSTER_PLANES_FEVAL):
         return "cluster"
@@ -536,6 +552,27 @@ def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
     contract_route_launches[route] += 1
 
 
+def _contract_comp_launch(lib, tables, vals, lengths, global_range, cap, n,
+                          blocked, first, count, est, err, sdim):
+    dtype = vals.dtype
+    _, orbit_wts, scale, norm = rule_eval.device_tables(
+        tables.ndim, dtype, vals.device)
+    ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
+    rc = lib.rule_split_contract_comp_launch(
+        int(dtype == torch.float64), tables.ndim, tables.feval, cap, n,
+        int(bool(blocked)), first, count, vals.shape[2], *vals.stride(),
+        vals.data_ptr(), lengths.data_ptr(), global_range.data_ptr(),
+        orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
+        float(tables.ratio), ctypes.cast(ob, ctypes.c_void_p), est.data_ptr(),
+        err.data_ptr(), sdim.data_ptr(),
+        torch.cuda.current_stream(vals.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA rule contraction kernel ({COMPONENTS} "
+                           f"route) launch failed: error {rc}")
+    split_launches["contract"] += 1
+    contract_route_launches[COMPONENTS] += 1
+
+
 def _check_chunk(cap, n, first, count):
     if not (0 <= first and 1 <= count and first + count <= n <= cap):
         raise ValueError(f"regions {first}..{first + count - 1} of {n} real "
@@ -581,50 +618,92 @@ def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
     return out
 
 
-def _check_vals(vals, count, tables, lows):
+def _check_vals(vals, count, tables, lows, ncomp: int = 1):
     """The values the contraction takes, at any strides (it only reads
-    them): (count, feval) of the pool's type and device."""
-    if (tuple(vals.shape) != (count, tables.feval) or vals.dtype != lows.dtype
+    them): (count, feval), or (count, feval, ncomp) for a vector integrand
+    (``ncomp`` > 1), of the pool's type and device."""
+    shape = (count, tables.feval) + ((ncomp,) if ncomp > 1 else ())
+    if (tuple(vals.shape) != shape or vals.dtype != lows.dtype
             or vals.device != lows.device):
         raise ValueError(
             f"integrand values: need a {lows.dtype} tensor of shape "
-            f"({count}, {tables.feval}) on {lows.device}, got {vals.dtype} "
+            f"{shape} on {lows.device}, got {vals.dtype} "
             f"{tuple(vals.shape)} on {vals.device}")
 
 
-def _zero_outputs(cap, lows):
-    return (torch.zeros(cap, dtype=lows.dtype, device=lows.device),
-            torch.zeros(cap, dtype=lows.dtype, device=lows.device),
+def _zero_outputs(cap, lows, ncomp: int = 1):
+    """Zeroed (est, err, split_dim): (cap,) each, or est and err (ncomp,
+    cap) for a vector integrand (``ncomp`` > 1)."""
+    eshape = (ncomp, cap) if ncomp > 1 else (cap,)
+    return (torch.zeros(eshape, dtype=lows.dtype, device=lows.device),
+            torch.zeros(eshape, dtype=lows.dtype, device=lows.device),
             torch.zeros(cap, dtype=torch.int32, device=lows.device))
+
+
+def split_contract_components(vals, tables: rule_eval.RuleTables, lows,
+                              lengths, global_lo, global_range, first: int, *,
+                              n: int | None = None, blocked: bool = False,
+                              out=None):
+    """One launch of the components kernel: est and err (ncomp, cap) and
+    split_dim (cap,) of real regions first .. first + C - 1 from a vector
+    integrand's values ``vals`` (C, feval, ncomp > 1) at any strides, written
+    at their slots of ``out`` (new zeroed tensors when None), which it
+    returns.  What ``rule_eval.rule_outputs_vector`` computes; component k
+    bit for bit what ``split_contract(vals[..., k], route='generic')``
+    gives."""
+    cap, n = _check_pool("split_contract_components", tables, lows, lengths,
+                         global_lo, global_range, n, blocked)
+    count, ncomp = vals.shape[::2] if vals.dim() == 3 else (0, 0)
+    _check_chunk(cap, n, first, count)
+    if ncomp < 2:
+        raise ValueError(f"integrand values: need a vector's (count, "
+                         f"{tables.feval}, ncomp > 1), got "
+                         f"{tuple(vals.shape)}")
+    _check_vals(vals, count, tables, lows, ncomp)
+    if out is None:
+        out = _zero_outputs(cap, lows, ncomp)
+    _contract_comp_launch(cuda_build.load(_SPLIT_SOURCE, _configure_split),
+                          tables, vals, lengths, global_range, cap, n,
+                          blocked, first, count, *out)
+    return out
 
 
 def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
                           lengths, global_lo, global_range, *,
                           chunk_size: int | None = None,
                           n: int | None = None, blocked: bool = False,
-                          route: str | None = None):
+                          route: str | None = None, ncomp: int = 1):
     """The split route over the ``n`` real regions of a CUDA pool (all of
     it when ``n`` is None), ``chunk_size`` regions at a time
     (``split_chunks``): the points kernel, ``integrand`` (any form ``make_integrand`` takes) on
-    the (C, feval, ndim) points, its values cast to the pool's type, the
-    contraction kernel.  Arguments and outputs as
-    ``rule_eval.apply_rule_plain``: (estimate (cap,), errorest (cap,),
-    split_dim (cap,) int32), zeros in the padding slots.  ``route`` names
-    the contraction's route for every chunk, as ``split_contract``'s
-    does (None: ``contract_route``'s for each)."""
+    the (C, feval, ndim) points, its values cast to the pool's type (no
+    copy where they have it), the contraction kernel.  Arguments and
+    outputs as ``rule_eval.apply_rule_plain``: (estimate, errorest,
+    split_dim (cap,) int32), zeros in the padding slots; estimate and
+    errorest (cap,), or (ncomp, cap) for a vector integrand (``ncomp`` >
+    1), whose values (C, feval, ncomp) take the components kernel.
+    ``route`` names a scalar contraction's route for every chunk, as
+    ``split_contract``'s does (None: ``contract_route``'s for each)."""
     cap, n = _check_pool("cuda_apply_rule_split", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
+    if ncomp > 1 and route not in (None, COMPONENTS):
+        raise ValueError(f"a vector integrand's values take the "
+                         f"{COMPONENTS!r} contraction, not {route!r}")
     batched, _ = make_integrand(integrand, tables.ndim)
     lib = cuda_build.load(_SPLIT_SOURCE, _configure_split)
-    out = _zero_outputs(cap, lows)
+    out = _zero_outputs(cap, lows, ncomp)
     for first, count in split_chunks(n, chunk_size):
         x = _points_launch(lib, tables, lows, lengths, global_lo,
                            global_range, cap, n, blocked, first, count)
         vals = batched(x).to(lows.dtype)
         del x
-        _check_vals(vals, count, tables, lows)
-        _contract_launch(lib, tables, vals, lengths, global_range,
-                         cap, n, blocked, first, count, *out, route=route)
+        _check_vals(vals, count, tables, lows, ncomp)
+        if ncomp > 1:
+            _contract_comp_launch(lib, tables, vals, lengths, global_range,
+                                  cap, n, blocked, first, count, *out)
+        else:
+            _contract_launch(lib, tables, vals, lengths, global_range,
+                             cap, n, blocked, first, count, *out, route=route)
     return out
 
 

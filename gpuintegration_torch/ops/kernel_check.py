@@ -34,6 +34,13 @@ are EQUAL too; est and err are held to the limits above (only the orbit
 sums are taken in another order); split_dim is read against the same
 near-tie rule, and its exact agreement is counted
 (``check_split_against_plain``).
+
+The components contraction (a vector integrand's values, ``cuda_rule.
+split_contract_components``) is read the same way component by component
+against ``rule_eval.rule_outputs_vector``: each component's est and err in
+ulps of its own rounding scales, the gate's ties resolved as above; its
+split_dim, one axis from all components' fourth differences, must be
+EQUAL in every region (``check_components``).
 """
 from __future__ import annotations
 
@@ -231,6 +238,38 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
 def _joined(parts, device):
     return {key: torch.cat([q[key] for q in parts]) if parts
             else torch.zeros(0, device=device) for key in READINGS}
+
+
+def check_components(kernel, plain, vals, u, tables: rule_eval.RuleTables,
+                     lengths, global_range, *, name: str = "integrand"):
+    """The components contraction's (est (ncomp, C), err (ncomp, C),
+    split_dim (C,)) against ``plain``, ``rule_eval.rule_outputs_vector``'s,
+    on C regions whose values are ``vals`` (C, feval, ncomp), with rounding
+    scales ``u`` of the same shape (``value_scales`` of each component, or
+    |vals| for values that no coordinate's rounding reaches): split_dim
+    EQUAL in every region, and each component's est and err by ``judge``.
+    Raises AssertionError on a disagreement; returns the worst readings
+    over the components."""
+    differ = int((kernel[2] != plain[2]).sum())
+    if differ:
+        raise AssertionError(f"{name}: split_dim differs from the plain "
+                             f"version's in {differ} of {plain[2].numel()} "
+                             "regions")
+    worst = {"regions": plain[2].numel(), "ncomp": vals.shape[-1],
+             "max_abs_est": 0.0, "est_ulps": 0.0, "err_ulps": 0.0,
+             "err_ulps_without_gate_ties": 0.0, "gate_ties": 0,
+             "split_dim_equal": plain[2].numel()}
+    for k in range(vals.shape[-1]):
+        r = judge(region_readings(
+            (kernel[0][k], kernel[1][k], plain[2]),
+            (plain[0][k], plain[1][k], plain[2]), vals[..., k], u[..., k],
+            tables, lengths, global_range),
+            name=f"{name} component {k}", dtype=vals.dtype)
+        for key in ("max_abs_est", "est_ulps", "err_ulps",
+                    "err_ulps_without_gate_ties"):
+            worst[key] = max(worst[key], r[key])
+        worst["gate_ties"] += r["gate_ties"]
+    return worst
 
 
 def same_bits(a, b) -> bool:

@@ -16,9 +16,11 @@ PyTorch version here (``apply_rule_plain``), a CUDA pool the hand-written
 kernels (``ops/cuda_rule.py``) or raises.  On the card the integrand
 chooses the route (``cuda_rule.rule_route``): a Genz family F1..F6
 (``models.genz``) is fused into the tile or generic kernel; any other
-callable takes the split route, a points kernel, the callable on the
-points as torch operations, and a contraction kernel, chunk by chunk.  The
-split kernels' plain versions are ``rule_points`` and ``rule_outputs``.  A
+callable, and every vector-valued one, takes the split route, a points
+kernel, the callable on the points as torch operations, and a contraction
+kernel, chunk by chunk.  The split kernels' plain versions are
+``rule_points`` and ``rule_outputs`` (``rule_outputs_vector`` for a
+vector).  A
 caller that wants the plain version on the card calls ``apply_rule_plain``
 itself (``Workspace(rule_backend="torch")``).
 """
@@ -168,36 +170,64 @@ def gate_errors(errs):
         _ERRCOEFF[2] * torch.maximum(torch.maximum(e1, e2), e3))
 
 
+def split_axis(fourth, lengths):
+    """The bisection axis of C regions from their fourth differences (C,
+    ndim): the reference's strict '>' scan from maxdiff=0 with fallback to
+    the widest dimension, so when every diff is 0 (or the max is NaN) the
+    widest dim is used; otherwise first-argmax wins (Sample.cuh:202-218)."""
+    widest = torch.argmax(lengths, dim=0).to(torch.int32)
+    best = torch.argmax(fourth, dim=1).to(torch.int32)
+    any_positive = torch.amax(fourth, dim=1) > 0
+    return torch.where(any_positive, best, widest)
+
+
 def rule_outputs(vals, tables: RuleTables, lengths, global_range,
                  by_orbit=None):
     """(estimate, errorest, split_dim) of C regions from their rule values
     (and, where given, their orbit sums ``by_orbit`` taken in another
     order)."""
     sums = rule_sums(vals, tables, global_range, by_orbit)
-
-    # Reference semantics: strict '>' scan from maxdiff=0 with fallback to
-    # the widest dimension, so when every diff is 0 (or the max is NaN)
-    # the widest dim is used; otherwise first-argmax wins
-    # (Sample.cuh:202-218).
-    fourth = fourth_differences(vals, tables.ndim, tables.ratio)
-    widest = torch.argmax(lengths, dim=0).to(torch.int32)
-    best = torch.argmax(fourth, dim=1).to(torch.int32)
-    any_positive = torch.amax(fourth, dim=1) > 0
-    split_dim = torch.where(any_positive, best, widest)
-
+    split_dim = split_axis(
+        fourth_differences(vals, tables.ndim, tables.ratio), lengths)
     gated = gate_errors(null_errors(sums, tables))
     vol = torch.prod(lengths, dim=0)                         # unit-space volume
     return vol * sums[:, 0], vol * gated, split_dim
 
 
-def _eval_chunk(f, tables, lows, lengths, global_lo, global_range):
+def rule_outputs_vector(vals, tables: RuleTables, lengths, global_range):
+    """The vector-valued twin of ``rule_outputs`` (the reference's
+    ``_eval_chunk_vector``): ``vals`` (C, feval, ncomp), the ncomp
+    components of one point set.  Per component exactly ``rule_outputs``'
+    arithmetic; the bisection axis from the component-wise maximum of the
+    fourth differences, a NaN in any component propagating (torch.amax),
+    so that it then falls back to the widest axis.
+
+    Returns (estimate (ncomp, C), errorest (ncomp, C), split_dim (C,))."""
+    # component-major once, each component's (C, feval) plane contiguous
+    # as a scalar integrand's values are
+    planes = vals.movedim(-1, 0).contiguous()
+    ests, errs, fourth = [], [], []
+    for v in planes:
+        sums = rule_sums(v, tables, global_range)
+        ests.append(sums[:, 0])
+        errs.append(gate_errors(null_errors(sums, tables)))
+        fourth.append(fourth_differences(v, tables.ndim, tables.ratio))
+    split_dim = split_axis(torch.amax(torch.stack(fourth), dim=0), lengths)
+    vol = torch.prod(lengths, dim=0)
+    return vol * torch.stack(ests), vol * torch.stack(errs), split_dim
+
+
+def _eval_chunk(f, tables, lows, lengths, global_lo, global_range, ncomp=1):
     vals = rule_values(f, tables, lows, lengths, global_lo, global_range)
-    return rule_outputs(vals, tables, lengths, global_range)
+    if ncomp == 1:
+        return rule_outputs(vals, tables, lengths, global_range)
+    return rule_outputs_vector(vals, tables, lengths, global_range)
 
 
 def apply_rule_plain(f: Callable, tables: RuleTables, lows, lengths,
                      global_lo, global_range, *, chunk_size: int | None = None,
-                     n: int | None = None, blocked: bool = False):
+                     n: int | None = None, blocked: bool = False,
+                     ncomp: int = 1):
     """The plain PyTorch rule evaluation over a dims-major pool.
 
     ``lows``/``lengths``: (ndim, cap).  ``n``: number of real regions
@@ -205,9 +235,11 @@ def apply_rule_plain(f: Callable, tables: RuleTables, lows, lengths,
     (region_pool.block_mask).  Only the real slots are evaluated, in
     chunks of at most ``chunk_size`` regions to bound the (chunk, feval,
     ndim) intermediate; padding slots get est = err = 0 and split_dim 0.
-    ``f`` is the user integrand (any form make_integrand accepts).
+    ``f`` is the user integrand (any form make_integrand accepts);
+    ``ncomp`` > 1: it returns (..., ncomp) (``rule_outputs_vector``).
 
-    Returns (estimate (cap,), errorest (cap,), split_dim (cap,) int32)."""
+    Returns (estimate, errorest, split_dim (cap,) int32): estimate and
+    errorest (cap,), or component-major (ncomp, cap) for a vector."""
     batched, _ = make_integrand(f, tables.ndim)
     cap = lows.shape[1]
     if n is None or n >= cap:
@@ -225,38 +257,41 @@ def apply_rule_plain(f: Callable, tables: RuleTables, lows, lengths,
             sel = idx[start:start + step]
             lo, ln = lows[:, sel], lengths[:, sel]
         outs.append(_eval_chunk(batched, tables, lo, ln, global_lo,
-                                global_range))
+                                global_range, ncomp))
+    eshape = (cap,) if ncomp == 1 else (ncomp, cap)
     if not outs:
-        est = err = torch.zeros(0, dtype=lows.dtype, device=lows.device)
+        est = err = torch.zeros(eshape[:-1] + (0,), dtype=lows.dtype,
+                                device=lows.device)
         sdim = torch.zeros(0, dtype=torch.int32, device=lows.device)
     else:
-        est, err, sdim = (torch.cat(o) for o in zip(*outs))
+        est, err, sdim = (torch.cat(o, dim=-1) for o in zip(*outs))
     if idx is None:
         return est, err, sdim
-    full = (torch.zeros(cap, dtype=lows.dtype, device=lows.device),
-            torch.zeros(cap, dtype=lows.dtype, device=lows.device),
+    full = (torch.zeros(eshape, dtype=lows.dtype, device=lows.device),
+            torch.zeros(eshape, dtype=lows.dtype, device=lows.device),
             torch.zeros(cap, dtype=torch.int32, device=lows.device))
-    full[0][idx] = est
-    full[1][idx] = err
+    full[0][..., idx] = est
+    full[1][..., idx] = err
     full[2][idx] = sdim
     return full
 
 
 def apply_rule(f: Callable, tables: RuleTables, lows, lengths,
                global_lo, global_range, *, chunk_size: int | None = None,
-               n: int | None = None, blocked: bool = False):
+               n: int | None = None, blocked: bool = False, ncomp: int = 1):
     """Rule evaluation over the pool: the plain version for a CPU pool; for
     any other pool the CUDA kernels of the route ``cuda_rule.rule_route``
     gives the integrand (the split route walks the pool ``chunk_size``
-    regions at a time).  Arguments and outputs as ``apply_rule_plain``."""
+    regions at a time; a vector integrand always takes it).  Arguments and
+    outputs as ``apply_rule_plain``."""
     if lows.device.type == "cpu":
         return apply_rule_plain(f, tables, lows, lengths, global_lo,
                                 global_range, chunk_size=chunk_size, n=n,
-                                blocked=blocked)
+                                blocked=blocked, ncomp=ncomp)
     from gpuintegration_torch.ops import cuda_rule
-    if cuda_rule.rule_route(tables.ndim, f) == "split":
+    if cuda_rule.rule_route(tables.ndim, f, ncomp) == "split":
         return cuda_rule.cuda_apply_rule_split(
             f, tables, lows, lengths, global_lo, global_range,
-            chunk_size=chunk_size, n=n, blocked=blocked)
+            chunk_size=chunk_size, n=n, blocked=blocked, ncomp=ncomp)
     return cuda_rule.cuda_apply_rule(f, tables, lows, lengths, global_lo,
                                      global_range, n=n, blocked=blocked)

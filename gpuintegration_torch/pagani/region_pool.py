@@ -72,7 +72,9 @@ def compact(active, lows, lengths, split_dim, estimates, errorests, *,
     cumsum of the flags); no host sync is needed.  Padding slots
     [n_active, out_capacity) replicate the input pool's slot 0, so they
     hold finite bounds.  The surviving regions' estimates become the next
-    iteration's parents (alignRegions:39-40).
+    iteration's parents (alignRegions:39-40).  ``estimates`` and
+    ``errorests`` are (cap,), or a vector integrand's (ncomp, cap),
+    moved component-major alike.
 
     Returns (new_lows, new_lengths, new_split_dim, parent_estimates,
     parent_errorests)."""
@@ -93,8 +95,11 @@ def compact(active, lows, lengths, split_dim, estimates, errorests, *,
     new_lows = move(lows)
     new_lengths = move(lengths)
     new_split = move(split_dim[None])[0]
-    parent_est = move(estimates[None])[0]
-    parent_err = move(errorests[None])[0]
+    if estimates.dim() == 2:
+        parent_est, parent_err = move(estimates), move(errorests)
+    else:
+        parent_est = move(estimates[None])[0]
+        parent_err = move(errorests[None])[0]
     return new_lows, new_lengths, new_split, parent_est, parent_err
 
 

@@ -1,4 +1,4 @@
-"""PAGANI adaptive cubature (PyTorch port of the scalar host loop of
+"""PAGANI adaptive cubature (PyTorch port of the host loops of
 ``gpuintegration_tpu/pagani/workspace.py``; Workspace.cuh:148-358):
 
   for it < 700 while regions remain:
@@ -15,10 +15,16 @@ with the same capacity rules as the reference, so that the two packages'
 pools compare slot for slot.  On the card the rule evaluation is the CUDA
 kernels of ops/cuda_rule.py; everything else is plain PyTorch.
 
+A vector-valued integrand, f: (..., ndim) -> (..., ncomp), runs the
+reference's vector host loop (``_integrate_vector``): one point set and one
+region tree, a region finished only when every component meets its
+tolerance, the bisection axis from all components' fourth differences,
+classification and rollback keyed on the worst component.
+
 ``integrate_to_convergence`` carries deep tolerances past one run's pool
 wall: checkpoint-resume rounds, then a partitioned continuation over
 hottest-first slices of the survivors (reference
-``gpuintegration_tpu/pagani/workspace.py:1909-2367``, scalar only).
+``gpuintegration_tpu/pagani/workspace.py:1909-2367``), scalar or vector.
 """
 from __future__ import annotations
 
@@ -72,34 +78,83 @@ def iteration_math(
 
     Returns (est, refined, active, scalars) with ``scalars`` one f64
     tensor [iter_est, iter_err, finished_est, finished_err, n_active], so
-    the host reads every per-iteration number in one transfer."""
-    cap = est.shape[0]
+    the host reads every per-iteration number in one transfer: the
+    one-component case of ``iteration_math_vector``."""
+    est, refined, active, scalars = iteration_math_vector(
+        relerr_classification, blocked, est[None], err[None], n,
+        parent_estimates[None], use_refine, epsrel, lengths=lengths,
+        abs_per_vol=abs_per_vol)
+    return est[0], refined[0], active, scalars
+
+
+def iteration_math_vector(
+    relerr_classification: bool,
+    blocked: bool,
+    est, err, n: int,     # est/err: (ncomp, cap) component-major
+    parent_estimates,     # (ncomp, cap_parent)
+    use_refine: bool,
+    epsrel,
+    lengths=None,
+    abs_per_vol=None,
+):
+    """The vector twin of ``iteration_math``: per-component masking,
+    two-level refinement (all-components finished semantics) and the
+    iteration/finished reductions.
+
+    Returns (est, refined, active, scalars) with ``scalars`` one f64
+    tensor [iter_est (ncomp), iter_err (ncomp), finished_est (ncomp),
+    finished_err (ncomp), n_active], the host's one transfer a sweep."""
+    cap = est.shape[1]
     mask = region_pool.block_mask(cap, n, blocked, est.device)
     zero = torch.zeros_like(est)
-    est = torch.where(mask, est, zero)
-    err = torch.where(mask, err, zero)
+    est = torch.where(mask[None], est, zero)
+    err = torch.where(mask[None], err, zero)
     if use_refine:
         volumes = (torch.prod(lengths, dim=0)
                    if abs_per_vol is not None else None)
-        refined, active = two_level.refine_error(
+        refined, active = two_level.refine_error_vector(
             est, err, parent_estimates, n, epsrel,
             relerr_classification=relerr_classification,
             volumes=volumes, abs_per_vol=abs_per_vol)
     else:
         refined, active = err, mask.to(est.dtype)
-
-    iter_est = torch.sum(est)
-    iter_err = torch.sum(refined)
-    finished_est = iter_est - torch.sum(active * est)
-    finished_err = iter_err - torch.sum(active * refined)
-    # count in f64: an f32 sum of 0/1 flags is even-rounded above 2^24
-    # regions, which would corrupt the pool-bound arithmetic downstream
-    n_active = torch.sum(active.to(torch.float64))
-    scalars = torch.stack([iter_est.to(torch.float64),
-                           iter_err.to(torch.float64),
-                           finished_est.to(torch.float64),
-                           finished_err.to(torch.float64), n_active])
+    # each component reduced as iteration_math reduces a scalar run's
+    # (cap,) arrays, so that [f, f] gives f's numbers bit for bit
+    iter_est = torch.stack([torch.sum(e) for e in est])
+    iter_err = torch.stack([torch.sum(r) for r in refined])
+    finished_est = iter_est - torch.stack([torch.sum(active * e) for e in est])
+    finished_err = iter_err - torch.stack([torch.sum(active * r)
+                                           for r in refined])
+    n_active = torch.sum(active.to(torch.float64))   # see iteration_math
+    f64 = torch.float64
+    scalars = torch.cat([iter_est.to(f64), iter_err.to(f64),
+                         finished_est.to(f64), finished_err.to(f64),
+                         n_active[None]])
     return est, refined, active, scalars
+
+
+def _max_over_components(refined):
+    """Per-region worst-component error profile for the classifier."""
+    return torch.amax(refined, dim=0)
+
+
+def _arr(x) -> np.ndarray:
+    """A ledger value, scalar or (ncomp,), as a (ncomp,) f64 array."""
+    return np.atleast_1d(np.asarray(x, np.float64))
+
+
+def _ests(res) -> np.ndarray:
+    """A result's estimates as a (ncomp,) array (ncomp = 1: a scalar's)."""
+    return _arr(res.estimate if res.estimates is None else res.estimates)
+
+
+def _errs(res) -> np.ndarray:
+    return _arr(res.errorest if res.errorests is None else res.errorests)
+
+
+def _worst_err(res) -> float:
+    """The no-progress guard's error: a vector's worst component."""
+    return float(np.max(_errs(res)))
 
 
 def _resolve_device(device) -> torch.device:
@@ -176,12 +231,12 @@ class Workspace:
         self.peak_capacity = 0
 
     def _eval_pool(self, integrand, tables, lows, lengths, global_lo,
-                   global_range, n: int, blocked: bool):
+                   global_range, n: int, blocked: bool, ncomp: int = 1):
         apply = (rule_eval.apply_rule_plain if self.rule_backend == "torch"
                  else rule_eval.apply_rule)
         return apply(integrand, tables, lows, lengths, global_lo,
                      global_range, chunk_size=self.chunk_size, n=n,
-                     blocked=blocked)
+                     blocked=blocked, ncomp=ncomp)
 
     def integrate(
         self,
@@ -209,7 +264,11 @@ class Workspace:
         ``initial_regions``: (lows, lengths) region-major (n, ndim) arrays
         to start from instead of the uniform split (resume).
         ``ledger``: (estimate, errorest, nregions, iters, neval) seed of the
-        cumulative ledger; ``max_iterations`` then counts on top of it.
+        cumulative ledger; ``max_iterations`` then counts on top of it.  A
+        vector integrand (..., ncomp) needs a vector ledger, (ncomp,)
+        estimate and errorest, and its result carries ``estimates`` and
+        ``errorests`` (ncomp,), ``estimate``/``errorest`` mirroring
+        component 0 (``_integrate_vector``).
         ``deadline``: ``time.monotonic()`` stamp; the loop stops between
         iterations once it passes (status 1).
         ``finish_epsrel_scale``: per-region retirement and the classifier
@@ -244,7 +303,11 @@ class Workspace:
         f, f_ndim = make_integrand(integrand, ndim)
         if f_ndim != ndim:
             raise ValueError(f"integrand ndim {f_ndim} != workspace {ndim}")
-        deduce_ncomp(f, ndim, dtype, device)  # raises for vector integrands
+        ncomp = deduce_ncomp(f, ndim, dtype, device)
+        if ncomp > 1 and ledger is not None and np.ndim(ledger[0]) != 1:
+            raise ValueError(
+                "vector runs need a vector ledger: ((ncomp,) est, (ncomp,) "
+                "err, nregions, iters, neval)")
         if vol is None:
             vol = Volume(ndim=ndim)
         global_lo = torch.as_tensor(vol.lows, dtype=dtype, device=device)
@@ -272,10 +335,15 @@ class Workspace:
             lows, lengths, n = region_pool.uniform_split(
                 ndim, parts, cap, dtype, device)
 
+        apv = finish_abs_per_vol if finish_abs_per_vol > 0.0 else None
+        if ncomp > 1:
+            return self._integrate_vector(
+                integrand, ncomp, epsrel, epsabs, eps_work, apv, global_lo,
+                global_range, tables, lows, lengths, n, cap,
+                relerr_classification, max_iterations, ledger, deadline)
         parent_est = torch.zeros((max(cap // 2, 1),), dtype=dtype,
                                  device=device)
         use_refine = False
-        apv = finish_abs_per_vol if finish_abs_per_vol > 0.0 else None
 
         classifier = HeuristicClassifier(eps_work, epsabs,
                                          self.max_pool_regions)
@@ -410,6 +478,184 @@ class Workspace:
         cum.nregions = result_nregions + n
         return cum
 
+    def _integrate_vector(
+        self, integrand, ncomp, epsrel, epsabs, eps_work, apv, global_lo,
+        global_range, tables, lows, lengths, n, cap, relerr_classification,
+        max_iterations, ledger, deadline,
+    ) -> IntegrationResult:
+        """The adaptive loop of a vector-valued integrand, f: (..., ndim) ->
+        (..., ncomp) (the reference's ``_integrate_vector`` host loop,
+        Workspace.cuh:148-358 generalised): every component shares one
+        point set and one region tree; a region is finished only when
+        EVERY component meets its tolerance; the bisection axis takes the
+        largest fourth difference over the components; the run converges
+        when every component's cumulative error passes (cubacpp's
+        all-components semantics, integrand_traits.hh:81-93).  The
+        classifier and the error-budget rollback key on the WORST
+        component.  Called by ``integrate`` on its initial pool."""
+        dtype, device = self.dtype, self.device
+        parent_est = torch.zeros((ncomp, max(cap // 2, 1)), dtype=dtype,
+                                 device=device)
+        use_refine = False
+        classifier = HeuristicClassifier(eps_work, epsabs,
+                                         self.max_pool_regions)
+        feval = tables.feval
+
+        cum = IntegrationResult(status=1)
+        cum_est = np.zeros(ncomp)
+        cum_err = np.zeros(ncomp)
+        result_nregions = 0
+        if ledger is not None:
+            est_seed, err_seed, result_nregions, it_seed, nev_seed = ledger
+            cum_est = np.asarray(est_seed, np.float64).copy()
+            cum_err = np.asarray(err_seed, np.float64).copy()
+            if cum_est.shape != (ncomp,) or cum_err.shape != (ncomp,):
+                raise ValueError(
+                    f"vector ledger est/err must have shape ({ncomp},)")
+            cum.iters = int(it_seed)
+            cum.neval = int(nev_seed)
+            cum.nFinishedRegions = result_nregions
+            max_iterations = max_iterations + cum.iters
+        blocked = False
+        inflight_est = np.zeros(ncomp)
+        inflight_err = np.zeros(ncomp)
+        exhausted = False
+
+        def all_accuracy(ests, errs):
+            return all(accuracy_reached(epsrel, epsabs, abs(e), r)
+                       for e, r in zip(ests, errs))
+
+        it = cum.iters
+        while True:
+            if it >= max_iterations or (
+                    deadline is not None and time.monotonic() >= deadline):
+                exhausted = True
+                break
+            if n <= 0:
+                break
+
+            self.peak_capacity = max(self.peak_capacity, cap)
+            est_raw, err_raw, sdim = self._eval_pool(
+                integrand, tables, lows, lengths, global_lo, global_range,
+                n, blocked, ncomp)
+            est, refined, active, scalars_d = iteration_math_vector(
+                relerr_classification, blocked, est_raw, err_raw, n,
+                parent_est, use_refine, eps_work,
+                lengths=None if apv is None else lengths, abs_per_vol=apv)
+            # the live pool and this sweep's per-region component arrays,
+            # for checkpoints; the ledger EXCLUDES this sweep
+            self.final_pool = (lows, lengths, n, blocked)
+            self.final_pool_errors = (est, refined)
+            self._ledger_excl_pool = (cum_est.copy(), cum_err.copy(),
+                                      result_nregions, cum.iters, cum.neval)
+            scalars = scalars_d.cpu().numpy()      # one transfer a sweep
+            iter_est = scalars[0:ncomp]
+            iter_err = scalars[ncomp:2 * ncomp]
+            finished_est = scalars[2 * ncomp:3 * ncomp]
+            finished_err = scalars[3 * ncomp:4 * ncomp]
+            n_active = int(scalars[4 * ncomp])
+            cum.iters += 1
+            cum.neval += n * feval
+
+            if all_accuracy(cum_est + iter_est, cum_err + iter_err):
+                cum_est = cum_est + iter_est
+                cum_err = cum_err + iter_err
+                cum.status = 0
+                cum.nregions = result_nregions + n
+                break
+
+            # the worst component (largest relative error) drives the
+            # classification: its estimate sets the ladder's budget scale
+            w = int(np.argmax((cum_err + iter_err)
+                              / np.maximum(np.abs(cum_est + iter_est),
+                                           1e-300)))
+            classifier.store_estimate(float(cum_est[w] + iter_est[w]))
+
+            # rollback when ANY component's banked error would overflow its
+            # budget max(epsrel*|est|, epsabs) (Workspace.cuh:121-146)
+            if any(ce + fe > max(abs(le) * epsrel, epsabs)
+                   for ce, fe, le in zip(cum_err, finished_err,
+                                         cum_est + iter_est)):
+                active = region_pool.block_mask(cap, n, blocked,
+                                                device).to(dtype)
+                finished_est = np.zeros(ncomp)
+                finished_err = np.zeros(ncomp)
+                n_active = n
+
+            classification_necessary = not classifier.split_fits(n)
+            if classifier.classification_criteria_met(n):
+                hs = classifier.classify_ladder(
+                    _max_over_components(refined),
+                    region_pool.block_mask(cap, n, blocked, device), n,
+                    float(iter_err[w]), float(finished_err[w]),
+                    float(cum_err[w]))
+                success = hs.pass_mem and hs.pass_errorest_budget
+                if success:
+                    flags = hs.active_flags
+                    kept = torch.stack(
+                        [torch.sum(flags * e) for e in est]
+                        + [torch.sum(flags * r) for r in refined]
+                    ).to(torch.float64).cpu().numpy()
+                    cand_est = iter_est - kept[:ncomp]
+                    cand_err = iter_err - kept[ncomp:]
+                    # per-component budget guard: the ladder's budget test
+                    # keys on the worst component only; every component's
+                    # banked error must stay inside its own
+                    # max(eps_work*|est|, epsabs), as a scalar run's does
+                    targets = np.maximum(
+                        np.abs(cum_est + iter_est) * eps_work, epsabs)
+                    if np.all(cum_err + cand_err <= targets):
+                        active = flags
+                        finished_est = cand_est
+                        finished_err = cand_err
+                        n_active = hs.num_active
+                    else:
+                        success = False
+                must_terminate = not success and classification_necessary
+            else:
+                must_terminate = classification_necessary
+
+            if must_terminate:
+                cum_est = cum_est + iter_est
+                cum_err = cum_err + iter_err
+                cum.nregions = result_nregions + n
+                break
+
+            cum_est = cum_est + finished_est
+            cum_err = cum_err + finished_err
+            inflight_est = iter_est - finished_est
+            inflight_err = iter_err - finished_err
+
+            result_nregions += n - n_active
+            cum.nFinishedRegions += n - n_active
+            if n_active == 0:
+                cum.nregions = result_nregions
+                break
+
+            child_cap = max(region_pool.next_pow2(2 * n_active),
+                            self.chunk_size)
+            c_lows, c_lengths, c_sdim, parent_est, _ = region_pool.compact(
+                active, lows, lengths, sdim, est, refined,
+                out_capacity=child_cap // 2)
+            lows, lengths, n = region_pool.split(
+                c_lows, c_lengths, c_sdim, n_active, out_capacity=child_cap)
+            cap = child_cap
+            use_refine = True
+            blocked = True
+            it += 1
+
+        if exhausted and cum.iters > 0:
+            cum_est = cum_est + inflight_est
+            cum_err = cum_err + inflight_err
+            cum.nregions = result_nregions + n
+        elif cum.nregions == 0:
+            cum.nregions = result_nregions + max(n, 0)
+        cum.estimates = cum_est
+        cum.errorests = cum_err
+        cum.estimate = float(cum_est[0])
+        cum.errorest = float(cum_err[0])
+        return cum
+
     def integrate_to_convergence(
         self,
         integrand: Callable,
@@ -425,7 +671,7 @@ class Workspace:
         **kw,
     ) -> IntegrationResult:
         """``integrate`` with checkpoint-resume continuation (the
-        reference's, for scalar integrands on one device).
+        reference's, on one device).
 
         A single ``integrate`` ends with status 1 at the pool wall or the
         iteration budget.  Each further round resumes the surviving
@@ -451,7 +697,10 @@ class Workspace:
         with the same path resumes its queue exactly, and certification
         removes the file.  ``kw`` goes to ``integrate``; ``fused``,
         ``crease_split``, ``vegas_assisted`` and ``predict_split`` raise as
-        there, vector integrands raise (ROADMAP A9).
+        there.  A vector integrand continues the same way on (ncomp,)
+        ledgers and (n, ncomp) stashes: slices sorted by each region's
+        worst component, every component banked and certified, the
+        no-progress guard on the worst component.
         """
         for name in ("fused", "predict_split", "vegas_assisted",
                      "crease_split"):
@@ -507,14 +756,15 @@ class Workspace:
                     max_rounds - rounds, deadline,
                     min_err_reduction=min_err_reduction,
                     stage_timer=stage_timer, state_path=state_path, **kw)
-            prev_err = res.errorest
+            prev_err = _worst_err(res)
             with stage(f"resume_round{rounds + 1}"):
                 res = self.integrate(
                     integrand, epsrel, epsabs, vol,
                     initial_regions=(ckpt.lows, ckpt.lengths),
                     ledger=ckpt.ledger, deadline=deadline, **kw)
             rounds += 1
-            if res.status == 1 and res.errorest > min_err_reduction * prev_err:
+            if (res.status == 1
+                    and _worst_err(res) > min_err_reduction * prev_err):
                 break   # no meaningful progress
         if (state_path is not None and res.status == 1
                 and self.final_pool is not None):
@@ -526,11 +776,13 @@ class Workspace:
                 self.final_pool_errors = None
                 work = self._make_slices(
                     ckpt.lows, ckpt.lengths, ckpt.region_estimates,
-                    ckpt.region_errorests, res.estimate - ckpt.estimate,
-                    res.errorest - ckpt.errorest, self._slice_cap(), 0)
+                    ckpt.region_errorests,
+                    _ests(res) - _arr(ckpt.estimate),
+                    _errs(res) - _arr(ckpt.errorest), self._slice_cap(), 0)
                 ContinuationState.from_queue(
-                    work, ckpt.estimate, ckpt.errorest, ckpt.iters,
-                    ckpt.neval, ckpt.nregions, ckpt.nregions, False, epsrel,
+                    work, _arr(ckpt.estimate), _arr(ckpt.errorest),
+                    ckpt.iters, ckpt.neval, ckpt.nregions, ckpt.nregions,
+                    np.ndim(ckpt.estimate) == 1, epsrel,
                     epsabs).save(state_path)
         return res
 
@@ -544,20 +796,27 @@ class Workspace:
         """Cut survivors into slices of <= cap regions, COLDEST FIRST so
         ``work.pop()`` takes the hottest: (lows, lengths, s_est, s_err,
         depth, exact).  With per-region arrays the survivors are sorted by
-        refined error (``np.argsort``, as the reference sorts) and each
-        slice carries its exact stored sums; without them the pool order
-        is kept and the in-flight totals are apportioned by region count,
-        flagged inexact so the global certificate never fires off them."""
+        refined error (``np.argsort``, as the reference sorts; a vector
+        stash (n, ncomp) by each region's worst component) and each slice
+        carries its exact stored sums, (ncomp,) arrays for a vector;
+        without them the pool order is kept and the in-flight totals are
+        apportioned by region count, flagged inexact so the global
+        certificate never fires off them."""
         n = lows.shape[0]
         if n == 0:
             return []
         if reg_err is not None:
-            order = np.argsort(reg_err)            # ascending: hot at end
+            key = reg_err if reg_err.ndim == 1 else reg_err.max(axis=1)
+            order = np.argsort(key)                # ascending: hot at end
             lows, lengths = lows[order], lengths[order]
             reg_est, reg_err = reg_est[order], reg_err[order]
-            return [(lows[i:i + cap], lengths[i:i + cap],
-                     float(reg_est[i:i + cap].sum(axis=0)),
-                     float(reg_err[i:i + cap].sum(axis=0)), depth, True)
+
+            def total(a, i):
+                t = a[i:i + cap].sum(axis=0)
+                return float(t) if np.ndim(t) == 0 else t
+
+            return [(lows[i:i + cap], lengths[i:i + cap], total(reg_est, i),
+                     total(reg_err, i), depth, True)
                     for i in range(0, n, cap)]
         return [(lows[i:i + cap], lengths[i:i + cap],
                  tot_est * min(cap, n - i) / n,
@@ -570,7 +829,7 @@ class Workspace:
         stage_timer=None, state_path=None, resume_state=None, **kw,
     ) -> IntegrationResult:
         """Divide-and-conquer continuation for split-starved pools (the
-        reference's, scalar).
+        reference's, scalar or vector).
 
         The survivors (``ckpt``, or the queue of ``resume_state``) are
         sorted by refined error and sliced (``_make_slices``); slices run
@@ -586,7 +845,12 @@ class Workspace:
         the bank alone exceeds the best budget any refinement could reach,
         after ``max(64 * rounds_left, 4 * slices)`` slice runs, or at the
         deadline.  The result folds in the untouched queue's stored sums,
-        so its estimate is the whole integral either way."""
+        so its estimate is the whole integral either way.
+
+        The ledger arithmetic runs on (ncomp,) f64 arrays, ncomp = 1 for a
+        scalar integrand: a vector slice takes its tolerances from the
+        worst component (largest relative error) while every component is
+        banked and certified."""
 
         def stage(name):
             return (stage_timer.stage(name) if stage_timer is not None
@@ -595,31 +859,34 @@ class Workspace:
         slice_cap = self._slice_cap()
         max_depth = 12
         if resume_state is not None:
-            work = resume_state.to_queue()   # raises for a vector state
-            fin_est = float(resume_state.fin_est[0])
-            fin_err = float(resume_state.fin_err[0])
+            vec = resume_state.vec
+            work = resume_state.to_queue()
+            fin_est = resume_state.fin_est.copy()
+            fin_err = resume_state.fin_err.copy()
             iters, neval = resume_state.iters, resume_state.neval
             nregions = resume_state.nregions
             nfinished = resume_state.nfinished
         else:
-            fin_est, fin_err = float(ckpt.estimate), float(ckpt.errorest)
+            vec = np.ndim(ckpt.estimate) == 1
+            fin_est = _arr(ckpt.estimate).copy()
+            fin_err = _arr(ckpt.errorest).copy()
             iters, neval = ckpt.iters, ckpt.neval
             nregions = nfinished = ckpt.nregions
             work = self._make_slices(
                 ckpt.lows, ckpt.lengths, ckpt.region_estimates,
-                ckpt.region_errorests, last_res.estimate - fin_est,
-                last_res.errorest - fin_err, slice_cap, 0)
+                ckpt.region_errorests, _ests(last_res) - fin_est,
+                _errs(last_res) - fin_err, slice_cap, 0)
 
         def qsum(col):
-            return sum((w[col] for w in work), 0.0)
+            return sum((_arr(w[col]) for w in work), np.zeros_like(fin_est))
 
         max_runs = max(64 * rounds_left, 4 * len(work))
         runs = 0
         status = 1
         while True:
             q_est, q_err = qsum(2), qsum(3)
-            budget = max(epsrel * abs(fin_est + q_est), epsabs)
-            if all(w[5] for w in work) and fin_err + q_err <= budget:
+            budget = np.maximum(epsrel * np.abs(fin_est + q_est), epsabs)
+            if all(w[5] for w in work) and np.all(fin_err + q_err <= budget):
                 status = 0               # certified: banked + exact queue
                 break
             if not work or runs >= max_runs or (
@@ -628,23 +895,29 @@ class Workspace:
             # what the slices' natural exits would bank, and the best
             # budget any refinement of the queue could reach
             projected = fin_err + sum(
-                (min(w[3], max(epsrel * abs(w[2]), epsabs)) for w in work),
-                0.0)
-            best_budget = max(epsrel * (abs(fin_est + q_est) + q_err),
-                              epsabs)
-            if fin_err > best_budget:
+                (np.minimum(_arr(w[3]),
+                            np.maximum(epsrel * np.abs(_arr(w[2])), epsabs))
+                 for w in work), np.zeros_like(fin_est))
+            best_budget = np.maximum(
+                epsrel * (np.abs(fin_est + q_est) + q_err), epsabs)
+            if np.any(fin_err > best_budget):
                 break                    # the bank alone is uncertifiable
-            lows_i, lengths_i, s_est_i, s_err_i, depth, exact = work.pop()
-            needed = budget - fin_err
+            lows_i, lengths_i, s_est_w, s_err_w, depth, exact = work.pop()
+            s_est_i, s_err_i = _arr(s_est_w), _arr(s_err_w)
+            # the worst component sets this slice's tolerances
+            wc = int(np.argmax((fin_err + q_err)
+                               / np.maximum(np.abs(fin_est + q_est), 1e-300)))
+            needed = budget[wc] - fin_err[wc]
             eps_rel_i, eps_abs_i, kw_i = epsrel, epsabs, kw
-            if projected > budget and needed > 0 and q_err > 0 \
-                    and s_err_i > 0:
+            if np.any(projected > budget) and needed > 0 \
+                    and q_err[wc] > 0 and s_err_i[wc] > 0:
                 # this slice's share of the remaining budget; an inexact
                 # slice's stored estimate is a uniform share, so it gets a
                 # purely absolute target
-                share = 0.8 * (needed / q_err) * s_err_i
+                share = 0.8 * (needed / q_err[wc]) * s_err_i[wc]
                 vol_i = float(np.prod(lengths_i, axis=1).sum())
-                eps_rel_i = (min(epsrel, share / max(abs(s_est_i), 1e-300))
+                eps_rel_i = (min(epsrel,
+                                 share / max(abs(s_est_i[wc]), 1e-300))
                              if exact else 0.0)
                 eps_abs_i = share
                 kw_i = dict(kw)
@@ -658,7 +931,7 @@ class Workspace:
             if r_i.iters == 0:
                 # the deadline passed before the slice's first sweep: it
                 # goes back to the queue untouched
-                work.append((lows_i, lengths_i, s_est_i, s_err_i, depth,
+                work.append((lows_i, lengths_i, s_est_w, s_err_w, depth,
                              exact))
                 break
             runs += 1
@@ -669,29 +942,31 @@ class Workspace:
                 ck_i = self.make_checkpoint()
                 self.final_pool = None
                 self.final_pool_errors = None
-                new_err = float(ck_i.errorest) + float(
+                new_err = _arr(ck_i.errorest) + _arr(
                     ck_i.region_errorests.sum(axis=0))
                 if ck_i.lows.shape[0] > 0 and \
-                        new_err < min_err_reduction * s_err_i:
+                        np.max(new_err) < min_err_reduction * np.max(s_err_i):
                     # progress: bank the finished ledger and re-queue the
                     # survivors one level deeper.  ck_i.nregions counts the
                     # regions retired before the final sweep, whose pool
                     # is re-queued whole
-                    fin_est += float(ck_i.estimate)
-                    fin_err += float(ck_i.errorest)
+                    fin_est += _arr(ck_i.estimate)
+                    fin_err += _arr(ck_i.errorest)
                     nregions += ck_i.nregions
                     nfinished += ck_i.nregions
                     sub = self._make_slices(
                         ck_i.lows, ck_i.lengths, ck_i.region_estimates,
                         ck_i.region_errorests,
-                        r_i.estimate - ck_i.estimate,
-                        r_i.errorest - ck_i.errorest, slice_cap, depth + 1)
+                        _ests(r_i) - _arr(ck_i.estimate),
+                        _errs(r_i) - _arr(ck_i.errorest), slice_cap,
+                        depth + 1)
                     work.extend(sub)
-                    work.sort(key=lambda w: w[3])   # hottest at the end
+                    # hottest at the end
+                    work.sort(key=lambda w: float(np.max(w[3])))
                     requeued = len(sub)
             if not requeued:
-                fin_est += r_i.estimate
-                fin_err += r_i.errorest
+                fin_est += _ests(r_i)
+                fin_err += _errs(r_i)
                 nregions += r_i.nregions
                 nfinished += r_i.nFinishedRegions
         if state_path is not None:
@@ -702,14 +977,18 @@ class Workspace:
             else:
                 ContinuationState.from_queue(
                     work, fin_est, fin_err, iters, neval, nregions,
-                    nfinished, False, epsrel, epsabs).save(state_path)
+                    nfinished, vec, epsrel, epsabs).save(state_path)
         # the untouched queue's stored sums make the estimate the whole
         # integral either way
-        return IntegrationResult(
-            estimate=fin_est + qsum(2), errorest=fin_err + qsum(3),
+        total_est, total_err = fin_est + qsum(2), fin_err + qsum(3)
+        res = IntegrationResult(
+            estimate=float(total_est[0]), errorest=float(total_err[0]),
             status=status, iters=iters, neval=neval,
             nregions=nregions + sum(w[0].shape[0] for w in work),
             nFinishedRegions=nfinished)
+        if vec:
+            res.estimates, res.errorests = total_est, total_err
+        return res
 
     def make_checkpoint(self):
         """The last run's live pool and ledger as a resumable

@@ -49,7 +49,8 @@ class PaganiCheckpoint:
     pool's own sweep (resuming re-evaluates the pool: the complete integral
     is ``ckpt.estimate + resumed.estimate``).  ``region_estimates`` and
     ``region_errorests`` are that sweep per region, in pool order, where
-    the run kept them."""
+    the run kept them.  A vector integrand's run stores (ncomp,) ledgers
+    and (n, ncomp) region arrays, as the JAX package's file does."""
 
     lows: np.ndarray
     lengths: np.ndarray
@@ -92,10 +93,6 @@ class PaganiCheckpoint:
                                      if "region_errorests" in z else None))
 
 
-_NO_VECTOR = ("a vector integrand's continuation state: vector integrands "
-              "are not ported to gpuintegration_torch yet (ROADMAP A9)")
-
-
 @dataclasses.dataclass
 class ContinuationState:
     """Disk-resumable state of ``Workspace._partitioned_continuation``: the
@@ -104,20 +101,21 @@ class ContinuationState:
     the same global test it would have reached in one sitting.
 
     The queue is stored flattened: region blocks concatenated with
-    per-slice counts, per-slice stored (est, err) sums as (nw, 1) arrays,
-    depth and exactness flags (an inexact slice carries apportioned totals
-    that the global certificate must never fire off).  The fields and their
-    npz names are the JAX package's; this port runs scalar integrands
-    only, so ``vec`` is False in every state it writes, and
-    ``Workspace.integrate_to_convergence`` refuses a vector state."""
+    per-slice counts, per-slice stored (est, err) sums as (nw, ncomp)
+    arrays (ncomp = 1 for a scalar integrand), depth and exactness flags
+    (an inexact slice carries apportioned totals that the global
+    certificate must never fire off).  The fields and their npz names are
+    the JAX package's, so a state crosses between the packages both
+    ways."""
 
-    fin_est: np.ndarray       # (1,) banked ledger (f64)
-    fin_err: np.ndarray       # (1,)
+    fin_est: np.ndarray       # (ncomp,) banked ledger (f64)
+    fin_err: np.ndarray       # (ncomp,)
     iters: int
     neval: int
     nregions: int
     nfinished: int
-    vec: bool                 # a vector-integrand run's state
+    vec: bool                 # a vector-integrand run's state (its result
+                              #   carries estimates/errorests)
     epsrel: float             # the tolerances the state was built under,
     epsabs: float             #   checked on resume
     work_lows: np.ndarray     # (sum n_i, ndim) concatenated slice blocks
@@ -125,8 +123,8 @@ class ContinuationState:
     work_counts: np.ndarray   # (nw,) regions per slice, in queue order
                               #   (coldest first: the queue pops the
                               #   hottest from its end)
-    work_est: np.ndarray      # (nw, 1) stored slice estimate sums
-    work_err: np.ndarray      # (nw, 1)
+    work_est: np.ndarray      # (nw, ncomp) stored slice estimate sums
+    work_err: np.ndarray      # (nw, ncomp)
     work_depth: np.ndarray    # (nw,) int
     work_exact: np.ndarray    # (nw,) bool
 
@@ -135,10 +133,12 @@ class ContinuationState:
                    nregions, nfinished, vec, epsrel, epsabs
                    ) -> "ContinuationState":
         """Package the live queue, a list of (lows, lengths, s_est, s_err,
-        depth, exact) in queue order, and the scalar banked ledger (the JAX
-        package's signature; ``vec`` must be False)."""
-        if vec:
-            raise NotImplementedError(_NO_VECTOR)
+        depth, exact) in queue order, and the banked ledger (floats for a
+        scalar run, (ncomp,) arrays for a vector one; the JAX package's
+        signature)."""
+        fin_est = np.atleast_1d(np.asarray(fin_est, np.float64)).copy()
+        fin_err = np.atleast_1d(np.asarray(fin_err, np.float64)).copy()
+        ncomp = fin_est.shape[0]
         ndim = work[0][0].shape[1] if work else 0
 
         def cat(i):
@@ -146,14 +146,14 @@ class ContinuationState:
                     if work else np.zeros((0, ndim)))
 
         def sums(i):
-            return np.array([float(w[i]) for w in work],
-                            np.float64).reshape(len(work), 1)
+            return np.array([np.atleast_1d(np.asarray(w[i], np.float64))
+                             for w in work],
+                            np.float64).reshape(len(work), ncomp)
 
         return cls(
-            fin_est=np.array([float(fin_est)]),
-            fin_err=np.array([float(fin_err)]),
+            fin_est=fin_est, fin_err=fin_err,
             iters=int(iters), neval=int(neval), nregions=int(nregions),
-            nfinished=int(nfinished), vec=False,
+            nfinished=int(nfinished), vec=bool(vec),
             epsrel=float(epsrel), epsabs=float(epsabs),
             work_lows=cat(0), work_lengths=cat(1),
             work_counts=np.array([w[0].shape[0] for w in work], np.int64),
@@ -162,15 +162,15 @@ class ContinuationState:
             work_exact=np.array([w[5] for w in work], bool))
 
     def to_queue(self) -> list:
-        """The live queue list (queue order preserved), its stored sums as
-        floats.  NotImplementedError for a vector run's state."""
-        if self.vec:
-            raise NotImplementedError(_NO_VECTOR)
+        """The live queue list (queue order preserved): its stored sums as
+        floats for a scalar run, (ncomp,) arrays for a vector one."""
         out, off = [], 0
         for i, n in enumerate(self.work_counts.tolist()):
+            est, err = self.work_est[i], self.work_err[i]
+            if not self.vec:
+                est, err = float(est[0]), float(err[0])
             out.append((self.work_lows[off:off + n],
-                        self.work_lengths[off:off + n],
-                        float(self.work_est[i][0]), float(self.work_err[i][0]),
+                        self.work_lengths[off:off + n], est, err,
                         int(self.work_depth[i]), bool(self.work_exact[i])))
             off += n
         return out

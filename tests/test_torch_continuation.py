@@ -213,8 +213,9 @@ def test_whole_pool_exit_saves_a_state_that_resumes(tmp_path):
 
 
 def test_continuation_state_files_cross_and_refuse_vectors(tmp_path):
-    """A queue round-trips exactly, the port's file loads in the JAX
-    package, and a vector queue is refused naming its ROADMAP item."""
+    """A queue round-trips exactly and the port's file loads in the JAX
+    package; a vector queue, which the port refused before it took vector
+    integrands, now crosses both ways with its (nw, ncomp) sums."""
     rng = np.random.default_rng(3)
     work = [(rng.random((5, 3)), rng.random((5, 3)), 1.5, 0.25, 0, True),
             (rng.random((2, 3)), rng.random((2, 3)), -0.5, 0.125, 2, False)]
@@ -231,16 +232,25 @@ def test_continuation_state_files_cross_and_refuse_vectors(tmp_path):
             assert a[2:] == tuple(b[2:])
         assert (back.iters, back.neval, back.nregions, back.nfinished) == (
             7, 1000, 64, 60)
-    vec = jck.ContinuationState.from_queue(
-        [(rng.random((4, 2)), rng.random((4, 2)), np.array([1.0, 2.0]),
-          np.array([0.1, 0.2]), 1, True)], np.array([3.0, 4.0]),
-        np.array([0.3, 0.4]), 1, 10, 8, 8, True, 1e-5, 1e-40)
-    vec.save(str(tmp_path / "vec"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        ContinuationState.load(tmp_path / "vec").to_queue()
-    with pytest.raises(NotImplementedError, match="A9"):
-        ContinuationState.from_queue([], 0.0, 0.0, 0, 0, 0, 0, True, 1e-5,
-                                     1e-40)
+    vwork = [(rng.random((4, 2)), rng.random((4, 2)), np.array([1.0, 2.0]),
+              np.array([0.1, 0.2]), 1, True)]
+    args = (np.array([3.0, 4.0]), np.array([0.3, 0.4]), 1, 10, 8, 8, True,
+            1e-5, 1e-40)
+    jck.ContinuationState.from_queue(vwork, *args).save(str(tmp_path / "j"))
+    ContinuationState.from_queue(vwork, *args).save(tmp_path / "p")
+    for back in (ContinuationState.load(tmp_path / "j"),
+                 jck.ContinuationState.load(str(tmp_path / "p"))):
+        assert back.vec and back.work_est.shape == (1, 2)
+        np.testing.assert_array_equal(back.fin_est, args[0])
+        (lo, ln, e, r, depth, exact), = back.to_queue()
+        np.testing.assert_array_equal(lo, vwork[0][0])
+        np.testing.assert_array_equal(ln, vwork[0][1])
+        np.testing.assert_array_equal(e, vwork[0][2])
+        np.testing.assert_array_equal(r, vwork[0][3])
+        assert (depth, exact) == (1, True)
+    assert ContinuationState.from_queue([], np.zeros(2), np.zeros(2), 0, 0,
+                                        0, 0, True, 1e-5,
+                                        1e-40).work_est.shape == (0, 2)
 
 
 def test_stage_timer_adds_up_stages(monkeypatch):
@@ -269,8 +279,16 @@ def test_continuation_refuses_what_is_not_ported():
     for name in ("fused", "crease_split", "vegas_assisted"):
         with pytest.raises(NotImplementedError, match=name):
             ws.integrate_to_convergence(g, **{name: True})
-    with pytest.raises(NotImplementedError, match="A9"):
-        ws.integrate_to_convergence(
-            lambda x: torch.stack([x[..., 0], x[..., 1]], dim=-1))
+
+    def vector(x):
+        return torch.stack([x[..., 0], x[..., 1]], dim=-1)
+
+    # a vector integrand's continuation runs (both closed forms are 1/2),
+    # and refuses the unported options as a scalar one does
+    r = ws.integrate_to_convergence(vector, epsrel=1e-6)
+    assert r.status == 0 and np.allclose(r.estimates, 0.5, rtol=1e-12)
+    for name in ("fused", "crease_split", "vegas_assisted"):
+        with pytest.raises(NotImplementedError, match=name):
+            ws.integrate_to_convergence(vector, **{name: True})
     with pytest.raises(NotImplementedError, match="A16"):
         Workspace(3, device="cpu", mesh=object())

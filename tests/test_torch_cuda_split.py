@@ -147,8 +147,8 @@ def test_cluster_contraction_matches_plain_on_card(ndim, dtype):
             f, tables, *t, n=n, blocked=blocked, chunk_size=chunk,
             min_agree=0.0, route="cluster")
         chunks = len(cuda_rule.split_chunks(n, chunk))
-        assert cuda_rule.contract_route_launches == {"cluster": chunks,
-                                                     "generic": 0}
+        assert cuda_rule.contract_route_launches == {
+            "cluster": chunks, "generic": 0, "components": 0}
         assert r["regions"] == n and r["split_dim_equal"] == n
         g = cuda_rule.cuda_apply_rule_split(f, tables, *t, n=n,
                                             blocked=blocked,
@@ -222,4 +222,5 @@ def test_cluster_contraction_refusals_raise_on_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cluster route"):
         cuda_rule.split_contract(_values(ndim, count, torch.float64, "rows"),
                                  tables, *t, 0)
-    assert cuda_rule.contract_route_launches == {"cluster": 0, "generic": 0}
+    assert cuda_rule.contract_route_launches == {"cluster": 0, "generic": 0,
+                                                 "components": 0}

@@ -43,12 +43,14 @@ def _meta_pool(ndim=3, cap=8):
 def test_device_pool_goes_to_the_split_route(monkeypatch):
     """A callable on a pool that is not on the CPU (a meta tensor stands in
     for the card) is handed to the split wrapper with the chunk, the count
-    of real regions and the layout; a Genz family to the fused one."""
+    of real regions, the layout and its components; a Genz family to the
+    fused one, unless it is one of a vector's components."""
     calls = []
 
     def fake_split(f, tables, lows, lengths, gl, gr, *, chunk_size, n,
-                   blocked):
-        calls.append(("split", lows.device.type, chunk_size, n, blocked))
+                   blocked, ncomp):
+        calls.append(("split", lows.device.type, chunk_size, n, blocked,
+                      ncomp))
         return "split"
 
     def fake_fused(f, tables, lows, lengths, gl, gr, *, n, blocked):
@@ -65,8 +67,12 @@ def test_device_pool_goes_to_the_split_route(monkeypatch):
                                 chunk_size=2, n=8) == "split"
     assert rule_eval.apply_rule(genz.f3_corner_peak(3), tables,
                                 *_meta_pool(), chunk_size=2, n=8) == "fused"
-    assert calls == [("split", "meta", 4, 6, True),
-                     ("split", "meta", 2, 8, False), ("fused", 8, False)]
+    assert rule_eval.apply_rule(genz.f3_corner_peak(3), tables,
+                                *_meta_pool(), chunk_size=2, n=8,
+                                ncomp=2) == "split"
+    assert calls == [("split", "meta", 4, 6, True, 1),
+                     ("split", "meta", 2, 8, False, 1), ("fused", 8, False),
+                     ("split", "meta", 2, 8, False, 2)]
 
 
 @pytest.mark.parametrize("cap,n,blocked,chunk", [

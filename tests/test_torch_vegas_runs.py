@@ -386,8 +386,13 @@ def test_refusals(monkeypatch):
     def vector(x):
         return torch.stack([x.sum(-1), x.prod(-1)], dim=-1)
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        mcubes.integrate(vector, ndim=3, **kw)
+    # a vector integrand runs (each component's closed form, 3/2 and 1/8),
+    # but not in the sampler that evaluates a scalar inside the kernel
+    r = mcubes.integrate(vector, ndim=3, total_iters=6, **kw)
+    assert r.estimates.shape == r.errorests.shape == r.probs.shape == (2,)
+    assert np.all(np.abs(r.estimates - [1.5, 0.125]) <= 5 * r.errorests)
+    with pytest.raises(ValueError, match="sampler='hybrid'"):
+        mcubes.integrate(vector, ndim=3, sampler="fused", **kw)
     with pytest.raises(NotImplementedError, match="sampler='hybrid'"):
         mcubes.integrate(lambda x, y: x * y, sampler="fused", **kw)
     with pytest.raises(ValueError, match="nbins must be >= 2"):

@@ -169,9 +169,17 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         Workspace(3, device="cpu", mesh=object())
 
-    with pytest.raises(NotImplementedError, match="vector"):
-        Workspace(2, device="cpu").integrate(lambda x, y: torch.stack(
-            [x, y], dim=-1))
+    # a vector integrand runs (each component's closed form is 1/2), and
+    # the unported options still refuse it as they refuse a scalar one
+    r = Workspace(2, device="cpu").integrate(
+        lambda x, y: torch.stack([x, y], dim=-1), epsrel=1e-6)
+    assert r.status == 0 and r.estimates.shape == (2,)
+    assert np.allclose(r.estimates, 0.5, rtol=1e-12)
+    for option in ("fused", "predict_split", "vegas_assisted",
+                   "crease_split"):
+        with pytest.raises(NotImplementedError, match=option):
+            Workspace(2, device="cpu").integrate(
+                lambda x, y: torch.stack([x, y], dim=-1), **{option: True})
     with pytest.raises(ValueError, match="positional"):
         Workspace(2, device="cpu").integrate(lambda x, y, z: x)
     with pytest.raises(ValueError, match="rank-0"):
