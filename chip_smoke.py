@@ -134,27 +134,35 @@ timed beside the others in the same run.
    that continuation stopped before its first slice, saved
    (``state_path``) and resumed from the file, which must give the
    uninterrupted run's estimate, errorest and neval;
-   phase 9 also holds the components contraction (a vector integrand's
-   values, ``cuda_rule.split_contract_components``) against
+   phase 9 also holds a vector integrand's two contraction routes
+   (``cuda_rule.split_contract_components``: 'components_cluster' where
+   the values lie component-minor, 'components' at any strides) against
    ``rule_eval.rule_outputs_vector`` at COMPONENT_CASES (8D and 12D at the
    Workspace's chunks, 3D odd counts, f64 and f32, 2, 3, 4 and 8
    components, values component-minor and component-major, a NaN region):
-   est/err by kernel_check's limits, split_dim EQUAL, each component bit for
-   bit the generic scalar route's on its plane, two launches the same bits;
-   phase 10 times it at the 8D and 12D f64 chunks of four components beside
-   its bound, rule_outputs_vector, torch.matmul (the sums only) and four
-   cluster-route launches on a component-major copy;
+   contract_route's choice, est/err by kernel_check's limits, split_dim
+   EQUAL, each component bit for bit the scalar route's on its plane (the
+   cluster route's for 'components_cluster', the generic route's for
+   'components'), two launches the same bits; phase 10 times both in turns
+   at the 8D and 12D f64 chunks of four components beside their bound,
+   rule_outputs_vector, torch.matmul (the sums only) and four cluster-route
+   launches on a component-major copy;
 13. PAGANI's vector main path: ``Workspace(8).integrate`` of the
    reference's four vector families as one callable (F1 with coefficients
    1/2, F2 and F4 at a = 5, F5; ``tools/vector_probe.py``) at
    ``VEC8_EPSREL`` (status 0, every component within epsrel and 5
    errorests of its closed form, every rule evaluation through the points
-   kernel and the components contraction, CUDA events for the shares);
-   [sin_sum(8), sin_sum(8)] at 1e-11 against the scalar run (the same
-   decisions, both components equal, the estimate within 1e-12, the final
-   pool's first chunk held by kernel_check through both contractions); the
-   vector continuation at ``VCONT`` (slices, status 0, and a
-   stop-save-resume that must give the same bits);
+   kernel and the components cluster contraction, CUDA events for the
+   shares), then the same run traced by torch.profiler once on each vector
+   route (the contraction's device time a launch in situ, the device's
+   idle share); [sin_sum(8), sin_sum(8)] at 1e-11 against the scalar run
+   (the same decisions, both components equal, the estimate within 1e-12,
+   the final pool's first chunk held by kernel_check through both
+   contractions); [sin_sum(12)] x 4 at ``SIN12_EPSREL`` against phase 11's
+   scalar run (the same iterations, regions and neval, every contraction on
+   the components cluster route); the vector continuation at ``VCONT``
+   (slices, status 0, and a stop-save-resume that must give the same
+   bits);
 14. vector VEGAS at run 1's settings on [F4 a=25, F4 a=20] (AUTO must take
    'hybrid'; B2 emit and B3 launched), the grid map (B4 and B3), and [g, g]
    against the scalar run of g: the same iterations, the final grid EQUAL,
@@ -169,6 +177,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1569,7 +1578,7 @@ class SplitEvents:
         def counted(lib, tables, vals, *rest, **kw):
             self.named[cuda_rule.contract_route(
                 vals.dtype, tables.ndim, vals.shape[0], tables.feval,
-                vals.stride())] += 1
+                vals.stride(), vals.shape[2] if vals.dim() == 3 else 1)] += 1
             return launch(lib, tables, vals, *rest, **kw)
         return counted
 
@@ -1642,8 +1651,9 @@ def events_run(label, ws, f, epsrel, truth, phase="phase 11"):
     print(f"{phase}: {label}: the wall by CUDA events around each launch "
           f"and call (they cost host time of their own): points kernel "
           f"{parts['points']:.4f} s, the callable {parts['callable']:.4f} s, "
-          f"contraction kernel {parts['contract']:.4f} s, the rest (pool "
-          f"stages, host) {rest:.4f} s = "
+          f"contraction kernel {parts['contract']:.4f} s "
+          f"({1e3 * parts['contract'] / max(launches['contract'], 1):.4f} ms "
+          f"a launch), the rest (pool stages, host) {rest:.4f} s = "
           f"{100 * parts['points'] / wall:.1f} / "
           f"{100 * parts['callable'] / wall:.1f} / "
           f"{100 * parts['contract'] / wall:.1f} / {100 * rest / wall:.1f} %",
@@ -1668,8 +1678,8 @@ def split_main_path(dev, tile_run):
     every rule evaluation through the split route, CUDA events around each
     kernel launch and each call of the callable, beside phase 3's run;
     then ``misc.sin_sum(12)`` the same way, and ``misc.sin_sum(8)`` at
-    1e-11.  Returns the split kernels' launches on the first run and the
-    contraction's by route."""
+    1e-11.  Returns the split kernels' launches on the first run, the
+    contraction's by route, and the 12D run's result."""
     g4 = genz.f4_gaussian(NDIM)
     res, launches, routes = events_run(
         f"f64 {NDIM}D F4 as a plain callable", Workspace(NDIM), f4_plain,
@@ -1685,8 +1695,8 @@ def split_main_path(dev, tile_run):
              "should take the cluster route")
 
     g12 = misc.sin_sum(12)
-    events_run("f64 12D sin_sum (models.misc)", Workspace(12), g12,
-               SIN12_EPSREL, g12.true_value)
+    sin12, _, _ = events_run("f64 12D sin_sum (models.misc)", Workspace(12),
+                             g12, SIN12_EPSREL, g12.true_value)
 
     g = misc.sin_sum(NDIM)
     cuda_rule.reset_launches()
@@ -1705,7 +1715,7 @@ def split_main_path(dev, tile_run):
     if res.status != 0 or not rel <= SIN_SUM_EPSREL or cuda_rule.launches \
             or not cuda_rule.split_launches["points"]:
         fail(f"sin_sum main path: status {res.status}, rel.err {rel}")
-    return launches, routes
+    return launches, routes, sin12
 
 
 CONT_POOL = 1 << 22      # a pool budget at which 8D F4's round 1 walls
@@ -1833,15 +1843,24 @@ def vector_values(ndim, count, dtype, ncomp, layout, dev, seed=8):
     return v if layout == "minor" else v.movedim(0, -1)
 
 
+# The scalar route whose bits each component of a vector's route keeps on
+# the component's contiguous plane.
+PLANE_ROUTE = {cuda_rule.COMPONENTS_CLUSTER: "cluster",
+               cuda_rule.COMPONENTS: "generic"}
+
+
 def components_check(label, ndim, count, dtype, ncomp, layout, dev,
                      nan=False):
-    """The components contraction alone on ``vector_values`` against
-    rule_eval.rule_outputs_vector (kernel_check.check_components: est/err
-    of each component by kernel_check's limits, split_dim EQUAL); each
-    component bit for bit the generic scalar route's on its plane; two
-    launches the same bits; contract_route names 'components'.  With
-    ``nan`` one component of region 7 holds a NaN, which must make the
-    widest axis its split axis.  Returns the largest |d est|."""
+    """A vector's contractions alone on ``vector_values``: contract_route
+    names 'components_cluster' for component-minor values and 'components'
+    for component-major ones; each route that takes the values (both,
+    component-minor) against rule_eval.rule_outputs_vector
+    (kernel_check.check_components: est/err of each component by
+    kernel_check's limits, split_dim EQUAL), each component bit for bit
+    the scalar route's on its contiguous plane (PLANE_ROUTE), two launches
+    the same bits, counted on that route.  With ``nan`` one component of
+    region 7 holds a NaN, which must make the widest axis its split axis.
+    Returns the largest |d est| by route."""
     tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
     lows, lengths = random_pool(ndim, count, 9, dtype, dev)
     gl = torch.zeros(ndim, dtype=dtype, device=dev)
@@ -1850,58 +1869,71 @@ def components_check(label, ndim, count, dtype, ncomp, layout, dev,
     if nan:
         vals[7, 2 + 2 * ndim, ncomp - 1] = float("nan")
     named = cuda_rule.contract_route(dtype, ndim, count, tables.feval,
-                                     vals.stride())
-    cuda_rule.reset_launches()
-    a, b = (cuda_rule.split_contract_components(vals, tables, lows, lengths,
-                                                gl, gr, 0) for _ in range(2))
-    torch.cuda.synchronize()
-    launched = dict(cuda_rule.contract_route_launches)
-    same = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-               for x, y in zip(a, b))
+                                     vals.stride(), ncomp)
+    want = (cuda_rule.COMPONENTS_CLUSTER if layout == "minor"
+            else cuda_rule.COMPONENTS)
+    if named != want:
+        fail(f"components {label}: contract_route names {named}, not {want}")
     plain = rule_eval.rule_outputs_vector(vals, tables, lengths, gr)
-    try:
-        r = kernel_check.check_components(a, plain, vals, vals.abs(), tables,
-                                          lengths, gr, name=label)
-    except AssertionError as e:
-        fail(str(e))
-    generic_bits = True
-    for k in range(ncomp):
-        e, rr, _ = cuda_rule.split_contract(vals[..., k], tables, lows,
-                                            lengths, gl, gr, 0,
-                                            route="generic")
-        generic_bits &= (torch.equal(a[0][k].view(torch.uint8),
-                                     e.view(torch.uint8))
-                         and torch.equal(a[1][k].view(torch.uint8),
-                                         rr.view(torch.uint8)))
-    widest = int(torch.argmax(lengths[:, 7]))
-    nan_note = (f"; NaN region: est {float(a[0][ncomp - 1][7])}, split_dim "
-                f"{int(a[2][7])} (plain {int(plain[2][7])}, widest axis "
-                f"{widest})" if nan else "")
-    print(f"phase 9: components {label}, {count} x {tables.feval} x "
-          f"{ncomp} ({layout}, strides {tuple(vals.stride())}): est "
-          f"{r['est_ulps']:.3g}, err {r['err_ulps']:.3g} ulps beyond rtol "
-          f"(limits {kernel_check.ULPS['est']:g}/{kernel_check.ULPS['err']:g}"
-          f"; {r['gate_ties']} gate ties); split_dim EQUAL in "
-          f"{r['split_dim_equal']} of {count}; each component bit for bit "
-          f"the generic scalar route's: {generic_bits}; two launches the "
-          f"same bits: {same}; contract_route names {named}; launches "
-          f"{launched}{nan_note}", flush=True)
-    if not (same and generic_bits and named == cuda_rule.COMPONENTS
-            and launched == {"cluster": 0, "generic": 0, "components": 2}):
-        fail(f"components {label}: disagrees")
-    if nan and not (int(a[2][7]) == int(plain[2][7]) == widest
-                    and math.isnan(float(a[0][ncomp - 1][7]))):
-        fail(f"components {label}: the NaN region does not take the widest "
-             "axis")
-    return r["max_abs_est"]
+    planes = [vals[..., k].contiguous() for k in range(ncomp)]
+    worst = {}
+    for route in cuda_rule.VECTOR_ROUTES[cuda_rule.VECTOR_ROUTES.index(
+            named):]:
+        cuda_rule.reset_launches()
+        a, b = (cuda_rule.split_contract_components(
+            vals, tables, lows, lengths, gl, gr, 0, route=route)
+            for _ in range(2))
+        torch.cuda.synchronize()
+        launched = dict(cuda_rule.contract_route_launches)
+        same = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                   for x, y in zip(a, b))
+        try:
+            r = kernel_check.check_components(a, plain, vals, vals.abs(),
+                                              tables, lengths, gr,
+                                              name=f"{label} ({route})")
+        except AssertionError as e:
+            fail(str(e))
+        plane_bits = True
+        for k in range(ncomp):
+            e, rr, _ = cuda_rule.split_contract(planes[k], tables, lows,
+                                                lengths, gl, gr, 0,
+                                                route=PLANE_ROUTE[route])
+            plane_bits &= (torch.equal(a[0][k].view(torch.uint8),
+                                       e.view(torch.uint8))
+                           and torch.equal(a[1][k].view(torch.uint8),
+                                           rr.view(torch.uint8)))
+        widest = int(torch.argmax(lengths[:, 7]))
+        nan_note = (f"; NaN region: est {float(a[0][ncomp - 1][7])}, "
+                    f"split_dim {int(a[2][7])} (plain {int(plain[2][7])}, "
+                    f"widest axis {widest})" if nan else "")
+        print(f"phase 9: {route} {label}, {count} x {tables.feval} x "
+              f"{ncomp} ({layout}, strides {tuple(vals.stride())}): est "
+              f"{r['est_ulps']:.3g}, err {r['err_ulps']:.3g} ulps beyond rtol"
+              f" (limits {kernel_check.ULPS['est']:g}/"
+              f"{kernel_check.ULPS['err']:g}; {r['gate_ties']} gate ties); "
+              f"split_dim EQUAL in {r['split_dim_equal']} of {count}; each "
+              f"component bit for bit the {PLANE_ROUTE[route]} scalar "
+              f"route's on its plane: {plane_bits}; two launches the same "
+              f"bits: {same}; contract_route names {named}; launches "
+              f"{launched}{nan_note}", flush=True)
+        counted = {key: 2 if key == route else 0 for key in launched}
+        if not (same and plane_bits and launched == counted):
+            fail(f"{route} {label}: disagrees")
+        if nan and not (int(a[2][7]) == int(plain[2][7]) == widest
+                        and math.isnan(float(a[0][ncomp - 1][7]))):
+            fail(f"{route} {label}: the NaN region does not take the widest "
+                 "axis")
+        worst[route] = r["max_abs_est"]
+    return worst
 
 
 def components_checks(dev):
     """Phase 9 (extended): ``components_check`` at COMPONENT_CASES and a
-    NaN region.  Returns the largest |d est|."""
-    worst = 0.0
+    NaN region.  Returns the largest |d est| by route."""
+    worst = {r: 0.0 for r in cuda_rule.VECTOR_ROUTES}
     for case in COMPONENT_CASES:
-        worst = max(worst, components_check(*case, dev))
+        for route, d in components_check(*case, dev).items():
+            worst[route] = max(worst[route], d)
         torch.cuda.empty_cache()
     components_check("8D f64 NaN region", 8, 256, torch.float64, 3, "minor",
                      dev, nan=True)
@@ -1909,11 +1941,12 @@ def components_checks(dev):
 
 
 def components_times(dev):
-    """Phase 10 (extended): the components contraction at the Workspace's
-    8D f64 chunk (4096 x 1105 x 4) and 12D f64 chunk (1024 x 6745 x 4),
-    values component-minor, in turns with the alternative of ncomp
-    launches of the scalar cluster route on a component-major copy (the
-    copy's time included), best of 5 series back to back
+    """Phase 10 (extended): a vector's two contraction routes at the
+    Workspace's 8D f64 chunk (4096 x 1105 x 4) and 12D f64 chunk (1024 x
+    6745 x 4), values component-minor, in turns (components_cluster,
+    components, components, components_cluster), and the alternative of
+    ncomp launches of the scalar cluster route on a component-major copy
+    (the copy's time included), best of 5 series back to back
     (``queued_ms``); beside the bytes bound, the plain
     rule_outputs_vector and torch.matmul of the (C ncomp, feval) values
     against the column matrix (the rule sums only, TF32 off).  Returns one
@@ -1932,8 +1965,9 @@ def components_times(dev):
         outs = [cuda_rule.split_contract(vals[..., k].contiguous(), *args)
                 for k in range(ncomp)]
 
-        def components():
-            cuda_rule.split_contract_components(vals, *args, out=out)
+        def routed(route):
+            return lambda: cuda_rule.split_contract_components(
+                vals, *args, out=out, route=route)
 
         def cluster_each():
             planes = vals.movedim(-1, 0).contiguous()
@@ -1941,32 +1975,49 @@ def components_times(dev):
                 cuda_rule.split_contract(planes[k], *args, out=outs[k],
                                          route="cluster")
 
-        t = [queued_ms(fn, 5, 10) for fn in (components, cluster_each,
-                                             cluster_each, components)]
+        cc, comp = (routed(r) for r in cuda_rule.VECTOR_ROUTES)
+        t = [queued_ms(fn, 5, 10) for fn in (cc, comp, comp, cc)]
+        each = [queued_ms(cluster_each, 5, 10) for _ in range(2)]
         item = 8
         nbytes = (c * tables.feval * ncomp * item + ndim * c * item
                   + c * (2 * ncomp * item + 4))
         vm = vals.movedim(-1, 0).reshape(ncomp * c, tables.feval).contiguous()
         mt = torch.as_tensor(column_matrix(tables), dtype=dtype, device=dev)
+        k = cuda_rule.comp_cluster_plan(dtype, ndim, c, tables.feval,
+                                        ncomp)[0]
         row = {"ndim": ndim, "count": c, "feval": tables.feval,
-               "ncomp": ncomp, "ms": min(t[0], t[3]),
-               "cluster_each_ms": min(t[1], t[2]), "series_ms": t,
+               "ncomp": ncomp, "components_cluster_ms": min(t[0], t[3]),
+               "components_ms": min(t[1], t[2]),
+               "cluster_each_ms": min(each), "series_ms": t,
+               "cluster": k, "ctas": -(-c // 32) * k,
+               "co_resident_clusters": cuda_rule.comp_cluster_occupancy(
+                   dtype, ndim, c, tables.feval, ncomp),
+               "smem_bytes": cuda_rule.comp_cluster_smem(
+                   dtype, ndim, ncomp, *cuda_rule.comp_cluster_plan(
+                       dtype, ndim, c, tables.feval, ncomp)[2:]),
                "bytes": nbytes, "bound_ms": bytes_bound_ms(nbytes),
                "plain_ms": time_ms(lambda: rule_eval.rule_outputs_vector(
                    vals, tables, lengths, gr), 3),
                "sums_only_matmul_ms": queued_ms(
                    lambda: torch.matmul(vm, mt), 5)}
-        print(f"phase 10: components contraction, {ndim}D f64 {c} regions x "
+        b = row["bound_ms"]
+        print(f"phase 10: a vector's contraction, {ndim}D f64 {c} regions x "
               f"{tables.feval} points x {ncomp} components (component-minor, "
-              f"{nbytes / 1e6:.1f} MB): {row['ms']:.4f} ms "
-              f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound), "
-              f"series {', '.join(f'{x:.4f}' for x in t)}; bound "
-              f"{row['bound_ms']:.4f} ms (bytes); {ncomp} cluster-route "
-              f"launches on a component-major copy, the copy included, "
-              f"{row['cluster_each_ms']:.4f} ms; plain rule_outputs_vector "
-              f"{row['plain_ms']:.4f} ms; the sums alone by torch.matmul of "
-              f"the ({ncomp * c}, {tables.feval}) values against the column "
-              f"matrix {row['sums_only_matmul_ms']:.4f} ms", flush=True)
+              f"{nbytes / 1e6:.1f} MB): components_cluster "
+              f"{row['components_cluster_ms']:.4f} ms "
+              f"({100 * b / row['components_cluster_ms']:.1f}% of the bound; "
+              f"clusters of {k}, {row['ctas']} CTAs of "
+              f"{row['smem_bytes']} bytes of shared memory, "
+              f"{row['co_resident_clusters']} clusters co-resident), "
+              f"components {row['components_ms']:.4f} ms "
+              f"({100 * b / row['components_ms']:.1f}%), series "
+              f"{', '.join(f'{x:.4f}' for x in t)}; bound {b:.4f} ms "
+              f"(bytes); {ncomp} cluster-route launches on a component-major "
+              f"copy, the copy included, {row['cluster_each_ms']:.4f} ms; "
+              f"plain rule_outputs_vector {row['plain_ms']:.4f} ms; the sums "
+              f"alone by torch.matmul of the ({ncomp * c}, {tables.feval}) "
+              f"values against the column matrix "
+              f"{row['sums_only_matmul_ms']:.4f} ms", flush=True)
         rows.append(row)
         del vals, vm, out, outs, lows, lengths
         torch.cuda.empty_cache()
@@ -2041,10 +2092,10 @@ def identity_check(dev):
     """Phase 13.2: [sin_sum(8), sin_sum(8)] as one vector at
     SIN_SUM_EPSREL against the scalar sin_sum(8) (phase 11's run): the same
     iterations, regions and neval; both components bit for bit equal; the
-    estimate within kernel_check's rtol of the scalar run's; and the final
-    pool's first chunk through both contractions (the scalar's cluster
-    route, the components route) held to the plain version by
-    kernel_check's limits."""
+    estimate within kernel_check's rtol of the scalar run's (and whether
+    bit for bit); and the final pool's first chunk through both
+    contractions (the scalar's cluster route, the components cluster
+    route) held to the plain version by kernel_check's limits."""
     g = misc.sin_sum(NDIM)
 
     def gg(x):
@@ -2072,8 +2123,10 @@ def identity_check(dev):
           f"{rv.neval} wall {wall:.3f} s; the scalar sin_sum(8): status "
           f"{rs.status} estimate {rs.estimate!r} errorest {rs.errorest!r} "
           f"iters {rs.iters} nregions {rs.nregions} neval {rs.neval}; "
-          f"estimate {d_est:.3g}, errorest {d_err:.3g} relative apart; "
-          f"contraction launches {routes}", flush=True)
+          f"estimate {d_est:.3g}, errorest {d_err:.3g} relative apart (bit "
+          f"for bit: {rv.estimates[0] == rs.estimate}, "
+          f"{rv.errorests[0] == rs.errorest}); contraction launches "
+          f"{routes}", flush=True)
     if not same_run:
         print(f"phase 13: the runs part at "
               f"{first_divergence(rec_s, rec_v, g)}", flush=True)
@@ -2082,7 +2135,8 @@ def identity_check(dev):
     if not (rv.estimates[0] == rv.estimates[1]
             and rv.errorests[0] == rv.errorests[1]):
         fail("the two equal components differ")
-    if not d_est <= rtol or routes["components"] == 0 or routes["cluster"]:
+    if not d_est <= rtol or routes[cuda_rule.COMPONENTS_CLUSTER] == 0 or \
+            routes["cluster"] or routes[cuda_rule.COMPONENTS]:
         fail(f"[sin_sum(8), sin_sum(8)]: estimate {d_est} apart, launches "
              f"{routes}")
 
@@ -2111,7 +2165,7 @@ def identity_check(dev):
         fail(str(e))
     print(f"phase 13: the final pool's first {count} regions: the scalar "
           f"cluster route est {rsc['est_ulps']:.3g}, err {rsc['err_ulps']:.3g}"
-          f" ulps beyond rtol; the components route est "
+          f" ulps beyond rtol; the components cluster route est "
           f"{rvc['est_ulps']:.3g}, err {rvc['err_ulps']:.3g} (limits 1/1; "
           f"split_dim EQUAL in {rvc['split_dim_equal']} of {count})",
           flush=True)
@@ -2190,28 +2244,126 @@ def vector_continuation(dev):
     return wall
 
 
-def vector_main_path(dev):
+# A vector contraction kernel's name in the profiler's trace, by route.
+ROUTE_KERNEL = {cuda_rule.COMPONENTS_CLUSTER: "rule_contract_comp_cluster_kernel",
+                cuda_rule.COMPONENTS: "rule_contract_comp_kernel"}
+
+
+def in_situ(label, f, ndim, epsrel, route):
+    """``Workspace(ndim).integrate(f, epsrel)`` traced by
+    ``utils.profiling.trace`` (torch.profiler) with every vector
+    contraction forced onto ``route``: the contraction kernel's launches
+    and mean device duration as the trace reads them, the device's busy
+    time (its kernels', copies' and memsets' self time) and idle share of
+    the wall.  Returns {launches, ms, wall_s, busy_s, idle}."""
+    from torch.autograd import DeviceType
+
+    from gpuintegration_torch.utils.profiling import trace
+    kept = cuda_rule._contract_comp_launch
+
+    def forced(*args, **kw):
+        return kept(*args, **dict(kw, route=route))
+
+    cuda_rule._contract_comp_launch = forced
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            with trace(log_dir) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = Workspace(ndim).integrate(f, epsrel=epsrel,
+                                                epsabs=1e-40)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation]
+    finally:
+        cuda_rule._contract_comp_launch = kept
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    mine = [e for e in events if ROUTE_KERNEL[route] in e.key]
+    n = sum(e.count for e in mine)
+    ms = sum(e.device_time_total for e in mine) / 1e3 / max(n, 1)
+    out = {"launches": n, "ms": ms, "wall_s": wall, "busy_s": busy,
+           "idle": 1 - busy / wall, "status": res.status, "iters": res.iters}
+    print(f"phase 13: in situ, {label}, every contraction on {route} "
+          f"(torch.profiler): status {res.status} iters {res.iters}, wall "
+          f"{wall:.3f} s traced; {n} launches of {ROUTE_KERNEL[route]}, "
+          f"{ms:.4f} ms a launch on the device ({n * ms / 1e3:.4f} s); the "
+          f"device busy {busy:.3f} s (self time of its kernels, copies and "
+          f"memsets), idle {100 * out['idle']:.1f} % of the wall", flush=True)
+    if res.status != 0 or not n:
+        fail(f"in situ {label} on {route}: status {res.status}, {n} launches")
+    return out
+
+
+def sin12_vector(scalar):
+    """Phase 13.4: [sin_sum(12)] x 4 as one vector at SIN12_EPSREL on the
+    Workspace's 1024-region chunks, every contraction on the components
+    cluster route, against phase 11's scalar sin_sum(12) run (``scalar``):
+    the same iterations, regions and neval; the four components equal;
+    each within kernel_check's rtol of the scalar run's estimate (and
+    whether bit for bit, estimate and errorest).  Returns the launches by
+    route and the wall."""
+    g = misc.sin_sum(12)
+    f, truths = vector_probe.vector([g] * 4)
+    t0 = time.perf_counter()
+    rv, launches, routes = events_run(
+        "f64 12D [sin_sum(12)] x 4 as one vector", Workspace(12), f,
+        SIN12_EPSREL, truths, phase="phase 13")
+    wall = time.perf_counter() - t0
+    d_est = float(np.max(np.abs(rv.estimates - scalar.estimate))
+                  / abs(scalar.estimate))
+    print(f"phase 13: [sin_sum(12)] x 4 against the scalar run (status "
+          f"{scalar.status}, iters {scalar.iters}, nregions "
+          f"{scalar.nregions}, neval {scalar.neval}, estimate "
+          f"{scalar.estimate!r}, errorest {scalar.errorest!r}): estimates "
+          f"{d_est:.3g} relative apart; each estimate bit for bit: "
+          f"{bool(np.all(rv.estimates == scalar.estimate))}, each errorest: "
+          f"{bool(np.all(rv.errorests == scalar.errorest))}", flush=True)
+    if (rv.iters, rv.nregions, rv.neval) != (scalar.iters, scalar.nregions,
+                                             scalar.neval):
+        fail("[sin_sum(12)] x 4 does not take the scalar run's decisions")
+    if not (np.all(rv.estimates == rv.estimates[0])
+            and np.all(rv.errorests == rv.errorests[0])
+            and d_est <= kernel_check.RTOL[torch.float64]):
+        fail(f"[sin_sum(12)] x 4: the components differ, or {d_est} from "
+             "the scalar estimate")
+    if not routes[cuda_rule.COMPONENTS_CLUSTER] == launches["contract"]:
+        fail(f"[sin_sum(12)] x 4: contraction launches by route {routes}; "
+             "all should take the components cluster route")
+    return routes, wall
+
+
+def vector_main_path(dev, sin12):
     """Phase 13: PAGANI's vector main path at full width: Workspace(8) on
     four Genz members as one vector (tools/vector_probe.py's 'moderate'
     set: the reference's vector families, F1 with coefficients 1/2 and F2
     at a = 5) at VEC8_EPSREL (every rule
-    evaluation through the points kernel and the components contraction,
-    CUDA events around each launch and call), the identity check, the
+    evaluation through the points kernel and the components cluster
+    contraction, CUDA events around each launch and call); the same run
+    traced (``in_situ``) once on each vector route; the identity check;
+    [sin_sum(12)] x 4 against phase 11's scalar run (``sin12``); the
     vector continuation.  Returns the split kernels' launches of the first
-    run, the contraction's by route and the walls."""
+    run, the contraction's by route, the in-situ readings and the walls."""
     f, truths = vector_probe.vector(vector_probe.members("moderate"))
+    label = ("f64 8D [F1 (coefficients 1/2), F2 (a=5), F4 (a=5), F5] as one "
+             "vector")
     t0 = time.perf_counter()
-    _, launches, routes = events_run(
-        "f64 8D [F1 (coefficients 1/2), F2 (a=5), F4 (a=5), F5] as one "
-        "vector", Workspace(NDIM), f, VEC8_EPSREL, truths, phase="phase 13")
+    _, launches, routes = events_run(label, Workspace(NDIM), f, VEC8_EPSREL,
+                                     truths, phase="phase 13")
     walls = {"vec8": time.perf_counter() - t0}
-    if not (routes["components"] == launches["contract"] == launches["points"]
-            and routes["cluster"] == routes["generic"] == 0):
+    if not (routes[cuda_rule.COMPONENTS_CLUSTER] == launches["contract"]
+            == launches["points"] and routes["cluster"] == routes["generic"]
+            == routes[cuda_rule.COMPONENTS] == 0):
         fail(f"vector main path: launches {launches}, contraction by route "
-             f"{routes}; every chunk should take the components route")
+             f"{routes}; every chunk should take the components cluster "
+             "route")
+    situ = {route: in_situ(label, f, NDIM, VEC8_EPSREL, route)
+            for route in cuda_rule.VECTOR_ROUTES}
     identity_check(dev)
+    routes["sin12x4"], walls["sin12x4"] = sin12_vector(sin12)
     walls["continuation"] = vector_continuation(dev)
-    return launches, routes, walls
+    return launches, routes, situ, walls
 
 
 VVEGAS = dict(epsrel=1e-3, ncall=1e8)   # VEGAS run 1's settings, 6D f64
@@ -2547,13 +2699,14 @@ def main() -> int:
     split_ms, b_points, contract_rows = split_times(dev)
     comp_rows = components_times(dev)
     phase_done("phase 10")
-    split_launches, contract_routes = split_main_path(dev, res)
+    split_launches, contract_routes, sin12 = split_main_path(dev, res)
     phase_done("phase 11")
     continuation_path(dev)
     phase_done("phase 12")
 
     # -- phases 13-14: vector integrands ------------------------------------
-    vec_launches, vec_routes, vec_walls = vector_main_path(dev)
+    vec_launches, vec_routes, vec_situ, vec_walls = vector_main_path(dev,
+                                                                      sin12)
     phase_done("phase 13")
     vegas_vec_launches, vegas_vec_walls = vector_vegas(dev)
     print(f"phase 14: walls: poly {vegas_vec_walls['poly']:.3f} s, grid "
@@ -2625,8 +2778,10 @@ def main() -> int:
                         for r in contract_rows]}
             for route in cuda_rule.CONTRACT_ROUTES},
     }, {
-        # a vector integrand's contraction: the numbers at phase 13's
-        # shape, the 8D f64 chunk of four components, component-minor
+        # a vector integrand's contraction, two routes (the house pattern
+        # of rule_split_contract above): the numbers at phase 13's shape,
+        # the 8D f64 chunk of four components, component-minor, on the
+        # route the path takes, and each route's at every timed shape
         "name": "rule_contract_components",
         "route": "cuda",
         "source": "gpuintegration_torch/csrc/rule_split.cu",
@@ -2634,24 +2789,34 @@ def main() -> int:
         "counterpart_of": "gpuintegration_tpu/ops/rule_eval.py:386 "
                           "(_eval_chunk_vector, XLA in the reference)",
         "held_against_plain_in": "phase 9 (rule_eval.rule_outputs_vector; "
-                                 "3D, 8D, 12D, f64 and f32, 2-8 components)",
-        "launches": vec_routes["components"],
-        "max_abs_err": comp_err,
-        "ms": comp_rows[0]["ms"],
+                                 "3D, 8D, 12D, f64 and f32, 2-8 components; "
+                                 "both routes)",
+        "launches": sum(vec_routes[r] for r in cuda_rule.VECTOR_ROUTES),
+        "launches_by_route": {r: vec_routes[r]
+                              for r in cuda_rule.VECTOR_ROUTES},
+        "max_abs_err": max(comp_err.values()),
+        "ms": comp_rows[0]["components_cluster_ms"],
+        "components_route_ms": comp_rows[0]["components_ms"],
         "plain_ms": comp_rows[0]["plain_ms"],
         "bound_ms": comp_rows[0]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
         "sums_only_matmul_ms": comp_rows[0]["sums_only_matmul_ms"],
         "cluster_route_each_component_ms": comp_rows[0]["cluster_each_ms"],
-        "shapes": [{
-            "shape": f"{r['ndim']}D float64 {r['count']} x {r['feval']} x "
-                     f"{r['ncomp']} component-minor",
-            "ms": r["ms"], "bound_ms": r["bound_ms"],
-            "plain_ms": r["plain_ms"],
-            "sums_only_matmul_ms": r["sums_only_matmul_ms"],
-            "cluster_route_each_component_ms": r["cluster_each_ms"]}
-            for r in comp_rows],
+        "in_situ_by_route": vec_situ,
+        "by_route": {
+            route: {"launches": vec_routes[route],
+                    "max_abs_err": comp_err[route],
+                    "in_situ_ms": vec_situ[route]["ms"],
+                    "shapes": [{
+                        "shape": f"{r['ndim']}D float64 {r['count']} x "
+                                 f"{r['feval']} x {r['ncomp']} "
+                                 "component-minor",
+                        "ms": r[f"{route}_ms"], "bound_ms": r["bound_ms"],
+                        "plain_ms": r["plain_ms"],
+                        "sums_only_matmul_ms": r["sums_only_matmul_ms"]}
+                        for r in comp_rows]}
+            for route in cuda_rule.VECTOR_ROUTES},
         "vector_paths": {"pagani_split_launches": vec_launches,
                          "pagani_walls_s": vec_walls,
                          "vegas_launches": vegas_vec_launches,

@@ -22,10 +22,13 @@
 //      rule_contract_cluster_kernel ('cluster') where a region's points or
 //      a point's regions lie contiguous, rule_contract_kernel ('generic',
 //      the first design) at any strides.  A vector integrand's values
-//      (C, feval, ncomp) take rule_contract_comp_kernel ('components'),
-//      the counterpart of the reference's XLA _eval_chunk_vector: est and
-//      err per component, one split axis from all components' fourth
-//      differences.
+//      (C, feval, ncomp), the counterpart of the reference's XLA
+//      _eval_chunk_vector (est and err per component, one split axis from
+//      all components' fourth differences), take one of two routes of
+//      their own: rule_contract_comp_cluster_kernel
+//      ('components_cluster') where they lie component-minor,
+//      rule_contract_comp_kernel ('components', the first design) at any
+//      strides.
 //
 // All keep the plain version's roundings where the arithmetic is
 // elementwise, each product and sum rounded on its own (never contracted
@@ -89,7 +92,27 @@
 //     through distributed shared memory, and spreads the epilogue over its
 //     nine warps (fourth differences by axis, rule sums by rule, null-rule
 //     terms by term).  No atomics: the same bits from launch to launch, on
-//     any card.
+//     any card;
+//   * contraction, 'components_cluster': the cluster design over a
+//     vector's values component-minor (strides (sc, ncomp, 1), what
+//     torch.stack(..., -1) gives), where a region's points of a stage are
+//     one contiguous segment of points x ncomp values.  The ranks take the
+//     scalar cluster route's point ranges (its stages of 128 f64 or 256 f32
+//     points), each cut into stages of ~1 KB a region's segment (32 points
+//     of four f64 components), and warp w the points w, w + 8, ... of each,
+//     so that component k is summed in the scalar route's order and its est
+//     and err are bit for bit that route's on the component's plane.  A
+//     warp keeps a running sum per component; as an orbit ends each warp
+//     leaves its sums in a mailbox, and the last warp to do so adds the
+//     eight up in warp order (a counter per orbit in shared memory), so
+//     that no [warp][orbit][component] array has to fit beside the ring
+//     and no warp waits for another's turn (a chain of turns cost ~7 us a
+//     launch at the 8D chunk on an H100, PERF.md).  The leader's head
+//     tile (points 0..4n, every component) lies at the end of the ring:
+//     its sums and the component-wise maximum of the fourth differences
+//     are taken from it while the first stage streams in beside it.  At
+//     the Workspace's 8D f64 chunk and 4 components the values are 144.8
+//     MB (0.0432 ms), at its 12D chunk 221 MB (0.0660 ms).
 // None uses tensor cores or TF32: the null-rule sums cancel.  Indices are
 // 64-bit: a chunk may hold more than 2^31 coordinates.
 //
@@ -864,6 +887,319 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
 }
 
 // ---------------------------------------------------------------------------
+// 4. The contraction of a vector's values, cluster route.
+
+constexpr int kMaxComp = 8;  // components of the route (a warp's sums)
+
+// The launch shape: clusters of ``k`` CTAs; rank r sums the points of the
+// scalar cluster route's stages of ``rows`` points (rank_stages), in stages
+// of ``points`` points through a ring of ``stages`` tiles
+// (cuda_rule.comp_cluster_plan).
+struct CompClusterShape {
+  int k, rows, points, stages;
+};
+
+// The dynamic shared memory up to which two CTAs share an SM (228 KB, less
+// each CTA's reserved 1 KB and static shared memory).
+constexpr size_t kPairSmem = 112 * 1024;
+
+// The dynamic shared memory of a CTA, in elements of T: the ring of
+// ``stages`` tiles of 32 segments of ``points`` x ncomp values, whose end
+// the leader first fills with its head tile (points 0..4n, every
+// component), leaving room for one tile before it where two CTAs still
+// share an SM, so that the first stage streams in beside the head; the
+// CTA's orbit sums [9][ncomp][32]; the fourth differences [16][32]; the
+// mailbox of the warps' sums of the orbit being added up [8][ncomp][32].
+template <typename T>
+struct CompClusterSmem {
+  T *ring, *head, *cta, *fd, *mbox;
+  int stage_pitch, head_pitch;
+  size_t tile, head_elements;
+
+  __host__ __device__ static size_t other_elements(int ncomp) {
+    return (kNsets + kClusterWarps) * ncomp * 32 + kMaxNdim * 32;
+  }
+  __host__ __device__ static size_t ring_elements(int ndim, int ncomp,
+                                                  int points, int stages) {
+    const size_t tile =
+        static_cast<size_t>(32) * seg_pitch<T>(true, points * ncomp);
+    const size_t head =
+        static_cast<size_t>(32) * seg_pitch<T>(true, (4 * ndim + 1) * ncomp);
+    const size_t ring = stages * tile;
+    const size_t beside = ring > head + tile ? ring : head + tile;
+    if ((beside + other_elements(ncomp)) * sizeof(T) <= kPairSmem)
+      return beside;
+    return ring > head ? ring : head;
+  }
+  __host__ __device__ static size_t bytes(int ndim, int ncomp, int points,
+                                          int stages) {
+    return (ring_elements(ndim, ncomp, points, stages) +
+            other_elements(ncomp)) *
+           sizeof(T);
+  }
+  __device__ CompClusterSmem(T* base, int ndim, int ncomp, int points,
+                             int stages) {
+    stage_pitch = seg_pitch<T>(true, points * ncomp);
+    head_pitch = seg_pitch<T>(true, (4 * ndim + 1) * ncomp);
+    tile = static_cast<size_t>(32) * stage_pitch;
+    head_elements = static_cast<size_t>(32) * head_pitch;
+    ring = base;
+    cta = ring + ring_elements(ndim, ncomp, points, stages);
+    head = cta - head_elements;
+    fd = cta + kNsets * ncomp * 32;
+    mbox = fd + kMaxNdim * 32;
+  }
+};
+
+// The orbit of point p (orbit_bounds ob: ob[s] <= p < ob[s + 1]).
+__device__ __forceinline__ int orbit_of(const int* ob, int p) {
+  int s = 0;
+  while (s + 1 < kNsets && ob[s + 1] <= p) ++s;
+  return s;
+}
+
+// Wait until the flag in shared memory is set; a flag that is never set
+// traps instead of hanging the card.
+__device__ __forceinline__ void wait_flag(const int* flag) {
+  for (uint32_t spins = 0;; ++spins) {
+    if (*reinterpret_cast<const volatile int*>(flag)) break;
+    if (spins > (1u << 26)) __trap();
+  }
+  __threadfence_block();
+}
+
+// A cluster of ``cs.k`` CTAs takes a group of 32 neighbouring regions, a
+// lane per region, its ranks the scalar cluster route's point ranges.  The
+// values lie component-minor, so a region's points of a stage are one
+// segment of points x ncomp values, copied as the rows' segments are (a
+// Segments over single values).  Warp kClusterWarps is the producer: the
+// leader's head tile, then the rank's stages, a segment a lane.  Warps 0..7
+// sum them, warp w the points w, w + 8, ... of each stage, a running sum per
+// component; when a warp's orbit ends (at its first point past it, or at
+// the end of the tile in which it ends) the warp leaves its sums in the
+// mailbox, and the last of the eight warps to do so adds them up in warp
+// order into the CTA's [orbit][component][lane], as the scalar route adds
+// its warps' sums (a counter per orbit; the mailbox is taken again only
+// once the orbit before is added up); an orbit with no point in the CTA's
+// range has the sum +0, as the scalar route's warps' zeros add up to.  The
+// leader's head tile lies at the end of the ring; a stage whose slot
+// overlaps it is copied only once the head is summed (none, where the
+// first stage fits beside it: CompClusterSmem).  The leader then adds the
+// ranks' in rank order through distributed shared memory; warp k runs component k's epilogue, the
+// producer warp the split axis from the fourth differences, which the
+// consumer warps took from the head tile (every component, the largest,
+// NaN propagating) before the stages overwrote it.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
+                                  const CompClusterShape cs) {
+  extern __shared__ __align__(128) unsigned char s_dyn[];
+  __shared__ unsigned long long s_full[kMaxStages];
+  __shared__ unsigned long long s_empty[kMaxStages];
+  __shared__ unsigned long long s_headbar, s_headfree;
+  __shared__ int s_ob[kNsets + 2];
+  __shared__ int s_closed[kNsets], s_added[kNsets];
+  const int ndim = a.ndim, feval = a.feval, head_pts = 4 * ndim + 1;
+  const int nk = a.ncomp, k = cs.k, R = cs.points, stages = cs.stages;
+  const CompClusterSmem<T> sm(reinterpret_cast<T*>(s_dyn), ndim, nk, R,
+                              stages);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x / k) * 32;
+  const int valid = static_cast<int>(a.count - c0 < 32 ? a.count - c0 : 32);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the values as rows of feval * ncomp single values (sp = ncomp, sk = 1)
+  const Segments<T, true> seg{
+      a.vals, a.sc, 1, c0,
+      static_cast<int>((reinterpret_cast<uintptr_t>(a.vals) / sizeof(T)) &
+                       (slack<T>() - 1))};
+  // this rank's points [p_lo, p_hi), in stages of R from p_lo
+  int st_lo, st_hi;
+  rank_stages(feval, head_pts, cs.rows, rank, k, st_lo, st_hi);
+  const int p_lo = head_pts + st_lo * cs.rows;
+  const int p_hi =
+      head_pts + st_hi * cs.rows < feval ? head_pts + st_hi * cs.rows : feval;
+  const int n_use = p_hi > p_lo ? (p_hi - p_lo + R - 1) / R : 0;
+  // the orbits of the CTA's first and last points: the others' sums are 0
+  const int first_orbit = rank == 0 ? 0 : orbit_of(a.orbit_bounds, p_lo);
+  const int last_orbit = orbit_of(a.orbit_bounds, p_hi - 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_addr(&s_full[s]), 1);
+      mbar_init(smem_addr(&s_empty[s]), kClusterWarps);
+    }
+    mbar_init(smem_addr(&s_headbar), 1);
+    mbar_init(smem_addr(&s_headfree), kClusterWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x <= kNsets) s_ob[threadIdx.x] = a.orbit_bounds[threadIdx.x];
+  if (threadIdx.x == kNsets + 1) s_ob[kNsets + 1] = 0x7fffffff;
+  if (threadIdx.x < kNsets) s_closed[threadIdx.x] = s_added[threadIdx.x] = 0;
+  for (int i = threadIdx.x; i < kNsets * nk * 32; i += kClusterThreads) {
+    const int o = i / (nk * 32);
+    if (o < first_orbit || o > last_orbit) sm.cta[i] = T(0);
+  }
+  __syncthreads();
+
+  if (warp == kClusterWarps) {
+    // ---- producer: the head (leader only), then the stages in turn; a
+    // slot that overlaps the head only once the head is summed ----
+    if (rank == 0)
+      seg.load(sm.head, head_pts * nk, 0, head_pts * nk, valid,
+               smem_addr(&s_headbar), lane);
+    bool head_free = rank != 0;
+    for (int u = 0; u < n_use; ++u) {
+      const int slot = u % stages;
+      if (!head_free && (slot + 1) * sm.tile >
+                            static_cast<size_t>(sm.head - sm.ring)) {
+        mbar_wait(smem_addr(&s_headfree), 0);
+        head_free = true;
+      }
+      if (u >= stages)
+        mbar_wait(smem_addr(&s_empty[slot]), ((u / stages) - 1) & 1);
+      const int p0 = p_lo + u * R;
+      seg.load(sm.ring + slot * sm.tile, R * nk, p0 * nk,
+               (p_hi - p0 < R ? p_hi - p0 : R) * nk, valid,
+               smem_addr(&s_full[slot]), lane);
+    }
+  } else {
+    // ---- consumers: a running sum per component over the warp's points
+    T acc[kMaxComp];
+#pragma unroll
+    for (int c = 0; c < kMaxComp; ++c) acc[c] = T(0);
+    int s = first_orbit, bound = s_ob[first_orbit + 1];
+    // the warp's sums of orbit s into the mailbox; the last warp to leave
+    // them adds the eight up in warp order into the CTA's sums
+    auto close = [&]() {
+      if (s > first_orbit) {
+        if (lane == 0) wait_flag(&s_added[s - 1]);
+        __syncwarp();
+      }
+      T* box = sm.mbox + warp * nk * 32 + lane;
+#pragma unroll
+      for (int c = 0; c < kMaxComp; ++c)
+        if (c < nk) {
+          box[c * 32] = acc[c];
+          acc[c] = T(0);
+        }
+      __syncwarp();
+      int last = 0;
+      if (lane == 0) {
+        __threadfence_block();
+        last = atomicAdd(&s_closed[s], 1) == kClusterWarps - 1;
+      }
+      if (__shfl_sync(0xffffffffu, last, 0)) {
+        __threadfence_block();
+        const T* from = sm.mbox + lane;
+        T* to = sm.cta + s * nk * 32 + lane;
+        for (int c = 0; c < nk; ++c) {
+          T v = from[c * 32];
+#pragma unroll
+          for (int w = 1; w < kClusterWarps; ++w) v += from[(w * nk + c) * 32];
+          to[c * 32] = v;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          __threadfence_block();
+          *reinterpret_cast<volatile int*>(&s_added[s]) = 1;
+        }
+      }
+      bound = s_ob[++s + 1];
+    };
+    // the warp's points j = warp, warp + 8, ... < n of a tile of points
+    // p0 .. p0 + n - 1 at ``pitch``, in order
+    auto sum_tile = [&](const T* t, int pitch, int p0, int n) {
+      const T* row = t + lane * pitch + seg.off(seg.at(lane, p0 * nk));
+      for (int j = warp; j < n; j += kClusterWarps) {
+        while (p0 + j >= bound) close();
+        const T* v = row + j * nk;
+#pragma unroll
+        for (int c = 0; c < kMaxComp; ++c)
+          if (c < nk) acc[c] += v[c];
+      }
+      // an orbit that ends within the tile has no point left for any warp
+      while (s <= last_orbit && bound <= p0 + n) close();
+    };
+    if (rank == 0) {
+      mbar_wait(smem_addr(&s_headbar), 0);
+      sum_tile(sm.head, sm.head_pitch, 0, head_pts);
+      // rule_eval.fourth_differences of axes warp, warp + 8, the largest
+      // over the components (a NaN propagating, as torch.amax)
+      const T* h = sm.head + lane * sm.head_pitch + seg.off(seg.at(lane, 0));
+      const T cr = T(2) * r_sub(T(1), a.ratio);
+      for (int d = warp; d < ndim; d += kClusterWarps) {
+        T m = T(0);
+        for (int c = 0; c < nk; ++c) {
+          const T o1 = r_add(h[(1 + 2 * d) * nk + c], h[(2 + 2 * d) * nk + c]);
+          const T o2 = r_add(h[(1 + 2 * ndim + 2 * d) * nk + c],
+                             h[(2 + 2 * ndim + 2 * d) * nk + c]);
+          const T v = r_abs(
+              r_sub(r_add(r_mul(cr, h[c]), r_mul(a.ratio, o1)), o2));
+          m = c == 0 ? v : nan_max(m, v);
+        }
+        sm.fd[d * 32 + lane] = m;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&s_headfree));
+    }
+    for (int u = 0; u < n_use; ++u) {
+      const int slot = u % stages, p0 = p_lo + u * R;
+      mbar_wait(smem_addr(&s_full[slot]), (u / stages) & 1);
+      sum_tile(sm.ring + slot * sm.tile, sm.stage_pitch, p0,
+               p_hi - p0 < R ? p_hi - p0 : R);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&s_empty[slot]));
+    }
+    while (s <= last_orbit) close();
+  }
+  __syncthreads();
+  cluster.sync();
+  if (rank != 0) {
+    cluster.sync();  // no CTA leaves while the leader reads its sums
+    return;
+  }
+
+  // ---- the leader: the cluster's sums in rank order ----
+  for (int i = threadIdx.x; i < kNsets * nk * 32; i += kClusterThreads) {
+    T v = sm.cta[i];
+    for (int r = 1; r < k; ++r) v += cluster.map_shared_rank(sm.cta, r)[i];
+    sm.cta[i] = v;
+  }
+  cluster.sync();  // the peers may leave; the sums are all in
+  if (lane >= valid || (warp >= nk && warp != kClusterWarps)) return;
+  const int64_t slot = real_slot(a.first + c0 + lane, a.cap, a.n, a.blocked);
+  T jac, vol;
+  int widest;
+  region_geometry(a, slot, jac, vol, widest);
+  if (warp < nk) {
+    // component warp's est and err, rounded as rule_eval.rule_outputs
+    T orbit_sum[kNsets];
+#pragma unroll
+    for (int o = 0; o < kNsets; ++o)
+      orbit_sum[o] = sm.cta[(o * nk + warp) * 32 + lane];
+    const int64_t at = warp * a.cap + slot;
+    rule_epilogue(a, orbit_sum, jac, vol, a.est[at], a.err[at]);
+  } else if (warp == kClusterWarps) {
+    // the first largest fourth difference where it is positive and none is
+    // NaN, else the widest axis
+    int best = 0;
+    bool any_nan = false;
+    T top = T(0);
+    for (int d = 0; d < ndim; ++d) {
+      const T v = sm.fd[d * 32 + lane];
+      if (is_nan(v)) {
+        any_nan = true;
+      } else if (d == 0 || v > top) {
+        top = v;
+        best = d;
+      }
+    }
+    a.split_dim[slot] = (!any_nan && top > T(0)) ? best : widest;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches.
 
 struct HostArgs {
@@ -915,20 +1251,18 @@ cudaError_t allow_cluster_smem(size_t smem) {
   return e;
 }
 
-// The cluster route's launch configuration: a cluster of ``cs.k`` CTAs for
-// each group of 32 regions.
-template <typename T>
+// A cluster route's launch configuration: a cluster of ``k`` CTAs of
+// ``smem`` bytes of dynamic shared memory for each group of 32 regions.
 struct ClusterConfig {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  ClusterConfig(const HostArgs& h, const ClusterShape& cs,
-                cudaStream_t stream) {
-    cfg.gridDim = dim3(static_cast<unsigned>((h.count + 31) / 32 * cs.k));
+  ClusterConfig(int64_t count, int k, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(static_cast<unsigned>((count + 31) / 32 * k));
     cfg.blockDim = dim3(kClusterThreads);
-    cfg.dynamicSmemBytes = ClusterSmem<T>::bytes(h.ndim, cs.points, cs.stages);
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = cs.k;
+    attr.val.clusterDim.x = k;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
@@ -939,7 +1273,9 @@ struct ClusterConfig {
 template <typename T, bool ROWS>
 cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
                            const ContractArgs<T>& a, cudaStream_t stream) {
-  const ClusterConfig<T> c(h, cs, stream);
+  const ClusterConfig c(h.count, cs.k,
+                        ClusterSmem<T>::bytes(h.ndim, cs.points, cs.stages),
+                        stream);
   if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
     return cudaErrorInvalidValue;
   const cudaError_t e = allow_cluster_smem<T, ROWS>(c.cfg.dynamicSmemBytes);
@@ -951,12 +1287,56 @@ cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
 template <typename T, bool ROWS>
 cudaError_t cluster_occupancy(int ndim, const ClusterShape& cs,
                               int* clusters) {
-  const HostArgs h{ndim, 0, 0, 0, 0, 0, 32 * 1024, 1, 0, 0};
-  const ClusterConfig<T> c(h, cs, nullptr);
+  const ClusterConfig c(32 * 1024, cs.k,
+                        ClusterSmem<T>::bytes(ndim, cs.points, cs.stages),
+                        nullptr);
   const cudaError_t e = allow_cluster_smem<T, ROWS>(c.cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveClusters(
       clusters, rule_contract_cluster_kernel<T, ROWS>, &c.cfg);
+}
+
+// The same for the components cluster route.
+template <typename T>
+cudaError_t allow_comp_cluster_smem(size_t smem) {
+  static size_t granted = 48 * 1024;
+  if (smem <= granted) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      rule_contract_comp_cluster_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess) granted = smem;
+  return e;
+}
+
+template <typename T>
+cudaError_t comp_cluster_launch(int64_t count, int ncomp,
+                                const CompClusterShape& cs,
+                                const ContractArgs<T>& a,
+                                cudaStream_t stream) {
+  const ClusterConfig c(
+      count, cs.k,
+      CompClusterSmem<T>::bytes(a.ndim, ncomp, cs.points, cs.stages), stream);
+  if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = allow_comp_cluster_smem<T>(c.cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchKernelEx(&c.cfg, rule_contract_comp_cluster_kernel<T>, a,
+                            cs);
+}
+
+template <typename T>
+cudaError_t comp_cluster_occupancy(int ndim, int ncomp,
+                                   const CompClusterShape& cs,
+                                   int* clusters) {
+  const ClusterConfig c(
+      32 * 1024, cs.k,
+      CompClusterSmem<T>::bytes(ndim, ncomp, cs.points, cs.stages), nullptr);
+  if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = allow_comp_cluster_smem<T>(c.cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(
+      clusters, rule_contract_comp_cluster_kernel<T>, &c.cfg);
 }
 
 template <typename T>
@@ -1011,15 +1391,22 @@ int contract_launch(const HostArgs& h, const ClusterShape& cs,
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
-// One launch of the components kernel over ``ncomp`` components.
+// One launch of a vector's contraction over ``ncomp`` components: the
+// components kernel where ``cs.k`` is 0, else the components cluster
+// kernel of shape ``cs``.
 template <typename T>
 int contract_comp_launch(const HostArgs& h, ContractArgs<T> a, int ncomp,
-                         cudaStream_t stream) {
+                         const CompClusterShape& cs, cudaStream_t stream) {
   a.ncomp = ncomp;
-  const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
-  rule_contract_comp_kernel<T>
-      <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (cs.k == 0) {
+    const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
+    rule_contract_comp_kernel<T>
+        <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const cudaError_t e = comp_cluster_launch<T>(h.count, ncomp, cs, a, stream);
+  const cudaError_t last = cudaGetLastError();  // and clear it
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 bool bad_args(const HostArgs& h) {
@@ -1037,6 +1424,23 @@ bool bad_cluster_args(const HostArgs& h, const ClusterShape& cs,
   return cs.k < 1 || cs.k > kMaxClusterArg || cs.stages < 2 ||
          cs.stages > kMaxStages || cs.points < 1 ||
          cs.points % (16 / item) || !(h.sp == 1 || h.sc == 1) ||
+         reinterpret_cast<uintptr_t>(vals) % item ||
+         (h.count + 31) / 32 * cs.k > 0x7fffffff;
+}
+
+// What the components cluster route takes beyond bad_args: 2..kMaxComp
+// components lying component-minor (sk = 1, sp = ncomp: a region's points
+// one run of values), stages of whole warps' rows (multiples of
+// kClusterWarps points: the scalar route's order), at an address of whole
+// elements, on a grid within 2^31 CTAs.
+bool bad_comp_cluster_args(const HostArgs& h, int ncomp,
+                           const CompClusterShape& cs, const void* vals,
+                           size_t item) {
+  return ncomp < 2 || ncomp > kMaxComp || h.sd != 1 || h.sp != ncomp ||
+         cs.k < 1 || cs.k > kMaxClusterArg || cs.stages < 2 ||
+         cs.stages > kMaxStages || cs.rows < kClusterWarps ||
+         cs.rows % kClusterWarps || cs.points < kClusterWarps ||
+         cs.points % kClusterWarps ||
          reinterpret_cast<uintptr_t>(vals) % item ||
          (h.count + 31) / 32 * cs.k > 0x7fffffff;
 }
@@ -1108,18 +1512,27 @@ extern "C" int rule_split_contract_launch(
 
 // Reads vals (count, feval, ncomp) at strides (sc, sp, sk) in elements;
 // writes est and err (ncomp, cap), component-major, and split_dim (cap,)
-// at the regions' pool slots and nowhere else: the components kernel, any
-// strides, any ncomp >= 1.
+// at the regions' pool slots and nowhere else.  ``cluster`` 0 takes the
+// components kernel (any strides, any ncomp >= 1); 1..8 the components
+// cluster route on clusters of that many CTAs, rank r summing the points
+// of the scalar cluster route's stages of ``rows`` points, in stages of
+// ``points`` points through a ring of ``stages`` tiles
+// (bad_comp_cluster_args).  A cluster the card cannot launch is refused
+// with the launch's error, never run another way.
 extern "C" int rule_split_contract_comp_launch(
     int is_double, int ndim, int feval, long long cap, long long n,
     int blocked, long long first, long long count, int ncomp, long long sc,
-    long long sp, long long sk, const void* vals, const void* lengths,
-    const void* grange, const void* orbit_wts, const void* scale,
-    const void* norm, double ratio, const int* orbit_bounds, void* est,
-    void* err, int* split_dim, void* stream) {
+    long long sp, long long sk, int cluster, int rows, int points,
+    int stages, const void* vals, const void* lengths, const void* grange,
+    const void* orbit_wts, const void* scale, const void* norm, double ratio,
+    const int* orbit_bounds, void* est, void* err, int* split_dim,
+    void* stream) {
   const HostArgs h{ndim, feval, blocked, cap, n, first, count, sc, sp, sk};
+  const CompClusterShape cs{cluster, rows, points, stages};
   if (bad_args(h) || ncomp < 1 || orbit_bounds[kNsets] != feval ||
-      orbit_bounds[3] != 4 * ndim + 1)
+      orbit_bounds[3] != 4 * ndim + 1 ||
+      (cluster != 0 &&
+       bad_comp_cluster_args(h, ncomp, cs, vals, is_double ? 8 : 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double
@@ -1128,13 +1541,13 @@ extern "C" int rule_split_contract_comp_launch(
                    contract_args<double>(h, vals, lengths, grange, orbit_wts,
                                          scale, norm, ratio, orbit_bounds,
                                          est, err, split_dim),
-                   ncomp, s)
+                   ncomp, cs, s)
              : contract_comp_launch<float>(
                    h,
                    contract_args<float>(h, vals, lengths, grange, orbit_wts,
                                         scale, norm, ratio, orbit_bounds,
                                         est, err, split_dim),
-                   ncomp, s);
+                   ncomp, cs, s);
 }
 
 // How many clusters of the cluster route's shape (clusters of ``cluster``
@@ -1151,6 +1564,22 @@ extern "C" int rule_split_cluster_occupancy(int is_double, int rows, int ndim,
                         : cluster_occupancy<double, false>(ndim, cs, &got))
                 : (rows ? cluster_occupancy<float, true>(ndim, cs, &got)
                         : cluster_occupancy<float, false>(ndim, cs, &got));
+  cudaGetLastError();
+  return e != cudaSuccess ? -static_cast<int>(e) : got;
+}
+
+// How many clusters of the components cluster route's shape (clusters of
+// ``cluster`` CTAs, rings of ``stages`` tiles of ``points`` points of
+// ``ncomp`` components; type by is_double, head tile by ndim) the card
+// holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+extern "C" int rule_split_comp_cluster_occupancy(int is_double, int ndim,
+                                                 int ncomp, int cluster,
+                                                 int points, int stages) {
+  const CompClusterShape cs{cluster, 0, points, stages};
+  int got = 0;
+  const cudaError_t e =
+      is_double ? comp_cluster_occupancy<double>(ndim, ncomp, cs, &got)
+                : comp_cluster_occupancy<float>(ndim, ncomp, cs, &got);
   cudaGetLastError();
   return e != cudaSuccess ? -static_cast<int>(e) : got;
 }

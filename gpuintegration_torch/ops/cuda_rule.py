@@ -46,15 +46,22 @@ shared memory; ``cluster_plan``, ``cluster_partition``) where a region's
 points or a point's regions lie contiguous, ``'generic'`` (the first
 design) at any strides.  A vector-valued integrand, f: (..., ndim) ->
 (..., ncomp), always takes the split route, and its values (C, feval,
-ncomp) the third contraction, ``'components'`` (``split_contract_components``:
-the generic design over the components, in passes of one 32-byte sector,
-each component summed in the generic kernel's order), at any strides.
+ncomp) one of two contractions of their own (``split_contract_components``),
+which ``contract_route`` chooses too: ``'components_cluster'`` where they
+lie component-minor (what ``torch.stack(..., -1)`` gives; the cluster
+design over a region's points x ncomp values, the scalar cluster route's
+point ranges and order, so that each component is bit for bit that route's
+on its plane; ``comp_cluster_plan``, ``comp_cluster_partition``), up to
+``MAX_COMP_CLUSTER`` components, and ``'components'`` (the generic design
+over the components, in passes of one 32-byte sector, each component summed
+in the generic kernel's order) at any strides.
 
 ``launches`` counts every launch of the fused kernels since it was last set
 to 0, and ``route_launches`` the same per route; ``split_launches`` counts
 the split route's two kernels, ``'points'`` and ``'contract'``, and
 ``contract_route_launches`` the contraction's by route (``'cluster'``,
-``'generic'``, ``'components'``); ``reset_launches()`` zeroes them all.
+``'generic'``, ``'components_cluster'``, ``'components'``);
+``reset_launches()`` zeroes them all.
 
 The libraries are compiled with nvcc at first use into ``build/`` beside
 this package, from the package's own sources (ops/cuda_build.py); a failed
@@ -90,7 +97,9 @@ CODE_BITS = 4                   # bits of a (point, axis) code
 # CTAs share an SM, and some 224 CTAs, which clusters of up to 8 can keep
 # all resident.
 CONTRACT_ROUTES = ("cluster", "generic")     # a scalar integrand's values
-COMPONENTS = "components"                   # a vector integrand's values
+COMPONENTS_CLUSTER = "components_cluster"   # a vector integrand's values
+COMPONENTS = "components"
+VECTOR_ROUTES = (COMPONENTS_CLUSTER, COMPONENTS)
 CLUSTER_GROUP = 32              # regions of a cluster: one per lane
 CLUSTER_WARPS = 8               # consumer warps of a CTA
 CLUSTER_STAGE_BYTES = 32768     # a stage: 128 f64 or 256 f32 points
@@ -103,13 +112,22 @@ CLUSTER_CTAS = 224
 # points a region: there the generic route is faster (PERF.md).
 CLUSTER_PLANES_FEVAL = 4096
 MAX_CLUSTER = 8                 # the portable cluster size
+# The components cluster route: a region's segment of a stage about 1 KB
+# (32 points of four f64 components), the size at which the scalar route's
+# bulk copies keep up; warps' sums for at most this many components; a CTA's
+# shared memory at most MAX_SMEM bytes.
+COMP_STAGE_BYTES = 32768
+COMP_RING = 2
+MAX_COMP_CLUSTER = 8
+MAX_SMEM = 227 * 1024
+PAIR_SMEM = 112 * 1024          # a CTA's at most, for two to share an SM
 
 # Launches since the counts were last set to 0; callers reset them and read
 # them to show that a run went through the kernel, and by which route.
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
 split_launches = {"points": 0, "contract": 0}
-contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + (COMPONENTS,)}
+contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + VECTOR_ROUTES}
 
 
 def reset_launches():
@@ -153,12 +171,14 @@ def _configure_split(lib):
     fn.restype = ctypes.c_int
     fn = lib.rule_split_contract_comp_launch
     fn.argtypes = (head + [ctypes.c_int] + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+                   + [ctypes.c_double, ctypes.c_void_p]
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
-    fn = lib.rule_split_cluster_occupancy
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_int
+    for fn in (lib.rule_split_cluster_occupancy,
+               lib.rule_split_comp_cluster_occupancy):
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_int
 
 
 def is_genz_family(integrand) -> bool:
@@ -477,20 +497,26 @@ def cluster_partition(dtype: torch.dtype, ndim: int, count: int,
 
 
 def contract_route(dtype: torch.dtype, ndim: int, count: int, feval: int,
-                   strides: tuple) -> str:
+                   strides: tuple, ncomp: int = 1) -> str:
     """The contraction's route for values (count, feval) of ``dtype`` at
-    ``strides`` (elements): 'components' for a vector integrand's values
-    (count, feval, ncomp), three strides, whatever they are; 'cluster'
-    where a region's points lie
+    ``strides`` (elements), or a vector integrand's (count, feval, ncomp)
+    at three strides: for a vector 'components_cluster' where
+    ``comp_cluster_takes`` (component-minor, at most MAX_COMP_CLUSTER
+    components, the shared memory within a CTA's), else 'components'; for
+    a scalar 'cluster' where a region's points lie
     contiguous (rows, sp = 1: what a callable that reduces over the axes
     returns), or a point's regions do (planes, sc = 1: what a per-axis
     callable returns) and a region has CLUSTER_PLANES_FEVAL points or more;
     else 'generic'.  Any count and any address: the bulk copies move whole
     16-byte units around each contiguous segment.  Decided from the shape,
-    never by trying a launch; named, the cluster route takes any values
-    that ``cluster_takes``."""
+    never by trying a launch; named, the cluster routes take any values
+    that ``cluster_takes`` or ``comp_cluster_takes``."""
     if len(strides) == 3:
-        return COMPONENTS
+        if ncomp < 2:
+            raise ValueError(f"a vector's values (strides {strides}) need "
+                             f"their ncomp > 1, got {ncomp}")
+        return (COMPONENTS_CLUSTER if comp_cluster_takes(
+            dtype, ndim, count, feval, strides, ncomp) else COMPONENTS)
     if cluster_takes(dtype, ndim, count, feval, strides) and (
             strides[1] == 1 or feval >= CLUSTER_PLANES_FEVAL):
         return "cluster"
@@ -506,6 +532,91 @@ def cluster_takes(dtype: torch.dtype, ndim: int, count: int, feval: int,
     return (sp == 1 or sc == 1) and -(-count // CLUSTER_GROUP) * k < 2 ** 31
 
 
+def comp_cluster_plan(dtype: torch.dtype, ndim: int, count: int, feval: int,
+                      ncomp: int) -> tuple[int, int, int, int]:
+    """(cluster size K, rows, points per stage, stages of a CTA's ring) of
+    the components cluster route for ``count`` regions of ``feval`` points
+    of ``ncomp`` components: K and the ranks' point ranges are the scalar
+    cluster route's (``cluster_plan``: rank r the points of its stages r T
+    / K .. (r + 1) T / K - 1 of ``rows`` points past the head), each range
+    cut into stages of ``points`` points, about COMP_STAGE_BYTES for 32
+    regions and a multiple of CLUSTER_WARPS, so that warp w sums the points
+    of the scalar route's warp w.  The shape alone decides."""
+    k, rows, _, _ = cluster_plan(dtype, ndim, count, feval)
+    item = torch.finfo(dtype).bits // 8
+    points = COMP_STAGE_BYTES // (CLUSTER_GROUP * item * ncomp)
+    points = max(CLUSTER_WARPS, points // CLUSTER_WARPS * CLUSTER_WARPS)
+    return k, rows, points, COMP_RING
+
+
+def _seg_pitch(item: int, n: int) -> int:
+    """csrc/rule_split.cu's seg_pitch of a row segment of ``n`` values:
+    room for its copy in whole 16-byte units from any address."""
+    slack = 16 // item
+    return (n + 2 * slack - 1) // slack * slack
+
+
+def comp_cluster_smem(dtype: torch.dtype, ndim: int, ncomp: int,
+                      points: int, ring: int) -> int:
+    """Bytes of a components cluster CTA's dynamic shared memory, as
+    csrc/rule_split.cu's CompClusterSmem counts them: the ring of ``ring``
+    tiles of 32 segments of ``points`` x ncomp values, or the leader's head
+    tile (points 0..4n) and one tile beside it where that is larger and two
+    CTAs still share an SM (PAIR_SMEM), else the head tile over the ring's
+    slots where it is larger; the CTA's orbit sums [9][ncomp][32], the
+    fourth differences [16][32] and the warps' mailbox [8][ncomp][32]."""
+    item = torch.finfo(dtype).bits // 8
+    tile = 32 * _seg_pitch(item, points * ncomp)
+    head = 32 * _seg_pitch(item, (4 * ndim + 1) * ncomp)
+    other = (9 + CLUSTER_WARPS) * ncomp * 32 + MAX_NDIM * 32
+    area = max(ring * tile, head + tile)
+    if (area + other) * item > PAIR_SMEM:
+        area = max(ring * tile, head)
+    return (area + other) * item
+
+
+def comp_cluster_takes(dtype: torch.dtype, ndim: int, count: int, feval: int,
+                       strides: tuple, ncomp: int) -> bool:
+    """Whether the components cluster route can take a vector's values
+    (count, feval, ncomp) at ``strides``: component-minor (sk = 1, sp =
+    ncomp), 2..MAX_COMP_CLUSTER components, a CTA's shared memory within
+    MAX_SMEM, a grid of fewer than 2^31 CTAs.  Component-major values
+    (strides (feval, 1, C feval)) would be ncomp segments a region and
+    stage, each a quarter of the 1 KB copies at 4 components, or stages
+    four times the ring's: they keep 'components'."""
+    sc, sp, sk = strides
+    k, _, points, ring = comp_cluster_plan(dtype, ndim, count, feval, ncomp)
+    return (2 <= ncomp <= MAX_COMP_CLUSTER and sk == 1 and sp == ncomp
+            and comp_cluster_smem(dtype, ndim, ncomp, points, ring)
+            <= MAX_SMEM and -(-count // CLUSTER_GROUP) * k < 2 ** 31)
+
+
+def comp_cluster_partition(dtype: torch.dtype, ndim: int, count: int,
+                           feval: int, ncomp: int
+                           ) -> list[tuple[int, int, int, np.ndarray]]:
+    """[(cluster rank, stage, consumer warp, points)] of one group of
+    regions as the components cluster kernel sums them, in its order: the
+    leader's head tile, points 0 .. 4 ndim (stage -1), then each rank's
+    stages of ``comp_cluster_plan``'s points over its point range; warp w
+    takes rows w, w + CLUSTER_WARPS, ... of a stage.  Each component is
+    summed in that order, a running sum per orbit a warp, the warps' sums
+    added in warp order, the ranks' in rank order: the points of each
+    (rank, warp) and their order are ``cluster_partition``'s."""
+    k, rows, points, _ = comp_cluster_plan(dtype, ndim, count, feval, ncomp)
+    head = 4 * ndim + 1
+    total = -(-(feval - head) // rows)
+    out = [(0, -1, w, np.arange(w, head, CLUSTER_WARPS))
+           for w in range(CLUSTER_WARPS)]
+    for r in range(k):
+        lo = head + r * total // k * rows
+        hi = min(feval, head + (r + 1) * total // k * rows)
+        for t, p0 in enumerate(range(lo, hi, points)):
+            n_rows = min(points, hi - p0)
+            out += [(r, t, w, p0 + np.arange(w, n_rows, CLUSTER_WARPS))
+                    for w in range(CLUSTER_WARPS)]
+    return out
+
+
 def cluster_occupancy(dtype: torch.dtype, rows: bool, ndim: int, count: int,
                       feval: int) -> int:
     """How many clusters of the cluster route's launch for this shape
@@ -515,6 +626,20 @@ def cluster_occupancy(dtype: torch.dtype, rows: bool, ndim: int, count: int,
     k, points, _, ring = cluster_plan(dtype, ndim, count, feval)
     got = lib.rule_split_cluster_occupancy(int(dtype == torch.float64),
                                            int(rows), ndim, k, points, ring)
+    if got < 0:
+        raise RuntimeError(f"cluster occupancy query failed: error {-got}")
+    return got
+
+
+def comp_cluster_occupancy(dtype: torch.dtype, ndim: int, count: int,
+                           feval: int, ncomp: int) -> int:
+    """How many clusters of the components cluster route's launch for this
+    shape (``comp_cluster_plan``) the card holds at once; RuntimeError if
+    the query fails."""
+    lib = cuda_build.load(_SPLIT_SOURCE, _configure_split)
+    k, _, points, ring = comp_cluster_plan(dtype, ndim, count, feval, ncomp)
+    got = lib.rule_split_comp_cluster_occupancy(
+        int(dtype == torch.float64), ndim, ncomp, k, points, ring)
     if got < 0:
         raise RuntimeError(f"cluster occupancy query failed: error {-got}")
     return got
@@ -553,24 +678,35 @@ def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
 
 
 def _contract_comp_launch(lib, tables, vals, lengths, global_range, cap, n,
-                          blocked, first, count, est, err, sdim):
-    dtype = vals.dtype
+                          blocked, first, count, est, err, sdim, route=None):
+    dtype, ncomp = vals.dtype, vals.shape[2]
+    shape = (dtype, tables.ndim, count, tables.feval)
+    if route is None:
+        route = contract_route(*shape, vals.stride(), ncomp)
+    elif route not in VECTOR_ROUTES or (
+            route == COMPONENTS_CLUSTER
+            and not comp_cluster_takes(*shape, vals.stride(), ncomp)):
+        raise ValueError(f"contraction route {route!r} does not take a "
+                         f"vector's values of strides {vals.stride()} "
+                         f"({count} regions, {ncomp} components, {dtype})")
+    plan = (comp_cluster_plan(*shape, ncomp) if route == COMPONENTS_CLUSTER
+            else (0, 0, 0, 0))
     _, orbit_wts, scale, norm = rule_eval.device_tables(
         tables.ndim, dtype, vals.device)
     ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
     rc = lib.rule_split_contract_comp_launch(
         int(dtype == torch.float64), tables.ndim, tables.feval, cap, n,
-        int(bool(blocked)), first, count, vals.shape[2], *vals.stride(),
+        int(bool(blocked)), first, count, ncomp, *vals.stride(), *plan,
         vals.data_ptr(), lengths.data_ptr(), global_range.data_ptr(),
         orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
         float(tables.ratio), ctypes.cast(ob, ctypes.c_void_p), est.data_ptr(),
         err.data_ptr(), sdim.data_ptr(),
         torch.cuda.current_stream(vals.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA rule contraction kernel ({COMPONENTS} "
-                           f"route) launch failed: error {rc}")
+        raise RuntimeError(f"CUDA rule contraction kernel ({route} route) "
+                           f"launch failed: error {rc}")
     split_launches["contract"] += 1
-    contract_route_launches[COMPONENTS] += 1
+    contract_route_launches[route] += 1
 
 
 def _check_chunk(cap, n, first, count):
@@ -643,14 +779,17 @@ def _zero_outputs(cap, lows, ncomp: int = 1):
 def split_contract_components(vals, tables: rule_eval.RuleTables, lows,
                               lengths, global_lo, global_range, first: int, *,
                               n: int | None = None, blocked: bool = False,
-                              out=None):
-    """One launch of the components kernel: est and err (ncomp, cap) and
+                              out=None, route: str | None = None):
+    """One launch of a vector's contraction: est and err (ncomp, cap) and
     split_dim (cap,) of real regions first .. first + C - 1 from a vector
-    integrand's values ``vals`` (C, feval, ncomp > 1) at any strides, written
-    at their slots of ``out`` (new zeroed tensors when None), which it
-    returns.  What ``rule_eval.rule_outputs_vector`` computes; component k
-    bit for bit what ``split_contract(vals[..., k], route='generic')``
-    gives."""
+    integrand's values ``vals`` (C, feval, ncomp > 1), written at their
+    slots of ``out`` (new zeroed tensors when None), which it returns.
+    What ``rule_eval.rule_outputs_vector`` computes.  ``route`` None takes
+    ``contract_route``'s; named, 'components' takes any strides (component
+    k bit for bit ``split_contract(vals[..., k], route='generic')``),
+    'components_cluster' what ``comp_cluster_takes`` (component k bit for
+    bit ``split_contract(vals[..., k].contiguous(), route='cluster')``) and
+    raises ValueError for other values."""
     cap, n = _check_pool("split_contract_components", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
     count, ncomp = vals.shape[::2] if vals.dim() == 3 else (0, 0)
@@ -664,7 +803,7 @@ def split_contract_components(vals, tables: rule_eval.RuleTables, lows,
         out = _zero_outputs(cap, lows, ncomp)
     _contract_comp_launch(cuda_build.load(_SPLIT_SOURCE, _configure_split),
                           tables, vals, lengths, global_range, cap, n,
-                          blocked, first, count, *out)
+                          blocked, first, count, *out, route=route)
     return out
 
 
@@ -681,14 +820,16 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
     outputs as ``rule_eval.apply_rule_plain``: (estimate, errorest,
     split_dim (cap,) int32), zeros in the padding slots; estimate and
     errorest (cap,), or (ncomp, cap) for a vector integrand (``ncomp`` >
-    1), whose values (C, feval, ncomp) take the components kernel.
-    ``route`` names a scalar contraction's route for every chunk, as
-    ``split_contract``'s does (None: ``contract_route``'s for each)."""
+    1), whose values (C, feval, ncomp) take a vector's contraction.
+    ``route`` names the contraction's route for every chunk, as
+    ``split_contract``'s and ``split_contract_components``' do (None:
+    ``contract_route``'s for each)."""
     cap, n = _check_pool("cuda_apply_rule_split", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
-    if ncomp > 1 and route not in (None, COMPONENTS):
+    if ncomp > 1 and route not in (None,) + VECTOR_ROUTES:
         raise ValueError(f"a vector integrand's values take the "
-                         f"{COMPONENTS!r} contraction, not {route!r}")
+                         f"{COMPONENTS_CLUSTER!r} or {COMPONENTS!r} "
+                         f"contraction, not {route!r}")
     batched, _ = make_integrand(integrand, tables.ndim)
     lib = cuda_build.load(_SPLIT_SOURCE, _configure_split)
     out = _zero_outputs(cap, lows, ncomp)
@@ -700,7 +841,8 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
         _check_vals(vals, count, tables, lows, ncomp)
         if ncomp > 1:
             _contract_comp_launch(lib, tables, vals, lengths, global_range,
-                                  cap, n, blocked, first, count, *out)
+                                  cap, n, blocked, first, count, *out,
+                                  route=route)
         else:
             _contract_launch(lib, tables, vals, lengths, global_range,
                              cap, n, blocked, first, count, *out, route=route)

@@ -42,6 +42,17 @@ PART = dict(ndim=4, params=dict(a=15.0, b=0.3), epsrel=1e-6,
             ws=dict(max_pool_regions=4096, chunk_size=128))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small tensor operations,
+    and the test workers running side by side would otherwise
+    oversubscribe the cores (each worker's pool defaults to every core)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def flush_denormal():
     torch.set_flush_denormal(True)

@@ -1,6 +1,6 @@
-"""The components contraction (a vector integrand's values, csrc/
-rule_split.cu ``rule_contract_comp_kernel``) and the vector main path, on
-the card.
+"""A vector integrand's contractions (csrc/rule_split.cu: the components
+cluster route ``rule_contract_comp_cluster_kernel`` and the components
+route ``rule_contract_comp_kernel``) and the vector main path, on the card.
 
 These tests need a CUDA card and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -35,8 +35,9 @@ def _values(count, feval, ncomp, dtype, layout, seed=2):
     """Values (count, feval, ncomp) on the grid k/8 in [0.5, 1.5), so that
     every orbit sum is exact in any order: component-minor (what
     torch.stack(..., -1) gives), component-major (a (ncomp, ...) tensor
-    with its axis moved) or strided (every other element of a wider
-    tensor)."""
+    with its axis moved), strided (every other element of a wider tensor)
+    or wide (component-minor rows of a wider tensor, from its second
+    element: off a 16-byte unit)."""
     rng = np.random.default_rng(seed)
     v = torch.as_tensor(rng.integers(4, 12, (count, feval, ncomp)) / 8,
                         dtype=dtype, device=_card())
@@ -47,6 +48,11 @@ def _values(count, feval, ncomp, dtype, layout, seed=2):
                            device=v.device)
         wide[..., ::2] = v
         return wide[..., ::2]
+    if layout == "wide":
+        wide = torch.zeros((count, feval * ncomp + 3), dtype=dtype,
+                           device=v.device)
+        wide[:, 1:1 + feval * ncomp] = v.reshape(count, -1)
+        return wide[:, 1:1 + feval * ncomp].view(count, feval, ncomp)
     return v
 
 
@@ -60,20 +66,25 @@ def _bits(t):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("ndim,count", [(3, 301), (8, 96), (12, 33)])
 def test_components_kernel_matches_plain(ndim, count, dtype, ncomp, layout):
-    """est/err of every component by kernel_check's limits against
-    rule_outputs_vector, split_dim EQUAL, each component bit for bit the
-    generic scalar route's on its plane, two launches the same bits."""
+    """The components route (named; contract_route names it for every
+    layout but component-minor): est/err of every component by
+    kernel_check's limits against rule_outputs_vector, split_dim EQUAL,
+    each component bit for bit the generic scalar route's on its plane,
+    two launches the same bits."""
     tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
     lows, lengths, gl, gr = _pool(ndim, count, dtype)
     vals = _values(count, tables.feval, ncomp, dtype, layout)
-    assert cuda_rule.contract_route(dtype, ndim, count, tables.feval,
-                                    vals.stride()) == "components"
+    assert cuda_rule.contract_route(
+        dtype, ndim, count, tables.feval, vals.stride(), ncomp) == (
+        "components_cluster" if layout == "minor" else "components")
     cuda_rule.reset_launches()
     a, b = (cuda_rule.split_contract_components(
-        vals, tables, lows, lengths, gl, gr, 0) for _ in range(2))
+        vals, tables, lows, lengths, gl, gr, 0, route="components")
+        for _ in range(2))
     torch.cuda.synchronize()
     assert cuda_rule.contract_route_launches == {
-        "cluster": 0, "generic": 0, "components": 2}
+        "cluster": 0, "generic": 0, "components_cluster": 0,
+        "components": 2}
     assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
     plain = rule_eval.rule_outputs_vector(vals, tables, lengths, gr)
     r = kernel_check.check_components(a, plain, vals, vals.abs(), tables,
@@ -88,14 +99,73 @@ def test_components_kernel_matches_plain(ndim, count, dtype, ncomp, layout):
 
 
 @pytest.mark.gpu
-def test_components_nan_region_takes_the_widest_axis():
+@pytest.mark.parametrize("layout", ["minor", "wide"])
+@pytest.mark.parametrize("ncomp", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim,count", [(2, 65), (3, 301), (8, 96),
+                                        (12, 33), (16, 40)])
+def test_components_cluster_matches_plain(ndim, count, dtype, ncomp,
+                                          layout):
+    """The components cluster route, which contract_route names for
+    component-minor values at any address and region stride: est/err of
+    every component by kernel_check's limits against rule_outputs_vector,
+    split_dim EQUAL, each component bit for bit the scalar cluster route's
+    on its contiguous plane, two launches the same bits."""
+    tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+    lows, lengths, gl, gr = _pool(ndim, count, dtype)
+    vals = _values(count, tables.feval, ncomp, dtype, layout)
+    assert cuda_rule.contract_route(dtype, ndim, count, tables.feval,
+                                    vals.stride(), ncomp) == \
+        "components_cluster"
+    cuda_rule.reset_launches()
+    a, b = (cuda_rule.split_contract_components(
+        vals, tables, lows, lengths, gl, gr, 0) for _ in range(2))
+    torch.cuda.synchronize()
+    assert cuda_rule.contract_route_launches == {
+        "cluster": 0, "generic": 0, "components_cluster": 2,
+        "components": 0}
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+    plain = rule_eval.rule_outputs_vector(vals, tables, lengths, gr)
+    r = kernel_check.check_components(a, plain, vals, vals.abs(), tables,
+                                      lengths, gr)
+    assert r["split_dim_equal"] == count
+    for k in range(ncomp):
+        e, rr, _ = cuda_rule.split_contract(vals[..., k].contiguous(), tables,
+                                            lows, lengths, gl, gr, 0,
+                                            route="cluster")
+        assert torch.equal(_bits(a[0][k]), _bits(e))
+        assert torch.equal(_bits(a[1][k]), _bits(rr))
+
+
+@pytest.mark.gpu
+def test_components_cluster_refuses_other_layouts():
+    """Named, the components cluster route refuses values that are not
+    component-minor, and more than 8 components; a scalar route refuses a
+    vector's values."""
+    ndim, count = 3, 64
+    tables = rule_eval.rule_tables(ndim)
+    args = _pool(ndim, count, torch.float64)
+    for vals in (_values(count, tables.feval, 3, torch.float64, "major"),
+                 _values(count, tables.feval, 3, torch.float64, "strided"),
+                 _values(count, tables.feval, 9, torch.float64, "minor")):
+        with pytest.raises(ValueError, match="components_cluster"):
+            cuda_rule.split_contract_components(vals, tables, *args, 0,
+                                                route="components_cluster")
+        with pytest.raises(ValueError, match="'cluster'"):
+            cuda_rule.split_contract_components(vals, tables, *args, 0,
+                                                route="cluster")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["components_cluster", "components"])
+def test_components_nan_region_takes_the_widest_axis(route):
     ndim, count, ncomp = 8, 64, 3
     tables = rule_eval.rule_tables(ndim)
     lows, lengths, gl, gr = _pool(ndim, count, torch.float64)
     vals = _values(count, tables.feval, ncomp, torch.float64, "minor")
     vals[7, 2 + 2 * ndim, 1] = float("nan")      # an orbit-2 value
     k = cuda_rule.split_contract_components(vals, tables, lows, lengths, gl,
-                                            gr, 0)
+                                            gr, 0, route=route)
     p = rule_eval.rule_outputs_vector(vals, tables, lengths, gr)
     widest = int(torch.argmax(lengths[:, 7]))
     assert int(k[2][7]) == int(p[2][7]) == widest
@@ -106,8 +176,9 @@ def test_components_nan_region_takes_the_widest_axis():
 @pytest.mark.gpu
 def test_vector_split_route_on_pools():
     """A vector callable through the split route on a blocked pool with
-    padding slots: zeros there, one components launch a chunk, and the
-    plain version's outputs on the same values."""
+    padding slots: zeros there, one components cluster launch a chunk (the
+    callable stacks its components last), and the plain version's outputs
+    on the same values."""
     ndim, cap, n, chunk = 5, 512, 400, 96
     dtype = torch.float64
     lows, lengths, gl, gr = _pool(ndim, cap, dtype)
@@ -123,7 +194,7 @@ def test_vector_split_route_on_pools():
                                         ncomp=3)
     torch.cuda.synchronize()
     chunks = len(cuda_rule.split_chunks(n, chunk))
-    assert cuda_rule.contract_route_launches["components"] == chunks
+    assert cuda_rule.contract_route_launches["components_cluster"] == chunks
     assert cuda_rule.split_launches == {"points": chunks, "contract": chunks}
     real = torch.nonzero(region_pool.block_mask(cap, n, True, lows.device))[:, 0]
     pad = torch.ones(cap, dtype=torch.bool, device=lows.device)
@@ -143,7 +214,8 @@ def test_vector_split_route_on_pools():
 @pytest.mark.gpu
 def test_vector_workspace_on_card_matches_cpu():
     """Workspace(3) on a vector of Genz members: the card's run takes the
-    components route for every evaluation and the CPU run's decisions."""
+    components cluster route for every evaluation and the CPU run's
+    decisions."""
     _card()
     members = [genz.f2_product_peak(3), genz.f4_gaussian(3, a=5.0)]
 
@@ -156,7 +228,8 @@ def test_vector_workspace_on_card_matches_cpu():
     launches = dict(cuda_rule.contract_route_launches)
     on_cpu = Workspace(3, chunk_size=1024, device="cpu").integrate(
         f, 1e-6, 1e-40)
-    assert launches["components"] > 0 and launches["cluster"] == 0
+    assert launches["components_cluster"] > 0 and launches["cluster"] == 0
+    assert launches["components"] == 0
     assert (on_card.status, on_card.iters, on_card.nregions,
             on_card.neval) == (on_cpu.status, on_cpu.iters, on_cpu.nregions,
                                on_cpu.neval)

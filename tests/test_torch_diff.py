@@ -46,6 +46,17 @@ from gpuintegration_torch.utils import checkpoint as tck
 F64 = torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small tensor operations,
+    and the test workers running side by side would otherwise
+    oversubscribe the cores (each worker's pool defaults to every core)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def flush_denormal():
     torch.set_flush_denormal(True)

@@ -165,8 +165,10 @@ def test_two_equal_components_are_the_scalar_rule():
 
 @pytest.mark.parametrize("layout", ["minor", "major", "strided"])
 def test_route_choice_is_components_for_vectors(layout):
-    """Values (count, feval, ncomp) take the components route at any
-    strides; a vector of Genz members takes the split route."""
+    """Values (count, feval, ncomp) take a vector's contraction: the
+    components cluster route component-minor, the components route at any
+    other strides; a component's plane a scalar route; a vector of Genz
+    members takes the split route."""
     ndim, count, ncomp = 8, 64, 3
     feval = rule_eval.rule_tables(ndim).feval
     v = torch.zeros((count, feval, ncomp))
@@ -174,14 +176,17 @@ def test_route_choice_is_components_for_vectors(layout):
         v = torch.zeros((ncomp, count, feval)).movedim(0, -1)
     elif layout == "strided":
         v = torch.zeros((count, feval, 2 * ncomp))[..., ::2]
+    want = "components_cluster" if layout == "minor" else "components"
     assert cuda_rule.contract_route(torch.float64, ndim, count, feval,
-                                    v.stride()) == "components"
+                                    v.stride(), ncomp) == want
     assert cuda_rule.contract_route(torch.float64, ndim, count, feval,
-                                    v[..., 0].stride()) != "components"
+                                    v[..., 0].stride()) in ("cluster",
+                                                            "generic")
     g = genz.f4_gaussian(ndim)
     assert cuda_rule.rule_route(ndim, g) == "tile"
     assert cuda_rule.rule_route(ndim, g, ncomp) == "split"
-    assert "components" in cuda_rule.contract_route_launches
+    assert {"components", "components_cluster"} <= set(
+        cuda_rule.contract_route_launches)
 
 
 def _plain_components(monkeypatch):
@@ -202,14 +207,16 @@ def _plain_components(monkeypatch):
                                      lengths[:, slots], gl, gr)[0]
 
     def contract(lib, tables, vals, lengths, gr, cap, n, blocked, first,
-                 count, est, err, sdim):
+                 count, est, err, sdim, route=None):
         slots = torch.as_tensor(cuda_rule.split_slots(cap, n, blocked, first,
                                                       count))
         e, r, s = rule_eval.rule_outputs_vector(vals, tables,
                                                 lengths[:, slots], gr)
         est[:, slots], err[:, slots], sdim[slots] = e, r, s
         cuda_rule.split_launches["contract"] += 1
-        cuda_rule.contract_route_launches["components"] += 1
+        cuda_rule.contract_route_launches[route or cuda_rule.contract_route(
+            vals.dtype, tables.ndim, count, tables.feval, vals.stride(),
+            vals.shape[2])] += 1
 
     monkeypatch.setattr(cuda_rule, "_check_pool", check)
     monkeypatch.setattr(cuda_rule, "_points_launch", points)
@@ -221,8 +228,10 @@ def _plain_components(monkeypatch):
 def test_split_walk_of_a_vector(monkeypatch, n, blocked, chunk):
     """With its kernels replaced by their plain versions, the split wrapper
     walks a vector integrand's chunks into (ncomp, cap) outputs equal to
-    apply_rule_plain's, zeros in the padding slots, one components launch
-    a chunk; the scalar routes refuse a vector's values."""
+    apply_rule_plain's, zeros in the padding slots, one launch a chunk on
+    the route contract_route names (the members stacked component-minor:
+    the components cluster route); the scalar routes refuse a vector's
+    values."""
     _plain_components(monkeypatch)
     ndim, cap = 3, 64
     t = [torch.as_tensor(a) for a in _pool(ndim, cap, 2)]
@@ -237,7 +246,8 @@ def test_split_walk_of_a_vector(monkeypatch, n, blocked, chunk):
         assert kernel_check.same_bits(a, b)
     chunks = len(cuda_rule.split_chunks(n, chunk))
     assert cuda_rule.contract_route_launches == {
-        "cluster": 0, "generic": 0, "components": chunks}
+        "cluster": 0, "generic": 0, "components_cluster": chunks,
+        "components": 0}
     assert cuda_rule.split_launches == {"points": chunks, "contract": chunks}
     mask = region_pool.block_mask(cap, n, blocked)
     assert not got[0][:, ~mask].any() and not got[2][~mask].any()

@@ -41,6 +41,17 @@ FIXED = dict(epsrel=1e-9, epsabs=1e-300, total_iters=8, adjust_iters=5,
              skip_iters=2, seed=3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small tensor operations,
+    and the test workers running side by side would otherwise
+    oversubscribe the cores (each worker's pool defaults to every core)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _reference(case, importance, fixed):
     make, kw = CASES[case]
