@@ -167,7 +167,33 @@ timed beside the others in the same run.
    'hybrid'; B2 emit and B3 launched), the grid map (B4 and B3), and [g, g]
    against the scalar run of g: the same iterations, the final grid EQUAL,
    both components equal and within 1e-12 of the scalar estimate;
-15. the ``kernels`` JSON line, then the card line and the result line.
+15. the split fraction kernel (``cuda_rule.split_frac``,
+   csrc/split_frac.cu, a crease run's fourth kernel on the split route)
+   against ``rule_eval.split_fraction`` on values with planted kinks and
+   jumps (``kernel_check.crease_stencils``) at the Workspace's 8D f64
+   (4096 x 1105), 12D f64 (1024 x 6745) and 8D f32 (8192 x 1105) chunks,
+   as rows and as planes: fraction and split_dim EQUAL on the card and to
+   a CPU copy; its time (``queued_ms``) beside its bytes bound and the
+   plain version's, the cuts and the split axes a jump moved;
+16. crease/jump-aware splits at full width: 8D ``f5_c0_continuous(8,
+   a=10, b=0.37)`` at ``F5_CREASE_EPSREL`` and ``f6_discontinuous(8)`` at
+   ``F6_CREASE_EPSREL`` (``tools/crease_probe.py`` finds the deepest each
+   certifies within ~30 s), crease against midpoint splits, host loop and
+   fused phase: status, iterations, regions, neval, wall, true error, the
+   split fraction kernel's launches; every crease run certifies within 3x
+   its tolerance on the split route with the kernel on every chunk, and
+   the fused crease run takes the host loop's decisions;
+17. the fused phase (``pagani/fused_loop.py``, CUDA graphs of one
+   iteration a bucket capacity): phase 3's run with ``fused=True`` against
+   the host loop in turns (the same status, iterations, regions and neval,
+   the estimate within 1e-12), its bursts, captures, replays and packed
+   reads, each traced once (``utils.profiling.trace``) for the device's
+   idle share; phase 13's vector and phase 11's F4 callable through the
+   fused phase against those phases' host-loop runs;
+18. the ``kernels`` JSON line, then the card line and the result line.
+
+Phases 1-14 run the host loop (``fused=False``, ``HOST``), as they did
+before the fused phase became ``integrate``'s default.
 """
 from __future__ import annotations
 
@@ -191,12 +217,15 @@ from gpuintegration_torch.mcubes import kernel_check as vegas_check
 from gpuintegration_torch.models import genz, misc
 from gpuintegration_torch.ops import (cuda_build, cuda_rule, kernel_check,
                                       rule_eval)
-from gpuintegration_torch.pagani import region_pool
+from gpuintegration_torch.pagani import fused_loop, region_pool
 from gpuintegration_torch.tools import sass_report, vector_probe
 from gpuintegration_torch.types import Volume
 from gpuintegration_torch.utils.profiling import StageTimer
 
 NDIM = 8
+# Phases 1-14 drive PAGANI's host loop, as they did before the fused phase
+# became the default; phases 16-17 run both.
+HOST = {"fused": False}
 # H100 SXM data sheet, dense, outside the tensor cores; HBM3 rate.
 PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -1148,7 +1177,7 @@ def diff_path(dev):
     # reach, so that the checkpoint is a complete partition
     ws = Workspace(3, chunk_size=1024)
     ws.integrate(genz.f4_gaussian(3, a=5.0), epsrel=1e-12, epsabs=1e-200,
-                 max_iterations=6)
+                 max_iterations=6, **HOST)
     regions = diff.mesh_from_checkpoint(ws.make_checkpoint())
     fm3 = diff.fixed_mesh_integral(gauss, 3, regions=regions)
     c_est, c_err = (float(v) for v in fm3(a))
@@ -1626,7 +1655,7 @@ def events_run(label, ws, f, epsrel, truth, phase="phase 11"):
     cuda_rule.reset_launches()
     with SplitEvents(f) as ev:
         t0 = time.perf_counter()
-        res = ws.integrate(ev.f, epsrel=epsrel, epsabs=1e-40)
+        res = ws.integrate(ev.f, epsrel=epsrel, epsabs=1e-40, **HOST)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(cuda_rule.split_launches)
@@ -1679,11 +1708,14 @@ def split_main_path(dev, tile_run):
     kernel launch and each call of the callable, beside phase 3's run;
     then ``misc.sin_sum(12)`` the same way, and ``misc.sin_sum(8)`` at
     1e-11.  Returns the split kernels' launches on the first run, the
-    contraction's by route, and the 12D run's result."""
+    contraction's by route, the 12D run's result and the first run's
+    (result, wall)."""
     g4 = genz.f4_gaussian(NDIM)
+    t0 = time.perf_counter()
     res, launches, routes = events_run(
         f"f64 {NDIM}D F4 as a plain callable", Workspace(NDIM), f4_plain,
         1e-3, g4.true_value)
+    split_run = (res, time.perf_counter() - t0)
     print(f"phase 11: phase 3 (tile route, the same integrand): iters "
           f"{tile_run.iters} nregions {tile_run.nregions} neval "
           f"{tile_run.neval}", flush=True)
@@ -1701,7 +1733,8 @@ def split_main_path(dev, tile_run):
     g = misc.sin_sum(NDIM)
     cuda_rule.reset_launches()
     t0 = time.perf_counter()
-    res = Workspace(NDIM).integrate(g, epsrel=SIN_SUM_EPSREL, epsabs=1e-40)
+    res = Workspace(NDIM).integrate(g, epsrel=SIN_SUM_EPSREL, epsabs=1e-40,
+                                    **HOST)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rel = abs(res.estimate - g.true_value) / abs(g.true_value)
@@ -1715,7 +1748,7 @@ def split_main_path(dev, tile_run):
     if res.status != 0 or not rel <= SIN_SUM_EPSREL or cuda_rule.launches \
             or not cuda_rule.split_launches["points"]:
         fail(f"sin_sum main path: status {res.status}, rel.err {rel}")
-    return launches, routes, sin12
+    return launches, routes, sin12, split_run
 
 
 CONT_POOL = 1 << 22      # a pool budget at which 8D F4's round 1 walls
@@ -1739,7 +1772,7 @@ def convergence_run(label, g, ws, **kw):
     t0 = time.perf_counter()
     res = ws.integrate_to_convergence(g, epsrel=1e-5, epsabs=1e-40,
                                       max_wall_s=600, stage_timer=timer,
-                                      **kw)
+                                      **HOST, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rel = abs(res.estimate - g.true_value) / g.true_value
@@ -1785,16 +1818,17 @@ def continuation_path(dev):
     sp = cuda_build.BUILD_DIR / "continuation_state"
     ws2 = Workspace(NDIM, max_pool_regions=CONT_POOL)
     t0 = time.perf_counter()
-    r1 = ws2.integrate(g, epsrel=1e-5, epsabs=1e-40)
+    r1 = ws2.integrate(g, epsrel=1e-5, epsabs=1e-40, **HOST)
     ck = ws2.make_checkpoint()
     ws2.final_pool = ws2.final_pool_errors = None
     cut = ws2._partitioned_continuation(
         g, 1e-5, 1e-40, None, ck, r1, 15, deadline=time.monotonic() - 1.0,
-        state_path=sp)
+        state_path=sp, **HOST)
     saved = (sp.parent / (sp.name + ".npz")).exists()
     resumed = Workspace(NDIM, max_pool_regions=CONT_POOL
                         ).integrate_to_convergence(
-        g, epsrel=1e-5, epsabs=1e-40, max_wall_s=600, state_path=sp)
+        g, epsrel=1e-5, epsabs=1e-40, max_wall_s=600, state_path=sp,
+        **HOST)
     torch.cuda.synchronize()
     same = (resumed.estimate, resumed.errorest, resumed.neval,
             resumed.nregions) == (res.estimate, res.errorest, res.neval,
@@ -2104,11 +2138,12 @@ def identity_check(dev):
     gg.ndim = NDIM
     ws_s, ws_v = Workspace(NDIM), Workspace(NDIM)
     with SweepRecorder(ws_s) as rec_s:
-        rs = ws_s.integrate(g, epsrel=SIN_SUM_EPSREL, epsabs=1e-40)
+        rs = ws_s.integrate(g, epsrel=SIN_SUM_EPSREL, epsabs=1e-40, **HOST)
     cuda_rule.reset_launches()
     t0 = time.perf_counter()
     with SweepRecorder(ws_v) as rec_v:
-        rv = ws_v.integrate(gg, epsrel=SIN_SUM_EPSREL, epsabs=1e-40)
+        rv = ws_v.integrate(gg, epsrel=SIN_SUM_EPSREL, epsabs=1e-40,
+                            **HOST)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     routes = dict(cuda_rule.contract_route_launches)
@@ -2188,7 +2223,7 @@ def vector_continuation(dev):
                                      genz.f2_product_peak(nd)])
     ws_kw = dict(chunk_size=VCONT["chunk_size"],
                  max_pool_regions=VCONT["max_pool_regions"])
-    kw = dict(finish_epsrel_scale=VCONT["finish_epsrel_scale"])
+    kw = dict(finish_epsrel_scale=VCONT["finish_epsrel_scale"], **HOST)
     ws = Workspace(nd, **ws_kw)
     timer, runs, integrate = StageTimer(), [0], ws.integrate
 
@@ -2271,7 +2306,7 @@ def in_situ(label, f, ndim, epsrel, route):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = Workspace(ndim).integrate(f, epsrel=epsrel,
-                                                epsabs=1e-40)
+                                                epsabs=1e-40, **HOST)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             events = [e for e in prof.key_averages()
@@ -2344,13 +2379,15 @@ def vector_main_path(dev, sin12):
     traced (``in_situ``) once on each vector route; the identity check;
     [sin_sum(12)] x 4 against phase 11's scalar run (``sin12``); the
     vector continuation.  Returns the split kernels' launches of the first
-    run, the contraction's by route, the in-situ readings and the walls."""
+    run, the contraction's by route, the in-situ readings, the walls and the
+    first run's (result, wall)."""
     f, truths = vector_probe.vector(vector_probe.members("moderate"))
     label = ("f64 8D [F1 (coefficients 1/2), F2 (a=5), F4 (a=5), F5] as one "
              "vector")
     t0 = time.perf_counter()
-    _, launches, routes = events_run(label, Workspace(NDIM), f, VEC8_EPSREL,
-                                     truths, phase="phase 13")
+    vec_res, launches, routes = events_run(label, Workspace(NDIM), f,
+                                           VEC8_EPSREL, truths,
+                                           phase="phase 13")
     walls = {"vec8": time.perf_counter() - t0}
     if not (routes[cuda_rule.COMPONENTS_CLUSTER] == launches["contract"]
             == launches["points"] and routes["cluster"] == routes["generic"]
@@ -2363,7 +2400,7 @@ def vector_main_path(dev, sin12):
     identity_check(dev)
     routes["sin12x4"], walls["sin12x4"] = sin12_vector(sin12)
     walls["continuation"] = vector_continuation(dev)
-    return launches, routes, situ, walls
+    return launches, routes, situ, walls, (vec_res, walls["vec8"])
 
 
 VVEGAS = dict(epsrel=1e-3, ncall=1e8)   # VEGAS run 1's settings, 6D f64
@@ -2446,6 +2483,248 @@ def vector_vegas(dev):
     return out, {"poly": w_poly, "grid": w_grid}
 
 
+# ---------------------------------------------------------------------------
+# Crease/jump-aware splits and the fused phase (phases 15-17)
+
+# (label, ndim, regions, type): the Workspace's 8D f64 and f32 chunks and
+# its 12D f64 chunk
+SPLIT_FRAC_CASES = (("8D f64 Workspace chunk", 8, 4096, "float64"),
+                    ("12D f64 Workspace chunk", 12, 1024, "float64"),
+                    ("8D f32 Workspace chunk", 8, 8192, "float32"))
+# The deepest tolerances of tools/crease_probe.py's ladder at which 8D F5
+# (a=10, b=0.37) and F6 certify with crease/jump-aware splits within 30 s
+# on an NVIDIA H100 80GB HBM3 at 700 W (F5 3e-3 and F6 1e-4 do not;
+# PERF.md)
+F5_CREASE_EPSREL = 1e-2
+F6_CREASE_EPSREL = 3e-4
+
+
+def split_frac_checks(dev):
+    """Phase 15: ``rule_split_frac_kernel`` (``cuda_rule.split_frac``)
+    against ``rule_eval.split_fraction`` at SPLIT_FRAC_CASES, values as
+    rows and as planes with planted kinks and jumps
+    (``kernel_check.crease_stencils``): fraction and split_dim EQUAL on the
+    card and to a CPU copy; the kernel's time (``queued_ms``) beside its
+    bytes bound and the plain version's.  Returns the rows."""
+    rows = []
+    for label, ndim, count, dtype in SPLIT_FRAC_CASES:
+        vals, sd = kernel_check.crease_stencils(ndim, count, dtype,
+                                                seed=15 + ndim)
+        sd = torch.as_tensor(sd, device=dev)
+        item = np.dtype(dtype).itemsize
+        # each region's 4 ndim + 1 stencil values and split axis read, its
+        # fraction and split axis written
+        nbytes = count * ((4 * ndim + 1) * item + 4 + item + 4)
+        for layout in ("rows", "planes"):
+            v = torch.as_tensor(vals, device=dev)
+            if layout == "planes":
+                v = v.T.contiguous().T
+            try:
+                r = kernel_check.check_split_frac(v, sd, ndim)
+            except AssertionError as e:
+                fail(f"phase 15: {label} {layout}: {e}")
+            ms = queued_ms(lambda: cuda_rule.split_frac(v, sd, ndim), 5)
+            plain = time_ms(lambda: rule_eval.split_fraction(v, sd, ndim), 3)
+            row = dict(shape=f"{label} {count} x "
+                       f"{rule_eval.rule_tables(ndim).feval} {layout}",
+                       ms=ms, plain_ms=plain,
+                       bound_ms=bytes_bound_ms(nbytes), **r)
+            rows.append(row)
+            print(f"phase 15: split fraction kernel, {row['shape']}: EQUAL "
+                  f"to the plain version (card and CPU), {r['cut']} of "
+                  f"{r['regions']} regions cut off the midpoint, "
+                  f"{r['overrides']} split axes overridden by a jump; "
+                  f"{ms:.4f} ms (queued), bound {row['bound_ms']:.4f} ms "
+                  f"(bytes, {nbytes / 1e6:.3f} MB; "
+                  f"{100 * row['bound_ms'] / ms:.1f} % of it), plain "
+                  f"{plain:.3f} ms", flush=True)
+    return rows
+
+
+def crease_run(label, g, eps, crease, fused):
+    """One ``Workspace(8).integrate(g, eps, crease_split=crease,
+    fused=fused)`` with the launch counts set to 0 before and read after;
+    printed.  Returns the result, the wall and the launches."""
+    cuda_rule.reset_launches()
+    fused_loop.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = Workspace(NDIM).integrate(g, eps, 1e-40, crease_split=crease,
+                                    fused=fused)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(split_frac=cuda_rule.split_frac_launches,
+                    fused_kernel=cuda_rule.launches,
+                    **cuda_rule.split_launches)
+    rel = abs(res.estimate - g.true_value) / abs(g.true_value)
+    print(f"phase 16: {label} epsrel {eps:g}, "
+          f"{'crease' if crease else 'midpoint'} splits, "
+          f"{'fused' if fused else 'host loop'}: status {res.status} "
+          f"estimate {res.estimate!r} truth {g.true_value!r} rel.err "
+          f"{rel:.3e} errorest/truth {res.errorest / abs(g.true_value):.3e} "
+          f"iters {res.iters} nregions {res.nregions} neval {res.neval} wall "
+          f"{wall:.3f} s; launches {launches}; bursts "
+          f"{dict(fused_loop.stats)}", flush=True)
+    return res, wall, launches, rel
+
+
+def crease_path(dev):
+    """Phase 16: 8D ``f5_c0_continuous(8, a=10, b=0.37)`` (an off-grid
+    kink) at F5_CREASE_EPSREL and ``f6_discontinuous(8)`` (jumps, bounds
+    0.2-0.9) at F6_CREASE_EPSREL, crease against midpoint splits, the host
+    loop and the fused phase.  Every crease run must certify within 3x its
+    tolerance of the closed form and take the split route with the split
+    fraction kernel on every chunk (no fused-kernel launch); the fused
+    crease run must take the host loop's decisions.  Returns the split
+    fraction kernel's launches on the first run (the crease path's main
+    run) and the rows."""
+    rows, main_launches = [], None
+    for g, eps in ((genz.f5_c0_continuous(NDIM, a=10.0, b=0.37),
+                    F5_CREASE_EPSREL),
+                   (genz.f6_discontinuous(NDIM), F6_CREASE_EPSREL)):
+        runs = {}
+        for crease, fused in ((True, False), (True, True), (False, False),
+                              (False, True)):
+            runs[crease, fused] = crease_run(g.name, g, eps, crease, fused)
+            res, wall, launches, rel = runs[crease, fused]
+            rows.append(dict(name=g.name, epsrel=eps, crease=crease,
+                             fused=fused, status=res.status, iters=res.iters,
+                             nregions=res.nregions, neval=res.neval,
+                             wall_s=wall, rel_err=rel,
+                             split_frac_launches=launches["split_frac"]))
+            if main_launches is None:
+                main_launches = launches["split_frac"]
+            if crease and (res.status != 0 or not rel <= 3 * eps):
+                fail(f"{g.name} crease run ({'fused' if fused else 'host'}):"
+                     f" status {res.status}, rel.err {rel}")
+            if crease and not fused and (
+                    launches["fused_kernel"] or not launches["split_frac"]
+                    or launches["split_frac"] != launches["contract"]):
+                fail(f"{g.name} crease host run: launches {launches}; every "
+                     "chunk should take the split route with the split "
+                     "fraction kernel")
+        host, fusd = runs[True, False][0], runs[True, True][0]
+        same = (host.status, host.iters, host.nregions, host.neval) == (
+            fusd.status, fusd.iters, fusd.nregions, fusd.neval)
+        mid = runs[False, False][0]
+        print(f"phase 16: {g.name}: fused crease run "
+              f"{'takes' if same else 'does NOT take'} the host loop's "
+              f"decisions; crease neval {host.neval} against midpoint "
+              f"{mid.neval} (status {mid.status}): "
+              f"{host.neval / max(mid.neval, 1):.3f} of it", flush=True)
+        if not same:
+            fail(f"{g.name}: the fused crease run differs from the host "
+                 "loop's")
+    return main_launches, rows
+
+
+def traced_run(label, g, eps, fused):
+    """One ``Workspace(8).integrate`` traced by ``utils.profiling.trace``:
+    its wall and the device's busy time (its kernels', copies' and
+    memsets' self time) and idle share of the wall."""
+    from torch.autograd import DeviceType
+
+    from gpuintegration_torch.utils.profiling import trace
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = Workspace(NDIM).integrate(g, eps, 1e-40, fused=fused)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    print(f"phase 17: traced, {label}, {'fused' if fused else 'host loop'}: "
+          f"status {res.status} iters {res.iters}, wall {wall:.3f} s traced, "
+          f"the device busy {busy:.3f} s, idle {100 * (1 - busy / wall):.1f} "
+          f"% of the wall", flush=True)
+    return {"wall_s": wall, "busy_s": busy, "idle": 1 - busy / wall}
+
+
+def fused_vs_host(label, run_fused, host, host_wall, rtol):
+    """A fused run (``run_fused()``, counts set to 0 before) against a
+    host-loop result: the same status, iterations, regions and neval;
+    estimates within ``rtol``.  Returns the result, wall and phase
+    stats."""
+    cuda_rule.reset_launches()
+    fused_loop.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_fused()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(fused_loop.stats)
+    exits = list(fused_loop.exits)
+    est = np.atleast_1d(res.estimates if res.estimates is not None
+                        else res.estimate)
+    ref = np.atleast_1d(host.estimates if host.estimates is not None
+                        else host.estimate)
+    same = (res.status, res.iters, res.nregions, res.neval) == (
+        host.status, host.iters, host.nregions, host.neval)
+    drift = float(np.max(np.abs(est - ref) / np.abs(ref)))
+    print(f"phase 17: {label}: fused status {res.status} iters {res.iters} "
+          f"nregions {res.nregions} neval {res.neval} wall {wall:.3f} s; "
+          f"host loop status {host.status} iters {host.iters} nregions "
+          f"{host.nregions} neval {host.neval} wall {host_wall:.3f} s; "
+          f"{'the same decisions' if same else 'DIFFERENT decisions'}, "
+          f"estimates {drift:.3e} apart (relative); bursts {st['bursts']}, "
+          f"eager iterations {st['eager']}, graph captures "
+          f"{st['captures']}, replays {st['replays']}, packed reads "
+          f"{st['reads']}, exits {exits}; wrapper launches: rule kernel "
+          f"{cuda_rule.launches}, split {dict(cuda_rule.split_launches)} "
+          f"(a replay relaunches what its capture recorded)", flush=True)
+    if not same or not drift <= rtol or st["bursts"] == 0:
+        fail(f"{label}: the fused run differs from the host loop's "
+             f"(same decisions {same}, drift {drift}, stats {st})")
+    return res, wall, st
+
+
+def fused_main_path(dev, tile_run, split_run, vec_run):
+    """Phase 17: phase 3's main path (8D F4 at 1e-3, f64) with the fused
+    phase against the host loop, in turns (host, fused, fused, host), each
+    fused run's bursts, captures, replays and packed reads, and one run of
+    each traced for the device's idle share; then phase 13's 8D vector and
+    phase 11's F4 callable (the split route) through the fused phase
+    against those phases' host-loop runs (``vec_run``, ``split_run``:
+    (result, wall))."""
+    g4 = genz.f4_gaussian(NDIM)
+    walls = {"host": [], "fused": []}
+    stats = None
+    for fused in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fused:
+            res, wall, stats = fused_vs_host(
+                f"f64 {NDIM}D F4 at 1e-3 (phase 3)",
+                lambda: Workspace(NDIM).integrate(g4, 1e-3, 1e-40),
+                tile_run, min(walls["host"]), 1e-12)
+        else:
+            res = Workspace(NDIM).integrate(g4, 1e-3, 1e-40, **HOST)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        walls["fused" if fused else "host"].append(wall)
+    print(f"phase 17: F4 8D at 1e-3 walls in turns: host "
+          f"{walls['host'][0]:.3f} s, fused {walls['fused'][0]:.3f} s, fused "
+          f"{walls['fused'][1]:.3f} s, host {walls['host'][1]:.3f} s",
+          flush=True)
+    idle = {mode: traced_run("F4 8D at 1e-3", g4, 1e-3, mode == "fused")
+            for mode in ("host", "fused")}
+    f, _ = vector_probe.vector(vector_probe.members("moderate"))
+    _, vec_wall, vec_stats = fused_vs_host(
+        "f64 8D vector of four Genz members (phase 13)",
+        lambda: Workspace(NDIM).integrate(f, VEC8_EPSREL, 1e-40),
+        *vec_run, 1e-10)
+    _, split_wall, split_stats = fused_vs_host(
+        "f64 8D F4 as a plain callable (phase 11, the split route)",
+        lambda: Workspace(NDIM).integrate(f4_plain, 1e-3, 1e-40),
+        *split_run, 1e-10)
+    return {"f4_walls_s": walls, "f4_stats": stats, "idle": idle,
+            "vector_fused_wall_s": vec_wall, "vector_stats": vec_stats,
+            "split_fused_wall_s": split_wall, "split_stats": split_stats}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -2460,7 +2739,7 @@ def main() -> int:
     # -- phase 1: build ------------------------------------------------------
     phase_t0 = t0 = time.perf_counter()
     sources = ["rule_eval.cu", "vegas_sample.cu", "vegas_lookup.cu",
-               "rule_split.cu"]
+               "rule_split.cu", "split_frac.cu"]
     libs = cuda_build.build_many(sources)
     print(f"phase 1: built {len(libs)} libraries with nvcc in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2534,7 +2813,7 @@ def main() -> int:
     cuda_rule.reset_launches()
     t0 = time.perf_counter()
     try:
-        res = ws.integrate(g4, epsrel=1e-3, epsabs=1e-40)
+        res = ws.integrate(g4, epsrel=1e-3, epsabs=1e-40, **HOST)
         torch.cuda.synchronize()
     finally:
         cuda_rule.cuda_apply_rule = launch
@@ -2562,7 +2841,7 @@ def main() -> int:
 
     ws32 = Workspace(NDIM, dtype=torch.float32)
     t0 = time.perf_counter()
-    r32 = ws32.integrate(g4, epsrel=1e-3, epsabs=1e-40)
+    r32 = ws32.integrate(g4, epsrel=1e-3, epsabs=1e-40, **HOST)
     torch.cuda.synchronize()
     rel32 = abs(r32.estimate - g4.true_value) / g4.true_value
     print(f"phase 3: f32 8D f4_gaussian epsrel 1e-3: status {r32.status} "
@@ -2577,9 +2856,10 @@ def main() -> int:
     del ws32, lo32, len32
 
     g3 = genz.f4_gaussian(3, a=5.0)
-    on_card = Workspace(3, chunk_size=1024).integrate(g3, 1e-5, 1e-40)
+    on_card = Workspace(3, chunk_size=1024).integrate(g3, 1e-5, 1e-40,
+                                                      **HOST)
     on_cpu = Workspace(3, chunk_size=1024, device="cpu").integrate(
-        g3, 1e-5, 1e-40)
+        g3, 1e-5, 1e-40, **HOST)
     same = ((on_card.status, on_card.iters, on_card.nregions, on_card.neval)
             == (on_cpu.status, on_cpu.iters, on_cpu.nregions, on_cpu.neval)
             and math.isclose(on_card.estimate, on_cpu.estimate,
@@ -2699,19 +2979,28 @@ def main() -> int:
     split_ms, b_points, contract_rows = split_times(dev)
     comp_rows = components_times(dev)
     phase_done("phase 10")
-    split_launches, contract_routes, sin12 = split_main_path(dev, res)
+    split_launches, contract_routes, sin12, split_run = split_main_path(
+        dev, res)
     phase_done("phase 11")
     continuation_path(dev)
     phase_done("phase 12")
 
     # -- phases 13-14: vector integrands ------------------------------------
-    vec_launches, vec_routes, vec_situ, vec_walls = vector_main_path(dev,
-                                                                      sin12)
+    vec_launches, vec_routes, vec_situ, vec_walls, vec_run = \
+        vector_main_path(dev, sin12)
     phase_done("phase 13")
     vegas_vec_launches, vegas_vec_walls = vector_vegas(dev)
     print(f"phase 14: walls: poly {vegas_vec_walls['poly']:.3f} s, grid "
           f"{vegas_vec_walls['grid']:.3f} s", flush=True)
     phase_done("phase 14")
+
+    # -- phases 15-17: crease/jump-aware splits, the fused phase ------------
+    frac_rows = split_frac_checks(dev)
+    phase_done("phase 15")
+    frac_launches, crease_rows = crease_path(dev)
+    phase_done("phase 16")
+    fused_rows = fused_main_path(dev, res, split_run, vec_run)
+    phase_done("phase 17")
 
     # -- the kernels line ----------------------------------------------------
     kernels = [{
@@ -2821,6 +3110,29 @@ def main() -> int:
                          "pagani_walls_s": vec_walls,
                          "vegas_launches": vegas_vec_launches,
                          "vegas_walls_s": vegas_vec_walls},
+    }, {
+        # a crease run's fourth kernel on B1's split route: the numbers at
+        # the Workspace's 8D f64 chunk, values as rows; launches on phase
+        # 16's first run (8D F5 at F5_CREASE_EPSREL, crease, host loop)
+        "name": "rule_split_fraction",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/split_frac.cu",
+        "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+        "counterpart_of": "gpuintegration_tpu/ops/rule_eval.py:184 "
+                          "(_split_fraction, XLA in the reference)",
+        "held_against_plain_in": "phase 15 (rule_eval.split_fraction; 8D "
+                                 "and 12D f64, 8D f32, rows and planes: "
+                                 "EQUAL)",
+        "launches": frac_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in frac_rows),
+        "ms": frac_rows[0]["ms"],
+        "plain_ms": frac_rows[0]["plain_ms"],
+        "bound_ms": frac_rows[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": frac_rows,
+        "crease_runs": crease_rows,
+        "fused_phase": fused_rows,
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

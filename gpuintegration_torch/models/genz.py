@@ -112,8 +112,20 @@ def _discontinuous_truth(coeffs: np.ndarray, bounds: np.ndarray) -> float:
     return total
 
 
+_AXIS_TENSORS: dict = {}
+
+
 def _axis_tensor(values: np.ndarray, x: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=x.dtype, device=x.device)
+    """``values`` as a tensor of x's type on x's device, made once for each
+    array, type and device: a copy from the host costs a transfer a call,
+    and the fused phase's CUDA graph cannot capture one."""
+    key = (id(values), x.dtype, x.device)
+    hit = _AXIS_TENSORS.get(key)
+    if hit is None or hit[0] is not values:
+        hit = (values, torch.as_tensor(values, dtype=x.dtype,
+                                       device=x.device))
+        _AXIS_TENSORS[key] = hit
+    return hit[1]
 
 
 # ---------------------------------------------------------------------------

@@ -56,9 +56,17 @@ on its plane; ``comp_cluster_plan``, ``comp_cluster_partition``), up to
 over the components, in passes of one 32-byte sector, each component summed
 in the generic kernel's order) at any strides.
 
+A crease run (``with_split_frac``) takes the split route for every
+integrand, a Genz family too, and after each chunk's contraction launches
+a fourth kernel, ``rule_split_frac_kernel`` (csrc/split_frac.cu,
+``split_frac``): one thread a region reads the collinear values of every
+axis and the contraction's split axis and writes the crease/jump-aware cut
+fraction, EQUAL to ``rule_eval.split_fraction``.
+
 ``launches`` counts every launch of the fused kernels since it was last set
 to 0, and ``route_launches`` the same per route; ``split_launches`` counts
-the split route's two kernels, ``'points'`` and ``'contract'``, and
+the split route's two kernels, ``'points'`` and ``'contract'``,
+``split_frac_launches`` the split fraction kernel's, and
 ``contract_route_launches`` the contraction's by route (``'cluster'``,
 ``'generic'``, ``'components_cluster'``, ``'components'``);
 ``reset_launches()`` zeroes them all.
@@ -82,6 +90,7 @@ from gpuintegration_torch.ops.genz_malik import GENERATORS
 
 _SOURCE = "rule_eval.cu"
 _SPLIT_SOURCE = "rule_split.cu"
+_FRAC_SOURCE = "split_frac.cu"
 MAX_NDIM = 16
 ROUTES = ("tile", "generic")
 # The dimensions csrc/rule_eval.cu compiles the tile route for: every one
@@ -127,12 +136,13 @@ PAIR_SMEM = 112 * 1024          # a CTA's at most, for two to share an SM
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
 split_launches = {"points": 0, "contract": 0}
+split_frac_launches = 0         # the split fraction kernel's (crease runs)
 contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + VECTOR_ROUTES}
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    global launches, split_frac_launches
+    launches = split_frac_launches = 0
     for counts in (route_launches, split_launches, contract_route_launches):
         for k in counts:
             counts[k] = 0
@@ -181,6 +191,14 @@ def _configure_split(lib):
         fn.restype = ctypes.c_int
 
 
+def _configure_frac(lib):
+    fn = lib.rule_split_frac_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p] * 6)
+    fn.restype = ctypes.c_int
+
+
 def is_genz_family(integrand) -> bool:
     """Whether the fused routes know ``integrand``: a Genz family id F1..F6
     with its parameters (models.genz.GenzIntegrand)."""
@@ -222,15 +240,18 @@ def kernel_params(integrand) -> tuple[int, np.ndarray]:
 # ---------------------------------------------------------------------------
 # Host-side layouts of the tile route
 
-def rule_route(ndim: int, integrand=None, ncomp: int = 1) -> str:
+def rule_route(ndim: int, integrand=None, ncomp: int = 1,
+               with_split_frac: bool = False) -> str:
     """The route a pool of this dimension takes: 'split' for an integrand
-    that is not a Genz family (``is_genz_family``) and for any vector
-    integrand (``ncomp`` > 1: no fused kernel evaluates one); for a Genz
-    family (or no integrand named) 'tile' where the source compiles it,
-    else 'generic'.  The working type does not enter: every route is
+    that is not a Genz family (``is_genz_family``), for any vector
+    integrand (``ncomp`` > 1: no fused kernel evaluates one) and for any
+    integrand of a crease run (``with_split_frac``: the cut fraction is
+    read off the values, which the fused kernels keep to themselves); for
+    a Genz family (or no integrand named) 'tile' where the source compiles
+    it, else 'generic'.  The working type does not enter: every route is
     compiled for float64 and float32."""
-    if ncomp > 1 or (integrand is not None
-                     and not is_genz_family(integrand)):
+    if ncomp > 1 or with_split_frac or (integrand is not None
+                                        and not is_genz_family(integrand)):
         return "split"
     return "tile" if ndim in TILE_NDIMS else "generic"
 
@@ -807,11 +828,63 @@ def split_contract_components(vals, tables: rule_eval.RuleTables, lows,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _frac_tables(ndim: int, dtype: torch.dtype):
+    """The split fraction's host constants as the launch takes them:
+    (slots (ndim, 4) int32, consts (ndim, 5) float64 holding values of the
+    working type), C-contiguous (``rule_eval.split_stencil``)."""
+    slots, consts = rule_eval.split_stencil(ndim, rule_eval.dtype_name(dtype))
+    if dtype == torch.float32:
+        consts = consts.astype(np.float32).astype(np.float64)
+    return np.ascontiguousarray(slots), np.ascontiguousarray(consts)
+
+
+def _frac_launch(lib, tables, vals, cap, n, blocked, first, count, sdim,
+                 frac):
+    global split_frac_launches
+    slots, consts = _frac_tables(tables.ndim, vals.dtype)
+    rc = lib.rule_split_frac_launch(
+        int(vals.dtype == torch.float64), tables.ndim, cap, n,
+        int(bool(blocked)), first, count, *vals.stride(),
+        slots.ctypes.data_as(ctypes.c_void_p),
+        consts.ctypes.data_as(ctypes.c_void_p), vals.data_ptr(),
+        sdim.data_ptr(), frac.data_ptr(),
+        torch.cuda.current_stream(vals.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA split fraction kernel launch failed: "
+                           f"error {rc}")
+    split_frac_launches += 1
+
+
+def split_frac(vals, split_dim, ndim: int):
+    """The crease/jump-aware cut fraction of C regions from their rule
+    values ``vals`` (C, feval), at any strides, and their split axis (C,)
+    int32: (frac (C,) of the values' type, split_dim (C,) int32).  On CUDA
+    tensors one launch of ``rule_split_frac_kernel`` (csrc/split_frac.cu),
+    EQUAL to ``rule_eval.split_fraction``, which runs on CPU tensors."""
+    if vals.device.type == "cpu":
+        return rule_eval.split_fraction(vals, split_dim, ndim)
+    tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(vals.dtype))
+    count = vals.shape[0] if vals.dim() == 2 else 0
+    if count < 1:
+        raise ValueError(f"values: need (C >= 1, {tables.feval}), got "
+                         f"{tuple(vals.shape)}")
+    _check_vals(vals, count, tables, vals)
+    if tuple(split_dim.shape) != (count,) or split_dim.device != vals.device:
+        raise ValueError(f"split_dim: need ({count},) on {vals.device}")
+    sdim = split_dim.to(torch.int32).contiguous().clone()
+    frac = torch.empty(count, dtype=vals.dtype, device=vals.device)
+    _frac_launch(cuda_build.load(_FRAC_SOURCE, _configure_frac), tables,
+                 vals, count, count, False, 0, count, sdim, frac)
+    return frac, sdim
+
+
 def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
                           lengths, global_lo, global_range, *,
                           chunk_size: int | None = None,
                           n: int | None = None, blocked: bool = False,
-                          route: str | None = None, ncomp: int = 1):
+                          route: str | None = None, ncomp: int = 1,
+                          with_split_frac: bool = False):
     """The split route over the ``n`` real regions of a CUDA pool (all of
     it when ``n`` is None), ``chunk_size`` regions at a time
     (``split_chunks``): the points kernel, ``integrand`` (any form ``make_integrand`` takes) on
@@ -823,16 +896,25 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
     1), whose values (C, feval, ncomp) take a vector's contraction.
     ``route`` names the contraction's route for every chunk, as
     ``split_contract``'s and ``split_contract_components``' do (None:
-    ``contract_route``'s for each)."""
+    ``contract_route``'s for each).  ``with_split_frac`` (a scalar
+    integrand): after each chunk's contraction the split fraction kernel
+    on its values, and a fourth output, the cut fraction (cap,), 0.5 in
+    the padding slots, split_dim the one that kernel wrote."""
     cap, n = _check_pool("cuda_apply_rule_split", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
     if ncomp > 1 and route not in (None,) + VECTOR_ROUTES:
         raise ValueError(f"a vector integrand's values take the "
                          f"{COMPONENTS_CLUSTER!r} or {COMPONENTS!r} "
                          f"contraction, not {route!r}")
+    if with_split_frac and ncomp > 1:
+        raise ValueError("with_split_frac is scalar-only")
     batched, _ = make_integrand(integrand, tables.ndim)
     lib = cuda_build.load(_SPLIT_SOURCE, _configure_split)
     out = _zero_outputs(cap, lows, ncomp)
+    if with_split_frac:
+        frac_lib = cuda_build.load(_FRAC_SOURCE, _configure_frac)
+        out += (torch.full((cap,), 0.5, dtype=lows.dtype,
+                           device=lows.device),)
     for first, count in split_chunks(n, chunk_size):
         x = _points_launch(lib, tables, lows, lengths, global_lo,
                            global_range, cap, n, blocked, first, count)
@@ -845,7 +927,11 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
                                   route=route)
         else:
             _contract_launch(lib, tables, vals, lengths, global_range,
-                             cap, n, blocked, first, count, *out, route=route)
+                             cap, n, blocked, first, count, *out[:3],
+                             route=route)
+        if with_split_frac:
+            _frac_launch(frac_lib, tables, vals, cap, n, blocked, first,
+                         count, out[2], out[3])
     return out
 
 

@@ -41,9 +41,15 @@ against ``rule_eval.rule_outputs_vector``: each component's est and err in
 ulps of its own rounding scales, the gate's ties resolved as above; its
 split_dim, one axis from all components' fourth differences, must be
 EQUAL in every region (``check_components``).
+
+The split fraction kernel (``cuda_rule.split_frac``, a crease run's) rounds
+every operation as the plain version does: its fraction and split_dim must
+be EQUAL to ``rule_eval.split_fraction`` on the same values, on the card and
+on a CPU copy (``check_split_frac``, on ``crease_stencils``' values).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gpuintegration_torch.integrand import make_integrand
@@ -379,3 +385,54 @@ def check_routes(integrand, tables: rule_eval.RuleTables, lows, lengths,
 
     return {"slots": t[2].numel(), "split_dim_equal": True,
             "est_rel": rel(t[0], g[0]), "err_rel": rel(t[1], g[1])}
+
+
+def crease_stencils(ndim: int, count: int, dtype: str, seed: int):
+    """Rule values (count, feval) of type ``dtype`` with planted kinks and
+    jumps, and split axes (count,) int32, as numpy arrays: smooth noise
+    around 1, then on a third of the regions a |x - t| kink, on another
+    third a step plus a slope, at a random position of the collinear
+    stencil, along the region's split axis or a random one; so that both
+    detectors of ``rule_eval.split_fraction`` fire on many regions."""
+    rng = np.random.default_rng(seed)
+    tables = rule_eval.rule_tables(ndim, dtype)
+    slots, _ = rule_eval.split_stencil(ndim, dtype)
+    vals = rng.normal(size=(count, tables.feval)) * 0.05 + 1.0
+    sd = rng.integers(0, ndim, count).astype(np.int32)
+    axis = np.where(rng.uniform(size=count) < 0.5, sd,
+                    rng.integers(0, ndim, count))
+    t = rng.uniform(-0.45, 0.45, count)
+    kind = rng.integers(0, 3, count)
+    for r in range(count):
+        d = axis[r]
+        xs = np.concatenate([[0.0], -tables.gen[slots[d], d].astype(
+            np.float64)])
+        idx = np.concatenate([[0], slots[d]])
+        if kind[r] == 1:
+            vals[r, idx] += -3.0 * np.abs(xs - t[r])
+        elif kind[r] == 2:
+            vals[r, idx] += np.where(xs <= t[r], 2.0, 0.0) + 0.3 * xs
+    return vals.astype(dtype), sd
+
+
+def check_split_frac(vals, split_dim, ndim: int) -> dict:
+    """``cuda_rule.split_frac`` on CUDA values (C, feval), at their strides,
+    against ``rule_eval.split_fraction`` on the same values on the card and
+    on a CPU copy: fraction and split_dim EQUAL, or AssertionError.
+    Returns {regions, cut (fractions other than 0.5), overrides (split
+    axes a jump moved), max_abs_err (0.0)}."""
+    got = cuda_rule.split_frac(vals, split_dim, ndim)
+    on_card = rule_eval.split_fraction(vals, split_dim, ndim)
+    on_cpu = rule_eval.split_fraction(vals.cpu(), split_dim.cpu(), ndim)
+    for name, g, c, h in zip(("frac", "split_dim"), got, on_card, on_cpu):
+        for ref, where in ((c, "on the card"), (h.to(g.device), "on the CPU")):
+            if not same_bits(g.contiguous(), ref.contiguous()):
+                bad = int((g != ref).sum())
+                raise AssertionError(
+                    f"split fraction kernel: {name} differs from the plain "
+                    f"version {where} in {bad} of {g.shape[0]} regions")
+    frac, sd = got
+    return {"regions": int(frac.shape[0]),
+            "cut": int((frac != 0.5).sum()),
+            "overrides": int((sd != split_dim.to(torch.int32)).sum()),
+            "max_abs_err": 0.0}

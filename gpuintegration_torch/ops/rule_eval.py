@@ -122,7 +122,7 @@ def fourth_differences(vals: torch.Tensor, ndim: int, ratio: float):
     f0 = vals[:, 0]
     orbit1 = vals[:, 1:1 + 2 * ndim].reshape(-1, ndim, 2).sum(-1)
     orbit2 = vals[:, 1 + 2 * ndim:1 + 4 * ndim].reshape(-1, ndim, 2).sum(-1)
-    r = torch.as_tensor(ratio, dtype=vals.dtype, device=vals.device)
+    r = torch.full((), ratio, dtype=vals.dtype, device=vals.device)
     return torch.abs((2.0 * (1.0 - r)) * f0[:, None] + r * orbit1 - orbit2)
 
 
@@ -182,16 +182,163 @@ def split_axis(fourth, lengths):
 
 
 def rule_outputs(vals, tables: RuleTables, lengths, global_range,
-                 by_orbit=None):
+                 by_orbit=None, with_split_frac: bool = False):
     """(estimate, errorest, split_dim) of C regions from their rule values
     (and, where given, their orbit sums ``by_orbit`` taken in another
-    order)."""
+    order); with ``with_split_frac`` also the crease/jump-aware cut
+    fraction (``split_fraction``), split_dim then the one it returns."""
     sums = rule_sums(vals, tables, global_range, by_orbit)
     split_dim = split_axis(
         fourth_differences(vals, tables.ndim, tables.ratio), lengths)
     gated = gate_errors(null_errors(sums, tables))
     vol = torch.prod(lengths, dim=0)                         # unit-space volume
+    if with_split_frac:
+        frac, split_dim = split_fraction(vals, split_dim, tables.ndim)
+        return vol * sums[:, 0], vol * gated, split_dim, frac
     return vol * sums[:, 0], vol * gated, split_dim
+
+
+# The cut's safety margin in length units (rule_eval._split_fraction of the
+# JAX package: > the crease estimate's error + the rule's blind zone).
+SPLIT_MARGIN = 0.08
+
+
+@functools.lru_cache(maxsize=None)
+def split_stencil(ndim: int, dtype_name: str = "float64"):
+    """The collinear stencil of every axis, from the rule tables of the
+    pool's type: (slots (ndim, 4) int32, consts (ndim, 5) float64).  Per
+    axis d the slots of orbit 1 at +-a and orbit 2 at +-b sorted by their
+    position -gen[slot, d] (length units from the region's centre), and
+    the constants [xam, xap, xam - xbm, 0 - xam, xbp - xap] of those
+    positions xbm < xam < 0 < xap < xbp, formed in f64 from the pool
+    type's table as the reference forms them from Python floats; cast to
+    the pool's type they are the secants' abscissae."""
+    gen = rule_tables(ndim, dtype_name).gen
+    slots = np.zeros((ndim, 4), dtype=np.int32)
+    consts = np.zeros((ndim, 5), dtype=np.float64)
+    for d in range(ndim):
+        pts = sorted((-float(gen[s, d]), s)
+                     for s in (1 + 2 * d, 2 + 2 * d, 1 + 2 * ndim + 2 * d,
+                               2 + 2 * ndim + 2 * d))
+        (xbm, _), (xam, _), (xap, _), (xbp, _) = pts
+        slots[d] = [s for _, s in pts]
+        consts[d] = [xam, xap, xam - xbm, 0.0 - xam, xbp - xap]
+    return slots, consts
+
+
+def split_fraction(vals, split_dim, ndim: int):
+    """Crease- and jump-aware cut fraction of C regions along their split
+    axis (the reference's ``rule_eval._split_fraction``, operation for
+    operation): ``vals`` (C, feval) the ``ndim``-dimensional rule's
+    values, ``split_dim`` (C,) int32 the fourth-difference axis.  Returns
+    (frac (C,) of the values' type, split_dim (C,) int32).
+
+    Two detectors share the 4 ndim + 1 collinear values of each axis (the
+    centre, orbit 1 at +-a, orbit 2 at +-b).  A C0 kink between the inner
+    samples bends the secants: the lines through the outer and the inner
+    pair on either side meet at the crease, and the cut lands there less
+    ``SPLIT_MARGIN`` toward the centre, within [0.12, 0.88]; four gates
+    (slope break, far side straight, no slope growth away from the
+    crease, opposite flank slopes) keep smooth integrands at 0.5.  A jump
+    makes one inner gap's secant dominate every flank secant and break
+    the slopes' geometric progression: the cut lands at that gap's centre
+    edge plus the margin, 0.58 or 0.42, and split_dim becomes the axis of
+    the strongest jump.  Exactly 0.5, split_dim unchanged, where neither
+    fires (``region_pool.split`` with 0.5 is the midpoint's bits).
+
+    No product, quotient or sum is fused with another, so the card's
+    kernel (``cuda_rule.split_frac``) gives the same bits."""
+    dtype = vals.dtype
+    slots, consts = split_stencil(ndim, dtype_name(dtype))
+    consts = consts.astype(np.float32 if dtype == torch.float32
+                           else np.float64)
+    margin = SPLIT_MARGIN
+    f0 = vals[:, 0]
+    zero = torch.zeros_like(f0)
+    half = torch.full_like(f0, 0.5)
+
+    def intersect(xl, vl, sl, xr, vr, sr):
+        # line L through (xl, vl) of slope sl, line R through (xr, vr) of
+        # slope sr: (x*, |sl - sr|, |sl| + |sr|)
+        denom = sl - sr
+        xstar = (vr - vl + sl * xl - sr * xr) / torch.where(
+            denom == 0.0, torch.ones_like(denom), denom)
+        return xstar, torch.abs(denom), torch.abs(sl) + torch.abs(sr)
+
+    # the secants' denominators as tensors: PyTorch on the card divides by
+    # a host scalar as a product with its reciprocal, a quotient rounded
+    # twice
+    dens = torch.as_tensor(consts[:, 1:], device=vals.device)
+    fr_d, jfr_d, jstr_d = [], [], []
+    for d in range(ndim):
+        sbm, sam, sap, sbp = (int(s) for s in slots[d])
+        xam, xap = float(consts[d, 0]), float(consts[d, 1])
+        vbm, vam = vals[:, sbm], vals[:, sam]
+        vap, vbp = vals[:, sap], vals[:, sbp]
+        g1 = (vam - vbm) / dens[d, 1]          # (-b, -a) secant
+        g2 = (f0 - vam) / dens[d, 2]           # (-a, 0) secant
+        g3 = (vap - f0) / dens[d, 0]           # (0, +a) secant
+        g4 = (vbp - vap) / dens[d, 3]          # (+a, +b) secant
+
+        # H1: kink in (-a, 0): the outer-left line anchored at (-a, vam),
+        # the (0, +a) line anchored at (0, f0); the far side straight, no
+        # slope growth away from the crease, opposite flank slopes
+        x1, dn1, sc1 = intersect(xam, vam, g1, 0.0, f0, g3)
+        ok1 = ((dn1 > 0.5 * sc1) & (sc1 > 0.0)
+               & (torch.abs(g4 - g3) < 0.5 * dn1)
+               & (torch.abs(g3) >= 0.9 * torch.abs(g4))
+               & (g1 * g3 < 0.0) & (x1 > xam) & (x1 < 0.0))
+        # H2: kink in (0, +a), mirrored
+        x2, dn2, sc2 = intersect(0.0, f0, g2, xap, vap, g4)
+        ok2 = ((dn2 > 0.5 * sc2) & (sc2 > 0.0)
+               & (torch.abs(g2 - g1) < 0.5 * dn2)
+               & (torch.abs(g2) >= 0.9 * torch.abs(g1))
+               & (g2 * g4 < 0.0) & (x2 > 0.0) & (x2 < xap))
+        # the hypothesis with the stronger relative slope break
+        one = torch.ones_like(sc1)
+        rel1 = torch.where(ok1, dn1 / torch.where(sc1 == 0.0, one, sc1),
+                           -one)
+        rel2 = torch.where(ok2, dn2 / torch.where(sc2 == 0.0, one, sc2),
+                           -one)
+        xstar = torch.where(rel1 >= rel2, x1, x2)
+        ok = ok1 | ok2
+        # the margin cut: the kink stays inside the other child, visible
+        # to its samples (an exact cut parks it in the blind zone)
+        xcut = xstar - torch.where(xstar >= 0.0,
+                                   torch.full_like(xstar, margin),
+                                   torch.full_like(xstar, -margin))
+        fr_d.append(torch.where(ok, torch.clamp(0.5 + xcut, 0.12, 0.88),
+                                half))
+
+        # jumps: the inner gap's secant dominates (2x) every flank secant,
+        # breaks the geometric slope progression, the far flank straight
+        a1, a2 = torch.abs(g1), torch.abs(g2)
+        a3, a4 = torch.abs(g3), torch.abs(g4)
+        mag1 = torch.maximum(torch.maximum(a1, a3), a4)
+        j1 = ((a2 > 2.0 * mag1) & (a2 > 0.0)
+              & (a2 * a2 > 16.0 * a1 * a3)
+              & (torch.abs(g4 - g3) < 0.5 * a2))
+        mag2 = torch.maximum(torch.maximum(a1, a2), a4)
+        j2 = ((a3 > 2.0 * mag2) & (a3 > 0.0)
+              & (a3 * a3 > 16.0 * a2 * a4)
+              & (torch.abs(g1 - g2) < 0.5 * a3))
+        jfr_d.append(torch.where(
+            j1, torch.full_like(f0, 0.5 + margin),
+            torch.where(j2, torch.full_like(f0, 0.5 - margin), half)))
+        jstr_d.append(torch.where(j1, a2, torch.where(j2, a3, zero)))
+    sd = split_dim.to(torch.int64)[:, None]
+    # one term of each row is the chosen axis's: a gather is the
+    # reference's one-hot sum exactly
+    frac_kink = torch.stack(fr_d, dim=1).gather(1, sd)[:, 0]
+    jstr = torch.stack(jstr_d, dim=1)
+    has_jump = torch.amax(jstr, dim=1) > 0.0
+    jdim = torch.argmax(jstr, dim=1)
+    frac_jump = torch.stack(jfr_d, dim=1).gather(1, jdim[:, None])[:, 0]
+    frac = torch.where(has_jump, frac_jump, frac_kink)
+    split_out = torch.where(has_jump, jdim.to(torch.int32),
+                            split_dim.to(torch.int32))
+    return frac, split_out
+
 
 
 def rule_outputs_vector(vals, tables: RuleTables, lengths, global_range):
@@ -217,17 +364,19 @@ def rule_outputs_vector(vals, tables: RuleTables, lengths, global_range):
     return vol * torch.stack(ests), vol * torch.stack(errs), split_dim
 
 
-def _eval_chunk(f, tables, lows, lengths, global_lo, global_range, ncomp=1):
+def _eval_chunk(f, tables, lows, lengths, global_lo, global_range, ncomp=1,
+                with_split_frac=False):
     vals = rule_values(f, tables, lows, lengths, global_lo, global_range)
     if ncomp == 1:
-        return rule_outputs(vals, tables, lengths, global_range)
+        return rule_outputs(vals, tables, lengths, global_range,
+                            with_split_frac=with_split_frac)
     return rule_outputs_vector(vals, tables, lengths, global_range)
 
 
 def apply_rule_plain(f: Callable, tables: RuleTables, lows, lengths,
                      global_lo, global_range, *, chunk_size: int | None = None,
                      n: int | None = None, blocked: bool = False,
-                     ncomp: int = 1):
+                     ncomp: int = 1, with_split_frac: bool = False):
     """The plain PyTorch rule evaluation over a dims-major pool.
 
     ``lows``/``lengths``: (ndim, cap).  ``n``: number of real regions
@@ -239,7 +388,12 @@ def apply_rule_plain(f: Callable, tables: RuleTables, lows, lengths,
     ``ncomp`` > 1: it returns (..., ncomp) (``rule_outputs_vector``).
 
     Returns (estimate, errorest, split_dim (cap,) int32): estimate and
-    errorest (cap,), or component-major (ncomp, cap) for a vector."""
+    errorest (cap,), or component-major (ncomp, cap) for a vector; with
+    ``with_split_frac`` (a scalar integrand only) also the cut fraction
+    (cap,) of ``split_fraction``, 0.5 in the padding slots, and split_dim
+    the one it returns."""
+    if with_split_frac and ncomp != 1:
+        raise ValueError("with_split_frac is scalar-only")
     batched, _ = make_integrand(f, tables.ndim)
     cap = lows.shape[1]
     if n is None or n >= cap:
@@ -257,41 +411,46 @@ def apply_rule_plain(f: Callable, tables: RuleTables, lows, lengths,
             sel = idx[start:start + step]
             lo, ln = lows[:, sel], lengths[:, sel]
         outs.append(_eval_chunk(batched, tables, lo, ln, global_lo,
-                                global_range, ncomp))
+                                global_range, ncomp, with_split_frac))
     eshape = (cap,) if ncomp == 1 else (ncomp, cap)
-    if not outs:
-        est = err = torch.zeros(eshape[:-1] + (0,), dtype=lows.dtype,
-                                device=lows.device)
-        sdim = torch.zeros(0, dtype=torch.int32, device=lows.device)
-    else:
-        est, err, sdim = (torch.cat(o, dim=-1) for o in zip(*outs))
-    if idx is None:
-        return est, err, sdim
-    full = (torch.zeros(eshape, dtype=lows.dtype, device=lows.device),
+    full = [torch.zeros(eshape, dtype=lows.dtype, device=lows.device),
             torch.zeros(eshape, dtype=lows.dtype, device=lows.device),
-            torch.zeros(cap, dtype=torch.int32, device=lows.device))
-    full[0][..., idx] = est
-    full[1][..., idx] = err
-    full[2][idx] = sdim
-    return full
+            torch.zeros(cap, dtype=torch.int32, device=lows.device)]
+    if with_split_frac:
+        full.append(torch.full((cap,), 0.5, dtype=lows.dtype,
+                               device=lows.device))
+    if not outs:
+        return tuple(t[..., :0] for t in full) if idx is None else tuple(full)
+    got = [torch.cat(o, dim=-1) for o in zip(*outs)]
+    if idx is None:
+        return tuple(got)
+    for t, g in zip(full, got):
+        t[..., idx] = g
+    return tuple(full)
 
 
 def apply_rule(f: Callable, tables: RuleTables, lows, lengths,
                global_lo, global_range, *, chunk_size: int | None = None,
-               n: int | None = None, blocked: bool = False, ncomp: int = 1):
+               n: int | None = None, blocked: bool = False, ncomp: int = 1,
+               with_split_frac: bool = False):
     """Rule evaluation over the pool: the plain version for a CPU pool; for
     any other pool the CUDA kernels of the route ``cuda_rule.rule_route``
     gives the integrand (the split route walks the pool ``chunk_size``
-    regions at a time; a vector integrand always takes it).  Arguments and
-    outputs as ``apply_rule_plain``."""
+    regions at a time; a vector integrand always takes it, and so does
+    every integrand ``with_split_frac``, whose cut fraction needs the
+    values).  Arguments and outputs as ``apply_rule_plain``."""
     if lows.device.type == "cpu":
         return apply_rule_plain(f, tables, lows, lengths, global_lo,
                                 global_range, chunk_size=chunk_size, n=n,
-                                blocked=blocked, ncomp=ncomp)
+                                blocked=blocked, ncomp=ncomp,
+                                with_split_frac=with_split_frac)
     from gpuintegration_torch.ops import cuda_rule
-    if cuda_rule.rule_route(tables.ndim, f, ncomp) == "split":
+    if cuda_rule.rule_route(tables.ndim, f, ncomp,
+                            with_split_frac) == "split":
+        crease = {"with_split_frac": True} if with_split_frac else {}
         return cuda_rule.cuda_apply_rule_split(
             f, tables, lows, lengths, global_lo, global_range,
-            chunk_size=chunk_size, n=n, blocked=blocked, ncomp=ncomp)
+            chunk_size=chunk_size, n=n, blocked=blocked, ncomp=ncomp,
+            **crease)
     return cuda_rule.cuda_apply_rule(f, tables, lows, lengths, global_lo,
                                      global_range, n=n, blocked=blocked)

@@ -52,11 +52,12 @@ def region_mask(capacity: int, n: int, device=None) -> torch.Tensor:
     return torch.arange(capacity, device=device) < n
 
 
-def block_mask(capacity: int, n: int, blocked: bool,
+def block_mask(capacity: int, n, blocked: bool,
                device=None) -> torch.Tensor:
-    """Validity mask of a pool holding ``n`` real regions: [0, n) for a
-    contiguous pool, the first n/2 of each static half for a ``split``
-    pool (see the module layout contract)."""
+    """Validity mask of a pool holding ``n`` real regions (a host integer
+    or a device scalar): [0, n) for a contiguous pool, the first n/2 of
+    each static half for a ``split`` pool (see the module layout
+    contract)."""
     if not blocked:
         return region_mask(capacity, n, device)
     half = capacity // 2
@@ -64,7 +65,7 @@ def block_mask(capacity: int, n: int, blocked: bool,
 
 
 def compact(active, lows, lengths, split_dim, estimates, errorests, *,
-            out_capacity: int):
+            out_capacity: int, extra=None):
     """Order-preserving compaction of the active regions to the front of a
     new pool of ``out_capacity`` slots (Sub_region_filter.cuh:8-47).
 
@@ -74,10 +75,12 @@ def compact(active, lows, lengths, split_dim, estimates, errorests, *,
     hold finite bounds.  The surviving regions' estimates become the next
     iteration's parents (alignRegions:39-40).  ``estimates`` and
     ``errorests`` are (cap,), or a vector integrand's (ncomp, cap),
-    moved component-major alike.
+    moved component-major alike.  ``extra``: an optional (cap,) row that
+    travels like split_dim (a crease run's cut fractions).
 
     Returns (new_lows, new_lengths, new_split_dim, parent_estimates,
-    parent_errorests)."""
+    parent_errorests), and the compacted ``extra`` after them where one
+    is given."""
     ndim, cap = lows.shape
     keep = active > 0
     flags = keep.to(torch.int64)
@@ -100,15 +103,25 @@ def compact(active, lows, lengths, split_dim, estimates, errorests, *,
     else:
         parent_est = move(estimates[None])[0]
         parent_err = move(errorests[None])[0]
-    return new_lows, new_lengths, new_split, parent_est, parent_err
+    out = (new_lows, new_lengths, new_split, parent_est, parent_err)
+    if extra is not None:
+        out += (move(extra[None])[0],)
+    return out
 
 
-def split(lows, lengths, split_dim, n: int, *, out_capacity: int):
+def split(lows, lengths, split_dim, n, *, out_capacity: int, frac=None):
     """Bisect each region along its chosen dimension.
 
     The whole (compacted, padding included) input pool's left children
     land in slots [0, cap) and the right children in [cap, 2*cap); real
-    children occupy the first n of each block.
+    children occupy the first n of each block.  ``n`` is a host integer
+    or a device scalar (the fused phase's), returned doubled alike.
+
+    ``frac``: an optional (cap,) cut point as a fraction of the chosen
+    dimension's length (crease/jump-aware splitting,
+    ``rule_eval.split_fraction``): the left child keeps lengths * frac,
+    the right the rest.  0.5 gives the midpoint's bits (0.5 len and
+    len - 0.5 len are the same float).
 
     Returns (child_lows, child_lengths, n_children)."""
     ndim, cap = lows.shape
@@ -119,9 +132,15 @@ def split(lows, lengths, split_dim, n: int, *, out_capacity: int):
             "the (compacted) input pool -- compact to out_capacity//2 first")
     dim_ids = torch.arange(ndim, device=lows.device)[:, None]
     sel = dim_ids == split_dim[None, :].to(torch.int64)
-    cut = lengths * 0.5
+    if frac is None:
+        cut = lengths * 0.5
+        rest = cut
+    else:
+        cut = lengths * frac[None, :].to(lengths.dtype)
+        rest = lengths - cut
     left_len = torch.where(sel, cut, lengths)
+    right_len = torch.where(sel, rest, lengths)
     right_lows = torch.where(sel, lows + cut, lows)
     lo2 = torch.cat([lows, right_lows], dim=1)
-    ln2 = torch.cat([left_len, left_len], dim=1)
+    ln2 = torch.cat([left_len, right_len], dim=1)
     return lo2, ln2, 2 * n

@@ -24,7 +24,8 @@ def refine_error(
     estimates: torch.Tensor,      # (cap,) child integral estimates
     errorests: torch.Tensor,      # (cap,) child raw errors
     parent_estimates: torch.Tensor,  # (cap_parent >= cap//2,) compacted parents
-    n: int,                       # number of real children (= 2*parents)
+    n,                            # real children (= 2*parents): an int
+                                  # or the fused phase's device scalar
     epsrel,
     relerr_classification: bool = True,
     volumes=None,                 # (cap,) unit-space region volumes
@@ -47,7 +48,7 @@ def refine_error_vector(
     estimates: torch.Tensor,      # (ncomp, cap) child integral estimates
     errorests: torch.Tensor,      # (ncomp, cap) child raw errors
     parent_estimates: torch.Tensor,  # (ncomp, cap_parent >= cap//2)
-    n: int,
+    n,
     epsrel,
     relerr_classification: bool = True,
     volumes=None,                 # (cap,) unit-space region volumes

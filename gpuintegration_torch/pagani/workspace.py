@@ -21,6 +21,12 @@ region tree, a region finished only when every component meets its
 tolerance, the bisection axis from all components' fourth differences,
 classification and rollback keyed on the worst component.
 
+Below the classifier's gate the loop runs device-resident bursts of whole
+iterations (``pagani/fused_loop.py``; on the card CUDA graphs), the
+reference's ``fused=True`` default.  ``crease_split`` cuts regions at a
+detected kink or jump (``rule_eval.split_fraction``), ``predict_split``
+holds classification back for the first 15 iterations.
+
 ``integrate_to_convergence`` carries deep tolerances past one run's pool
 wall: checkpoint-resume rounds, then a partitioned continuation over
 hottest-first slices of the survivors (reference
@@ -38,13 +44,15 @@ import torch
 
 from gpuintegration_torch.integrand import deduce_ncomp, make_integrand
 from gpuintegration_torch.ops import rule_eval
-from gpuintegration_torch.pagani import region_pool, two_level
+from gpuintegration_torch.pagani import fused_loop, region_pool, two_level
 from gpuintegration_torch.pagani.classifier import HeuristicClassifier
 from gpuintegration_torch.types import IntegrationResult, Volume
 from gpuintegration_torch.utils.checkpoint import (
     ContinuationState, PaganiCheckpoint, npz_path)
 
 MAX_ITERATIONS = 700  # (Workspace.cuh:182)
+_CREASE_SCALAR_ONLY = ("crease_split runs on the scalar path; vegas_assisted "
+                       "and vector runs keep midpoint splits")
 
 
 def default_partitions_per_axis(ndim: int) -> int:
@@ -66,7 +74,7 @@ def accuracy_reached(epsrel, epsabs, estimate, errorest) -> bool:
 def iteration_math(
     relerr_classification: bool,
     blocked: bool,        # pool layout: blocked halves (post-split) or [0,n)
-    est, err, n: int,
+    est, err, n,          # n: host int, or the fused phase's device scalar
     parent_estimates,
     use_refine: bool,     # parents valid?
     epsrel,
@@ -74,7 +82,8 @@ def iteration_math(
     abs_per_vol=None,     # scalar: volume-apportioned retirement budget
 ):
     """Masking, two-level refinement, classification and the
-    iteration/finished reductions of one sweep.
+    iteration/finished reductions of one sweep: the host loop's, and the
+    fused phase's body (``pagani/fused_loop.py``) calls it as it is.
 
     Returns (est, refined, active, scalars) with ``scalars`` one f64
     tensor [iter_est, iter_err, finished_est, finished_err, n_active], so
@@ -90,7 +99,7 @@ def iteration_math(
 def iteration_math_vector(
     relerr_classification: bool,
     blocked: bool,
-    est, err, n: int,     # est/err: (ncomp, cap) component-major
+    est, err, n,          # est/err: (ncomp, cap) component-major
     parent_estimates,     # (ncomp, cap_parent)
     use_refine: bool,
     epsrel,
@@ -231,12 +240,34 @@ class Workspace:
         self.peak_capacity = 0
 
     def _eval_pool(self, integrand, tables, lows, lengths, global_lo,
-                   global_range, n: int, blocked: bool, ncomp: int = 1):
+                   global_range, n, blocked: bool, ncomp: int = 1,
+                   with_split_frac: bool = False):
         apply = (rule_eval.apply_rule_plain if self.rule_backend == "torch"
                  else rule_eval.apply_rule)
         return apply(integrand, tables, lows, lengths, global_lo,
                      global_range, chunk_size=self.chunk_size, n=n,
-                     blocked=blocked, ncomp=ncomp)
+                     blocked=blocked, ncomp=ncomp,
+                     with_split_frac=with_split_frac)
+
+    def _fused_phase(self, integrand, tables, global_lo, global_range, *,
+                     ncomp, with_split_frac, **kw):
+        """A ``fused_loop.Phase`` for one run: its evaluation walks the real
+        regions of a CPU pool and, on the card, the whole bucket (the
+        region count lives on the card there; the padding is masked)."""
+        def evaluate(lows, lengths, n):
+            if lows.device.type == "cpu":
+                return self._eval_pool(integrand, tables, lows, lengths,
+                                       global_lo, global_range, int(n), True,
+                                       ncomp, with_split_frac)
+            return self._eval_pool(integrand, tables, lows, lengths,
+                                   global_lo, global_range, None, False,
+                                   ncomp, with_split_frac)
+
+        return fused_loop.Phase(
+            evaluate, iteration_math if ncomp == 1 else iteration_math_vector,
+            ncomp=None if ncomp == 1 else ncomp,
+            with_split_frac=with_split_frac, feval=tables.feval,
+            gate=int(0.1 * self.max_pool_regions), **kw)
 
     def integrate(
         self,
@@ -251,15 +282,16 @@ class Workspace:
         initial_regions: tuple | None = None,
         predict_split: bool = False,
         vegas_assisted: bool = False,
-        fused: bool = False,
+        fused: bool = True,
         ledger: tuple | None = None,
         finish_epsrel_scale: float = 1.0,
         finish_abs_per_vol: float = 0.0,
         crease_split: bool = False,
         deadline: float | None = None,
     ) -> IntegrationResult:
-        """Integrate ``integrand`` to the requested tolerances; the
-        reference's ``fused=False`` host loop, iteration for iteration.
+        """Integrate ``integrand`` to the requested tolerances: the
+        reference's host loop, iteration for iteration, with its
+        device-resident bursts where the reference takes them.
 
         ``initial_regions``: (lows, lengths) region-major (n, ndim) arrays
         to start from instead of the uniform split (resume).
@@ -282,15 +314,42 @@ class Workspace:
         the pool re-evaluates it), and ``peak_capacity`` the largest pool
         capacity the run evaluated.
 
-        ``fused``, ``predict_split``, ``vegas_assisted`` and
-        ``crease_split`` are not ported yet and raise NotImplementedError.
+        ``fused`` (default True, the reference's): whenever the pool is
+        blocked and 2 n <= 0.1 ``max_pool_regions`` (below the classifier's
+        gate), run bursts of whole iterations with no host decision between
+        them (``pagani/fused_loop.py``; on the card a CUDA graph of one
+        iteration a bucket capacity, replayed); the host loop handles the
+        rest.  A callable that cannot be captured into a graph (one that
+        reads the card from the host) raises RuntimeError: pass
+        ``fused=False`` for the host loop throughout.  After a fused exit
+        ``final_pool_errors`` is None (the continuation then slices the
+        pool in its order).
+
+        ``crease_split``: split where the rule's collinear samples along
+        the split axis show a C0 kink (at the crease, less a margin) or a
+        jump (at the gap's edge, the axis the jump's), elsewhere at the
+        midpoint with the midpoint's bits (``rule_eval.split_fraction``;
+        the reference splits at midpoints only, Sub_region_splitter.cuh).
+        Scalar integrands only, host loop and fused phase alike; on the
+        card every integrand then takes the split route, whose values the
+        split fraction kernel reads.
+
+        ``predict_split``: the reference's split prediction
+        (Workspace.cuh:206-211, 244-248): no finished-region classification
+        for the first 15 iterations while the pool holds at most 15M
+        regions and nothing has finished, and the pool at iteration 15 kept
+        in ``last_snapshot`` = (lows, lengths, n, blocked).  It runs the
+        host loop throughout.  Scalar integrands only.
+
+        ``vegas_assisted`` is not ported yet and raises
+        NotImplementedError.
         """
-        for name, on in (("fused", fused), ("predict_split", predict_split),
-                         ("vegas_assisted", vegas_assisted),
-                         ("crease_split", crease_split)):
-            if on:
-                raise NotImplementedError(
-                    f"{name}=True is not ported to gpuintegration_torch yet")
+        if crease_split and vegas_assisted:
+            raise ValueError(_CREASE_SCALAR_ONLY)
+        if vegas_assisted:
+            raise NotImplementedError(
+                "vegas_assisted=True is not ported to gpuintegration_torch "
+                "yet (ROADMAP A13)")
         if not (0.0 < finish_epsrel_scale <= 1.0):
             raise ValueError("finish_epsrel_scale must be in (0, 1]")
         if finish_abs_per_vol < 0.0:
@@ -304,6 +363,12 @@ class Workspace:
         if f_ndim != ndim:
             raise ValueError(f"integrand ndim {f_ndim} != workspace {ndim}")
         ncomp = deduce_ncomp(f, ndim, dtype, device)
+        if crease_split and ncomp > 1:
+            raise ValueError(_CREASE_SCALAR_ONLY)
+        if ncomp > 1 and predict_split:
+            raise ValueError(
+                "vector-valued integrands refuse predict_split (a scalar "
+                "snapshot heuristic, Workspace.cuh:206-211)")
         if ncomp > 1 and ledger is not None and np.ndim(ledger[0]) != 1:
             raise ValueError(
                 "vector runs need a vector ledger: ((ncomp,) est, (ncomp,) "
@@ -336,11 +401,40 @@ class Workspace:
                 ndim, parts, cap, dtype, device)
 
         apv = finish_abs_per_vol if finish_abs_per_vol > 0.0 else None
-        if ncomp > 1:
-            return self._integrate_vector(
-                integrand, ncomp, epsrel, epsabs, eps_work, apv, global_lo,
+        phase = None
+        if fused and not predict_split:
+            phase = self._fused_phase(
+                integrand, tables, global_lo, global_range, ncomp=ncomp,
+                with_split_frac=crease_split,
+                relerr_classification=relerr_classification,
+                eps_work=eps_work, epsrel=epsrel, epsabs=epsabs,
+                abs_per_vol=apv)
+        try:
+            if ncomp > 1:
+                return self._integrate_vector(
+                    integrand, ncomp, epsrel, epsabs, eps_work, apv,
+                    global_lo, global_range, tables, lows, lengths, n, cap,
+                    relerr_classification, max_iterations, ledger, deadline,
+                    phase)
+            return self._integrate_scalar(
+                integrand, epsrel, epsabs, eps_work, apv, global_lo,
                 global_range, tables, lows, lengths, n, cap,
-                relerr_classification, max_iterations, ledger, deadline)
+                relerr_classification, max_iterations, ledger, deadline,
+                phase, crease_split, predict_split)
+        finally:
+            if phase is not None:
+                phase.close()
+
+    def _integrate_scalar(
+        self, integrand, epsrel, epsabs, eps_work, apv, global_lo,
+        global_range, tables, lows, lengths, n, cap, relerr_classification,
+        max_iterations, ledger, deadline, phase, crease_split, predict_split,
+    ) -> IntegrationResult:
+        """The adaptive loop of a scalar integrand from its initial pool:
+        the reference's host loop (Workspace.cuh:148-358), with the fused
+        phase's bursts (``phase``, None for none) where the pool is
+        blocked and under the gate."""
+        dtype, device = self.dtype, self.device
         parent_est = torch.zeros((max(cap // 2, 1),), dtype=dtype,
                                  device=device)
         use_refine = False
@@ -359,6 +453,7 @@ class Workspace:
         blocked = False   # pool layout: [0,n) contiguous until first split
         inflight_est = inflight_err = 0.0
         exhausted = False
+        lay = {k: i for i, k in enumerate(fused_loop.SCALAR_LAYOUT)}
 
         it = cum.iters
         while True:
@@ -369,14 +464,88 @@ class Workspace:
             if n <= 0:
                 break
 
+            if phase is not None and blocked and 2 * n <= phase.gate:
+                self.peak_capacity = max(self.peak_capacity, cap)
+                lows, lengths, parent_est, sdim_f, frac_f, packed = phase.run(
+                    lows, lengths, n, parent_est, cum_est=cum.estimate,
+                    cum_err=cum.errorest, result_nregions=result_nregions,
+                    iters=cum.iters, neval=cum.neval,
+                    hist=classifier._estimates, max_iters=max_iterations)
+                n = int(packed[lay["n"]])
+                status = int(packed[lay["status"]])
+                fused_iters = int(packed[lay["iters"]]) - cum.iters
+                cum.estimate = float(packed[lay["cum_est"]])
+                cum.errorest = float(packed[lay["cum_err"]])
+                result_nregions = int(packed[lay["result_nregions"]])
+                cum.nFinishedRegions = result_nregions
+                cum.iters = int(packed[lay["iters"]])
+                cum.neval = int(packed[lay["neval"]])
+                classifier._estimates = [float(packed[lay[f"hist{i}"]])
+                                         for i in range(3)]
+                classifier._iters_collected += fused_iters
+                inflight_est = float(packed[lay["last_inflight_est"]])
+                inflight_err = float(packed[lay["last_inflight_err"]])
+                it = cum.iters
+                if status == 1:
+                    # bucket overflow: the burst applied the sweep and
+                    # handed back the n compacted survivors; split them
+                    # into the doubled bucket, evaluating nothing again
+                    lows, lengths, n = region_pool.split(
+                        lows, lengths, sdim_f, n, out_capacity=2 * cap,
+                        frac=frac_f)
+                    cap = 2 * cap
+                    use_refine = True
+                    blocked = True
+                # a fused exit keeps no per-region errors: a continuation
+                # slices the pool in its order
+                self.final_pool = (lows, lengths, n, True)
+                self.final_pool_errors = None
+                if status in (0, 2):
+                    # the pool is unchanged and swept: the resumable ledger
+                    # excludes that sweep
+                    self._ledger_excl_pool = (
+                        float(packed[lay["prev_est"]]),
+                        float(packed[lay["prev_err"]]),
+                        int(packed[lay["prev_nregions"]]),
+                        int(packed[lay["prev_iters"]]),
+                        int(packed[lay["prev_neval"]]))
+                else:
+                    # post-split and not yet evaluated: the ledger as it is
+                    self._ledger_excl_pool = (cum.estimate, cum.errorest,
+                                              result_nregions, cum.iters,
+                                              cum.neval)
+                if status == 0:
+                    cum.status = 0
+                    cum.nregions = result_nregions + n
+                    return cum
+                if status == 2:
+                    cum.nregions = result_nregions
+                    return cum
+                if it >= max_iterations:
+                    exhausted = True
+                    break
+                if status == 1:
+                    continue
+                # the gate (status -1): one host iteration with the
+                # classifier, then the loop may come back
+
+            effective_relerr = relerr_classification
+            if (predict_split and n <= 15_000_000 and it < 15
+                    and result_nregions == 0):
+                effective_relerr = False          # (Workspace.cuh:206-211)
             self.peak_capacity = max(self.peak_capacity, cap)
-            est_raw, err_raw, sdim = self._eval_pool(
+            eval_out = self._eval_pool(
                 integrand, tables, lows, lengths, global_lo, global_range,
-                n, blocked)
+                n, blocked, 1, crease_split)
+            est_raw, err_raw, sdim = eval_out[:3]
+            sfrac = eval_out[3] if crease_split else None
             est, refined, active, scalars_d = iteration_math(
-                relerr_classification, blocked, est_raw, err_raw, n,
+                effective_relerr, blocked, est_raw, err_raw, n,
                 parent_est, use_refine, eps_work,
                 lengths=None if apv is None else lengths, abs_per_vol=apv)
+            if predict_split and result_nregions == 0 and it == 15:
+                # the pool snapshot (Workspace.cuh:244-248), with its layout
+                self.last_snapshot = (lows, lengths, n, blocked)
             self.final_pool = (lows, lengths, n, blocked)
             self.final_pool_errors = (est, refined)
             # cumulative ledger EXCLUDING this sweep: resuming from
@@ -461,11 +630,13 @@ class Workspace:
 
             child_cap = max(region_pool.next_pow2(2 * n_active),
                             self.chunk_size)
-            c_lows, c_lengths, c_sdim, parent_est, _ = region_pool.compact(
+            cres = region_pool.compact(
                 active, lows, lengths, sdim, est, refined,
-                out_capacity=child_cap // 2)
+                out_capacity=child_cap // 2, extra=sfrac)
+            c_lows, c_lengths, c_sdim, parent_est = cres[:4]
             lows, lengths, n = region_pool.split(
-                c_lows, c_lengths, c_sdim, n_active, out_capacity=child_cap)
+                c_lows, c_lengths, c_sdim, n_active, out_capacity=child_cap,
+                frac=cres[5] if crease_split else None)
             cap = child_cap
             use_refine = True
             blocked = True
@@ -481,7 +652,7 @@ class Workspace:
     def _integrate_vector(
         self, integrand, ncomp, epsrel, epsabs, eps_work, apv, global_lo,
         global_range, tables, lows, lengths, n, cap, relerr_classification,
-        max_iterations, ledger, deadline,
+        max_iterations, ledger, deadline, phase=None,
     ) -> IntegrationResult:
         """The adaptive loop of a vector-valued integrand, f: (..., ndim) ->
         (..., ncomp) (the reference's ``_integrate_vector`` host loop,
@@ -492,7 +663,11 @@ class Workspace:
         when every component's cumulative error passes (cubacpp's
         all-components semantics, integrand_traits.hh:81-93).  The
         classifier and the error-budget rollback key on the WORST
-        component.  Called by ``integrate`` on its initial pool."""
+        component.  Called by ``integrate`` on its initial pool; ``phase``
+        (a ``fused_loop.Phase`` or None) runs the reference's
+        ``fused_adaptive_phase_vector`` bursts: the same exits, every
+        component's accuracy, any component's rollback, the worst
+        component's estimate history."""
         dtype, device = self.dtype, self.device
         parent_est = torch.zeros((ncomp, max(cap // 2, 1)), dtype=dtype,
                                  device=device)
@@ -525,6 +700,12 @@ class Workspace:
             return all(accuracy_reached(epsrel, epsabs, abs(e), r)
                        for e, r in zip(ests, errs))
 
+        lay = {k: i for i, k in enumerate(fused_loop.vector_layout(ncomp))}
+
+        def comps(name):
+            return np.array([packed[lay[f"{name}{k}"]]
+                             for k in range(ncomp)], dtype=np.float64)
+
         it = cum.iters
         while True:
             if it >= max_iterations or (
@@ -533,6 +714,59 @@ class Workspace:
                 break
             if n <= 0:
                 break
+
+            if phase is not None and blocked and 2 * n <= phase.gate:
+                self.peak_capacity = max(self.peak_capacity, cap)
+                lows, lengths, parent_est, sdim_f, _, packed = phase.run(
+                    lows, lengths, n, parent_est, cum_est=cum_est,
+                    cum_err=cum_err, result_nregions=result_nregions,
+                    iters=cum.iters, neval=cum.neval,
+                    hist=classifier._estimates, max_iters=max_iterations)
+                n = int(packed[lay["n"]])
+                status = int(packed[lay["status"]])
+                fused_iters = int(packed[lay["iters"]]) - cum.iters
+                result_nregions = int(packed[lay["result_nregions"]])
+                cum.nFinishedRegions = result_nregions
+                cum.iters = int(packed[lay["iters"]])
+                cum.neval = int(packed[lay["neval"]])
+                classifier._estimates = [float(packed[lay[f"hist{i}"]])
+                                         for i in range(3)]
+                classifier._iters_collected += fused_iters
+                cum_est, cum_err = comps("cum_est"), comps("cum_err")
+                inflight_est = comps("last_inflight_est")
+                inflight_err = comps("last_inflight_err")
+                it = cum.iters
+                if status == 1:
+                    # split the compacted survivors into the doubled bucket
+                    lows, lengths, n = region_pool.split(
+                        lows, lengths, sdim_f, n, out_capacity=2 * cap)
+                    cap = 2 * cap
+                    use_refine = True
+                    blocked = True
+                self.final_pool = (lows, lengths, n, True)
+                self.final_pool_errors = None
+                if status in (0, 2):
+                    self._ledger_excl_pool = (
+                        comps("prev_est"), comps("prev_err"),
+                        int(packed[lay["prev_nregions"]]),
+                        int(packed[lay["prev_iters"]]),
+                        int(packed[lay["prev_neval"]]))
+                else:
+                    self._ledger_excl_pool = (cum_est.copy(), cum_err.copy(),
+                                              result_nregions, cum.iters,
+                                              cum.neval)
+                if status == 0:          # every component converged
+                    cum.status = 0
+                    cum.nregions = result_nregions + n
+                    break
+                if status == 2:          # every region finished
+                    cum.nregions = result_nregions
+                    break
+                if it >= max_iterations:
+                    exhausted = True
+                    break
+                if status == 1:
+                    continue
 
             self.peak_capacity = max(self.peak_capacity, cap)
             est_raw, err_raw, sdim = self._eval_pool(
@@ -695,18 +929,14 @@ class Workspace:
         unconverged exit with surviving regions saves a
         ``utils.checkpoint.ContinuationState`` (atomically); a later call
         with the same path resumes its queue exactly, and certification
-        removes the file.  ``kw`` goes to ``integrate``; ``fused``,
-        ``crease_split``, ``vegas_assisted`` and ``predict_split`` raise as
-        there.  A vector integrand continues the same way on (ncomp,)
+        removes the file.  ``kw`` goes to ``integrate`` (``fused``,
+        ``crease_split`` and ``predict_split`` with it, into every round and
+        slice; ``vegas_assisted`` raises as there).  A vector integrand
+        continues the same way on (ncomp,)
         ledgers and (n, ncomp) stashes: slices sorted by each region's
         worst component, every component banked and certified, the
         no-progress guard on the worst component.
         """
-        for name in ("fused", "predict_split", "vegas_assisted",
-                     "crease_split"):
-            if kw.get(name):
-                raise NotImplementedError(
-                    f"{name}=True is not ported to gpuintegration_torch yet")
         deadline = (time.monotonic() + max_wall_s
                     if max_wall_s is not None else None)
 
@@ -942,8 +1172,10 @@ class Workspace:
                 ck_i = self.make_checkpoint()
                 self.final_pool = None
                 self.final_pool_errors = None
-                new_err = _arr(ck_i.errorest) + _arr(
-                    ck_i.region_errorests.sum(axis=0))
+                new_err = _arr(ck_i.errorest) + (
+                    _arr(ck_i.region_errorests.sum(axis=0))
+                    if ck_i.region_errorests is not None
+                    else _errs(r_i) - _arr(ck_i.errorest))
                 if ck_i.lows.shape[0] > 0 and \
                         np.max(new_err) < min_err_reduction * np.max(s_err_i):
                     # progress: bank the finished ledger and re-queue the
@@ -1001,7 +1233,8 @@ class Workspace:
         ``ck.estimate``/``ck.errorest`` to the resumed result for the
         complete integral.  ``region_estimates``/``region_errorests`` are
         the pool's sweep per region (estimates and two-level refined
-        errors), in pool order."""
+        errors), in pool order; None after a fused exit, which keeps
+        none (``_make_slices`` then keeps the pool's order)."""
         if self.final_pool is None:
             raise ValueError("no resumable pool: run integrate() first")
         est, err, nregions, iters, neval = self._ledger_excl_pool
@@ -1012,8 +1245,10 @@ class Workspace:
         def host(a):
             return np.ascontiguousarray(a[..., keep].cpu().numpy().T)
 
-        reg_est, reg_err = self.final_pool_errors
+        reg_est = reg_err = None
+        if self.final_pool_errors is not None:
+            reg_est, reg_err = (host(a) for a in self.final_pool_errors)
         return PaganiCheckpoint(
             lows=host(lows), lengths=host(lengths), estimate=est,
             errorest=err, nregions=nregions, iters=iters, neval=neval,
-            region_estimates=host(reg_est), region_errorests=host(reg_err))
+            region_estimates=reg_est, region_errorests=reg_err)

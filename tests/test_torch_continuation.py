@@ -77,7 +77,8 @@ def _both(make, make_jax, ndim, epsrel, ws_kw, **kw):
         make_jax(), epsrel=epsrel, epsabs=1e-40, fused=False, stage_timer=tj,
         **kw)
     got = Workspace(ndim, device="cpu", **ws_kw).integrate_to_convergence(
-        make(), epsrel=epsrel, epsabs=1e-40, stage_timer=tp, **kw)
+        make(), epsrel=epsrel, epsabs=1e-40, fused=False, stage_timer=tp,
+        **kw)
     return got, ref, sorted(tp.times), sorted(tj.times)
 
 
@@ -142,12 +143,13 @@ def test_partitioned_continuation_matches_jax(partitioned):
     run.  The same run in both packages."""
     r1_ref, ref, _, _ = partitioned
     g, ws = _port_part()
-    r1 = ws.integrate(g, epsrel=PART["epsrel"], epsabs=1e-40)
+    r1 = ws.integrate(g, epsrel=PART["epsrel"], epsabs=1e-40, fused=False)
     _assert_same_run(r1, r1_ref)
     assert r1.status == 1 and 4 * ws.make_checkpoint().lows.shape[0] > 4096
     timer = StageTimer()
     got = _port_part()[1].integrate_to_convergence(
-        g, epsrel=PART["epsrel"], epsabs=1e-40, stage_timer=timer)
+        g, epsrel=PART["epsrel"], epsabs=1e-40, fused=False,
+        stage_timer=timer)
     _assert_same_run(got, ref)
     assert sorted(timer.times) == ["round1", "slices"]
     assert timer.times["slices"] > 0
@@ -165,7 +167,7 @@ def test_jax_written_state_resumes_in_the_port(partitioned):
     g, ws = _port_part()
     timer = StageTimer()
     got = ws.integrate_to_convergence(g, epsrel=PART["epsrel"], epsabs=1e-40,
-                                      state_path=str(path),
+                                      fused=False, state_path=str(path),
                                       stage_timer=timer)
     _assert_same_run(got, ref)
     assert sorted(timer.times) == ref_stages == ["slices"]
@@ -176,7 +178,7 @@ def test_interrupt_and_resume_equals_the_uninterrupted_run(tmp_path):
     """A continuation stopped at a deadline saves its queue; resumed from
     the file it certifies the same bits as the run never stopped."""
     g, ws = _port_part()
-    r1 = ws.integrate(g, epsrel=PART["epsrel"], epsabs=1e-40)
+    r1 = ws.integrate(g, epsrel=PART["epsrel"], epsabs=1e-40, fused=False)
     ck = ws.make_checkpoint()
     ws.final_pool = ws.final_pool_errors = None
     sp = str(tmp_path / "state")
@@ -187,9 +189,10 @@ def test_interrupt_and_resume_equals_the_uninterrupted_run(tmp_path):
     # the stored sums make the cut result the whole integral already
     assert math.isclose(cut.estimate, r1.estimate, rel_tol=1e-12)
     resumed = ws.integrate_to_convergence(g, epsrel=PART["epsrel"],
-                                          epsabs=1e-40, state_path=sp)
+                                          epsabs=1e-40, fused=False,
+                                          state_path=sp)
     full = _port_part()[1]._partitioned_continuation(
-        g, PART["epsrel"], 1e-40, None, ck, r1, 15)
+        g, PART["epsrel"], 1e-40, None, ck, r1, 15, fused=False)
     assert resumed.status == full.status == 0
     assert (resumed.estimate, resumed.errorest, resumed.nregions,
             resumed.neval, resumed.iters) == (
@@ -212,12 +215,12 @@ def test_whole_pool_exit_saves_a_state_that_resumes(tmp_path):
     ws = Workspace(3, chunk_size=1024, device="cpu")
     r = ws.integrate_to_convergence(g, epsrel=1e-9, epsabs=1e-40,
                                     max_rounds=1, max_iterations=3,
-                                    state_path=sp)
+                                    fused=False, state_path=sp)
     assert r.status == 1 and os.path.exists(sp + ".npz")
     st = ContinuationState.load(sp)
     assert st.work_counts.sum() > 0 and st.work_exact.all()
     r = ws.integrate_to_convergence(g, epsrel=1e-9, epsabs=1e-40,
-                                    state_path=sp)
+                                    fused=False, state_path=sp)
     assert r.status == 0 and not os.path.exists(sp + ".npz")
     assert abs(r.estimate - g.true_value) <= max(r.errorest,
                                                  1e-9 * g.true_value)
@@ -285,21 +288,29 @@ def test_stage_timer_adds_up_stages(monkeypatch):
 
 
 def test_continuation_refuses_what_is_not_ported():
+    """``vegas_assisted`` (A13) and ``mesh`` (A16) are still refused;
+    ``fused`` and ``crease_split`` pass through to every round, and a
+    vector refuses ``crease_split`` with the reference's reason."""
     ws = Workspace(3, chunk_size=1024, device="cpu")
     g = genz.f3_corner_peak(3)
-    for name in ("fused", "crease_split", "vegas_assisted"):
-        with pytest.raises(NotImplementedError, match=name):
-            ws.integrate_to_convergence(g, **{name: True})
+    with pytest.raises(NotImplementedError, match="vegas_assisted"):
+        ws.integrate_to_convergence(g, vegas_assisted=True)
+    for name in ("fused", "crease_split"):
+        r = ws.integrate_to_convergence(g, epsrel=1e-6, **{name: True})
+        assert r.status == 0
+        assert abs(r.estimate - g.true_value) <= 1e-6 * g.true_value
 
     def vector(x):
         return torch.stack([x[..., 0], x[..., 1]], dim=-1)
 
     # a vector integrand's continuation runs (both closed forms are 1/2),
-    # and refuses the unported options as a scalar one does
-    r = ws.integrate_to_convergence(vector, epsrel=1e-6)
-    assert r.status == 0 and np.allclose(r.estimates, 0.5, rtol=1e-12)
-    for name in ("fused", "crease_split", "vegas_assisted"):
-        with pytest.raises(NotImplementedError, match=name):
-            ws.integrate_to_convergence(vector, **{name: True})
+    # fused too, and refuses what a vector refuses
+    for fused in (False, True):
+        r = ws.integrate_to_convergence(vector, epsrel=1e-6, fused=fused)
+        assert r.status == 0 and np.allclose(r.estimates, 0.5, rtol=1e-12)
+    with pytest.raises(NotImplementedError, match="vegas_assisted"):
+        ws.integrate_to_convergence(vector, vegas_assisted=True)
+    with pytest.raises(ValueError, match="crease_split"):
+        ws.integrate_to_convergence(vector, crease_split=True)
     with pytest.raises(NotImplementedError, match="A16"):
         Workspace(3, device="cpu", mesh=object())

@@ -107,12 +107,13 @@ def test_workspace_takes_the_split_route_on_card():
         pytest.skip("needs a CUDA card")
     g = misc.sin_sum(4)
     cuda_rule.reset_launches()
-    on_card = Workspace(4, chunk_size=1024).integrate(g, 1e-7, 1e-40)
+    on_card = Workspace(4, chunk_size=1024).integrate(g, 1e-7, 1e-40,
+                                                      fused=False)
     assert cuda_rule.launches == 0
     assert cuda_rule.split_launches["points"] == cuda_rule.split_launches[
         "contract"] >= on_card.iters
     on_cpu = Workspace(4, chunk_size=1024, device="cpu").integrate(
-        g, 1e-7, 1e-40)
+        g, 1e-7, 1e-40, fused=False)
     assert (on_card.status, on_card.iters, on_card.nregions,
             on_card.neval) == (on_cpu.status, on_cpu.iters, on_cpu.nregions,
                                on_cpu.neval)

@@ -224,10 +224,11 @@ def test_vector_workspace_on_card_matches_cpu():
 
     f.ndim = 3
     cuda_rule.reset_launches()
-    on_card = Workspace(3, chunk_size=1024).integrate(f, 1e-6, 1e-40)
+    on_card = Workspace(3, chunk_size=1024).integrate(f, 1e-6, 1e-40,
+                                                      fused=False)
     launches = dict(cuda_rule.contract_route_launches)
     on_cpu = Workspace(3, chunk_size=1024, device="cpu").integrate(
-        f, 1e-6, 1e-40)
+        f, 1e-6, 1e-40, fused=False)
     assert launches["components_cluster"] > 0 and launches["cluster"] == 0
     assert launches["components"] == 0
     assert (on_card.status, on_card.iters, on_card.nregions,

@@ -386,7 +386,7 @@ def _checkpoints():
     ws_j = J.Workspace(3, chunk_size=1024)
     ws_j.integrate(jgenz.f3_corner_peak(3), fused=False, **kw)
     ws = Workspace(3, chunk_size=1024, device="cpu")
-    ws.integrate(genz.f3_corner_peak(3), **kw)
+    ws.integrate(genz.f3_corner_peak(3), fused=False, **kw)
     return ws_j.make_checkpoint(), ws.make_checkpoint()
 
 

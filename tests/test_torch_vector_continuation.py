@@ -31,6 +31,7 @@ from gpuintegration_torch.utils.profiling import StageTimer
 ND, EPS, ULPS = 3, 1e-8, 64
 WS = dict(chunk_size=256, max_pool_regions=4096)
 KW = dict(finish_epsrel_scale=0.4)
+PKW = dict(KW, fused=False)         # the port's calls: the host loop
 COMPS = [genz.f4_gaussian(ND, a=8.0), genz.f2_product_peak(ND)]
 JAX_COMPS = [jax_genz.f4_gaussian(ND, a=8.0), jax_genz.f2_product_peak(ND)]
 TRUTHS = np.array([c.true_value for c in COMPS])
@@ -91,7 +92,7 @@ def test_split_starved_vector_continuation_matches_jax():
 
     ws.integrate = counted
     got = ws.integrate_to_convergence(fv, epsrel=EPS, epsabs=1e-40,
-                                      max_rounds=40, stage_timer=tp, **KW)
+                                      max_rounds=40, stage_timer=tp, **PKW)
     _assert_same_run(got, ref)
     assert sorted(tp.times) == sorted(tj.times) == ["round1", "slices"]
     assert got.status == 0 and runs[0] > 2        # round 1 and the slices
@@ -103,7 +104,7 @@ def test_vector_state_files_cross_both_ways(tmp_path):
     """A vector run's PaganiCheckpoint and ContinuationState written by one
     package load in the other with the same arrays."""
     ws = Workspace(ND, device="cpu", **WS)
-    r1 = ws.integrate(fv, epsrel=EPS, epsabs=1e-40, **KW)
+    r1 = ws.integrate(fv, epsrel=EPS, epsabs=1e-40, **PKW)
     ck = ws.make_checkpoint()
     assert ck.region_errorests.shape == (ck.lows.shape[0], 2)
     ck.save(tmp_path / "ck")
@@ -121,7 +122,7 @@ def test_vector_state_files_cross_both_ways(tmp_path):
     sp = str(tmp_path / "state")
     ws._partitioned_continuation(fv, EPS, 1e-40, None, ck, r1, 39,
                                  deadline=time.monotonic() - 1.0,
-                                 state_path=sp, **KW)
+                                 state_path=sp, **PKW)
     st = ContinuationState.load(sp)
     assert st.vec and st.work_est.shape == (len(st.work_counts), 2)
     j = jck.ContinuationState.load(sp)
@@ -140,19 +141,19 @@ def test_vector_stop_save_resume_gives_the_same_bits(tmp_path):
     and the spent file is removed."""
     ws = Workspace(ND, device="cpu", **WS)
     full = ws.integrate_to_convergence(fv, epsrel=EPS, epsabs=1e-40,
-                                       max_rounds=40, **KW)
+                                       max_rounds=40, **PKW)
     ws = Workspace(ND, device="cpu", **WS)
-    r1 = ws.integrate(fv, epsrel=EPS, epsabs=1e-40, **KW)
+    r1 = ws.integrate(fv, epsrel=EPS, epsabs=1e-40, **PKW)
     ck = ws.make_checkpoint()
     ws.final_pool = ws.final_pool_errors = None
     sp = str(tmp_path / "state")
     cut = ws._partitioned_continuation(fv, EPS, 1e-40, None, ck, r1, 39,
                                        deadline=time.monotonic() - 1.0,
-                                       state_path=sp, **KW)
+                                       state_path=sp, **PKW)
     assert cut.status == 1 and os.path.exists(sp + ".npz")
     np.testing.assert_allclose(cut.estimates, r1.estimates, rtol=1e-12)
     resumed = Workspace(ND, device="cpu", **WS).integrate_to_convergence(
-        fv, epsrel=EPS, epsabs=1e-40, max_rounds=40, state_path=sp, **KW)
+        fv, epsrel=EPS, epsabs=1e-40, max_rounds=40, state_path=sp, **PKW)
     assert resumed.status == full.status == 0
     assert list(resumed.estimates) == list(full.estimates)
     assert list(resumed.errorests) == list(full.errorests)
@@ -168,12 +169,12 @@ def test_vector_whole_pool_exit_saves_a_vector_state(tmp_path):
     ws = Workspace(ND, chunk_size=1024, device="cpu")
     r = ws.integrate_to_convergence(fv, epsrel=1e-8, epsabs=1e-40,
                                     max_rounds=1, max_iterations=3,
-                                    state_path=sp)
+                                    fused=False, state_path=sp)
     assert r.status == 1 and os.path.exists(sp + ".npz")
     st = ContinuationState.load(sp)
     assert st.vec and st.fin_est.shape == (2,) and st.work_exact.all()
     r = ws.integrate_to_convergence(fv, epsrel=1e-8, epsabs=1e-40,
-                                    state_path=sp)
+                                    fused=False, state_path=sp)
     assert r.estimates.shape == (2,) and r.iters > 0
     assert np.all(np.abs(r.estimates - TRUTHS) <= np.maximum(
         5 * r.errorests, 1e-9 * TRUTHS))

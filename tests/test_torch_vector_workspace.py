@@ -78,7 +78,7 @@ def test_vector_run_matches_jax():
     ref = JaxWorkspace(ND, chunk_size=1024).integrate(
         fvec_jax, epsrel=1e-6, epsabs=1e-40, fused=False)
     got = Workspace(ND, chunk_size=1024, device="cpu").integrate(
-        fvec, epsrel=1e-6, epsabs=1e-40)
+        fvec, epsrel=1e-6, epsabs=1e-40, fused=False)
     _assert_same_run(got, ref)
     assert got.status == 0 and got.estimates.shape == (4,)
     for i in range(4):
@@ -117,7 +117,8 @@ def test_vector_ledger_resumes(tmp_path):
     to a tolerance the first round could not reach; a scalar ledger with
     a vector integrand is refused."""
     ws = Workspace(ND, chunk_size=1024, device="cpu")
-    r1 = ws.integrate(fvec, epsrel=1e-7, epsabs=1e-40, max_iterations=4)
+    r1 = ws.integrate(fvec, epsrel=1e-7, epsabs=1e-40, max_iterations=4,
+                      fused=False)
     assert r1.status == 1
     ck = ws.make_checkpoint()
     assert ck.estimate.shape == (4,)
@@ -149,7 +150,7 @@ def test_jax_vector_pool_resumes_in_the_port():
         fvec_jax, epsrel=1e-6, epsabs=1e-40, fused=False,
         initial_regions=(ck.lows, ck.lengths), ledger=ck.ledger)
     got = Workspace(ND, chunk_size=1024, device="cpu").integrate(
-        fvec, epsrel=1e-6, epsabs=1e-40,
+        fvec, epsrel=1e-6, epsabs=1e-40, fused=False,
         initial_regions=(ck.lows, ck.lengths), ledger=ledger)
     _assert_same_run(got, ref)
 
