@@ -167,22 +167,38 @@ timed beside the others in the same run.
    'hybrid'; B2 emit and B3 launched), the grid map (B4 and B3), and [g, g]
    against the scalar run of g: the same iterations, the final grid EQUAL,
    both components equal and within 1e-12 of the scalar estimate;
-15. the split fraction kernel (``cuda_rule.split_frac``,
-   csrc/split_frac.cu, a crease run's fourth kernel on the split route)
-   against ``rule_eval.split_fraction`` on values with planted kinks and
-   jumps (``kernel_check.crease_stencils``) at the Workspace's 8D f64
-   (4096 x 1105), 12D f64 (1024 x 6745) and 8D f32 (8192 x 1105) chunks,
-   as rows and as planes: fraction and split_dim EQUAL on the card and to
-   a CPU copy; its time (``queued_ms``) beside its bytes bound and the
-   plain version's, the cuts and the split axes a jump moved;
+15. the split fraction (csrc/split_frac.cuh) in every kernel that
+   computes it, against ``rule_eval.split_fraction``: the standalone
+   kernel (``cuda_rule.split_frac``, csrc/split_frac.cu) on values with
+   planted kinks and jumps and a NaN region
+   (``kernel_check.crease_stencils``) at the Workspace's 8D f64 (4096 x
+   1105), 12D f64 (1024 x 6745) and 8D f32 (8192 x 1105) chunks, as rows
+   and as planes, EQUAL on the card and to a CPU copy, its time
+   (``queued_ms``) beside its bytes bound and the plain version's; the
+   cluster and generic contractions' folded form on the same values
+   (``kernel_check.check_contract_frac``: EQUAL to the standalone kernel
+   and the plain version, est/err the bits without the fraction), each
+   timed with and without it in turns; the fused tile and generic
+   kernels' folded form (``kernel_check.check_fused_frac``: EQUAL to the
+   plain version on the collinear values the kernel writes out, est/err
+   the bits without it, padding 0.5) on F5 and F6 pools of the chunks'
+   sizes, blocked with padding and a NaN region; each fused route with and
+   without the fraction in turns (``time_ms``) at phase 4's pool (F4, F5)
+   and the tile route at the main path's last pool; ptxas's registers and
+   spills of every instance print in phase 1;
 16. crease/jump-aware splits at full width: 8D ``f5_c0_continuous(8,
    a=10, b=0.37)`` at ``F5_CREASE_EPSREL`` and ``f6_discontinuous(8)`` at
    ``F6_CREASE_EPSREL`` (``tools/crease_probe.py`` finds the deepest each
    certifies within ~30 s), crease against midpoint splits, host loop and
-   fused phase: status, iterations, regions, neval, wall, true error, the
-   split fraction kernel's launches; every crease run certifies within 3x
-   its tolerance on the split route with the kernel on every chunk, and
-   the fused crease run takes the host loop's decisions;
+   fused phase: status, iterations, regions, neval, wall (beside the
+   split route's walls at commit fce39b8), true error, the launches; every crease run
+   certifies within 3x its tolerance on the fused tile route with the
+   fraction in every fused launch and no split or standalone launch, and
+   the fused crease run takes the host loop's decisions; then the
+   fraction's other kernels on a run each: 8D F5 as a plain callable (the
+   split route, the fraction in every cluster contraction), 2D F5 at 1e-9
+   (the fused generic route), 3D F5 as a per-axis callable (planes: the
+   generic contraction);
 17. the fused phase (``pagani/fused_loop.py``, CUDA graphs of one
    iteration a bucket capacity): phase 3's run with ``fused=True`` against
    the host loop in turns (the same status, iterations, regions and neval,
@@ -218,7 +234,7 @@ from gpuintegration_torch.models import genz, misc
 from gpuintegration_torch.ops import (cuda_build, cuda_rule, kernel_check,
                                       rule_eval)
 from gpuintegration_torch.pagani import fused_loop, region_pool
-from gpuintegration_torch.tools import sass_report, vector_probe
+from gpuintegration_torch.tools import route_bits, sass_report, vector_probe
 from gpuintegration_torch.types import Volume
 from gpuintegration_torch.utils.profiling import StageTimer
 
@@ -252,11 +268,26 @@ def ops_per_point(kind: int, ndim: int) -> int:
 EPILOGUE_OPS = 250   # rule sums, fourth differences, error model, per region
 
 
-def bound_ms(kind: int, ndim: int, n: int, dtype) -> tuple[float, str]:
+# Arithmetic operations of the split fraction an axis and region, counted
+# from csrc/split_frac.cuh axis_frac: 8 for the four secants, 14 for the
+# two lines' intersections, 10 for the kink gates, 2 relative breaks, 2 for
+# the cut, 12 for the jump gates; comparisons, |x| and selections not
+# counted, a division as ONE operation, so the bound built from it is a
+# lower bound.
+FRAC_OPS_PER_AXIS = 48
+
+
+def bound_ms(kind: int, ndim: int, n: int, dtype,
+             frac: bool = False) -> tuple[float, str]:
+    """The least time of a fused launch over ``n`` regions: its operations
+    at the peak rate, or its bytes (the bounds read, est, err and split_dim
+    written) at the memory rate, whichever is larger; with ``frac`` the
+    split fraction's operations and the fraction written too."""
     feval = rule_eval.rule_tables(ndim).feval
-    ops = n * (feval * ops_per_point(kind, ndim) + EPILOGUE_OPS)
+    ops = n * (feval * ops_per_point(kind, ndim) + EPILOGUE_OPS
+               + (ndim * FRAC_OPS_PER_AXIS if frac else 0))
     item = torch.finfo(dtype).bits // 8
-    nbytes = n * (2 * ndim * item + 2 * item + 4)
+    nbytes = n * (2 * ndim * item + (3 if frac else 2) * item + 4)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -329,6 +360,22 @@ def ptxas_summary(log: str) -> str:
         return "ptxas reported no register counts"
     return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers per "
             f"thread, at most {max(spills, default=0)} spill bytes")
+
+
+def ptxas_by_kernel(log: str) -> dict[str, tuple[str, int, int]]:
+    """Registers (a range over the Genz families, written as *), the most
+    spill bytes and the largest stack frame of each kernel template
+    instance of an nvcc report (``route_bits.ptxas_kernels``)."""
+    groups: dict[str, list] = {}
+    for name, rs in route_bits.ptxas_kernels(log).items():
+        key = re.sub(r"^(rule_(?:tile_)?kernel<)\d", r"\1*", name)
+        groups.setdefault(key, []).append(rs)
+    out = {}
+    for k, v in sorted(groups.items()):
+        regs = sorted({r[0] for r in v})
+        out[k] = (f"{regs[0]}-{regs[-1]}" if len(regs) > 1 else str(regs[0]),
+                  max(r[1] for r in v), max(r[2] for r in v))
+    return out
 
 
 _blocker = []
@@ -2499,22 +2546,59 @@ F5_CREASE_EPSREL = 1e-2
 F6_CREASE_EPSREL = 3e-4
 
 
-def split_frac_checks(dev):
-    """Phase 15: ``rule_split_frac_kernel`` (``cuda_rule.split_frac``)
+# The walls of phase 16's crease runs at commit fce39b8, when every crease
+# run took the split route (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md),
+# printed beside this run's: (host, fused)
+SPLIT_ROUTE_CREASE_WALLS = {"f5_c0": (17.593, 17.647),
+                     "f6_discontinuous": (11.466, 13.903)}
+
+
+def in_turns(without, with_frac, timer):
+    """Each of two calls timed in turns (without, with, with, without) by
+    ``timer``: (best without, best with, the four series)."""
+    t = [timer(without), timer(with_frac), timer(with_frac), timer(without)]
+    return min(t[0], t[3]), min(t[1], t[2]), t
+
+
+def stencil_pool(ndim, count, dtype, dev):
+    """A pool of ``count`` regions for the contraction (every slot real)."""
+    lows, lengths = random_pool(ndim, count, 5, getattr(torch, dtype), dev)
+    gl = torch.zeros(ndim, dtype=lows.dtype, device=dev)
+    gr = torch.ones(ndim, dtype=lows.dtype, device=dev)
+    return lows, lengths, gl, gr
+
+
+def split_frac_checks(dev, main_args, main_kw):
+    """Phase 15: the split fraction in each kernel that computes it.
+    The standalone ``rule_split_frac_kernel`` (``cuda_rule.split_frac``)
     against ``rule_eval.split_fraction`` at SPLIT_FRAC_CASES, values as
     rows and as planes with planted kinks and jumps
-    (``kernel_check.crease_stencils``): fraction and split_dim EQUAL on the
-    card and to a CPU copy; the kernel's time (``queued_ms``) beside its
-    bytes bound and the plain version's.  Returns the rows."""
-    rows = []
+    (``kernel_check.crease_stencils``, a NaN region among them): EQUAL on
+    the card and to a CPU copy, its time (``queued_ms``) beside its bytes
+    bound and the plain version's.  The two scalar contractions' folded
+    form at the same chunks, rows and planes (``check_contract_frac``:
+    EQUAL to the standalone kernel and the plain version), each timed with
+    and without the fraction in turns.  The fused kernels' folded form
+    (``check_fused_frac``) on pools of the same sizes, F5 and F6, blocked
+    with padding and a NaN region: tile and generic at 8D (f64, f32),
+    generic at 12D; then each timed with and without the fraction in turns
+    at phase 4's pool (8D, 2^21 regions, F4 and F5, f64), the tile route
+    also at the main path's last pool (``main_args``, F4).  Returns the
+    rows by kernel."""
+    out = {"standalone": [], "contract": [], "fused_checks": [],
+           "fused_times": []}
     for label, ndim, count, dtype in SPLIT_FRAC_CASES:
         vals, sd = kernel_check.crease_stencils(ndim, count, dtype,
                                                 seed=15 + ndim)
+        vals[3, :] = np.nan
         sd = torch.as_tensor(sd, device=dev)
         item = np.dtype(dtype).itemsize
+        feval = rule_eval.rule_tables(ndim).feval
         # each region's 4 ndim + 1 stencil values and split axis read, its
         # fraction and split axis written
         nbytes = count * ((4 * ndim + 1) * item + 4 + item + 4)
+        pool = stencil_pool(ndim, count, dtype, dev)
+        tables = rule_eval.rule_tables(ndim, dtype)
         for layout in ("rows", "planes"):
             v = torch.as_tensor(vals, device=dev)
             if layout == "planes":
@@ -2525,12 +2609,11 @@ def split_frac_checks(dev):
                 fail(f"phase 15: {label} {layout}: {e}")
             ms = queued_ms(lambda: cuda_rule.split_frac(v, sd, ndim), 5)
             plain = time_ms(lambda: rule_eval.split_fraction(v, sd, ndim), 3)
-            row = dict(shape=f"{label} {count} x "
-                       f"{rule_eval.rule_tables(ndim).feval} {layout}",
-                       ms=ms, plain_ms=plain,
+            shape = f"{label} {count} x {feval} {layout}"
+            row = dict(shape=shape, ms=ms, plain_ms=plain,
                        bound_ms=bytes_bound_ms(nbytes), **r)
-            rows.append(row)
-            print(f"phase 15: split fraction kernel, {row['shape']}: EQUAL "
+            out["standalone"].append(row)
+            print(f"phase 15: split fraction kernel, {shape}: EQUAL "
                   f"to the plain version (card and CPU), {r['cut']} of "
                   f"{r['regions']} regions cut off the midpoint, "
                   f"{r['overrides']} split axes overridden by a jump; "
@@ -2538,34 +2621,175 @@ def split_frac_checks(dev):
                   f"(bytes, {nbytes / 1e6:.3f} MB; "
                   f"{100 * row['bound_ms'] / ms:.1f} % of it), plain "
                   f"{plain:.3f} ms", flush=True)
-    return rows
+            # the contraction reads every value and the lengths, writes
+            # est, err, split_dim and the fraction
+            cbytes = (count * feval * item + ndim * count * item
+                      + count * (3 * item + 4))
+            plain_c = time_ms(lambda: rule_eval.rule_outputs(
+                v, tables, pool[1], pool[3], with_split_frac=True), 3)
+            for route in cuda_rule.CONTRACT_ROUTES:
+                try:
+                    rc = kernel_check.check_contract_frac(v, tables, *pool,
+                                                          route=route)
+                except AssertionError as e:
+                    fail(f"phase 15: {label} {layout} {route}: {e}")
+                outs = cuda_rule.split_contract(v, tables, *pool, 0,
+                                                route=route)
+                outs_f = cuda_rule.split_contract(v, tables, *pool, 0,
+                                                  route=route,
+                                                  with_split_frac=True)
+                without, with_frac, series = in_turns(
+                    lambda: cuda_rule.split_contract(
+                        v, tables, *pool, 0, route=route, out=outs),
+                    lambda: cuda_rule.split_contract(
+                        v, tables, *pool, 0, route=route, out=outs_f,
+                        with_split_frac=True),
+                    lambda fn: queued_ms(fn, 5))
+                crow = dict(shape=shape, route=route, ms=with_frac,
+                            without_ms=without, series_ms=series,
+                            plain_ms=plain_c,
+                            bound_ms=bytes_bound_ms(cbytes), **rc)
+                out["contract"].append(crow)
+                print(f"phase 15: {route} contraction with the fraction, "
+                      f"{shape}: EQUAL to the standalone kernel and the "
+                      f"plain version ({rc['cut']} cut, {rc['overrides']} "
+                      f"overridden), est/err the bits without it; "
+                      f"{with_frac:.4f} ms with, {without:.4f} ms without "
+                      f"(series {', '.join(f'{x:.4f}' for x in series)}); "
+                      f"bound {crow['bound_ms']:.4f} ms (bytes); plain "
+                      f"rule_outputs with the fraction {plain_c:.3f} ms",
+                      flush=True)
+        del pool
+    # the fused kernels' folded form on pools of the same sizes
+    for label, ndim, count, dtype in SPLIT_FRAC_CASES:
+        tdtype = getattr(torch, dtype)
+        tables = rule_eval.rule_tables(ndim, dtype)
+        lows, lengths = random_pool(ndim, count, 7, tdtype, dev)
+        lows[:, 5] = float("nan")
+        gl = torch.zeros(ndim, dtype=tdtype, device=dev)
+        gr = torch.ones(ndim, dtype=tdtype, device=dev)
+        routes = [r for r in cuda_rule.ROUTES
+                  if r == "generic" or ndim in cuda_rule.TILE_NDIMS]
+        for g in (genz.f5_c0_continuous(ndim, a=10.0, b=0.37),
+                  genz.f6_discontinuous(ndim)):
+            for route in routes:
+                try:
+                    r = kernel_check.check_fused_frac(
+                        g, tables, lows, lengths, gl, gr,
+                        n=count - count // 8, blocked=True, route=route)
+                except AssertionError as e:
+                    fail(f"phase 15: {label} {g.name} {route}: {e}")
+                out["fused_checks"].append(dict(shape=label, name=g.name,
+                                                route=route, **r))
+                print(f"phase 15: {route} route with the fraction, {label} "
+                      f"pool ({count} slots, blocked, padding, a NaN "
+                      f"region), {g.name} {dtype}: fraction and split_dim "
+                      f"EQUAL to the plain version on the kernel's own "
+                      f"values ({r['cut']} of {r['regions']} cut, "
+                      f"{r['overrides']} overridden), est/err the bits "
+                      "without it, padding 0.5", flush=True)
+        del lows, lengths
+    # the fused kernels with and without the fraction, in turns
+    big = 1 << 21
+    tables = rule_eval.rule_tables(NDIM, "float64")
+    lows, lengths = random_pool(NDIM, big, 2, torch.float64, dev)
+    gl = torch.zeros(NDIM, dtype=torch.float64, device=dev)
+    gr = torch.ones(NDIM, dtype=torch.float64, device=dev)
+    shapes = [(f"phase 4's pool ({big} regions)", g,
+               (g, tables, lows, lengths, gl, gr), {})
+              for g in (genz.f4_gaussian(NDIM),
+                        genz.f5_c0_continuous(NDIM, a=10.0, b=0.37))]
+    shapes.append((f"the main path's last pool ({main_kw['n']} regions)",
+                   main_args[0], main_args, main_kw))
+    for label, g, args, kw in shapes:
+        n = kw.get("n", big)
+        routes = (("tile",) if "main path" in label
+                  else cuda_rule.ROUTES)
+        for route in routes:
+            without, with_frac, series = in_turns(
+                lambda: cuda_rule.cuda_apply_rule(*args, **kw, route=route),
+                lambda: cuda_rule.cuda_apply_rule(*args, **kw, route=route,
+                                                  with_split_frac=True),
+                lambda fn: time_ms(fn, 5 if route == "tile" else 3))
+            b, by = bound_ms(g.kind, NDIM, n, torch.float64, frac=True)
+            row = dict(shape=label, name=g.name, route=route, ms=with_frac,
+                       without_ms=without, series_ms=series, bound_ms=b,
+                       bound_by=by)
+            if g.kind == 5 and route == "tile":
+                row["plain_ms"] = time_ms(lambda: rule_eval.apply_rule_plain(
+                    *args, chunk_size=4096, with_split_frac=True, **kw), 1)
+            out["fused_times"].append(row)
+            plain = (f", plain apply_rule_plain with the fraction "
+                     f"{row['plain_ms']:.1f} ms" if "plain_ms" in row else "")
+            print(f"phase 15: {route} route, {label}, {g.name} f64: with "
+                  f"the fraction {with_frac:.3f} ms, without {without:.3f} "
+                  f"ms ({100 * (with_frac / without - 1):+.2f} %; series "
+                  f"{', '.join(f'{x:.3f}' for x in series)}); bound with "
+                  f"the fraction {b:.3f} ms ({by}, "
+                  f"{100 * b / with_frac:.1f} % of it){plain}", flush=True)
+    del lows, lengths
+    torch.cuda.empty_cache()
+    return out
 
 
-def crease_run(label, g, eps, crease, fused):
-    """One ``Workspace(8).integrate(g, eps, crease_split=crease,
+def crease_run(label, g, eps, crease, fused, ndim=NDIM, truth=None):
+    """One ``Workspace(ndim).integrate(g, eps, crease_split=crease,
     fused=fused)`` with the launch counts set to 0 before and read after;
-    printed.  Returns the result, the wall and the launches."""
+    printed.  ``truth`` None: ``g.true_value``.  Returns the result, the
+    wall, the launches and the relative error."""
+    truth = g.true_value if truth is None else truth
     cuda_rule.reset_launches()
     fused_loop.reset_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = Workspace(NDIM).integrate(g, eps, 1e-40, crease_split=crease,
+    res = Workspace(ndim).integrate(g, eps, 1e-40, crease_split=crease,
                                     fused=fused)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(split_frac=cuda_rule.split_frac_launches,
-                    fused_kernel=cuda_rule.launches,
+    launches = dict(fused_kernel=cuda_rule.launches,
+                    fused_by_route=dict(cuda_rule.route_launches),
+                    fraction_by_kernel=dict(cuda_rule.frac_route_launches),
+                    split_frac=cuda_rule.split_frac_launches,
                     **cuda_rule.split_launches)
-    rel = abs(res.estimate - g.true_value) / abs(g.true_value)
-    print(f"phase 16: {label} epsrel {eps:g}, "
+    rel = abs(res.estimate - truth) / abs(truth)
+    print(f"phase 16: {label} {ndim}D epsrel {eps:g}, "
           f"{'crease' if crease else 'midpoint'} splits, "
           f"{'fused' if fused else 'host loop'}: status {res.status} "
-          f"estimate {res.estimate!r} truth {g.true_value!r} rel.err "
-          f"{rel:.3e} errorest/truth {res.errorest / abs(g.true_value):.3e} "
+          f"estimate {res.estimate!r} truth {truth!r} rel.err "
+          f"{rel:.3e} errorest/truth {res.errorest / abs(truth):.3e} "
           f"iters {res.iters} nregions {res.nregions} neval {res.neval} wall "
           f"{wall:.3f} s; launches {launches}; bursts "
           f"{dict(fused_loop.stats)}", flush=True)
     return res, wall, launches, rel
+
+
+def expect_fraction_in(label, launches, kernel, eps, res, rel):
+    """A crease run must certify within 3x its tolerance with every
+    fraction computed by ``kernel`` (a FRAC_ROUTES name): on the fused
+    route every fused launch carried it and nothing of the split route
+    ran; on the split route every contraction carried it and nothing fused
+    ran; never the standalone kernel."""
+    if res.status != 0 or not rel <= 3 * eps:
+        fail(f"{label} crease run: status {res.status}, rel.err {rel}")
+    by = launches["fraction_by_kernel"]
+    others = sum(v for k, v in by.items() if k != kernel)
+    if kernel in cuda_rule.ROUTES:
+        every = launches["fused_kernel"]
+        stray = launches["points"] + launches["contract"]
+    else:
+        every = launches["contract"]
+        stray = launches["fused_kernel"]
+    if not by[kernel] or by[kernel] != every or others or stray \
+            or launches["split_frac"]:
+        fail(f"{label} crease run: launches {launches}; every fraction "
+             f"should come from the {kernel} kernel")
+
+
+def f5_axes3(x0, x1, x2):
+    """Genz F5 at 3D (a = 10, b = 0.37) as a scalar-per-axis callable: its
+    values come back as planes, which the generic contraction takes."""
+    return torch.exp(-10.0 * (torch.abs(x0 - 0.37) + torch.abs(x1 - 0.37)
+                              + torch.abs(x2 - 0.37)))
 
 
 def crease_path(dev):
@@ -2573,12 +2797,16 @@ def crease_path(dev):
     kink) at F5_CREASE_EPSREL and ``f6_discontinuous(8)`` (jumps, bounds
     0.2-0.9) at F6_CREASE_EPSREL, crease against midpoint splits, the host
     loop and the fused phase.  Every crease run must certify within 3x its
-    tolerance of the closed form and take the split route with the split
-    fraction kernel on every chunk (no fused-kernel launch); the fused
-    crease run must take the host loop's decisions.  Returns the split
-    fraction kernel's launches on the first run (the crease path's main
-    run) and the rows."""
-    rows, main_launches = [], None
+    tolerance of the closed form on the fused tile route, the fraction in
+    every fused launch, no split and no standalone launch; the fused
+    crease run must take the host loop's decisions; its walls beside the
+    split route's at commit fce39b8.  Then the fraction's other kernels on their
+    paths: 8D F5 as a plain callable (the split route, the fraction in
+    every cluster contraction), 2D F5 at 1e-9 (the fused generic route),
+    3D F5 as a per-axis callable at 1e-8 (planes: the generic
+    contraction).  Returns the fraction's launches by kernel on each
+    kernel's run and the rows."""
+    rows, frac_launches = [], {}
     for g, eps in ((genz.f5_c0_continuous(NDIM, a=10.0, b=0.37),
                     F5_CREASE_EPSREL),
                    (genz.f6_discontinuous(NDIM), F6_CREASE_EPSREL)):
@@ -2587,35 +2815,53 @@ def crease_path(dev):
                               (False, True)):
             runs[crease, fused] = crease_run(g.name, g, eps, crease, fused)
             res, wall, launches, rel = runs[crease, fused]
-            rows.append(dict(name=g.name, epsrel=eps, crease=crease,
-                             fused=fused, status=res.status, iters=res.iters,
-                             nregions=res.nregions, neval=res.neval,
-                             wall_s=wall, rel_err=rel,
-                             split_frac_launches=launches["split_frac"]))
-            if main_launches is None:
-                main_launches = launches["split_frac"]
-            if crease and (res.status != 0 or not rel <= 3 * eps):
-                fail(f"{g.name} crease run ({'fused' if fused else 'host'}):"
-                     f" status {res.status}, rel.err {rel}")
-            if crease and not fused and (
-                    launches["fused_kernel"] or not launches["split_frac"]
-                    or launches["split_frac"] != launches["contract"]):
-                fail(f"{g.name} crease host run: launches {launches}; every "
-                     "chunk should take the split route with the split "
-                     "fraction kernel")
+            rows.append(dict(name=g.name, ndim=NDIM, epsrel=eps,
+                             crease=crease, fused=fused, status=res.status,
+                             iters=res.iters, nregions=res.nregions,
+                             neval=res.neval, wall_s=wall, rel_err=rel,
+                             launches=launches))
+            if crease:
+                expect_fraction_in(f"{g.name} {'fused' if fused else 'host'}",
+                                   launches, "tile", eps, res, rel)
+            if crease and not fused and "tile" not in frac_launches:
+                frac_launches["tile"] = launches["fraction_by_kernel"]["tile"]
         host, fusd = runs[True, False][0], runs[True, True][0]
         same = (host.status, host.iters, host.nregions, host.neval) == (
             fusd.status, fusd.iters, fusd.nregions, fusd.neval)
         mid = runs[False, False][0]
+        before = SPLIT_ROUTE_CREASE_WALLS[g.name]
         print(f"phase 16: {g.name}: fused crease run "
               f"{'takes' if same else 'does NOT take'} the host loop's "
               f"decisions; crease neval {host.neval} against midpoint "
               f"{mid.neval} (status {mid.status}): "
-              f"{host.neval / max(mid.neval, 1):.3f} of it", flush=True)
+              f"{host.neval / max(mid.neval, 1):.3f} of it; crease walls on "
+              f"the fused tile route {runs[True, False][1]:.3f} s host, "
+              f"{runs[True, True][1]:.3f} s fused, against the split "
+              f"route's {before[0]} s and {before[1]} s at commit fce39b8 "
+              f"(NVIDIA H100 80GB HBM3, 700.00 W); midpoint {runs[False, False][1]:.3f} s and "
+              f"{runs[False, True][1]:.3f} s", flush=True)
         if not same:
             fail(f"{g.name}: the fused crease run differs from the host "
                  "loop's")
-    return main_launches, rows
+    g5 = genz.f5_c0_continuous(NDIM, a=10.0, b=0.37)
+    g2 = genz.f5_c0_continuous(2, a=10.0, b=0.37)
+    g3 = genz.f5_c0_continuous(3, a=10.0, b=0.37)
+    for label, f, truth, eps, ndim, kernel in (
+            ("f5_c0 as a plain callable", lambda x: g5(x), g5,
+             F5_CREASE_EPSREL, NDIM, "cluster"),
+            ("f5_c0", g2, g2, 1e-9, 2, "generic"),
+            ("f5_c0 as a per-axis callable", f5_axes3, g3, 1e-8, 3,
+             "contract_generic")):
+        res, wall, launches, rel = crease_run(label, f, eps, True, False,
+                                              ndim, truth.true_value)
+        rows.append(dict(name=label, ndim=ndim, epsrel=eps, crease=True,
+                         fused=False, status=res.status, iters=res.iters,
+                         nregions=res.nregions, neval=res.neval, wall_s=wall,
+                         rel_err=rel, launches=launches))
+        expect_fraction_in(f"{ndim}D {label}", launches, kernel, eps, res,
+                           rel)
+        frac_launches[kernel] = launches["fraction_by_kernel"][kernel]
+    return frac_launches, rows
 
 
 def traced_run(label, g, eps, fused):
@@ -2725,6 +2971,60 @@ def fused_main_path(dev, tile_run, split_run, vec_run):
             "split_fused_wall_s": split_wall, "split_stats": split_stats}
 
 
+def folded_fraction_kernels(frac_rows, frac_launches, crease_rows,
+                            fused_rows):
+    """The kernels line's entries of the split fraction's folded forms:
+    the fused tile and generic kernels with the fraction (timed at phase
+    4's pool, F5 f64), the cluster and generic contractions with it (timed
+    at the Workspace's 8D f64 chunk, values as rows and as planes: the
+    layouts that take each route on a run); launches on each kernel's
+    phase 16 run."""
+    fused = {r["route"]: r for r in frac_rows["fused_times"]
+             if r["name"] == "f5_c0" and "main path" not in r["shape"]}
+    contract = {r["route"]: r for r in frac_rows["contract"]
+                if r["shape"].startswith("8D f64")
+                and r["shape"].endswith("rows" if r["route"] == "cluster"
+                                        else "planes")}
+    plain = fused["tile"]["plain_ms"]
+    entries = []
+    for kernel, route, source, row, held in (
+            ("rule_tile_kernel+split_fraction", "tile", "rule_eval.cu",
+             fused["tile"], "check_fused_frac"),
+            ("rule_kernel+split_fraction", "generic", "rule_eval.cu",
+             fused["generic"], "check_fused_frac"),
+            ("rule_contract_cluster_kernel+split_fraction", "cluster",
+             "rule_split.cu", contract["cluster"], "check_contract_frac"),
+            ("rule_contract_kernel+split_fraction", "contract_generic",
+             "rule_split.cu", contract["generic"], "check_contract_frac")):
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": f"gpuintegration_torch/csrc/{source} with "
+                      "gpuintegration_torch/csrc/split_frac.cuh",
+            "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+            "counterpart_of": "gpuintegration_tpu/ops/rule_eval.py:184 "
+                              "(_split_fraction, XLA in the reference)",
+            "held_against_plain_in": f"phase 15 (kernel_check.{held}: "
+                                     "EQUAL to rule_eval.split_fraction on "
+                                     "the kernel's values)",
+            "launches": frac_launches[route],
+            "max_abs_err": 0.0,
+            "ms": row["ms"],
+            "without_fraction_ms": row["without_ms"],
+            "series_ms": row["series_ms"],
+            "plain_ms": row.get("plain_ms", plain),
+            "bound_ms": row["bound_ms"],
+            "bound_by": row.get("bound_by", "bytes"),
+            "library_ms": None,
+            "shape": f"{row['shape']} {row.get('name', '')}".strip(),
+        })
+    entries[0]["crease_runs"] = crease_rows
+    entries[0]["main_path_pool"] = [r for r in frac_rows["fused_times"]
+                                    if "main path" in r["shape"]]
+    entries[0]["fused_phase"] = fused_rows
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -2747,6 +3047,11 @@ def main() -> int:
         log = lib.with_suffix(".log").read_text()
         print(f"phase 1: {lib.name}: ptxas: {ptxas_summary(log)}; "
               f"{log.strip().splitlines()[-1]}", flush=True)
+        if lib.name.startswith(("librule_eval", "librule_split",
+                                "libsplit_frac")):
+            for name, (regs, spills, stack) in ptxas_by_kernel(log).items():
+                print(f"phase 1: ptxas: {name}: {regs} registers, {spills} "
+                      f"spill bytes, {stack} bytes stack frame", flush=True)
 
     try:
         sass = sass_report.report()
@@ -2995,7 +3300,7 @@ def main() -> int:
     phase_done("phase 14")
 
     # -- phases 15-17: crease/jump-aware splits, the fused phase ------------
-    frac_rows = split_frac_checks(dev)
+    frac_rows = split_frac_checks(dev, main_args, main_kw)
     phase_done("phase 15")
     frac_launches, crease_rows = crease_path(dev)
     phase_done("phase 16")
@@ -3111,9 +3416,9 @@ def main() -> int:
                          "vegas_launches": vegas_vec_launches,
                          "vegas_walls_s": vegas_vec_walls},
     }, {
-        # a crease run's fourth kernel on B1's split route: the numbers at
-        # the Workspace's 8D f64 chunk, values as rows; launches on phase
-        # 16's first run (8D F5 at F5_CREASE_EPSREL, crease, host loop)
+        # the standalone split fraction kernel: the check of the folded
+        # forms below; no crease run launches it (phase 16 counts it). The
+        # numbers at the Workspace's 8D f64 chunk, values as rows
         "name": "rule_split_fraction",
         "route": "cuda",
         "source": "gpuintegration_torch/csrc/split_frac.cu",
@@ -3121,19 +3426,18 @@ def main() -> int:
         "counterpart_of": "gpuintegration_tpu/ops/rule_eval.py:184 "
                           "(_split_fraction, XLA in the reference)",
         "held_against_plain_in": "phase 15 (rule_eval.split_fraction; 8D "
-                                 "and 12D f64, 8D f32, rows and planes: "
-                                 "EQUAL)",
-        "launches": frac_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in frac_rows),
-        "ms": frac_rows[0]["ms"],
-        "plain_ms": frac_rows[0]["plain_ms"],
-        "bound_ms": frac_rows[0]["bound_ms"],
+                                 "and 12D f64, 8D f32, rows and planes, a "
+                                 "NaN region: EQUAL)",
+        "launches": sum(r["launches"]["split_frac"] for r in crease_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in frac_rows["standalone"]),
+        "ms": frac_rows["standalone"][0]["ms"],
+        "plain_ms": frac_rows["standalone"][0]["plain_ms"],
+        "bound_ms": frac_rows["standalone"][0]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "shapes": frac_rows,
-        "crease_runs": crease_rows,
-        "fused_phase": fused_rows,
-    }]
+        "shapes": frac_rows["standalone"],
+    }] + folded_fraction_kernels(frac_rows, frac_launches, crease_rows,
+                                 fused_rows)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,23 @@
 // dimensions the tile route is not compiled for, and is the kernel the
 // tile route is timed against.
 //
+// A crease run (Workspace.integrate(crease_split=True)) takes the same
+// kernels with WITH_FRAC: each also writes the crease/jump-aware cut
+// fraction (the reference's XLA _split_fraction,
+// gpuintegration_tpu/ops/rule_eval.py:184) and the split axis a jump
+// overrides, from the 4n + 1 collinear values it already holds (points
+// 0..4n of the kept ones), with split_frac.cuh's device functions, which
+// round every operation on its own, so that the fraction is EQUAL to
+// rule_eval.split_fraction on those values.  Both run the per-axis form,
+// lane d axis d and a reduction over the region's lanes: the tile route on
+// batches of 4 (5-8D) or 8 (3-4D) regions a warp, the generic route on
+// warp 0 after its epilogue.  Without WITH_FRAC the code is the first
+// design's.
+// A check-only ``kept`` pointer writes the collinear values out, so that a
+// check can hold the fraction against the plain version on the kernel's
+// own values (the values differ from the torch callable's by ulps: the
+// kernels fold coordinates with multiply-adds).
+//
 // Neither uses tensor cores or TF32: the null-rule sums cancel, and a
 // reduced-precision contraction would destroy them.
 //
@@ -67,6 +84,7 @@
 #include <stdint.h>
 
 #include "genz.cuh"
+#include "split_frac.cuh"
 
 namespace {
 
@@ -95,6 +113,11 @@ struct RuleArgs {
   T coeffs[kMaxNdim];   // per-axis a_i (F1, F3, F6)
   T bounds[kMaxNdim];   // per-axis b_i (F6)
   T s0, s1;             // F1: offset | F2: 1/a^2, b | F4: a*a, b | F5: a, b
+  // a crease run's (rule_kernel<..., true>): the cut fraction (cap,), the
+  // check-only collinear values (cap, 4 ndim + 1) or null, the stencil
+  T* frac;
+  T* kept;
+  sfrac::Stencil<T> st;
 };
 
 // max that propagates NaN, like jnp.maximum / torch.maximum
@@ -186,7 +209,11 @@ __device__ __forceinline__ void add_to_orbit(T (&acc)[kNsets], int s, T v) {
     if (k == s) acc[k] += v;
 }
 
-template <int FAMILY, typename T>
+// WITH_FRAC: also the crease/jump-aware cut fraction (split_frac.cuh's
+// per-axis form on the kept values, lane d axis d of warp 0, which runs
+// the epilogue), which may override the split axis; without it the code is
+// the first design's.
+template <int FAMILY, typename T, bool WITH_FRAC>
 __global__ void __launch_bounds__(kThreads)
 rule_kernel(const RuleArgs<T> a) {
   __shared__ T s_cen[kMaxNdim], s_len[kMaxNdim];
@@ -243,9 +270,16 @@ rule_kernel(const RuleArgs<T> a) {
     if (lane == 0) s_part[warp][k] = v;
   }
   __syncthreads();
-  if (tid != 0) return;
+  if constexpr (WITH_FRAC) {
+    if (a.kept != nullptr)
+      for (int p = tid; p < n_kept; p += kThreads)
+        a.kept[static_cast<size_t>(slot) * n_kept + p] = s_vals[p];
+  }
+  // the crease run's kernel runs the epilogue on warp 0, whose lanes then
+  // take the fraction's axes
+  if (WITH_FRAC ? tid >= 32 : tid != 0) return;
 
-  // ---- epilogue, one thread ------------------------------------------
+  // ---- epilogue, one thread (every lane of warp 0 alike, WITH_FRAC) ----
   T jac = T(1), vol = T(1);
   for (int d = 0; d < ndim; ++d) {
     jac *= a.grange[d];
@@ -289,15 +323,27 @@ rule_kernel(const RuleArgs<T> a) {
   int sdim;
   region_outputs(orbit_sum, jac, vol, widest, best, any_nan, a.orbit_wts,
                  a.scale, a.norm, est, err, sdim);
+  if constexpr (WITH_FRAC) {
+    // split_frac.cuh's per-axis form on the kept values, lane d axis d
+    const bool active = tid < ndim;
+    T kink = T(0.5), strength = T(0), jump = T(0.5);
+    if (active)
+      sfrac::axis_frac([&](int p) { return s_vals[p]; }, f0, a.st.axis[tid],
+                       tid == sdim, kink, strength, jump);
+    const T frac = sfrac::group_frac<32>(active, kink, strength, jump, sdim);
+    if (tid != 0) return;
+    a.frac[slot] = frac;
+  }
   a.est[slot] = est;
   a.err[slot] = err;
   a.split_dim[slot] = sdim;
 }
 
-// est = err = 0 and split_dim 0 in every padding slot of the pool
+// est = err = 0, split_dim 0 and (a crease run's) frac 0.5 in every
+// padding slot of the pool
 template <typename T>
-__global__ void fill_padding(T* est, T* err, int* split_dim, int cap, int n,
-                             int blocked) {
+__global__ void fill_padding(T* est, T* err, int* split_dim, T* frac,
+                             int cap, int n, int blocked) {
   const int half = cap / 2;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < cap;
        i += gridDim.x * blockDim.x) {
@@ -306,6 +352,7 @@ __global__ void fill_padding(T* est, T* err, int* split_dim, int cap, int n,
       est[i] = T(0);
       err[i] = T(0);
       split_dim[i] = 0;
+      if (frac != nullptr) frac[i] = T(0.5);
     }
   }
 }
@@ -340,6 +387,10 @@ struct TileArgs {
   T ratio;
   T coeffs[kMaxNdim], bounds[kMaxNdim];
   T s0, s1;
+  // a crease run's (rule_tile_kernel<..., true>), as RuleArgs'
+  T* frac;
+  T* kept;
+  sfrac::Stencil<T> st;
 };
 
 template <int NDIM>
@@ -363,18 +414,41 @@ struct alignas(16) WarpSmem {
   int best[kTile];                          // split axis by fourth difference
 };
 
+// A crease run's kernel only: the per-axis form of the fraction takes a
+// group of kGroup lanes a region, lane d axis d, so that a warp computes
+// the fractions of kRegions regions at once; a warp keeps the collinear
+// values (points 0..4n) and split axes of the regions of a batch, and the
+// cut fractions and split axes of its tile's regions.
+template <typename T, int NDIM>
+struct FracRows {
+  static constexpr int kKept = 4 * NDIM + 1;
+  static constexpr int kGroup = NDIM <= 4 ? 4 : 8;
+  static constexpr int kRegions = 32 / kGroup;
+  T frac[kTile];
+  int sd[kTile];
+  T kept[kRegions][kKept];
+  int sd0[kRegions];
+};
+
 // The block's shared memory: the point codes, then orbit_wts, scale, norm
-// (9 x 5 each), lam (16), glo and grange (ndim each), then the warps' own.
+// (9 x 5 each), lam (16), glo and grange (ndim each), then the warps' own;
+// a crease run's kernel (F) then the stencil (ndim sfrac::Axis) and the
+// warps' FracRows.  Without F the layout is the first design's.
 constexpr int kTab = kNsets * kNrules;
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, bool F>
 struct TileLayout {
   static constexpr size_t kCodeBytes =
       (Orbits<NDIM>::kFeval * sizeof(uint2) + 15) / 16 * 16;
   static constexpr size_t kTableBytes =
       ((3 * kTab + kCodeRow + 2 * NDIM) * sizeof(T) + 15) / 16 * 16;
+  static constexpr size_t kWarpsAt = kCodeBytes + kTableBytes;
+  static constexpr size_t kStencilAt =
+      kWarpsAt + kTileWarps * sizeof(WarpSmem<T, NDIM>);
+  static constexpr size_t kFracAt =
+      kStencilAt + (F ? (NDIM * sizeof(sfrac::Axis<T>) + 15) / 16 * 16 : 0);
   static constexpr size_t kBytes =
-      kCodeBytes + kTableBytes + kTileWarps * sizeof(WarpSmem<T, NDIM>);
+      kFracAt + (F ? kTileWarps * sizeof(FracRows<T, NDIM>) : 0);
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -444,12 +518,20 @@ __device__ __forceinline__ void tile_of(const TileArgs<T>& a, int t,
   count = min(a.tile, per_part - off);
 }
 
-template <int FAMILY, typename T, int NDIM>
+// WITH_FRAC: also the crease/jump-aware cut fraction from the kept values
+// of points 0..4n by split_frac.cuh's per-axis form, which may override
+// the split axis: each region's values and split axis join a batch of
+// FracRows::kRegions regions right after its fourth differences, and the
+// warp takes a batch at once, a group of lanes a region, lane d axis d (a
+// warp of one region would issue the fraction's ~140 f64 instructions an
+// axis with 8 of 32 lanes busy: +15 % on an 8D pool on an H100, against
+// +3-7 % batched).  Without it the code is the first design's.
+template <int FAMILY, typename T, int NDIM, bool WITH_FRAC>
 __global__ void __launch_bounds__(kTileThreads, 1)
 rule_tile_kernel(const TileArgs<T> a) {
   using O = Orbits<NDIM>;
   extern __shared__ __align__(16) unsigned char smem[];
-  using L = TileLayout<T, NDIM>;
+  using L = TileLayout<T, NDIM, WITH_FRAC>;
   uint2* s_codes = reinterpret_cast<uint2*>(smem);
   T* s_wts = reinterpret_cast<T*>(smem + L::kCodeBytes);
   T* s_scale = s_wts + kTab;
@@ -458,8 +540,12 @@ rule_tile_kernel(const TileArgs<T> a) {
   T* s_glo = s_lam + kCodeRow;
   T* s_grange = s_glo + NDIM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  WarpSmem<T, NDIM>& ws = reinterpret_cast<WarpSmem<T, NDIM>*>(
-      smem + L::kCodeBytes + L::kTableBytes)[warp];
+  WarpSmem<T, NDIM>& ws =
+      reinterpret_cast<WarpSmem<T, NDIM>*>(smem + L::kWarpsAt)[warp];
+  sfrac::Axis<T>* s_faxis =
+      reinterpret_cast<sfrac::Axis<T>*>(smem + L::kStencilAt);
+  using FR = FracRows<T, NDIM>;
+  FR& fr = reinterpret_cast<FR*>(smem + L::kFracAt)[warp];
 
   // ---- prologue: the block's tables, the warp's barriers ----------------
   // a point's codes, spread to a byte per axis and scaled to the byte
@@ -483,6 +569,9 @@ rule_tile_kernel(const TileArgs<T> a) {
   if (threadIdx.x < NDIM) {
     s_glo[threadIdx.x] = a.glo[threadIdx.x];
     s_grange[threadIdx.x] = a.grange[threadIdx.x];
+  }
+  if constexpr (WITH_FRAC) {
+    if (threadIdx.x < NDIM) s_faxis[threadIdx.x] = a.st.axis[threadIdx.x];
   }
   const uint32_t bar0 = smem_addr(&ws.bar[0]), bar1 = smem_addr(&ws.bar[1]);
   if (lane == 0) {
@@ -650,6 +739,48 @@ rule_tile_kernel(const TileArgs<T> a) {
         o[0] = f0; o[1] = o1; o[2] = o2; o[3] = o3; o[4] = o4;
         ws.best[j] = any_nan ? -2 : (top > T(0) ? arg : -1);
       }
+      if constexpr (WITH_FRAC) {
+        // the region joins the batch: its collinear values, and its split
+        // axis as region_outputs takes it (the widest axis by the
+        // epilogue's scan where no positive difference wins)
+        const int b = j % FR::kRegions;
+        T wl = ws.stage[s][NDIM][j];
+        int widest = 0;
+#pragma unroll
+        for (int d = 1; d < NDIM; ++d) {
+          const T l = ws.stage[s][NDIM + d][j];
+          if (l > wl) {
+            wl = l;
+            widest = d;
+          }
+        }
+        if (lane == 0) fr.sd0[b] = (any_nan || !(top > T(0))) ? widest : arg;
+        for (int p = lane; p < FR::kKept; p += 32) {
+          fr.kept[b][p] = ws.vals[p];
+          if (a.kept != nullptr)
+            a.kept[static_cast<size_t>(slot0 + j) * FR::kKept + p] =
+                ws.vals[p];
+        }
+        if (b == FR::kRegions - 1 || j == count - 1) {
+          // the batch's fractions: group g region j - b + g, lane d of
+          // the group axis d
+          __syncwarp();
+          const int g = lane / FR::kGroup, d = lane % FR::kGroup;
+          const bool active = g <= b && d < NDIM;
+          const T* kv = fr.kept[g <= b ? g : 0];
+          int sd = fr.sd0[g <= b ? g : 0];
+          T kink = T(0.5), strength = T(0), jump = T(0.5);
+          if (active)
+            sfrac::axis_frac([&](int p) { return kv[p]; }, kv[0], s_faxis[d],
+                             d == sd, kink, strength, jump);
+          const T frac =
+              sfrac::group_frac<FR::kGroup>(active, kink, strength, jump, sd);
+          if (d == 0 && g <= b) {
+            fr.frac[j - b + g] = frac;
+            fr.sd[j - b + g] = sd;
+          }
+        }
+      }
     }
     __syncwarp();
 
@@ -676,7 +807,12 @@ rule_tile_kernel(const TileArgs<T> a) {
                      s_scale, s_norm, est, err, sdim);
       a.est[slot0 + lane] = est;
       a.err[slot0 + lane] = err;
-      a.split_dim[slot0 + lane] = sdim;
+      if constexpr (WITH_FRAC) {
+        a.split_dim[slot0 + lane] = fr.sd[lane];
+        a.frac[slot0 + lane] = fr.frac[lane];
+      } else {
+        a.split_dim[slot0 + lane] = sdim;
+      }
     }
     __syncwarp();
     bulk = bulk_next;
@@ -687,36 +823,45 @@ rule_tile_kernel(const TileArgs<T> a) {
 // Launches.
 
 template <typename T>
-void launch_fill(T* est, T* err, int* split_dim, int cap, int n, int blocked,
-                 cudaStream_t stream) {
+void launch_fill(T* est, T* err, int* split_dim, T* frac, int cap, int n,
+                 int blocked, cudaStream_t stream) {
   if (n >= cap) return;
   const int blocks = (cap + 255) / 256 < 4096 ? (cap + 255) / 256 : 4096;
-  fill_padding<T><<<blocks, 256, 0, stream>>>(est, err, split_dim, cap, n,
-                                              blocked);
+  fill_padding<T><<<blocks, 256, 0, stream>>>(est, err, split_dim, frac, cap,
+                                              n, blocked);
+}
+
+template <int FAMILY, typename T>
+void launch_generic_kernel(const RuleArgs<T>& a, cudaStream_t stream) {
+  const dim3 grid(a.n);
+  if (a.frac != nullptr)
+    rule_kernel<FAMILY, T, true><<<grid, kThreads, 0, stream>>>(a);
+  else
+    rule_kernel<FAMILY, T, false><<<grid, kThreads, 0, stream>>>(a);
 }
 
 template <typename T>
 int launch_generic(int family, const RuleArgs<T>& a, cudaStream_t stream) {
-  launch_fill(a.est, a.err, a.split_dim, a.cap, a.n, a.blocked, stream);
+  launch_fill(a.est, a.err, a.split_dim, a.frac, a.cap, a.n, a.blocked,
+              stream);
   if (a.n > 0) {
-    const dim3 grid(a.n);
     switch (family) {
-      case 1: rule_kernel<1, T><<<grid, kThreads, 0, stream>>>(a); break;
-      case 2: rule_kernel<2, T><<<grid, kThreads, 0, stream>>>(a); break;
-      case 3: rule_kernel<3, T><<<grid, kThreads, 0, stream>>>(a); break;
-      case 4: rule_kernel<4, T><<<grid, kThreads, 0, stream>>>(a); break;
-      case 5: rule_kernel<5, T><<<grid, kThreads, 0, stream>>>(a); break;
-      case 6: rule_kernel<6, T><<<grid, kThreads, 0, stream>>>(a); break;
+      case 1: launch_generic_kernel<1, T>(a, stream); break;
+      case 2: launch_generic_kernel<2, T>(a, stream); break;
+      case 3: launch_generic_kernel<3, T>(a, stream); break;
+      case 4: launch_generic_kernel<4, T>(a, stream); break;
+      case 5: launch_generic_kernel<5, T>(a, stream); break;
+      case 6: launch_generic_kernel<6, T>(a, stream); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int FAMILY, typename T, int NDIM>
+template <int FAMILY, typename T, int NDIM, bool F>
 int launch_tile_kernel(const TileArgs<T>& a, int blocks, cudaStream_t stream) {
-  auto kernel = rule_tile_kernel<FAMILY, T, NDIM>;
-  constexpr size_t smem = TileLayout<T, NDIM>::kBytes;
+  auto kernel = rule_tile_kernel<FAMILY, T, NDIM, F>;
+  constexpr size_t smem = TileLayout<T, NDIM, F>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -725,33 +870,42 @@ int launch_tile_kernel(const TileArgs<T>& a, int blocks, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, bool F>
 int launch_tile_family(int family, const TileArgs<T>& a, int blocks,
                        cudaStream_t stream) {
   switch (family) {
-    case 1: return launch_tile_kernel<1, T, NDIM>(a, blocks, stream);
-    case 2: return launch_tile_kernel<2, T, NDIM>(a, blocks, stream);
-    case 3: return launch_tile_kernel<3, T, NDIM>(a, blocks, stream);
-    case 4: return launch_tile_kernel<4, T, NDIM>(a, blocks, stream);
-    case 5: return launch_tile_kernel<5, T, NDIM>(a, blocks, stream);
-    case 6: return launch_tile_kernel<6, T, NDIM>(a, blocks, stream);
+    case 1: return launch_tile_kernel<1, T, NDIM, F>(a, blocks, stream);
+    case 2: return launch_tile_kernel<2, T, NDIM, F>(a, blocks, stream);
+    case 3: return launch_tile_kernel<3, T, NDIM, F>(a, blocks, stream);
+    case 4: return launch_tile_kernel<4, T, NDIM, F>(a, blocks, stream);
+    case 5: return launch_tile_kernel<5, T, NDIM, F>(a, blocks, stream);
+    case 6: return launch_tile_kernel<6, T, NDIM, F>(a, blocks, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T, int NDIM>
+int launch_tile_ndim(int family, const TileArgs<T>& a, int blocks,
+                     cudaStream_t stream) {
+  return a.frac != nullptr
+             ? launch_tile_family<T, NDIM, true>(family, a, blocks, stream)
+             : launch_tile_family<T, NDIM, false>(family, a, blocks, stream);
 }
 
 // The dimensions the tile route is compiled for (cuda_rule.TILE_NDIMS).
 template <typename T>
 int launch_tile(int family, int ndim, const TileArgs<T>& a, int blocks,
                 cudaStream_t stream) {
-  launch_fill(a.est, a.err, a.split_dim, a.cap, a.n, a.blocked, stream);
+  launch_fill(a.est, a.err, a.split_dim, a.frac, a.cap, a.n, a.blocked,
+              stream);
   if (a.n == 0) return static_cast<int>(cudaGetLastError());
   switch (ndim) {
-    case 3: return launch_tile_family<T, 3>(family, a, blocks, stream);
-    case 4: return launch_tile_family<T, 4>(family, a, blocks, stream);
-    case 5: return launch_tile_family<T, 5>(family, a, blocks, stream);
-    case 6: return launch_tile_family<T, 6>(family, a, blocks, stream);
-    case 7: return launch_tile_family<T, 7>(family, a, blocks, stream);
-    case 8: return launch_tile_family<T, 8>(family, a, blocks, stream);
+    case 3: return launch_tile_ndim<T, 3>(family, a, blocks, stream);
+    case 4: return launch_tile_ndim<T, 4>(family, a, blocks, stream);
+    case 5: return launch_tile_ndim<T, 5>(family, a, blocks, stream);
+    case 6: return launch_tile_ndim<T, 6>(family, a, blocks, stream);
+    case 7: return launch_tile_ndim<T, 7>(family, a, blocks, stream);
+    case 8: return launch_tile_ndim<T, 8>(family, a, blocks, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -764,7 +918,23 @@ struct HostArgs {
   const double* params;
   void *est, *err;
   int* split_dim;
+  // a crease run's: frac (cap,) or null; the stencil (host arrays); the
+  // check-only kept values (cap, 4 ndim + 1) or null
+  void* frac;
+  const int* frac_slots;
+  const double* frac_consts;
+  void* kept;
 };
+
+// The crease run's arguments of either kernel: a null frac leaves them
+// unset (the kernel without the fraction reads none of them).
+template <typename T, typename Args>
+void frac_args(const HostArgs& h, Args& a) {
+  a.frac = static_cast<T*>(h.frac);
+  a.kept = static_cast<T*>(h.kept);
+  if (h.frac != nullptr)
+    sfrac::load_stencil(a.st, h.ndim, h.frac_slots, h.frac_consts);
+}
 
 template <typename T>
 int generic_route(const HostArgs& h, cudaStream_t stream) {
@@ -793,6 +963,7 @@ int generic_route(const HostArgs& h, cudaStream_t stream) {
   }
   a.s0 = static_cast<T>(h.params[2 * kMaxNdim]);
   a.s1 = static_cast<T>(h.params[2 * kMaxNdim + 1]);
+  frac_args<T>(h, a);
   return launch_generic<T>(h.family, a, stream);
 }
 
@@ -831,15 +1002,29 @@ int tile_route(const HostArgs& h, const void* codes, const void* lam,
   }
   a.s0 = static_cast<T>(h.params[2 * kMaxNdim]);
   a.s1 = static_cast<T>(h.params[2 * kMaxNdim + 1]);
+  frac_args<T>(h, a);
   return launch_tile<T>(h.family, h.ndim, a, blocks, stream);
 }
 
 }  // namespace
 
 // C entry points for ctypes.  Pointers are device pointers except
-// orbit_bounds (10 ints) and params (34 doubles: coeffs[16], bounds[16], s0,
-// s1), which are host arrays.  Each returns cudaGetLastError()
-// after its launches (0 on success) and never synchronises.
+// orbit_bounds (10 ints), params (34 doubles: coeffs[16], bounds[16], s0,
+// s1), frac_slots (ndim, 4) int32 and frac_consts (ndim, 5) float64 (the
+// stencil, cuda_rule._frac_tables), which are host arrays copied into the
+// launch's arguments.  ``frac`` null launches the kernel without the cut
+// fraction; else the crease run's kernel writes it into frac (cap,), 0.5
+// in the padding slots, and split_dim the axis a jump overrides.
+// ``kept``, check-only and null on every production path, takes each real
+// region's 4 ndim + 1 collinear values as (cap, 4 ndim + 1) rows (with
+// frac only).  Each returns cudaGetLastError() after its launches (0 on
+// success) and never synchronises.
+
+static bool bad_frac_args(const void* frac, const int* frac_slots,
+                          const double* frac_consts, const void* kept) {
+  return (frac != nullptr && (frac_slots == nullptr || frac_consts == nullptr))
+         || (kept != nullptr && frac == nullptr);
+}
 
 // The generic route, every ndim 2..16.
 extern "C" int rule_eval_launch(
@@ -848,13 +1033,16 @@ extern "C" int rule_eval_launch(
     const void* grange, const void* gen, const void* orbit_wts,
     const void* scale, const void* norm, double ratio,
     const int* orbit_bounds, const double* params, void* est, void* err,
-    int* split_dim, void* stream) {
-  if (ndim < 2 || ndim > kMaxNdim || family < 1 || family > 6 || n > cap)
+    int* split_dim, void* frac, const int* frac_slots,
+    const double* frac_consts, void* kept, void* stream) {
+  if (ndim < 2 || ndim > kMaxNdim || family < 1 || family > 6 || n > cap ||
+      bad_frac_args(frac, frac_slots, frac_consts, kept))
     return static_cast<int>(cudaErrorInvalidValue);
   const HostArgs h{family, ndim,  feval,     cap,   n,    blocked,
                    lows,   lengths, glo,     grange, gen,  orbit_wts,
                    scale,  norm,  ratio,     orbit_bounds, params,
-                   est,    err,   split_dim};
+                   est,    err,   split_dim, frac, frac_slots, frac_consts,
+                   kept};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double ? generic_route<double>(h, s) : generic_route<float>(h, s);
 }
@@ -869,14 +1057,17 @@ extern "C" int rule_eval_tile_launch(
     const void* grange, const void* codes, const void* lam,
     const void* orbit_wts, const void* scale, const void* norm, double ratio,
     const double* params, int tile, int blocks, void* est, void* err,
-    int* split_dim, void* stream) {
+    int* split_dim, void* frac, const int* frac_slots,
+    const double* frac_consts, void* kept, void* stream) {
   if (family < 1 || family > 6 || n > cap || tile < 4 || tile > kTile ||
-      tile % 4 || blocks < 1 || (blocked && (n % 2 || cap % 2)))
+      tile % 4 || blocks < 1 || (blocked && (n % 2 || cap % 2)) ||
+      bad_frac_args(frac, frac_slots, frac_consts, kept))
     return static_cast<int>(cudaErrorInvalidValue);
   const HostArgs h{family, ndim,    0,   cap,    n,       blocked,
                    lows,   lengths, glo, grange, nullptr, orbit_wts,
                    scale,  norm,    ratio, nullptr, params,
-                   est,    err,     split_dim};
+                   est,    err,     split_dim, frac, frac_slots, frac_consts,
+                   kept};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double ? tile_route<double>(h, codes, lam, tile, blocks, s)
                    : tile_route<float>(h, codes, lam, tile, blocks, s);

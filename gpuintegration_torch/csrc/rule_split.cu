@@ -113,6 +113,16 @@
 //     are taken from it while the first stage streams in beside it.  At
 //     the Workspace's 8D f64 chunk and 4 components the values are 144.8
 //     MB (0.0432 ms), at its 12D chunk 221 MB (0.0660 ms).
+// In a crease run the scalar contractions also write the crease/jump-aware
+// cut fraction and the split axis a jump overrides (the reference's XLA
+// _split_fraction, gpuintegration_tpu/ops/rule_eval.py:184), from the
+// 4n + 1 collinear values of each region, with split_frac.cuh's per-region
+// form, a lane per region: the generic route reads them at the chunk's
+// strides, the cluster route from the leader's head tile (points 0..4n),
+// its warp 1 beside warp 0's est and err.  Every operation is rounded on
+// its own, so the fraction is EQUAL to rule_eval.split_fraction and to the
+// standalone kernel of split_frac.cu.  The vector contractions carry none:
+// crease runs are scalar-only.
 // None uses tensor cores or TF32: the null-rule sums cancel.  Indices are
 // 64-bit: a chunk may hold more than 2^31 coordinates.
 //
@@ -125,6 +135,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "split_frac.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -250,6 +262,10 @@ struct ContractArgs {
   int ndim, feval, blocked, ncomp;
   T ratio;
   int orbit_bounds[kNsets + 1];
+  // the scalar contractions in a crease run: the cut fraction (cap,),
+  // null otherwise, and the collinear stencil (split_frac.cuh)
+  T* frac;
+  sfrac::Stencil<T> st;
 };
 
 // The jacobian prod(range), the region's unit-space volume prod(lengths)
@@ -327,8 +343,9 @@ __device__ __forceinline__ void rule_epilogue(const ContractArgs<T>& a,
 // A block of kContractGroups warps takes 32 neighbouring regions, a lane
 // per region: warp g sums the values of points g, g + kContractGroups, ...
 // of each orbit, and warp 0 adds the groups' partial sums in a fixed order
-// and runs the epilogue, a lane per region.
-template <typename T>
+// and runs the epilogue, a lane per region.  WITH_FRAC (a crease run's):
+// the epilogue's lane also takes the region's cut fraction.
+template <typename T, bool WITH_FRAC>
 __global__ void __launch_bounds__(32 * kContractGroups)
 rule_contract_kernel(const ContractArgs<T> a) {
   __shared__ T s_part[kContractGroups][kNsets][32];
@@ -379,7 +396,15 @@ rule_contract_kernel(const ContractArgs<T> a) {
   rule_epilogue(a, orbit_sum, jac, vol, a.est[slot], a.err[slot]);
   // rule_outputs: the argmax where the largest difference is positive,
   // else (all 0, or a NaN among them) the widest axis
-  a.split_dim[slot] = (!any_nan && top > T(0)) ? best : widest;
+  int sd = (!any_nan && top > T(0)) ? best : widest;
+  if constexpr (WITH_FRAC) {
+    // a crease run's cut fraction from the region's collinear values at
+    // the chunk's strides (split_frac.cuh's per-region form)
+    const int64_t sp = a.sp;
+    a.frac[slot] = sfrac::region_frac([&](int p) { return row[p * sp]; },
+                                      ndim, a.st, sd);
+  }
+  a.split_dim[slot] = sd;
 }
 
 // Components of a point the components kernel reads in one pass: one
@@ -680,8 +705,9 @@ struct ClusterShape {
 // point's 32 regions) a lane.  Warps 0..7 sum them, warp w the points w,
 // w + 8, ... of each stage, a running sum per orbit and region.  Then the
 // warps' sums in warp order, the ranks' in rank order, and the leader's
-// epilogue, rounded as rule_eval.rule_outputs.
-template <typename T, bool ROWS>
+// epilogue, rounded as rule_eval.rule_outputs.  WITH_FRAC (a crease
+// run's): the leader's warp 1 also takes the regions' cut fractions.
+template <typename T, bool ROWS, bool WITH_FRAC>
 __global__ void __launch_bounds__(kClusterThreads)
 rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
   extern __shared__ __align__(128) unsigned char s_dyn[];
@@ -881,8 +907,22 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
     const T vol = sm.vol[lane];
     a.est[slot] = r_mul(vol, sm.sums[lane]);
     a.err[slot] = r_mul(vol, gated);
-    const int best = sm.best[lane];
-    a.split_dim[slot] = best >= 0 ? best : sm.widest[lane];
+    if constexpr (!WITH_FRAC) {
+      const int best = sm.best[lane];
+      a.split_dim[slot] = best >= 0 ? best : sm.widest[lane];
+    }
+  } else if constexpr (WITH_FRAC) {
+    if (warp == 1 && real) {
+      // the cut fraction from the head tile (points 0..4n), a lane per
+      // region, beside warp 0's est and err (split_frac.cuh's per-region
+      // form)
+      const int best = sm.best[lane];
+      int sd = best >= 0 ? best : sm.widest[lane];
+      a.frac[slot] = sfrac::region_frac(
+          [&](int p) { return seg.get(sm.head, head_pts, 0, p, lane); },
+          ndim, a.st, sd);
+      a.split_dim[slot] = sd;
+    }
   }
 }
 
@@ -1240,12 +1280,12 @@ int points_launch(const HostArgs& h, const void* lows, const void* lengths,
 // Let the cluster kernel have ``smem`` bytes of dynamic shared memory: the
 // attribute is raised once for each size it grows to, so that a launch
 // spends no host time on it.
-template <typename T, bool ROWS>
+template <typename T, bool ROWS, bool F>
 cudaError_t allow_cluster_smem(size_t smem) {
   static size_t granted = 48 * 1024;  // one for each kernel
   if (smem <= granted) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      rule_contract_cluster_kernel<T, ROWS>,
+      rule_contract_cluster_kernel<T, ROWS, F>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e == cudaSuccess) granted = smem;
   return e;
@@ -1270,7 +1310,7 @@ struct ClusterConfig {
   }
 };
 
-template <typename T, bool ROWS>
+template <typename T, bool ROWS, bool F>
 cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
                            const ContractArgs<T>& a, cudaStream_t stream) {
   const ClusterConfig c(h.count, cs.k,
@@ -1278,10 +1318,18 @@ cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
                         stream);
   if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
     return cudaErrorInvalidValue;
-  const cudaError_t e = allow_cluster_smem<T, ROWS>(c.cfg.dynamicSmemBytes);
+  const cudaError_t e =
+      allow_cluster_smem<T, ROWS, F>(c.cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
-  return cudaLaunchKernelEx(&c.cfg, rule_contract_cluster_kernel<T, ROWS>, a,
-                            cs);
+  return cudaLaunchKernelEx(&c.cfg, rule_contract_cluster_kernel<T, ROWS, F>,
+                            a, cs);
+}
+
+template <typename T, bool ROWS>
+cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
+                           const ContractArgs<T>& a, cudaStream_t stream) {
+  return a.frac != nullptr ? cluster_launch<T, ROWS, true>(h, cs, a, stream)
+                           : cluster_launch<T, ROWS, false>(h, cs, a, stream);
 }
 
 template <typename T, bool ROWS>
@@ -1290,10 +1338,11 @@ cudaError_t cluster_occupancy(int ndim, const ClusterShape& cs,
   const ClusterConfig c(32 * 1024, cs.k,
                         ClusterSmem<T>::bytes(ndim, cs.points, cs.stages),
                         nullptr);
-  const cudaError_t e = allow_cluster_smem<T, ROWS>(c.cfg.dynamicSmemBytes);
+  const cudaError_t e =
+      allow_cluster_smem<T, ROWS, false>(c.cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveClusters(
-      clusters, rule_contract_cluster_kernel<T, ROWS>, &c.cfg);
+      clusters, rule_contract_cluster_kernel<T, ROWS, false>, &c.cfg);
 }
 
 // The same for the components cluster route.
@@ -1345,7 +1394,9 @@ ContractArgs<T> contract_args(const HostArgs& h, const void* vals,
                               const void* orbit_wts, const void* scale,
                               const void* norm, double ratio,
                               const int* orbit_bounds, void* est, void* err,
-                              int* split_dim) {
+                              int* split_dim, void* frac = nullptr,
+                              const int* frac_slots = nullptr,
+                              const double* frac_consts = nullptr) {
   ContractArgs<T> a;
   a.vals = static_cast<const T*>(vals);
   a.lengths = static_cast<const T*>(lengths);
@@ -1369,6 +1420,9 @@ ContractArgs<T> contract_args(const HostArgs& h, const void* vals,
   a.ncomp = 1;
   a.ratio = static_cast<T>(ratio);
   for (int k = 0; k <= kNsets; ++k) a.orbit_bounds[k] = orbit_bounds[k];
+  a.frac = static_cast<T*>(frac);
+  if (frac != nullptr)
+    sfrac::load_stencil(a.st, h.ndim, frac_slots, frac_consts);
   return a;
 }
 
@@ -1379,8 +1433,12 @@ int contract_launch(const HostArgs& h, const ClusterShape& cs,
                     const ContractArgs<T>& a, cudaStream_t stream) {
   if (cs.k == 0) {
     const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
-    rule_contract_kernel<T>
-        <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+    if (a.frac != nullptr)
+      rule_contract_kernel<T, true>
+          <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+    else
+      rule_contract_kernel<T, false>
+          <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   // the rows' layout where a region's points are contiguous, else the
@@ -1479,7 +1537,10 @@ extern "C" int rule_split_points_launch(
 // clusters of that many CTAs, each with a ring of ``stages`` tiles of
 // ``points`` points (rows or planes: bad_cluster_args).  A cluster the
 // card cannot launch is refused with the launch's error, never run
-// another way.
+// another way.  ``frac`` (cap,), null outside a crease run: also the cut
+// fraction at the regions' slots, split_dim the axis a jump overrides,
+// from the stencil frac_slots (ndim, 4) int32 and frac_consts (ndim, 5)
+// float64, host arrays copied into the launch's arguments.
 extern "C" int rule_split_contract_launch(
     int is_double, int ndim, int feval, long long cap, long long n,
     int blocked, long long first, long long count, long long sc,
@@ -1487,11 +1548,13 @@ extern "C" int rule_split_contract_launch(
     const void* lengths, const void* grange, const void* orbit_wts,
     const void* scale, const void* norm, double ratio,
     const int* orbit_bounds, void* est, void* err, int* split_dim,
+    void* frac, const int* frac_slots, const double* frac_consts,
     void* stream) {
   const HostArgs h{ndim, feval, blocked, cap, n, first, count, sc, sp, 0};
   const ClusterShape cs{cluster, points, stages};
   if (bad_args(h) || orbit_bounds[kNsets] != feval ||
       orbit_bounds[3] != 4 * ndim + 1 ||
+      (frac != nullptr && (frac_slots == nullptr || frac_consts == nullptr)) ||
       (cluster != 0 && bad_cluster_args(h, cs, vals, is_double ? 8 : 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1500,13 +1563,15 @@ extern "C" int rule_split_contract_launch(
                    h, cs,
                    contract_args<double>(h, vals, lengths, grange, orbit_wts,
                                          scale, norm, ratio, orbit_bounds,
-                                         est, err, split_dim),
+                                         est, err, split_dim, frac,
+                                         frac_slots, frac_consts),
                    s)
              : contract_launch<float>(
                    h, cs,
                    contract_args<float>(h, vals, lengths, grange, orbit_wts,
                                         scale, norm, ratio, orbit_bounds,
-                                        est, err, split_dim),
+                                        est, err, split_dim, frac,
+                                        frac_slots, frac_consts),
                    s);
 }
 

@@ -56,17 +56,25 @@ on its plane; ``comp_cluster_plan``, ``comp_cluster_partition``), up to
 over the components, in passes of one 32-byte sector, each component summed
 in the generic kernel's order) at any strides.
 
-A crease run (``with_split_frac``) takes the split route for every
-integrand, a Genz family too, and after each chunk's contraction launches
-a fourth kernel, ``rule_split_frac_kernel`` (csrc/split_frac.cu,
-``split_frac``): one thread a region reads the collinear values of every
-axis and the contraction's split axis and writes the crease/jump-aware cut
-fraction, EQUAL to ``rule_eval.split_fraction``.
+A crease run (``with_split_frac``) takes the route it would take without
+the fraction, and the kernel that already holds each region's 4 ndim + 1
+collinear values computes the crease/jump-aware cut fraction in its
+epilogue, EQUAL to ``rule_eval.split_fraction`` on those values (the device
+functions of csrc/split_frac.cuh): a Genz family's fused kernel, tile or
+generic, from the values it keeps on chip; a callable's scalar
+contraction, cluster or generic, from the values it reads.  The fraction
+is the fourth output (cap,), and split_dim the axis a jump overrides.  The
+same function as a kernel of its own, ``rule_split_frac_kernel``
+(csrc/split_frac.cu, ``split_frac``), takes any values; no crease run
+launches it, and the checks hold the folded forms against it.
 
 ``launches`` counts every launch of the fused kernels since it was last set
 to 0, and ``route_launches`` the same per route; ``split_launches`` counts
 the split route's two kernels, ``'points'`` and ``'contract'``,
-``split_frac_launches`` the split fraction kernel's, and
+``split_frac_launches`` the standalone split fraction kernel's,
+``frac_route_launches`` the launches that computed a fraction, by the
+kernel that did (``FRAC_ROUTES``: ``'tile'``, ``'generic'``, ``'cluster'``,
+``'contract_generic'``, ``'standalone'``), and
 ``contract_route_launches`` the contraction's by route (``'cluster'``,
 ``'generic'``, ``'components_cluster'``, ``'components'``);
 ``reset_launches()`` zeroes them all.
@@ -131,19 +139,27 @@ MAX_COMP_CLUSTER = 8
 MAX_SMEM = 227 * 1024
 PAIR_SMEM = 112 * 1024          # a CTA's at most, for two to share an SM
 
+# The kernels that compute a crease run's cut fraction: the fused routes,
+# the scalar contraction's two routes, the standalone kernel.
+FRAC_ROUTES = ("tile", "generic", "cluster", "contract_generic",
+               "standalone")
+CONTRACT_FRAC_ROUTE = {"cluster": "cluster", "generic": "contract_generic"}
+
 # Launches since the counts were last set to 0; callers reset them and read
 # them to show that a run went through the kernel, and by which route.
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
 split_launches = {"points": 0, "contract": 0}
-split_frac_launches = 0         # the split fraction kernel's (crease runs)
+split_frac_launches = 0         # the standalone split fraction kernel's
+frac_route_launches = {r: 0 for r in FRAC_ROUTES}
 contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + VECTOR_ROUTES}
 
 
 def reset_launches():
     global launches, split_frac_launches
     launches = split_frac_launches = 0
-    for counts in (route_launches, split_launches, contract_route_launches):
+    for counts in (route_launches, split_launches, contract_route_launches,
+                   frac_route_launches):
         for k in counts:
             counts[k] = 0
 
@@ -159,12 +175,12 @@ def _configure(lib):
     fn = lib.rule_eval_launch
     fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
                    + [ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_void_p] * 8)
     fn.restype = ctypes.c_int
     fn = lib.rule_eval_tile_launch
     fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 9
                    + [ctypes.c_double, ctypes.c_void_p]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8)
     fn.restype = ctypes.c_int
 
 
@@ -177,7 +193,7 @@ def _configure_split(lib):
     fn = lib.rule_split_contract_launch
     fn.argtypes = (head + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
-                   + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_void_p] * 7)
     fn.restype = ctypes.c_int
     fn = lib.rule_split_contract_comp_launch
     fn.argtypes = (head + [ctypes.c_int] + [ctypes.c_longlong] * 3
@@ -243,15 +259,15 @@ def kernel_params(integrand) -> tuple[int, np.ndarray]:
 def rule_route(ndim: int, integrand=None, ncomp: int = 1,
                with_split_frac: bool = False) -> str:
     """The route a pool of this dimension takes: 'split' for an integrand
-    that is not a Genz family (``is_genz_family``), for any vector
-    integrand (``ncomp`` > 1: no fused kernel evaluates one) and for any
-    integrand of a crease run (``with_split_frac``: the cut fraction is
-    read off the values, which the fused kernels keep to themselves); for
-    a Genz family (or no integrand named) 'tile' where the source compiles
-    it, else 'generic'.  The working type does not enter: every route is
-    compiled for float64 and float32."""
-    if ncomp > 1 or with_split_frac or (integrand is not None
-                                        and not is_genz_family(integrand)):
+    that is not a Genz family (``is_genz_family``) and for any vector
+    integrand (``ncomp`` > 1: no fused kernel evaluates one); for a Genz
+    family (or no integrand named) 'tile' where the source compiles it,
+    else 'generic'.  A crease run (``with_split_frac``) takes the same
+    route: each route's kernel computes the cut fraction from the values
+    it holds.  The working type does not enter: every route is compiled
+    for float64 and float32."""
+    if ncomp > 1 or (integrand is not None
+                     and not is_genz_family(integrand)):
         return "split"
     return "tile" if ndim in TILE_NDIMS else "generic"
 
@@ -326,14 +342,21 @@ def _tile_tables(ndim: int, dtype: torch.dtype, device: torch.device):
 
 def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
                     global_lo, global_range, *, n: int | None = None,
-                    blocked: bool = False, route: str | None = None):
+                    blocked: bool = False, route: str | None = None,
+                    with_split_frac: bool = False, kept=None):
     """One kernel launch over the ``n`` real regions of a CUDA pool
     (all of it when ``n`` is None).  Arguments and outputs as
     ``rule_eval.apply_rule_plain``: (estimate (cap,), errorest (cap,),
     split_dim (cap,) int32), with est = err = 0 and split_dim 0 in the
-    padding slots.  ``route`` None takes ``rule_route(ndim)``; naming a
-    route runs that kernel (the checks and timings hold the two against
-    each other) and raises if it does not take the shape."""
+    padding slots; with ``with_split_frac`` the crease run's kernel, which
+    also returns the cut fraction (cap,), 0.5 in the padding slots, and
+    split_dim the axis a jump overrides.  ``kept`` (check only; with
+    ``with_split_frac``): a contiguous (cap, 4 ndim + 1) tensor of the
+    pool's type into which the kernel writes each real region's collinear
+    values, the fraction's input.  ``route`` None takes
+    ``rule_route(ndim)``; naming a route runs that kernel (the checks and
+    timings hold the two against each other) and raises if it does not
+    take the shape."""
     global launches
     kind, params = kernel_params(integrand)
     ndim = tables.ndim
@@ -356,6 +379,7 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     est = torch.empty(cap, dtype=dtype, device=lows.device)
     err = torch.empty(cap, dtype=dtype, device=lows.device)
     sdim = torch.empty(cap, dtype=torch.int32, device=lows.device)
+    crease = _fused_frac_args(ndim, cap, lows, with_split_frac, kept)
     hp = params.ctypes.data_as(ctypes.c_void_p)
     stream = torch.cuda.current_stream(lows.device).cuda_stream
     lib = cuda_build.load(_SOURCE, _configure)
@@ -370,7 +394,7 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
             global_range.data_ptr(), codes.data_ptr(), lam.data_ptr(),
             orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
             float(tables.ratio), hp, tile, blocks, est.data_ptr(),
-            err.data_ptr(), sdim.data_ptr(), stream)
+            err.data_ptr(), sdim.data_ptr(), *crease[1:], stream)
     else:
         gen_t = _gen_dims_major(ndim, dtype, lows.device)
         ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
@@ -380,13 +404,42 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
             global_range.data_ptr(), gen_t.data_ptr(), orbit_wts.data_ptr(),
             scale.data_ptr(), norm.data_ptr(), float(tables.ratio),
             ctypes.cast(ob, ctypes.c_void_p), hp, est.data_ptr(),
-            err.data_ptr(), sdim.data_ptr(), stream)
+            err.data_ptr(), sdim.data_ptr(), *crease[1:], stream)
     if rc != 0:
         raise RuntimeError(f"CUDA rule kernel ({route} route) launch failed: "
                            f"error {rc}")
     launches += 1
     route_launches[route] += 1
-    return est, err, sdim
+    if not with_split_frac:
+        return est, err, sdim
+    frac_route_launches[route] += 1
+    return est, err, sdim, crease[0]
+
+
+def _fused_frac_args(ndim, cap, lows, with_split_frac, kept):
+    """(frac, then the launch's frac, stencil and kept pointers) of a fused
+    launch: a new (cap,) fraction and the stencil's host arrays with
+    ``with_split_frac``, else (None, four null pointers).  ValueError for a
+    ``kept`` without the fraction or of another shape, type or device than
+    a contiguous (cap, 4 ndim + 1) of the pool's."""
+    if not with_split_frac:
+        if kept is not None:
+            raise ValueError("kept holds the fraction's input: it needs "
+                             "with_split_frac")
+        return (None,) + (None,) * 4
+    shape = (cap, 4 * ndim + 1)
+    if kept is not None and (tuple(kept.shape) != shape
+                             or kept.dtype != lows.dtype
+                             or kept.device != lows.device
+                             or not kept.is_contiguous()):
+        raise ValueError(f"kept: need a contiguous {lows.dtype} tensor of "
+                         f"shape {shape} on {lows.device}, got {kept.dtype} "
+                         f"{tuple(kept.shape)} on {kept.device}")
+    frac = torch.empty(cap, dtype=lows.dtype, device=lows.device)
+    slots, consts = _frac_tables(ndim, lows.dtype)
+    return (frac, frac.data_ptr(), slots.ctypes.data_as(ctypes.c_void_p),
+            consts.ctypes.data_as(ctypes.c_void_p),
+            None if kept is None else kept.data_ptr())
 
 
 def _check_pool(what: str, tables: rule_eval.RuleTables, lows, lengths,
@@ -667,7 +720,8 @@ def comp_cluster_occupancy(dtype: torch.dtype, ndim: int, count: int,
 
 
 def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
-                     blocked, first, count, est, err, sdim, route=None):
+                     blocked, first, count, est, err, sdim, frac=None,
+                     route=None):
     dtype = vals.dtype
     shape = (dtype, tables.ndim, count, tables.feval)
     chosen = contract_route(*shape, vals.stride())
@@ -683,6 +737,11 @@ def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
     _, orbit_wts, scale, norm = rule_eval.device_tables(
         tables.ndim, dtype, vals.device)
     ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
+    stencil = (None, None)
+    if frac is not None:
+        slots, consts = _frac_tables(tables.ndim, dtype)
+        stencil = (slots.ctypes.data_as(ctypes.c_void_p),
+                   consts.ctypes.data_as(ctypes.c_void_p))
     rc = lib.rule_split_contract_launch(
         int(dtype == torch.float64), tables.ndim, tables.feval, cap, n,
         int(bool(blocked)), first, count, *vals.stride(), cluster, points,
@@ -690,12 +749,15 @@ def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
         orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
         float(tables.ratio), ctypes.cast(ob, ctypes.c_void_p), est.data_ptr(),
         err.data_ptr(), sdim.data_ptr(),
+        None if frac is None else frac.data_ptr(), *stencil,
         torch.cuda.current_stream(vals.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA rule contraction kernel ({route} route) "
                            f"launch failed: error {rc}")
     split_launches["contract"] += 1
     contract_route_launches[route] += 1
+    if frac is not None:
+        frac_route_launches[CONTRACT_FRAC_ROUTE[route]] += 1
 
 
 def _contract_comp_launch(lib, tables, vals, lengths, global_range, cap, n,
@@ -753,12 +815,14 @@ def split_points(tables: rule_eval.RuleTables, lows, lengths, global_lo,
 def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
                    global_lo, global_range, first: int, *,
                    n: int | None = None, blocked: bool = False, out=None,
-                   route: str | None = None):
+                   route: str | None = None, with_split_frac: bool = False):
     """One launch of the contraction kernel: est, err and split_dim of real
     regions first .. first + C - 1 from their rule values ``vals`` (C,
     feval), written at their slots of ``out`` = (est, err, split_dim), each
     (cap,) (new zeroed tensors when None), which it returns.  What
-    ``rule_eval.rule_outputs`` computes.  ``route`` None takes
+    ``rule_eval.rule_outputs`` computes; with ``with_split_frac`` also the
+    cut fraction, ``out`` then (est, err, split_dim, frac) (new: frac 0.5),
+    split_dim the axis a jump overrides.  ``route`` None takes
     ``contract_route``'s; naming one runs it (the checks and timings hold
     the two against each other) and raises ValueError where the values'
     layout does not take it."""
@@ -768,7 +832,13 @@ def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
     _check_chunk(cap, n, first, count)
     _check_vals(vals, count, tables, lows)
     if out is None:
-        out = _zero_outputs(cap, lows)
+        out = _zero_outputs(cap, lows) + ((torch.full(
+            (cap,), 0.5, dtype=lows.dtype, device=lows.device),)
+            if with_split_frac else ())
+    if len(out) != 3 + with_split_frac:
+        raise ValueError(f"out: need {3 + with_split_frac} tensors "
+                         f"(with_split_frac={with_split_frac}), got "
+                         f"{len(out)}")
     _contract_launch(cuda_build.load(_SPLIT_SOURCE, _configure_split), tables,
                      vals, lengths, global_range, cap, n, blocked, first,
                      count, *out, route=route)
@@ -854,14 +924,17 @@ def _frac_launch(lib, tables, vals, cap, n, blocked, first, count, sdim,
         raise RuntimeError(f"CUDA split fraction kernel launch failed: "
                            f"error {rc}")
     split_frac_launches += 1
+    frac_route_launches["standalone"] += 1
 
 
 def split_frac(vals, split_dim, ndim: int):
     """The crease/jump-aware cut fraction of C regions from their rule
     values ``vals`` (C, feval), at any strides, and their split axis (C,)
     int32: (frac (C,) of the values' type, split_dim (C,) int32).  On CUDA
-    tensors one launch of ``rule_split_frac_kernel`` (csrc/split_frac.cu),
-    EQUAL to ``rule_eval.split_fraction``, which runs on CPU tensors."""
+    tensors one launch of the standalone ``rule_split_frac_kernel``
+    (csrc/split_frac.cu), EQUAL to ``rule_eval.split_fraction``, which runs
+    on CPU tensors.  No crease run launches it (the kernels that hold the
+    values compute the fraction); the checks hold those against it."""
     if vals.device.type == "cpu":
         return rule_eval.split_fraction(vals, split_dim, ndim)
     tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(vals.dtype))
@@ -897,9 +970,9 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
     ``route`` names the contraction's route for every chunk, as
     ``split_contract``'s and ``split_contract_components``' do (None:
     ``contract_route``'s for each).  ``with_split_frac`` (a scalar
-    integrand): after each chunk's contraction the split fraction kernel
-    on its values, and a fourth output, the cut fraction (cap,), 0.5 in
-    the padding slots, split_dim the one that kernel wrote."""
+    integrand): each chunk's contraction also computes the cut fraction
+    from the values it reads, and a fourth output, the cut fraction (cap,),
+    0.5 in the padding slots, split_dim the axis a jump overrides."""
     cap, n = _check_pool("cuda_apply_rule_split", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
     if ncomp > 1 and route not in (None,) + VECTOR_ROUTES:
@@ -912,7 +985,6 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
     lib = cuda_build.load(_SPLIT_SOURCE, _configure_split)
     out = _zero_outputs(cap, lows, ncomp)
     if with_split_frac:
-        frac_lib = cuda_build.load(_FRAC_SOURCE, _configure_frac)
         out += (torch.full((cap,), 0.5, dtype=lows.dtype,
                            device=lows.device),)
     for first, count in split_chunks(n, chunk_size):
@@ -927,11 +999,8 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
                                   route=route)
         else:
             _contract_launch(lib, tables, vals, lengths, global_range,
-                             cap, n, blocked, first, count, *out[:3],
+                             cap, n, blocked, first, count, *out,
                              route=route)
-        if with_split_frac:
-            _frac_launch(frac_lib, tables, vals, cap, n, blocked, first,
-                         count, out[2], out[3])
     return out
 
 

@@ -42,10 +42,17 @@ ulps of its own rounding scales, the gate's ties resolved as above; its
 split_dim, one axis from all components' fourth differences, must be
 EQUAL in every region (``check_components``).
 
-The split fraction kernel (``cuda_rule.split_frac``, a crease run's) rounds
-every operation as the plain version does: its fraction and split_dim must
-be EQUAL to ``rule_eval.split_fraction`` on the same values, on the card and
-on a CPU copy (``check_split_frac``, on ``crease_stencils``' values).
+The split fraction (csrc/split_frac.cuh) rounds every operation as the
+plain version does: its fraction and split_dim must be EQUAL to
+``rule_eval.split_fraction`` on the same values.  The standalone kernel
+(``cuda_rule.split_frac``) is held so on the card and on a CPU copy
+(``check_split_frac``, on ``crease_stencils``' values).  The folded forms,
+which a crease run takes, are held so on the values their kernel read
+(``check_folded_frac``): the fused kernels' on the collinear values they
+write out when asked (``kept``), from the split axes of the same launch
+without the fraction, whose est and err must have the same bits
+(``check_fused_frac``); the contractions' on the values they were given,
+and to the standalone kernel's bits too (``check_contract_frac``).
 """
 from __future__ import annotations
 
@@ -436,3 +443,95 @@ def check_split_frac(vals, split_dim, ndim: int) -> dict:
             "cut": int((frac != 0.5).sum()),
             "overrides": int((sd != split_dim.to(torch.int32)).sum()),
             "max_abs_err": 0.0}
+
+
+def check_folded_frac(frac, split_dim, kept, split_dim_before, ndim: int, *,
+                      name: str = "folded split fraction") -> dict:
+    """A kernel's cut fraction and split axis of C regions (``frac``,
+    ``split_dim`` (C,)) against ``rule_eval.split_fraction`` on the values
+    it read, ``kept`` (C, 4 ndim + 1 or more), from the split axes it
+    started from, ``split_dim_before`` (C,): both EQUAL, or
+    AssertionError.  Returns {regions, cut (fractions other than 0.5),
+    overrides (split axes a jump moved), max_abs_err (0.0)}."""
+    want = rule_eval.split_fraction(kept, split_dim_before, ndim)
+    for what, got, ref in zip(("frac", "split_dim"),
+                              (frac, split_dim.to(torch.int32)), want):
+        if not same_bits(got.contiguous(), ref.contiguous()):
+            bad = int((got != ref).sum())
+            raise AssertionError(
+                f"{name}: {what} differs from rule_eval.split_fraction on "
+                f"the kernel's own values in {bad} of {ref.shape[0]} "
+                "regions")
+    return {"regions": int(frac.shape[0]),
+            "cut": int((frac != 0.5).sum()),
+            "overrides": int((split_dim.to(torch.int32)
+                              != split_dim_before.to(torch.int32)).sum()),
+            "max_abs_err": 0.0}
+
+
+def check_fused_frac(integrand, tables: rule_eval.RuleTables, lows, lengths,
+                     global_lo, global_range, *, n: int | None = None,
+                     blocked: bool = False, route: str | None = None) -> dict:
+    """A fused kernel's crease form (``route``; None: the route the shape
+    takes) on a CUDA pool: one launch without the fraction, one with it and
+    the collinear values written out (``kept``).  The values' bits do not
+    depend on the fraction, so est and err must have the same bits in
+    both; the padding slots must hold fraction 0.5 and split_dim 0; on the
+    real slots fraction and split_dim must be EQUAL to
+    ``rule_eval.split_fraction`` on the kept values from the first
+    launch's split axes (``check_folded_frac``).  Raises AssertionError;
+    returns check_folded_frac's summary."""
+    name = (f"{getattr(integrand, 'name', 'integrand')} "
+            f"{route or cuda_rule.rule_route(tables.ndim)} route fraction")
+    kw = dict(n=n, blocked=blocked,
+              **({} if route is None else {"route": route}))
+    base = cuda_rule.cuda_apply_rule(integrand, tables, lows, lengths,
+                                     global_lo, global_range, **kw)
+    cap = lows.shape[1]
+    kept = torch.full((cap, 4 * tables.ndim + 1), float("nan"),
+                      dtype=lows.dtype, device=lows.device)
+    got = cuda_rule.cuda_apply_rule(integrand, tables, lows, lengths,
+                                    global_lo, global_range, **kw,
+                                    with_split_frac=True, kept=kept)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("est", "err"), got, base):
+        if not same_bits(a, b):
+            raise AssertionError(f"{name}: {what} differs from the launch "
+                                 "without the fraction")
+    mask = block_mask(cap, cap if n is None else int(n), blocked,
+                      lows.device)
+    if bool((got[3][~mask] != 0.5).any() | (got[2][~mask] != 0).any()):
+        raise AssertionError(f"{name}: padding slots without fraction 0.5 "
+                             "and split_dim 0")
+    real = torch.nonzero(mask)[:, 0]
+    return check_folded_frac(got[3][real], got[2][real], kept[real],
+                             base[2][real], tables.ndim, name=name)
+
+
+def check_contract_frac(vals, tables: rule_eval.RuleTables, lows, lengths,
+                        global_lo, global_range, *,
+                        route: str | None = None) -> dict:
+    """A scalar contraction's crease form (``route``; None:
+    ``contract_route``'s) on the values ``vals`` (C, feval) of a CUDA pool
+    of C regions, all real: launched without and with the fraction, est
+    and err the same bits; fraction and split_dim EQUAL to the standalone
+    kernel's (``cuda_rule.split_frac``) on the same values from the first
+    launch's split axes, and to ``rule_eval.split_fraction``
+    (``check_folded_frac``).  Raises AssertionError; returns the
+    summary."""
+    name = f"{route or 'named'} contraction fraction"
+    args = (vals, tables, lows, lengths, global_lo, global_range, 0)
+    base = cuda_rule.split_contract(*args, route=route)
+    got = cuda_rule.split_contract(*args, route=route, with_split_frac=True)
+    alone = cuda_rule.split_frac(vals, base[2], tables.ndim)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("est", "err"), got, base):
+        if not same_bits(a, b):
+            raise AssertionError(f"{name}: {what} differs from the launch "
+                                 "without the fraction")
+    for what, a, b in zip(("frac", "split_dim"), (got[3], got[2]), alone):
+        if not same_bits(a, b):
+            raise AssertionError(f"{name}: {what} differs from the "
+                                 "standalone kernel's")
+    return check_folded_frac(got[3], got[2], vals, base[2], tables.ndim,
+                             name=name)

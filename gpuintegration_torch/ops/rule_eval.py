@@ -18,7 +18,9 @@ chooses the route (``cuda_rule.rule_route``): a Genz family F1..F6
 (``models.genz``) is fused into the tile or generic kernel; any other
 callable, and every vector-valued one, takes the split route, a points
 kernel, the callable on the points as torch operations, and a contraction
-kernel, chunk by chunk.  The split kernels' plain versions are
+kernel, chunk by chunk.  A crease run's cut fraction (``split_fraction``)
+is computed by the route's kernel that holds the values, the fused kernel
+or the contraction.  The split kernels' plain versions are
 ``rule_points`` and ``rule_outputs`` (``rule_outputs_vector`` for a
 vector).  A
 caller that wants the plain version on the card calls ``apply_rule_plain``
@@ -246,8 +248,11 @@ def split_fraction(vals, split_dim, ndim: int):
     the strongest jump.  Exactly 0.5, split_dim unchanged, where neither
     fires (``region_pool.split`` with 0.5 is the midpoint's bits).
 
-    No product, quotient or sum is fused with another, so the card's
-    kernel (``cuda_rule.split_frac``) gives the same bits."""
+    Only the collinear prefix of the values, points 0 .. 4 ndim, is read:
+    ``vals`` may hold just those ((C, 4 ndim + 1), what the fused kernels
+    keep).  No product, quotient or sum is fused with another, so the
+    card's kernels (csrc/split_frac.cuh, folded into the fused kernels and
+    the contractions, and ``cuda_rule.split_frac``) give the same bits."""
     dtype = vals.dtype
     slots, consts = split_stencil(ndim, dtype_name(dtype))
     consts = consts.astype(np.float32 if dtype == torch.float32
@@ -436,21 +441,23 @@ def apply_rule(f: Callable, tables: RuleTables, lows, lengths,
     """Rule evaluation over the pool: the plain version for a CPU pool; for
     any other pool the CUDA kernels of the route ``cuda_rule.rule_route``
     gives the integrand (the split route walks the pool ``chunk_size``
-    regions at a time; a vector integrand always takes it, and so does
-    every integrand ``with_split_frac``, whose cut fraction needs the
-    values).  Arguments and outputs as ``apply_rule_plain``."""
+    regions at a time; a vector integrand always takes it).  With
+    ``with_split_frac`` the route's kernel that holds the values, fused or
+    contraction, also computes the cut fraction.  Arguments and outputs as
+    ``apply_rule_plain``."""
     if lows.device.type == "cpu":
         return apply_rule_plain(f, tables, lows, lengths, global_lo,
                                 global_range, chunk_size=chunk_size, n=n,
                                 blocked=blocked, ncomp=ncomp,
                                 with_split_frac=with_split_frac)
     from gpuintegration_torch.ops import cuda_rule
+    crease = {"with_split_frac": True} if with_split_frac else {}
     if cuda_rule.rule_route(tables.ndim, f, ncomp,
                             with_split_frac) == "split":
-        crease = {"with_split_frac": True} if with_split_frac else {}
         return cuda_rule.cuda_apply_rule_split(
             f, tables, lows, lengths, global_lo, global_range,
             chunk_size=chunk_size, n=n, blocked=blocked, ncomp=ncomp,
             **crease)
     return cuda_rule.cuda_apply_rule(f, tables, lows, lengths, global_lo,
-                                     global_range, n=n, blocked=blocked)
+                                     global_range, n=n, blocked=blocked,
+                                     **crease)

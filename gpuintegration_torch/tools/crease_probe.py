@@ -11,8 +11,9 @@ at ``seconds`` of wall clock (default 30) by ``deadline=``; a family's
 ladder stops at the first tolerance its crease run does not certify.
 Prints the card's name and power limit, then per run the status, the wall,
 iterations, regions, neval, the true relative error, the errorest
-relative to the truth and the split fraction kernel's launches.  Needs a
-CUDA card.
+relative to the truth and the launches that computed a fraction, by the
+kernel that did (``cuda_rule.frac_route_launches``: a Genz family's crease
+run takes the fused tile route).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -36,15 +37,16 @@ def integrands():
 
 
 def run(g, eps: float, crease: bool, seconds: float, **kw):
-    """One timed ``Workspace(8).integrate``; returns (result, wall,
-    split fraction launches)."""
+    """One timed ``Workspace(8).integrate``; returns (result, wall, the
+    fraction's launches by kernel)."""
     cuda_rule.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = Workspace(NDIM).integrate(g, eps, 1e-40, crease_split=crease,
                                   deadline=time.monotonic() + seconds, **kw)
     torch.cuda.synchronize()
-    return r, time.perf_counter() - t0, cuda_rule.split_frac_launches
+    return (r, time.perf_counter() - t0,
+            {k: v for k, v in cuda_rule.frac_route_launches.items() if v})
 
 
 def line(g, eps, crease, r, wall, launches) -> str:
@@ -53,7 +55,7 @@ def line(g, eps, crease, r, wall, launches) -> str:
             f"status {r.status} wall {wall:.2f} s iters {r.iters} nregions "
             f"{r.nregions} neval {r.neval} rel.err "
             f"{abs(r.estimate - g.true_value) / truth:.3e} errorest/truth "
-            f"{r.errorest / truth:.3e} split_frac launches {launches}")
+            f"{r.errorest / truth:.3e} fraction launches {launches}")
 
 
 def main(seconds: float = 30.0) -> int:

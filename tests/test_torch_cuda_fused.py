@@ -113,7 +113,8 @@ def test_crease_and_vector_fused_on_card():
     kw = dict(epsrel=1e-7, epsabs=1e-40, crease_split=True)
     cuda_rule.reset_launches()
     got = Workspace(3, chunk_size=1024).integrate(g, **kw)
-    assert cuda_rule.split_frac_launches > 0
+    assert cuda_rule.frac_route_launches["tile"] > 0
+    assert cuda_rule.split_frac_launches == 0
     host = Workspace(3, chunk_size=1024).integrate(g, fused=False, **kw)
     assert _key(got) == _key(host) and got.status == 0
     assert math.isclose(got.estimate, host.estimate, rel_tol=1e-12)

@@ -239,28 +239,42 @@ def test_split_stencil_is_the_reference_positions(ndim):
 
 
 def test_rule_route_takes_split_for_a_crease_run(monkeypatch):
-    """A crease run needs the values: every integrand takes the split
-    route on the card then, a Genz family too, and the split wrapper is
-    asked for the fraction (a meta pool stands in for the card)."""
-    g = genz.f4_gaussian(8)
-    assert cuda_rule.rule_route(8, g) == "tile"
-    assert cuda_rule.rule_route(8, g, 1, True) == "split"
-    assert cuda_rule.rule_route(12, g, 1, True) == "split"
+    """A crease run keeps the route its integrand takes without one: a
+    Genz family the fused tile (3-8D) or generic (2D, 9-16D) kernel, which
+    computes the fraction from the values it keeps; a plain callable and a
+    vector the split route, whose contraction computes it.  ``apply_rule``
+    on a meta pool (it stands in for the card) asks the fused wrapper for
+    the fraction for a Genz family, the split wrapper for a callable."""
+    for ndim in range(2, 17):
+        g = genz.f4_gaussian(ndim)
+        want = "tile" if 3 <= ndim <= 8 else "generic"
+        assert cuda_rule.rule_route(ndim, g) == want
+        assert cuda_rule.rule_route(ndim, g, 1, True) == want
+        assert cuda_rule.rule_route(ndim, lambda x: g(x), 1, True) == "split"
+        assert cuda_rule.rule_route(ndim, g, 2, False) == "split"
     calls = []
 
     def fake_split(f, tables, lows, lengths, gl, gr, **kw):
-        calls.append(kw)
+        calls.append(("split", kw))
         return "split"
 
+    def fake_fused(f, tables, lows, lengths, gl, gr, **kw):
+        calls.append(("fused", kw))
+        return "fused"
+
     monkeypatch.setattr(cuda_rule, "cuda_apply_rule_split", fake_split)
+    monkeypatch.setattr(cuda_rule, "cuda_apply_rule", fake_fused)
     pool = [torch.empty(s, device="meta", dtype=torch.float64)
             for s in ((3, 8), (3, 8), (3,), (3,))]
-    assert rule_eval.apply_rule(genz.f3_corner_peak(3),
-                                rule_eval.rule_tables(3), *pool,
-                                chunk_size=4, n=6, blocked=True,
-                                with_split_frac=True) == "split"
-    assert calls == [dict(chunk_size=4, n=6, blocked=True, ncomp=1,
-                          with_split_frac=True)]
+    g3 = genz.f3_corner_peak(3)
+    kw = dict(chunk_size=4, n=6, blocked=True, with_split_frac=True)
+    assert rule_eval.apply_rule(g3, rule_eval.rule_tables(3), *pool,
+                                **kw) == "fused"
+    assert rule_eval.apply_rule(lambda x: g3(x), rule_eval.rule_tables(3),
+                                *pool, **kw) == "split"
+    assert calls == [("fused", dict(n=6, blocked=True, with_split_frac=True)),
+                     ("split", dict(chunk_size=4, n=6, blocked=True, ncomp=1,
+                                    with_split_frac=True))]
 
 
 def _pool(ndim, cap, dtype, seed):
