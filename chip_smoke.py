@@ -180,7 +180,9 @@ timed beside the others in the same run.
    and the plain version, est/err the bits without the fraction), each
    timed with and without it in turns; the fused tile and generic
    kernels' folded form (``kernel_check.check_fused_frac``: EQUAL to the
-   plain version on the collinear values the kernel writes out, est/err
+   plain version on the collinear values the kernel writes out, those
+   values the callable's at their rule points within
+   ``kernel_check.ULPS['value']`` ulps of their roundoff scale, est/err
    the bits without it, padding 0.5) on F5 and F6 pools of the chunks'
    sizes, blocked with padding and a NaN region; each fused route with and
    without the fraction in turns (``time_ms``) at phase 4's pool (F4, F5)
@@ -268,13 +270,16 @@ def ops_per_point(kind: int, ndim: int) -> int:
 EPILOGUE_OPS = 250   # rule sums, fourth differences, error model, per region
 
 
-# Arithmetic operations of the split fraction an axis and region, counted
-# from csrc/split_frac.cuh axis_frac: 8 for the four secants, 14 for the
-# two lines' intersections, 10 for the kink gates, 2 relative breaks, 2 for
-# the cut, 12 for the jump gates; comparisons, |x| and selections not
-# counted, a division as ONE operation, so the bound built from it is a
-# lower bound.
-FRAC_OPS_PER_AXIS = 48
+# Arithmetic operations of the split fraction, counted from
+# csrc/split_frac.cuh axis_frac: on every axis 8 for the four secants and
+# 12 for the jump gates; once a region, on its split axis only
+# (``want_kink``), 14 for the two lines' intersections, 10 for the kink
+# gates, 2 relative breaks and 2 for the cut.  Comparisons, |x| and
+# selections are not counted and a division counts as ONE operation, so
+# the bound built from these counts lies below the kernel's true least
+# time.
+FRAC_OPS_PER_AXIS = 20
+FRAC_KINK_OPS = 28
 
 
 def bound_ms(kind: int, ndim: int, n: int, dtype,
@@ -285,7 +290,7 @@ def bound_ms(kind: int, ndim: int, n: int, dtype,
     split fraction's operations and the fraction written too."""
     feval = rule_eval.rule_tables(ndim).feval
     ops = n * (feval * ops_per_point(kind, ndim) + EPILOGUE_OPS
-               + (ndim * FRAC_OPS_PER_AXIS if frac else 0))
+               + (ndim * FRAC_OPS_PER_AXIS + FRAC_KINK_OPS if frac else 0))
     item = torch.finfo(dtype).bits // 8
     nbytes = n * (2 * ndim * item + (3 if frac else 2) * item + 4)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES_PER_S
@@ -2687,7 +2692,13 @@ def split_frac_checks(dev, main_args, main_kw):
                       f"EQUAL to the plain version on the kernel's own "
                       f"values ({r['cut']} of {r['regions']} cut, "
                       f"{r['overrides']} overridden), est/err the bits "
-                      "without it, padding 0.5", flush=True)
+                      f"without it, padding 0.5; the {r['values']} kept "
+                      f"values within {r['value_ulps']:.3g} ulps of their "
+                      f"roundoff scale beyond rtol of the callable's (limit "
+                      f"{kernel_check.ULPS['value']:g}; largest relative "
+                      f"difference {r['value_rel']:.3g}), "
+                      f"{r['discontinuities']} across a discontinuity "
+                      "within roundoff", flush=True)
         del lows, lengths
     # the fused kernels with and without the fraction, in turns
     big = 1 << 21

@@ -339,9 +339,9 @@ rule_kernel(const RuleArgs<T> a) {
   a.split_dim[slot] = sdim;
 }
 
-// est = err = 0, split_dim 0 and (a crease run's) frac 0.5 in every
-// padding slot of the pool
-template <typename T>
+// est = err = 0, split_dim 0 and (a crease run's kernel, F) frac 0.5 in
+// every padding slot of the pool; without F frac is not read
+template <typename T, bool F>
 __global__ void fill_padding(T* est, T* err, int* split_dim, T* frac,
                              int cap, int n, int blocked) {
   const int half = cap / 2;
@@ -352,7 +352,7 @@ __global__ void fill_padding(T* est, T* err, int* split_dim, T* frac,
       est[i] = T(0);
       err[i] = T(0);
       split_dim[i] = 0;
-      if (frac != nullptr) frac[i] = T(0.5);
+      if constexpr (F) frac[i] = T(0.5);
     }
   }
 }
@@ -789,13 +789,15 @@ rule_tile_kernel(const TileArgs<T> a) {
       T orbit_sum[kNsets];
 #pragma unroll
       for (int k = 0; k < kNsets; ++k) orbit_sum[k] = ws.osum[lane][k];
+      // WITH_FRAC: the split axis is fr.sd, decided in the region loop;
+      // the widest axis is not scanned again and sdim is not used
       T vol = T(1), wl = ws.stage[s][NDIM][lane];
       int widest = 0;
 #pragma unroll
       for (int d = 0; d < NDIM; ++d) {
         const T l = ws.stage[s][NDIM + d][lane];
         vol *= l;
-        if (d > 0 && l > wl) {
+        if (!WITH_FRAC && d > 0 && l > wl) {
           wl = l;
           widest = d;
         }
@@ -827,8 +829,12 @@ void launch_fill(T* est, T* err, int* split_dim, T* frac, int cap, int n,
                  int blocked, cudaStream_t stream) {
   if (n >= cap) return;
   const int blocks = (cap + 255) / 256 < 4096 ? (cap + 255) / 256 : 4096;
-  fill_padding<T><<<blocks, 256, 0, stream>>>(est, err, split_dim, frac, cap,
-                                              n, blocked);
+  if (frac != nullptr)
+    fill_padding<T, true><<<blocks, 256, 0, stream>>>(est, err, split_dim,
+                                                      frac, cap, n, blocked);
+  else
+    fill_padding<T, false><<<blocks, 256, 0, stream>>>(est, err, split_dim,
+                                                       frac, cap, n, blocked);
 }
 
 template <int FAMILY, typename T>

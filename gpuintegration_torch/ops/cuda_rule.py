@@ -72,9 +72,9 @@ launches it, and the checks hold the folded forms against it.
 to 0, and ``route_launches`` the same per route; ``split_launches`` counts
 the split route's two kernels, ``'points'`` and ``'contract'``,
 ``split_frac_launches`` the standalone split fraction kernel's,
-``frac_route_launches`` the launches that computed a fraction, by the
-kernel that did (``FRAC_ROUTES``: ``'tile'``, ``'generic'``, ``'cluster'``,
-``'contract_generic'``, ``'standalone'``), and
+``frac_route_launches`` the folded forms' launches, by the kernel that
+computed the fraction (``FRAC_ROUTES``: ``'tile'``, ``'generic'``,
+``'cluster'``, ``'contract_generic'``), and
 ``contract_route_launches`` the contraction's by route (``'cluster'``,
 ``'generic'``, ``'components_cluster'``, ``'components'``);
 ``reset_launches()`` zeroes them all.
@@ -139,10 +139,10 @@ MAX_COMP_CLUSTER = 8
 MAX_SMEM = 227 * 1024
 PAIR_SMEM = 112 * 1024          # a CTA's at most, for two to share an SM
 
-# The kernels that compute a crease run's cut fraction: the fused routes,
-# the scalar contraction's two routes, the standalone kernel.
-FRAC_ROUTES = ("tile", "generic", "cluster", "contract_generic",
-               "standalone")
+# The kernels that fold a crease run's cut fraction into their epilogue:
+# the fused routes and the scalar contraction's two routes (the standalone
+# kernel is counted in split_frac_launches).
+FRAC_ROUTES = ("tile", "generic", "cluster", "contract_generic")
 CONTRACT_FRAC_ROUTE = {"cluster": "cluster", "generic": "contract_generic"}
 
 # Launches since the counts were last set to 0; callers reset them and read
@@ -256,16 +256,15 @@ def kernel_params(integrand) -> tuple[int, np.ndarray]:
 # ---------------------------------------------------------------------------
 # Host-side layouts of the tile route
 
-def rule_route(ndim: int, integrand=None, ncomp: int = 1,
-               with_split_frac: bool = False) -> str:
+def rule_route(ndim: int, integrand=None, ncomp: int = 1) -> str:
     """The route a pool of this dimension takes: 'split' for an integrand
     that is not a Genz family (``is_genz_family``) and for any vector
     integrand (``ncomp`` > 1: no fused kernel evaluates one); for a Genz
     family (or no integrand named) 'tile' where the source compiles it,
-    else 'generic'.  A crease run (``with_split_frac``) takes the same
-    route: each route's kernel computes the cut fraction from the values
-    it holds.  The working type does not enter: every route is compiled
-    for float64 and float32."""
+    else 'generic'.  A crease run takes the same route: each route's
+    kernel computes the cut fraction from the values it holds.  The
+    working type does not enter: every route is compiled for float64 and
+    float32."""
     if ncomp > 1 or (integrand is not None
                      and not is_genz_family(integrand)):
         return "split"
@@ -924,7 +923,6 @@ def _frac_launch(lib, tables, vals, cap, n, blocked, first, count, sdim,
         raise RuntimeError(f"CUDA split fraction kernel launch failed: "
                            f"error {rc}")
     split_frac_launches += 1
-    frac_route_launches["standalone"] += 1
 
 
 def split_frac(vals, split_dim, ndim: int):

@@ -52,7 +52,11 @@ which a crease run takes, are held so on the values their kernel read
 write out when asked (``kept``), from the split axes of the same launch
 without the fraction, whose est and err must have the same bits
 (``check_fused_frac``); the contractions' on the values they were given,
-and to the standalone kernel's bits too (``check_contract_frac``).
+and to the standalone kernel's bits too (``check_contract_frac``).  The
+kept values themselves are held to the callable's at rule points 0 .. 4n
+(``check_kept_values``): each within rtol |f_p| + ULPS["value"] ulps of
+its u_p, or, where a point lies within its coordinates' rounding of a
+discontinuity, of the callable at the point moved by that rounding.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ READINGS = ("abs_est", "est", "err", "err_direct", "gate_tie", "err_resolved",
             "tie_gap")
 
 RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-ULPS = {"est": 1.0, "err": 1.0}
+ULPS = {"est": 1.0, "err": 1.0, "value": 4.0}
 TIE = 256.0
 
 
@@ -75,19 +79,31 @@ def value_scales(integrand, tables: rule_eval.RuleTables, lows, lengths,
                  global_lo, global_range):
     """(f_p (C, feval), u_p (C, feval)) of the module docstring for C
     regions, the derivative by autograd."""
+    _, _, vals, u = _points_values_scales(integrand, tables, lows, lengths,
+                                          global_lo, global_range)
+    return vals, u
+
+
+def _points_values_scales(integrand, tables: rule_eval.RuleTables, lows,
+                          lengths, global_lo, global_range,
+                          head: int | None = None):
+    """At rule points 0 .. head - 1 (every point where None) of C regions:
+    (x (C, P, ndim), the coordinates' rounding scales |c_d| + |g_pd l_d|
+    (C, P, ndim), f_p (C, P), u_p (C, P))."""
     batched, _ = make_integrand(integrand, tables.ndim)
     x, center_g, len_g = rule_eval.rule_points(tables, lows, lengths,
                                                global_lo, global_range)
     gen, _, _, _ = rule_eval.device_tables(tables.ndim, lows.dtype,
                                            lows.device)
-    x = x.detach().requires_grad_(True)
+    x, gen = x[:, :head].detach().requires_grad_(True), gen[:head]
     with torch.enable_grad():
         vals = batched(x).to(lows.dtype)
         (grad,) = torch.autograd.grad(vals.sum(), x)
     size = (center_g.T.abs()[:, None, :]
             + (gen[None, :, :] * len_g.T[:, None, :]).abs())
     vals = vals.detach()
-    return vals, vals.abs() + (grad.abs() * size).sum(dim=-1)
+    return (x.detach(), size, vals,
+            vals.abs() + (grad.abs() * size).sum(dim=-1))
 
 
 def roundoff_scales(u, tables: rule_eval.RuleTables, lengths,
@@ -469,6 +485,71 @@ def check_folded_frac(frac, split_dim, kept, split_dim_before, ndim: int, *,
             "max_abs_err": 0.0}
 
 
+def kept_value_readings(kept, integrand, tables: rule_eval.RuleTables,
+                        lows, lengths, global_lo, global_range):
+    """A fused kernel's collinear values ``kept`` (C, 4 ndim + 1) of C
+    regions against the callable's at the same rule points (the prefix
+    0 .. 4 ndim): (the excess of each value in ulps of its u_p (C,
+    4 ndim + 1); the same excess against the callable at the point moved
+    by twice its coordinates' rounding, every axis up or every axis down,
+    whichever is smaller, where the first exceeds ULPS["value"], else inf;
+    the callable's values).  A point within roundoff of a discontinuity
+    (F6's bounds) may fall on the other side in the kernel, which forms
+    its coordinates with one fused multiply-add; the moved point crosses
+    with it."""
+    batched, _ = make_integrand(integrand, tables.ndim)
+    x, size, vals, u = _points_values_scales(
+        integrand, tables, lows, lengths, global_lo, global_range,
+        head=kept.shape[1])
+    fi = torch.finfo(lows.dtype)
+    rtol = RTOL[lows.dtype]
+    excess = _excess(kept, vals, u, rtol, fi)
+    moved = torch.full_like(excess, float("inf"))
+    far = excess > ULPS["value"]
+    if bool(far.any()):
+        xf, step = x[far], 2.0 * fi.eps * size[far]
+        best = torch.full_like(excess[far], float("inf"))
+        for sign in (1.0, -1.0):
+            alt = batched(xf + sign * step).to(lows.dtype)
+            best = torch.minimum(best, _excess(kept[far], alt, u[far], rtol,
+                                               fi))
+        moved[far] = best
+    return excess, moved, vals
+
+
+def check_kept_values(kept, integrand, tables: rule_eval.RuleTables, lows,
+                      lengths, global_lo, global_range, *,
+                      name: str = "kept values") -> dict:
+    """``kept_value_readings`` judged: every value within ULPS["value"]
+    ulps of its u_p beyond rtol of the callable's at its rule point, or of
+    the callable's at the moved point (a discontinuity within roundoff).
+    A slot-order or sign error in the kernel's collinear prefix fails.
+    Raises AssertionError; returns {values, value_ulps (the worst excess
+    of the values held at their own point), value_rel (their largest
+    |kept - f| / |f|), discontinuities (the values held at the moved
+    point)}."""
+    excess, moved, vals = kept_value_readings(kept, integrand, tables, lows,
+                                              lengths, global_lo,
+                                              global_range)
+    limit = ULPS["value"]
+    far = excess > limit
+    bad = far & ~(moved <= limit)
+    if bool(bad.any()):
+        i = torch.nonzero(bad)[0]
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} of {kept.numel()} kept values beyond "
+            f"rtol + {limit} ulps of their roundoff scale, the first at "
+            f"region {int(i[0])} point {int(i[1])}: "
+            f"{float(excess[i[0], i[1]]):.3g} ulps")
+    near = excess[~far]
+    rel = ((kept - vals).abs() / vals.abs())[~far & (vals != 0)
+                                             & torch.isfinite(vals)]
+    return {"values": kept.numel(),
+            "value_ulps": float(near.amax()) if near.numel() else 0.0,
+            "value_rel": float(rel.amax()) if rel.numel() else 0.0,
+            "discontinuities": int(far.sum())}
+
+
 def check_fused_frac(integrand, tables: rule_eval.RuleTables, lows, lengths,
                      global_lo, global_range, *, n: int | None = None,
                      blocked: bool = False, route: str | None = None) -> dict:
@@ -479,8 +560,10 @@ def check_fused_frac(integrand, tables: rule_eval.RuleTables, lows, lengths,
     both; the padding slots must hold fraction 0.5 and split_dim 0; on the
     real slots fraction and split_dim must be EQUAL to
     ``rule_eval.split_fraction`` on the kept values from the first
-    launch's split axes (``check_folded_frac``).  Raises AssertionError;
-    returns check_folded_frac's summary."""
+    launch's split axes (``check_folded_frac``), and the kept values
+    themselves must be the callable's at rule points 0 .. 4n
+    (``check_kept_values``).  Raises AssertionError; returns
+    check_folded_frac's summary and check_kept_values'."""
     name = (f"{getattr(integrand, 'name', 'integrand')} "
             f"{route or cuda_rule.rule_route(tables.ndim)} route fraction")
     kw = dict(n=n, blocked=blocked,
@@ -504,8 +587,12 @@ def check_fused_frac(integrand, tables: rule_eval.RuleTables, lows, lengths,
         raise AssertionError(f"{name}: padding slots without fraction 0.5 "
                              "and split_dim 0")
     real = torch.nonzero(mask)[:, 0]
-    return check_folded_frac(got[3][real], got[2][real], kept[real],
-                             base[2][real], tables.ndim, name=name)
+    values = check_kept_values(kept[real], integrand, tables,
+                               lows[:, real], lengths[:, real], global_lo,
+                               global_range, name=name)
+    return {**check_folded_frac(got[3][real], got[2][real], kept[real],
+                                base[2][real], tables.ndim, name=name),
+            **values}
 
 
 def check_contract_frac(vals, tables: rule_eval.RuleTables, lows, lengths,

@@ -452,8 +452,7 @@ def apply_rule(f: Callable, tables: RuleTables, lows, lengths,
                                 with_split_frac=with_split_frac)
     from gpuintegration_torch.ops import cuda_rule
     crease = {"with_split_frac": True} if with_split_frac else {}
-    if cuda_rule.rule_route(tables.ndim, f, ncomp,
-                            with_split_frac) == "split":
+    if cuda_rule.rule_route(tables.ndim, f, ncomp) == "split":
         return cuda_rule.cuda_apply_rule_split(
             f, tables, lows, lengths, global_lo, global_range,
             chunk_size=chunk_size, n=n, blocked=blocked, ncomp=ncomp,

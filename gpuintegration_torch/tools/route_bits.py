@@ -33,7 +33,8 @@ _BOOL = {"0": "false", "1": "true"}
 
 def kernel_name(mangled: str) -> str:
     """A readable name of rule_eval.cu's and rule_split.cu's kernels
-    (their template arguments spelt out), else the mangled one."""
+    (their template arguments spelt out), fill_padding's too, else the
+    mangled one."""
     m = re.search(r"rule_tile_kernelILi(\d)E([df])Li(\d+)E(?:Lb([01])E)?",
                   mangled)
     if m:
@@ -43,7 +44,7 @@ def kernel_name(mangled: str) -> str:
     if m:
         tail = f", {_BOOL[m[3]]}" if m[3] else ""
         return f"rule_kernel<{m[1]}, {_TYPES[m[2]]}{tail}>"
-    m = re.search(r"\d+([a-z_]+kernel)I([df])((?:Lb[01]E)*)", mangled)
+    m = re.search(r"\d+([a-z_]+)I([df])((?:Lb[01]E)*)", mangled)
     if m:
         flags = "".join(f", {_BOOL[b]}" for b in re.findall(r"Lb([01])E",
                                                            m[3]))

@@ -7,8 +7,9 @@ The kernels themselves run only on the card (tests/test_torch_cuda_crease.py).
 Here: the fraction reads only the collinear prefix of the values (what the
 fused kernels keep, and write out for the check), bit for bit at every
 ndim; the check that holds a folded fraction against the plain version
-passes on the plain version's outputs and fails on a flipped bit; the
-per-axis form's reduction over a group of lanes picks the sequential
+passes on the plain version's outputs and fails on a flipped bit, and
+the one that holds the kernel's kept values to the callable's fails on a
+wrong slot order, side or value; the per-axis form's reduction over a group of lanes picks the sequential
 loop's axis; the fused launch's crease arguments; the counters; and a 2D
 crease run, the generic route's dimension on the card, against the JAX
 package's at the reference's tolerance with the same discrete
@@ -105,6 +106,85 @@ def test_folded_fraction_check(dtype, what):
         kernel_check.check_folded_frac(frac, out_sd, kept, sd, ndim)
 
 
+def _kept_pool(g, count, dtype, seed):
+    """A pool of ``count`` random regions of type ``dtype`` (region 2 all
+    NaN) and the callable's values at its rule points 0 .. 4 ndim, the
+    prefix a fused kernel writes out as ``kept``."""
+    ndim = g.ndim
+    rng = np.random.default_rng(seed)
+    tdtype = getattr(torch, dtype)
+    lows = torch.as_tensor(rng.uniform(0.0, 0.5, (ndim, count)), dtype=tdtype)
+    lengths = torch.as_tensor(rng.uniform(0.01, 0.5, (ndim, count)),
+                              dtype=tdtype)
+    lows[:, 2] = float("nan")
+    gl, gr = torch.zeros(ndim, dtype=tdtype), torch.ones(ndim, dtype=tdtype)
+    tables = rule_eval.rule_tables(ndim, dtype)
+    vals = rule_eval.rule_values(g, tables, lows, lengths, gl, gr)
+    return (vals[:, :4 * ndim + 1].clone(),
+            (g, tables, lows, lengths, gl, gr))
+
+
+@pytest.mark.parametrize("family", ["f5_c0", "f6_discontinuous"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kept_values_check_passes_on_the_callables_values(dtype, family):
+    """``kernel_check.check_kept_values`` passes on the callable's own
+    values at rule points 0 .. 4 ndim, the NaN region included."""
+    g = genz.FAMILIES[family](8)
+    kept, args = _kept_pool(g, 96, dtype, seed=11)
+    r = kernel_check.check_kept_values(kept, *args)
+    # the callable on the prefix alone may round a value's last bits
+    # otherwise than on every point: within rtol, a few ulps apart
+    assert r["value_rel"] <= 64 * torch.finfo(getattr(torch, dtype)).eps
+    del r["value_rel"]
+    assert r == {"values": 96 * 33, "value_ulps": 0.0, "discontinuities": 0}
+
+
+@pytest.mark.parametrize("error", ["slot_order", "sign", "dropped"])
+def test_kept_values_check_fails_on_a_wrong_prefix(error):
+    """The check fails where the kernel's collinear prefix is not the
+    rule's: two axes' slots exchanged, an orbit's point on the wrong side
+    of the centre (its pair exchanged), or one value lost."""
+    ndim = 8
+    g = genz.f5_c0_continuous(ndim, a=10.0, b=0.37)
+    kept, args = _kept_pool(g, 64, "float64", seed=12)
+    if error == "slot_order":
+        kept[:, [1, 2, 3, 4]] = kept[:, [3, 4, 1, 2]]
+    elif error == "sign":
+        kept[:, [1 + 2 * ndim, 2 + 2 * ndim]] = kept[:, [2 + 2 * ndim,
+                                                         1 + 2 * ndim]]
+    else:
+        kept[5, 0] = 0.0
+    with pytest.raises(AssertionError, match="kept values beyond"):
+        kernel_check.check_kept_values(kept, *args)
+
+
+def test_kept_values_check_allows_a_discontinuity_within_roundoff():
+    """A centre exactly on F6's bound on axis 0 lies inside for the
+    callable; a kernel whose coordinate rounds across it reads 0 there.
+    The check holds that value to the callable at the point moved by the
+    coordinate's rounding and counts it; a 0 at the region's point on
+    axis 0 inside the bound, far from it, still fails."""
+    ndim = 8
+    g = genz.f6_discontinuous(ndim)
+    kept, (_, tables, lows, lengths, gl, gr) = _kept_pool(g, 16, "float64",
+                                                          seed=13)
+    lows[:, 4], lengths[:, 4] = 0.0, 0.1
+    lows[0, 4], lengths[0, 4] = 0.1, 0.2       # centre 0.2, the bound b_0
+    args = (g, tables, lows, lengths, gl, gr)
+    kept = rule_eval.rule_values(g, tables, lows, lengths, gl,
+                                 gr)[:, :4 * ndim + 1].clone()
+    assert float(kept[4, 0]) > 0.0
+    kept[4, 0] = 0.0
+    r = kernel_check.check_kept_values(kept, *args)
+    assert r["discontinuities"] == 1 and r["value_ulps"] == 0.0
+    # of the two points on axis 0 the one inside lies far from the bound
+    far = 1 if float(kept[4, 1]) > 0.0 else 2
+    assert float(kept[4, far]) > 0.0
+    kept[4, far] = 0.0
+    with pytest.raises(AssertionError, match="1 of"):
+        kernel_check.check_kept_values(kept, *args)
+
+
 def _group_frac(regions, ndim, group):
     """split_frac.cuh's group_frac on the 32 lanes of a warp in groups of
     ``group`` lanes, group g holding region g of ``regions`` (kink,
@@ -194,11 +274,11 @@ def test_fused_launch_crease_arguments():
 
 
 def test_counters_name_every_fraction_route():
-    """Every kernel that computes a fraction has a counter, the scalar
-    contraction's routes map onto theirs, and ``reset_launches`` zeroes
-    them."""
+    """Every kernel that folds the fraction in has a counter, the scalar
+    contraction's routes map onto theirs, the standalone kernel has its
+    own, and ``reset_launches`` zeroes them."""
     assert set(cuda_rule.FRAC_ROUTES) == (set(cuda_rule.ROUTES) | {
-        "cluster", "contract_generic", "standalone"})
+        "cluster", "contract_generic"})
     assert set(cuda_rule.CONTRACT_FRAC_ROUTE) == set(
         cuda_rule.CONTRACT_ROUTES)
     assert set(cuda_rule.CONTRACT_FRAC_ROUTE.values()) <= set(
@@ -209,6 +289,27 @@ def test_counters_name_every_fraction_route():
     cuda_rule.reset_launches()
     assert set(cuda_rule.frac_route_launches.values()) == {0}
     assert cuda_rule.split_frac_launches == 0
+
+
+def test_route_bits_names_each_kernel():
+    """``tools/route_bits.py`` spells out the template arguments of the
+    kernels it compares between two trees, fill_padding's included, so
+    the fraction's instantiations stand beside the parent's."""
+    from gpuintegration_torch.tools.route_bits import kernel_name
+    for mangled, name in (
+            ("_Z16rule_tile_kernelILi4EdLi8ELb1EEv8RuleArgsIT0_E",
+             "rule_tile_kernel<4, double, 8, true>"),
+            ("_Z11rule_kernelILi5EfLb0EEv8RuleArgsIT0_E",
+             "rule_kernel<5, float, false>"),
+            ("_Z12fill_paddingIdLb0EEvPT_S1_PiS1_iii",
+             "fill_padding<double, false>"),
+            ("_Z12fill_paddingIfEvPT_S1_Piiii", "fill_padding<float>"),
+            ("_Z20rule_contract_kernelIdLb1EEvv",
+             "rule_contract_kernel<double, true>"),
+            ("_Z22rule_split_frac_kernelIfEvv",
+             "rule_split_frac_kernel<float>"),
+            ("plain_name", "plain_name")):
+        assert kernel_name(mangled) == name
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -41,7 +41,7 @@ def _split_counts_are_the_contraction(chunks=None):
     counts = cuda_rule.frac_route_launches
     folded = counts["cluster"] + counts["contract_generic"]
     assert cuda_rule.launches == 0 and cuda_rule.split_frac_launches == 0
-    assert counts["tile"] == counts["generic"] == counts["standalone"] == 0
+    assert counts["tile"] == counts["generic"] == 0
     assert folded == cuda_rule.split_launches["contract"] > 0
     if chunks is not None:
         assert folded == chunks
@@ -239,7 +239,7 @@ def test_contractions_fold_the_fraction(ndim, count, dtype, layout, route):
                                          route=route)
     froute = cuda_rule.CONTRACT_FRAC_ROUTE[route]
     assert cuda_rule.frac_route_launches[froute] == 1
-    assert cuda_rule.frac_route_launches["standalone"] == 1
+    assert cuda_rule.split_frac_launches == 1
     assert r["cut"] > count // 10 and r["overrides"] > count // 20
 
 

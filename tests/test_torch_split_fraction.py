@@ -249,9 +249,9 @@ def test_rule_route_takes_split_for_a_crease_run(monkeypatch):
         g = genz.f4_gaussian(ndim)
         want = "tile" if 3 <= ndim <= 8 else "generic"
         assert cuda_rule.rule_route(ndim, g) == want
-        assert cuda_rule.rule_route(ndim, g, 1, True) == want
-        assert cuda_rule.rule_route(ndim, lambda x: g(x), 1, True) == "split"
-        assert cuda_rule.rule_route(ndim, g, 2, False) == "split"
+        assert cuda_rule.rule_route(ndim, g, 1) == want
+        assert cuda_rule.rule_route(ndim, lambda x: g(x), 1) == "split"
+        assert cuda_rule.rule_route(ndim, g, 2) == "split"
     calls = []
 
     def fake_split(f, tables, lows, lengths, gl, gr, **kw):
