@@ -208,10 +208,36 @@ timed beside the others in the same run.
    reads, each traced once (``utils.profiling.trace``) for the device's
    idle share; phase 13's vector and phase 11's F4 callable through the
    fused phase against those phases' host-loop runs;
-18. the ``kernels`` JSON line, then the card line and the result line.
+18. VEGAS's device-resident phases (``mcubes/phases.py``): runs 1-3 of
+   phase 6 with 3 adjusting iterations (``FROZEN_RUNS``) in the host loop,
+   the form the frozen phase chooses and its CUDA graph (``FORMS``, pinned
+   by ``phases.FORM``) in turns, then with a frozen phase of
+   ``LONG_FROZEN`` iterations (``LONG_RUNS``) in the host loop, eager and
+   replayed: every form the host loop's status, iterations, neval and
+   estimate bits and its launch counts (counts set to 0 before and read
+   after; a replay counts what its capture recorded), walls, replays,
+   reads, the seconds of the first iteration, the capture and the rest,
+   each form traced once for the device's idle share, and the iterations
+   a capture takes to repay; then ``refine='device'`` (the adjustment
+   phase: the histogram, the f32 rebin and the poly re-fit on the card) on
+   runs 1-3 against ``refine='host'``: status 0, the truth within 5
+   errorests, and replayed from a graph the eager run's bits.  Phase 5
+   holds a launch of the sampler and of the bin resolve replayed from a
+   graph on a device counter EQUAL to launches given the iteration, phase
+   7 prints their registers;
+19. PAGANI's ``vegas_assisted`` hybrid: the in-region sampling pass on
+   the 8D initial pool on the card against the CPU, pass by pass
+   (``ASSIST_RTOL``, ``ASSIST_EDGE``);
+   ``Workspace(3)`` on F4 (a = 5) at 1e-2 (status 0, the truth within 5
+   errorests and the tolerance); ``Workspace(8).integrate(f4_gaussian(8),
+   ASSIST_EPSREL, vegas_assisted=True)`` for ``ASSIST_ITERS`` iterations,
+   printed (it certifies at no tolerance within reach; every rule
+   evaluation on the tile route), the share of the wall in the in-region
+   sampling passes;
+20. the ``kernels`` JSON line, then the card line and the result line.
 
-Phases 1-14 run the host loop (``fused=False``, ``HOST``), as they did
-before the fused phase became ``integrate``'s default.
+Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
+did before the fused phase became ``integrate``'s default.
 """
 from __future__ import annotations
 
@@ -232,11 +258,13 @@ from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
 from gpuintegration_torch.mcubes import grid as vegas_grid
 from gpuintegration_torch.mcubes import vegas as vegas_module
 from gpuintegration_torch.mcubes import kernel_check as vegas_check
+from gpuintegration_torch.mcubes import phases as vegas_phases
 from gpuintegration_torch.models import genz, misc
 from gpuintegration_torch.ops import (cuda_build, cuda_rule, kernel_check,
                                       rule_eval)
 from gpuintegration_torch.pagani import fused_loop, region_pool
-from gpuintegration_torch.tools import route_bits, sass_report, vector_probe
+from gpuintegration_torch.tools import (assisted_probe, route_bits,
+                                        sass_report, vector_probe)
 from gpuintegration_torch.types import Volume
 from gpuintegration_torch.utils.profiling import StageTimer
 
@@ -3035,6 +3063,376 @@ def folded_fraction_kernels(frac_rows, frac_launches, crease_rows,
     entries[0]["fused_phase"] = fused_rows
     return entries
 
+# ---------------------------------------------------------------------------
+# VEGAS's device-resident phases and vegas_assisted (phases 18-19)
+
+# VEGAS runs 1-3 of phase 6 (6D Genz F4, a = 25, epsabs 1e-40)
+VEGAS_RUNS = {
+    "run1": dict(epsrel=1e-3, ncall=1e8),
+    "run2": dict(epsrel=1e-3, ncall=1e9, eval_dtype=torch.float32,
+                 total_iters=10, adjust_iters=5),
+    "run3": dict(epsrel=1e-3, ncall=1e8, importance="grid"),
+}
+# the same with 3 adjusting iterations: at the default of 15, runs 1 and 3
+# converge while adjusting, and with run 2's 5 every run converges in the
+# first frozen iteration (iteration 6, the first that may), before any
+# replay
+FROZEN_RUNS = {run: dict(kw, adjust_iters=3) for run, kw in VEGAS_RUNS.items()}
+# the same with a long frozen phase that runs to its end (the length
+# simple_integrate's escalations reach): where a graph may pay
+LONG_FROZEN = 30
+LONG_RUNS = {run: dict(kw, epsrel=1e-9, adjust_iters=3,
+                       total_iters=3 + LONG_FROZEN)
+             for run, kw in VEGAS_RUNS.items()}
+# phases.FORM of each form measured: the host loop, the phase as it
+# chooses, eager and replayed
+FORMS = {"host": "host", "auto": None, "eager": "eager", "graph": "graph"}
+# 8D vegas_assisted (F4, a = 25) certifies at none of 1e-1 .. 1e-3 within
+# 60 s on an H100 (tools/assisted_probe.py): its errorest stays near the
+# truth, so a statistical hold there holds nothing.  The 8D run is printed
+# at 1e-2 for an iteration budget; the hold is the card's sampling pass
+# against the CPU's on its pool, and the statistics are held on 3D F4 at
+# a = 5 and 1e-2, which certifies.
+ASSIST_EPSREL = 1e-2
+ASSIST_ITERS = 11
+ASSIST_REGIONS = 256          # the 8D initial pool, held card against CPU
+# the sampling pass's weighted values, relative: exp's f64 roundoff at
+# arguments up to 1250 is 3e-13
+ASSIST_RTOL = 1e-12
+# its refined edges: the cumulative sums' f32 roundoff, which the rebin
+# scales by total / r_k (3.0e-5 the most on an H100)
+ASSIST_EDGE = 1e-4
+ASSIST_HELD = dict(ndim=3, a=5.0, epsrel=1e-2)
+
+
+def counter_checks(dev):
+    """Phase 5: the sampler and the bin resolve reading the iteration word
+    from a device counter as a replayed graph does: one launch on a counter
+    captured in a CUDA graph, replayed at two iterations, EQUAL
+    (torch.equal) to launches given them as host integers: the sampler at
+    phase 5's chunks (6D, 2^20 cubes, the lattice's end and the centre;
+    emit and fused F4, with and without the histogram, paired route) and at
+    9D (generic route); the bin resolve at phase 7's chunk on the sample
+    route and on the generic route."""
+    g4 = genz.f4_gaussian(VEGAS_NDIM)
+    n = 0
+    try:
+        for position in ("end", "middle"):
+            case = vegas_check.sampler_case(VEGAS_NDIM, 1e8, VEGAS_CHUNK,
+                                            position=position, device=dev)
+            for with_hist in (False, True):
+                for integrand in (None, g4):
+                    n += vegas_check.check_sampler_counter(
+                        case, integrand, with_hist=with_hist,
+                        route="paired")["samples"]
+            vegas_check.check_resolve_counter(VEGAS_NDIM, 1e8, VEGAS_CHUNK,
+                                              500, position=position)
+        case9 = vegas_check.sampler_case(9, 1e6, 4096, nbins=50, degree=8,
+                                         device=dev)
+        vegas_check.check_sampler_counter(case9, None, with_hist=True,
+                                          route="generic")
+        vegas_check.check_resolve_counter(VEGAS_NDIM, 1e8, 1 << 16, 500,
+                                          route="generic")
+    except AssertionError as e:
+        fail(str(e))
+    print(f"phase 5: device counter: the sampler (paired, {n} samples; "
+          f"generic at 9D) and the bin resolve (sample and generic) replayed "
+          f"from a graph at two iterations EQUAL to launches given them as "
+          f"host integers", flush=True)
+
+
+def vegas_registers() -> dict[str, int]:
+    """{'kernel<template arguments>': registers} of vegas_sample.cu's and
+    vegas_lookup.cu's kernels from nvcc's report
+    (``route_bits.ptxas_kernels``)."""
+    regs = {}
+    for source in ("vegas_sample.cu", "vegas_lookup.cu"):
+        log = cuda_build._target(source).with_suffix(".log").read_text()
+        regs.update({name: r for name, (r, _, _) in
+                     route_bits.ptxas_kernels(log).items()})
+    return regs
+
+
+def vegas_traced(label, kw, form):
+    """One VEGAS run in ``form`` traced by ``utils.profiling.trace``: its
+    wall, the device's busy time (kernels', copies' and memsets' self time)
+    and idle share of the wall."""
+    from torch.autograd import DeviceType
+
+    from gpuintegration_torch.utils.profiling import trace
+    g6 = genz.f4_gaussian(VEGAS_NDIM)
+    vegas_phases.FORM = FORMS[form]
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            with trace(log_dir) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mcubes.integrate(g6, epsabs=1e-40, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation]
+    finally:
+        vegas_phases.FORM = None
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    print(f"phase 18: traced, {label}: wall {wall:.4f} s traced, the device "
+          f"busy {busy:.4f} s, idle {100 * (1 - busy / wall):.1f} % of the "
+          f"wall", flush=True)
+    return {"wall_s": wall, "busy_s": busy, "idle": 1 - busy / wall}
+
+
+def vegas_phase_run(kw, form=None):
+    """One VEGAS run (6D F4, a = 25) in ``form`` (``FORMS``) with the
+    launch counts set to 0 before and read after, and the phases' stats:
+    (result, wall, counts, stats)."""
+    g6 = genz.f4_gaussian(VEGAS_NDIM)
+    vegas_phases.reset_stats()
+    vegas_phases.FORM = FORMS[form or "auto"]
+    torch.cuda.synchronize()
+    try:
+        with LaunchCounts() as clock:
+            t0 = time.perf_counter()
+            res = mcubes.integrate(g6, epsabs=1e-40, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        vegas_phases.FORM = None
+    return res, wall, clock, dict(vegas_phases.stats)
+
+
+def _bits(r):
+    return (r.status, r.iters, r.neval, r.estimate, r.errorest, r.chi_sq)
+
+
+def vegas_forms(run, kw, captures, order, traced=()):
+    """``run`` in each form of ``captures`` ({form: the captures it must
+    make}) in turns (``order``, each form twice): every form the host
+    loop's status, iterations, neval, estimate, errorest and chi^2 bits and
+    launch counts (a capture counts nothing, a replay what it recorded);
+    walls; the phases' stats; the forms of ``traced`` traced once for the
+    device's idle share.  Returns the row."""
+    forms = tuple(captures)
+    walls = {f: [] for f in forms}
+    got = {}
+    for form in order:
+        res, wall, clock, st = vegas_phase_run(kw, form)
+        walls[form].append(wall)
+        got[form] = (res, clock.launches, st)
+    host, host_launches, _ = got["host"]
+    row = {"iters": host.iters, "launches": host_launches, "forms": {}}
+    for form in forms:
+        res, launches, st = got[form]
+        same = _bits(res) == _bits(host) and launches == host_launches
+        print(f"phase 18: {run} {form}: status {res.status} iters "
+              f"{res.iters} neval {res.neval} estimate {res.estimate!r}: "
+              f"{'the host loop bits and launches' if same else 'DIFFERENT'}"
+              f" (launches {launches}, host {host_launches}); walls "
+              f"{', '.join(f'{w:.4f}' for w in walls[form])} s; phase "
+              f"captures {st['captures']}, replays {st['replays']}, eager "
+              f"{st['eager']}, reads {st['reads']}; seconds: first iteration "
+              f"{st['first_s']:.4f}, capture {st['capture_s']:.4f}, the rest "
+              f"{st['rest_s']:.4f}", flush=True)
+        if not same or st["captures"] != captures[form]:
+            fail(f"{run} {form}: differs from the host loop or made "
+                 f"{st['captures']} captures, not {captures[form]} "
+                 f"({_bits(res)} against {_bits(host)}, launches "
+                 f"{launches} against {host_launches}, stats {st})")
+        row["forms"][form] = {"walls_s": walls[form], "stats": st}
+        if form in traced:
+            row["forms"][form]["idle"] = vegas_traced(f"{run} {form}", kw,
+                                                      form)
+    return row
+
+
+def vegas_device_phases(dev):
+    """Phase 18: VEGAS runs 1-3 with 3 adjusting iterations
+    (``FROZEN_RUNS``; a frozen phase of a few iterations) in the host loop,
+    the form the phase chooses (eager: no capture) and the graph in turns
+    (host, auto, graph, graph, auto, host; the host loop and the choice
+    traced), then with a frozen phase of ``LONG_FROZEN`` iterations
+    (``LONG_RUNS``) in the host loop, eager and as the phase chooses (the
+    graph: one capture; run 1's traced): every form the host loop's bits
+    and launch counts, walls, stats, the seconds a replay saves against an
+    eager iteration and the iterations that repay a capture.  Then ``refine='device'`` (the form it
+    chooses) against ``refine='host'`` in turns on runs 1-3: status 0, the
+    truth within 5 errorests, errorest/|est| <= epsrel; and once replayed,
+    the eager run's bits.  Returns the rows."""
+    g6 = genz.f4_gaussian(VEGAS_NDIM)
+    rows = {}
+    for run, kw in FROZEN_RUNS.items():
+        rows[run] = {"short": vegas_forms(
+            run, kw, {"host": 0, "auto": 0, "graph": 1},
+            ("host", "auto", "graph", "graph", "auto", "host"),
+            traced=("host", "auto"))}
+    for run, kw in LONG_RUNS.items():
+        row = vegas_forms(f"{run} long", kw, {"host": 0, "eager": 0, "auto": 1},
+                          ("host", "eager", "auto", "auto", "eager", "host"),
+                          traced=("host", "eager", "auto") if run == "run1"
+                          else ())
+        eager, graph = row["forms"]["eager"], row["forms"]["auto"]
+        per_eager = eager["stats"]["rest_s"] / (LONG_FROZEN - 1)
+        per_replay = graph["stats"]["rest_s"] / (LONG_FROZEN - 1)
+        capture = graph["stats"]["capture_s"]
+        saved = per_eager - per_replay
+        repay = capture / saved if saved > 0 else math.inf
+        best = {f: min(v["walls_s"]) for f, v in row["forms"].items()}
+        print(f"phase 18: {run} long: an iteration after the first "
+              f"{per_eager:.5f} s eager, {per_replay:.5f} s replayed, saved "
+              f"{saved:.5f} s; capture {capture:.4f} s = "
+              f"{repay:.1f} replays (phases.GRAPH_MIN_ITERS "
+              f"{vegas_phases.GRAPH_MIN_ITERS}); best walls host "
+              f"{best['host']:.4f}, eager {best['eager']:.4f}, graph (auto) "
+              f"{best['auto']:.4f} s", flush=True)
+        row.update(per_eager_s=per_eager, per_replay_s=per_replay,
+                   capture_s=capture, repay_iters=repay, best_walls_s=best)
+        rows[run]["long"] = row
+    for run, kw in VEGAS_RUNS.items():
+        walls = {"host": [], "device": []}
+        got = {}
+        for refine in ("host", "device", "device", "host"):
+            res, wall, clock, st = vegas_phase_run(dict(kw, refine=refine))
+            walls[refine].append(wall)
+            got[refine] = (res, clock, st)
+        replayed, wall_g, _, st_g = vegas_phase_run(dict(kw, refine="device"),
+                                                    "graph")
+        for refine in ("device", "host"):
+            res, clock, st = got[refine]
+            pull = abs(res.estimate - g6.true_value) / res.errorest
+            rel = res.errorest / abs(res.estimate)
+            print(f"phase 18: {run} refine={refine!r}: status {res.status} "
+                  f"estimate {res.estimate!r} errorest {res.errorest!r} pull "
+                  f"{pull:.3f} errorest/|est| {rel:.3e} iters {res.iters} "
+                  f"neval {res.neval} walls {walls[refine][0]:.4f}, "
+                  f"{walls[refine][1]:.4f} s; phases {st}; launches "
+                  f"{clock.launches}", flush=True)
+            if refine == "device" and (res.status != 0 or not pull <= 5.0
+                                       or not rel <= kw["epsrel"]):
+                fail(f"{run} refine='device': status {res.status}, pull "
+                     f"{pull}, errorest/|est| {rel}, stats {st}")
+        same = _bits(replayed) == _bits(got["device"][0])
+        print(f"phase 18: {run} refine='device' replayed: "
+              f"{'the eager bits' if same else 'DIFFERENT'}, wall "
+              f"{wall_g:.4f} s, phases {st_g}", flush=True)
+        if not same or st_g["captures"] < 1:
+            fail(f"{run} refine='device' replayed: {_bits(replayed)} "
+                 f"against {_bits(got['device'][0])}, stats {st_g}")
+        rows[run]["refine"] = {
+            "walls_s": walls, "replayed_wall_s": wall_g,
+            "device": {"status": got["device"][0].status,
+                       "iters": got["device"][0].iters,
+                       "estimate": got["device"][0].estimate,
+                       "errorest": got["device"][0].errorest}}
+    return rows
+
+
+def assisted_slice(dev):
+    """Phase 19: the in-region sampling pass on the card against the CPU
+    on the 8D initial pool (``ASSIST_REGIONS`` regions), each of one
+    iteration's 10 passes given the same grids (the CPU's, carried from
+    pass to pass) and the same draws (bitwise the same on both): the
+    sample points EQUAL, the weighted values within ``ASSIST_RTOL``
+    relative, the refined edges within ``ASSIST_EDGE``.  Whole passes
+    chained on each side are not comparable: on this peaked integrand the
+    adaptation is chaotic, and a one-ulp change of the edges grows to
+    whole bins within four passes."""
+    from gpuintegration_torch.pagani import vegas_assisted as assisted
+    g8 = genz.f4_gaussian(NDIM)
+    lows, lengths, _ = region_pool.uniform_split(NDIM, 2, ASSIST_REGIONS)
+    ids = torch.arange(ASSIST_REGIONS)
+    f64 = torch.float64
+    lo_hi = (torch.zeros(NDIM, dtype=f64), torch.ones(NDIM, dtype=f64))
+    grids = assisted.uniform_grids(ASSIST_REGIONS, NDIM, assisted.NBINS,
+                                   "cpu")
+    worst = {"wf": 0.0, "edge": 0.0, "points_equal": True}
+    for p in range(10):
+        draws = assisted.region_draws(0, 1, p, ids, 320, NDIM)
+        u, wf, new = assisted._sample_regions_pass(
+            g8, draws, grids, lows, lengths, *lo_hi, assisted.NBINS, f64)
+        on_card = assisted._sample_regions_pass(
+            g8, assisted.region_draws(0, 1, p, ids.to(dev), 320, NDIM),
+            grids.to(dev), lows.to(dev), lengths.to(dev),
+            *(t.to(dev) for t in lo_hi), assisted.NBINS, f64)
+        uc, wfc, newc = (t.cpu() for t in on_card)
+        worst["points_equal"] &= torch.equal(u, uc)
+        worst["wf"] = max(worst["wf"], float(torch.max(
+            torch.abs(wfc - wf) / torch.clamp(torch.abs(wf), min=1e-300))))
+        worst["edge"] = max(worst["edge"], float(torch.max(
+            torch.abs(newc - new))))
+        grids = new
+    print(f"phase 19: the sampling pass, 10 passes of one iteration on the "
+          f"8D initial pool ({ASSIST_REGIONS} regions, 320 samples), card "
+          f"against CPU on the same grids and draws: points "
+          f"{'EQUAL' if worst['points_equal'] else 'DIFFERENT'}, weighted "
+          f"values within {worst['wf']:.3e} relative (held to "
+          f"{ASSIST_RTOL:g}), refined edges within {worst['edge']:.3e} (held "
+          f"to {ASSIST_EDGE:g})", flush=True)
+    if (not worst["points_equal"] or not worst["wf"] <= ASSIST_RTOL
+            or not worst["edge"] <= ASSIST_EDGE):
+        fail(f"the sampling pass: card and CPU differ ({worst})")
+    return worst
+
+
+def assisted_path(dev):
+    """Phase 19: the sampling pass on the card against the CPU on the 8D
+    pool (``assisted_slice``); ``Workspace(3).integrate(f4_gaussian(3,
+    a=5), 1e-2, vegas_assisted=True)``: status 0, the truth within 5
+    errorests and within the tolerance; then 8D at ``ASSIST_EPSREL`` for
+    ``ASSIST_ITERS`` iterations, printed (it certifies at no tolerance
+    within reach), with every rule evaluation through the tile route (the
+    rule keeps the split axes; counts set to 0 before, read after) and the
+    share of the wall in the in-region sampling passes (synchronised around
+    each call)."""
+    row = {"slice": assisted_slice(dev)}
+    g4 = genz.f4_gaussian(ASSIST_HELD["ndim"], a=ASSIST_HELD["a"])
+    t0 = time.perf_counter()
+    r4 = Workspace(ASSIST_HELD["ndim"]).integrate(
+        g4, ASSIST_HELD["epsrel"], 1e-40, vegas_assisted=True)
+    wall4 = time.perf_counter() - t0
+    pull4 = abs(r4.estimate - g4.true_value) / r4.errorest
+    rel4 = abs(r4.estimate - g4.true_value) / g4.true_value
+    print(f"phase 19: f64 {ASSIST_HELD['ndim']}D f4_gaussian vegas_assisted "
+          f"(a = {ASSIST_HELD['a']:g}) at {ASSIST_HELD['epsrel']:g}: status "
+          f"{r4.status} estimate "
+          f"{r4.estimate!r} errorest {r4.errorest!r} (errorest/truth "
+          f"{r4.errorest / g4.true_value:.3e}) rel.err {rel4:.3e} pull "
+          f"{pull4:.3f} iters {r4.iters} nregions {r4.nregions} wall "
+          f"{wall4:.3f} s", flush=True)
+    if (r4.status != 0 or not pull4 <= 5.0
+            or not rel4 <= ASSIST_HELD["epsrel"]):
+        fail(f"vegas_assisted {ASSIST_HELD['ndim']}D: status {r4.status}, "
+             f"pull {pull4}, rel.err {rel4}")
+    row["held"] = {"ndim": ASSIST_HELD["ndim"], "status": r4.status,
+                   "pull": pull4, "rel_err": rel4, "iters": r4.iters,
+                   "wall_s": wall4}
+    g8 = genz.f4_gaussian(NDIM)
+    cuda_rule.reset_launches()
+    res, wall, sampling, calls = assisted_probe.run(
+        g8, ASSIST_EPSREL, max_iterations=ASSIST_ITERS)
+    rel = abs(res.estimate - g8.true_value) / g8.true_value
+    share = sampling / wall
+    routes = dict(cuda_rule.route_launches)
+    print(f"phase 19: f64 8D f4_gaussian vegas_assisted at {ASSIST_EPSREL:g}, "
+          f"{ASSIST_ITERS} iterations at most: status {res.status} estimate "
+          f"{res.estimate!r} errorest {res.errorest!r} (errorest/truth "
+          f"{res.errorest / g8.true_value:.3e}) truth {g8.true_value!r} "
+          f"rel.err {rel:.3e} iters {res.iters} nregions {res.nregions} "
+          f"neval {res.neval} wall {wall:.3f} s, the sampling passes "
+          f"{sampling:.3f} s = {100 * share:.1f}% of it over {calls} "
+          f"iterations; rule kernel launches {cuda_rule.launches} (by route "
+          f"{routes})", flush=True)
+    if (not math.isfinite(res.estimate) or not math.isfinite(res.errorest)
+            or cuda_rule.launches == 0
+            or routes["tile"] != cuda_rule.launches):
+        fail(f"vegas_assisted 8D: estimate {res.estimate}, errorest "
+             f"{res.errorest}, rule launches {cuda_rule.launches} by route "
+             f"{routes}")
+    row.update(status=res.status, iters=res.iters,
+               errorest_over_truth=res.errorest / g8.true_value,
+               rel_err=rel, nregions=res.nregions, wall_s=wall,
+               sampling_share=share, rule_launches=cuda_rule.launches)
+    return row
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3272,10 +3670,20 @@ def main() -> int:
 
     # -- phases 5-7: VEGAS ---------------------------------------------------
     vegas_err = vegas_checks(dev)
+    counter_checks(dev)
     phase_done("phase 5")
     vegas_launches, vegas_walls = vegas_main_path(dev)
     phase_done("phase 6")
     vegas_kernels = vegas_times(dev, vegas_err, vegas_launches, vegas_walls)
+    regs = vegas_registers()
+    path_regs = {k: regs.get(k) for k in (
+        f"sample_pair_kernel<0, {VEGAS_NDIM}>",
+        f"sample_pair_kernel<4, {VEGAS_NDIM}>",
+        f"resolve_sample_kernel<{VEGAS_NDIM}, true>")}
+    print(f"phase 7: registers of the path's VEGAS kernels (each reads the "
+          f"iteration word from a device counter): {path_regs}", flush=True)
+    for entry in vegas_kernels:
+        entry["registers"] = path_regs
     phase_done("phase 7")
 
     # -- phase 8: the diff path ----------------------------------------------
@@ -3317,6 +3725,12 @@ def main() -> int:
     phase_done("phase 16")
     fused_rows = fused_main_path(dev, res, split_run, vec_run)
     phase_done("phase 17")
+
+    # -- phases 18-19: VEGAS's device-resident phases, vegas_assisted -------
+    phase_rows = vegas_device_phases(dev)
+    phase_done("phase 18")
+    assisted_row = assisted_path(dev)
+    phase_done("phase 19")
 
     # -- the kernels line ----------------------------------------------------
     kernels = [{
@@ -3449,6 +3863,8 @@ def main() -> int:
         "shapes": frac_rows["standalone"],
     }] + folded_fraction_kernels(frac_rows, frac_launches, crease_rows,
                                  fused_rows)
+    vegas_kernels[0]["vegas_phases"] = phase_rows
+    kernels[0]["vegas_assisted_run"] = assisted_row
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,11 @@
 //     thread per (sample, dimension), a 64-bit decode and a Philox block
 //     per element, a block per (range, dimension) filling that dimension's
 //     edges.
+// Drawing xn, both routes read the iteration word of the Philox counter
+// from device memory, once a thread: a launch captured in a CUDA graph then
+// draws the stream of whatever iteration the card's counter holds when the
+// graph replays (vegas's device-resident phases), and the host loop passes
+// a counter it fills with its iteration.
 //
 // Edge lookup, per element of a cube-major (N, ndim) id array:
 // (xi[d, ia-1], xi[d, ia]), ia clamped to [1, nbins].  Both outputs are
@@ -475,7 +480,10 @@ struct ResolveArgs {
   long long cube0, ncubes;
   int ndim, nbins, ng, npg;
   float dxg;           // bin units per stratification interval
-  unsigned key0, key1, iteration;
+  unsigned key0, key1;
+  const unsigned* iteration;   // drawing xn: the counter's iteration word,
+                               // in device memory (a counter a graph
+                               // advances)
   unsigned recip_ng, recip_npg;   // sample route: min(floor(2^32 / x), 2^32-1)
   int vec;             // sample route: n % 4 == 0, pointers 16-byte aligned
 };
@@ -484,6 +492,7 @@ __global__ void __launch_bounds__(kThreads)
 resolve_kernel(const ResolveArgs a) {
   extern __shared__ float s_xi[];      // (nbins + 1,) edges of dimension d
   const int d = blockIdx.y;
+  const unsigned it = a.xn ? 0u : __ldg(a.iteration);
   for (int i = threadIdx.x; i <= a.nbins; i += kThreads)
     s_xi[i] = a.xi[d * (a.nbins + 1) + i];
   __syncthreads();
@@ -513,7 +522,7 @@ resolve_kernel(const ResolveArgs a) {
           % static_cast<unsigned>(a.ng);
       const float kg = static_cast<float>(digit + 1);
       const float u = word_uniform(block_word(
-          vegas_block(cube, a.iteration, slot, d, a.key0, a.key1), d));
+          vegas_block(cube, it, slot, d, a.key0, a.key1), d));
       xn = __fadd_rn(__fmul_rn(kg - u, a.dxg), 1.0f);
     }
     int bin = static_cast<int>(xn);
@@ -569,6 +578,7 @@ template <int NDIM, bool DRAW>
 __global__ void __launch_bounds__(kThreads)
 resolve_sample_kernel(const ResolveArgs a) {
   extern __shared__ float s_edges[];   // (NDIM, nbins + 1)
+  const unsigned it = DRAW ? __ldg(a.iteration) : 0u;
   const int row = a.nbins + 1;
   for (int i = threadIdx.x; i < NDIM * row; i += kThreads) s_edges[i] = a.xi[i];
   __syncthreads();
@@ -638,8 +648,7 @@ resolve_sample_kernel(const ResolveArgs a) {
       uint4 block[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        block[k] = vegas_block(cubes[k], a.iteration, slots[k], 4 * g, a.key0,
-                               a.key1);
+        block[k] = vegas_block(cubes[k], it, slots[k], 4 * g, a.key0, a.key1);
 #pragma unroll
       for (int d = 4 * g; d < 4 * g + 4 && d < NDIM; ++d) {
         float xn[4];
@@ -858,7 +867,9 @@ extern "C" int vegas_hist_grouped_launch(
 }
 
 // Bin resolve.  xn null: the coordinates are drawn in the kernel for the
-// chunk of n / npg cubes that starts at cube0.  route 0 is the generic
+// chunk of n / npg cubes that starts at cube0, from the stream of the
+// iteration word at the device address ``iteration`` (read when the kernel
+// runs; not null).  route 0 is the generic
 // kernel on n_blocks x ndim blocks; route 1 the sample kernel (ndim 1..8,
 // n < 2^31) on n_blocks blocks, with recip_ng and recip_npg =
 // min(floor(2^32 / x), 2^32 - 1) and vec = n % 4 == 0 with every pointer
@@ -868,11 +879,11 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
                                     long long cube0, long long ncubes,
                                     int ndim, int nbins, int ng, int npg,
                                     float dxg, unsigned key0, unsigned key1,
-                                    unsigned iteration, unsigned recip_ng,
+                                    const void* iteration, unsigned recip_ng,
                                     unsigned recip_npg, int vec, int n_blocks,
                                     void* stream) {
   if (n < 1 || ndim < 1 || nbins < 1 || ng < 1 || npg < 1 || n_blocks < 1 ||
-      route < 0 || route > 1)
+      route < 0 || route > 1 || (!xn && !iteration))
     return static_cast<int>(cudaErrorInvalidValue);
   ResolveArgs a;
   a.xi = static_cast<const float*>(xi);
@@ -890,7 +901,7 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
   a.dxg = dxg;
   a.key0 = key0;
   a.key1 = key1;
-  a.iteration = iteration;
+  a.iteration = static_cast<const unsigned*>(iteration);
   a.recip_ng = recip_ng;
   a.recip_npg = recip_npg;
   a.vec = vec;

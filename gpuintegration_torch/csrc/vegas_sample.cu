@@ -64,6 +64,12 @@
 // dimensions the paired route is not compiled for and is the kernel the
 // paired route is timed against.
 //
+// Every kernel reads the iteration word of the Philox counter from device
+// memory, once a thread: a launch captured in a CUDA graph then draws the
+// stream of whatever iteration the card's counter holds when the graph
+// replays (vegas's device-resident phases), and the host loop passes a
+// counter it fills with its iteration.
+//
 // Built by ops/cuda_build.py; called through ctypes (C entry point below).
 
 #include <cuda_runtime.h>
@@ -94,7 +100,9 @@ struct SampleArgs {
   int kp4, kq4;           // paired: terms of P and q padded to fours
   unsigned recip;         // paired: min(floor(2^32 / ng), 2^32 - 1)
   float inv_ng, xjac;
-  unsigned key0, key1, iteration;
+  unsigned key0, key1;
+  const unsigned* iteration;  // the counter's iteration word, in device
+                              // memory (a counter a graph advances)
   float coeffs[kMaxNdim];  // Genz per-axis a_i
   float bounds[kMaxNdim];  // Genz per-axis b_i
   float s0, s1;
@@ -156,6 +164,7 @@ __global__ void __launch_bounds__(kThreads)
 sample_kernel(const SampleArgs a) {
   extern __shared__ float s_map[];
   __shared__ double s_part[kWarps][2];
+  const unsigned it = __ldg(a.iteration);
 
   const int ndim = a.ndim, kp = a.kp, kq = a.kq, npg = a.npg;
   for (int i = threadIdx.x; i < ndim * (kp + kq + 2); i += kThreads)
@@ -209,7 +218,7 @@ sample_kernel(const SampleArgs a) {
                         + local];
         } else {
           if ((d & 3) == 0)
-            block = vegas_block(cube, a.iteration, ps, d, a.key0, a.key1);
+            block = vegas_block(cube, it, ps, d, a.key0, a.key1);
           word = block_word(block, d);
         }
         const float u = word_uniform(word);
@@ -337,9 +346,9 @@ __device__ __forceinline__ void store_slots(V* dst, const V (&v)[2], int live,
 // first's uniforms and is dropped.
 template <int FAMILY, int NDIM>
 __device__ __forceinline__ void sample_slots(
-    const SampleArgs& a, const float* s_map, const float (&kg)[NDIM],
-    long long cube, int local, int ps, int live, long long n,
-    long long n_total, bool wide, float& fb, float& f2s) {
+    const SampleArgs& a, unsigned it, const float* s_map,
+    const float (&kg)[NDIM], long long cube, int local, int ps, int live,
+    long long n, long long n_total, bool wide, float& fb, float& f2s) {
   constexpr int S = 2;
   const int per_dim = a.kp4 + a.kq4;
   const float* s_lo = s_map + NDIM * per_dim;
@@ -365,7 +374,7 @@ __device__ __forceinline__ void sample_slots(
                       + local];
       } else {
         if ((d & 3) == 0)
-          block[k] = vegas_block(cube, a.iteration, slot, d, a.key0, a.key1);
+          block[k] = vegas_block(cube, it, slot, d, a.key0, a.key1);
         word = block_word(block[k], d);
       }
       const float u = word_uniform(word);
@@ -414,6 +423,7 @@ __global__ void __launch_bounds__(kThreads)
 sample_pair_kernel(const SampleArgs a) {
   extern __shared__ __align__(16) float s_map[];
   __shared__ double s_part[kWarps][2];
+  const unsigned it = __ldg(a.iteration);
 
   const int npg = a.npg;
   const int map_words = NDIM * (a.kp4 + a.kq4 + 2);
@@ -454,7 +464,7 @@ sample_pair_kernel(const SampleArgs a) {
 
     float fb = 0.0f, f2s = 0.0f;
     for (int ps = 0; ps < npg; ps += 2)
-      sample_slots<FAMILY, NDIM>(a, s_map, kg, cube, local, ps,
+      sample_slots<FAMILY, NDIM>(a, it, s_map, kg, cube, local, ps,
                                  min(2, npg - ps), n0 + ps, n_total, wide, fb,
                                  f2s);
     if (FAMILY != 0) {
@@ -491,18 +501,21 @@ void launch_pair(int family, const SampleArgs& a, dim3 grid, size_t smem,
 // and recip = min(floor(2^32 / ng), 2^32 - 1).  family 0 emits points (xs,
 // wt[, ia]); 1..6 fuses that Genz family (partial[, ia, f2]).  Pointers are device pointers
 // (null where a mode has no such array) except genz (34 host doubles:
-// coeffs[16], bounds[16], s0, s1; may be null for family 0).  Returns
-// cudaGetLastError() after the launch (0 on success); never synchronises.
+// coeffs[16], bounds[16], s0, s1; may be null for family 0).  ``iteration``
+// is the device address of the counter's iteration word, which the kernel
+// reads when it runs (never null).  Returns cudaGetLastError() after the
+// launch (0 on success); never synchronises.
 extern "C" int vegas_sample_launch(
     int route, int kp4, int kq4, unsigned recip, int family, int n_blocks, const void* map, const void* bits,
     void* partial, void* xs, void* wt, void* ia, void* f2,
     long long cube0, long long ncubes, int chunk_cubes, int ndim, int ng,
     int npg, int kp, int kq, int nbins, float inv_ng, float xjac,
-    unsigned key0, unsigned key1, unsigned iteration, const double* genz,
+    unsigned key0, unsigned key1, const void* iteration, const double* genz,
     void* stream) {
   if (ndim < 1 || ndim > kMaxNdim || family < 0 || family > 6 || kp < 2 ||
       kq < 1 || kq > kp || npg < 1 || chunk_cubes < 1 || n_blocks < 1 ||
-      (family != 0 && genz == nullptr) || route < 0 || route > 1)
+      (family != 0 && genz == nullptr) || route < 0 || route > 1 ||
+      iteration == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 && (kp4 < kp || kq4 < kq || kq4 > kp4 || kp4 % 4 || kq4 % 4 ||
                      kq4 < 4 || ng < 1))
@@ -531,7 +544,7 @@ extern "C" int vegas_sample_launch(
   a.xjac = xjac;
   a.key0 = key0;
   a.key1 = key1;
-  a.iteration = iteration;
+  a.iteration = static_cast<const unsigned*>(iteration);
   for (int d = 0; d < kMaxNdim; ++d) {
     a.coeffs[d] = genz ? static_cast<float>(genz[d]) : 0.0f;
     a.bounds[d] = genz ? static_cast<float>(genz[kMaxNdim + d]) : 0.0f;

@@ -104,7 +104,7 @@ def _configure(lib):
     lib.vegas_hist_grouped_launch.argtypes = [vp, vp, i, vp, vp, vp, ll, i, i,
                                               i, i, i, i, i, f, vp]
     lib.vegas_resolve_launch.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, ll,
-                                         i, i, i, i, f, u, u, u, u, u, i, i,
+                                         i, i, i, i, f, u, u, vp, u, u, i, i,
                                          vp]
     lib.vegas_edge_launch.argtypes = [i, vp, vp, vp, vp, ll, i, i, i, i, i,
                                       vp]
@@ -203,6 +203,20 @@ def hist_plan(n: int, ndim: int, nbins: int):
 _tickets: dict = {}
 
 
+def stream_tickets(dev):
+    """The grouped histogram's ticket words of the current stream on
+    ``dev``, made (zeroed) at the first call: one set per stream, since two
+    streams' launches in flight at once would count into each other's.  A
+    caller about to capture a CUDA graph on a stream calls this first, so
+    that the words exist, zeroed, outside the capture."""
+    handle = _stream(dev)
+    if (dev.index, handle) not in _tickets:
+        _tickets[dev.index, handle] = torch.zeros(HIST_CLUSTER,
+                                                  dtype=torch.int32,
+                                                  device=dev)
+    return _tickets[dev.index, handle]
+
+
 def _grouped(ia_t, f2f, nbins: int, out, base: int, accumulate: bool):
     """One grouped launch into ``out``: the histogram, or (accumulate) out
     plus it, saturating."""
@@ -210,18 +224,13 @@ def _grouped(ia_t, f2f, nbins: int, out, base: int, accumulate: bool):
     ndim, n = ia_t.shape
     is64 = f2f.dtype == torch.float64
     warps, clusters = hist_plan(n, ndim, nbins)
-    # one set of ticket words per stream: two streams' launches in flight
-    # at once would count into each other's
+    tickets = stream_tickets(dev)
     handle = _stream(dev)
-    if (dev.index, handle) not in _tickets:
-        _tickets[dev.index, handle] = torch.zeros(HIST_CLUSTER,
-                                                  dtype=torch.int32,
-                                                  device=dev)
     part = torch.empty((clusters, ndim * nbins), dtype=torch.float32,
                        device=dev)
     _check(_lib().vegas_hist_grouped_launch(
         ia_t.data_ptr(), f2f.data_ptr(), int(is64), part.data_ptr(),
-        out.data_ptr(), _tickets[dev.index, handle].data_ptr(), n, ndim,
+        out.data_ptr(), tickets.data_ptr(), n, ndim,
         nbins, base, int(accumulate), int(_aligned(n, ia_t, f2f)), warps,
         clusters, HIST_CAP, handle), "grouped histogram")
     return out
@@ -355,7 +364,7 @@ def stratified_xn_plain(ndim: int, ng: int, npg: int, nbins: int,
     if bits is None:
         bits = stream.stream_bits(seed, iteration, cube, npg, ndim)
     u = stream.bits_to_uniform(bits).reshape(npg, ndim, chunk_cubes)
-    dxg = torch.tensor(grid_step(nbins, ng), dtype=f32, device=device)
+    dxg = torch.full((), grid_step(nbins, ng), dtype=f32, device=device)
     xn = (kg[None] - u) * dxg + 1.0                              # (npg, ndim, C)
     valid = (cube < ncubes)[:, None].expand(chunk_cubes, npg).reshape(-1)
     return xn.permute(1, 2, 0).reshape(ndim, -1), valid
@@ -416,6 +425,7 @@ def _launch_resolve(xi32, xn, n, with_ia, nbins, route, cube0=0, ncubes=0,
     ia = (torch.empty((ndim, n), dtype=torch.int32, device=dev)
           if with_ia else None)
     k0, k1 = stream.seed_key(seed)
+    word = None if xn is not None else stream.counter(iteration, dev)
     if route == "sample":
         # a persistent grid: a thread per 4 samples, no more blocks than the
         # card holds at once
@@ -428,10 +438,11 @@ def _launch_resolve(xi32, xn, n, with_ia, nbins, route, cube0=0, ncubes=0,
         int(route == "sample"), xi32.data_ptr(),
         None if xn is None else xn.data_ptr(), rc.data_ptr(), xo.data_ptr(),
         None if ia is None else ia.data_ptr(), n, int(cube0), int(ncubes),
-        ndim, nbins, ng, npg, grid_step(nbins, ng), k0,
-        k1, int(iteration) & stream.MASK32, stream.decode_reciprocal(ng),
-        stream.decode_reciprocal(npg), int(_aligned(n, xn, rc, xo, ia)),
-        blocks, _stream(dev)), f"bin-resolve ({route} route)")
+        ndim, nbins, ng, npg, grid_step(nbins, ng), k0, k1,
+        None if word is None else word.data_ptr(),
+        stream.decode_reciprocal(ng), stream.decode_reciprocal(npg),
+        int(_aligned(n, xn, rc, xo, ia)), blocks, _stream(dev)),
+        f"bin-resolve ({route} route)")
     bin_resolve_launches += 1
     resolve_route_launches[route] += 1
     return rc, xo, ia
@@ -476,7 +487,9 @@ def bin_resolve_stratified(xi32, nbins: int, ng: int, npg: int,
     """``bin_resolve_stratified_plain`` on a CPU grid.  On a CUDA grid one
     kernel launch (by ``route``, as ``bin_resolve``) that draws xn itself
     and keeps it out of memory; given ``bits`` (the parity hook), xn is
-    formed in plain PyTorch and resolved by the kernel."""
+    formed in plain PyTorch and resolved by the kernel.  ``iteration``: a
+    host integer or a 0-d int64 counter on the grid's device
+    (``stream.counter``), whose value the kernel reads when it runs."""
     if xi32.device.type == "cuda" and bits is None:
         return _launch_resolve(xi32, None, chunk_cubes * npg, with_ia, nbins,
                                route, cube0, ncubes, ng, npg, seed,

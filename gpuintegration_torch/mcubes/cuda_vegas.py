@@ -86,8 +86,8 @@ def _configure(lib):
     fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_uint]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 2 + [ctypes.c_uint] * 3
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_float] * 2 + [ctypes.c_uint] * 2
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
 
 
@@ -188,7 +188,7 @@ def _cheb_joint(p, q, t):
 def sample_chunk_plain(pmap: PolyMap, integrand, ng: int, npg: int,
                        chunk_cubes: int, nbins: int, with_hist: bool,
                        xjac: float, cube0: int, ncubes: int, seed: int,
-                       iteration: int, *, bits=None,
+                       iteration, *, bits=None,
                        emit_points: bool = False):
     """The kernel's function in plain PyTorch, operation for operation in
     f32 (unfused: the kernel's multiply-adds round once, these twice).
@@ -248,7 +248,7 @@ def n_blocks(chunk_cubes: int) -> int:
 
 def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
                  chunk_cubes: int, nbins: int, with_hist: bool, xjac: float,
-                 cube0: int, ncubes: int, seed: int, iteration: int, *,
+                 cube0: int, ncubes: int, seed: int, iteration, *,
                  bits=None, emit_points: bool = False,
                  route: str | None = None):
     """One chunk of ``chunk_cubes`` sub-cubes, global ids ``cube0``...,
@@ -266,7 +266,10 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
 
     ``bits``: (npg * ndim, chunk_cubes) int32 words to take the uniforms
     from, row slot * ndim + d; None draws the Philox stream of
-    (seed, iteration)."""
+    (seed, iteration).  ``iteration``: a host integer or a 0-d int64 counter
+    on the map's device (``stream.counter``), whose value the kernel reads
+    when it runs, so a captured CUDA graph replays it on whatever iteration
+    the card's counter holds; the same words either way."""
     global launches
     dev = pmap.table.device
     if dev.type == "cpu":
@@ -329,6 +332,7 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
         return None if t is None else t.data_ptr()
 
     k0, k1 = stream.seed_key(seed)
+    word = stream.counter(iteration, dev)
     gp = None if genz is None else genz.ctypes.data_as(ctypes.c_void_p)
     kp4, kq4 = padded_terms(kp, kq)
     if route == "paired":
@@ -346,8 +350,7 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
         ptr(xs), ptr(wt), ptr(ia), ptr(f2), int(cube0), int(ncubes),
         chunk_cubes, ndim, ng, npg, kp, kq, nbins,
         float(np.float32(1.0 / ng)), float(np.float32(xjac)), k0, k1,
-        int(iteration) & stream.MASK32, gp,
-        torch.cuda.current_stream(dev).cuda_stream)
+        word.data_ptr(), gp, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA sampler kernel ({route} route) launch "
                            f"failed: error {rc}")

@@ -600,3 +600,96 @@ def check_edge_routes(ndim: int, cubes: int, npg: int, nbins: int, *,
                 "edges differ between the routes")
     return {"samples": got[routes[0]][0].numel() // ndim, "routes": routes,
             "max_abs": 0.0}
+
+
+def _equal_outputs(label, got, want, names):
+    for name, a, b in zip(names, got, want):
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            diff = "one is missing" if a is None or b is None else (
+                f"{int((a != b).sum())} of {a.numel()} differ")
+            raise AssertionError(f"{label}: {name}: {diff}")
+
+
+def _replayed(launch, counter, iterations):
+    """The outputs of ``launch(counter)`` with the 0-d counter filled with
+    each of ``iterations``: on the card ONE launch captured in a CUDA graph
+    and replayed after each fill (its outputs cloned), as the device-resident
+    phases replay it; on the CPU a call a fill."""
+    out = []
+    if counter.device.type != "cuda":
+        for it in iterations:
+            counter.fill_(it)
+            out.append(launch(counter))
+        return out
+    launch(counter)     # builds and configures outside the capture
+    side = torch.cuda.Stream(device=counter.device)
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        static = launch(counter)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for it in iterations:
+        counter.fill_(it)
+        graph.replay()
+        out.append(tuple(None if t is None else t.clone() for t in static))
+    return out
+
+
+def check_sampler_counter(case, integrand=None, *, with_hist: bool,
+                          seed: int = 0, iteration: int = 1,
+                          route: str | None = None):
+    """The sampler reading the iteration word from a device counter as a
+    replayed graph does: one launch on a counter, captured and replayed
+    after the counter is set to ``iteration`` and then ``iteration + 1``,
+    EQUAL (``torch.equal``) in every output to a launch given each
+    iteration as a host integer, on one chunk.  Emit mode when
+    ``integrand`` is None, else fused with that Genz family."""
+    pmap = case["pmap"]
+    named = {} if route is None else {"route": route}
+
+    def launch(it):
+        return cuda_vegas.sample_chunk(
+            pmap, integrand, case["ng"], case["npg"], case["chunk_cubes"],
+            case["nbins"], with_hist, case["xjac"], case["cube0"],
+            case["ncubes"], seed, it, emit_points=integrand is None, **named)
+
+    names = ("xs", "wt", "ia") if integrand is None else ("sums", "ia", "f2")
+    counter = torch.zeros((), dtype=torch.int64, device=pmap.table.device)
+    label = (f"sampler {'emit' if integrand is None else integrand.name} "
+             f"hist={with_hist} device counter")
+    its = (iteration, iteration + 1)
+    for it, got in zip(its, _replayed(launch, counter, its)):
+        _equal_outputs(f"{label} at iteration {it}", got, launch(it), names)
+    return {"samples": case["chunk_cubes"] * case["npg"], "equal": True}
+
+
+def check_resolve_counter(ndim: int, ncall: float, chunk_cubes: int,
+                          nbins: int, *, seed: int = 0, iteration: int = 1,
+                          position: str = "end", route: str | None = None,
+                          device="cuda"):
+    """The bin resolve drawing xn from a device counter as a replayed graph
+    does (``check_sampler_counter``'s check): rc, xo and ia EQUAL to
+    launches given the iterations as host integers; on the chunk at
+    ``position`` ('end': the last chunk shifted beyond the lattice's
+    end)."""
+    ng, ncubes = V.compute_ncubes(ncall, ndim)
+    npg = V.samples_per_cube(ncall, ncubes)
+    chunk_cubes = min(chunk_cubes, ncubes)
+    cube0 = _chunk_start(ng, ndim, ncubes, chunk_cubes, position)
+    xi32 = torch.as_tensor(random_grid(ndim, nbins, seed), dtype=torch.float32,
+                           device=device)
+    counter = torch.zeros((), dtype=torch.int64, device=xi32.device)
+
+    def launch(it):
+        return cuda_lookup.bin_resolve_stratified(
+            xi32, nbins, ng, npg, chunk_cubes, cube0, ncubes, seed, it,
+            with_ia=True, route=route)
+
+    its = (iteration, iteration + 1)
+    for it, got in zip(its, _replayed(launch, counter, its)):
+        _equal_outputs(f"bin_resolve drawing xn, device counter, iteration "
+                       f"{it}", got, launch(it), ("rc", "xo", "ia"))
+    return {"samples": chunk_cubes * npg, "equal": True}

@@ -15,11 +15,14 @@ tensor functions here are the plain PyTorch chunk body's.
 
 The adaptation loop is unchanged: the f^2 histogram is still accumulated
 in s-bins and refined with the standard smoothing+rebin; each iteration
-re-fits the polynomial from the refined grid, on the host in NumPy (bit
-for bit the JAX package's fit).  The device re-fit of ``refine='device'``
-(``fit_importance_poly_device``) is not ported yet.
+re-fits the polynomial from the refined grid: on the host in NumPy
+(``fit_importance_poly``, bit for bit the JAX package's fit), or, under
+``refine='device'``, on the device as one fixed linear map
+(``fit_importance_poly_device``, equal to the host fit to lstsq roundoff).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -63,6 +66,85 @@ def fit_importance_poly(xi: np.ndarray, degree: int = DEFAULT_DEGREE):
         p_list.append(p_coef)
         q_list.append(cheb.coef / np.sqrt(norm))
     return np.stack(p_list), np.stack(q_list)
+
+
+@functools.lru_cache(maxsize=8)
+def _fit_tables(nbins: int, degree: int):
+    """NumPy constants that make the Chebyshev fit a LINEAR map, built
+    through numpy.polynomial so the convention (domain [0,1], window
+    [-1,1], integration scaling) is the host fit's by definition:
+
+    * PINV (kq, nbins): pseudo-inverse of the Chebyshev pseudo-Vandermonde
+      at the bin midpoints; ``PINV @ q`` is the least-squares fit;
+    * SQ (kq, kq, kq2): the product tensor T_i T_j = (T_{i+j} +
+      T_{|i-j|}) / 2, which squares a series;
+    * INTEG (kp, kq2): the antiderivative map, domain scaling included;
+    * E0, E1 (kp,): evaluation at s = 0 and s = 1.
+
+    Cached as NumPy; ``fit_tables`` holds them as device tensors."""
+    C = np.polynomial.chebyshev
+    kq = degree + 1
+    kq2 = 2 * degree + 1
+    kp = kq2 + 1
+    s_mid = (np.arange(nbins) + 0.5) / nbins
+    V = C.chebvander(2.0 * s_mid - 1.0, degree)          # (nbins, kq)
+    pinv = np.linalg.pinv(V)                             # (kq, nbins)
+    sq = np.zeros((kq, kq, kq2))
+    for i in range(kq):
+        for j in range(kq):
+            sq[i, j, i + j] += 0.5
+            sq[i, j, abs(i - j)] += 0.5
+    integ = np.zeros((kp, kq2))
+    for k in range(kq2):
+        e = np.zeros(kq2)
+        e[k] = 1.0
+        col = C.Chebyshev(e, domain=[0.0, 1.0]).integ().coef
+        integ[:len(col), k] = col
+    e0 = np.array([C.Chebyshev(np.eye(kp)[k], domain=[0.0, 1.0])(0.0)
+                   for k in range(kp)])
+    e1 = np.array([C.Chebyshev(np.eye(kp)[k], domain=[0.0, 1.0])(1.0)
+                   for k in range(kp)])
+    return pinv, sq, integ, e0, e1
+
+
+_device_tables: dict = {}
+
+
+def fit_tables(nbins: int, degree: int, device) -> tuple:
+    """``_fit_tables`` as f64 tensors on ``device``, copied there once per
+    (nbins, degree, device): a caller about to capture a CUDA graph
+    calls this first, since a host-to-device copy inside a capture breaks
+    it."""
+    device = torch.device(device)
+    key = (nbins, degree, device.type, device.index)
+    if key not in _device_tables:
+        _device_tables[key] = tuple(
+            torch.as_tensor(m, dtype=torch.float64, device=device)
+            for m in _fit_tables(nbins, degree))
+    return _device_tables[key]
+
+
+def fit_importance_poly_device(xi, degree: int = DEFAULT_DEGREE):
+    """The device twin of ``fit_importance_poly``: the same fit as one small
+    f64 product and fixed bilinear and linear maps (``_fit_tables``), with
+    no host read, so it runs inside a captured adjustment iteration.
+    Equal to the host fit to lstsq roundoff (~1e-12 on the coefficients).
+
+    xi: (ndim, nbins+1) tensor (any float dtype).
+    Returns (p (ndim, 2*degree+2), q (ndim, degree+1)) f64 on xi's device."""
+    ndim, nbp1 = xi.shape
+    nbins = nbp1 - 1
+    pinv, sq, integ, e0, e1 = fit_tables(nbins, degree, xi.device)
+    w = torch.diff(xi.to(torch.float64), dim=1) * nbins
+    q = torch.sqrt(torch.clamp(w, min=1e-30))            # (ndim, nbins)
+    cheb = q @ pinv.T                                    # (ndim, kq)
+    q2 = torch.einsum("di,dj,ijk->dk", cheb, cheb, sq)
+    P = q2 @ integ.T                                     # (ndim, kp)
+    p0 = P @ e0
+    norm = P @ e1 - p0
+    p = P / norm[:, None]
+    p[:, 0] -= p0 / norm
+    return p, cheb / torch.sqrt(norm)[:, None]
 
 
 def clenshaw(coeff_row, k: int, t):

@@ -58,13 +58,20 @@ def seed_key(seed: int) -> tuple[int, int]:
     return seed & MASK32, seed >> 32
 
 
-def stream_bits(seed: int, iteration: int, cube_ids, npg: int, ndim: int):
+def stream_bits(seed: int, iteration, cube_ids, npg: int, ndim: int):
     """The stream's words for cubes ``cube_ids`` ((C,) int64) in absolute
     iteration ``iteration``: (npg * ndim, C) int64 in [0, 2^32), row
-    ``slot * ndim + d`` the word of coordinate d of sample slot ``slot``."""
+    ``slot * ndim + d`` the word of coordinate d of sample slot ``slot``.
+    ``iteration`` is a host integer or a 0-d integer tensor whose value the
+    card holds (a counter a captured graph advances; no host read); both
+    give the same words."""
     k0, k1 = seed_key(seed)
     c0, c1 = cube_ids & MASK32, cube_ids >> 32
-    c2 = torch.full_like(cube_ids, int(iteration) & MASK32)
+    if isinstance(iteration, torch.Tensor):
+        c2 = (iteration.to(device=cube_ids.device, dtype=torch.int64)
+              & MASK32).expand_as(cube_ids)
+    else:
+        c2 = torch.full_like(cube_ids, int(iteration) & MASK32)
     rows = []
     for slot in range(npg):
         for b in range(-(-ndim // 4)):
@@ -73,6 +80,23 @@ def stream_bits(seed: int, iteration: int, cube_ids, npg: int, ndim: int):
                                k0, k1)
             rows.extend(words[:min(4, ndim - 4 * b)])
     return torch.stack(rows)
+
+
+def counter(iteration, dev):
+    """The 0-d int64 counter on ``dev`` whose low 32 bits the kernels read
+    as the iteration word (the first four bytes on the little-endian card):
+    ``iteration`` itself when it is such a tensor (a counter a captured
+    graph advances), else a new one filled with the host integer (a fill,
+    no host-to-device copy)."""
+    if not isinstance(iteration, torch.Tensor):
+        return torch.full((), int(iteration) & MASK32, dtype=torch.int64,
+                          device=dev)
+    if (iteration.device != dev or iteration.dim() != 0
+            or iteration.dtype != torch.int64):
+        raise ValueError(f"iteration: a host integer or a 0-d int64 tensor "
+                         f"on {dev}, not {iteration.dtype} "
+                         f"{tuple(iteration.shape)} on {iteration.device}")
+    return iteration
 
 
 def bits_to_uniform(bits):

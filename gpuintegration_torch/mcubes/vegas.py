@@ -13,23 +13,29 @@ vegas_kernelF:492-619).
                                                    kernel (mcubes/cuda_lookup.py)
   atomicAdd of block-reduced fb/f2b             -> ordered f64 block sums
   host-side xi/d round trip + smoothing + rebin -> the same, in NumPy
-                                                   (mcubes/grid.py)
+                                                   (mcubes/grid.py), or on
+                                                   the device in f32
+                                                   (refine='device')
 
 The cube axis is processed in chunks of ``chunk_cubes`` cubes by a Python
 loop, so device memory is bounded by the chunk size whatever ``ncall`` is.
-An iteration accumulates (ti, tsi) and the histogram on the device and is
-read by the host once, in one transfer.
+An iteration of the host loop accumulates (ti, tsi) and the histogram on
+the device and is read by the host once, in one transfer.
 
-One device, host-refined grid.  A vector-valued integrand, f: (..., ndim)
--> (..., ncomp), runs on both maps and the 'torch' and 'hybrid' samplers:
-(ncomp,) accumulators, the grid adapted to component 0 (CUBA's
-multi-component VEGAS), status 0 only when every component passes.  Not
-ported yet, each raising NotImplementedError: ``mesh=`` (ROADMAP A16),
-``refine='device'`` (A13).  The reference's device-resident
-multi-iteration phases (``_frozen_phase``, ``_adjust_phase``) hide a
-dispatch latency of its remote runtime; frozen iterations here run through
-the same host loop with the histogram off, which is iteration-equivalent
-(ROADMAP A10 holds the fused form).
+The frozen iterations, and under ``refine='device'`` the adjusting ones
+too, run as the reference's device-resident phases (``_frozen_phase``,
+``_adjust_phase``; mcubes/phases.py): the iteration-weighted combination
+and the convergence test stay on the device, and on the card a phase
+expected to run long replays one iteration as a CUDA graph.  A frozen
+phase gives the host loop's iterations, neval and estimate bits; with a
+``debug_logger`` (as in the reference) every iteration runs through the
+host loop.
+
+One device.  A vector-valued integrand, f: (..., ndim) -> (..., ncomp),
+runs on both maps and the 'torch' and 'hybrid' samplers: (ncomp,)
+accumulators, the grid adapted to component 0 (CUBA's multi-component
+VEGAS), status 0 only when every component passes.  Not ported yet:
+``mesh=`` (ROADMAP A16), which raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,10 +48,10 @@ import torch
 from gpuintegration_torch.integrand import deduce_ncomp, make_integrand
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
 from gpuintegration_torch.mcubes import grid as vgrid
-from gpuintegration_torch.mcubes import stream
+from gpuintegration_torch.mcubes import phases, stream
 from gpuintegration_torch.mcubes.cuda_lookup import HIST_CAP as _HIST_CAP
 from gpuintegration_torch.mcubes.poly_importance import (
-    eval_map_and_weight, fit_importance_poly)
+    eval_map_and_weight, fit_importance_poly, fit_importance_poly_device)
 from gpuintegration_torch.ops import cuda_rule
 from gpuintegration_torch.types import IntegrationResult, Volume
 from gpuintegration_torch.utils.stats import chi2_prob
@@ -176,14 +182,16 @@ def _vegas_iteration(
     unbiased as long as coordinates and weight derive from the SAME table
     values.  ``eval_dtype``: type the integrand is EVALUATED in
     (accumulators stay in ``dtype``).  ``iteration`` is the absolute
-    iteration index of the stream; ``bits`` ((npg*ndim, chunk_cubes) words,
+    iteration index of the stream: a host integer, or a 0-d integer tensor
+    on the grid's device (the device-resident phases' counter, which the
+    kernels read on the card); ``bits`` ((npg*ndim, chunk_cubes) words,
     single-chunk iterations only) replaces the stream.
     """
     ed = eval_dtype or dtype
     f32 = torch.float32
     dev = xi.device
     xi32 = xi.to(f32).contiguous()
-    xnd32 = torch.tensor(float(nbins), dtype=f32, device=dev)
+    xnd32 = torch.full((), float(nbins), dtype=f32, device=dev)
     sums = torch.zeros((2,) + ((ncomp,) if ncomp > 1 else ()), dtype=dtype,
                        device=dev)
     d = torch.zeros((ndim, nbins), dtype=f32, device=dev)
@@ -444,7 +452,26 @@ def vegas(
     ``dtype``.  Sample coordinates are f32-granular on every path.
 
     ``refine``: 'host' refines the grid in exact-f64 NumPy every adjustment
-    iteration (vegasT.cuh:797-846 round trip).  'device' is not ported.
+    iteration (vegasT.cuh:797-846 round trip).  'device' runs every
+    adjustment iteration in the device-resident adjustment phase
+    (mcubes/phases.py): the same streams, combination and convergence test,
+    the grid rebinned in f32 on the device
+    (``pagani.vegas_assisted._refine_grids``) and, for the poly map, p and
+    q re-fitted there (``fit_importance_poly_device``); the grid evolves in
+    f32, which moves variance only (any monotone map is unbiased).  The
+    grid leaves the phase cast to ``dtype``; the frozen phase's map is
+    fitted on the host from it.  It refuses ``debug_logger``.
+
+    The frozen iterations run as the device-resident frozen phase
+    (mcubes/phases.py), as the reference's do unless ``debug_logger`` is
+    given, which runs every iteration through the host loop: one read an
+    iteration either way, the host loop's iterations, neval and estimate
+    bits.  On the card a phase expected to run ``phases.GRAPH_MIN_ITERS``
+    more iterations after its first replays one iteration as a CUDA graph,
+    the kernels reading the iteration from a counter on the card
+    (``sampler='torch'`` never captures).  An integrand that a graph cannot
+    hold (one that reads the card from the host) then raises RuntimeError;
+    pass ``sampler='torch'``.
 
     ``sampler`` (importance='poly'), with the reference's names beside:
     'torch' = the reference's 'xla', the plain PyTorch chunk body;
@@ -477,10 +504,9 @@ def vegas(
             "(ROADMAP A16)")
     if refine not in ("host", "device"):
         raise ValueError(f"refine {refine!r}: 'host' or 'device'")
-    if refine == "device":
-        raise NotImplementedError(
-            "vegas(refine='device') is not ported to gpuintegration_torch "
-            "yet (ROADMAP A13); refine='host' is the default")
+    if refine == "device" and debug_logger is not None:
+        raise ValueError("refine='device' fuses the adjustment phase; "
+                         "per-iteration capture needs refine='host'")
     dev = _resolve_device(device)
     if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"dtype {dtype} (float64 or float32)")
@@ -533,10 +559,81 @@ def vegas(
     res = IntegrationResult(status=1)
     tgral = sd = chi2a = 0.0 if ncomp == 1 else np.zeros(ncomp)
 
+    def iterate(word, accumulate_hist, xi_t, p_t, q_t):
+        """One iteration on the stream of counter ``word`` (the phases')."""
+        if importance == "poly":
+            return _vegas_iteration_poly(
+                f, integrand, ndim, ng, npg, chunk_cubes, num_chunks, nbins,
+                accumulate_hist, dtype, seed, word, p_t, q_t, regn_lo, dx,
+                xjac, ncubes, eval_dtype=ed, sampler=sampler, ncomp=ncomp)
+        return _vegas_iteration(
+            f, ndim, ng, npg, chunk_cubes, num_chunks, nbins, accumulate_hist,
+            dtype, seed, word, xi_t, regn_lo, dx, xjac, ncubes, eval_dtype=ed,
+            plain=sampler == "torch", ncomp=ncomp)
+
+    def refit(xi32):
+        p, q = fit_importance_poly_device(xi32.to(torch.float64),
+                                          poly_degree)
+        return p.to(torch.float32), q.to(torch.float32)
+
+    phase_kw = dict(capture=dev.type == "cuda" and sampler != "torch",
+                    dv2g=dv2g, skip_iters=skip_iters, epsrel=epsrel,
+                    epsabs=epsabs)
+
+    def run_phase(phase, end_it, **maps):
+        """A device-resident phase from iteration ``it``: the run's counts
+        and accumulators advanced as the host loop's would be."""
+        nonlocal it, si, swgt, schi, tgral, sd, chi2a
+        it_next, si_a, swgt_a, schi_a, done, xi_out = phase.run(
+            it, end_it, it_offset, si, swgt, schi, **maps)
+        res.neval += int(calls) * (it_next - it)
+        res.iters += it_next - it
+        it = it_next
+        if ncomp == 1:
+            si, swgt, schi = float(si_a[0]), float(swgt_a[0]), float(
+                schi_a[0])
+        else:
+            si, swgt, schi = si_a, swgt_a, schi_a
+        if it - 1 > skip_iters:
+            # the host loop's readout of its last accumulating iteration
+            tgral = si / swgt
+            chi2a = np.maximum(
+                (schi - si * tgral)
+                / max(acc_prior + it - 1 - skip_iters - 0.9999, 1e-4), 0.0)
+            sd = np.sqrt(1.0 / swgt)
+        res.status = 0 if done else 1
+        return xi_out
+
     it = 1
+    if refine == "device" and min(adjust_iters, total_iters) > 0:
+        xi32 = run_phase(
+            phases.Phase(iterate, adjust=True, label="adjustment",
+                         refit=refit if importance == "poly" else None,
+                         **phase_kw),
+            min(adjust_iters, total_iters),
+            xi=torch.as_tensor(xi, dtype=torch.float32, device=dev))
+        xi = vgrid.as_numpy(xi32.to(dtype))
+
     while it <= total_iters and res.status == 1:
         adjusting = it <= adjust_iters
+        if (not adjusting and debug_logger is None
+                and phases.FORM != "host"):
+            # the remaining iterations in the device-resident frozen phase
+            if importance == "poly":
+                p_np, q_np = fit_importance_poly(xi, poly_degree)
+                maps = {"p": torch.as_tensor(p_np, dtype=torch.float32,
+                                             device=dev),
+                        "q": torch.as_tensor(q_np, dtype=torch.float32,
+                                             device=dev)}
+            else:
+                maps = {"xi": torch.as_tensor(xi, dtype=dtype, device=dev)}
+            run_phase(phases.Phase(iterate, adjust=False, **phase_kw),
+                      total_iters, **maps)
+            break
         stream_it = it_offset + it      # fresh streams on resume
+        if dev.type == "cuda":
+            # the kernels read the iteration word from a counter on the card
+            stream_it = stream.counter(stream_it, dev)
         if importance == "poly":
             p_np, q_np = fit_importance_poly(xi, poly_degree)
             sums, d = _vegas_iteration_poly(

@@ -25,7 +25,9 @@ Below the classifier's gate the loop runs device-resident bursts of whole
 iterations (``pagani/fused_loop.py``; on the card CUDA graphs), the
 reference's ``fused=True`` default.  ``crease_split`` cuts regions at a
 detected kink or jump (``rule_eval.split_fraction``), ``predict_split``
-holds classification back for the first 15 iterations.
+holds classification back for the first 15 iterations, ``vegas_assisted``
+overwrites each region's rule estimate with an in-region VEGAS estimate
+(``pagani/vegas_assisted.py``).
 
 ``integrate_to_convergence`` carries deep tolerances past one run's pool
 wall: checkpoint-resume rounds, then a partitioned continuation over
@@ -44,7 +46,8 @@ import torch
 
 from gpuintegration_torch.integrand import deduce_ncomp, make_integrand
 from gpuintegration_torch.ops import rule_eval
-from gpuintegration_torch.pagani import fused_loop, region_pool, two_level
+from gpuintegration_torch.pagani import (fused_loop, region_pool, two_level,
+                                         vegas_assisted as assisted)
 from gpuintegration_torch.pagani.classifier import HeuristicClassifier
 from gpuintegration_torch.types import IntegrationResult, Volume
 from gpuintegration_torch.utils.checkpoint import (
@@ -282,6 +285,9 @@ class Workspace:
         initial_regions: tuple | None = None,
         predict_split: bool = False,
         vegas_assisted: bool = False,
+        vegas_passes: int = 10,
+        vegas_samples_per_pass: int = 320,
+        seed: int = 0,
         fused: bool = True,
         ledger: tuple | None = None,
         finish_epsrel_scale: float = 1.0,
@@ -341,15 +347,20 @@ class Workspace:
         in ``last_snapshot`` = (lows, lengths, n, blocked).  It runs the
         host loop throughout.  Scalar integrands only.
 
-        ``vegas_assisted`` is not ported yet and raises
-        NotImplementedError.
+        ``vegas_assisted``: the reference's PAGANI+VEGAS hybrid
+        (Phases.cuh:479-518, Sample.cuh:292-729): each iteration keeps the
+        rule's bisection dimension but overwrites every region's estimate
+        and error with an in-region adaptive Monte Carlo result,
+        ``vegas_passes`` passes of ``vegas_samples_per_pass`` samples on a
+        per-region grid of 100 bins a dimension
+        (``vegas_assisted.vegas_assisted_estimates``), the draws keyed on
+        (``seed``, iteration, pass, region slot).  Regions are sampled
+        ``chunk_size`` at a time, the real slots only.  It runs the host
+        loop throughout.  Scalar integrands only; it refuses
+        ``crease_split``.
         """
         if crease_split and vegas_assisted:
             raise ValueError(_CREASE_SCALAR_ONLY)
-        if vegas_assisted:
-            raise NotImplementedError(
-                "vegas_assisted=True is not ported to gpuintegration_torch "
-                "yet (ROADMAP A13)")
         if not (0.0 < finish_epsrel_scale <= 1.0):
             raise ValueError("finish_epsrel_scale must be in (0, 1]")
         if finish_abs_per_vol < 0.0:
@@ -365,6 +376,10 @@ class Workspace:
         ncomp = deduce_ncomp(f, ndim, dtype, device)
         if crease_split and ncomp > 1:
             raise ValueError(_CREASE_SCALAR_ONLY)
+        if ncomp > 1 and vegas_assisted:
+            raise ValueError(
+                "vector-valued integrands refuse vegas_assisted (a scalar "
+                "per-region Monte Carlo overwrite, Phases.cuh:479-518)")
         if ncomp > 1 and predict_split:
             raise ValueError(
                 "vector-valued integrands refuse predict_split (a scalar "
@@ -402,7 +417,20 @@ class Workspace:
 
         apv = finish_abs_per_vol if finish_abs_per_vol > 0.0 else None
         phase = None
-        if fused and not predict_split:
+        assist = None
+        if vegas_assisted:
+            def assist(lows, lengths, n, blocked, it):
+                """The rule's estimates of the pool's real slots overwritten
+                by the in-region VEGAS estimates of iteration ``it``."""
+                cap = lows.shape[1]
+                ranges = ([(0, n // 2), (cap // 2, cap // 2 + n // 2)]
+                          if blocked else [(0, n)])
+                return assisted.vegas_assisted_estimates(
+                    f, ndim, vegas_passes, vegas_samples_per_pass,
+                    assisted.NBINS, dtype, seed, it, lows, lengths,
+                    global_lo, global_range, chunk=self.chunk_size,
+                    ranges=ranges)
+        if fused and not predict_split and not vegas_assisted:
             phase = self._fused_phase(
                 integrand, tables, global_lo, global_range, ncomp=ncomp,
                 with_split_frac=crease_split,
@@ -420,7 +448,7 @@ class Workspace:
                 integrand, epsrel, epsabs, eps_work, apv, global_lo,
                 global_range, tables, lows, lengths, n, cap,
                 relerr_classification, max_iterations, ledger, deadline,
-                phase, crease_split, predict_split)
+                phase, crease_split, predict_split, assist)
         finally:
             if phase is not None:
                 phase.close()
@@ -429,6 +457,7 @@ class Workspace:
         self, integrand, epsrel, epsabs, eps_work, apv, global_lo,
         global_range, tables, lows, lengths, n, cap, relerr_classification,
         max_iterations, ledger, deadline, phase, crease_split, predict_split,
+        assist=None,
     ) -> IntegrationResult:
         """The adaptive loop of a scalar integrand from its initial pool:
         the reference's host loop (Workspace.cuh:148-358), with the fused
@@ -539,6 +568,10 @@ class Workspace:
                 n, blocked, 1, crease_split)
             est_raw, err_raw, sdim = eval_out[:3]
             sfrac = eval_out[3] if crease_split else None
+            if assist is not None:
+                # the hybrid: the rule's split axes, the in-region VEGAS
+                # estimates (reference: Sample.cuh:726-727)
+                est_raw, err_raw = assist(lows, lengths, n, blocked, it)
             est, refined, active, scalars_d = iteration_math(
                 effective_relerr, blocked, est_raw, err_raw, n,
                 parent_est, use_refine, eps_work,
@@ -930,8 +963,8 @@ class Workspace:
         ``utils.checkpoint.ContinuationState`` (atomically); a later call
         with the same path resumes its queue exactly, and certification
         removes the file.  ``kw`` goes to ``integrate`` (``fused``,
-        ``crease_split`` and ``predict_split`` with it, into every round and
-        slice; ``vegas_assisted`` raises as there).  A vector integrand
+        ``crease_split``, ``predict_split`` and ``vegas_assisted`` with it,
+        into every round and slice).  A vector integrand
         continues the same way on (ncomp,)
         ledgers and (n, ncomp) stashes: slices sorted by each region's
         worst component, every component banked and certified, the

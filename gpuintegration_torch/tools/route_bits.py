@@ -1,18 +1,19 @@
-"""The rule kernels' build and bits, for comparing two checkouts.
+"""The kernels' build and bits, for comparing two checkouts.
 
     python3 gpuintegration_torch/tools/route_bits.py
 
-Builds csrc/rule_eval.cu, rule_split.cu and split_frac.cu of the
-``gpuintegration_torch`` package that ``import`` finds (run it with
-``PYTHONPATH`` set to another checkout's root to read that one), prints
-each kernel's registers, spill bytes and stack frame from nvcc's
-``-Xptxas -v`` report,
-and runs the PAGANI main path,
+Builds csrc/rule_eval.cu, rule_split.cu, split_frac.cu, vegas_sample.cu and
+vegas_lookup.cu of the ``gpuintegration_torch`` package that ``import``
+finds (run it with ``PYTHONPATH`` set to another checkout's root to read
+that one), prints each kernel's registers, spill bytes and stack frame
+from nvcc's ``-Xptxas -v`` report, and runs the PAGANI main path,
 ``Workspace(8).integrate(f4_gaussian(8), 1e-3, 1e-40, fused=False)`` in
-f64, printing its status, iterations, regions, neval and the estimate and
-errorest as hex floats (the bits).  Run once from each checkout in one call
-to the card: the two tables and the two runs must match where the kernels
-are meant to be the same.  Needs a CUDA card.
+f64, and VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
+'hybrid'; ncall 1e9 f32 'fused', 10 iterations, 5 adjusting; the grid map,
+ncall 1e8), printing status, iterations, regions or neval and the estimate
+and errorest as hex floats (the bits).  Run once from each checkout in one
+call to the card: the two tables and the runs must match where the
+kernels are meant to be the same.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import sys
 import torch
 
 import gpuintegration_torch
-from gpuintegration_torch import Workspace
+from gpuintegration_torch import Workspace, mcubes
 from gpuintegration_torch.models import genz
 from gpuintegration_torch.ops import cuda_build
 
@@ -32,9 +33,9 @@ _BOOL = {"0": "false", "1": "true"}
 
 
 def kernel_name(mangled: str) -> str:
-    """A readable name of rule_eval.cu's and rule_split.cu's kernels
-    (their template arguments spelt out), fill_padding's too, else the
-    mangled one."""
+    """A readable name of rule_eval.cu's, rule_split.cu's and the VEGAS
+    sources' kernels (their template arguments spelt out), fill_padding's
+    too, else the mangled one."""
     m = re.search(r"rule_tile_kernelILi(\d)E([df])Li(\d+)E(?:Lb([01])E)?",
                   mangled)
     if m:
@@ -44,6 +45,12 @@ def kernel_name(mangled: str) -> str:
     if m:
         tail = f", {_BOOL[m[3]]}" if m[3] else ""
         return f"rule_kernel<{m[1]}, {_TYPES[m[2]]}{tail}>"
+    m = re.search(r"(sample_pair_kernel|sample_kernel|resolve_sample_kernel|"
+                  r"resolve_kernel)I((?:L[ib]\d+E)+)", mangled)
+    if m:
+        args = [v if k == "i" else _BOOL[v]
+                for k, v in re.findall(r"L([ib])(\d+)E", m[2])]
+        return f"{m[1]}<{', '.join(args)}>"
     m = re.search(r"\d+([a-z_]+)I([df])((?:Lb[01]E)*)", mangled)
     if m:
         flags = "".join(f", {_BOOL[b]}" for b in re.findall(r"Lb([01])E",
@@ -83,7 +90,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     for lib in cuda_build.build_many(["rule_eval.cu", "rule_split.cu",
-                                      "split_frac.cu"]):
+                                      "split_frac.cu", "vegas_sample.cu",
+                                      "vegas_lookup.cu"]):
         for name, (regs, spills, stack) in sorted(ptxas_kernels(
                 lib.with_suffix(".log").read_text()).items()):
             print(f"ptxas: {name}: {regs} registers, {spills} spill bytes, "
@@ -94,6 +102,15 @@ def main() -> int:
           f"{res.nregions} neval {res.neval} estimate "
           f"{float(res.estimate).hex()} errorest "
           f"{float(res.errorest).hex()}", flush=True)
+    g6 = genz.f4_gaussian(6)
+    for run, kw in (("run 1", dict(ncall=1e8)),
+                    ("run 2", dict(ncall=1e9, eval_dtype=torch.float32,
+                                   total_iters=10, adjust_iters=5)),
+                    ("run 3", dict(ncall=1e8, importance="grid"))):
+        r = mcubes.integrate(g6, 1e-3, 1e-40, **kw)
+        print(f"vegas {run}: status {r.status} iters {r.iters} neval "
+              f"{r.neval} estimate {float(r.estimate).hex()} errorest "
+              f"{float(r.errorest).hex()}", flush=True)
     return 0
 
 
