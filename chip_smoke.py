@@ -234,7 +234,34 @@ timed beside the others in the same run.
    printed (it certifies at no tolerance within reach; every rule
    evaluation on the tile route), the share of the wall in the in-region
    sampling passes;
-20. the ``kernels`` JSON line, then the card line and the result line.
+20. PAGANI's one-shot surface (``pagani/oneshot.py``,
+   ``pagani/heuristics.py``): ``apply_cubature_rules`` on phase 4's 2^21
+   random 8D sub-regions, F4 through the tile route and F4 as a plain
+   callable through the split route, both held against
+   ``apply_rule_plain`` on the card (``kernel_check.
+   check_outputs_against_plain``); four Genz members as one vector through
+   ``apply_cubature_rules_vector`` (the components contraction), each total
+   against its member's; ``classify_with_heuristic`` for every policy id,
+   the card EQUAL to the CPU; ``capture_func_evals`` on 1024 regions, points
+   EQUAL to the CPU's; B1's launches by entry point (counts set to 0
+   before, read after);
+21. interpolation and the physics likelihood: ``Interp1D/2D/3D``
+   (``ops/interp.py``) at 2^24 points, card against the CPU path within 1
+   ulp; ``Workspace(6).integrate(ClusterLikelihood(), 3e-4, 1e-40)`` with
+   the default ``fused=True`` (the callable captured; status 0), the host
+   loop's run with CUDA events (the callable's share; the same
+   decisions), the two loops' walls in turns, the f32 table within 1e-6,
+   and the VEGAS cross-check
+   (``mcubes.integrate`` at ``PHYSICS_VEGAS``, within 5 (err1 + err2); B2
+   and B3 launched);
+22. Suave (``pagani/suave.py``): the CLI's default case, 5D F4 (a = 25) at
+   ``SUAVE_CLI`` (|est - truth| <= 5 errorest), one cycle on the card
+   against the CPU on the same grids and draws, 3D F4 (a = 5) at
+   ``SUAVE_HELD`` (status 0, the truth within 3 errorests);
+23. 1-D quadrature (``ops/quad1d.py``): ``qng``, ``qag`` keys 1-6,
+   ``cquad``, ``qawo`` and ``qawf`` on closed-form cases, card against CPU
+   (the same neval and intervals, estimates within 1e-12);
+24. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -242,6 +269,7 @@ did before the fused phase became ``integrate``'s default.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import re
@@ -259,10 +287,12 @@ from gpuintegration_torch.mcubes import grid as vegas_grid
 from gpuintegration_torch.mcubes import vegas as vegas_module
 from gpuintegration_torch.mcubes import kernel_check as vegas_check
 from gpuintegration_torch.mcubes import phases as vegas_phases
-from gpuintegration_torch.models import genz, misc
-from gpuintegration_torch.ops import (cuda_build, cuda_rule, kernel_check,
-                                      rule_eval)
-from gpuintegration_torch.pagani import fused_loop, region_pool
+from gpuintegration_torch.models import genz, misc, physics
+from gpuintegration_torch.ops import (cuda_build, cuda_rule, interp,
+                                      kernel_check, quad1d, rule_eval)
+from gpuintegration_torch.pagani import (fused_loop, oneshot, region_pool,
+                                         vegas_assisted)
+from gpuintegration_torch.pagani import suave as suave_mod
 from gpuintegration_torch.tools import (assisted_probe, route_bits,
                                         sass_report, vector_probe)
 from gpuintegration_torch.types import Volume
@@ -3434,6 +3464,460 @@ def assisted_path(dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The rest of the PAGANI surface, interpolation, 1-D quadrature (20-23)
+
+ONESHOT_REGIONS = 1 << 21        # phase 4's pool
+CAPTURE_REGIONS = 1024           # capture_func_evals' cap
+HEURISTIC_IDS = (0, 1, 2, 4, 7, 8, 9, 10)
+VECTOR_TOTAL_RTOL = 1e-10        # a component's total against its scalar run
+
+
+def b1_counts() -> dict:
+    """B1's launches since the last reset: the fused kernels by route, the
+    split route's points and contractions, the contractions by route."""
+    return {"fused": cuda_rule.launches,
+            "fused_by_route": dict(cuda_rule.route_launches),
+            "split": dict(cuda_rule.split_launches),
+            "contract_by_route": {k: v for k, v in
+                                  cuda_rule.contract_route_launches.items()
+                                  if v}}
+
+
+def oneshot_path(dev):
+    """Phase 20: ``oneshot.apply_cubature_rules`` on phase 4's 2^21 random
+    8D sub-regions, F4 (a Genz family: the tile route) and F4 as a plain
+    callable (the split route), both held against ``apply_rule_plain`` on
+    the card (``kernel_check.check_outputs_against_plain``); a four-member
+    vector through ``apply_cubature_rules_vector`` (the components
+    contraction), each component's total against its member's tile-route
+    one-shot total; ``classify_with_heuristic`` for every policy id, the
+    card EQUAL to the CPU on the same est/err; ``capture_func_evals`` on
+    1024 regions, points EQUAL to the CPU's.  Counts set to 0 before and
+    read after each entry point.  Returns B1's launches by entry point."""
+    f64 = torch.float64
+    g4 = genz.f4_gaussian(NDIM)
+    tables = rule_eval.rule_tables(NDIM, "float64")
+    lows, lengths = random_pool(NDIM, ONESHOT_REGIONS, 2, f64, dev)
+    gl = torch.zeros(NDIM, dtype=f64, device=dev)
+    gr = torch.ones(NDIM, dtype=f64, device=dev)
+    counts, outs, walls = {}, {}, {}
+    # the split route twice: its first run in a process pays set-up costs
+    # of its own (PERF.md section 7), the second is the warm wall
+    for label, f in (("tile", g4), ("split", f4_plain),
+                     ("split again", f4_plain)):
+        torch.cuda.synchronize()
+        cuda_rule.reset_launches()
+        t0 = time.perf_counter()
+        res, est, err, sdim = oneshot.apply_cubature_rules(
+            f, lows, lengths, ndim=NDIM, device=dev)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        counts[label] = b1_counts()
+        outs[label] = (res, (est, err, sdim))
+        print(f"phase 20: apply_cubature_rules, F4 {NDIM}D "
+              f"{'(a Genz family)' if label == 'tile' else 'as a plain callable'}"
+              f"{', again' if label == 'split again' else ''}"
+              f", {ONESHOT_REGIONS} regions: estimate {res.estimate!r} "
+              f"errorest {res.errorest!r} neval {res.neval} wall "
+              f"{walls[label]:.3f} s; B1 launches {counts[label]}",
+              flush=True)
+    tile_c, split_c = counts["tile"], counts["split"]
+    if (tile_c["fused"] == 0 or tile_c["fused_by_route"]["tile"]
+            != tile_c["fused"] or tile_c["split"]["points"]):
+        fail(f"phase 20: the Genz one-shot should take the tile route only "
+             f"({tile_c})")
+    if (split_c["fused"] or split_c["split"]["points"] == 0
+            or split_c["split"]["points"] != split_c["split"]["contract"]):
+        fail(f"phase 20: the callable's one-shot should take the split route "
+             f"only ({split_c})")
+    t0 = time.perf_counter()
+    try:
+        held = kernel_check.check_outputs_against_plain(
+            {k: outs[k][1] for k in ("tile", "split")}, g4, tables, lows,
+            lengths, gl, gr)
+    except AssertionError as e:
+        fail(f"phase 20: {e}")
+    for label, r in held.items():
+        print(f"phase 20: {label} route's one-shot against apply_rule_plain "
+              f"on the card ({r['regions']} regions): est {r['est_ulps']:.3g}"
+              f", err {r['err_ulps']:.3g} ulps beyond rtol (limits "
+              f"{kernel_check.ULPS['est']:g}/{kernel_check.ULPS['err']:g}), "
+              f"split_dim agree {r['agree']:.6f} ({r['mismatches']} "
+              f"near-ties); held in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    rel_ts = abs(outs["split"][0].estimate - outs["tile"][0].estimate) / abs(
+        outs["tile"][0].estimate)
+    again = outs["split again"][1]
+    same = all(torch.equal(a, b) for a, b in zip(again, outs["split"][1]))
+    print(f"phase 20: the two routes' totals differ by {rel_ts:.3e} "
+          f"relative; the split route again: the same bits "
+          f"{'yes' if same else 'NO'}", flush=True)
+    del outs["split again"]
+    if not rel_ts <= 1e-12 or not same:
+        fail(f"phase 20: tile and split totals differ by {rel_ts}, or the "
+             f"split route repeated gave other bits")
+
+    members = vector_probe.members("moderate")
+    fv, _ = vector_probe.vector(members)
+    torch.cuda.synchronize()
+    cuda_rule.reset_launches()
+    t0 = time.perf_counter()
+    totals, per = oneshot.apply_cubature_rules_vector(
+        fv, lows, lengths, ndim=NDIM, ncomp=len(members), device=dev)
+    walls["vector"] = time.perf_counter() - t0
+    counts["vector"] = vec_c = b1_counts()
+    comp = sum(vec_c["contract_by_route"].get(r, 0)
+               for r in cuda_rule.VECTOR_ROUTES)
+    if (vec_c["fused"] or vec_c["split"]["points"] == 0
+            or comp != vec_c["split"]["points"]):
+        fail(f"phase 20: the vector one-shot should take the components "
+             f"contraction ({vec_c})")
+    worst = 0.0
+    for k, m in enumerate(members):
+        r = oneshot.apply_cubature_rules(m, lows, lengths, device=dev)[0]
+        worst = max(worst, abs(totals[k] - r.estimate) / abs(r.estimate))
+    print(f"phase 20: apply_cubature_rules_vector, 4 members (F1 1/2, F2 a=5,"
+          f" F4 a=5, F5) at {NDIM}D on the same pool: totals {totals!r}, per "
+          f"region {per.shape}, wall {walls['vector']:.3f} s; against each "
+          f"member's tile-route total: {worst:.3e} relative at most (held to "
+          f"{VECTOR_TOTAL_RTOL:g}); B1 launches {vec_c}", flush=True)
+    if not worst <= VECTOR_TOTAL_RTOL:
+        fail(f"phase 20: the vector's totals differ by {worst}")
+
+    est, err = outs["tile"][1][0], outs["tile"][1][1]
+    est_h, err_h = est.cpu(), err.cpu()
+    verdicts = {}
+    t0 = time.perf_counter()
+    for hid in HEURISTIC_IDS:
+        card = oneshot.classify_with_heuristic(hid, est, err, 1e-3, depth=3)
+        host = oneshot.classify_with_heuristic(hid, est_h, err_h, 1e-3,
+                                               depth=3)
+        verdicts[hid] = (int(host.sum()), torch.equal(card.cpu(), host))
+    print(f"phase 20: classify_with_heuristic on the {ONESHOT_REGIONS} "
+          f"regions, epsrel 1e-3, depth 3, card against CPU: (finished, "
+          f"EQUAL) by policy id {verdicts} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not all(eq for _, eq in verdicts.values()):
+        fail(f"phase 20: heuristic verdicts differ on the card ({verdicts})")
+
+    lo = lows[:, :CAPTURE_REGIONS].T.cpu().numpy()
+    ln = lengths[:, :CAPTURE_REGIONS].T.cpu().numpy()
+    t0 = time.perf_counter()
+    cap_card = oneshot.capture_func_evals(g4, lo, ln, device=dev)
+    walls["capture"] = time.perf_counter() - t0
+    cap_host = oneshot.capture_func_evals(g4, lo, ln, device="cpu")
+    vrel = float(np.max(np.abs(cap_card.values - cap_host.values)
+                        / np.maximum(np.abs(cap_host.values), 1e-300)))
+    csv = io.StringIO()
+    oneshot.FuncEvals(cap_card.points[:2], cap_card.values[:2],
+                      cap_card.region_lows[:2],
+                      cap_card.region_lengths[:2]).to_csv(csv)
+    lines = csv.getvalue().splitlines()
+    print(f"phase 20: capture_func_evals on {CAPTURE_REGIONS} regions: points"
+          f" {cap_card.points.shape} "
+          f"{'EQUAL' if np.array_equal(cap_card.points, cap_host.points) else 'DIFFERENT'}"
+          f" to the CPU's, values within {vrel:.3e} relative, wall "
+          f"{walls['capture']:.3f} s; to_csv of two regions: {len(lines)} "
+          f"lines", flush=True)
+    if (not np.array_equal(cap_card.points, cap_host.points)
+            or not vrel <= 1e-12 or len(lines) != 1 + 2 * tables.feval):
+        fail("phase 20: capture_func_evals differs between card and CPU")
+    return counts, walls
+
+
+INTERP_POINTS = 1 << 24
+PHYSICS_EPSREL = 3e-4
+PHYSICS_VEGAS = dict(epsrel=2e-3, ncall=2e5, total_iters=12, adjust_iters=8,
+                     seed=5)
+F32_TABLE_RTOL = 1e-6
+
+
+def interp_tables(rng):
+    """A 1D table of 4096 knots, the physics HMF table (64 x 32) and a 3D
+    table of 64 x 48 x 32, uneven knots, smooth sign-changing values."""
+    def knots(n, lo, hi):
+        s = rng.uniform(0.2, 1.8, n - 1)
+        return lo + (hi - lo) * np.concatenate([[0.0], np.cumsum(s)]) / s.sum()
+
+    xs1 = knots(4096, -1.0, 2.0)
+    one = (xs1, np.sin(3.0 * xs1))
+    h = physics.make_hmf_table(device="cpu")
+    two = (h.xs.numpy(), h.ys.numpy(), h.zs.numpy())
+    ax = [knots(64, 0.0, 1.0), knots(48, -1.0, 1.0), knots(32, 2.0, 3.0)]
+    z, y, x = np.meshgrid(ax[2], ax[1], ax[0], indexing="ij")
+    three = (*ax, np.cos(2.0 * x + y) * np.exp(-z))
+    return {"Interp1D": one, "Interp2D": two, "Interp3D": three}
+
+
+def interp_checks(dev):
+    """Phase 21: each interpolator at 2^24 random points (inside and beyond
+    the domain) on the card against the port's CPU path on the same
+    queries: within 1 ulp of max|z| (read in ulps), and its time a call."""
+    rng = np.random.default_rng(21)
+    rows = {}
+    for name, arrays in interp_tables(rng).items():
+        cls = getattr(interp, name)
+        card, host = cls(*arrays, device=dev), cls(*arrays, device="cpu")
+        q = [torch.as_tensor(rng.uniform(k[0] - 0.1, k[-1] + 0.1,
+                                         INTERP_POINTS))
+             for k in (ax.knots.numpy() for ax in host.axes)]
+        qd = [t.to(dev) for t in q]
+        out = card(*qd)
+        torch.cuda.synchronize()
+        ref = host(*q)
+        ulp = float(np.spacing(np.abs(arrays[-1]).max()))
+        d = float(torch.max(torch.abs(out.cpu() - ref))) / ulp
+        ms = time_ms(lambda: card(*qd), 3)
+        rows[name] = {"max_ulps": d, "ms": ms}
+        print(f"phase 21: {name} at {INTERP_POINTS} points, card against the"
+              f" CPU path: {d:.3g} ulps of max|z| at most (held to 1); "
+              f"{ms:.3f} ms a call on the card", flush=True)
+        if not d <= 1.0:
+            fail(f"phase 21: {name} differs between card and CPU by {d} ulps")
+    return rows
+
+
+def physics_path(dev):
+    """Phase 21: ``Workspace(6).integrate(ClusterLikelihood(),
+    PHYSICS_EPSREL, 1e-40)`` with the default ``fused=True`` (the callable
+    captured in the fused phase's graphs) to status 0; the same on the
+    host loop with CUDA events around each split launch and each call (the
+    callable's share), which must take the fused run's decisions; the
+    ``interp_precision="f32"`` run within F32_TABLE_RTOL of it; the VEGAS
+    cross-check (``mcubes.integrate`` at PHYSICS_VEGAS, the reference's
+    hybrid.cu check) within 5 (err1 + err2).  Counts set to 0 before and
+    read after each run.  Returns the launches and walls."""
+    model = physics.ClusterLikelihood(device=dev)
+    out = {"interp": interp_checks(dev)}
+    torch.cuda.synchronize()
+    cuda_rule.reset_launches()
+    fused_loop.reset_stats()
+    t0 = time.perf_counter()
+    res = Workspace(model.ndim).integrate(model, PHYSICS_EPSREL, 1e-40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused_c, fstats = b1_counts(), dict(fused_loop.stats)
+    print(f"phase 21: f64 6D ClusterLikelihood, Workspace.integrate epsrel "
+          f"{PHYSICS_EPSREL:g}, fused=True: status {res.status} estimate "
+          f"{res.estimate!r} errorest {res.errorest!r} iters {res.iters} "
+          f"nregions {res.nregions} neval {res.neval} wall {wall:.3f} s; "
+          f"fused phase {fstats}; B1 launches (a capture's counted once, "
+          f"its replays not) {fused_c}", flush=True)
+    if (res.status != 0 or fused_c["fused"]
+            or fused_c["split"]["points"] == 0):
+        fail(f"phase 21: the physics run: status {res.status}, launches "
+             f"{fused_c}")
+    torch.cuda.synchronize()
+    cuda_rule.reset_launches()
+    with SplitEvents(model) as ev:
+        t0 = time.perf_counter()
+        host = Workspace(model.ndim).integrate(ev.f, PHYSICS_EPSREL, 1e-40,
+                                               **HOST)
+        torch.cuda.synchronize()
+        wall_h = time.perf_counter() - t0
+    host_c = b1_counts()
+    parts = ev.seconds
+    print(f"phase 21: the same on the host loop: iters {host.iters} nregions "
+          f"{host.nregions} neval {host.neval} estimate {host.estimate!r} "
+          f"wall {wall_h:.3f} s (with CUDA events around each launch and "
+          f"call): points kernel {parts['points']:.4f} s, the callable "
+          f"{parts['callable']:.4f} s ({100 * parts['callable'] / wall_h:.1f}"
+          f"% of the wall), contraction {parts['contract']:.4f} s; B1 "
+          f"launches {host_c}", flush=True)
+    if ((host.status, host.iters, host.nregions, host.neval)
+            != (res.status, res.iters, res.nregions, res.neval)
+            or not math.isclose(host.estimate, res.estimate, rel_tol=1e-12)):
+        fail("phase 21: the fused physics run did not take the host loop's "
+             "decisions")
+    m32 = physics.ClusterLikelihood(interp_precision="f32", device=dev)
+    r32 = Workspace(model.ndim).integrate(m32, PHYSICS_EPSREL, 1e-40)
+    rel32 = abs(r32.estimate - res.estimate) / abs(res.estimate)
+    print(f"phase 21: interp_precision='f32': status {r32.status} estimate "
+          f"{r32.estimate!r}, {rel32:.3e} relative from the f64 table's "
+          f"(held to {F32_TABLE_RTOL:g})", flush=True)
+    if not rel32 <= F32_TABLE_RTOL:
+        fail(f"phase 21: the f32 table's estimate is {rel32} off")
+    torch.cuda.synchronize()
+    cuda_vegas.reset_launches()
+    cuda_lookup.reset_launches()
+    t0 = time.perf_counter()
+    rv = mcubes.integrate(model, **PHYSICS_VEGAS)
+    torch.cuda.synchronize()
+    wall_v = time.perf_counter() - t0
+    b2, b3 = cuda_vegas.launches, cuda_lookup.hist_launches
+    gap = abs(rv.estimate - res.estimate)
+    tol = 5 * (rv.errorest + res.errorest)
+    print(f"phase 21: VEGAS cross-check {PHYSICS_VEGAS}: status {rv.status} "
+          f"estimate {rv.estimate!r} errorest {rv.errorest!r} iters "
+          f"{rv.iters} wall {wall_v:.3f} s; |VEGAS - PAGANI| {gap:.3e} "
+          f"(held to 5 (err1 + err2) = {tol:.3e}); B2 launches {b2} (by "
+          f"route {dict(cuda_vegas.route_launches)}), B3 {b3}", flush=True)
+    if rv.status != 0 or not gap <= tol or not b2 or not b3:
+        fail(f"phase 21: VEGAS cross-check: status {rv.status}, gap {gap}, "
+             f"B2 {b2}, B3 {b3}")
+    # the two loops' walls in turns, without events
+    turns = {"host": [], "fused": []}
+    for form in ("host", "fused", "fused", "host"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Workspace(model.ndim).integrate(model, PHYSICS_EPSREL, 1e-40,
+                                        **(HOST if form == "host" else {}))
+        torch.cuda.synchronize()
+        turns[form].append(time.perf_counter() - t0)
+    print(f"phase 21: ClusterLikelihood walls in turns (host, fused, fused, "
+          f"host): host {turns['host']}, fused {turns['fused']} s",
+          flush=True)
+    out.update(fused=fused_c, host=host_c, fused_stats=fstats, wall_s=wall,
+               walls_in_turns_s=turns,
+               host_wall_s=wall_h, callable_share=parts["callable"] / wall_h,
+               vegas_b2=b2, vegas_b3=b3, vegas_wall_s=wall_v,
+               status=res.status, iters=res.iters, neval=res.neval)
+    return out
+
+
+SUAVE_CLI = dict(epsrel=1e-3, epsabs=1e-40, nnew=2048, nmin=2,
+                 flatness=50.0, max_regions=1024, max_cycles=64, seed=0)
+SUAVE_HELD = dict(ndim=3, a=5.0, epsrel=2e-3, nnew=512)
+SUAVE_CYCLE_REGIONS = 1024
+
+
+def suave_cycle_check(dev):
+    """Phase 22: one Suave cycle (one pass) on 1024 random 5D regions with
+    the same grids and draws on the card and the CPU: I, var, flu and the
+    masses within 1e-12 of each output's largest magnitude, the refined
+    grids' edges within 1e-5 (the f32 rebin's sums)."""
+    ndim, nnew, nbins = 5, SUAVE_CLI["nnew"], 64
+    g = genz.f4_gaussian(ndim)
+    lows, lengths = random_pool(ndim, SUAVE_CYCLE_REGIONS, 22, torch.float64,
+                                "cpu")
+    grids = suave_mod.uniform_edges(nbins).expand(
+        SUAVE_CYCLE_REGIONS, ndim, nbins + 1).contiguous()
+    lo_hi = (torch.zeros(ndim, dtype=torch.float64),
+             torch.ones(ndim, dtype=torch.float64))
+
+    def run(device):
+        ids = torch.arange(SUAVE_CYCLE_REGIONS, device=device)
+        return suave_mod._suave_cycle(
+            g, ndim, 1, nnew, nbins, torch.float64, 16.0,
+            lambda i: vegas_assisted.region_draws(
+                0, 0, i, ids, nnew, ndim,
+                stream_base=suave_mod.SUAVE_STREAM),
+            lows.to(device), lengths.to(device), grids.to(device),
+            *(t.to(device) for t in lo_hi))
+
+    card = [t.cpu() for t in run(dev)]
+    host = run("cpu")
+    names = ("grids", "I", "var", "flu", "mass_lo", "mass", "mass_abs")
+    reads = {}
+    for name, c, h in zip(names, card, host):
+        scale = float(torch.max(torch.abs(h))) or 1.0
+        reads[name] = float(torch.max(torch.abs(c - h))) / (
+            1.0 if name == "grids" else scale)
+    print(f"phase 22: one Suave cycle on {SUAVE_CYCLE_REGIONS} random 5D "
+          f"regions x {nnew} samples, card against CPU on the same grids and "
+          f"draws (grids: max |d edge|; the rest: max |d| over the largest "
+          f"|value|): {reads}", flush=True)
+    if not (reads["grids"] <= 1e-5 and all(
+            v <= 1e-12 for k, v in reads.items() if k != "grids")):
+        fail(f"phase 22: a Suave cycle differs between card and CPU ({reads})")
+    return reads
+
+
+def suave_path(dev):
+    """Phase 22: Suave at the CLI's default case (5D Genz F4, a = 25, at
+    SUAVE_CLI): status, cycles, regions, neval, wall, and |est - truth| <=
+    5 errorest; one cycle card against CPU; 3D F4 (a = 5) at SUAVE_HELD
+    certifies with the truth within 3 errorests."""
+    g5 = genz.f4_gaussian(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = suave_mod.suave(g5, **SUAVE_CLI, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pull = abs(r.estimate - g5.true_value) / r.errorest
+    print(f"phase 22: Suave 5D f4_gaussian (a = 25) {SUAVE_CLI}: status "
+          f"{r.status} estimate {r.estimate!r} errorest {r.errorest!r} truth "
+          f"{g5.true_value!r} pull {pull:.3f} cycles {r.iters} nregions "
+          f"{r.nregions} neval {r.neval} prob {r.prob:.4f} wall {wall:.3f} s",
+          flush=True)
+    if not pull <= 5.0:
+        fail(f"phase 22: Suave 5D: the truth is {pull} errorests away")
+    reads = suave_cycle_check(dev)
+    g3 = genz.f4_gaussian(SUAVE_HELD["ndim"], a=SUAVE_HELD["a"])
+    t0 = time.perf_counter()
+    r3 = suave_mod.suave(g3, SUAVE_HELD["epsrel"], 1e-40,
+                         nnew=SUAVE_HELD["nnew"], device=dev)
+    wall3 = time.perf_counter() - t0
+    pull3 = abs(r3.estimate - g3.true_value) / r3.errorest
+    print(f"phase 22: Suave 3D f4_gaussian (a = 5) at {SUAVE_HELD['epsrel']:g}"
+          f", nnew {SUAVE_HELD['nnew']}: status {r3.status} estimate "
+          f"{r3.estimate!r} errorest {r3.errorest!r} pull {pull3:.3f} cycles "
+          f"{r3.iters} nregions {r3.nregions} neval {r3.neval} wall "
+          f"{wall3:.3f} s", flush=True)
+    if r3.status != 0 or not pull3 <= 3.0:
+        fail(f"phase 22: Suave 3D: status {r3.status}, pull {pull3}")
+    return {"cli": {"status": r.status, "cycles": r.iters,
+                    "nregions": r.nregions, "neval": r.neval, "pull": pull,
+                    "wall_s": wall},
+            "held": {"status": r3.status, "pull": pull3, "wall_s": wall3},
+            "cycle": reads}
+
+
+QUAD_CASES = [
+    ("qng e^x", "qng", lambda x: torch.exp(x), (0.0, 1.0),
+     dict(epsrel=1e-10), math.e - 1.0),
+] + [(f"qag key {k} cos 50x", "qag", lambda x: torch.cos(50 * x), (0.0, 1.0),
+      dict(epsrel=1e-10, key=k), math.sin(50.0) / 50.0) for k in range(1, 7)
+     ] + [
+    ("qag kink", "qag", lambda x: torch.exp(-200.0 * torch.abs(x - 0.37)),
+     (0.0, 1.0), dict(epsrel=1e-10, max_intervals=4096),
+     (2 - math.exp(-200.0 * 0.37) - math.exp(-200.0 * 0.63)) / 200.0),
+    ("cquad 1/(1e-2 + x^2)", "cquad", lambda x: 1.0 / (1e-2 + x ** 2),
+     (-1.0, 1.0), dict(epsrel=1e-9), 2.0 * math.atan(10.0) / 0.1),
+    ("qawo x sin(10 pi x)", "qawo", lambda x: x, (0.0, 1.0, 10.0 * math.pi),
+     dict(sin_or_cos="sin", epsrel=1e-10),
+     -math.cos(10.0 * math.pi) / (10.0 * math.pi)),
+    ("qawf e^-x sin 2x", "qawf", lambda x: torch.exp(-x), (0.0, 2.0),
+     dict(sin_or_cos="sin", epsabs=1e-10), 2.0 / 5.0),
+    ("qawf cos x / (1 + x^2)", "qawf", lambda x: 1.0 / (1.0 + x * x),
+     (0.0, 1.0), dict(sin_or_cos="cos", epsabs=1e-8),
+     math.pi / (2.0 * math.e)),
+]
+
+
+def quad1d_path(dev):
+    """Phase 23: 1-D quadrature on the reference's closed-form cases
+    (tests/test_quad1d_gsl.py), each on the card and on the CPU: status 0
+    on both, the same neval and intervals, the estimates within 1e-12
+    relative (plus 1e-15) of each other and the truth within 10 times the
+    tolerance or errorest."""
+    rows = []
+    for label, method, f, args, kw, truth in QUAD_CASES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = getattr(quad1d, method)(f, *args, **kw, device=dev)
+        wall = time.perf_counter() - t0
+        host = getattr(quad1d, method)(f, *args, **kw, device="cpu")
+        d = abs(card.estimate - host.estimate)
+        err = abs(card.estimate - truth)
+        tol = 10 * (kw.get("epsrel", 0.0) * abs(truth) + card.errorest)
+        print(f"phase 23: {label}: card status {card.status} estimate "
+              f"{card.estimate!r} errorest {card.errorest:.3e} neval "
+              f"{card.neval} intervals {card.nregions} wall {wall:.3f} s; CPU "
+              f"neval {host.neval} intervals {host.nregions}, |card - CPU| "
+              f"{d:.3e}, |card - truth| {err:.3e}", flush=True)
+        if ((card.status, card.neval, card.nregions) != (0, host.neval,
+                                                          host.nregions)
+                or host.status != 0
+                or not d <= 1e-12 * abs(host.estimate) + 1e-15
+                or not err <= max(tol, 1e-13)):
+            fail(f"phase 23: {label}: card and CPU part or miss the truth")
+        rows.append({"case": label, "neval": card.neval,
+                     "intervals": card.nregions, "wall_s": wall})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -3732,6 +4216,20 @@ def main() -> int:
     assisted_row = assisted_path(dev)
     phase_done("phase 19")
 
+    # -- phases 20-23: one-shot, heuristics, interpolation and the physics
+    # likelihood, Suave, 1-D quadrature -------------------------------------
+    slice_t0 = time.perf_counter()
+    oneshot_counts, oneshot_walls = oneshot_path(dev)
+    phase_done("phase 20")
+    physics_row = physics_path(dev)
+    phase_done("phase 21")
+    suave_row = suave_path(dev)
+    phase_done("phase 22")
+    quad_rows = quad1d_path(dev)
+    phase_done("phase 23")
+    print(f"phases 20-23 took {time.perf_counter() - slice_t0:.1f} s",
+          flush=True)
+
     # -- the kernels line ----------------------------------------------------
     kernels = [{
         "name": "rule_eval",
@@ -3865,6 +4363,33 @@ def main() -> int:
                                  fused_rows)
     vegas_kernels[0]["vegas_phases"] = phase_rows
     kernels[0]["vegas_assisted_run"] = assisted_row
+    # the launches of phases 20-21's paths, each counted from 0 over its run
+    phys_fused, phys_host = physics_row["fused"], physics_row["host"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["rule_eval"]["launches_phases_20_21"] = {
+        "phase 20 apply_cubature_rules F4 (tile)":
+            oneshot_counts["tile"]["fused"]}
+    for name, key in (("rule_split_points", "points"),
+                      ("rule_split_contract", "contract")):
+        by_name[name]["launches_phases_20_21"] = {
+            "phase 20 apply_cubature_rules F4 as a callable":
+                oneshot_counts["split"]["split"][key],
+            "phase 21 ClusterLikelihood fused=True (captures counted once)":
+                phys_fused["split"][key],
+            "phase 21 ClusterLikelihood host loop": phys_host["split"][key]}
+    by_name["rule_split_points"]["launches_phases_20_21"][
+        "phase 20 apply_cubature_rules_vector"] = \
+        oneshot_counts["vector"]["split"]["points"]
+    by_name["rule_contract_components"]["launches_phases_20_21"] = {
+        "phase 20 apply_cubature_rules_vector":
+            oneshot_counts["vector"]["split"]["contract"]}
+    by_name["vegas_sample"]["launches_phase_21"] = {
+        "phase 21 VEGAS cross-check": physics_row["vegas_b2"]}
+    by_name["vegas_hist"]["launches_phase_21"] = {
+        "phase 21 VEGAS cross-check": physics_row["vegas_b3"]}
+    kernels[0]["slice_13_paths"] = {
+        "oneshot_walls_s": oneshot_walls, "physics": physics_row,
+        "suave": suave_row, "quad1d": quad_rows}
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

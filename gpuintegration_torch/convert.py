@@ -102,3 +102,20 @@ def poly_from_reference(p_coeffs, q_coeffs, *, device=None):
                             device=device),
             torch.as_tensor(np.array(q_coeffs), dtype=torch.float32,
                             device=device))
+
+
+def interp_from_reference(jax_interp, *, device=None):
+    """The port's ``ops.interp`` interpolator of a reference one
+    (``Interp1D``/``2D``/``3D`` of the JAX package): its knots and table
+    (``xs/zs``, ``xs/ys/zs`` or ``xs/ys/zs/vals``) as NumPy, already
+    ascending, and its ``precision``; the tables placed on ``device``."""
+    from gpuintegration_torch.ops import interp
+    kind = type(jax_interp).__name__
+    fields = {"Interp1D": ("xs", "zs"), "Interp2D": ("xs", "ys", "zs"),
+              "Interp3D": ("xs", "ys", "zs", "vals")}.get(kind)
+    if fields is None:
+        raise ValueError(f"not a reference interpolator: {kind}")
+    arrays = [np.array(getattr(jax_interp, name)) for name in fields]
+    return getattr(interp, kind)(
+        *arrays, precision=getattr(jax_interp, "precision", "f64"),
+        device=device)

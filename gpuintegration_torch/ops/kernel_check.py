@@ -240,6 +240,23 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
                                   blocked=blocked,
                                   **({} if route is None else {"route": route}))
     torch.cuda.synchronize()
+    return check_outputs_against_plain(
+        {"kernel": k}, integrand, tables, lows, lengths, global_lo,
+        global_range, n=n, blocked=blocked, min_agree=min_agree,
+        chunk=chunk)["kernel"]
+
+
+def check_outputs_against_plain(outputs: dict, integrand,
+                                tables: rule_eval.RuleTables, lows, lengths,
+                                global_lo, global_range, *,
+                                n: int | None = None, blocked: bool = False,
+                                min_agree: float = 0.999, chunk: int = 4096):
+    """Rule outputs (estimate, errorest, split_dim) over a CUDA pool, each
+    entry of ``outputs`` another route's (or another entry point's), against
+    one run of ``rule_eval.apply_rule_plain`` on the same pool: the padding
+    slots must hold est = err = 0, and the real slots pass ``judge``, read in
+    chunks of ``chunk`` regions (a chunk's rule values are held in memory).
+    Raises AssertionError on a disagreement; returns the summaries by key."""
     p = rule_eval.apply_rule_plain(integrand, tables, lows, lengths,
                                    global_lo, global_range, chunk_size=4096,
                                    n=n, blocked=blocked)
@@ -247,21 +264,24 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
     cap = lows.shape[1]
     mask = block_mask(cap, cap if n is None else int(n), blocked, lows.device)
     name = getattr(integrand, "name", "integrand")
-    if bool((k[0][~mask] != 0).any() | (k[1][~mask] != 0).any()):
-        raise AssertionError(f"{name}: the kernel wrote est/err into "
-                             "padding slots")
+    for key, k in outputs.items():
+        if bool((k[0][~mask] != 0).any() | (k[1][~mask] != 0).any()):
+            raise AssertionError(f"{name} ({key}): est/err written into "
+                                 "padding slots")
     real = torch.nonzero(mask)[:, 0]
-    parts = []
+    parts = {key: [] for key in outputs}
     for s in range(0, real.numel(), chunk):
         idx = real[s:s + chunk]
         ln = lengths[:, idx]
         vals, u = value_scales(integrand, tables, lows[:, idx], ln,
                                global_lo, global_range)
-        parts.append(region_readings([o[idx] for o in k],
-                                     [o[idx] for o in p], vals, u, tables,
-                                     ln, global_range))
-    return judge(_joined(parts, lows.device), name=name, dtype=lows.dtype,
-                 min_agree=min_agree)
+        for key, k in outputs.items():
+            parts[key].append(region_readings(
+                [o[idx] for o in k], [o[idx] for o in p], vals, u, tables,
+                ln, global_range))
+    return {key: judge(_joined(parts[key], lows.device), name=name,
+                       dtype=lows.dtype, min_agree=min_agree)
+            for key in outputs}
 
 
 def _joined(parts, device):

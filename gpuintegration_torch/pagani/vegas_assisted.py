@@ -36,6 +36,8 @@ from gpuintegration_torch.mcubes import stream
 # streams of one seed stay apart.  Below it: 16 pass + block.
 ASSISTED_STREAM = 0xA55A0000
 MAX_PASSES = 1 << 12
+# 16 blocks of 4 uniforms a pass: 2 ndim <= 64
+MAX_NDIM = 32
 # bins a dimension of a region's grid (the reference's 100, Sample.cuh)
 NBINS = 100
 
@@ -91,14 +93,19 @@ def _refine_grids(grids, hist):
 
 
 def region_draws(seed: int, iteration: int, pass_: int, region_ids,
-                 spp: int, ndim: int):
+                 spp: int, ndim: int, stream_base: int = ASSISTED_STREAM):
     """(u_bin, u_pos): the uniforms of pass ``pass_`` for regions
     ``region_ids`` ((R,) int64 global ids below 2^32), each (R, spp, ndim)
     f32 in [0, 1): 24-bit uniforms of the Philox stream keyed on ``seed``,
-    counter (region id, slot, iteration, ASSISTED_STREAM + 16 pass_ +
-    block)."""
+    counter (region id, slot, iteration, stream_base + 16 pass_ + block).
+    ``stream_base``: ASSISTED_STREAM here, suave.SUAVE_STREAM for Suave's
+    draws.  A pass holds at most 16 blocks (ndim <= 32), or its last
+    blocks would be the next pass's first."""
     if not 0 <= pass_ < MAX_PASSES:
         raise ValueError(f"pass {pass_}: 0 .. {MAX_PASSES - 1}")
+    if ndim > MAX_NDIM:
+        raise ValueError(f"{ndim} dimensions: a pass's 2 ndim uniforms take "
+                         f"at most 16 blocks of 4 (ndim <= {MAX_NDIM})")
     k0, k1 = stream.seed_key(seed)
     ids = region_ids.to(torch.int64) & stream.MASK32
     dev = ids.device
@@ -111,7 +118,7 @@ def region_draws(seed: int, iteration: int, pass_: int, region_ids,
     nvals = 2 * ndim
     words = []
     for b in range(-(-nvals // 4)):
-        c3 = torch.full(shape, ASSISTED_STREAM + 16 * pass_ + b,
+        c3 = torch.full(shape, stream_base + 16 * pass_ + b,
                         dtype=torch.int64, device=dev)
         words.extend(stream.philox4x32(c0, c1, c2, c3, k0, k1)[
             :min(4, nvals - 4 * b)])

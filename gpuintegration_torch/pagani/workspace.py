@@ -169,11 +169,11 @@ def _worst_err(res) -> float:
     return float(np.max(_errs(res)))
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, what: str = "Workspace") -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "Workspace runs on the CUDA card by default and none is "
+            f"{what} runs on the CUDA card by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return device
 
