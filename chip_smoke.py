@@ -206,8 +206,10 @@ timed beside the others in the same run.
    the host loop in turns (the same status, iterations, regions and neval,
    the estimate within 1e-12), its bursts, captures, replays and packed
    reads, each traced once (``utils.profiling.trace``) for the device's
-   idle share; phase 13's vector and phase 11's F4 callable through the
-   fused phase against those phases' host-loop runs;
+   idle share; phase 13's vector through the fused phase against that
+   phase's host-loop run; phase 11's F4 callable cut to its first
+   ``SPLIT_FUSED_ITERS`` iterations, fused against its host loop at the
+   same cut;
 18. VEGAS's device-resident phases (``mcubes/phases.py``): runs 1-3 of
    phase 6 with 3 adjusting iterations (``FROZEN_RUNS``) in the host loop,
    the form the frozen phase chooses and its CUDA graph (``FORMS``, pinned
@@ -261,7 +263,22 @@ timed beside the others in the same run.
 23. 1-D quadrature (``ops/quad1d.py``): ``qng``, ``qag`` keys 1-6,
    ``cquad``, ``qawo`` and ``qawf`` on closed-form cases, card against CPU
    (the same neval and intervals, estimates within 1e-12);
-24. the ``kernels`` JSON line, then the card line and the result line.
+24. the mesh (``gpuintegration_torch/parallel``, ranks started by
+   ``parallel.launch.run_on_ranks``, their side ``tools/mesh_cases.py``):
+   one rank under NCCL (a real communicator), whose main path
+   (``Workspace(8, mesh=m)``, F4 at 1e-3, f64, fused) must give phase
+   17's fused run bit for bit, every B1 launch tile, and whose VEGAS run 1
+   phase 6's; then two ranks under gloo sharing the card: the main path
+   (status 0 within 1e-3, phase 3's iterations, regions and neval, the
+   estimate within 1e-12 and the errorest within 1e-9), ``sin_sum(8)`` at
+   1e-11 (phase 11's decisions, the cluster contraction), ``[sin_sum(8)]
+   x 2`` (the components cluster route, the scalar mesh run's decisions),
+   8D F5 crease at 1e-2 (the fused tile kernel with the fraction), the
+   continuation at ``CONT_POOL`` (certified, its rebalanced resumes
+   counted), VEGAS runs 1 and 3 (within 5 combined errorests of phase
+   6's); every rank the same bits, every launch on the card's route; each
+   rank's wall (not compared), peak memory and free memory printed;
+25. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -290,11 +307,13 @@ from gpuintegration_torch.mcubes import phases as vegas_phases
 from gpuintegration_torch.models import genz, misc, physics
 from gpuintegration_torch.ops import (cuda_build, cuda_rule, interp,
                                       kernel_check, quad1d, rule_eval)
+from gpuintegration_torch.parallel.launch import run_on_ranks
 from gpuintegration_torch.pagani import (fused_loop, oneshot, region_pool,
                                          vegas_assisted)
 from gpuintegration_torch.pagani import suave as suave_mod
-from gpuintegration_torch.tools import (assisted_probe, route_bits,
-                                        sass_report, vector_probe)
+from gpuintegration_torch.tools import (assisted_probe, mesh_cases,
+                                        route_bits, sass_report,
+                                        vector_probe)
 from gpuintegration_torch.types import Volume
 from gpuintegration_torch.utils.profiling import StageTimer
 
@@ -840,7 +859,8 @@ def vegas_run(label, g, expect, events=False, lookups="card", **kw):
 
 
 def vegas_main_path(dev):
-    """Phase 6; returns the launch counts and the walls of runs 1-3."""
+    """Phase 6; returns the launch counts and the walls of runs 1-3, and
+    the results of runs 1 and 3."""
     g6 = genz.f4_gaussian(VEGAS_NDIM)
     sh = {"vegas_sample", "vegas_hist"}
     walls = {}
@@ -893,7 +913,8 @@ def vegas_main_path(dev):
                 or not math.isclose(on_card.estimate, on_cpu.estimate,
                                     rel_tol=1e-6)):
             fail(f"3D {label} run on the card differs from the CPU's")
-    return {"run1": l1, "run2": l2, "run3": l3}, walls
+    return {"run1": l1, "run2": l2, "run3": l3}, walls, {"run1": r1,
+                                                          "run3": r3}
 
 
 def vegas_times(dev, err, launches, walls):
@@ -1818,14 +1839,12 @@ def split_main_path(dev, tile_run):
     kernel launch and each call of the callable, beside phase 3's run;
     then ``misc.sin_sum(12)`` the same way, and ``misc.sin_sum(8)`` at
     1e-11.  Returns the split kernels' launches on the first run, the
-    contraction's by route, the 12D run's result and the first run's
-    (result, wall)."""
+    contraction's by route, the 12D run's result and the sin_sum(8) run's
+    result."""
     g4 = genz.f4_gaussian(NDIM)
-    t0 = time.perf_counter()
     res, launches, routes = events_run(
         f"f64 {NDIM}D F4 as a plain callable", Workspace(NDIM), f4_plain,
         1e-3, g4.true_value)
-    split_run = (res, time.perf_counter() - t0)
     print(f"phase 11: phase 3 (tile route, the same integrand): iters "
           f"{tile_run.iters} nregions {tile_run.nregions} neval "
           f"{tile_run.neval}", flush=True)
@@ -1858,7 +1877,7 @@ def split_main_path(dev, tile_run):
     if res.status != 0 or not rel <= SIN_SUM_EPSREL or cuda_rule.launches \
             or not cuda_rule.split_launches["points"]:
         fail(f"sin_sum main path: status {res.status}, rel.err {rel}")
-    return launches, routes, sin12, split_run
+    return launches, routes, sin12, res
 
 
 CONT_POOL = 1 << 22      # a pool budget at which 8D F4's round 1 walls
@@ -2996,17 +3015,25 @@ def fused_vs_host(label, run_fused, host, host_wall, rtol):
     return res, wall, st
 
 
-def fused_main_path(dev, tile_run, split_run, vec_run):
+# phase 17 runs phase 11's split-route path to this depth only (the whole
+# run, 30 iterations, is phase 11's; its last 13 iterations classify pools
+# of 9-15M regions through the callable, most of its 50 s): the fused
+# phase's bursts and gate crossing lie before it
+SPLIT_FUSED_ITERS = 16
+
+
+def fused_main_path(dev, tile_run, vec_run):
     """Phase 17: phase 3's main path (8D F4 at 1e-3, f64) with the fused
     phase against the host loop, in turns (host, fused, fused, host), each
     fused run's bursts, captures, replays and packed reads, and one run of
-    each traced for the device's idle share; then phase 13's 8D vector and
-    phase 11's F4 callable (the split route) through the fused phase
-    against those phases' host-loop runs (``vec_run``, ``split_run``:
-    (result, wall))."""
+    each traced for the device's idle share; then phase 13's 8D vector
+    through the fused phase against that phase's host-loop run
+    (``vec_run``: (result, wall)), and phase 11's F4 callable (the split
+    route) cut to its first SPLIT_FUSED_ITERS iterations, fused against
+    its host loop at the same cut."""
     g4 = genz.f4_gaussian(NDIM)
     walls = {"host": [], "fused": []}
-    stats = None
+    stats = fused_run = None
     for fused in (False, True, True, False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3015,6 +3042,7 @@ def fused_main_path(dev, tile_run, split_run, vec_run):
                 f"f64 {NDIM}D F4 at 1e-3 (phase 3)",
                 lambda: Workspace(NDIM).integrate(g4, 1e-3, 1e-40),
                 tile_run, min(walls["host"]), 1e-12)
+            fused_run = fused_run or res
         else:
             res = Workspace(NDIM).integrate(g4, 1e-3, 1e-40, **HOST)
             torch.cuda.synchronize()
@@ -3031,11 +3059,18 @@ def fused_main_path(dev, tile_run, split_run, vec_run):
         "f64 8D vector of four Genz members (phase 13)",
         lambda: Workspace(NDIM).integrate(f, VEC8_EPSREL, 1e-40),
         *vec_run, 1e-10)
+    cut = {"max_iterations": SPLIT_FUSED_ITERS}
+    t0 = time.perf_counter()
+    split_host = Workspace(NDIM).integrate(f4_plain, 1e-3, 1e-40, **cut,
+                                           **HOST)
+    torch.cuda.synchronize()
     _, split_wall, split_stats = fused_vs_host(
-        "f64 8D F4 as a plain callable (phase 11, the split route)",
-        lambda: Workspace(NDIM).integrate(f4_plain, 1e-3, 1e-40),
-        *split_run, 1e-10)
+        f"f64 8D F4 as a plain callable (phase 11, the split route), its "
+        f"first {SPLIT_FUSED_ITERS} iterations",
+        lambda: Workspace(NDIM).integrate(f4_plain, 1e-3, 1e-40, **cut),
+        split_host, time.perf_counter() - t0, 1e-10)
     return {"f4_walls_s": walls, "f4_stats": stats, "idle": idle,
+            "f4_fused_run": fused_run,
             "vector_fused_wall_s": vec_wall, "vector_stats": vec_stats,
             "split_fused_wall_s": split_wall, "split_stats": split_stats}
 
@@ -3918,6 +3953,232 @@ def quad1d_path(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The mesh (phase 24): parallel.launch.run_on_ranks, tools/mesh_cases.py
+
+MESH_F4 = ("genz", "f4_gaussian", NDIM, {})
+MESH_G6 = ("genz", "f4_gaussian", VEGAS_NDIM, {})
+MESH_SIN8 = ("misc", "sin_sum", NDIM, {})
+MESH_VEGAS = dict(epsrel=1e-3, epsabs=1e-40, ncall=1e8)
+MESH_MAIN = dict(what="pagani", integrand=MESH_F4, ndim=NDIM,
+                 kw=dict(epsrel=1e-3, epsabs=1e-40), trace_classifier=True)
+# D = 1 under NCCL: phase 3's main path (its fused run, phase 17) and VEGAS
+# run 1 (phase 6)
+MESH_D1 = {"main": MESH_MAIN,
+           "vegas_run1": dict(what="vegas", integrand=MESH_G6,
+                              kw=MESH_VEGAS)}
+# D = 2 under gloo, two ranks on the one card
+MESH_D2 = {
+    "main": MESH_MAIN,
+    "sin_sum": dict(what="pagani", integrand=MESH_SIN8, ndim=NDIM,
+                    kw=dict(epsrel=SIN_SUM_EPSREL, epsabs=1e-40, **HOST)),
+    "vector": dict(what="pagani", integrand=("vector", [MESH_SIN8] * 2),
+                   ndim=NDIM,
+                   kw=dict(epsrel=SIN_SUM_EPSREL, epsabs=1e-40, **HOST)),
+    "crease": dict(what="pagani",
+                   integrand=("genz", "f5_c0_continuous", NDIM,
+                              {"a": 10.0, "b": 0.37}),
+                   ndim=NDIM, kw=dict(epsrel=F5_CREASE_EPSREL, epsabs=1e-40,
+                                      crease_split=True)),
+    "continuation": dict(what="convergence", integrand=MESH_F4, ndim=NDIM,
+                         ws=dict(max_pool_regions=CONT_POOL),
+                         kw=dict(epsrel=1e-5, epsabs=1e-40, max_wall_s=600,
+                                 **HOST)),
+    "vegas_run1": dict(what="vegas", integrand=MESH_G6, kw=MESH_VEGAS),
+    "vegas_run3": dict(what="vegas", integrand=MESH_G6,
+                       kw=dict(MESH_VEGAS, importance="grid")),
+}
+# the kernels each case's launches must all take, by route: (counter, key,
+# total counter) per kernel
+MESH_ROUTES = {
+    "main": [("rule", "tile", "rule_total")],
+    "sin_sum": [("contract", "cluster", ("split", "contract"))],
+    "vector": [("contract", cuda_rule.COMPONENTS_CLUSTER,
+                ("split", "contract"))],
+    "crease": [("rule", "tile", "rule_total"),
+               ("frac", "tile", "rule_total")],
+    "continuation": [("rule", "tile", "rule_total")],
+    "vegas_run1": [("sampler", "paired", "sampler_total"),
+                   ("hist", "grouped", None)],
+    "vegas_run3": [("resolve", "sample", None), ("hist", "grouped", None)],
+}
+
+
+def _mesh_launches_ok(name, launches):
+    """Every launch of the case's kernels on the card's own route; returns
+    the route counts."""
+    counts = {}
+    for counter, route, total in MESH_ROUTES[name]:
+        n = launches[counter][route]
+        if total is None:
+            whole = sum(launches[counter].values())
+        elif isinstance(total, tuple):
+            whole = launches[total[0]][total[1]]
+        else:
+            whole = launches[total]
+        counts[f"{counter}/{route}"] = n
+        if n <= 0 or n != whole:
+            fail(f"phase 24: {name}: {n} of {whole} {counter} launches on "
+                 f"the {route} route; all should take it ({launches})")
+    if name in ("sin_sum", "vector") and launches["rule_total"]:
+        fail(f"phase 24: {name}: {launches['rule_total']} fused rule "
+             "launches; a callable takes the split route only")
+    if name == "crease" and (launches["split"]["points"]
+                             or launches["split"]["contract"]):
+        fail("phase 24: the crease run left the fused tile route")
+    return counts
+
+
+def _mesh_ranks(label, backend, d, cases):
+    """The cases on ``d`` ranks of ``backend``; every rank the same result
+    bits; prints each case's walls, memory and launches.  Returns the
+    ranks' outcomes."""
+    t0 = time.perf_counter()
+    ranks = run_on_ranks(mesh_cases.run_cases, d, backend=backend,
+                         device_type="cuda",
+                         args=(cases, "cuda", None, False), timeout=900)
+    print(f"phase 24: {label}: {d} rank(s) under {backend} took "
+          f"{time.perf_counter() - t0:.1f} s with the spawn", flush=True)
+    for name in cases:
+        first = ranks[0][name]["result"]
+        for r in ranks[1:]:
+            if any(not np.array_equal(np.asarray(r[name]["result"][k]),
+                                      np.asarray(v))
+                   for k, v in first.items()):
+                fail(f"phase 24: {label} {name}: the ranks' results differ")
+        for k, r in enumerate(ranks):
+            out = r[name]
+            res = out["result"]
+            print(f"phase 24: {label} {name} rank {k}: status "
+                  f"{res['status']} estimate {res['estimate']!r} errorest "
+                  f"{res['errorest']!r} iters {res['iters']} nregions "
+                  f"{res['nregions']} neval {res['neval']} wall "
+                  f"{out['wall_s']:.3f} s (not compared: the ranks share "
+                  f"the card), peak {out['peak_gib']:.2f} GiB, free after "
+                  f"{out['free_gib']:.2f} GiB; fused_loop.stats "
+                  f"{out['fused_stats']}, phases.stats {out['vegas_stats']}"
+                  f", launches by route "
+                  f"{_mesh_launches_ok(name, out['launches'])}"
+                  + (f", rebalanced resumes {out['rebalances']}, stages "
+                     f"{out['stages']}" if "stages" in out else ""),
+                  flush=True)
+    return ranks
+
+
+def _same_bits(a, b) -> bool:
+    return (a.status, a.iters, a.nregions, a.neval, a.estimate,
+            a.errorest) == (b["status"], b["iters"], b["nregions"],
+                            b["neval"], b["estimate"], b["errorest"])
+
+
+def mesh_path(dev, tile_run, fused_run, vegas_runs, sin8):
+    """Phase 24: PAGANI and VEGAS on a ``torch.distributed`` mesh on the one
+    card.  D = 1 under NCCL (a real communicator): phase 3's main path
+    with the mesh must give phase 17's fused run of it (``fused_run``) bit
+    for bit, every B1 launch on the tile route, and VEGAS run 1 phase 6's
+    (``vegas_runs``) bit for bit.  D = 2 under gloo, two processes on the
+    card: the main path to status 0 within 1e-3 with phase 3's
+    (``tile_run``) iterations, regions and neval, the estimate within 1e-12
+    and the errorest within 1e-9; ``sin_sum(8)`` at 1e-11 on the split
+    route (phase 11's run, ``sin8``, its decisions), [sin_sum(8)] x 2 on
+    'components_cluster' (the scalar mesh run's decisions, its components
+    equal), 8D F5 crease at 1e-2 on the fused tile route with the
+    fraction, the continuation at CONT_POOL certifying, VEGAS runs 1 and 3
+    (status 0, the truth within 5 errorests, within 5 sqrt(e1^2 + e2^2) of
+    phase 6's).  Every rank the same bits, every launch on the card's
+    route.  Returns {case: launches a rank} for the kernels line."""
+    t_phase = time.perf_counter()
+    d1 = _mesh_ranks("D = 1", "nccl", 1, MESH_D1)[0]
+    main = d1["main"]["result"]
+    if not _same_bits(fused_run, main):
+        fail(f"phase 24: D = 1 under NCCL: {main} is not phase 17's fused "
+             f"run of phase 3 bit for bit ({fused_run})")
+    r1 = vegas_runs["run1"]
+    v1 = d1["vegas_run1"]["result"]
+    if (r1.estimate, r1.errorest, r1.chi_sq, r1.iters) != (
+            v1["estimate"], v1["errorest"], v1["chi_sq"], v1["iters"]):
+        fail(f"phase 24: D = 1 VEGAS run 1 {v1} is not phase 6's bit for "
+             f"bit ({r1.estimate!r}, {r1.errorest!r})")
+    print(f"phase 24: D = 1 under NCCL gives phase 17's fused main path and "
+          f"phase 6's run 1 bit for bit; graphs: fused_loop.stats "
+          f"{d1['main']['fused_stats']}, phases.stats "
+          f"{d1['vegas_run1']['vegas_stats']}", flush=True)
+
+    ranks = _mesh_ranks("D = 2", "gloo", 2, MESH_D2)
+    out = ranks[0]
+    main = out["main"]["result"]
+    g4 = genz.f4_gaussian(NDIM)
+    rel = abs(main["estimate"] - g4.true_value) / g4.true_value
+    same = (main["iters"], main["nregions"], main["neval"]) == (
+        tile_run.iters, tile_run.nregions, tile_run.neval)
+    d_est = abs(main["estimate"] - tile_run.estimate) / tile_run.estimate
+    d_err = abs(main["errorest"] - tile_run.errorest) / tile_run.errorest
+    print(f"phase 24: D = 2 main path against phase 3: "
+          f"{'the same' if same else 'OTHER'} iterations, regions and neval; "
+          f"estimate {d_est:.3g}, errorest {d_err:.3g} apart (relative); "
+          f"rel.err {rel:.3e}; classifier calls (regions, verdict, "
+          f"threshold, survivors) {out['main']['classifier']}", flush=True)
+    if not same:
+        calls = []
+        with mesh_cases._traced_classifier(calls):
+            Workspace(NDIM).integrate(g4, 1e-3, 1e-40, **HOST)
+        print(f"phase 24: phase 3's classifier calls {calls}", flush=True)
+    if (main["status"] != 0 or not rel <= 1e-3 or not same
+            or not d_est <= 1e-12 or not d_err <= 1e-9):
+        fail("phase 24: the D = 2 main path parts from phase 3")
+    s = out["sin_sum"]["result"]
+    if (s["status"], s["iters"], s["nregions"], s["neval"]) != (
+            sin8.status, sin8.iters, sin8.nregions, sin8.neval):
+        fail(f"phase 24: sin_sum(8) on the mesh {s} does not take phase "
+             f"11's decisions ({sin8})")
+    v = out["vector"]["result"]
+    if (v["status"], v["iters"], v["nregions"], v["neval"]) != (
+            s["status"], s["iters"], s["nregions"], s["neval"]) or not (
+            v["estimates"][0] == v["estimates"][1]) or not abs(
+            v["estimates"][0] - s["estimate"]) <= kernel_check.RTOL[
+                torch.float64] * abs(s["estimate"]):
+        fail(f"phase 24: [sin_sum(8)] x 2 {v} against the scalar {s}")
+    c = out["crease"]["result"]
+    g5 = genz.f5_c0_continuous(NDIM, a=10.0, b=0.37)
+    if c["status"] != 0 or not abs(c["estimate"] - g5.true_value) <= (
+            3 * F5_CREASE_EPSREL * g5.true_value):
+        fail(f"phase 24: the crease run {c}")
+    cont = out["continuation"]
+    rel = abs(cont["result"]["estimate"] - g4.true_value) / g4.true_value
+    if cont["result"]["status"] != 0 or not rel <= 1e-5 \
+            or cont["rebalances"] == 0:
+        fail(f"phase 24: the continuation at {CONT_POOL} regions: "
+             f"{cont['result']}, rebalanced resumes {cont['rebalances']}")
+    g6 = genz.f4_gaussian(VEGAS_NDIM)
+    for run in ("run1", "run3"):
+        r = out["vegas_" + run]["result"]
+        one = vegas_runs[run]
+        pull = abs(r["estimate"] - g6.true_value) / r["errorest"]
+        apart = abs(r["estimate"] - one.estimate) / math.hypot(
+            r["errorest"], one.errorest)
+        print(f"phase 24: D = 2 VEGAS {run}: {r['iters']} iterations against "
+              f"phase 6's {one.iters}; pull {pull:.3f}; "
+              f"{apart:.3f} combined errorests from phase 6's estimate",
+              flush=True)
+        if r["status"] != 0 or not pull <= 5 or not apart <= 5:
+            fail(f"phase 24: D = 2 VEGAS {run}: {r}")
+    print(f"phase 24 (the mesh) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {name: [_launch_totals(r[name]["launches"]) for r in ranks]
+            for name in MESH_D2}
+
+
+def _launch_totals(launches) -> dict:
+    """A case's launches on a rank by the kernels line's names."""
+    return {"rule_eval": launches["rule_total"],
+            "rule_split_points": launches["split"]["points"],
+            "rule_split_contract": launches["split"]["contract"],
+            "rule_contract_components": launches["split"]["contract"],
+            "vegas_sample": launches["sampler_total"],
+            "vegas_hist": sum(launches["hist"].values()),
+            "vegas_bin_resolve": sum(launches["resolve"].values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -4156,7 +4417,7 @@ def main() -> int:
     vegas_err = vegas_checks(dev)
     counter_checks(dev)
     phase_done("phase 5")
-    vegas_launches, vegas_walls = vegas_main_path(dev)
+    vegas_launches, vegas_walls, vegas_runs = vegas_main_path(dev)
     phase_done("phase 6")
     vegas_kernels = vegas_times(dev, vegas_err, vegas_launches, vegas_walls)
     regs = vegas_registers()
@@ -4187,8 +4448,7 @@ def main() -> int:
     split_ms, b_points, contract_rows = split_times(dev)
     comp_rows = components_times(dev)
     phase_done("phase 10")
-    split_launches, contract_routes, sin12, split_run = split_main_path(
-        dev, res)
+    split_launches, contract_routes, sin12, sin8 = split_main_path(dev, res)
     phase_done("phase 11")
     continuation_path(dev)
     phase_done("phase 12")
@@ -4207,7 +4467,7 @@ def main() -> int:
     phase_done("phase 15")
     frac_launches, crease_rows = crease_path(dev)
     phase_done("phase 16")
-    fused_rows = fused_main_path(dev, res, split_run, vec_run)
+    fused_rows = fused_main_path(dev, res, vec_run)
     phase_done("phase 17")
 
     # -- phases 18-19: VEGAS's device-resident phases, vegas_assisted -------
@@ -4229,6 +4489,11 @@ def main() -> int:
     phase_done("phase 23")
     print(f"phases 20-23 took {time.perf_counter() - slice_t0:.1f} s",
           flush=True)
+
+    # -- phase 24: the mesh (parallel/, tools/mesh_cases.py) ----------------
+    mesh_launches = mesh_path(dev, res, fused_rows.pop("f4_fused_run"),
+                              vegas_runs, sin8)
+    phase_done("phase 24")
 
     # -- the kernels line ----------------------------------------------------
     kernels = [{
@@ -4387,6 +4652,15 @@ def main() -> int:
         "phase 21 VEGAS cross-check": physics_row["vegas_b2"]}
     by_name["vegas_hist"]["launches_phase_21"] = {
         "phase 21 VEGAS cross-check": physics_row["vegas_b3"]}
+    # each rank's launches on phase 24's D = 2 mesh, by case
+    for name, case in (("rule_eval", "main"), ("rule_split_points", "sin_sum"),
+                       ("rule_split_contract", "sin_sum"),
+                       ("rule_contract_components", "vector"),
+                       ("vegas_sample", "vegas_run1"),
+                       ("vegas_hist", "vegas_run1"),
+                       ("vegas_bin_resolve", "vegas_run3")):
+        by_name[name]["launches_phase_24_mesh_d2_a_rank"] = {
+            case: [t[name] for t in mesh_launches[case]]}
     kernels[0]["slice_13_paths"] = {
         "oneshot_walls_s": oneshot_walls, "physics": physics_row,
         "suave": suave_row, "quad1d": quad_rows}

@@ -24,6 +24,9 @@ package ``gpuintegration_tpu`` is the reference; this package imports torch
 and numpy only, never JAX.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
+``Workspace(ndim, mesh=m)`` and ``mcubes.integrate(..., mesh=m)`` run on
+several devices, one process each (``parallel``: a ``torch.distributed``
+mesh, every collective an all-reduce).
 """
 from gpuintegration_torch.types import IntegrationResult, Volume, unit_volume
 from gpuintegration_torch.integrand import make_integrand

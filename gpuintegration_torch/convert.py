@@ -119,3 +119,36 @@ def interp_from_reference(jax_interp, *, device=None):
     return getattr(interp, kind)(
         *arrays, precision=getattr(jax_interp, "precision", "f64"),
         device=device)
+
+
+def shards_from_reference(lows, lengths, ns, d: int, *, dtype=torch.float64,
+                          device=None) -> list:
+    """The per-rank shards of a reference mesh pool: the JAX package's
+    global (ndim, D cap_s) arrays (``final_pool = ("mesh", lows, lengths,
+    ns, cap_s, blocked)``, or any region-sharded pool) cut into D (ndim,
+    cap_s) blocks, shard k's slots [k cap_s, (k + 1) cap_s), each with its
+    count ``ns[k]``: [(lows_k, lengths_k, n_k), ...] as tensors, the layout
+    a port rank holds."""
+    lows = np.asarray(lows)
+    lengths = np.asarray(lengths)
+    ns = np.asarray(ns).astype(np.int64).reshape(-1)
+    if ns.shape[0] != d or lows.shape[1] % d:
+        raise ValueError(f"a pool of {lows.shape[1]} slots and counts "
+                         f"{ns.tolist()} do not make {d} shards")
+    cap_s = lows.shape[1] // d
+
+    def put(a, k):
+        return torch.as_tensor(np.ascontiguousarray(
+            a[..., k * cap_s:(k + 1) * cap_s]), dtype=dtype, device=device)
+
+    return [(put(lows, k), put(lengths, k), int(ns[k])) for k in range(d)]
+
+
+def shards_to_reference(shards) -> tuple:
+    """The inverse of ``shards_from_reference``: ranks' (lows_k, lengths_k,
+    n_k) as the reference's global (ndim, D cap_s) NumPy arrays and its (D,)
+    counts."""
+    lows = np.concatenate([np.asarray(s[0].cpu()) for s in shards], axis=-1)
+    lengths = np.concatenate([np.asarray(s[1].cpu()) for s in shards],
+                             axis=-1)
+    return lows, lengths, np.asarray([int(s[2]) for s in shards], np.int64)

@@ -1,7 +1,6 @@
 """VEGAS's device-resident phases (PyTorch port of the reference's
 ``_frozen_phase`` and ``_adjust_phase``, gpuintegration_tpu/mcubes/
-vegas.py:721-827 and :836-977; the ``mesh`` forms are not ported, ROADMAP
-A16).
+vegas.py:721-827 and :836-977, their ``mesh`` forms included).
 
 A phase runs whole VEGAS iterations with the iteration-weighted
 combination and the convergence test on the device: the carry (iteration,
@@ -46,6 +45,15 @@ the kernel wrappers' launch counts (``cuda_vegas.launches``,
 ``cuda_lookup.*_launches``) are taken back after a capture and advanced by
 the recorded launches at each replay, so they count launches that ran.
 ``FORM`` pins the form for tests and measurements.
+
+On a mesh (reference ``vegas.py:785-788``, ``:812-830``, ``:923-927``,
+``:962-980``) each rank samples its own chunks and the iteration
+SUM-all-reduces ti and tsi (and, adjusting, the f32 histogram before the
+rebin), so the carry and the grid stay the same on every rank.  Whether a
+phase on the card may capture is decided from the group's backend before it
+starts: an NCCL all-reduce is captured with the iteration, gloo's cannot be
+(it copies through the host), so under gloo the phase runs eagerly and
+``stats["uncaptured"]`` counts such phases.
 """
 from __future__ import annotations
 
@@ -56,14 +64,17 @@ import torch
 
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
 from gpuintegration_torch.pagani import vegas_assisted
+from gpuintegration_torch.parallel import mesh as pmesh
 
 # Counts since ``reset_stats``: phases run, eager iterations, graph
 # captures, replays, packed reads; and seconds on the host's clock in the
 # first, eager iteration of a phase on the card (its read included), in
 # captures (instantiation included) and in the iterations after the first
 # (replayed or eager) with their reads.
+# ``uncaptured`` counts phases on the card that run eagerly because their
+# mesh's backend cannot be captured (gloo).
 stats = {"phases": 0, "eager": 0, "captures": 0, "replays": 0, "reads": 0,
-         "first_s": 0.0, "capture_s": 0.0, "rest_s": 0.0}
+         "first_s": 0.0, "capture_s": 0.0, "rest_s": 0.0, "uncaptured": 0}
 TINY = 1e-300
 # The fewest further iterations, after its first, for which a phase on the
 # card captures a graph: a capture repaid itself after 14 to 26 replays on
@@ -165,14 +176,19 @@ class Phase:
     ``vegas._vegas_iteration`` does.  ``adjust``: refine the grid (and,
     given ``refit(xi) -> (p, q)``, re-fit the map) after each iteration.
     ``capture``: on the card, a CUDA graph of one iteration may be
-    replayed (``graph_pays``)."""
+    replayed (``graph_pays``).  ``mesh``: a ``parallel.mesh`` mesh whose
+    ranks' sums the iteration all-reduces; under a backend other than NCCL
+    the phase never captures."""
 
     def __init__(self, iterate, *, adjust: bool, capture: bool, dv2g: float,
                  skip_iters: int, epsrel: float, epsabs: float, refit=None,
-                 label: str = "frozen"):
+                 label: str = "frozen", mesh=None):
         self.iterate = iterate
         self.adjust = adjust
-        self.capture = capture
+        self.mesh = mesh
+        self.uncaptured = (capture and mesh is not None
+                           and pmesh.backend(mesh) != "nccl")
+        self.capture = capture and not self.uncaptured
         self.refit = refit
         self.label = label
         self.kw = dict(dv2g=dv2g, skip_iters=skip_iters, epsrel=epsrel,
@@ -208,6 +224,10 @@ class Phase:
                                    c.get("q"))
         else:
             sums, _ = self.iterate(c["word"], False, *c["map"])
+        if self.mesh is not None:
+            sums = pmesh.all_reduce_sum(self.mesh, sums)
+            if self.adjust:
+                d = pmesh.all_reduce_sum(self.mesh, d)
         run = ~c["done"] & (c["it"] <= end_it)
         new = combine(c, sums, **self.kw)
         if self.adjust:
@@ -278,6 +298,7 @@ class Phase:
         done, the refined f32 grid on the device or None)."""
         dev = (xi if xi is not None else p).device
         stats["phases"] += 1
+        stats["uncaptured"] += int(self.uncaptured)
         c = self._carry(dev, start_it, it_offset, si, swgt, schi, xi, p, q)
         swgt0 = np.atleast_1d(np.asarray(swgt, np.float64))
         n_max = end_it - start_it + 1

@@ -31,11 +31,21 @@ phase gives the host loop's iterations, neval and estimate bits; with a
 ``debug_logger`` (as in the reference) every iteration runs through the
 host loop.
 
-One device.  A vector-valued integrand, f: (..., ndim) -> (..., ncomp),
-runs on both maps and the 'torch' and 'hybrid' samplers: (ncomp,)
-accumulators, the grid adapted to component 0 (CUBA's multi-component
-VEGAS), status 0 only when every component passes.  Not ported yet:
-``mesh=`` (ROADMAP A16), which raises NotImplementedError.
+A vector-valued integrand, f: (..., ndim) -> (..., ncomp), runs on both
+maps and the 'torch' and 'hybrid' samplers: (ncomp,) accumulators, the grid
+adapted to component 0 (CUBA's multi-component VEGAS), status 0 only when
+every component passes.
+
+``mesh=`` (``parallel.mesh.make_mesh``; the reference's ``_mesh_iteration``,
+``vegas.py:668-716``, and the mesh forms of its phases) runs the same
+driver on D ranks: rank i samples the global chunks [i num_chunks, (i + 1)
+num_chunks) of a lattice cut into ``ceil(ncubes / D)`` cubes a rank, and
+ti, tsi and the f32 histogram are SUM-all-reduced each iteration, in the
+host loop and inside the phases alike.  Every rank then refines its own
+copy of the grid (or re-fits the map) from the same reduced values, so the
+grids stay replicated bit for bit.  The draws are keyed on the global cube
+id, so a mesh run draws the single-device run's samples when the chunks
+match.
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ from gpuintegration_torch.mcubes.cuda_lookup import HIST_CAP as _HIST_CAP
 from gpuintegration_torch.mcubes.poly_importance import (
     eval_map_and_weight, fit_importance_poly, fit_importance_poly_device)
 from gpuintegration_torch.ops import cuda_rule
+from gpuintegration_torch.parallel import mesh as pmesh
 from gpuintegration_torch.types import IntegrationResult, Volume
 from gpuintegration_torch.utils.stats import chi2_prob
 
@@ -166,6 +177,7 @@ def _vegas_iteration(
     plain: bool = False,
     bits=None,
     ncomp: int = 1,
+    chunk0: int = 0,
 ):
     """One full VEGAS iteration with the grid map (importance='grid').
 
@@ -185,7 +197,8 @@ def _vegas_iteration(
     iteration index of the stream: a host integer, or a 0-d integer tensor
     on the grid's device (the device-resident phases' counter, which the
     kernels read on the card); ``bits`` ((npg*ndim, chunk_cubes) words,
-    single-chunk iterations only) replaces the stream.
+    single-chunk iterations only) replaces the stream.  ``chunk0``: the
+    first global chunk (a mesh rank's), of ``num_chunks``.
     """
     ed = eval_dtype or dtype
     f32 = torch.float32
@@ -196,7 +209,7 @@ def _vegas_iteration(
                        device=dev)
     d = torch.zeros((ndim, nbins), dtype=f32, device=dev)
     lo_col, dx_col = regn_lo[:, None], dx[:, None]
-    for c in range(num_chunks):
+    for c in range(chunk0, chunk0 + num_chunks):
         cube0, valid = _chunk_valid(c, chunk_cubes, ncubes, dev)
         # stratified + importance point (Setup_Integrand_Eval,
         # vegasT.cuh:188-235): xn in [1, nbins+1), bin ia, position inside
@@ -252,6 +265,7 @@ def _vegas_iteration_poly(
     sampler: str = "torch",
     bits=None,
     ncomp: int = 1,
+    chunk0: int = 0,
 ):
     """One full VEGAS iteration with the polynomial inverse-CDF map
     (mcubes.poly_importance).  Same stratification, accumulators,
@@ -268,7 +282,8 @@ def _vegas_iteration_poly(
     callable ``f`` is evaluated here in the evaluation type with per-cube
     accumulation in ``dtype``.  On a CPU device 'fused' and 'hybrid' take
     the kernels' plain versions.  ``ncomp`` > 1: a vector integrand on
-    'torch' or 'hybrid', (2, ncomp) sums, the histogram of component 0."""
+    'torch' or 'hybrid', (2, ncomp) sums, the histogram of component 0.
+    ``chunk0``: the first global chunk, as ``_vegas_iteration``'s."""
     ed = eval_dtype or dtype
     f32 = torch.float32
     dev = p_coeffs.device
@@ -277,7 +292,7 @@ def _vegas_iteration_poly(
     d = torch.zeros((ndim, nbins), dtype=f32, device=dev)
     pmap = (cuda_vegas.fold_map(p_coeffs, q_coeffs, regn_lo, dx)
             if sampler != "torch" else None)
-    for c in range(num_chunks):
+    for c in range(chunk0, chunk0 + num_chunks):
         cube0, valid = _chunk_valid(c, chunk_cubes, ncubes, dev)
         if sampler == "fused":
             chunk_sums, ia, f2 = cuda_vegas.sample_chunk(
@@ -497,17 +512,27 @@ def vegas(
     ``estimates``, ``errorests`` and ``probs`` (ncomp,), ``estimate`` and
     ``errorest`` component 0's, ``chi_sq`` and ``prob`` the largest over
     the components, and status 0 only when every component passes.
+
+    ``mesh``: a 1-D ``torch.distributed`` mesh (``parallel.mesh.make_mesh``);
+    every rank makes the same call on its device (``device`` must be that
+    device or None), samples its ``ceil(ncubes / D)`` cubes in chunks of
+    ``chunk_cubes`` (by default sized against that share) and returns the
+    same result.  On the card the phases capture a graph only when the
+    group's backend is NCCL.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "vegas(mesh=...) is not ported to gpuintegration_torch yet "
-            "(ROADMAP A16)")
+    mesh = pmesh.check_mesh(mesh)
     if refine not in ("host", "device"):
         raise ValueError(f"refine {refine!r}: 'host' or 'device'")
     if refine == "device" and debug_logger is not None:
         raise ValueError("refine='device' fuses the adjustment phase; "
                          "per-iteration capture needs refine='host'")
-    dev = _resolve_device(device)
+    if mesh is None:
+        dev = _resolve_device(device)
+    else:
+        dev = pmesh.mesh_device(mesh)
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device} but this rank's mesh device "
+                             f"is {dev}; pass device=None with a mesh")
     if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"dtype {dtype} (float64 or float32)")
     f, ndim = make_integrand(integrand, ndim)
@@ -522,15 +547,19 @@ def vegas(
     dv2g = (calls * (1.0 / ng) ** ndim) ** 2 / npg / npg / (npg - 1.0)
     xjac = (1.0 / calls) * vol.jacobian
 
+    # the cubes a rank samples (reference vegas.py:1113-1124)
+    n_dev = 1 if mesh is None else mesh.size()
+    shard_cubes = -(-ncubes // n_dev)
     if chunk_cubes is None:
         # bound (chunk, npg, ndim) activations; a power of two
         per_cube = npg * ndim * torch.finfo(dtype).bits // 8 * 6
         budget = max(CHUNK_BYTES_BUDGET // per_cube, 1024)
         chunk_cubes = 1 << (int(budget).bit_length() - 1)
         chunk_cubes = int(min(chunk_cubes, DEFAULT_MAX_CHUNK))
-        if chunk_cubes >= ncubes:
-            chunk_cubes = ncubes  # single chunk: exact size, no padding
-    num_chunks = -(-ncubes // chunk_cubes)
+        if chunk_cubes >= shard_cubes:
+            chunk_cubes = shard_cubes  # single chunk: exact size, no padding
+    num_chunks = -(-shard_cubes // chunk_cubes)     # a rank's
+    chunk0 = 0 if mesh is None else mesh.get_local_rank() * num_chunks
 
     if nbins < 2:
         raise ValueError("nbins must be >= 2 (grid adjustment "
@@ -565,11 +594,12 @@ def vegas(
             return _vegas_iteration_poly(
                 f, integrand, ndim, ng, npg, chunk_cubes, num_chunks, nbins,
                 accumulate_hist, dtype, seed, word, p_t, q_t, regn_lo, dx,
-                xjac, ncubes, eval_dtype=ed, sampler=sampler, ncomp=ncomp)
+                xjac, ncubes, eval_dtype=ed, sampler=sampler, ncomp=ncomp,
+                chunk0=chunk0)
         return _vegas_iteration(
             f, ndim, ng, npg, chunk_cubes, num_chunks, nbins, accumulate_hist,
             dtype, seed, word, xi_t, regn_lo, dx, xjac, ncubes, eval_dtype=ed,
-            plain=sampler == "torch", ncomp=ncomp)
+            plain=sampler == "torch", ncomp=ncomp, chunk0=chunk0)
 
     def refit(xi32):
         p, q = fit_importance_poly_device(xi32.to(torch.float64),
@@ -578,7 +608,7 @@ def vegas(
 
     phase_kw = dict(capture=dev.type == "cuda" and sampler != "torch",
                     dv2g=dv2g, skip_iters=skip_iters, epsrel=epsrel,
-                    epsabs=epsabs)
+                    epsabs=epsabs, mesh=mesh)
 
     def run_phase(phase, end_it, **maps):
         """A device-resident phase from iteration ``it``: the run's counts
@@ -642,14 +672,20 @@ def vegas(
                 torch.as_tensor(p_np, dtype=torch.float32, device=dev),
                 torch.as_tensor(q_np, dtype=torch.float32, device=dev),
                 regn_lo, dx, xjac, ncubes, eval_dtype=ed, sampler=sampler,
-                ncomp=ncomp)
+                ncomp=ncomp, chunk0=chunk0)
         else:
             sums, d = _vegas_iteration(
                 f, ndim, ng, npg, chunk_cubes, num_chunks, nbins, adjusting,
                 dtype, seed, stream_it,
                 torch.as_tensor(xi, dtype=dtype, device=dev), regn_lo, dx,
                 xjac, ncubes, eval_dtype=ed, plain=sampler == "torch",
-                ncomp=ncomp)
+                ncomp=ncomp, chunk0=chunk0)
+        if mesh is not None:
+            # the ranks' partial sums, and the f32 histogram in f32 as the
+            # reference's psum adds it
+            sums = pmesh.all_reduce_sum(mesh, sums)
+            if adjusting:
+                d = pmesh.all_reduce_sum(mesh, d)
         # one D2H read per iteration: [ti, tsi] and, while adjusting, the
         # histogram (f32 -> f64 is exact)
         f64 = torch.float64

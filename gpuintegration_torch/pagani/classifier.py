@@ -10,6 +10,13 @@ percentages up to 0.7 when the search fails
 (heuristic_classifier.cuh:392-438).  Also the estimate-convergence test by
 significant-digit comparison of the last three iteration estimates
 (heuristic_classifier.cuh:170-216).
+
+On a mesh the ladder is the global pool's, as the reference's
+``classify_ladder`` on the sharded (D cap_s) arrays: each rank's floor and
+ceiling and its rungs' counts and kept errors are partials, completed by a
+MAX all-reduce of (-floor, ceiling) and a SUM all-reduce of the (2, K)
+table, so that every rank picks the same threshold; each rank then flags its
+own shard.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import math
 
 import numpy as np
 import torch
+
+from gpuintegration_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -30,10 +39,11 @@ class ClassificationResult:
     finished_errorest: float = 0.0
 
 
-def _ladder_probe(errorests, mask, k: int) -> torch.Tensor:
+def _ladder_probe(errorests, mask, k: int, mesh=None) -> torch.Tensor:
     """A K-point geometric threshold ladder in one pass: for each candidate
     threshold, the active count and the error mass it would keep active.
-    Returns a (3, K) f64 tensor [thresholds, counts, kept]."""
+    Returns a (3, K) f64 tensor [thresholds, counts, kept]; on a mesh the
+    global pool's (the shards' partials all-reduced)."""
     dtype = errorests.dtype
     big = torch.tensor(float("inf"), dtype=dtype, device=errorests.device)
     # dtype-aware floors; lo spans POSITIVE errors only -- one exactly-zero
@@ -42,10 +52,14 @@ def _ladder_probe(errorests, mask, k: int) -> torch.Tensor:
     eps = float(torch.finfo(dtype).eps)
     pos = mask & (errorests > 0)
     lo_raw = torch.min(torch.where(pos, errorests, big))
+    hi_raw = torch.max(torch.where(mask, errorests, -big))
+    if mesh is not None:
+        # the smallest positive error and the largest over the shards
+        ext = pmesh.all_reduce_max(mesh, torch.stack([-lo_raw, hi_raw]))
+        lo_raw, hi_raw = -ext[0], ext[1]
     lo = torch.clamp(torch.where(torch.isfinite(lo_raw), lo_raw,
                                  torch.full_like(lo_raw, tiny)), min=tiny)
-    hi = torch.maximum(torch.max(torch.where(mask, errorests, -big)),
-                       lo * (1 + 8 * eps))
+    hi = torch.maximum(hi_raw, lo * (1 + 8 * eps))
     log_lo = torch.log(lo * (1 - 8 * eps))
     log_hi = torch.log(hi)
     # jnp.linspace's arithmetic, so the rungs equal the reference's:
@@ -60,7 +74,10 @@ def _ladder_probe(errorests, mask, k: int) -> torch.Tensor:
                              torch.zeros_like(errorests)).to(torch.float64)
     kept = torch.sum(torch.where(active_k, err_masked[None, :],
                                  torch.zeros_like(err_masked)[None, :]), dim=1)
-    return torch.stack([ts.to(torch.float64), counts, kept])
+    table = torch.stack([counts, kept])
+    if mesh is not None:
+        table = pmesh.all_reduce_sum(mesh, table)
+    return torch.cat([ts.to(torch.float64)[None], table])
 
 
 def _flags_for_threshold(errorests, mask, threshold):
@@ -151,12 +168,16 @@ class HeuristicClassifier:
         iter_finished_errorest: float,
         total_finished_errorest: float,
         k: int = 64,
+        mesh=None,
     ) -> ClassificationResult:
         """The threshold search over a geometric ladder, one device pass
         and one host transfer.  Relaxation schedule as the reference
         (heuristic_classifier.cuh:425-437): error budget 0.25 -> 0.65 in
-        0.1 steps first, then active share 0.5 -> 0.7."""
-        table = _ladder_probe(errorests, mask, k).cpu().numpy()
+        0.1 steps first, then active share 0.5 -> 0.7.  On a mesh
+        ``errorests`` and ``mask`` are this rank's shard, ``num_regions``
+        and the errors global, and the ladder the global pool's; the flags
+        are the shard's."""
+        table = _ladder_probe(errorests, mask, k, mesh).cpu().numpy()
         ts, counts, kept = table[0], table[1], table[2]
         # budget = max(epsrel*|est|, epsabs), matching accuracy_reached
         target_error = max(abs(self._estimates[2]) * self.epsrel, self.epsabs)

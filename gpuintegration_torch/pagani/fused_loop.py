@@ -1,7 +1,8 @@
 """PAGANI's device-resident phase: bursts of whole adaptive iterations with
 no host decision between them (PyTorch port of
-``gpuintegration_tpu/pagani/fused_loop.py``; the ``mesh`` and Pallas forms
-are not ported, ROADMAP A16).
+``gpuintegration_tpu/pagani/fused_loop.py``, its ``mesh`` forms included;
+the Pallas form is the reference's TPU kernel route, whose counterpart
+here is the rule evaluation's own CUDA route).
 
 Below the classification gate (2 n <= 0.1 max_pool_regions) the host loop's
 classifier never fires, so an iteration is a fixed pipeline: rule
@@ -53,6 +54,21 @@ eager fallback.
 On the CPU the same body runs eagerly on the same carry (the evaluation
 then walks the real regions only, as the host loop's does).
 
+On a mesh (``parallel.mesh``; reference ``fused_loop.py:159-170``,
+``:319-355``, ``:423-433``, ``:556-580``) each rank runs the phase on its own
+blocked shard of per-shard capacity ``cap``: the carry holds the rank's
+count ``n`` and the global count ``n_glob``; the iteration's f64 partials
+(``scalars``) are SUM-all-reduced inside the body, so the accuracy test, the
+rollback, the ledger and every exit are decided on the same global values on
+every rank; the gate reads ``2 n_glob <= gate``, and the bucket-overflow
+exit fires when the hottest shard (the MAX all-reduce of the ranks' survivor
+counts) would overflow its bucket.  The packed vector carries ``n_glob`` as
+``n`` and the rank's count last (``n_local``).  Whether a burst on the card
+replays a graph is decided from the group's backend before it starts: an
+NCCL all-reduce is captured with the iteration (on the capture stream),
+gloo's cannot be (it copies through the host), so under gloo every
+iteration runs eagerly and ``stats["uncaptured"]`` counts those iterations.
+
 The reference also ends a burst at an evaluation ceiling per dispatch
 (``neval_cap``, ``_burst_evals``): a limit of the TPU runtime that changes
 no decision (a -1 exit resumes identically), left out here.
@@ -62,6 +78,7 @@ from __future__ import annotations
 import torch
 
 from gpuintegration_torch.pagani import region_pool
+from gpuintegration_torch.parallel import mesh as pmesh
 
 # The packed vector of a scalar phase (the reference's layout).
 SCALAR_LAYOUT = ("n", "cum_est", "cum_err", "result_nregions", "iters",
@@ -72,7 +89,10 @@ SCALAR_LAYOUT = ("n", "cum_est", "cum_err", "result_nregions", "iters",
 # Counts of the phases since ``reset_stats``: bursts (phases entered),
 # eager iterations, graph captures, graph replays and packed reads
 # (device-to-host transfers); and each burst's exit status, in order.
-stats = {"bursts": 0, "eager": 0, "captures": 0, "replays": 0, "reads": 0}
+# ``uncaptured`` counts the eager iterations of bursts on the card whose
+# mesh's backend cannot be captured (gloo).
+stats = {"bursts": 0, "eager": 0, "captures": 0, "replays": 0, "reads": 0,
+         "uncaptured": 0}
 exits: list[int] = []
 # Iterations between two reads of the packed vector (graph replays on the
 # card); no result depends on it.
@@ -108,11 +128,12 @@ class Phase:
     whole bucket is evaluated) and a host integer on the CPU.
     ``iteration_math``: ``workspace.iteration_math`` (scalar) or
     ``workspace.iteration_math_vector``.  ``ncomp`` None marks a scalar
-    integrand."""
+    integrand.  ``mesh``: a ``parallel.mesh`` mesh, the pool being this
+    rank's shard (``n`` its count; ``load`` takes the global one)."""
 
     def __init__(self, evaluate, iteration_math, *, relerr_classification,
                  gate, feval, eps_work, epsrel, epsabs, abs_per_vol,
-                 ncomp=None, with_split_frac=False):
+                 ncomp=None, with_split_frac=False, mesh=None):
         self.evaluate = evaluate
         self.iteration_math = iteration_math
         self.relerr_classification = relerr_classification
@@ -124,6 +145,9 @@ class Phase:
         self.abs_per_vol = abs_per_vol
         self.ncomp = ncomp
         self.with_split_frac = with_split_frac
+        self.mesh = mesh
+        # a graph may hold the iteration's collective only under NCCL
+        self.capturable = mesh is None or pmesh.backend(mesh) == "nccl"
         self.carries = {}
         self.graphs = {}
         self.pool = None
@@ -164,18 +188,28 @@ class Phase:
                  "prev_nregions": f64(), "prev_neval": f64()}
             if self.with_split_frac:
                 c["frac"] = torch.full((cap,), 0.5, dtype=dtype, device=dev)
-            c["packed"] = f64(len(self._layout()))
+            if self.mesh is not None:
+                c["n_glob"] = i64()
+            c["packed"] = f64(len(self.layout()))
             self.carries[cap] = c
         return self.carries[cap]
 
-    def _layout(self):
-        return (SCALAR_LAYOUT if self.ncomp is None
-                else vector_layout(self.ncomp))
+    def layout(self):
+        lay = (SCALAR_LAYOUT if self.ncomp is None
+               else vector_layout(self.ncomp))
+        return lay if self.mesh is None else lay + ("n_local",)
 
     def _pack(self, c):
+        packed = self._pack_ledger(c)
+        if self.mesh is None:
+            return packed
+        return torch.cat([packed, c["n"].to(torch.float64)[None]])
+
+    def _pack_ledger(self, c):
         f64 = torch.float64
+        n = c["n"] if self.mesh is None else c["n_glob"]
         if self.ncomp is None:
-            parts = [c["n"].to(f64), c["cum_est"][0], c["cum_err"][0],
+            parts = [n.to(f64), c["cum_est"][0], c["cum_err"][0],
                      c["result_nregions"], c["iters"].to(f64), c["neval"],
                      c["status"].to(f64), c["last_inflight_est"][0],
                      c["last_inflight_err"][0], c["prev_est"][0],
@@ -184,7 +218,7 @@ class Phase:
                      c["hist"][2], c["prev_neval"]]
             return torch.stack(parts)
         head = torch.stack([
-            c["n"].to(f64), c["result_nregions"], c["iters"].to(f64),
+            n.to(f64), c["result_nregions"], c["iters"].to(f64),
             c["neval"], c["status"].to(f64), c["prev_nregions"],
             c["prev_iters"].to(f64), c["prev_neval"]])
         return torch.cat([head, c["hist"], c["cum_est"], c["cum_err"],
@@ -195,12 +229,16 @@ class Phase:
 
     def body(self, c):
         """One adaptive iteration on the carry ``c``, as new tensors, each
-        the old one where the loop's condition does not hold (a no-op)."""
+        the old one where the loop's condition does not hold (a no-op).  On a
+        mesh ``n`` is the rank's count and every decision reads all-reduced
+        values."""
         lo_c, ln_c, n, par_c = c["lows"], c["lengths"], c["n"], c["parent"]
+        mesh = self.mesh
+        n_glob = n if mesh is None else c["n_glob"]
         cap = lo_c.shape[1]
         dtype, dev = lo_c.dtype, lo_c.device
         f64 = torch.float64
-        run = ((c["status"] == -1) & (2 * n <= self.gate)
+        run = ((c["status"] == -1) & (2 * n_glob <= self.gate)
                & (c["iters"] < c["max_iters"]))
 
         ev = self.evaluate(lo_c, ln_c, n)
@@ -213,9 +251,12 @@ class Phase:
             lengths=None if self.abs_per_vol is None else ln_c,
             abs_per_vol=self.abs_per_vol)
         nc = scalars.shape[0] // 4
+        n_active = scalars[4 * nc].to(torch.int64)    # this rank's
+        if mesh is not None:
+            scalars = pmesh.all_reduce_sum(mesh, scalars)
         iter_est, iter_err = scalars[0:nc], scalars[nc:2 * nc]
         fin_est, fin_err = scalars[2 * nc:3 * nc], scalars[3 * nc:4 * nc]
-        n_active = scalars[4 * nc].to(torch.int64)
+        n_active_glob = scalars[4 * nc].to(torch.int64)
 
         cum_e, cum_r = c["cum_est"], c["cum_err"]
         tot_est, tot_err = cum_e + iter_est, cum_r + iter_err
@@ -236,8 +277,14 @@ class Phase:
         fin_est = torch.where(overflow, zero, fin_est)
         fin_err = torch.where(overflow, zero, fin_err)
         n_active = torch.where(overflow, n, n_active)
-        all_fin = ~done & (n_active == 0)
-        grow = ~done & ~all_fin & (2 * n_active > cap)
+        if mesh is None:
+            n_active_glob, hottest = n_active, n_active
+        else:
+            n_active_glob = torch.where(overflow, n_glob, n_active_glob)
+            hottest = pmesh.all_reduce_max(mesh, n_active)
+        all_fin = ~done & (n_active_glob == 0)
+        # grow when the hottest shard's split would overflow its bucket
+        grow = ~done & ~all_fin & (2 * hottest > cap)
 
         # compaction at the full capacity (a grow exit keeps up to cap
         # survivors), the split into the same bucket from its first half
@@ -251,10 +298,10 @@ class Phase:
             frac=None if c_fr is None else c_fr[:cap // 2])
 
         keep = done | all_fin
-        n_f = n.to(f64)
+        n_f = n_glob.to(f64)
         drop = torch.where(done, torch.zeros_like(n_f),
                            torch.where(all_fin, n_f,
-                                       n_f - n_active.to(f64)))
+                                       n_f - n_active_glob.to(f64)))
         status = torch.full_like(n, -1)
         for cond, code in ((grow, 1), (all_fin, 2), (done, 0)):
             status = torch.where(cond, torch.full_like(n, code), status)
@@ -290,6 +337,10 @@ class Phase:
         }
         if self.with_split_frac:
             new["frac"] = c_fr
+        if mesh is not None:
+            new["n_glob"] = torch.where(
+                keep, n_glob, torch.where(grow, n_active_glob,
+                                          2 * n_active_glob))
         return {k: torch.where(run, v, c[k]) for k, v in new.items()}
 
     def _step(self, c):
@@ -337,10 +388,11 @@ class Phase:
     # -- a burst -----------------------------------------------------------
 
     def load(self, lows, lengths, n: int, parent, *, cum_est, cum_err,
-             result_nregions, iters, neval, hist, max_iters):
+             result_nregions, iters, neval, hist, max_iters, n_glob=None):
         """The carry of this capacity holding a blocked (post-split) pool of
         ``n`` real regions, its parents' estimates ``parent`` ((cap//2,) or
-        wider; (ncomp, ...) for a vector) and the host ledger; status -1."""
+        wider; (ncomp, ...) for a vector) and the host ledger; status -1.
+        On a mesh ``n_glob`` is the global count."""
         cap = lows.shape[1]
         self._max = int(max_iters)
         c = self._carry(lows, lengths)
@@ -365,16 +417,22 @@ class Phase:
         c["last_inflight_err"].zero_()
         if self.with_split_frac:
             c["frac"].fill_(0.5)
+        if self.mesh is not None:
+            c["n_glob"].fill_(n_glob)
         return c
 
     def run(self, lows, lengths, n: int, parent, **ledger):
         """One burst from the pool and ledger ``load`` takes.  Returns
         (lows, lengths, parent (full capacity), sdim, frac or None, packed
-        as a NumPy f64 vector)."""
+        as a NumPy f64 vector).  On the card the burst replays a graph
+        unless its mesh's backend cannot be captured (``capturable``): then
+        it runs eagerly, as on the CPU."""
         cap = lows.shape[1]
         c = self.load(lows, lengths, n, parent, **ledger)
         stats["bursts"] += 1
-        on_card = lows.device.type == "cuda"
+        on_card = lows.device.type == "cuda" and self.capturable
+        if lows.device.type == "cuda" and not self.capturable:
+            eager_before = stats["eager"]
         packed = None
         if not on_card or cap not in self.graphs:
             # the first iteration at this capacity, eager; on the CPU every
@@ -393,7 +451,9 @@ class Phase:
                     self._step(c)
                 stats["eager"] += REPLAYS
             packed = self._read(c)
-        exits.append(int(packed[self._layout().index("status")]))
+        if lows.device.type == "cuda" and not self.capturable:
+            stats["uncaptured"] += stats["eager"] - eager_before
+        exits.append(int(packed[self.layout().index("status")]))
         frac = c["frac"] if self.with_split_frac else None
         return c["lows"], c["lengths"], c["parent"], c["sdim"], frac, packed
 
@@ -402,7 +462,7 @@ class Phase:
         return c["packed"].cpu().numpy()        # the one transfer
 
     def _running(self, packed) -> bool:
-        lay = self._layout()
+        lay = self.layout()
         status = int(packed[lay.index("status")])
         n = int(packed[lay.index("n")])
         iters = int(packed[lay.index("iters")])

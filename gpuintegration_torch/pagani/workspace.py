@@ -33,10 +33,24 @@ overwrites each region's rule estimate with an in-region VEGAS estimate
 wall: checkpoint-resume rounds, then a partitioned continuation over
 hottest-first slices of the survivors (reference
 ``gpuintegration_tpu/pagani/workspace.py:1909-2367``), scalar or vector.
+
+``Workspace(ndim, mesh=m)`` (``parallel.mesh.make_mesh``; the reference's
+``_integrate_mesh``, ``workspace.py:1401-1869``) runs the same loops on D
+ranks, each on its own blocked shard of per-shard capacity ``cap_s``: the
+initial regions dealt contiguously (``parallel.mesh.deal``), evaluation,
+refinement, compaction and split local to the shard, and every decision
+taken on all-reduced values: the iteration's f64 scalars, the classifier's
+ladder over the global pool (``HeuristicClassifier.classify_ladder(...,
+mesh=)``), the kept sums, the hottest shard's survivors choosing the next
+per-shard bucket, a deadline.  Every rank returns the same result.  A
+checkpoint gathers the shards' rows in rank order; the continuation re-deals
+its survivors error-evenly across the shards at each resume
+(``_rebalance_checkpoint_for_mesh``).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from typing import Callable
@@ -49,6 +63,7 @@ from gpuintegration_torch.ops import rule_eval
 from gpuintegration_torch.pagani import (fused_loop, region_pool, two_level,
                                          vegas_assisted as assisted)
 from gpuintegration_torch.pagani.classifier import HeuristicClassifier
+from gpuintegration_torch.parallel import mesh as pmesh
 from gpuintegration_torch.types import IntegrationResult, Volume
 from gpuintegration_torch.utils.checkpoint import (
     ContinuationState, PaganiCheckpoint, npz_path)
@@ -145,6 +160,35 @@ def iteration_math_vector(
     return est, refined, active, scalars
 
 
+def rebalance_checkpoint(ckpt: PaganiCheckpoint, d: int) -> PaganiCheckpoint:
+    """A checkpoint's survivors reordered so that a mesh resume's contiguous
+    deal over ``d`` shards gives every shard an even hot/cold mix (the
+    reference's ``_rebalance_checkpoint_for_mesh``, ``workspace.py:
+    1871-1907``): sorted by stored refined error, hottest first (a vector's
+    worst component; the pool order when a fused exit kept none), then
+    dealt round-robin, so that resume block k receives sorted regions k,
+    k + d, k + 2d, ... and the blocks' sizes are the contiguous deal's."""
+    n = ckpt.lows.shape[0]
+    if n == 0:
+        return ckpt
+    if ckpt.region_errorests is not None:
+        err = np.asarray(ckpt.region_errorests)
+        if err.ndim == 2:
+            err = err.max(axis=1)
+        order = np.argsort(-err)
+    else:
+        order = np.arange(n)
+    dealt = np.concatenate([order[k::d] for k in range(d)])
+
+    def take(a):
+        return None if a is None else np.asarray(a)[dealt]
+
+    return dataclasses.replace(
+        ckpt, lows=ckpt.lows[dealt], lengths=ckpt.lengths[dealt],
+        region_estimates=take(ckpt.region_estimates),
+        region_errorests=take(ckpt.region_errorests))
+
+
 def _max_over_components(refined):
     """Per-region worst-component error profile for the classifier."""
     return torch.amax(refined, dim=0)
@@ -200,7 +244,13 @@ class Workspace:
                       points and contraction kernels), on the CPU the plain
                       version.  "torch": the plain PyTorch version on any
                       device.
-    mesh:             not ported yet (raises NotImplementedError).
+    mesh:             a 1-D ``torch.distributed`` mesh
+                      (``parallel.mesh.make_mesh``): every rank builds the
+                      same Workspace and makes the same calls, holds its
+                      shard of the pool on its device (``device`` must be
+                      that device or None) and returns the same result.
+                      ``max_pool_regions`` and the classifier's gate count
+                      the global pool.
     """
 
     def __init__(self, ndim: int, *, dtype=torch.float64, device=None,
@@ -210,17 +260,24 @@ class Workspace:
                  chunk_budget_bytes: int = 256 * 1024 * 1024,
                  mesh=None,
                  rule_backend: str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded (mesh) Workspace is not ported to "
-                "gpuintegration_torch yet (ROADMAP A16)")
+        self.mesh = pmesh.check_mesh(mesh)
         if rule_backend not in ("cuda", "torch"):
             raise ValueError(f"rule_backend {rule_backend!r}")
         if dtype not in (torch.float64, torch.float32):
             raise ValueError(f"dtype {dtype} (float64 or float32)")
         self.ndim = ndim
         self.dtype = dtype
-        self.device = _resolve_device(device)
+        if self.mesh is None:
+            self.device = _resolve_device(device)
+        else:
+            self.device = pmesh.mesh_device(self.mesh)
+            asked = None if device is None else torch.device(device)
+            if asked is not None and (
+                    asked.type != self.device.type or asked.index not in (
+                        None, self.device.index)):
+                raise ValueError(
+                    f"device={asked} but this rank's mesh device is "
+                    f"{self.device}; pass device=None with a mesh")
         self.rule_backend = rule_backend
         itemsize = torch.finfo(dtype).bits // 8
         if max_pool_regions is None:
@@ -270,7 +327,7 @@ class Workspace:
             evaluate, iteration_math if ncomp == 1 else iteration_math_vector,
             ncomp=None if ncomp == 1 else ncomp,
             with_split_frac=with_split_frac, feval=tables.feval,
-            gate=int(0.1 * self.max_pool_regions), **kw)
+            gate=int(0.1 * self.max_pool_regions), mesh=self.mesh, **kw)
 
     def integrate(
         self,
@@ -361,6 +418,10 @@ class Workspace:
         """
         if crease_split and vegas_assisted:
             raise ValueError(_CREASE_SCALAR_ONLY)
+        if self.mesh is not None and (vegas_assisted or predict_split):
+            # the reference's refusal (workspace.py:699-705)
+            raise ValueError("mesh mode does not support vegas_assisted/"
+                             "predict_split; run them single-chip")
         if not (0.0 < finish_epsrel_scale <= 1.0):
             raise ValueError("finish_epsrel_scale must be in (0, 1]")
         if finish_abs_per_vol < 0.0:
@@ -397,7 +458,11 @@ class Workspace:
 
         # -- initial pool (capacity floored at chunk_size) -------------------
         min_cap = self.chunk_size
-        if initial_regions is not None:
+        ns = None
+        if self.mesh is not None:
+            lows, lengths, n, cap, ns = self._shard_pool(
+                initial_regions, partitions_per_axis)
+        elif initial_regions is not None:
             lows0 = torch.as_tensor(initial_regions[0], dtype=dtype,
                                     device=device).T.contiguous()
             lengths0 = torch.as_tensor(initial_regions[1], dtype=dtype,
@@ -443,27 +508,91 @@ class Workspace:
                     integrand, ncomp, epsrel, epsabs, eps_work, apv,
                     global_lo, global_range, tables, lows, lengths, n, cap,
                     relerr_classification, max_iterations, ledger, deadline,
-                    phase)
+                    phase, ns)
             return self._integrate_scalar(
                 integrand, epsrel, epsabs, eps_work, apv, global_lo,
                 global_range, tables, lows, lengths, n, cap,
                 relerr_classification, max_iterations, ledger, deadline,
-                phase, crease_split, predict_split, assist)
+                phase, crease_split, predict_split, assist, ns)
         finally:
             if phase is not None:
                 phase.close()
+
+    def _shard_pool(self, initial_regions, partitions_per_axis):
+        """This rank's initial shard (reference ``workspace.py:1446-1475``):
+        the regions (``initial_regions``, or the uniform split) dealt
+        contiguously in order, shard k taking ``deal(n, D)[k]`` of them
+        into a capacity ``cap_s = max(next_pow2(max(counts)),
+        chunk_size)``, padded with region 0.  Returns (lows, lengths, n,
+        cap_s, counts)."""
+        ndim, dtype, device = self.ndim, self.dtype, self.device
+        if initial_regions is not None:
+            lows0 = torch.as_tensor(initial_regions[0], dtype=dtype,
+                                    device=device).T
+            lengths0 = torch.as_tensor(initial_regions[1], dtype=dtype,
+                                       device=device).T
+        else:
+            parts = partitions_per_axis or default_partitions_per_axis(ndim)
+            lows0, lengths0, _ = region_pool.uniform_split(
+                ndim, parts, parts ** ndim, dtype, device)
+        n = int(lows0.shape[1])
+        counts = pmesh.deal(n, self.mesh.size())
+        cap_s = max(region_pool.next_pow2(max(counts)), self.chunk_size)
+        k = self.mesh.get_local_rank()
+        start, c = sum(counts[:k]), counts[k]
+
+        def shard(a):
+            return torch.cat([a[:, start:start + c],
+                              a[:, :1].expand(ndim, cap_s - c)], dim=1)
+
+        return shard(lows0), shard(lengths0), n, cap_s, counts
+
+    def _past(self, deadline) -> bool:
+        """Whether ``deadline`` has passed; on a mesh whether it has on any
+        rank (a MAX all-reduce), so that every rank stops together."""
+        if deadline is None:
+            return False
+        past = time.monotonic() >= deadline
+        if self.mesh is None:
+            return past
+        flag = torch.tensor([float(past)], dtype=torch.float64,
+                            device=self.device)
+        return bool(pmesh.all_reduce_max(self.mesh, flag)[0] > 0)
+
+    def _pool_record(self, lows, lengths, n_loc, blocked, cap):
+        """``final_pool``: (lows, lengths, n, blocked) on one device; on a
+        mesh ("mesh", lows, lengths, n, cap_s, blocked), the rank's shard
+        and count (``make_checkpoint`` gathers the shards)."""
+        if self.mesh is None:
+            return (lows, lengths, n_loc, blocked)
+        return ("mesh", lows, lengths, n_loc, cap, blocked)
+
+    def _survivors(self, active, n_active: int) -> tuple[int, int]:
+        """(this shard's survivors, the next per-shard capacity): on one
+        device the survivors' own; on a mesh from the hottest shard's count
+        (reference ``workspace.py:1842-1853``), gathered as every shard's."""
+        if self.mesh is None:
+            n_loc = hottest = n_active
+        else:
+            n_loc = int((active > 0).sum())
+            hottest = int(pmesh.gather_counts(self.mesh, n_loc,
+                                              self.device).max())
+        return n_loc, max(region_pool.next_pow2(2 * hottest),
+                          self.chunk_size)
 
     def _integrate_scalar(
         self, integrand, epsrel, epsabs, eps_work, apv, global_lo,
         global_range, tables, lows, lengths, n, cap, relerr_classification,
         max_iterations, ledger, deadline, phase, crease_split, predict_split,
-        assist=None,
+        assist=None, ns=None,
     ) -> IntegrationResult:
         """The adaptive loop of a scalar integrand from its initial pool:
         the reference's host loop (Workspace.cuh:148-358), with the fused
         phase's bursts (``phase``, None for none) where the pool is
-        blocked and under the gate."""
-        dtype, device = self.dtype, self.device
+        blocked and under the gate.  On a mesh ``n`` is the global count,
+        ``ns`` the shards' and the pool this rank's shard (``n_loc``)."""
+        dtype, device, mesh = self.dtype, self.device, self.mesh
+        n_loc = n if ns is None else int(ns[mesh.get_local_rank()])
         parent_est = torch.zeros((max(cap // 2, 1),), dtype=dtype,
                                  device=device)
         use_refine = False
@@ -482,12 +611,12 @@ class Workspace:
         blocked = False   # pool layout: [0,n) contiguous until first split
         inflight_est = inflight_err = 0.0
         exhausted = False
-        lay = {k: i for i, k in enumerate(fused_loop.SCALAR_LAYOUT)}
+        lay = ({} if phase is None
+               else {k: i for i, k in enumerate(phase.layout())})
 
         it = cum.iters
         while True:
-            if it >= max_iterations or (
-                    deadline is not None and time.monotonic() >= deadline):
+            if it >= max_iterations or self._past(deadline):
                 exhausted = True
                 break
             if n <= 0:
@@ -496,11 +625,13 @@ class Workspace:
             if phase is not None and blocked and 2 * n <= phase.gate:
                 self.peak_capacity = max(self.peak_capacity, cap)
                 lows, lengths, parent_est, sdim_f, frac_f, packed = phase.run(
-                    lows, lengths, n, parent_est, cum_est=cum.estimate,
+                    lows, lengths, n_loc, parent_est, cum_est=cum.estimate,
                     cum_err=cum.errorest, result_nregions=result_nregions,
                     iters=cum.iters, neval=cum.neval,
-                    hist=classifier._estimates, max_iters=max_iterations)
+                    hist=classifier._estimates, max_iters=max_iterations,
+                    n_glob=n)
                 n = int(packed[lay["n"]])
+                n_loc = n if mesh is None else int(packed[lay["n_local"]])
                 status = int(packed[lay["status"]])
                 fused_iters = int(packed[lay["iters"]]) - cum.iters
                 cum.estimate = float(packed[lay["cum_est"]])
@@ -519,15 +650,17 @@ class Workspace:
                     # bucket overflow: the burst applied the sweep and
                     # handed back the n compacted survivors; split them
                     # into the doubled bucket, evaluating nothing again
-                    lows, lengths, n = region_pool.split(
-                        lows, lengths, sdim_f, n, out_capacity=2 * cap,
+                    lows, lengths, n_loc = region_pool.split(
+                        lows, lengths, sdim_f, n_loc, out_capacity=2 * cap,
                         frac=frac_f)
+                    n = 2 * n
                     cap = 2 * cap
                     use_refine = True
                     blocked = True
                 # a fused exit keeps no per-region errors: a continuation
                 # slices the pool in its order
-                self.final_pool = (lows, lengths, n, True)
+                self.final_pool = self._pool_record(lows, lengths, n_loc,
+                                                    True, cap)
                 self.final_pool_errors = None
                 if status in (0, 2):
                     # the pool is unchanged and swept: the resumable ledger
@@ -565,7 +698,7 @@ class Workspace:
             self.peak_capacity = max(self.peak_capacity, cap)
             eval_out = self._eval_pool(
                 integrand, tables, lows, lengths, global_lo, global_range,
-                n, blocked, 1, crease_split)
+                n_loc, blocked, 1, crease_split)
             est_raw, err_raw, sdim = eval_out[:3]
             sfrac = eval_out[3] if crease_split else None
             if assist is not None:
@@ -573,19 +706,23 @@ class Workspace:
                 # estimates (reference: Sample.cuh:726-727)
                 est_raw, err_raw = assist(lows, lengths, n, blocked, it)
             est, refined, active, scalars_d = iteration_math(
-                effective_relerr, blocked, est_raw, err_raw, n,
+                effective_relerr, blocked, est_raw, err_raw, n_loc,
                 parent_est, use_refine, eps_work,
                 lengths=None if apv is None else lengths, abs_per_vol=apv)
             if predict_split and result_nregions == 0 and it == 15:
                 # the pool snapshot (Workspace.cuh:244-248), with its layout
                 self.last_snapshot = (lows, lengths, n, blocked)
-            self.final_pool = (lows, lengths, n, blocked)
+            self.final_pool = self._pool_record(lows, lengths, n_loc,
+                                                blocked, cap)
             self.final_pool_errors = (est, refined)
             # cumulative ledger EXCLUDING this sweep: resuming from
             # final_pool re-evaluates the pool
             self._ledger_excl_pool = (cum.estimate, cum.errorest,
                                       result_nregions, cum.iters, cum.neval)
-            # the one host sync of the iteration
+            # the one host sync of the iteration (on a mesh, of the sums
+            # over the shards)
+            if mesh is not None:
+                scalars_d = pmesh.all_reduce_sum(mesh, scalars_d)
             scalars = scalars_d.cpu().numpy()
             iter_est, iter_err, finished_est, finished_err = (
                 float(scalars[0]), float(scalars[1]),
@@ -611,7 +748,7 @@ class Workspace:
             leaves_est = cum.estimate + iter_est
             leaves_fin_err = cum.errorest + finished_err
             if leaves_fin_err > max(abs(leaves_est) * epsrel, epsabs):
-                active = region_pool.block_mask(cap, n, blocked,
+                active = region_pool.block_mask(cap, n_loc, blocked,
                                                 device).to(dtype)
                 finished_est = 0.0
                 finished_err = 0.0
@@ -621,13 +758,17 @@ class Workspace:
             classification_necessary = not classifier.split_fits(n)
             if classifier.classification_criteria_met(n):
                 hs = classifier.classify_ladder(
-                    refined, region_pool.block_mask(cap, n, blocked, device),
-                    n, iter_err, finished_err, cum.errorest)
+                    refined, region_pool.block_mask(cap, n_loc, blocked,
+                                                    device),
+                    n, iter_err, finished_err, cum.errorest, mesh=mesh)
                 success = hs.pass_mem and hs.pass_errorest_budget
                 if success:
                     active = hs.active_flags
                     kept = torch.stack([torch.sum(active * est),
-                                        torch.sum(active * refined)]).cpu()
+                                        torch.sum(active * refined)])
+                    if mesh is not None:
+                        kept = pmesh.all_reduce_sum(mesh, kept)
+                    kept = kept.cpu()
                     finished_est = iter_est - float(kept[0])
                     # EXACT banked error: the refined error of every region
                     # the new flags drop (the reference's formula
@@ -661,15 +802,15 @@ class Workspace:
                 cum.nregions = result_nregions
                 return cum
 
-            child_cap = max(region_pool.next_pow2(2 * n_active),
-                            self.chunk_size)
+            n_act_loc, child_cap = self._survivors(active, n_active)
             cres = region_pool.compact(
                 active, lows, lengths, sdim, est, refined,
                 out_capacity=child_cap // 2, extra=sfrac)
             c_lows, c_lengths, c_sdim, parent_est = cres[:4]
-            lows, lengths, n = region_pool.split(
-                c_lows, c_lengths, c_sdim, n_active, out_capacity=child_cap,
+            lows, lengths, n_loc = region_pool.split(
+                c_lows, c_lengths, c_sdim, n_act_loc, out_capacity=child_cap,
                 frac=cres[5] if crease_split else None)
+            n = 2 * n_active
             cap = child_cap
             use_refine = True
             blocked = True
@@ -685,7 +826,7 @@ class Workspace:
     def _integrate_vector(
         self, integrand, ncomp, epsrel, epsabs, eps_work, apv, global_lo,
         global_range, tables, lows, lengths, n, cap, relerr_classification,
-        max_iterations, ledger, deadline, phase=None,
+        max_iterations, ledger, deadline, phase=None, ns=None,
     ) -> IntegrationResult:
         """The adaptive loop of a vector-valued integrand, f: (..., ndim) ->
         (..., ncomp) (the reference's ``_integrate_vector`` host loop,
@@ -700,8 +841,10 @@ class Workspace:
         (a ``fused_loop.Phase`` or None) runs the reference's
         ``fused_adaptive_phase_vector`` bursts: the same exits, every
         component's accuracy, any component's rollback, the worst
-        component's estimate history."""
-        dtype, device = self.dtype, self.device
+        component's estimate history.  On a mesh as ``_integrate_scalar``:
+        ``n`` global, ``ns`` the shards' counts, this rank's shard."""
+        dtype, device, mesh = self.dtype, self.device, self.mesh
+        n_loc = n if ns is None else int(ns[mesh.get_local_rank()])
         parent_est = torch.zeros((ncomp, max(cap // 2, 1)), dtype=dtype,
                                  device=device)
         use_refine = False
@@ -733,7 +876,8 @@ class Workspace:
             return all(accuracy_reached(epsrel, epsabs, abs(e), r)
                        for e, r in zip(ests, errs))
 
-        lay = {k: i for i, k in enumerate(fused_loop.vector_layout(ncomp))}
+        lay = ({} if phase is None
+               else {k: i for i, k in enumerate(phase.layout())})
 
         def comps(name):
             return np.array([packed[lay[f"{name}{k}"]]
@@ -741,8 +885,7 @@ class Workspace:
 
         it = cum.iters
         while True:
-            if it >= max_iterations or (
-                    deadline is not None and time.monotonic() >= deadline):
+            if it >= max_iterations or self._past(deadline):
                 exhausted = True
                 break
             if n <= 0:
@@ -751,11 +894,13 @@ class Workspace:
             if phase is not None and blocked and 2 * n <= phase.gate:
                 self.peak_capacity = max(self.peak_capacity, cap)
                 lows, lengths, parent_est, sdim_f, _, packed = phase.run(
-                    lows, lengths, n, parent_est, cum_est=cum_est,
+                    lows, lengths, n_loc, parent_est, cum_est=cum_est,
                     cum_err=cum_err, result_nregions=result_nregions,
                     iters=cum.iters, neval=cum.neval,
-                    hist=classifier._estimates, max_iters=max_iterations)
+                    hist=classifier._estimates, max_iters=max_iterations,
+                    n_glob=n)
                 n = int(packed[lay["n"]])
+                n_loc = n if mesh is None else int(packed[lay["n_local"]])
                 status = int(packed[lay["status"]])
                 fused_iters = int(packed[lay["iters"]]) - cum.iters
                 result_nregions = int(packed[lay["result_nregions"]])
@@ -771,12 +916,14 @@ class Workspace:
                 it = cum.iters
                 if status == 1:
                     # split the compacted survivors into the doubled bucket
-                    lows, lengths, n = region_pool.split(
-                        lows, lengths, sdim_f, n, out_capacity=2 * cap)
+                    lows, lengths, n_loc = region_pool.split(
+                        lows, lengths, sdim_f, n_loc, out_capacity=2 * cap)
+                    n = 2 * n
                     cap = 2 * cap
                     use_refine = True
                     blocked = True
-                self.final_pool = (lows, lengths, n, True)
+                self.final_pool = self._pool_record(lows, lengths, n_loc,
+                                                    True, cap)
                 self.final_pool_errors = None
                 if status in (0, 2):
                     self._ledger_excl_pool = (
@@ -804,17 +951,20 @@ class Workspace:
             self.peak_capacity = max(self.peak_capacity, cap)
             est_raw, err_raw, sdim = self._eval_pool(
                 integrand, tables, lows, lengths, global_lo, global_range,
-                n, blocked, ncomp)
+                n_loc, blocked, ncomp)
             est, refined, active, scalars_d = iteration_math_vector(
-                relerr_classification, blocked, est_raw, err_raw, n,
+                relerr_classification, blocked, est_raw, err_raw, n_loc,
                 parent_est, use_refine, eps_work,
                 lengths=None if apv is None else lengths, abs_per_vol=apv)
             # the live pool and this sweep's per-region component arrays,
             # for checkpoints; the ledger EXCLUDES this sweep
-            self.final_pool = (lows, lengths, n, blocked)
+            self.final_pool = self._pool_record(lows, lengths, n_loc,
+                                                blocked, cap)
             self.final_pool_errors = (est, refined)
             self._ledger_excl_pool = (cum_est.copy(), cum_err.copy(),
                                       result_nregions, cum.iters, cum.neval)
+            if mesh is not None:
+                scalars_d = pmesh.all_reduce_sum(mesh, scalars_d)
             scalars = scalars_d.cpu().numpy()      # one transfer a sweep
             iter_est = scalars[0:ncomp]
             iter_err = scalars[ncomp:2 * ncomp]
@@ -843,7 +993,7 @@ class Workspace:
             if any(ce + fe > max(abs(le) * epsrel, epsabs)
                    for ce, fe, le in zip(cum_err, finished_err,
                                          cum_est + iter_est)):
-                active = region_pool.block_mask(cap, n, blocked,
+                active = region_pool.block_mask(cap, n_loc, blocked,
                                                 device).to(dtype)
                 finished_est = np.zeros(ncomp)
                 finished_err = np.zeros(ncomp)
@@ -853,16 +1003,19 @@ class Workspace:
             if classifier.classification_criteria_met(n):
                 hs = classifier.classify_ladder(
                     _max_over_components(refined),
-                    region_pool.block_mask(cap, n, blocked, device), n,
+                    region_pool.block_mask(cap, n_loc, blocked, device), n,
                     float(iter_err[w]), float(finished_err[w]),
-                    float(cum_err[w]))
+                    float(cum_err[w]), mesh=mesh)
                 success = hs.pass_mem and hs.pass_errorest_budget
                 if success:
                     flags = hs.active_flags
                     kept = torch.stack(
                         [torch.sum(flags * e) for e in est]
                         + [torch.sum(flags * r) for r in refined]
-                    ).to(torch.float64).cpu().numpy()
+                    ).to(torch.float64)
+                    if mesh is not None:
+                        kept = pmesh.all_reduce_sum(mesh, kept)
+                    kept = kept.cpu().numpy()
                     cand_est = iter_est - kept[:ncomp]
                     cand_err = iter_err - kept[ncomp:]
                     # per-component budget guard: the ladder's budget test
@@ -899,13 +1052,13 @@ class Workspace:
                 cum.nregions = result_nregions
                 break
 
-            child_cap = max(region_pool.next_pow2(2 * n_active),
-                            self.chunk_size)
+            n_act_loc, child_cap = self._survivors(active, n_active)
             c_lows, c_lengths, c_sdim, parent_est, _ = region_pool.compact(
                 active, lows, lengths, sdim, est, refined,
                 out_capacity=child_cap // 2)
-            lows, lengths, n = region_pool.split(
-                c_lows, c_lengths, c_sdim, n_active, out_capacity=child_cap)
+            lows, lengths, n_loc = region_pool.split(
+                c_lows, c_lengths, c_sdim, n_act_loc, out_capacity=child_cap)
+            n = 2 * n_active
             cap = child_cap
             use_refine = True
             blocked = True
@@ -1002,12 +1155,16 @@ class Workspace:
         rounds = 1
         while (res.status == 1 and rounds < max_rounds
                and res.nregions > res.nFinishedRegions
-               and (deadline is None or time.monotonic() < deadline)):
+               and not self._past(deadline)):
             if self.final_pool is None:
                 break
             ckpt = self.make_checkpoint()
             if ckpt.lows.shape[0] == 0:
                 break
+            if self.mesh is not None:
+                # the continuation boundary: survivors dealt hot/cold
+                # evenly across the shards
+                ckpt = self._rebalance_checkpoint_for_mesh(ckpt)
             # the checkpoint is on the host: free the final pool on the
             # card (2 x 16M x 8 x 8 B = 2 GB at the 8D wall) before the
             # resumed round allocates its own
@@ -1042,12 +1199,25 @@ class Workspace:
                     ckpt.region_errorests,
                     _ests(res) - _arr(ckpt.estimate),
                     _errs(res) - _arr(ckpt.errorest), self._slice_cap(), 0)
-                ContinuationState.from_queue(
+                self._write_state(state_path, ContinuationState.from_queue(
                     work, _arr(ckpt.estimate), _arr(ckpt.errorest),
                     ckpt.iters, ckpt.neval, ckpt.nregions, ckpt.nregions,
-                    np.ndim(ckpt.estimate) == 1, epsrel,
-                    epsabs).save(state_path)
+                    np.ndim(ckpt.estimate) == 1, epsrel, epsabs))
         return res
+
+    def _write_state(self, state_path, state=None):
+        """Save ``state`` at ``state_path``, or remove the file when None.
+        On a mesh rank 0 writes and every rank waits for it (an
+        all-reduce), so that no rank reads the path before it is written."""
+        if self.mesh is None or self.mesh.get_local_rank() == 0:
+            path = npz_path(state_path)
+            if state is not None:
+                state.save(state_path)
+            elif os.path.exists(path):
+                os.remove(path)
+        if self.mesh is not None:
+            pmesh.all_reduce_sum(self.mesh, torch.zeros(
+                1, dtype=torch.float64, device=self.device))
 
     def _slice_cap(self) -> int:
         """Regions of a continuation slice: four doublings of headroom."""
@@ -1152,8 +1322,7 @@ class Workspace:
             if all(w[5] for w in work) and np.all(fin_err + q_err <= budget):
                 status = 0               # certified: banked + exact queue
                 break
-            if not work or runs >= max_runs or (
-                    deadline is not None and time.monotonic() >= deadline):
+            if not work or runs >= max_runs or self._past(deadline):
                 break
             # what the slices' natural exits would bank, and the best
             # budget any refinement of the queue could reach
@@ -1235,14 +1404,11 @@ class Workspace:
                 nregions += r_i.nregions
                 nfinished += r_i.nFinishedRegions
         if state_path is not None:
-            path = npz_path(state_path)
-            if status == 0 or not work:
-                if os.path.exists(path):
-                    os.remove(path)      # certified or drained: spent
-            else:
-                ContinuationState.from_queue(
-                    work, fin_est, fin_err, iters, neval, nregions,
-                    nfinished, vec, epsrel, epsabs).save(state_path)
+            # certified or drained: the file is spent
+            self._write_state(state_path, None if status == 0 or not work
+                              else ContinuationState.from_queue(
+                                  work, fin_est, fin_err, iters, neval,
+                                  nregions, nfinished, vec, epsrel, epsabs))
         # the untouched queue's stored sums make the estimate the whole
         # integral either way
         total_est, total_err = fin_est + qsum(2), fin_err + qsum(3)
@@ -1271,17 +1437,67 @@ class Workspace:
         if self.final_pool is None:
             raise ValueError("no resumable pool: run integrate() first")
         est, err, nregions, iters, neval = self._ledger_excl_pool
-        lows, lengths, n, blocked = self.final_pool
-        keep = region_pool.block_mask(lows.shape[1], n, blocked,
-                                      lows.device).nonzero()[:, 0]
+        if self.final_pool[0] == "mesh":
+            lows, lengths, reg_est, reg_err = self._gather_pool()
+        else:
+            lows, lengths, n, blocked = self.final_pool
+            keep = region_pool.block_mask(lows.shape[1], n, blocked,
+                                          lows.device).nonzero()[:, 0]
 
-        def host(a):
-            return np.ascontiguousarray(a[..., keep].cpu().numpy().T)
+            def host(a):
+                return np.ascontiguousarray(a[..., keep].cpu().numpy().T)
 
-        reg_est = reg_err = None
-        if self.final_pool_errors is not None:
-            reg_est, reg_err = (host(a) for a in self.final_pool_errors)
+            lows, lengths = host(lows), host(lengths)
+            reg_est = reg_err = None
+            if self.final_pool_errors is not None:
+                reg_est, reg_err = (host(a) for a in self.final_pool_errors)
         return PaganiCheckpoint(
-            lows=host(lows), lengths=host(lengths), estimate=est,
+            lows=lows, lengths=lengths, estimate=est,
             errorest=err, nregions=nregions, iters=iters, neval=neval,
             region_estimates=reg_est, region_errorests=reg_err)
+
+    def _gather_pool(self):
+        """The mesh layout of ``make_checkpoint`` (reference
+        ``workspace.py:2384-2412``): every shard's real regions, in rank
+        order and each shard's two blocked halves in turn (the reference's
+        global order), region-major on every rank.  Each rank writes its
+        rows at its offset into a zero-filled (n_total, width) f64 buffer,
+        which one SUM all-reduce completes (adding zeros is exact; every
+        pool type widens to f64 exactly).  Returns (lows, lengths,
+        region estimates, region errorests), the last two None where the
+        run kept no per-region sweep."""
+        mesh = self.mesh
+        _, lows, lengths, n_loc, cap_s, blocked = self.final_pool
+        ns = pmesh.gather_counts(mesh, n_loc, self.device)
+        keep = region_pool.block_mask(cap_s, n_loc, blocked,
+                                      lows.device).nonzero()[:, 0]
+        parts = [lows, lengths]
+        if self.final_pool_errors is not None:
+            parts += [a if a.dim() == 2 else a[None]
+                      for a in self.final_pool_errors]
+        rows = torch.cat([a[:, keep] for a in parts]).T.to(torch.float64)
+        offset = int(ns[:mesh.get_local_rank()].sum())
+        buf = torch.zeros((int(ns.sum()), rows.shape[1]),
+                          dtype=torch.float64, device=lows.device)
+        buf[offset:offset + n_loc] = rows
+        buf = pmesh.all_reduce_sum(mesh, buf).cpu().numpy()
+        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+        ndim = self.ndim
+        out = [np.ascontiguousarray(buf[:, :ndim].astype(np_dtype)),
+               np.ascontiguousarray(buf[:, ndim:2 * ndim].astype(np_dtype))]
+        if self.final_pool_errors is None:
+            return out + [None, None]
+        est = self.final_pool_errors[0]
+        nc = 1 if est.dim() == 1 else est.shape[0]
+        for k in range(2):
+            a = buf[:, 2 * ndim + k * nc:2 * ndim + (k + 1) * nc]
+            out.append(np.ascontiguousarray(
+                (a[:, 0] if est.dim() == 1 else a).astype(np_dtype)))
+        return out
+
+    def _rebalance_checkpoint_for_mesh(self, ckpt):
+        """``rebalance_checkpoint`` over this workspace's mesh (the
+        checkpoint as it is on one device)."""
+        if self.mesh is None:
+            return ckpt
+        return rebalance_checkpoint(ckpt, self.mesh.size())

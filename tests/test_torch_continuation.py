@@ -288,7 +288,7 @@ def test_stage_timer_adds_up_stages(monkeypatch):
 
 
 def test_continuation_refuses_what_is_not_ported():
-    """``mesh`` (A16) is still refused; ``fused``, ``crease_split`` and
+    """``mesh`` takes a DeviceMesh only; ``fused``, ``crease_split`` and
     ``vegas_assisted`` pass through to every round, and a vector refuses
     ``crease_split`` and ``vegas_assisted`` with the reference's reasons."""
     ws = Workspace(3, chunk_size=1024, device="cpu")
@@ -316,5 +316,5 @@ def test_continuation_refuses_what_is_not_ported():
         ws.integrate_to_convergence(vector, vegas_assisted=True)
     with pytest.raises(ValueError, match="crease_split"):
         ws.integrate_to_convergence(vector, crease_split=True)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Workspace(3, device="cpu", mesh=object())

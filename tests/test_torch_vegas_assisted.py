@@ -239,5 +239,5 @@ def test_refusals():
         Workspace(2, device="cpu").integrate(genz.f4_gaussian(2),
                                              vegas_assisted=True,
                                              crease_split=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Workspace(2, device="cpu", mesh=object())

@@ -387,7 +387,7 @@ def test_auto_sampler_choice():
 def test_refusals(monkeypatch):
     g = genz.f4_gaussian(3, a=3.0)
     kw = dict(ncall=2e3, device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcubes.integrate(g, mesh=object(), **kw)
     # refine='device' runs (the adjustment phase on the device)
     r = mcubes.integrate(g, refine="device", total_iters=6, **kw)

@@ -174,7 +174,7 @@ def test_unported_options_raise(option):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Workspace(3, device="cpu", mesh=object())
 
     # a vector integrand runs (each component's closed form is 1/2), fused
