@@ -278,7 +278,26 @@ timed beside the others in the same run.
    counted), VEGAS runs 1 and 3 (within 5 combined errorests of phase
    6's); every rank the same bits, every launch on the card's route; each
    rank's wall (not compared), peak memory and free memory printed;
-25. the ``kernels`` JSON line, then the card line and the result line.
+25. any scalar-per-axis callable inside the fused kernels
+   (``ops/integrand_gen.py``, csrc/gen_integrand.cu): the generated
+   libraries of ``f4_axes`` (8D) and cos(sum x) (12D), built in phase 1,
+   and of the reference bench's ``g6`` (6D) and a 10D Gaussian, built here
+   alone (a first call's seconds); each generated kernel against its plain
+   version (the rule's tile route at 8D on phase 4's 2^21 pool, f64 and
+   f32, and generic route at 12D; the sampler's paired route at 6D on a
+   2^21-sample chunk and generic route at 6D and 10D) by kernel_check's
+   readings; f4_axes on the generated tile kernel against the Genz F4 tile
+   kernel and g6 on the generated sampler against the Genz F4 sampler, in
+   turns; ``Workspace(8, rule_backend='fused').integrate(f4_axes, 1e-3)``
+   in f64 with the fused phase (status 0 within 1e-3, every launch the
+   generated tile kernel's, none on the split route; its wall beside
+   phases 3, 17 and 11); the bench's frozen g6 case on sampler 'fused'
+   against 'hybrid' in turns (each within 5 errorests), AUTO in f32
+   ('fused', status 0); the recorder on the main path (a row an iteration,
+   the fused phase off), ``cli.main`` for pagani, mcubes, ladder and
+   profile (exit 0, the reference's headers) and the continuation log on a
+   3D continuation;
+26. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -289,6 +308,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -298,15 +318,15 @@ import time
 import numpy as np
 import torch
 
-from gpuintegration_torch import Workspace, diff, mcubes
+from gpuintegration_torch import Workspace, cli, diff, mcubes
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
 from gpuintegration_torch.mcubes import grid as vegas_grid
 from gpuintegration_torch.mcubes import vegas as vegas_module
 from gpuintegration_torch.mcubes import kernel_check as vegas_check
 from gpuintegration_torch.mcubes import phases as vegas_phases
 from gpuintegration_torch.models import genz, misc, physics
-from gpuintegration_torch.ops import (cuda_build, cuda_rule, interp,
-                                      kernel_check, quad1d, rule_eval)
+from gpuintegration_torch.ops import (cuda_build, cuda_rule, integrand_gen,
+                                      interp, kernel_check, quad1d, rule_eval)
 from gpuintegration_torch.parallel.launch import run_on_ranks
 from gpuintegration_torch.pagani import (fused_loop, oneshot, region_pool,
                                          vegas_assisted)
@@ -315,6 +335,7 @@ from gpuintegration_torch.tools import (assisted_probe, mesh_cases,
                                         route_bits, sass_report,
                                         vector_probe)
 from gpuintegration_torch.types import Volume
+from gpuintegration_torch.utils import recorder, timing
 from gpuintegration_torch.utils.profiling import StageTimer
 
 NDIM = 8
@@ -1773,6 +1794,9 @@ class SplitEvents:
         return False
 
 
+SPLIT_WALLS: dict[str, float] = {}   # events_run's walls, by label
+
+
 def events_run(label, ws, f, epsrel, truth, phase="phase 11"):
     """``ws.integrate(f, epsrel, 1e-40)`` on the split route with CUDA
     events around each launch and call (``SplitEvents``), printed: the
@@ -1789,6 +1813,7 @@ def events_run(label, ws, f, epsrel, truth, phase="phase 11"):
         res = ws.integrate(ev.f, epsrel=epsrel, epsabs=1e-40, **HOST)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    SPLIT_WALLS[label] = wall
     launches = dict(cuda_rule.split_launches)
     routes = dict(cuda_rule.contract_route_launches)
     fused = cuda_rule.launches
@@ -4167,6 +4192,423 @@ def mesh_path(dev, tile_run, fused_run, vegas_runs, sin8):
     return {name: [_launch_totals(r[name]["launches"]) for r in ranks]
             for name in MESH_D2}
 
+# ---------------------------------------------------------------------------
+# Any scalar-per-axis callable inside the fused kernels (phase 25)
+
+def g6(x0, x1, x2, x3, x4, x5):
+    """The reference bench's 6D per-axis Gaussian (bench.py:205-225)."""
+    s = 0.0
+    for x in (x0, x1, x2, x3, x4, x5):
+        s = s + (x - 0.5) ** 2
+    return torch.exp(-25.0 * s)
+
+
+def g10(x0, x1, x2, x3, x4, x5, x6, x7, x8, x9):
+    """A 10D per-axis Gaussian: the sampler's generic route."""
+    s = 0.0
+    for x in (x0, x1, x2, x3, x4, x5, x6, x7, x8, x9):
+        s = s + (x - 0.5) ** 2
+    return torch.exp(-4.0 * s)
+
+
+# The callables of phase 25: f4_axes (8D, the rule's tile route), cos of
+# the sum at 12D (its generic route) and g10 (the sampler's generic route)
+# built with the other sources in phase 1; the reference bench's g6 (6D)
+# built alone in phase 25, as a user's first call builds its library.
+GEN_F4 = integrand_gen.traced(f4_axes, NDIM)
+GEN_COS12 = integrand_gen.traced(axes_callable(12), 12, "cos_sum12")
+GEN_G10 = integrand_gen.traced(g10, 10)
+GEN_PHASE1 = (GEN_F4, GEN_COS12, GEN_G10)
+G6_TRUTH = (math.sqrt(math.pi / 25.0) * math.erf(2.5)) ** VEGAS_NDIM
+G6_FROZEN = dict(ncall=1e9, iters=10)     # the reference bench's frozen case
+
+
+def generated_bound_ms(program, ndim: int, n: int,
+                       dtype) -> tuple[float, str]:
+    """``bound_ms`` of a traced callable's fused rule launch: per rule point
+    2 operations a coordinate, the program's steps (integrand_gen.
+    program_ops: a transcendental as ONE) and 1 for the orbit sum."""
+    feval = rule_eval.rule_tables(ndim).feval
+    per_point = 2 * ndim + integrand_gen.program_ops(program) + 1
+    ops = n * (feval * per_point + EPILOGUE_OPS)
+    item = torch.finfo(dtype).bits // 8
+    nbytes = n * (2 * ndim * item + 2 * item + 4)
+    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def generated_sampler_bound_ms(program, ndim: int, kp: int, kq: int, n: int,
+                               with_hist: bool) -> tuple[float, str]:
+    """``sampler_bound_ms`` of the fused sampler on a traced callable: the
+    program's steps in place of a Genz family's per-axis work."""
+    per_dim = 2 * (2 * (kp - 2) + max(kq - 2, 0) + 2) + 10 + 25
+    per_sample = ndim * per_dim + integrand_gen.program_ops(program) + 6
+    t_ops = n * per_sample / PEAK_OPS[torch.float32]
+    t_bytes = n * (8 * ndim if with_hist else 0) / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def generated_checks(dev):
+    """Phase 25 (1-2): g6's library built alone, its first build's
+    seconds; each generated kernel held against its plain version by
+    ``kernel_check`` (rule) and ``mcubes.kernel_check`` (sampler), in ulps
+    of each output's rounding scale; f4_axes on the generated tile kernel
+    timed against the Genz F4 tile kernel on phase 4's pool.  Returns the
+    numbers of the kernels line."""
+    gen_g6, gen_g10 = integrand_gen.traced(g6, VEGAS_NDIM), GEN_G10
+    for t in GEN_PHASE1:
+        lib = cuda_build._target(cuda_build.GEN_SOURCE,
+                                 integrand_gen.header(t.program))
+        print(f"phase 25: {t.name} {t.ndim}D: library {lib.name} built in "
+              f"phase 1 with the other sources in "
+              f"{cuda_build.generated_builds.get(lib.name, math.nan):.2f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    g6_lib = cuda_build.build_generated(integrand_gen.header(gen_g6.program))
+    g6_build = time.perf_counter() - t0
+    regs = route_bits.ptxas_kernels(g6_lib.with_suffix(".log").read_text())
+    print(f"phase 25: g6 6D: its library {g6_lib.name} built alone, as a "
+          f"user's first call builds it: {g6_build:.2f} s; its kernels' "
+          f"(registers, spill bytes, stack bytes): {regs}", flush=True)
+    out = {"build_s": {"g6_alone": g6_build, "phase1_together": {
+        t.name: cuda_build.generated_builds.get(cuda_build._target(
+            cuda_build.GEN_SOURCE, integrand_gen.header(t.program)).name)
+        for t in GEN_PHASE1}}}
+    big = 1 << 21
+    errs = {"rule": 0.0, "sampler": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        tables = rule_eval.rule_tables(NDIM, rule_eval.dtype_name(dtype))
+        lows, lengths = random_pool(NDIM, big, 2, dtype, dev)
+        gl = torch.zeros(NDIM, dtype=dtype, device=dev)
+        gr = torch.ones(NDIM, dtype=dtype, device=dev)
+        r = compare(f"phase 25: f4_axes {str(dtype)[6:]} generated tile "
+                    f"kernel, phase 4's 2^21 pool", GEN_F4, tables, lows,
+                    lengths, gl, gr, route="tile")
+        errs["rule"] = max(errs["rule"], r["max_abs_est"])
+        if dtype != torch.float64:
+            continue
+        g4 = genz.f4_gaussian(NDIM)
+
+        def launch(f, route="tile"):
+            return lambda: cuda_rule.cuda_apply_rule(
+                f, tables, lows, lengths, gl, gr, route=route)
+
+        # Genz F4, generated, generated, Genz: the two within one call
+        t = [time_ms(launch(g4), 5), time_ms(launch(GEN_F4), 5),
+             time_ms(launch(GEN_F4), 5), time_ms(launch(g4), 5)]
+        gen_ms, genz_ms = min(t[1], t[2]), min(t[0], t[3])
+        generic = time_ms(launch(GEN_F4, "generic"), 3)
+        plain = time_ms(lambda: rule_eval.apply_rule_plain(
+            GEN_F4, tables, lows, lengths, gl, gr, chunk_size=4096), 1)
+        b, by = generated_bound_ms(GEN_F4.program, NDIM, big, dtype)
+        out["rule"] = {"ms": gen_ms, "genz_f4_tile_ms": genz_ms,
+                       "generic_route_ms": generic, "plain_ms": plain,
+                       "bound_ms": b, "bound_by": by}
+        print(f"phase 25: f4_axes f64 2^21 regions: generated tile kernel "
+              f"{gen_ms:.3f} ms ({t[1]:.3f}, {t[2]:.3f}) against the Genz F4 "
+              f"tile kernel {genz_ms:.3f} ms ({t[0]:.3f}, {t[3]:.3f}): "
+              f"{gen_ms / genz_ms:.3f} times; generated generic route "
+              f"{generic:.3f} ms; plain {plain:.1f} ms; bound {b:.3f} ms "
+              f"({by}, {100 * b / gen_ms:.1f}% of it; "
+              f"{integrand_gen.program_ops(GEN_F4.program)} operations a "
+              f"value from the program's {len(GEN_F4.program.steps)} steps)",
+              flush=True)
+        del lows, lengths
+        torch.cuda.empty_cache()
+    tables = rule_eval.rule_tables(12, "float64")
+    lows, lengths = random_pool(12, 1 << 14, 3, torch.float64, dev)
+    gl = torch.zeros(12, dtype=torch.float64, device=dev)
+    gr = torch.ones(12, dtype=torch.float64, device=dev)
+    r = compare("phase 25: cos(sum x) 12D f64 generated generic kernel, "
+                "2^14 regions", GEN_COS12, tables, lows, lengths, gl, gr)
+    errs["rule"] = max(errs["rule"], r["max_abs_est"])
+
+    # the sampler: paired at 6D on one 2^21-sample chunk, generic at 10D
+    case = vegas_check.sampler_case(VEGAS_NDIM, 1e7, VEGAS_CHUNK,
+                                    position="middle", device=dev)
+    case10 = vegas_check.sampler_case(10, 1e6, 1 << 16, device=dev)
+    for label, c, g, route in (("g6 6D paired", case, gen_g6, "paired"),
+                               ("g6 6D generic", case, gen_g6, "generic"),
+                               ("g10 10D generic", case10, gen_g10,
+                                "generic")):
+        for with_hist in (True, False):
+            try:
+                r = vegas_check.check_sampler(c, g, with_hist=with_hist,
+                                              rng="device", route=route)
+            except AssertionError as e:
+                fail(f"phase 25: {label}: {e}")
+            print(f"phase 25: sampler {label} hist={with_hist}, "
+                  f"{r['samples']} samples, against the plain version "
+                  f"(limits {vegas_check.ULPS}): "
+                  + ", ".join(f"{k} {v:.3g}" if isinstance(v, float)
+                              else f"{k} {v}" for k, v in r.items()),
+                  flush=True)
+    pmap, npg = case["pmap"], case["npg"]
+    n = case["chunk_cubes"] * npg
+    tail = (case["xjac"], case["cube0"], case["ncubes"], 0, 1)
+
+    def sample(fn, route=None, with_hist=True, g=gen_g6):
+        kw = {} if route is None else {"route": route}
+        return lambda: fn(pmap, g, case["ng"], npg, case["chunk_cubes"],
+                          500, with_hist, *tail, **kw)
+
+    k = sample(cuda_vegas.sample_chunk)()
+    p = sample(cuda_vegas.sample_chunk_plain)()
+    errs["sampler"] = float((k[0] - p[0]).abs().max())
+    g4 = genz.f4_gaussian(VEGAS_NDIM)
+    t = [queued_ms(sample(cuda_vegas.sample_chunk, "paired", g=gen), 5)
+         for gen in (g4, gen_g6, gen_g6, g4)]
+    ms, genz_ms = min(t[1], t[2]), min(t[0], t[3])
+    generic = queued_ms(sample(cuda_vegas.sample_chunk, "generic"), 5)
+    plain = time_ms(sample(cuda_vegas.sample_chunk_plain), 2)
+    b, by = generated_sampler_bound_ms(gen_g6.program, VEGAS_NDIM, pmap.kp,
+                                       pmap.kq, n, True)
+    out["sampler"] = {"ms": ms, "genz_f4_paired_ms": genz_ms,
+                      "generic_route_ms": generic, "plain_ms": plain,
+                      "bound_ms": b, "bound_by": by}
+    print(f"phase 25: sampler g6 fused+hist, {n} samples: generated paired "
+          f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}) against the Genz F4 "
+          f"paired kernel {genz_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}); "
+          f"generated generic route {generic:.4f} ms; plain {plain:.2f} ms; "
+          f"bound {b:.4f} ms ({by}, {100 * b / ms:.1f}% of it)", flush=True)
+    out["max_abs_err"] = errs
+    return out
+
+
+def generated_pagani(dev, walls):
+    """Phase 25 (3): ``Workspace(8, rule_backend='fused').integrate(f4_axes,
+    1e-3)`` in f64 with the fused phase, at full width: status 0 within
+    1e-3 of the truth, every launch on the generated tile kernel, none on
+    the split route; its captures and replays; its wall beside phase 3's
+    (Genz F4, host loop), phase 17's (Genz F4, fused) and phase 11's (F4 as
+    a plain callable, the split route).  Returns (launches by route, the
+    result, the wall)."""
+    truth = genz.f4_gaussian(NDIM).true_value
+    rows = []
+    for run in range(2):        # the first builds nothing: phase 1 did
+        fused_loop.reset_stats()
+        cuda_rule.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = Workspace(NDIM, rule_backend="fused").integrate(
+            f4_axes, epsrel=1e-3, epsabs=1e-40)
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, res,
+                     dict(cuda_rule.generated_launches), cuda_rule.launches,
+                     dict(cuda_rule.split_launches), dict(fused_loop.stats)))
+    wall, res, gen, total, split, stats = rows[0]
+    rel = abs(res.estimate - truth) / truth
+    print(f"phase 25: f64 8D f4_axes, Workspace(8, rule_backend='fused'), "
+          f"epsrel 1e-3, fused phase: status {res.status} estimate "
+          f"{res.estimate!r} truth {truth!r} rel.err {rel:.3e} iters "
+          f"{res.iters} nregions {res.nregions} neval {res.neval} walls "
+          f"{rows[0][0]:.3f} s, {rows[1][0]:.3f} s; launches {total}, the "
+          f"generated kernel's by route {gen}, split route {split}; fused "
+          f"phase {stats}", flush=True)
+    print(f"phase 25: beside it, 8D F4: phase 3 (Genz family, tile route, "
+          f"host loop) {walls['phase3']:.3f} s, phase 17 (Genz family, "
+          f"fused phase) {min(walls['phase17']):.3f} s, phase 11 (a plain "
+          f"callable, the split route, host loop) {walls['phase11']:.3f} s",
+          flush=True)
+    if res.status != 0 or not rel <= 1e-3:
+        fail(f"phase 25: the fused backend's main path: status {res.status}, "
+             f"rel.err {rel}")
+    if total <= 0 or gen["tile"] != total or any(split.values()):
+        fail(f"phase 25: launches {total}, generated {gen}, split {split}: "
+             "every one should take the generated tile kernel")
+    return gen, res, min(r[0] for r in rows), stats
+
+
+def _vegas_wall(g, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = mcubes.integrate(g, **kw)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def generated_vegas(dev):
+    """Phase 25 (4): the reference bench's frozen case (bench.py:194-225):
+    g6, 6D, 500 bins, 8 adjusting iterations at ncall 1e7, then
+    G6_FROZEN's frozen iterations from that grid, sampler 'fused', each
+    within 5 errorests of the truth; against 'hybrid' in turns (fused,
+    hybrid, hybrid, fused); then AUTO with eval_dtype float32, which must
+    take 'fused' and certify at 1e-3.  Returns (the frozen run's launches
+    of the generated sampler, walls)."""
+    picked = vegas_module._resolve_sampler(None, "poly", "cuda",
+                                           torch.float32, g6)
+    if picked != "fused":
+        fail(f"phase 25: AUTO picks {picked!r} for g6 in f32")
+    st = mcubes.VegasState(xi=vegas_grid.uniform_grid(VEGAS_NDIM, 500,
+                                                      torch.float64, dev))
+    cuda_vegas.reset_launches()
+    adj, adj_wall = _vegas_wall(g6, epsrel=1e-9, ncall=1e7, total_iters=8,
+                                adjust_iters=8, seed=1, sampler="fused",
+                                state=st)
+    adj_launches = dict(cuda_vegas.generated_launches)
+    walls = {"fused": [], "hybrid": []}
+    launches = None
+    for sampler in ("fused", "hybrid", "hybrid", "fused"):
+        vegas_phases.reset_stats()
+        cuda_vegas.reset_launches()
+        r, w = _vegas_wall(
+            g6, epsrel=1e-12, epsabs=0.0, ncall=G6_FROZEN["ncall"],
+            total_iters=G6_FROZEN["iters"], adjust_iters=0, seed=3,
+            sampler=sampler, state=mcubes.VegasState(xi=st.xi))
+        walls[sampler].append(w)
+        pull = abs(r.estimate - G6_TRUTH) / r.errorest
+        print(f"phase 25: g6 frozen, ncall {G6_FROZEN['ncall']:g} x "
+              f"{G6_FROZEN['iters']} iterations, sampler {sampler!r}: "
+              f"estimate {r.estimate!r} errorest {r.errorest!r} truth "
+              f"{G6_TRUTH!r} pull {pull:.3f} iters {r.iters} neval "
+              f"{r.neval} wall {w:.3f} s = {r.neval / w:.4e} samples/s; "
+              f"sampler launches {dict(cuda_vegas.route_launches)} "
+              f"(generated {dict(cuda_vegas.generated_launches)}); phases "
+              f"{dict(vegas_phases.stats)}", flush=True)
+        if not pull <= 5.0 or r.iters != G6_FROZEN["iters"]:
+            fail(f"phase 25: g6 frozen {sampler}: pull {pull}, iters "
+                 f"{r.iters}")
+        if sampler == "fused":
+            gen = dict(cuda_vegas.generated_launches)
+            if gen["paired"] <= 0 or gen["paired"] != cuda_vegas.launches:
+                fail(f"phase 25: the fused frozen run's sampler launches "
+                     f"{gen} of {cuda_vegas.launches}")
+            launches = launches or gen
+    print(f"phase 25: g6 adjusting (ncall 1e7, 8 iterations, 'fused'): "
+          f"estimate {adj.estimate!r} errorest {adj.errorest!r} wall "
+          f"{adj_wall:.3f} s, generated sampler launches {adj_launches}; "
+          f"frozen walls in turns: fused {walls['fused'][0]:.3f} s, hybrid "
+          f"{walls['hybrid'][0]:.3f} s, hybrid {walls['hybrid'][1]:.3f} s, "
+          f"fused {walls['fused'][1]:.3f} s", flush=True)
+    cuda_vegas.reset_launches()
+    auto, auto_wall = _vegas_wall(g6, epsrel=1e-3, ncall=1e7,
+                                  eval_dtype=torch.float32)
+    pull = abs(auto.estimate - G6_TRUTH) / auto.errorest
+    print(f"phase 25: vegas(g6, eval_dtype=float32) under AUTO: status "
+          f"{auto.status} estimate {auto.estimate!r} errorest "
+          f"{auto.errorest!r} pull {pull:.3f} iters {auto.iters} wall "
+          f"{auto_wall:.3f} s; generated sampler launches "
+          f"{dict(cuda_vegas.generated_launches)}", flush=True)
+    if auto.status != 0 or not pull <= 5.0 or \
+            cuda_vegas.generated_launches["paired"] != cuda_vegas.launches:
+        fail("phase 25: AUTO on g6 in f32 did not certify on the generated "
+             "sampler")
+    walls["adjust"] = adj_wall
+    walls["auto"] = auto_wall
+    return launches, walls
+
+
+def _cli(argv):
+    """``cli.main(argv)`` in this process: (exit code, its stdout lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def a17_on_card(dev, fused_run):
+    """Phase 25 (5): the main path with a recorder (one row an iteration,
+    the fused phase off, ``fused_run``'s decisions); ``cli.main`` for
+    pagani, mcubes, ladder and profile (exit code 0, the reference's CSV
+    headers); the continuation log on a 3D continuation."""
+    rec = recorder.IterationRecorder()
+    fused_loop.reset_stats()
+    res = Workspace(NDIM, rule_backend="fused").integrate(
+        f4_axes, epsrel=1e-3, epsabs=1e-40, recorder=rec)
+    rows = rec.rows
+    print(f"phase 25: the fused backend's main path with a recorder: "
+          f"{len(rows)} rows for {res.iters} iterations, fused bursts "
+          f"{fused_loop.stats['bursts']}; last row {rows[-1] if rows else None}",
+          flush=True)
+    if (len(rows) != res.iters or fused_loop.stats["bursts"]
+            or (res.status, res.iters, res.nregions, res.neval)
+            != (fused_run.status, fused_run.iters, fused_run.nregions,
+                fused_run.neval)
+            or [r["it"] for r in rows] != list(range(res.iters))):
+        fail("phase 25: the recorder's rows or the host loop's decisions")
+    for name, argv, header in (
+            ("pagani", ["pagani", "--integrand", "f4_gaussian", "--ndim",
+                        str(NDIM), "--epsrel", "1e-3"],
+             timing.PAGANI_CSV_HEADER),
+            ("mcubes", ["mcubes", "--integrand", "f4_gaussian", "--ndim",
+                        str(VEGAS_NDIM), "--ncall", "1e8"],
+             timing.MCUBES_CSV_HEADER),
+            ("ladder", ["ladder", "--integrand", "f4_gaussian", "--ndim",
+                        "3", "--epsrel", "1e-3", "--floor", "1e-6"],
+             timing.PAGANI_CSV_HEADER),
+            ("profile", ["profile", "--integrand", "f4_gaussian", "--ndim",
+                         str(NDIM), "--splits", "5:8", "--repeats", "3"],
+             timing.RULES_CSV_HEADER)):
+        t0 = time.perf_counter()
+        rc, lines = _cli(argv)
+        print(f"phase 25: python -m gpuintegration_torch.cli "
+              f"{' '.join(argv)}: exit {rc} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for line in lines:
+            print(f"phase 25:   {line}", flush=True)
+        if rc != 0 or not lines or lines[0] != header:
+            fail(f"phase 25: cli {name}: exit {rc}, header "
+                 f"{lines[0] if lines else None!r}")
+    err = io.StringIO()
+    old = os.environ.get("GPUINT_TPU_CONTINUATION_LOG")
+    os.environ["GPUINT_TPU_CONTINUATION_LOG"] = "1"
+    try:
+        with contextlib.redirect_stderr(err):
+            r = Workspace(3, max_pool_regions=1024,
+                          chunk_size=128).integrate_to_convergence(
+                genz.f4_gaussian(3, a=15.0, b=0.3), epsrel=1e-9,
+                epsabs=1e-40, fused=False)
+    finally:
+        if old is None:
+            del os.environ["GPUINT_TPU_CONTINUATION_LOG"]
+        else:
+            os.environ["GPUINT_TPU_CONTINUATION_LOG"] = old
+    log = [ln for ln in err.getvalue().splitlines()
+           if ln.startswith("[continuation]")]
+    print(f"phase 25: a 3D continuation with GPUINT_TPU_CONTINUATION_LOG "
+          f"set: status {r.status}, {len(log)} slice lines:", flush=True)
+    for ln in log:
+        print(f"phase 25:   {ln}", flush=True)
+    if not log:
+        fail("phase 25: the continuation printed no log line")
+
+
+def generated_kernels(checks, pagani_launches, vegas_launches, walls):
+    """The ``kernels`` line's entries of the generated family."""
+    rule, smp = checks["rule"], checks["sampler"]
+    return [{
+        "name": "rule_eval_generated",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/gen_integrand.cu",
+        "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+        "held_against_plain_in": "phase 25 (f4_axes 8D tile f64 and f32 on "
+                                 "2^21 regions, cos(sum x) 12D generic)",
+        "launches": sum(pagani_launches.values()),
+        "launches_by_route": pagani_launches,
+        "max_abs_err": checks["max_abs_err"]["rule"],
+        "ms": rule["ms"], "generic_route_ms": rule["generic_route_ms"],
+        "genz_f4_tile_ms": rule["genz_f4_tile_ms"],
+        "plain_ms": rule["plain_ms"], "bound_ms": rule["bound_ms"],
+        "bound_by": rule["bound_by"], "library_ms": None,
+        "build_s": checks["build_s"], "walls_s": walls,
+    }, {
+        "name": "vegas_sample_generated",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/gen_integrand.cu",
+        "replaces": "gpuintegration_tpu/mcubes/pallas_vegas.py:192",
+        "held_against_plain_in": "phase 25 (g6 6D paired and generic on "
+                                 "2^21 samples, g10 10D generic)",
+        "launches": sum(vegas_launches.values()),
+        "launches_by_route": vegas_launches,
+        "max_abs_err": checks["max_abs_err"]["sampler"],
+        "ms": smp["ms"], "generic_route_ms": smp["generic_route_ms"],
+        "genz_f4_paired_ms": smp["genz_f4_paired_ms"],
+        "plain_ms": smp["plain_ms"], "bound_ms": smp["bound_ms"],
+        "bound_by": smp["bound_by"], "library_ms": None,
+    }]
+
 
 def _launch_totals(launches) -> dict:
     """A case's launches on a rank by the kernels line's names."""
@@ -4194,7 +4636,9 @@ def main() -> int:
     phase_t0 = t0 = time.perf_counter()
     sources = ["rule_eval.cu", "vegas_sample.cu", "vegas_lookup.cu",
                "rule_split.cu", "split_frac.cu"]
-    libs = cuda_build.build_many(sources)
+    # and phase 25's generated libraries of f4_axes and cos(sum x) at 12D
+    libs = cuda_build.build_many(sources, [
+        integrand_gen.header(t.program) for t in GEN_PHASE1])
     print(f"phase 1: built {len(libs)} libraries with nvcc in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:
@@ -4202,7 +4646,7 @@ def main() -> int:
         print(f"phase 1: {lib.name}: ptxas: {ptxas_summary(log)}; "
               f"{log.strip().splitlines()[-1]}", flush=True)
         if lib.name.startswith(("librule_eval", "librule_split",
-                                "libsplit_frac")):
+                                "libsplit_frac", "libgen_integrand")):
             for name, (regs, spills, stack) in ptxas_by_kernel(log).items():
                 print(f"phase 1: ptxas: {name}: {regs} registers, {spills} "
                       f"spill bytes, {stack} bytes stack frame", flush=True)
@@ -4495,7 +4939,17 @@ def main() -> int:
                               vegas_runs, sin8)
     phase_done("phase 24")
 
-    # -- the kernels line ----------------------------------------------------
+    # -- phase 25: any scalar-per-axis callable inside the fused kernels,
+    # and the recorder, the CLI and the continuation log on the card ------
+    gen_checks = generated_checks(dev)
+    gen_launches, gen_res, gen_wall, gen_stats = generated_pagani(
+        dev, {"phase3": wall, "phase17": fused_rows["f4_walls_s"]["fused"],
+              "phase11": SPLIT_WALLS[f"f64 {NDIM}D F4 as a plain callable"]})
+    gen_vegas_launches, gen_vegas_walls = generated_vegas(dev)
+    a17_on_card(dev, gen_res)
+    phase_done("phase 25")
+
+    # -- phase 26: the kernels line, the card line, the result line ---------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",
@@ -4664,6 +5118,10 @@ def main() -> int:
     kernels[0]["slice_13_paths"] = {
         "oneshot_walls_s": oneshot_walls, "physics": physics_row,
         "suave": suave_row, "quad1d": quad_rows}
+    kernels += generated_kernels(
+        gen_checks, gen_launches, gen_vegas_launches,
+        {"pagani_fused_backend": gen_wall, "pagani_fused_stats": gen_stats,
+         "vegas": gen_vegas_walls})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,15 @@ shape alone (never by catching a failure):
   dimensions and terms, one 4-byte coefficient load per multiply-add, a
   64-bit decode.  It is also the kernel the paired route is timed against.
 
+The fused mode also takes a traced per-axis callable
+(``ops.integrand_gen.TracedIntegrand``, what ``vegas(sampler='fused')``
+makes of one): the same kernels instantiated for the generated family,
+from a library built for that callable at first use (csrc/gen_integrand.cu,
+``cuda_build.load_generated``).
+
 ``launches`` counts every launch since it was last set to 0, and
-``route_launches`` the same per route; ``reset_launches()`` zeroes both.
+``route_launches`` the same per route (``generated_launches`` those of
+traced callables among them); ``reset_launches()`` zeroes them.
 
 What changed against the TPU kernel, and why:
 
@@ -56,7 +63,7 @@ import torch
 
 from gpuintegration_torch.mcubes import stream
 from gpuintegration_torch.mcubes.grid import TINY
-from gpuintegration_torch.ops import cuda_build, cuda_rule
+from gpuintegration_torch.ops import cuda_build, cuda_rule, integrand_gen
 
 _SOURCE = "vegas_sample.cu"
 MAX_NDIM = 16
@@ -72,6 +79,7 @@ SMEM_BYTES = 48 * 1024          # the map's room in a block's shared memory
 # Launches of the kernels since the counts were last set to 0.
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
+generated_launches = {r: 0 for r in ROUTES}   # a traced callable's, by route
 
 
 def reset_launches():
@@ -79,6 +87,7 @@ def reset_launches():
     launches = 0
     for r in ROUTES:
         route_launches[r] = 0
+        generated_launches[r] = 0
 
 
 def _configure(lib):
@@ -261,7 +270,8 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
     ``emit_points``: returns (xs (ndim, N) f32, wt (N,) f32, ia) with
     N = chunk_cubes * npg; ``integrand`` is not used.  Otherwise returns
     (sums (2,) f64 = [sum fb, sum f2b], ia, f2 (N,) f32); ``integrand``
-    is a Genz family (models.genz), evaluated in f32.  ``ia`` ((ndim, N)
+    is a Genz family (models.genz) or a traced per-axis callable
+    (``integrand_gen.TracedIntegrand``), evaluated in f32.  ``ia`` ((ndim, N)
     int32 bin ids in [0, nbins)) and ``f2`` are None unless ``with_hist``.
 
     ``bits``: (npg * ndim, chunk_cubes) int32 words to take the uniforms
@@ -344,7 +354,11 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
                              "tensor of pack_map")
     else:
         table = pmap.table
-    rc = cuda_build.load(_SOURCE, _configure).vegas_sample_launch(
+    generated = family == integrand_gen.KIND
+    lib = (cuda_build.load_generated(integrand_gen.header(integrand.program),
+                                     _configure) if generated
+           else cuda_build.load(_SOURCE, _configure))
+    rc = lib.vegas_sample_launch(
         int(route == "paired"), kp4, kq4, stream.decode_reciprocal(ng),
         family, blocks, table.data_ptr(), ptr(bits), ptr(partial),
         ptr(xs), ptr(wt), ptr(ia), ptr(f2), int(cube0), int(ncubes),
@@ -356,6 +370,8 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
                            f"failed: error {rc}")
     launches += 1
     route_launches[route] += 1
+    if generated:
+        generated_launches[route] += 1
     if emit_points:
         return xs, wt, ia
     return partial.sum(dim=0), ia, f2

@@ -88,6 +88,7 @@ FORM = None
 # The kernel wrappers' launch counts: (module, name) of an int or of a
 # {route: int} dict.
 _COUNTS = ((cuda_vegas, "launches"), (cuda_vegas, "route_launches"),
+           (cuda_vegas, "generated_launches"),
            (cuda_lookup, "hist_launches"),
            (cuda_lookup, "hist_route_launches"),
            (cuda_lookup, "bin_resolve_launches"),

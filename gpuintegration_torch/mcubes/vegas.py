@@ -55,14 +55,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from gpuintegration_torch.integrand import deduce_ncomp, make_integrand
+from gpuintegration_torch.integrand import (_positional_arity, deduce_ncomp,
+                                            make_integrand)
 from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
 from gpuintegration_torch.mcubes import grid as vgrid
 from gpuintegration_torch.mcubes import phases, stream
 from gpuintegration_torch.mcubes.cuda_lookup import HIST_CAP as _HIST_CAP
 from gpuintegration_torch.mcubes.poly_importance import (
     eval_map_and_weight, fit_importance_poly, fit_importance_poly_device)
-from gpuintegration_torch.ops import cuda_rule
+from gpuintegration_torch.ops import cuda_rule, integrand_gen
 from gpuintegration_torch.parallel import mesh as pmesh
 from gpuintegration_torch.types import IntegrationResult, Volume
 from gpuintegration_torch.utils.stats import chi2_prob
@@ -277,10 +278,10 @@ def _vegas_iteration_poly(
     type, histogram by ``hist_accum_plain``.  ``'fused'`` (the reference's
     'pallas'): the whole chunk body in the sampler kernel
     (cuda_vegas.sample_chunk), the integrand ``integrand`` being a Genz
-    family evaluated in f32.  ``'hybrid'``: the kernel runs only the
-    sampling machinery and emits f32 coordinates and weights; the batched
-    callable ``f`` is evaluated here in the evaluation type with per-cube
-    accumulation in ``dtype``.  On a CPU device 'fused' and 'hybrid' take
+    family or a traced per-axis callable evaluated in f32.  ``'hybrid'``:
+    the kernel runs only the sampling machinery and emits f32 coordinates
+    and weights; the batched callable ``f`` is evaluated here in the
+    evaluation type with per-cube accumulation in ``dtype``.  On a CPU device 'fused' and 'hybrid' take
     the kernels' plain versions.  ``ncomp`` > 1: a vector integrand on
     'torch' or 'hybrid', (2, ncomp) sums, the histogram of component 0.
     ``chunk0``: the first global chunk, as ``_vegas_iteration``'s."""
@@ -376,10 +377,30 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _kernel_twin(integrand, ndim: int | None = None):
+    """What the fused sampler evaluates for ``integrand``: a Genz family
+    (models.genz) itself, a scalar-per-axis callable f(x0, ..., x{n-1})
+    its trace (``integrand_gen.traced``, the reference's ``f_axes`` in its
+    Pallas kernel).  ValueError naming sampler='hybrid' for any other
+    callable, or a per-axis one that does not trace."""
+    if cuda_rule.is_genz_family(integrand) or cuda_rule.is_generated(
+            integrand):
+        return integrand
+    arity = _positional_arity(integrand)
+    if arity is None or arity < 2:
+        raise ValueError(
+            "sampler='fused' evaluates the integrand inside the CUDA "
+            "kernel: a Genz family (gpuintegration_torch.models.genz) or a "
+            "scalar-per-axis callable f(x0, ..., x{n-1}) that traces "
+            "(ops/integrand_gen.py); pass sampler='hybrid' for any other "
+            "callable")
+    return integrand_gen.traced(integrand, arity if ndim is None else ndim)
+
+
 def _has_kernel_twin(integrand) -> bool:
     try:
-        cuda_rule.kernel_params(integrand)
-    except NotImplementedError:
+        _kernel_twin(integrand)
+    except ValueError:
         return False
     return True
 
@@ -389,7 +410,9 @@ def _resolve_sampler(sampler, importance: str, device_type: str, eval_dtype,
     """The sampler a run takes (see ``vegas``): for the grid map None (the
     kernels on the card) or 'torch'; for the poly map one of SAMPLERS,
     AUTO choosing by device, evaluation type and integrand ('hybrid' for
-    a vector integrand on the card)."""
+    a vector integrand, or a callable that neither is a Genz family nor
+    traces, on the card).  An explicit 'fused' on such a callable raises
+    ValueError naming 'hybrid'."""
     if importance == "grid":
         if sampler not in (None, "torch"):
             raise ValueError(
@@ -412,12 +435,8 @@ def _resolve_sampler(sampler, importance: str, device_type: str, eval_dtype,
             "sampler='fused' evaluates a scalar integrand inside the CUDA "
             f"kernel; a vector integrand ({ncomp} components) takes "
             "sampler='hybrid' (or 'torch')")
-    if sampler == "fused" and not _has_kernel_twin(integrand):
-        raise NotImplementedError(
-            "sampler='fused' evaluates the integrand inside the CUDA "
-            "kernel, which knows the Genz families F1-F6 "
-            "(gpuintegration_torch.models.genz) only; pass "
-            "sampler='hybrid' for any other callable")
+    if sampler == "fused":
+        _kernel_twin(integrand)
     return sampler
 
 
@@ -491,12 +510,17 @@ def vegas(
     ``sampler`` (importance='poly'), with the reference's names beside:
     'torch' = the reference's 'xla', the plain PyTorch chunk body;
     'fused' = 'pallas', the whole chunk body in the CUDA sampler kernel,
-    integrand in f32 -- needs a Genz family (models.genz), any other
-    callable raises NotImplementedError; 'hybrid' = 'hybrid', the kernel
-    emits points and weights and the integrand, any batched torch
-    callable, is evaluated in ``eval_dtype``.  Default (None) is AUTO: on
-    the card 'fused' when ``eval_dtype`` is float32 and the integrand has
-    a kernel twin, else 'hybrid'; on the CPU 'torch'.  The kernel loops
+    integrand in f32 -- needs a Genz family (models.genz) or a
+    scalar-per-axis callable f(x0, ..., x{n-1}) that traces into the
+    kernel (ops/integrand_gen.py: elementwise arithmetic, exp, log, sin,
+    cos, tan, tanh, sqrt, abs, expm1, log1p, minimum, maximum, where over
+    comparisons, clamp, number and 0-d tensor constants), any other
+    callable raises ValueError; 'hybrid' = 'hybrid', the kernel emits
+    points and weights and the integrand, any batched torch callable, is
+    evaluated in ``eval_dtype``.  Default (None) is AUTO: on the card
+    'fused' when ``eval_dtype`` is float32 and the integrand has a kernel
+    twin (a Genz family, or a per-axis callable that traces), else
+    'hybrid'; on the CPU 'torch'.  The kernel loops
     over the samples of a cube at run time and carries cube ids in 64
     bits, so AUTO never leaves the kernels for a large npg or lattice.
     With importance='grid' only None and 'torch' are accepted.  All
@@ -582,6 +606,9 @@ def vegas(
         raise ValueError(f"importance {importance!r}: 'grid' or 'poly'")
     sampler = _resolve_sampler(sampler, importance, dev.type, ed, integrand,
                                ncomp)
+    # the integrand the fused kernel evaluates: a Genz family, or a traced
+    # per-axis callable
+    twin = _kernel_twin(integrand, ndim) if sampler == "fused" else integrand
 
     regn_lo = torch.as_tensor(vol.lows, dtype=dtype, device=dev)
     dx = torch.as_tensor(vol.highs - vol.lows, dtype=dtype, device=dev)
@@ -592,7 +619,7 @@ def vegas(
         """One iteration on the stream of counter ``word`` (the phases')."""
         if importance == "poly":
             return _vegas_iteration_poly(
-                f, integrand, ndim, ng, npg, chunk_cubes, num_chunks, nbins,
+                f, twin, ndim, ng, npg, chunk_cubes, num_chunks, nbins,
                 accumulate_hist, dtype, seed, word, p_t, q_t, regn_lo, dx,
                 xjac, ncubes, eval_dtype=ed, sampler=sampler, ncomp=ncomp,
                 chunk0=chunk0)
@@ -667,7 +694,7 @@ def vegas(
         if importance == "poly":
             p_np, q_np = fit_importance_poly(xi, poly_degree)
             sums, d = _vegas_iteration_poly(
-                f, integrand, ndim, ng, npg, chunk_cubes, num_chunks, nbins,
+                f, twin, ndim, ng, npg, chunk_cubes, num_chunks, nbins,
                 adjusting, dtype, seed, stream_it,
                 torch.as_tensor(p_np, dtype=torch.float32, device=dev),
                 torch.as_tensor(q_np, dtype=torch.float32, device=dev),

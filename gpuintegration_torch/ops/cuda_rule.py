@@ -33,7 +33,13 @@ address arithmetic and the search for a point's orbit.  No tensor cores, no
 TF32: the null-rule sums cancel.
 
 Both know the integrand as a Genz family id (F1..F6) and its parameters
-(models.genz.GenzIntegrand).  Any other integrand takes a third route,
+(models.genz.GenzIntegrand), or as a traced per-axis callable
+(``integrand_gen.TracedIntegrand``, what ``Workspace(rule_backend='fused')``
+passes): its kernels are the same templates instantiated for the generated
+family, from a library built for that callable at first use
+(csrc/gen_integrand.cu, ``cuda_build.load_generated``), with the same
+routes and counts, and ``generated_launches`` counting them apart by
+route.  No crease run takes them.  Any other integrand takes a third route,
 ``'split'`` (``cuda_apply_rule_split``, csrc/rule_split.cu): chunk by chunk,
 a points kernel writes every rule point, the callable runs on them as
 ordinary torch operations, and a contraction kernel reduces its values to
@@ -69,7 +75,8 @@ same function as a kernel of its own, ``rule_split_frac_kernel``
 launches it, and the checks hold the folded forms against it.
 
 ``launches`` counts every launch of the fused kernels since it was last set
-to 0, and ``route_launches`` the same per route; ``split_launches`` counts
+to 0, and ``route_launches`` the same per route (``generated_launches``
+those of traced callables among them); ``split_launches`` counts
 the split route's two kernels, ``'points'`` and ``'contract'``,
 ``split_frac_launches`` the standalone split fraction kernel's,
 ``frac_route_launches`` the folded forms' launches, by the kernel that
@@ -93,7 +100,7 @@ import numpy as np
 import torch
 
 from gpuintegration_torch.integrand import make_integrand
-from gpuintegration_torch.ops import cuda_build, rule_eval
+from gpuintegration_torch.ops import cuda_build, integrand_gen, rule_eval
 from gpuintegration_torch.ops.genz_malik import GENERATORS
 
 _SOURCE = "rule_eval.cu"
@@ -149,6 +156,7 @@ CONTRACT_FRAC_ROUTE = {"cluster": "cluster", "generic": "contract_generic"}
 # them to show that a run went through the kernel, and by which route.
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
+generated_launches = {r: 0 for r in ROUTES}   # a traced callable's, by route
 split_launches = {"points": 0, "contract": 0}
 split_frac_launches = 0         # the standalone split fraction kernel's
 frac_route_launches = {r: 0 for r in FRAC_ROUTES}
@@ -158,8 +166,8 @@ contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + VECTOR_ROUTES}
 def reset_launches():
     global launches, split_frac_launches
     launches = split_frac_launches = 0
-    for counts in (route_launches, split_launches, contract_route_launches,
-                   frac_route_launches):
+    for counts in (route_launches, generated_launches, split_launches,
+                   contract_route_launches, frac_route_launches):
         for k in counts:
             counts[k] = 0
 
@@ -216,23 +224,34 @@ def _configure_frac(lib):
 
 
 def is_genz_family(integrand) -> bool:
-    """Whether the fused routes know ``integrand``: a Genz family id F1..F6
-    with its parameters (models.genz.GenzIntegrand)."""
+    """Whether the fused routes know ``integrand`` as a Genz family: a
+    family id F1..F6 with its parameters (models.genz.GenzIntegrand)."""
     return (getattr(integrand, "kind", None) in (1, 2, 3, 4, 5, 6)
             and getattr(integrand, "params", None) is not None)
 
 
+def is_generated(integrand) -> bool:
+    """Whether ``integrand`` is a traced per-axis callable
+    (``integrand_gen.TracedIntegrand``), whose generated kernels the fused
+    routes launch."""
+    return isinstance(integrand, integrand_gen.TracedIntegrand)
+
+
 def kernel_params(integrand) -> tuple[int, np.ndarray]:
     """(family id, 34 host doubles: coeffs[16], bounds[16], s0, s1) of a
-    Genz integrand; NotImplementedError for a callable the kernel lacks."""
+    Genz integrand, or (integrand_gen.KIND, zeros) of a traced callable;
+    NotImplementedError for a callable the kernels lack."""
+    p = np.zeros(2 * MAX_NDIM + 2, dtype=np.float64)
+    if is_generated(integrand):
+        return integrand_gen.KIND, p
     if not is_genz_family(integrand):
         raise NotImplementedError(
             "the fused rule kernels evaluate the Genz families F1-F6 "
-            "(gpuintegration_torch.models.genz) only; another integrand "
+            "(gpuintegration_torch.models.genz) and traced per-axis "
+            "callables (integrand_gen.traced) only; another integrand "
             "takes the split route (cuda_apply_rule_split), as "
             "rule_eval.apply_rule chooses by rule_route")
     kind, params = integrand.kind, integrand.params
-    p = np.zeros(2 * MAX_NDIM + 2, dtype=np.float64)
     if kind in (1, 3, 6):
         coeffs = np.asarray(params["coeffs"], dtype=np.float64)
         p[:coeffs.size] = coeffs
@@ -258,15 +277,15 @@ def kernel_params(integrand) -> tuple[int, np.ndarray]:
 
 def rule_route(ndim: int, integrand=None, ncomp: int = 1) -> str:
     """The route a pool of this dimension takes: 'split' for an integrand
-    that is not a Genz family (``is_genz_family``) and for any vector
-    integrand (``ncomp`` > 1: no fused kernel evaluates one); for a Genz
-    family (or no integrand named) 'tile' where the source compiles it,
-    else 'generic'.  A crease run takes the same route: each route's
-    kernel computes the cut fraction from the values it holds.  The
-    working type does not enter: every route is compiled for float64 and
-    float32."""
-    if ncomp > 1 or (integrand is not None
-                     and not is_genz_family(integrand)):
+    that is neither a Genz family (``is_genz_family``) nor a traced
+    callable (``is_generated``) and for any vector integrand (``ncomp`` >
+    1: no fused kernel evaluates one); else 'tile' where the source
+    compiles it, else 'generic'.  A crease run takes the same route: each
+    route's kernel computes the cut fraction from the values it holds.
+    The working type does not enter: every route is compiled for float64
+    and float32."""
+    if ncomp > 1 or (integrand is not None and not (
+            is_genz_family(integrand) or is_generated(integrand))):
         return "split"
     return "tile" if ndim in TILE_NDIMS else "generic"
 
@@ -355,9 +374,14 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     values, the fraction's input.  ``route`` None takes
     ``rule_route(ndim)``; naming a route runs that kernel (the checks and
     timings hold the two against each other) and raises if it does not
-    take the shape."""
+    take the shape.  A traced callable's (``is_generated``) launches its
+    generated library's kernels, which take no crease fraction."""
     global launches
     kind, params = kernel_params(integrand)
+    generated = is_generated(integrand)
+    if generated and with_split_frac:
+        raise ValueError("a traced callable's kernels compute no crease "
+                         "fraction: crease_split needs rule_backend='cuda'")
     ndim = tables.ndim
     if getattr(integrand, "ndim", ndim) != ndim:
         raise ValueError(f"integrand ndim {integrand.ndim} != rule {ndim}")
@@ -381,7 +405,9 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     crease = _fused_frac_args(ndim, cap, lows, with_split_frac, kept)
     hp = params.ctypes.data_as(ctypes.c_void_p)
     stream = torch.cuda.current_stream(lows.device).cuda_stream
-    lib = cuda_build.load(_SOURCE, _configure)
+    lib = (cuda_build.load_generated(integrand_gen.header(integrand.program),
+                                     _configure) if generated
+           else cuda_build.load(_SOURCE, _configure))
     is_double = int(dtype == torch.float64)
     if route == "tile":
         codes, lam = _tile_tables(ndim, dtype, lows.device)
@@ -409,6 +435,8 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
                            f"error {rc}")
     launches += 1
     route_launches[route] += 1
+    if generated:
+        generated_launches[route] += 1
     if not with_split_frac:
         return est, err, sdim
     frac_route_launches[route] += 1

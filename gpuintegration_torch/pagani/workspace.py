@@ -52,14 +52,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import sys
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from gpuintegration_torch.integrand import deduce_ncomp, make_integrand
-from gpuintegration_torch.ops import rule_eval
+from gpuintegration_torch.integrand import (_positional_arity, deduce_ncomp,
+                                            make_integrand)
+from gpuintegration_torch.ops import integrand_gen, rule_eval
 from gpuintegration_torch.pagani import (fused_loop, region_pool, two_level,
                                          vegas_assisted as assisted)
 from gpuintegration_torch.pagani.classifier import HeuristicClassifier
@@ -243,7 +245,18 @@ class Workspace:
                       kernel; any other callable through the split route's
                       points and contraction kernels), on the CPU the plain
                       version.  "torch": the plain PyTorch version on any
-                      device.
+                      device.  "fused" (the reference's "pallas"): a
+                      scalar-per-axis callable f(x0, ..., x{n-1}) traced
+                      into the fused tile or generic kernel
+                      (ops/integrand_gen.py; the library built for it at
+                      first use), on the CPU the plain rule with the traced
+                      program as its integrand.  It refuses what the
+                      reference's Pallas backend refuses at ``integrate``:
+                      a callable that is not per-axis or does not trace, a
+                      vector integrand, ``crease_split`` and a mesh.
+                      Unlike the reference's it takes float64 as well as
+                      float32: Mosaic has no f64 on the TPU, the card's
+                      fused kernels do.
     mesh:             a 1-D ``torch.distributed`` mesh
                       (``parallel.mesh.make_mesh``): every rank builds the
                       same Workspace and makes the same calls, holds its
@@ -261,7 +274,7 @@ class Workspace:
                  mesh=None,
                  rule_backend: str = "cuda"):
         self.mesh = pmesh.check_mesh(mesh)
-        if rule_backend not in ("cuda", "torch"):
+        if rule_backend not in ("cuda", "torch", "fused"):
             raise ValueError(f"rule_backend {rule_backend!r}")
         if dtype not in (torch.float64, torch.float32):
             raise ValueError(f"dtype {dtype} (float64 or float32)")
@@ -351,6 +364,7 @@ class Workspace:
         finish_abs_per_vol: float = 0.0,
         crease_split: bool = False,
         deadline: float | None = None,
+        recorder=None,
     ) -> IntegrationResult:
         """Integrate ``integrand`` to the requested tolerances: the
         reference's host loop, iteration for iteration, with its
@@ -415,6 +429,13 @@ class Workspace:
         ``chunk_size`` at a time, the real slots only.  It runs the host
         loop throughout.  Scalar integrands only; it refuses
         ``crease_split``.
+
+        ``recorder``: a ``utils.recorder.IterationRecorder`` that receives
+        one row an iteration of the host loop (the reference's points:
+        scalar, vector and mesh loops; on a mesh every rank records the
+        same rows from the all-reduced sums).  It turns the fused phase off,
+        as in the reference: every iteration then runs through the host
+        loop.
         """
         if crease_split and vegas_assisted:
             raise ValueError(_CREASE_SCALAR_ONLY)
@@ -435,6 +456,22 @@ class Workspace:
         if f_ndim != ndim:
             raise ValueError(f"integrand ndim {f_ndim} != workspace {ndim}")
         ncomp = deduce_ncomp(f, ndim, dtype, device)
+        if self.rule_backend == "fused":
+            # the reference's Pallas refusals (workspace.py:640-705)
+            if _positional_arity(integrand) != ndim:
+                raise ValueError(
+                    "rule_backend='fused' needs a scalar-per-axis integrand "
+                    f"f(x0, ..., x{ndim - 1}) (cubacpp convention); "
+                    "rule_backend='cuda' takes any callable")
+            if ncomp > 1:
+                raise ValueError("rule_backend='fused' is scalar-only: a "
+                                 "vector integrand runs on rule_backend="
+                                 "'cuda'")
+            if crease_split:
+                raise ValueError("crease_split needs rule_backend='cuda'")
+            if self.mesh is not None:
+                raise ValueError("mesh mode requires rule_backend='cuda'")
+            integrand = integrand_gen.traced(integrand, ndim)
         if crease_split and ncomp > 1:
             raise ValueError(_CREASE_SCALAR_ONLY)
         if ncomp > 1 and vegas_assisted:
@@ -495,7 +532,8 @@ class Workspace:
                     assisted.NBINS, dtype, seed, it, lows, lengths,
                     global_lo, global_range, chunk=self.chunk_size,
                     ranges=ranges)
-        if fused and not predict_split and not vegas_assisted:
+        if (fused and not predict_split and not vegas_assisted
+                and recorder is None):
             phase = self._fused_phase(
                 integrand, tables, global_lo, global_range, ncomp=ncomp,
                 with_split_frac=crease_split,
@@ -508,12 +546,12 @@ class Workspace:
                     integrand, ncomp, epsrel, epsabs, eps_work, apv,
                     global_lo, global_range, tables, lows, lengths, n, cap,
                     relerr_classification, max_iterations, ledger, deadline,
-                    phase, ns)
+                    phase, ns, recorder)
             return self._integrate_scalar(
                 integrand, epsrel, epsabs, eps_work, apv, global_lo,
                 global_range, tables, lows, lengths, n, cap,
                 relerr_classification, max_iterations, ledger, deadline,
-                phase, crease_split, predict_split, assist, ns)
+                phase, crease_split, predict_split, assist, ns, recorder)
         finally:
             if phase is not None:
                 phase.close()
@@ -584,7 +622,7 @@ class Workspace:
         self, integrand, epsrel, epsabs, eps_work, apv, global_lo,
         global_range, tables, lows, lengths, n, cap, relerr_classification,
         max_iterations, ledger, deadline, phase, crease_split, predict_split,
-        assist=None, ns=None,
+        assist=None, ns=None, recorder=None,
     ) -> IntegrationResult:
         """The adaptive loop of a scalar integrand from its initial pool:
         the reference's host loop (Workspace.cuh:148-358), with the fused
@@ -691,6 +729,7 @@ class Workspace:
                 # the gate (status -1): one host iteration with the
                 # classifier, then the loop may come back
 
+            t_iter = time.perf_counter()
             effective_relerr = relerr_classification
             if (predict_split and n <= 15_000_000 and it < 15
                     and result_nregions == 0):
@@ -730,6 +769,13 @@ class Workspace:
             n_active = int(scalars[4])
             cum.iters += 1
             cum.neval += n * feval
+            if recorder is not None:
+                recorder.record(
+                    it=it, estimate=cum.estimate + iter_est,
+                    errorest=cum.errorest + iter_err,
+                    festimate=cum.estimate, ferrorest=cum.errorest,
+                    nregions=n, fnregions=cum.nFinishedRegions,
+                    time_ms=(time.perf_counter() - t_iter) * 1e3)
 
             # -- accuracy termination (Workspace.cuh:251-262) ---------------
             if accuracy_reached(epsrel, epsabs,
@@ -826,7 +872,7 @@ class Workspace:
     def _integrate_vector(
         self, integrand, ncomp, epsrel, epsabs, eps_work, apv, global_lo,
         global_range, tables, lows, lengths, n, cap, relerr_classification,
-        max_iterations, ledger, deadline, phase=None, ns=None,
+        max_iterations, ledger, deadline, phase=None, ns=None, recorder=None,
     ) -> IntegrationResult:
         """The adaptive loop of a vector-valued integrand, f: (..., ndim) ->
         (..., ncomp) (the reference's ``_integrate_vector`` host loop,
@@ -948,6 +994,7 @@ class Workspace:
                 if status == 1:
                     continue
 
+            t_iter = time.perf_counter()
             self.peak_capacity = max(self.peak_capacity, cap)
             est_raw, err_raw, sdim = self._eval_pool(
                 integrand, tables, lows, lengths, global_lo, global_range,
@@ -973,6 +1020,13 @@ class Workspace:
             n_active = int(scalars[4 * ncomp])
             cum.iters += 1
             cum.neval += n * feval
+            if recorder is not None:
+                recorder.record(
+                    it=it, estimate=float(cum_est[0] + iter_est[0]),
+                    errorest=float(cum_err[0] + iter_err[0]),
+                    festimate=float(cum_est[0]), ferrorest=float(cum_err[0]),
+                    nregions=n, fnregions=cum.nFinishedRegions,
+                    time_ms=(time.perf_counter() - t_iter) * 1e3)
 
             if all_accuracy(cum_est + iter_est, cum_err + iter_err):
                 cum_est = cum_est + iter_est
@@ -1283,7 +1337,12 @@ class Workspace:
         The ledger arithmetic runs on (ncomp,) f64 arrays, ncomp = 1 for a
         scalar integrand: a vector slice takes its tolerances from the
         worst component (largest relative error) while every component is
-        banked and certified."""
+        banked and certified.
+
+        With ``GPUINT_TPU_CONTINUATION_LOG`` set in the environment (the
+        JAX package's variable, so that one setting logs both), each slice
+        prints one line to stderr, the reference's."""
+        log = os.environ.get("GPUINT_TPU_CONTINUATION_LOG")
 
         def stage(name):
             return (stage_timer.stage(name) if stage_timer is not None
@@ -1403,6 +1462,19 @@ class Workspace:
                 fin_err += _errs(r_i)
                 nregions += r_i.nregions
                 nfinished += r_i.nFinishedRegions
+            if log:
+                q_now = qsum(3)
+                budget_now = np.maximum(epsrel * np.abs(fin_est + qsum(2)),
+                                        epsabs)
+                print(f"[continuation] slice {runs}/{max_runs}: "
+                      f"n_in={lows_i.shape[0]} depth={depth} "
+                      f"status={r_i.status} est={r_i.estimate:.6e} "
+                      f"err={r_i.errorest:.3e} stored={s_err_i[wc]:.3e} "
+                      f"requeued={requeued} queued={len(work)} "
+                      f"banked_err={fin_err[wc]:.3e} "
+                      f"total_err={float((fin_err + q_now)[wc]):.3e} "
+                      f"budget={float(budget_now[wc]):.3e}",
+                      file=sys.stderr, flush=True)
         if state_path is not None:
             # certified or drained: the file is spent
             self._write_state(state_path, None if status == 0 or not work

@@ -8,6 +8,8 @@ and the integrands are named by spec, not passed as callables:
   ("genz", "f4_gaussian", ndim, {"a": 5.0})   models.genz.f4_gaussian(...)
   ("misc", "sin_sum", ndim, {})               models.misc.sin_sum(...)
   ("nan", ndim)                               NaN where x0 > 1/2, else 1
+  ("axes", ndim, a)                           exp(-a sum (x_d - 1/2)^2) as
+                                              a per-axis callable
   ("vector", [spec, spec, ...])               the members stacked (..., k)
 
 A case is a dict: ``what`` ('pagani', 'convergence', 'vegas' or
@@ -18,7 +20,8 @@ names of its ``StageTimer`` stages), and for 'pagani' ``checkpoint``
 (return ``make_checkpoint()``'s arrays), ``single`` (also run the same
 call without a mesh on the rank's device, for D = 1 against one device) and
 ``trace_classifier`` (return each ``classify_ladder`` call's regions,
-verdict, threshold and survivors).  A 'convergence' case also counts its
+verdict, threshold and survivors) and ``record`` (return the rows of a
+``utils.recorder.IterationRecorder`` given to the call).  A 'convergence' case also counts its
 rebalanced resumes (``_rebalance_checkpoint_for_mesh`` calls).
 A 'stages' case runs ``parallel.sharded``'s stages in the reference's
 order on this rank's shard of ``pool`` (the reference's dealt global pool,
@@ -38,6 +41,7 @@ import torch
 from gpuintegration_torch.models import genz, misc
 from gpuintegration_torch.parallel import mesh as pmesh
 from gpuintegration_torch.utils.profiling import StageTimer
+from gpuintegration_torch.utils.recorder import IterationRecorder
 
 FIELDS = ("status", "iters", "nregions", "nFinishedRegions", "neval",
           "estimate", "errorest", "estimates", "errorests", "chi_sq")
@@ -54,6 +58,12 @@ def integrand(spec):
     if kind in ("genz", "misc"):
         _, name, ndim, kw = spec
         return getattr(genz if kind == "genz" else misc, name)(ndim, **kw)
+    if kind == "axes":
+        _, ndim, a = spec
+        names = ", ".join(f"x{d}" for d in range(ndim))
+        terms = " + ".join(f"(x{d} - 0.5) ** 2" for d in range(ndim))
+        return eval(f"lambda {names}: torch.exp(-{a!r} * ({terms}))",
+                    {"torch": torch})
     if kind == "nan":
         def nan(x):
             return _nan(x)
@@ -251,8 +261,12 @@ def run_case(case: dict, mesh, device) -> dict:
         trace = (_traced_classifier(out.setdefault("classifier", []))
                  if case.get("trace_classifier")
                  else contextlib.nullcontext())
+        if case.get("record"):
+            kw["recorder"] = IterationRecorder()
         with trace:
             res = _run_workspace(case, ws, f, kw, out)
+        if case.get("record"):
+            out["rows"] = kw["recorder"].rows
     if on_card:
         torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
@@ -289,8 +303,9 @@ def run_cases(rank: int, cases: dict, device_type: str = "cpu",
 
 def refusals(rank: int, device_type: str = "cpu") -> dict:
     """What a mesh refuses, as {option: (exception type, message)}: the
-    reference's ``vegas_assisted``/``predict_split`` refusal (ValueError)
-    and a ``device`` other than the rank's."""
+    reference's ``vegas_assisted``/``predict_split`` refusal (ValueError),
+    its refusal of the Pallas backend (``rule_backend='fused'`` here) and
+    a ``device`` other than the rank's."""
     from gpuintegration_torch import Workspace
     mesh = pmesh.make_mesh(device_type=device_type)
     g = genz.f4_gaussian(2)
@@ -301,6 +316,9 @@ def refusals(rank: int, device_type: str = "cpu") -> dict:
         "predict_split": lambda: Workspace(2, mesh=mesh).integrate(
             g, predict_split=True),
         "device": lambda: Workspace(2, mesh=mesh, device=other),
+        "rule_backend_fused": lambda: Workspace(
+            2, mesh=mesh, rule_backend="fused").integrate(
+                lambda x, y: x * y),
     }
     out = {}
     for name, call in tries.items():

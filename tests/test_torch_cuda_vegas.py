@@ -116,9 +116,10 @@ def test_run_on_card_matches_cpu_and_launches_kernels(kw, cpu_sampler, counts):
 
 @pytest.mark.gpu
 def test_other_routes_on_card():
-    """A callable without a kernel twin goes through the emit-mode sampler;
+    """A per-axis callable goes through the kernels (the emit-mode sampler
+    in f64, its traced twin in the fused sampler in f32);
     ``sampler='torch'`` keeps a card run on the plain versions; one
-    dimension works; 'fused' refuses the callable."""
+    dimension works; 'fused' refuses a callable that does not trace."""
     _card()
 
     def peak(x, y):
@@ -137,8 +138,8 @@ def test_other_routes_on_card():
         assert (cuda_vegas.launches > 0) == launched
         assert (cuda_lookup.hist_launches > 0) == launched
         assert cuda_lookup.bin_resolve_launches == 0
-    with pytest.raises(NotImplementedError, match="sampler='hybrid'"):
-        integrate(peak, sampler="fused", **kw)
+    with pytest.raises(ValueError, match="sampler='hybrid'"):
+        integrate(lambda x, y: torch.sum(x) * y, sampler="fused", **kw)
     r = integrate(lambda x: torch.cos(x[..., 0]), ndim=1, epsrel=1e-3,
                   ncall=2e4, seed=5)
     assert abs(r.estimate - math.sin(1.0)) <= 5 * r.errorest

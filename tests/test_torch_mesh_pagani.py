@@ -31,6 +31,8 @@ from gpuintegration_tpu import Workspace as JaxWorkspace
 from gpuintegration_tpu.models import genz as jax_genz
 from gpuintegration_tpu.parallel.mesh import make_mesh
 from gpuintegration_tpu.utils.profiling import StageTimer as JaxStageTimer
+from gpuintegration_tpu.utils.recorder import (
+    IterationRecorder as JaxIterationRecorder)
 from gpuintegration_torch.parallel.launch import run_on_ranks
 from gpuintegration_torch.tools import mesh_cases
 
@@ -49,6 +51,12 @@ CASES = {
                        kw=dict(epsrel=1e-7, epsabs=1e-40, crease_split=True,
                                max_iterations=60),
                        one_device=True),
+        # the mesh loop's recorder rows (the reference's workspace.py:
+        # 1714-1723), from the all-reduced scalars on every rank
+        "recorder": dict(what="pagani",
+                         integrand=("genz", "f3_corner_peak", 3, {}),
+                         ndim=3, ws=dict(chunk_size=256),
+                         kw=dict(epsrel=1e-6, epsabs=1e-40), record=True),
     },
     3: {
         "f1": dict(what="pagani", integrand=("genz", "f1_oscillatory", 4, {}),
@@ -86,12 +94,17 @@ def jax_case(case, mesh):
     ws = JaxWorkspace(case["ndim"], mesh=mesh, **case.get("ws", {}))
     f = jax_integrand(case["integrand"])
     out = {}
+    kw = dict(case["kw"])
+    if case.get("record"):
+        kw["recorder"] = JaxIterationRecorder()
     if case["what"] == "convergence":
         timer = JaxStageTimer()
         res = ws.integrate_to_convergence(f, stage_timer=timer, **case["kw"])
         out["stages"] = sorted(timer.report())
     else:
-        res = ws.integrate(f, **case["kw"])
+        res = ws.integrate(f, **kw)
+        if case.get("record"):
+            out["rows"] = kw["recorder"].rows
         if case.get("one_device"):
             out["one_device"] = mesh_cases.outcome(JaxWorkspace(
                 case["ndim"], **case.get("ws", {})).integrate(
@@ -177,3 +190,27 @@ def test_mesh_run_matches_reference_mesh(runs, d, name):
         # on the CPU every iteration is eager; nothing is counted as a
         # backend's refusal to capture there
         assert got["fused_stats"]["uncaptured"] == 0
+
+
+def test_mesh_recorder_rows(runs):
+    """On the mesh every rank records the same rows, the reference's mesh
+    rows: the same iterations, regions and finished regions, estimates
+    within ULPS."""
+    ref, ranks = runs[2]["recorder"]
+    rows = ranks[0]["rows"]
+    assert rows and len(rows) == len(ref["rows"]) == ranks[0]["result"][
+        "iters"]
+    def untimed(rs):
+        return [{k: v for k, v in row.items() if k != "time_ms"}
+                for row in rs]
+
+    for r in ranks[1:]:
+        assert untimed(r["rows"]) == untimed(rows)
+    for a, b in zip(rows, ref["rows"]):
+        for k in ("it", "nregions", "fnregions"):
+            assert a[k] == b[k], k
+        for k in ("estimate", "errorest", "festimate", "ferrorest"):
+            assert abs(a[k] - b[k]) <= ULPS * np.spacing(
+                abs(b["estimate"])), k
+    # a recorder turns the fused phase off
+    assert ranks[0]["fused_stats"]["bursts"] == 0

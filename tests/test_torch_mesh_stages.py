@@ -297,9 +297,10 @@ def test_one_rank_mesh_is_one_device(single, name):
 
 
 def test_refusals():
-    """``mesh=`` takes a DeviceMesh only; on a mesh ``vegas_assisted`` and
-    ``predict_split`` raise the reference's ValueError, and a ``device``
-    other than the rank's raises."""
+    """``mesh=`` takes a DeviceMesh only; on a mesh ``vegas_assisted``,
+    ``predict_split`` and ``rule_backend='fused'`` (the reference's
+    'pallas') raise the reference's ValueError, and a ``device`` other
+    than the rank's raises."""
     with pytest.raises(TypeError, match="DeviceMesh"):
         Workspace(3, device="cpu", mesh=object())
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -313,6 +314,8 @@ def test_refusals():
                 "ValueError", "mesh mode does not support vegas_assisted/"
                 "predict_split; run them single-chip")
         assert r["device"][0] == "ValueError"
+        assert r["rule_backend_fused"] == (
+            "ValueError", "mesh mode requires rule_backend='cuda'")
     assert pmesh.deal(256, 3) == [86, 85, 85]
 
 

@@ -10,7 +10,8 @@ and 1e-3 for the errorest, the iterations equal (the reference's
 too; D = 3 cuts 4096 cubes into 1366 a rank, its last chunks past the
 lattice masked.  The same seed gives the same bits twice, on every rank.
 ``refine='device'`` (the adjustment phase, its histogram all-reduced before
-the rebin) and the frozen phase converge.  Against the JAX package's mesh
+the rebin) and the frozen phase converge; a per-axis callable traced into
+the fused sampler (``sampler='fused'``) matches its single-device run.  Against the JAX package's mesh
 at the same D the draws differ (Philox against Threefry), so the estimates
 agree statistically: within 5 sqrt(e1^2 + e2^2)."""
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +44,10 @@ CASES = {
     "vector": _vegas(VEC, True, **MATCHED),
     "device": _vegas(G, refine="device", **dict(CONVERGE, adjust_iters=8)),
     "frozen": _vegas(G, **dict(CONVERGE, adjust_iters=3)),
+    # a per-axis callable traced into the fused sampler (the reference's
+    # sampler='pallas' on a mesh, tests/test_pallas_vegas.py:169-175)
+    "fused_axes": _vegas(("axes", 3, 5.0), True, sampler="fused",
+                         **MATCHED),
 }
 # the reference's mesh on the same configurations
 REFERENCE = ("poly", "grid", "device")
@@ -83,7 +88,7 @@ def _truth(spec):
 
 
 @pytest.mark.parametrize("d", [2, 3])
-@pytest.mark.parametrize("name", ["poly", "grid", "vector"])
+@pytest.mark.parametrize("name", ["poly", "grid", "vector", "fused_axes"])
 def test_matched_chunks_match_one_device(runs, d, name):
     _, ranks = runs[d]
     got, one = ranks[0][name]["result"], ranks[0][name + "/single"]["result"]

@@ -376,8 +376,12 @@ def test_auto_sampler_choice():
     assert pick("torch", "grid", "cuda", f64, g) == "torch"
     for s in V.SAMPLERS:
         assert pick(s, "poly", "cuda", f64, g) == s
-    with pytest.raises(NotImplementedError, match="sampler='hybrid'"):
+    with pytest.raises(ValueError, match="sampler='hybrid'"):
         pick("fused", "poly", "cuda", f32, lambda x: x.sum(-1))
+    # a scalar-per-axis callable that traces has a kernel twin
+    assert pick(None, "poly", "cuda", f32, lambda x, y: x * y) == "fused"
+    assert pick(None, "poly", "cuda", f32,
+                lambda x, y: torch.sum(x) * y) == "hybrid"
     with pytest.raises(ValueError, match="needs importance='poly'"):
         pick("hybrid", "grid", "cuda", f64, g)
     with pytest.raises(ValueError, match="'torch', 'fused' or 'hybrid'"):
@@ -405,8 +409,9 @@ def test_refusals(monkeypatch):
     assert np.all(np.abs(r.estimates - [1.5, 0.125]) <= 5 * r.errorests)
     with pytest.raises(ValueError, match="sampler='hybrid'"):
         mcubes.integrate(vector, ndim=3, sampler="fused", **kw)
-    with pytest.raises(NotImplementedError, match="sampler='hybrid'"):
-        mcubes.integrate(lambda x, y: x * y, sampler="fused", **kw)
+    with pytest.raises(ValueError, match="sampler='hybrid'"):
+        mcubes.integrate(lambda x, y: torch.sum(x) * y, sampler="fused",
+                         **kw)
     with pytest.raises(ValueError, match="nbins must be >= 2"):
         mcubes.integrate(g, nbins=1, **kw)
     with pytest.raises(ValueError, match="pass nbins=64"):
