@@ -28,7 +28,8 @@ timed beside the others in the same run.
    split plus random sub-regions, blocked layout with padding slots), f64
    and f32, and the two routes against each other (split_dim EQUAL, each
    route twice the same bits); the generic route at 9D and 2D, which the
-   tile route does not take;
+   tile route does not take, and at 10D, 12D and 16D (each of its classes
+   of dimensions), every family, f64 and f32;
 3. the PAGANI main path: ``Workspace(8).integrate(f4_gaussian(8),
    epsrel=1e-3)`` in f64 (status 0 and |est - truth|/truth <= 1e-3
    required, every launch through the tile route; the kernel's share of
@@ -36,7 +37,13 @@ timed beside the others in the same run.
    final pool held against the plain version, and a 3D run on the card
    against the same run on the CPU; the last pool timed on both routes;
 4. rule kernel time at 8D on 2^21 regions, both routes, f64 and f32, best
-   of 5 (CUDA events), beside the plain version's;
+   of 5 (CUDA events), beside the plain version's; both routes at 3D to
+   7D (F1-F6, f64 and f32, without and with the crease fraction, in
+   turns); the generic route at the dimensions it serves
+   (``tools/generic_times.py``'s ``SHAPES``: 2D, 10D, 12D and 16D pools
+   of some milliseconds, F4 and F5, f64 and f32), each beside its bound
+   (the parent tree's generic kernel is timed against this one by that
+   tool run from both checkouts in one call);
 5. the VEGAS kernels vs their plain versions on the card
    (mcubes.kernel_check, printed beside its limits) at the shapes of the
    6D ncall = 1e8 run, one chunk of 2^20 cubes: the sampler (paired
@@ -296,8 +303,20 @@ timed beside the others in the same run.
    ('fused', status 0); the recorder on the main path (a row an iteration,
    the fused phase off), ``cli.main`` for pagani, mcubes, ladder and
    profile (exit 0, the reference's headers) and the continuation log on a
-   3D continuation;
-26. the ``kernels`` JSON line, then the card line and the result line.
+   3D continuation; the generated generic kernel at 12D timed on 2^14 and
+   2^18 regions; the emitted integrand alone (the check-only
+   ``gen_values_kernel``) on a program of every division and power form
+   (``rounding_forms``), EQUAL to the callable's PyTorch calls on the card
+   in f64 and f32;
+26. the rule kernel's generic route in situ: ``Workspace(10).integrate(
+   f4_gaussian(10), 1e-3)`` in f64, host loop and fused phase (the same
+   decisions), a 12D per-axis sin(x_1 + ... + x_12) under
+   ``rule_backend='fused'`` at ``SIN12_EPSREL`` (against the closed form
+   and phase 11's split-route run) and phase 16's 2D F5 crease run: each
+   certified, every rule launch on the generic route (counts set to 0
+   before and read after), the kernel's share of the wall by CUDA events
+   (host loop) or torch.profiler (fused phase);
+27. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -334,6 +353,7 @@ from gpuintegration_torch.pagani import suave as suave_mod
 from gpuintegration_torch.tools import (assisted_probe, mesh_cases,
                                         route_bits, sass_report,
                                         vector_probe)
+from gpuintegration_torch.tools import generic_times as generic_tool
 from gpuintegration_torch.types import Volume
 from gpuintegration_torch.utils import recorder, timing
 from gpuintegration_torch.utils.profiling import StageTimer
@@ -352,20 +372,39 @@ def fail(msg: str):
     raise SystemExit(1)
 
 
+EPILOGUE_OPS = 250   # rule sums, fourth differences, error model, per region
+
+
+# Operations of the Genz families' per-axis work, counted from
+# csrc/genz.cuh: ``genz_pre`` (what depends on the coordinate alone: F2's
+# subtract and multiply-add, F4's subtract and square, F5's subtract; |x|
+# not counted) and ``genz_fold`` (what folds it into a point's state: one
+# multiply-add, 2, for F1, F3, F4, F6; one multiply or add for F2, F5; a
+# comparison not counted).
+GENZ_PRE_OPS = {1: 0, 2: 3, 3: 0, 4: 2, 5: 1, 6: 0}
+GENZ_FOLD_OPS = {1: 2, 2: 1, 3: 2, 4: 2, 5: 1, 6: 2}
+COORD_OPS = 2        # x = c - g l, one multiply-add
+
+
 def ops_per_point(kind: int, ndim: int) -> int:
-    """Arithmetic operations per rule point, counted from the kernel's code
-    (csrc/rule_eval.cu genz_value): 2 to form x_d, the family's per-axis
-    work, its finish, and 1 to add the value into its orbit sum.  A
+    """Arithmetic operations per rule point that the function needs: a
+    rule point's coordinates take only 11 values an axis in a region, so
+    what depends on the coordinate alone is counted once a region
+    (``ops_per_region``), and a point pays the fold of each axis, the
+    family's finish and 1 to add the value into its orbit sum.  A
     transcendental (exp, cos) counts as ONE operation, so the bound built
     from this count is a lower bound."""
-    per_axis = {1: 2, 2: 4, 3: 2, 4: 4, 5: 3, 6: 3}[kind]
     e = ndim + 1
     finish = {1: 2, 2: 1, 3: 2 + e.bit_length() + bin(e).count("1"),
               4: 2, 5: 2, 6: 1}[kind]
-    return ndim * (2 + per_axis) + finish + 1
+    return ndim * GENZ_FOLD_OPS[kind] + finish + 1
 
 
-EPILOGUE_OPS = 250   # rule sums, fourth differences, error model, per region
+def ops_per_region(kind: int, ndim: int) -> int:
+    """Arithmetic operations a region needs besides its points': its 11
+    coordinates an axis formed and put through ``genz_pre`` (11 ndim of
+    each), and the epilogue (rule sums, fourth differences, error model)."""
+    return 11 * ndim * (COORD_OPS + GENZ_PRE_OPS[kind]) + EPILOGUE_OPS
 
 
 # Arithmetic operations of the split fraction, counted from
@@ -387,7 +426,7 @@ def bound_ms(kind: int, ndim: int, n: int, dtype,
     written) at the memory rate, whichever is larger; with ``frac`` the
     split fraction's operations and the fraction written too."""
     feval = rule_eval.rule_tables(ndim).feval
-    ops = n * (feval * ops_per_point(kind, ndim) + EPILOGUE_OPS
+    ops = n * (feval * ops_per_point(kind, ndim) + ops_per_region(kind, ndim)
                + (ndim * FRAC_OPS_PER_AXIS + FRAC_KINK_OPS if frac else 0))
     item = torch.finfo(dtype).bits // 8
     nbytes = n * (2 * ndim * item + (3 if frac else 2) * item + 4)
@@ -454,6 +493,19 @@ def time_ms(fn, reps: int = 3) -> float:
     return best
 
 
+def once_ms(fn) -> float:
+    """One call by CUDA events, no warm call: for a plain version of
+    seconds, which compiles nothing."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def ptxas_summary(log: str) -> str:
     """Registers and spill bytes per kernel from nvcc's -Xptxas -v report."""
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -471,7 +523,7 @@ def ptxas_by_kernel(log: str) -> dict[str, tuple[str, int, int]]:
     instance of an nvcc report (``route_bits.ptxas_kernels``)."""
     groups: dict[str, list] = {}
     for name, rs in route_bits.ptxas_kernels(log).items():
-        key = re.sub(r"^(rule_(?:tile_)?kernel<)\d", r"\1*", name)
+        key = re.sub(r"^(rule_(?:tile_|generic_)?kernel<)\d", r"\1*", name)
         groups.setdefault(key, []).append(rs)
     out = {}
     for k, v in sorted(groups.items()):
@@ -1379,6 +1431,14 @@ def axes_callable(ndim):
     values come back as planes (strides (1, C))."""
     names = ", ".join(f"x{d}" for d in range(ndim))
     return eval(f"lambda {names}: torch.cos({names.replace(', ', ' + ')})",
+                {"torch": torch})
+
+
+def sin_axes(ndim):
+    """sin(x_1 + ... + x_n) as a per-axis callable of n arguments (the
+    per-axis form of ``misc.sin_sum``)."""
+    names = ", ".join(f"x{d}" for d in range(ndim))
+    return eval(f"lambda {names}: torch.sin({names.replace(', ', ' + ')})",
                 {"torch": torch})
 
 
@@ -3119,7 +3179,7 @@ def folded_fraction_kernels(frac_rows, frac_launches, crease_rows,
     for kernel, route, source, row, held in (
             ("rule_tile_kernel+split_fraction", "tile", "rule_eval.cu",
              fused["tile"], "check_fused_frac"),
-            ("rule_kernel+split_fraction", "generic", "rule_eval.cu",
+            ("rule_generic_kernel+split_fraction", "generic", "rule_eval.cu",
              fused["generic"], "check_fused_frac"),
             ("rule_contract_cluster_kernel+split_fraction", "cluster",
              "rule_split.cu", contract["cluster"], "check_contract_frac"),
@@ -4213,12 +4273,15 @@ def g10(x0, x1, x2, x3, x4, x5, x6, x7, x8, x9):
 
 # The callables of phase 25: f4_axes (8D, the rule's tile route), cos of
 # the sum at 12D (its generic route) and g10 (the sampler's generic route)
-# built with the other sources in phase 1; the reference bench's g6 (6D)
+# built with the other sources in phase 1, with phase 26's sin of the sum; the reference bench's g6 (6D)
 # built alone in phase 25, as a user's first call builds its library.
 GEN_F4 = integrand_gen.traced(f4_axes, NDIM)
 GEN_COS12 = integrand_gen.traced(axes_callable(12), 12, "cos_sum12")
 GEN_G10 = integrand_gen.traced(g10, 10)
-GEN_PHASE1 = (GEN_F4, GEN_COS12, GEN_G10)
+# phase 26's 12D callable, traced as Workspace(rule_backend='fused') traces
+# it (the same header, so the same library)
+GEN_SIN12 = integrand_gen.traced(sin_axes(12), 12)
+GEN_PHASE1 = (GEN_F4, GEN_COS12, GEN_G10, GEN_SIN12)
 G6_TRUTH = (math.sqrt(math.pi / 25.0) * math.erf(2.5)) ** VEGAS_NDIM
 G6_FROZEN = dict(ncall=1e9, iters=10)     # the reference bench's frozen case
 
@@ -4226,11 +4289,12 @@ G6_FROZEN = dict(ncall=1e9, iters=10)     # the reference bench's frozen case
 def generated_bound_ms(program, ndim: int, n: int,
                        dtype) -> tuple[float, str]:
     """``bound_ms`` of a traced callable's fused rule launch: per rule point
-    2 operations a coordinate, the program's steps (integrand_gen.
-    program_ops: a transcendental as ONE) and 1 for the orbit sum."""
+    the program's steps (integrand_gen.program_ops: a transcendental as
+    ONE) and 1 for the orbit sum; per region its 11 coordinates an axis
+    (the point's coordinates are among them) and the epilogue."""
     feval = rule_eval.rule_tables(ndim).feval
-    per_point = 2 * ndim + integrand_gen.program_ops(program) + 1
-    ops = n * (feval * per_point + EPILOGUE_OPS)
+    per_point = integrand_gen.program_ops(program) + 1
+    ops = n * (feval * per_point + 11 * ndim * COORD_OPS + EPILOGUE_OPS)
     item = torch.finfo(dtype).bits // 8
     nbytes = n * (2 * ndim * item + 2 * item + 4)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES_PER_S
@@ -4324,6 +4388,11 @@ def generated_checks(dev):
     r = compare("phase 25: cos(sum x) 12D f64 generated generic kernel, "
                 "2^14 regions", GEN_COS12, tables, lows, lengths, gl, gr)
     errs["rule"] = max(errs["rule"], r["max_abs_est"])
+    out["generic12"] = generic_tool.generated(
+        sys.modules[__name__], dev, prefix="phase 25: generated generic "
+                                           "kernel, ")
+    del lows, lengths
+    out["values"] = rounding_check(dev)
 
     # the sampler: paired at 6D on one 2^21-sample chunk, generic at 10D
     case = vegas_check.sampler_case(VEGAS_NDIM, 1e7, VEGAS_CHUNK,
@@ -4384,7 +4453,8 @@ def generated_pagani(dev, walls):
     the split route; its captures and replays; its wall beside phase 3's
     (Genz F4, host loop), phase 17's (Genz F4, fused) and phase 11's (F4 as
     a plain callable, the split route).  Returns (launches by route, the
-    result, the wall)."""
+    result, the wall, the fused phase's stats, the check-only values
+    kernel's launches in the timed run)."""
     truth = genz.f4_gaussian(NDIM).true_value
     rows = []
     for run in range(2):        # the first builds nothing: phase 1 did
@@ -4397,8 +4467,9 @@ def generated_pagani(dev, walls):
         torch.cuda.synchronize()
         rows.append((time.perf_counter() - t0, res,
                      dict(cuda_rule.generated_launches), cuda_rule.launches,
-                     dict(cuda_rule.split_launches), dict(fused_loop.stats)))
-    wall, res, gen, total, split, stats = rows[0]
+                     dict(cuda_rule.split_launches), dict(fused_loop.stats),
+                     cuda_rule.generated_value_launches))
+    wall, res, gen, total, split, stats, value_launches = rows[0]
     rel = abs(res.estimate - truth) / truth
     print(f"phase 25: f64 8D f4_axes, Workspace(8, rule_backend='fused'), "
           f"epsrel 1e-3, fused phase: status {res.status} estimate "
@@ -4418,7 +4489,7 @@ def generated_pagani(dev, walls):
     if total <= 0 or gen["tile"] != total or any(split.values()):
         fail(f"phase 25: launches {total}, generated {gen}, split {split}: "
              "every one should take the generated tile kernel")
-    return gen, res, min(r[0] for r in rows), stats
+    return gen, res, min(r[0] for r in rows), stats, value_launches
 
 
 def _vegas_wall(g, **kw):
@@ -4575,9 +4646,75 @@ def a17_on_card(dev, fused_run):
         fail("phase 25: the continuation printed no log line")
 
 
-def generated_kernels(checks, pagani_launches, vegas_launches, walls):
-    """The ``kernels`` line's entries of the generated family."""
-    rule, smp = checks["rule"], checks["sampler"]
+C0D = torch.tensor(0.75, dtype=torch.float64)     # a host scalar
+VALUES_POINTS = 1 << 20
+
+
+def rounding_forms(c_card):
+    """A per-axis program of every division and power form the emitter
+    spells out as PyTorch's CUDA kernels compute it (ops/integrand_gen.py):
+    x ** -0.5 (rsqrt), 0.5, -1, -2, 3; torch.div(c, x),
+    torch.true_divide(c, x) and a 0-d tensor numerator (true divisions);
+    Python's number / x (reciprocal times the number); a number and a CPU
+    0-d tensor divisor (a host scalar's reciprocal); ``c_card``, a 0-d
+    tensor on the card, as a divisor (a division)."""
+    def f(x, y, z):
+        return (x ** -0.5 + torch.div(3.0, y) + torch.true_divide(3.0, z)
+                + C0D / x + 3.0 / y + z / 7.0 + x / C0D + y / c_card
+                + z ** 0.5 + x ** -1 + y ** -2 + z ** 3)
+    return f
+
+
+def rounding_check(dev):
+    """Phase 25 (3): the emitted integrand alone (the check-only
+    ``gen_values_kernel`` of csrc/gen_values.cu, ``cuda_rule.
+    generated_values``) on
+    ``rounding_forms`` at 2^20 points of (0.05, 2)^3, EQUAL to the
+    callable's own PyTorch calls on the card (``integrand_gen.evaluate``)
+    in f64 and f32; its time (``queued_ms``) beside its bound and the plain
+    version's.  Returns the numbers of the kernels line."""
+    c_card = torch.tensor(1.3, dtype=torch.float64, device=dev)
+    t = integrand_gen.traced(rounding_forms(c_card), 3, "rounding_forms")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x64 = (0.05 + 1.95 * torch.rand((3, VALUES_POINTS), generator=g,
+                                    dtype=torch.float64)).to(dev)
+    err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        x = x64.to(dtype)
+        got = cuda_rule.generated_values(t, x)
+        want = integrand_gen.evaluate(t.program, x.unbind(0))
+        err = max(err, float((got - want).abs().max()))
+        if not kernel_check.same_bits(got, want):
+            bad = int((got != want).sum())
+            fail(f"phase 25: the emitted rounding forms differ from the "
+                 f"callable's own calls in {bad} of {got.numel()} values "
+                 f"({dtype}; max |difference| {err!r})")
+    print(f"phase 25: emitted division and power forms (rsqrt, true "
+          f"divisions, a card 0-d divisor, reciprocals): "
+          f"{VALUES_POINTS} values EQUAL to the callable's PyTorch calls "
+          f"on the card in f64 and f32 (max |difference| {err!r})",
+          flush=True)
+    ms = queued_ms(lambda: cuda_rule.generated_values(t, x64), 5)
+    plain = time_ms(lambda: integrand_gen.evaluate(t.program,
+                                                   x64.unbind(0)), 3)
+    t_ops = VALUES_POINTS * integrand_gen.program_ops(t.program) \
+        / PEAK_OPS[torch.float64]
+    t_bytes = VALUES_POINTS * 4 * 8 / PEAK_BYTES_PER_S
+    b = 1e3 * max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"phase 25: the generated values kernel, {VALUES_POINTS} f64 "
+          f"points: {ms:.4f} ms, plain {plain:.3f} ms, bound {b:.4f} ms "
+          f"({by}, {100 * b / ms:.1f}% of it)", flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "max_abs_err": err}
+
+
+def generated_kernels(checks, pagani_launches, vegas_launches, walls,
+                      value_launches):
+    """The ``kernels`` line's entries of the generated family;
+    ``value_launches`` the check-only values kernel's on the fused-backend
+    main path."""
+    rule, smp, vals = checks["rule"], checks["sampler"], checks["values"]
     return [{
         "name": "rule_eval_generated",
         "route": "cuda",
@@ -4592,6 +4729,7 @@ def generated_kernels(checks, pagani_launches, vegas_launches, walls):
         "genz_f4_tile_ms": rule["genz_f4_tile_ms"],
         "plain_ms": rule["plain_ms"], "bound_ms": rule["bound_ms"],
         "bound_by": rule["bound_by"], "library_ms": None,
+        "generic_route_12d": checks["generic12"],
         "build_s": checks["build_s"], "walls_s": walls,
     }, {
         "name": "vegas_sample_generated",
@@ -4607,7 +4745,222 @@ def generated_kernels(checks, pagani_launches, vegas_launches, walls):
         "genz_f4_paired_ms": smp["genz_f4_paired_ms"],
         "plain_ms": smp["plain_ms"], "bound_ms": smp["bound_ms"],
         "bound_by": smp["bound_by"], "library_ms": None,
+    }, {
+        # the check of the emitted integrand alone: no path launches it
+        "name": "gen_values",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/gen_values.cu",
+        "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+        "counterpart_of": "the user's f_axes traced into the Pallas "
+                          "kernels' bodies (the check of that part alone)",
+        "held_against_plain_in": "phase 25 (integrand_gen.evaluate, EQUAL, "
+                                 "f64 and f32, every division and power "
+                                 "form)",
+        "launches": value_launches,
+        "max_abs_err": vals["max_abs_err"],
+        "ms": vals["ms"], "plain_ms": vals["plain_ms"],
+        "bound_ms": vals["bound_ms"], "bound_by": vals["bound_by"],
+        "library_ms": None,
     }]
+
+
+# ---------------------------------------------------------------------------
+# The rule kernel's generic route in situ (phase 26)
+
+GENERIC_NDIM = 10
+GENERIC_EPSREL = 1e-3     # Workspace(10) on F4 at the main path's tolerance
+def generic_times(dev):
+    """Phase 4 (2): the generic route at the dimensions it serves, pools
+    that give it some milliseconds (``tools/generic_times.py``'s
+    ``SHAPES``: 2D, 10D, 12D, 16D), F4 and F5, f64 and f32: best of 3
+    launches by CUDA events beside the bound, and the plain version once
+    (``once_ms``) on F4 f64.  Returns the rows."""
+    return generic_tool.other_dims(sys.modules[__name__], dev, plain=True,
+                                   prefix="phase 4: generic route, ")
+
+
+TILE_NDIMS = (3, 4, 5, 6, 7)
+
+
+def tile_against_generic(dev):
+    """Phase 4 (1b): the two routes where both run, 3D to 7D (8D above),
+    on 2^21 random sub-regions, F1-F6, f64 and f32, without and with the
+    crease fraction: tile, generic, generic, tile, each series the best of
+    2 launches by CUDA events.  Returns the rows, the generic route's time
+    over the tile route's in each."""
+    big = 1 << 21
+    rows = []
+    for ndim in TILE_NDIMS:
+        for dtype in (torch.float64, torch.float32):
+            name = rule_eval.dtype_name(dtype)
+            tables = rule_eval.rule_tables(ndim, name)
+            lows, lengths = random_pool(ndim, big, 2, dtype, dev)
+            gl = torch.zeros(ndim, dtype=dtype, device=dev)
+            gr = torch.ones(ndim, dtype=dtype, device=dev)
+            for g in genz.genz_suite(ndim):
+                for frac in (False, True):
+                    def run(route):
+                        return time_ms(lambda: cuda_rule.cuda_apply_rule(
+                            g, tables, lows, lengths, gl, gr, route=route,
+                            with_split_frac=frac), 2)
+                    t = [run("tile"), run("generic"), run("generic"),
+                         run("tile")]
+                    tile, generic = min(t[0], t[3]), min(t[1], t[2])
+                    rows.append({"ndim": ndim, "dtype": name,
+                                 "family": g.name, "frac": frac,
+                                 "tile_ms": tile, "generic_ms": generic,
+                                 "generic_over_tile": generic / tile})
+                    print(f"phase 4: {ndim}D {g.name} {name} 2^21 regions"
+                          f"{' with the fraction' if frac else ''}: tile "
+                          f"route {tile:.3f} ms, generic route "
+                          f"{generic:.3f} ms ({generic / tile:.3f} of the "
+                          f"tile route's)", flush=True)
+            del lows, lengths
+            torch.cuda.empty_cache()
+    ratios = [r["generic_over_tile"] for r in rows]
+    print(f"phase 4: tile against generic, 3D-7D, {len(rows)} shapes: the "
+          f"generic route faster in {sum(x < 1 for x in ratios)}, its time "
+          f"over the tile route's {min(ratios):.3f} to {max(ratios):.3f}",
+          flush=True)
+    return rows
+
+
+def generic_run(label, run, truth, eps, fused):
+    """One run of the generic route's paths, counts set to 0 before: the
+    host loop with CUDA events around each fused launch, the fused phase
+    traced once more by torch.profiler for the kernel's device time (a
+    replayed graph has no events of its own).  The result must certify
+    (status 0, within ``eps`` of ``truth``) with every fused launch on the
+    generic route and nothing on the split route.  Returns the row."""
+    from torch.autograd import DeviceType
+
+    from gpuintegration_torch.utils.profiling import trace
+    events = []
+    launch = cuda_rule.cuda_apply_rule
+
+    def timed_launch(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    cuda_rule.reset_launches()
+    fused_loop.reset_stats()
+    torch.cuda.synchronize()
+    if not fused:
+        cuda_rule.cuda_apply_rule = timed_launch
+    t0 = time.perf_counter()
+    try:
+        res = run()
+        torch.cuda.synchronize()
+    finally:
+        cuda_rule.cuda_apply_rule = launch
+    wall = time.perf_counter() - t0
+    launches = {"fused_kernel": cuda_rule.launches,
+                "by_route": dict(cuda_rule.route_launches),
+                "generated_by_route": dict(cuda_rule.generated_launches),
+                "fraction_by_kernel": dict(cuda_rule.frac_route_launches),
+                **cuda_rule.split_launches}
+    stats = dict(fused_loop.stats)
+    if fused:
+        with tempfile.TemporaryDirectory() as log_dir:
+            with trace(log_dir) as prof:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                traced = run()
+                torch.cuda.synchronize()
+                traced_wall = time.perf_counter() - t1
+            device = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation]
+        kernel_s = sum(e.self_device_time_total for e in device
+                       if "rule_generic_kernel" in e.key) / 1e6
+        busy = sum(e.self_device_time_total for e in device) / 1e6
+        share = f"{100 * kernel_s / traced_wall:.1f}% of the traced wall " \
+                f"{traced_wall:.3f} s (torch.profiler; the device idle " \
+                f"{100 * (1 - busy / traced_wall):.1f}%)"
+        if traced.estimate != res.estimate:
+            fail(f"{label}: the traced rerun differs from the run")
+    else:
+        kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        traced_wall = None
+        share = f"{100 * kernel_s / wall:.1f}% of the wall (CUDA events)"
+    rel = abs(res.estimate - truth) / abs(truth)
+    print(f"phase 26: {label}, {'fused' if fused else 'host loop'}: status "
+          f"{res.status} estimate {res.estimate!r} truth {truth!r} rel.err "
+          f"{rel:.3e} iters {res.iters} nregions {res.nregions} neval "
+          f"{res.neval} wall {wall:.3f} s; launches {launches}; bursts "
+          f"{stats}; the generic kernel {kernel_s:.4f} s, {share}",
+          flush=True)
+    generic = launches["by_route"]["generic"]
+    if res.status != 0 or not rel <= eps or generic <= 0 \
+            or generic != launches["fused_kernel"] \
+            or launches["points"] or launches["contract"]:
+        fail(f"{label}: status {res.status}, rel.err {rel}, launches "
+             f"{launches}; every launch should take the generic route")
+    return {"run": label, "fused": fused, "status": res.status,
+            "estimate": res.estimate, "rel_err": rel, "iters": res.iters,
+            "nregions": res.nregions, "neval": res.neval, "wall_s": wall,
+            "launches": launches, "kernel_s": kernel_s,
+            "traced_wall_s": traced_wall, "result": res}
+
+
+def generic_in_situ(dev, sin12):
+    """Phase 26: the main path's entry point at the dimensions the generic
+    route serves, no cut: ``Workspace(10).integrate(f4_gaussian(10),
+    GENERIC_EPSREL)`` in f64 in the host loop and the fused phase (the
+    same decisions); a 12D per-axis sin(x_1 + ... + x_12) under
+    ``rule_backend='fused'`` at ``SIN12_EPSREL`` (the generated generic
+    kernel), held to the closed form and to phase 11's split-route run
+    ``sin12``; phase 16's 2D F5 crease run at 1e-9 (the generic kernel with
+    the fraction).  Returns the rows."""
+    g10 = genz.f4_gaussian(GENERIC_NDIM)
+    rows = []
+    for fused in (False, True):
+        rows.append(generic_run(
+            f"f64 {GENERIC_NDIM}D f4_gaussian epsrel {GENERIC_EPSREL:g}",
+            lambda: Workspace(GENERIC_NDIM).integrate(
+                g10, GENERIC_EPSREL, 1e-40, fused=fused),
+            g10.true_value, GENERIC_EPSREL, fused))
+    host, fusd = rows[0]["result"], rows[1]["result"]
+    if (host.status, host.iters, host.nregions, host.neval) != (
+            fusd.status, fusd.iters, fusd.nregions, fusd.neval):
+        fail("phase 26: the fused 10D run differs from the host loop's")
+    g12, f12 = misc.sin_sum(12), sin_axes(12)
+    row = generic_run(
+        f"f64 12D sin(x_1 + ... + x_12) per-axis, rule_backend='fused', "
+        f"epsrel {SIN12_EPSREL:g}",
+        lambda: Workspace(12, rule_backend="fused").integrate(
+            f12, SIN12_EPSREL, 1e-40), g12.true_value, SIN12_EPSREL, True)
+    rows.append(row)
+    apart = abs(row["estimate"] - sin12.estimate) / abs(g12.true_value)
+    print(f"phase 26: the fused backend's 12D run against phase 11's split "
+          f"route: estimates {row['estimate']!r} and {sin12.estimate!r}, "
+          f"{apart:.3e} of the truth apart; iters {row['iters']} / "
+          f"{sin12.iters}, nregions {row['nregions']} / {sin12.nregions}, "
+          f"generated launches {row['launches']['generated_by_route']}",
+          flush=True)
+    if not apart <= SIN12_EPSREL or \
+            row["launches"]["generated_by_route"]["generic"] \
+            != row["launches"]["fused_kernel"]:
+        fail("phase 26: the fused backend's 12D run is not phase 11's or "
+             "not all on the generated generic kernel")
+    g2 = genz.f5_c0_continuous(2, a=10.0, b=0.37)
+    row = generic_run("f64 2D f5_c0 crease epsrel 1e-9",
+                      lambda: Workspace(2).integrate(
+                          g2, 1e-9, 1e-40, crease_split=True, fused=False),
+                      g2.true_value, 3e-9, False)
+    if row["launches"]["fraction_by_kernel"]["generic"] \
+            != row["launches"]["fused_kernel"]:
+        fail("phase 26: the 2D crease run's fractions not all on the "
+             "generic kernel")
+    rows.append(row)
+    for r in rows:
+        del r["result"]
+    return rows
 
 
 def _launch_totals(launches) -> dict:
@@ -4679,18 +5032,28 @@ def main() -> int:
                     lengths, gl, gr, n=n, blocked=True, route="tile")
             compare_routes(f"phase 2: {g.name} {str(dtype)[6:]}", g, tables,
                            lows, lengths, gl, gr, n=n, blocked=True)
-    # the generic route at shapes the tile route does not take
-    for ndim, small_cap in ((9, 1 << 12), (2, 1 << 14)):
+    # the generic route at shapes the tile route does not take: each of
+    # its classes of dimensions, every family at 10D, 12D and 16D
+    generic_err = 0.0
+    for ndim, small_cap, suite in ((9, 1 << 12, False), (2, 1 << 14, False),
+                                   (10, 1 << 11, True), (12, 1 << 10, True),
+                                   (16, 1 << 7, True)):
         if cuda_rule.rule_route(ndim) != "generic":
             fail(f"a {ndim}D pool should take the rule kernel's generic route")
-        tables = rule_eval.rule_tables(ndim, "float64")
-        lows, lengths = random_pool(ndim, small_cap, 3, torch.float64, dev)
-        gl = torch.zeros(ndim, dtype=torch.float64, device=dev)
-        gr = torch.ones(ndim, dtype=torch.float64, device=dev)
-        for g in (genz.f4_gaussian(ndim), genz.f1_oscillatory(ndim)):
-            compare(f"phase 2: generic route {ndim}D {g.name} float64", g,
-                    tables, lows, lengths, gl, gr,
-                    n=small_cap - (small_cap >> 3), blocked=True)
+        for dtype in (torch.float64, torch.float32):
+            if dtype == torch.float32 and not suite:
+                continue
+            tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+            lows, lengths = random_pool(ndim, small_cap, 3, dtype, dev)
+            gl = torch.zeros(ndim, dtype=dtype, device=dev)
+            gr = torch.ones(ndim, dtype=dtype, device=dev)
+            for g in (genz.genz_suite(ndim) if suite else (
+                    genz.f4_gaussian(ndim), genz.f1_oscillatory(ndim))):
+                r = compare(f"phase 2: generic route {ndim}D {g.name} "
+                            f"{str(dtype)[6:]}", g, tables, lows, lengths,
+                            gl, gr, n=small_cap - (small_cap >> 3),
+                            blocked=True)
+                generic_err = max(generic_err, r["max_abs_est"])
 
     phase_done("phase 2")
 
@@ -4838,22 +5201,8 @@ def main() -> int:
         del lows, lengths
         torch.cuda.empty_cache()
 
-    # lower dimensions: a whole warp per region there too
-    for ndim in (3, 5, 6):
-        tables = rule_eval.rule_tables(ndim, "float64")
-        lows, lengths = random_pool(ndim, big, 2, torch.float64, dev)
-        gl = torch.zeros(ndim, dtype=torch.float64, device=dev)
-        gr = torch.ones(ndim, dtype=torch.float64, device=dev)
-        g = genz.f4_gaussian(ndim)
-        ms, generic = (time_ms(lambda: cuda_rule.cuda_apply_rule(
-            g, tables, lows, lengths, gl, gr, route=route), 3)
-            for route in ("tile", "generic"))
-        b, by = bound_ms(4, ndim, big, torch.float64)
-        print(f"phase 4: {g.name} float64 {ndim}D ({tables.feval} points) "
-              f"2^21 regions: tile route {ms:.3f} ms, generic route "
-              f"{generic:.3f} ms, bound {b:.3f} ms ({by}, "
-              f"{100 * b / ms:.1f}% of it)", flush=True)
-        del lows, lengths
+    tile_rows = tile_against_generic(dev)
+    generic_rows = generic_times(dev)
 
     phase_done("phase 4")
 
@@ -4942,14 +5291,19 @@ def main() -> int:
     # -- phase 25: any scalar-per-axis callable inside the fused kernels,
     # and the recorder, the CLI and the continuation log on the card ------
     gen_checks = generated_checks(dev)
-    gen_launches, gen_res, gen_wall, gen_stats = generated_pagani(
-        dev, {"phase3": wall, "phase17": fused_rows["f4_walls_s"]["fused"],
-              "phase11": SPLIT_WALLS[f"f64 {NDIM}D F4 as a plain callable"]})
+    gen_walls = {"phase3": wall, "phase17": fused_rows["f4_walls_s"]["fused"],
+                 "phase11": SPLIT_WALLS[f"f64 {NDIM}D F4 as a plain callable"]}
+    gen_launches, gen_res, gen_wall, gen_stats, gen_value_launches = \
+        generated_pagani(dev, gen_walls)
     gen_vegas_launches, gen_vegas_walls = generated_vegas(dev)
     a17_on_card(dev, gen_res)
     phase_done("phase 25")
 
-    # -- phase 26: the kernels line, the card line, the result line ---------
+    # -- phase 26: the generic route in situ --------------------------------
+    situ_rows = generic_in_situ(dev, sin12)
+    phase_done("phase 26")
+
+    # -- phase 27: the kernels line, the card line, the result line ---------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",
@@ -4962,6 +5316,11 @@ def main() -> int:
         "max_abs_err": d_main,
         "ms": ms_main,
         "generic_route_ms": generic_main,
+        "generic_route": {
+            "max_abs_err": generic_err,
+            "shapes": generic_rows,
+            "tile_against_generic_3d_7d": tile_rows,
+            "in_situ": situ_rows},
         "plain_ms": plain_main,
         "bound_ms": b_main,
         "bound_by": by_main,
@@ -5121,7 +5480,7 @@ def main() -> int:
     kernels += generated_kernels(
         gen_checks, gen_launches, gen_vegas_launches,
         {"pagani_fused_backend": gen_wall, "pagani_fused_stats": gen_stats,
-         "vegas": gen_vegas_walls})
+         "vegas": gen_vegas_walls}, gen_value_launches)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

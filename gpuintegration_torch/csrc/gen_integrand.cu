@@ -10,12 +10,14 @@
 // ops/cuda_build.py build_generated compiles this source once for each
 // callable with its generated header (ops/integrand_gen.py emit_cuda:
 // kGenNdim and gen_integrand) pre-included, so that a build instantiates
-// four kernels: the rule's tile route (kGenNdim 3..8) and generic route in
-// f64 and f32, the sampler's paired route (kGenNdim 3..8) and generic
-// route in f32.  None is built with the crease fraction (a crease run
-// refuses this family, as the reference's Pallas backend does), and the
-// sampler has no emit mode here.  What bounds each kernel is written in
-// the headers; the integrand's share is its program's steps, counted by
+// four kernels: the rule's tile route (kGenNdim 3..8) and generic route
+// (the class NMAX = kGenNdim) in f64 and f32, the sampler's paired route
+// (kGenNdim 3..8) and generic route in f32.  The check of the values
+// alone is a library of its own (gen_values.cu).  None is built with
+// the crease fraction (a crease run refuses this family, as the
+// reference's Pallas backend does), and the sampler has no emit mode
+// here.  What bounds each kernel is written in the headers; the
+// integrand's share is its program's steps, counted by
 // integrand_gen.program_ops.
 
 #include "rule_eval.cuh"
@@ -25,12 +27,11 @@ namespace {
 namespace rule {
 
 template <typename T>
-int launch_generic_family(int family, const RuleArgs<T>& a,
+int launch_generic_family(int family, const RuleArgs<T>& a, int blocks,
                           cudaStream_t stream) {
   if (family != kGenerated || a.ndim != kGenNdim || a.frac != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  rule_kernel<kGenerated, T, false><<<dim3(a.n), kThreads, 0, stream>>>(a);
-  return 0;
+  return launch_generic_kernel<kGenerated, T, kGenNdim>(a, blocks, stream);
 }
 
 template <typename T, int NDIM>

@@ -83,6 +83,9 @@ __device__ __forceinline__ float gen_tanh(float a) { return tanhf(a); }
 __device__ __forceinline__ double gen_tanh(double a) { return tanh(a); }
 __device__ __forceinline__ float gen_sqrt(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double gen_sqrt(double a) { return __dsqrt_rn(a); }
+// PyTorch's rsqrt kernel (and its pow at exponent -0.5) calls ::rsqrt
+__device__ __forceinline__ float gen_rsqrt(float a) { return rsqrtf(a); }
+__device__ __forceinline__ double gen_rsqrt(double a) { return rsqrt(a); }
 __device__ __forceinline__ float gen_abs(float a) { return fabsf(a); }
 __device__ __forceinline__ double gen_abs(double a) { return fabs(a); }
 __device__ __forceinline__ float gen_expm1(float a) { return expm1f(a); }

@@ -1,7 +1,8 @@
 // The Genz families' instances of the rule kernels (rule_eval.cuh, which
-// holds the design): the generic route for F1..F6 at every ndim 2..16, the
-// tile route for F1..F6 at ndim 3..8, each in f64 and f32 and with and
-// without the crease fraction.
+// holds the design): the generic route for F1..F6 in four classes of
+// dimensions (NMAX 4, 8, 12, 16: every ndim 2..16; the crease fraction a
+// run-time switch), the tile route for F1..F6 at ndim 3..8 with and
+// without the crease fraction, each in f64 and f32.
 //
 // Replaces gpuintegration_tpu/ops/pallas_rule.py::pallas_apply_rule (the
 // f32 Pallas kernel) and, in f64, the XLA path rule_eval._eval_chunk.
@@ -12,15 +13,15 @@ namespace {
 namespace rule {
 
 template <typename T>
-int launch_generic_family(int family, const RuleArgs<T>& a,
+int launch_generic_family(int family, const RuleArgs<T>& a, int blocks,
                           cudaStream_t stream) {
   switch (family) {
-    case 1: launch_generic_kernel<1, T>(a, stream); return 0;
-    case 2: launch_generic_kernel<2, T>(a, stream); return 0;
-    case 3: launch_generic_kernel<3, T>(a, stream); return 0;
-    case 4: launch_generic_kernel<4, T>(a, stream); return 0;
-    case 5: launch_generic_kernel<5, T>(a, stream); return 0;
-    case 6: launch_generic_kernel<6, T>(a, stream); return 0;
+    case 1: return launch_generic_classes<1, T>(a, blocks, stream);
+    case 2: return launch_generic_classes<2, T>(a, blocks, stream);
+    case 3: return launch_generic_classes<3, T>(a, blocks, stream);
+    case 4: return launch_generic_classes<4, T>(a, blocks, stream);
+    case 5: return launch_generic_classes<5, T>(a, blocks, stream);
+    case 6: return launch_generic_classes<6, T>(a, blocks, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -54,15 +54,43 @@
 // multiply-adds and the family's finish, which for F4-F6 is an exp: in f64
 // some 19 f64 instructions in the machine code (tools/sass_report.py).
 //
-// The GENERIC route (rule_kernel; every ndim 2..16): one thread block per
-// region, 128 threads stride over the points and read the generator table
-// from global memory, one thread runs the epilogue.  It takes the
-// dimensions the tile route is not compiled for, and is the kernel the
-// tile route is timed against.
-//
+// The GENERIC route (rule_generic_kernel; every ndim 2..16) borrows the
+// tile route's ideas where a compile-time ndim cannot be had:
+//   * classes of dimensions instead of one instance a dimension: a class
+//     NMAX (4, 8, 12, 16; a generated family its own ndim) unrolls every
+//     axis loop to NMAX; axes ndim..NMAX-1 fold a row of neutral values
+//     (genz_neutral: 0, or 1 for F2's product), which leaves every bit of
+//     the state as it was, so a value has the tile route's bits;
+//   * persistent blocks of 16 warps; a warp walks over tiles of at most
+//     kTile consecutive slots (32, 16 or 8 by class: the block's shared
+//     memory), read by coalesced loads into the warp's stage; a group of
+//     kGroup lanes takes a region (32; 8 at NMAX 4, where a region has 33
+//     to 153 points), and a warp 32 / kGroup regions at once;
+//   * the region's coordinate table in shared memory, genz_pre of the 11
+//     coordinates of each axis (the generated family: the coordinates);
+//     a (point, axis) is one byte extraction, one table read and the fold;
+//   * point codes without a table of every point: orbits 0..7 from the
+//     packed 4-bit codes (ops/cuda_rule.py::pack_generators) spread once a
+//     block to byte offsets (6049 points, 97 KB at 16D); orbit 8's 2^n
+//     corners from the point index, corner k = it * kGroup + lane: axis d
+//     is -lambda_5 where bit n-1-d of k is set, the bits of ``it`` from a
+//     block table of 2^n / kGroup words, the lane's from a word of its own;
+//   * orbit bounds from ndim up front: points 0..8n in one strided pass
+//     into shared memory, orbits 5, 6, 7 and the corners each a strided
+//     loop into one running sum, two points in flight a lane; sums by
+//     xor-shuffle trees within the group (no atomics, the same bits from
+//     launch to launch);
+//   * a lane-parallel epilogue: lane d takes axis d's pair sums and fourth
+//     difference (the split axis by a shuffle argmax), the crease fraction
+//     (sfrac::axis_frac, group_frac); the rule sums and the gated error
+//     model of a tile's regions then run a lane a region, as on the tile
+//     route.  The crease fraction is a run-time switch (``frac`` null or
+//     not), so est and err take the same code with and without it.
+
 // A crease run (Workspace.integrate(crease_split=True)) takes the same
-// kernels with WITH_FRAC: each also writes the crease/jump-aware cut
-// fraction (the reference's XLA _split_fraction,
+// kernels with the fraction (the tile route's WITH_FRAC instances, the
+// generic kernel's run-time switch): each also writes the crease/jump-aware
+// cut fraction (the reference's XLA _split_fraction,
 // gpuintegration_tpu/ops/rule_eval.py:184) and the split axis a jump
 // overrides, from the 4n + 1 collinear values it already holds (points
 // 0..4n of the kept ones), with split_frac.cuh's device functions, which
@@ -70,8 +98,8 @@
 // rule_eval.split_fraction on those values.  Both run the per-axis form,
 // lane d axis d and a reduction over the region's lanes: the tile route on
 // batches of 4 (5-8D) or 8 (3-4D) regions a warp, the generic route on
-// warp 0 after its epilogue.  Without WITH_FRAC the code is the first
-// design's.
+// each region's group.  Without WITH_FRAC the tile route's code is the
+// first design's.
 // A check-only ``kept`` pointer writes the collinear values out, so that a
 // check can hold the fraction against the plain version on the kernel's
 // own values (the values differ from the torch callable's by ulps: the
@@ -81,11 +109,11 @@
 // reduced-precision contraction would destroy them.
 //
 // The generated family takes the same kernels: where a Genz family builds
-// its state axis by axis (genz_value, the tile route's fold), it keeps the
-// point's ndim coordinates in registers and calls gen_integrand once, and
-// the tile route's coordinate table holds the coordinates themselves
-// (genz_pre of any other family is the coordinate), read by the same byte
-// codes.  It is built without the crease fraction.
+// its state axis by axis (the fold), it gathers the point's ndim
+// coordinates into registers and calls gen_integrand once, and the
+// coordinate tables hold the coordinates themselves (genz_pre of any other
+// family is the coordinate), read by the same byte codes.  It is built
+// without the crease fraction, the generic route at its own ndim only.
 //
 // Built by ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -98,6 +126,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "gen_integrand.cuh"
 #include "genz.cuh"
 #include "split_frac.cuh"
@@ -108,34 +138,6 @@ namespace rule {
 constexpr int kMaxNdim = 16;
 constexpr int kNsets = 9;
 constexpr int kNrules = 5;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T>
-struct RuleArgs {
-  const T* lows;        // (ndim, cap) unit-space lower bounds
-  const T* lengths;     // (ndim, cap) unit-space lengths
-  const T* glo;         // (ndim,) global lower bounds
-  const T* grange;      // (ndim,) global ranges
-  const T* gen;         // (ndim, feval) signed generators, dims-major
-  const T* orbit_wts;   // (9, 5)
-  const T* scale;       // (9, 5)
-  const T* norm;        // (9, 5)
-  T* est;               // (cap,)
-  T* err;               // (cap,)
-  int* split_dim;       // (cap,)
-  int ndim, feval, cap, n, blocked;
-  T ratio;
-  int orbit_bounds[kNsets + 1];
-  T coeffs[kMaxNdim];   // per-axis a_i (F1, F3, F6)
-  T bounds[kMaxNdim];   // per-axis b_i (F6)
-  T s0, s1;             // F1: offset | F2: 1/a^2, b | F4: a*a, b | F5: a, b
-  // a crease run's (rule_kernel<..., true>): the cut fraction (cap,), the
-  // check-only collinear values (cap, 4 ndim + 1) or null, the stencil
-  T* frac;
-  T* kept;
-  sfrac::Stencil<T> st;
-};
 
 // max that propagates NaN, like jnp.maximum / torch.maximum
 template <typename T>
@@ -198,172 +200,6 @@ __device__ __forceinline__ void region_outputs(
   est = vol * sums[0];
   err = vol * gated;
   split_dim = (any_nan || best < 0) ? widest : best;
-}
-
-// ---------------------------------------------------------------------------
-// The generic route: one thread block per region.
-
-// The Genz integrand (genz.cuh) at rule point p of a region with
-// global-space center cen[] and length len[] (shared memory).
-// The generated family (kGenerated) keeps the point's coordinates in
-// registers and calls gen_integrand once.
-template <int FAMILY, typename T>
-__device__ __forceinline__ T genz_value(const RuleArgs<T>& a, const T* cen,
-                                        const T* len, const T* coeffs,
-                                        const T* bounds, int p) {
-  const T* gen = a.gen;
-  const int feval = a.feval;
-  if constexpr (FAMILY == kGenerated) {
-    T x[kMaxNdim];
-#pragma unroll
-    for (int d = 0; d < kMaxNdim; ++d)
-      if (d < a.ndim) x[d] = cen[d] - __ldg(gen + d * feval + p) * len[d];
-    return gen_integrand<T>(x);
-  } else {
-    GenzState<T> g;
-    for (int d = 0; d < a.ndim; ++d) {
-      const T x = cen[d] - __ldg(gen + d * feval + p) * len[d];
-      genz_axis<FAMILY, T>(g, x, coeffs[d], bounds[d], a.s0, a.s1);
-    }
-    return genz_finish<FAMILY, T>(g, a.ndim, a.s0);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void add_to_orbit(T (&acc)[kNsets], int s, T v) {
-#pragma unroll
-  for (int k = 0; k < kNsets; ++k)
-    if (k == s) acc[k] += v;
-}
-
-// WITH_FRAC: also the crease/jump-aware cut fraction (split_frac.cuh's
-// per-axis form on the kept values, lane d axis d of warp 0, which runs
-// the epilogue), which may override the split axis; without it the code is
-// the first design's.
-template <int FAMILY, typename T, bool WITH_FRAC>
-__global__ void __launch_bounds__(kThreads)
-rule_kernel(const RuleArgs<T> a) {
-  __shared__ T s_cen[kMaxNdim], s_len[kMaxNdim];
-  __shared__ T s_coeffs[kMaxNdim], s_bounds[kMaxNdim];
-  __shared__ T s_vals[4 * kMaxNdim + 1];
-  __shared__ T s_part[kWarps][kNsets];
-  __shared__ int s_ob[kNsets + 1];
-
-  const int tid = threadIdx.x;
-  const int ndim = a.ndim;
-  // real region -> pool slot: [0, n) or, blocked, the first n/2 of each
-  // static half (region_pool.block_mask)
-  const int r = blockIdx.x;
-  const int half_n = a.n / 2;
-  const int slot = (a.blocked && r >= half_n) ? a.cap / 2 + (r - half_n) : r;
-
-  if (tid < ndim) {
-    const T lo = a.lows[tid * a.cap + slot];
-    const T ln = a.lengths[tid * a.cap + slot];
-    region_axis(lo, ln, a.glo[tid], a.grange[tid], s_cen[tid], s_len[tid]);
-    s_coeffs[tid] = a.coeffs[tid];
-    s_bounds[tid] = a.bounds[tid];
-  }
-  if (tid <= kNsets) s_ob[tid] = a.orbit_bounds[tid];
-  __syncthreads();
-
-  T acc[kNsets];
-#pragma unroll
-  for (int k = 0; k < kNsets; ++k) acc[k] = T(0);
-  const int n_kept = 4 * ndim + 1;
-  int orbit = 0;
-  T run = T(0);
-  for (int p = tid; p < a.feval; p += kThreads) {
-    const T v = genz_value<FAMILY, T>(a, s_cen, s_len, s_coeffs, s_bounds, p);
-    int o = orbit;
-    while (p >= s_ob[o + 1]) ++o;
-    if (o != orbit) {
-      add_to_orbit(acc, orbit, run);
-      run = T(0);
-      orbit = o;
-    }
-    run += v;
-    if (p < n_kept) s_vals[p] = v;
-  }
-  add_to_orbit(acc, orbit, run);
-
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int k = 0; k < kNsets; ++k) {
-    T v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) s_part[warp][k] = v;
-  }
-  __syncthreads();
-  if constexpr (WITH_FRAC) {
-    if (a.kept != nullptr)
-      for (int p = tid; p < n_kept; p += kThreads)
-        a.kept[static_cast<size_t>(slot) * n_kept + p] = s_vals[p];
-  }
-  // the crease run's kernel runs the epilogue on warp 0, whose lanes then
-  // take the fraction's axes
-  if (WITH_FRAC ? tid >= 32 : tid != 0) return;
-
-  // ---- epilogue, one thread (every lane of warp 0 alike, WITH_FRAC) ----
-  T jac = T(1), vol = T(1);
-  for (int d = 0; d < ndim; ++d) {
-    jac *= a.grange[d];
-    vol *= a.lengths[d * a.cap + slot];
-  }
-  T orbit_sum[kNsets];
-#pragma unroll
-  for (int k = 0; k < kNsets; ++k) {
-    T v = s_part[0][k];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += s_part[w][k];
-    orbit_sum[k] = v;
-  }
-  // the fourth differences: strict '>' scan from 0, NaN noted
-  const T f0 = s_vals[0];
-  const T c0 = T(2) * (T(1) - a.ratio);
-  int best = -1;
-  bool any_nan = false;
-  T maxdiff = T(0);
-  for (int d = 0; d < ndim; ++d) {
-    const T o1 = s_vals[1 + 2 * d] + s_vals[2 + 2 * d];
-    const T o2 = s_vals[1 + 2 * ndim + 2 * d] + s_vals[2 + 2 * ndim + 2 * d];
-    const T diff = fourth_diff(c0, f0, a.ratio, o1, o2);
-    if (diff != diff) {
-      any_nan = true;
-    } else if (diff > maxdiff) {
-      maxdiff = diff;
-      best = d;
-    }
-  }
-  int widest = 0;
-  T wl = a.lengths[slot];
-  for (int d = 1; d < ndim; ++d) {
-    const T l = a.lengths[d * a.cap + slot];
-    if (l > wl) {
-      wl = l;
-      widest = d;
-    }
-  }
-  T est, err;
-  int sdim;
-  region_outputs(orbit_sum, jac, vol, widest, best, any_nan, a.orbit_wts,
-                 a.scale, a.norm, est, err, sdim);
-  if constexpr (WITH_FRAC) {
-    // split_frac.cuh's per-axis form on the kept values, lane d axis d
-    const bool active = tid < ndim;
-    T kink = T(0.5), strength = T(0), jump = T(0.5);
-    if (active)
-      sfrac::axis_frac([&](int p) { return s_vals[p]; }, f0, a.st.axis[tid],
-                       tid == sdim, kink, strength, jump);
-    const T frac = sfrac::group_frac<32>(active, kink, strength, jump, sdim);
-    if (tid != 0) return;
-    a.frac[slot] = frac;
-  }
-  a.est[slot] = est;
-  a.err[slot] = err;
-  a.split_dim[slot] = sdim;
 }
 
 // est = err = 0, split_dim 0 and (a crease run's kernel, F) frac 0.5 in
@@ -534,8 +370,9 @@ __device__ __forceinline__ T warp_sum(T v) {
 // Tile t of the pool -> its first slot and its number of regions.  Plain
 // layout: the n real regions are slots [0, n).  Blocked: the first n/2 slots
 // of each half of the pool, tiled half by half (cuda_rule.tile_slots).
-template <typename T>
-__device__ __forceinline__ void tile_of(const TileArgs<T>& a, int t,
+// Either route's arguments (TileArgs, RuleArgs).
+template <typename Args>
+__device__ __forceinline__ void tile_of(const Args& a, int t,
                                         int tiles_per_part, int& slot0,
                                         int& count) {
   const int per_part = a.blocked ? a.n / 2 : a.n;
@@ -860,6 +697,448 @@ rule_tile_kernel(const TileArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
+// The generic route: persistent blocks, a group of lanes a region, every
+// ndim 2..16 in classes of dimensions.
+
+constexpr int kGenericWarps = 16;
+constexpr int kGenericThreads = 32 * kGenericWarps;
+
+// A class's lanes a region and most regions a tile, from its NMAX: a
+// function of the shape alone (cuda_rule.generic_class mirrors it).
+__host__ __device__ constexpr int generic_group(int nmax) {
+  return nmax <= 4 ? 8 : 32;
+}
+__host__ __device__ constexpr int generic_tile(int nmax) {
+  return nmax <= 8 ? 32 : (nmax <= 12 ? 16 : 8);
+}
+// The class of a Genz family's ndim; a generated family is its own class.
+__host__ __device__ constexpr int generic_nmax(int ndim) {
+  return ndim <= 4 ? 4 : (ndim <= 8 ? 8 : (ndim <= 12 ? 12 : 16));
+}
+
+template <int NMAX>
+struct GenericClass {
+  static constexpr int kGroup = generic_group(NMAX);
+  static constexpr int kGroups = 32 / kGroup;      // regions a warp at once
+  static constexpr int kLaneBits = kGroup == 8 ? 3 : 5;
+  static constexpr int kTile = generic_tile(NMAX);
+  // points of orbits 0..7, the code table's
+  static constexpr int kK8 = 1 + 8 * NMAX + 6 * NMAX * (NMAX - 1) +
+                             4 * NMAX * (NMAX - 1) * (NMAX - 2) / 3;
+  // words of the corners' high bits: 2^(NMAX - kLaneBits), at least 1
+  static constexpr int kCornerWords =
+      NMAX > kLaneBits ? 1 << (NMAX - kLaneBits) : 1;
+  static constexpr int kVals = 8 * NMAX + 2;        // points 0..8n, even
+  // a point's byte offsets, one byte an axis
+  using Code = typename std::conditional<(NMAX <= 8), uint2, uint4>::type;
+};
+
+template <typename T>
+struct RuleArgs {
+  const T* lows;          // (ndim, cap) unit-space lower bounds
+  const T* lengths;       // (ndim, cap) unit-space lengths
+  const T* glo;           // (ndim,) global lower bounds
+  const T* grange;        // (ndim,) global ranges
+  const unsigned long long* codes;   // (k8,) orbits 0..7, 4 bits an axis
+  const T* lam;           // (16,) the signed generator of each code
+  const T* orbit_wts;     // (9, 5)
+  const T* scale;         // (9, 5)
+  const T* norm;          // (9, 5)
+  T* est;                 // (cap,)
+  T* err;                 // (cap,)
+  int* split_dim;         // (cap,)
+  int ndim, cap, n, blocked;
+  int tile;               // regions per tile, at most the class's kTile
+  T ratio;
+  T coeffs[kMaxNdim];     // per-axis a_i (F1, F3, F6); 0 past ndim
+  T bounds[kMaxNdim];     // per-axis b_i (F6); 0 past ndim
+  T s0, s1;               // F1: offset | F2: 1/a^2, b | F4: a*a, b | F5: a, b
+  // a crease run's: the cut fraction (cap,) or null (then nothing below is
+  // read), the check-only collinear values (cap, 4 ndim + 1) or null, the
+  // stencil
+  T* frac;
+  T* kept;
+  sfrac::Stencil<T> st;
+};
+
+// The value genz_pre gives an axis past ndim: what genz_fold folds
+// without changing a bit of the state (s + 0, prod * 1, 0 <= bound 0).
+template <int FAMILY, typename T>
+__device__ __forceinline__ T genz_neutral() {
+  return FAMILY == 2 ? T(1) : T(0);
+}
+
+__device__ __forceinline__ uint32_t code_word(const uint2& c, int w) {
+  return w == 0 ? c.x : c.y;
+}
+__device__ __forceinline__ uint32_t code_word(const uint4& c, int w) {
+  return w == 0 ? c.x : (w == 1 ? c.y : (w == 2 ? c.z : c.w));
+}
+__device__ __forceinline__ uint2 code_or(uint2 a, uint2 b) {
+  return make_uint2(a.x | b.x, a.y | b.y);
+}
+__device__ __forceinline__ uint4 code_or(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+
+// A code word of byte offsets: byte d the offset in a row of the
+// coordinate table of code(d) (0..15), for the axes d < NMAX.
+template <typename T, typename Code, int NMAX, typename F>
+__device__ __forceinline__ Code code_bytes(F code) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int d = 0; d < NMAX; ++d)
+    w[d >> 2] |= static_cast<uint32_t>(code(d) * sizeof(T)) << (8 * (d & 3));
+  if constexpr (sizeof(Code) == 8) {
+    return make_uint2(w[0], w[1]);
+  } else {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The codes of the corner axes d0 .. d0 + count - 1 from bits count-1 ..
+// 0 of ``bits`` (the first axis the highest bit): -lambda_5 (code 10)
+// where the bit is set, else +lambda_5 (code 5); every other axis 0.
+template <typename T, typename Code, int NMAX>
+__device__ __forceinline__ Code corner_bytes(uint32_t bits, int d0,
+                                             int count) {
+  return code_bytes<T, Code, NMAX>([&](int d) {
+    const int i = d - d0;
+    return (i < 0 || i >= count) ? 0
+                                 : (((bits >> (count - 1 - i)) & 1u) ? 10 : 5);
+  });
+}
+
+// A group's sum by an xor-shuffle tree: every lane of the group ends with
+// the same bits.
+template <int G, typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// A warp's shared memory: its tile's stage and epilogue rows, a
+// coordinate table and the values of points 0..8n for each of its groups.
+template <typename T, int NMAX>
+struct GenericWarp {
+  using C = GenericClass<NMAX>;
+  T stage[2 * NMAX][C::kTile];          // rows of lows, lengths
+  T xt[C::kGroups][NMAX][kCodeRow];     // genz_pre of the 11 coordinates
+  T vals[C::kGroups][C::kVals];         // values of points 0..8n
+  T osum[C::kTile][kNsets];             // orbit sums of the tile's regions
+  T frac[C::kTile];                     // a crease run's cut fractions
+  int best[C::kTile];                   // split axis by fourth difference
+  int sd[C::kTile];                     // a crease run's split axes
+};
+
+// The block's shared memory: the orbit 0..7 codes, the corners' high-bit
+// words, orbit_wts, scale, norm (9 x 5 each), lam (16), glo and grange
+// (NMAX each), the stencil (NMAX sfrac::Axis), then the warps' own.
+template <typename T, int NMAX>
+struct GenericLayout {
+  using C = GenericClass<NMAX>;
+  static constexpr size_t align(size_t b) { return (b + 15) / 16 * 16; }
+  static constexpr size_t kCornersAt =
+      align(C::kK8 * sizeof(typename C::Code));
+  static constexpr size_t kTablesAt =
+      kCornersAt + align(C::kCornerWords * sizeof(typename C::Code));
+  static constexpr size_t kStencilAt =
+      kTablesAt + align((3 * kTab + kCodeRow + 2 * NMAX) * sizeof(T));
+  static constexpr size_t kWarpsAt =
+      kStencilAt + align(NMAX * sizeof(sfrac::Axis<T>));
+  static constexpr size_t kBytes =
+      kWarpsAt + kGenericWarps * sizeof(GenericWarp<T, NMAX>);
+  static_assert(kBytes <= 227 * 1024, "a class's block exceeds an SM");
+};
+
+// One launch over every real region of the pool: est, err, split_dim (and,
+// a crease run, frac) of each real slot.  A group of G lanes takes a
+// region: its coordinate table, its points in the order of the orbits
+// (points 0..8n kept, orbits 5..7 and the corners summed), the lane-parallel
+// epilogue of its axes; a lane a region then finishes the tile's regions.
+template <int FAMILY, typename T, int NMAX>
+__global__ void __launch_bounds__(kGenericThreads, 1)
+rule_generic_kernel(const RuleArgs<T> a) {
+  using C = GenericClass<NMAX>;
+  using Code = typename C::Code;
+  using L = GenericLayout<T, NMAX>;
+  constexpr int G = C::kGroup;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Code* s_codes = reinterpret_cast<Code*>(smem);
+  Code* s_corner = reinterpret_cast<Code*>(smem + L::kCornersAt);
+  T* s_wts = reinterpret_cast<T*>(smem + L::kTablesAt);
+  T* s_scale = s_wts + kTab;
+  T* s_norm = s_scale + kTab;
+  T* s_lam = s_norm + kTab;
+  T* s_glo = s_lam + kCodeRow;
+  T* s_grange = s_glo + NMAX;
+  sfrac::Axis<T>* s_faxis =
+      reinterpret_cast<sfrac::Axis<T>*>(smem + L::kStencilAt);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  GenericWarp<T, NMAX>& ws =
+      reinterpret_cast<GenericWarp<T, NMAX>*>(smem + L::kWarpsAt)[warp];
+  const int q = lane / G, l = lane % G;     // the lane's group, its place
+  T(&xt)[NMAX][kCodeRow] = ws.xt[q];
+  T* vals = ws.vals[q];
+  const int ndim = a.ndim;
+  const bool with_frac = a.frac != nullptr;
+
+  // the orbits' bounds: points 0..8n (centre, orbits 1-4), orbits 5, 6, 7,
+  // then the 2^n corners
+  const int k5 = 8 * ndim + 1;
+  const int k6 = k5 + 2 * ndim * (ndim - 1);
+  const int k7 = k6 + 4 * ndim * (ndim - 1);
+  const int k8 = k7 + 4 * ndim * (ndim - 1) * (ndim - 2) / 3;
+  const int corners = 1 << ndim;
+  // the corner index's low bits come from the lane: axes ndim - lane_axes
+  // .. ndim - 1; the high ones, axes 0 .. ndim - lane_axes - 1, from ``it``
+  const int lane_axes = min(C::kLaneBits, ndim);
+  const int high_axes = ndim - lane_axes;
+  const int words = 1 << high_axes;
+
+  // ---- prologue: the block's tables, the warps' neutral rows ------------
+  for (int i = threadIdx.x; i < k8; i += kGenericThreads) {
+    const unsigned long long c = a.codes[i];
+    s_codes[i] = code_bytes<T, Code, NMAX>(
+        [&](int d) { return static_cast<int>((c >> (4 * d)) & 15ull); });
+  }
+  for (int i = threadIdx.x; i < words; i += kGenericThreads)
+    s_corner[i] = corner_bytes<T, Code, NMAX>(i, 0, high_axes);
+  for (int i = threadIdx.x; i < kTab; i += kGenericThreads) {
+    s_wts[i] = a.orbit_wts[i];
+    s_scale[i] = a.scale[i];
+    s_norm[i] = a.norm[i];
+  }
+  if (threadIdx.x < kCodeRow) s_lam[threadIdx.x] = a.lam[threadIdx.x];
+  if (threadIdx.x < ndim) {
+    s_glo[threadIdx.x] = a.glo[threadIdx.x];
+    s_grange[threadIdx.x] = a.grange[threadIdx.x];
+    if (with_frac) s_faxis[threadIdx.x] = a.st.axis[threadIdx.x];
+  }
+  // the rows of the axes past ndim never change
+  for (int e = l + ndim * kCodeRow; e < NMAX * kCodeRow; e += G)
+    xt[e / kCodeRow][e % kCodeRow] = genz_neutral<FAMILY, T>();
+  __syncthreads();
+
+  const Code lane_word = corner_bytes<T, Code, NMAX>(l, high_axes, lane_axes);
+  const bool lane_corner = l < corners;
+
+  // the value of the rule point whose byte offsets are ``code``; the
+  // generated family gathers the coordinates into registers for one call
+  // of gen_integrand
+  auto value = [&](const Code code) -> T {
+    auto entry = [&](int d) -> T {
+      const uint32_t off =
+          __byte_perm(code_word(code, d >> 2), 0u, 0x4440u + (d & 3));
+      return *reinterpret_cast<const T*>(
+          reinterpret_cast<const char*>(xt[d]) + off);
+    };
+    if constexpr (FAMILY == kGenerated) {
+      T x[NMAX];
+#pragma unroll
+      for (int d = 0; d < NMAX; ++d) x[d] = entry(d);
+      return gen_integrand<T>(x);
+    } else {
+      GenzState<T> g;
+#pragma unroll
+      for (int d = 0; d < NMAX; ++d)
+        genz_fold<FAMILY, T>(g, entry(d), a.coeffs[d], a.bounds[d], a.s0);
+      return genz_finish<FAMILY, T>(g, ndim, a.s0);
+    }
+  };
+
+  // the running sum of the points lo .. hi - 1 of the code table, lanes
+  // strided, two points in flight, reduced over the group
+  auto orbit_sum = [&](int lo, int hi) -> T {
+    T acc0 = T(0), acc1 = T(0);
+    int p = lo + l;
+    for (; p + G < hi; p += 2 * G) {
+      acc0 += value(s_codes[p]);
+      acc1 += value(s_codes[p + G]);
+    }
+    if (p < hi) acc0 += value(s_codes[p]);
+    return group_sum<G>(acc0 + acc1);
+  };
+
+  const T c0 = T(2) * (T(1) - a.ratio);
+  T jac = T(1);
+  for (int d = 0; d < ndim; ++d) jac *= s_grange[d];
+  const unsigned group_mask =
+      G == 32 ? kFull : (((1u << G) - 1u) << (q * G));
+
+  const int parts = a.blocked ? 2 : 1;
+  const int per_part = a.blocked ? a.n / 2 : a.n;
+  const int tiles_per_part = (per_part + a.tile - 1) / a.tile;
+  const int n_tiles = parts * tiles_per_part;
+  const int stride = gridDim.x * kGenericWarps;
+
+  for (int t = blockIdx.x * kGenericWarps + warp; t < n_tiles; t += stride) {
+    int slot0, count;
+    tile_of(a, t, tiles_per_part, slot0, count);
+    if (lane < count) {
+      for (int d = 0; d < ndim; ++d) {
+        ws.stage[d][lane] = a.lows[static_cast<size_t>(d) * a.cap + slot0 +
+                                   lane];
+        ws.stage[NMAX + d][lane] =
+            a.lengths[static_cast<size_t>(d) * a.cap + slot0 + lane];
+      }
+    }
+    __syncwarp();
+
+    for (int r = 0; r < count; r += C::kGroups) {
+      // group q takes region j; a group past the tile's end recomputes the
+      // tile's last region and writes nothing
+      const int j = r + q;
+      const bool real = j < count;
+      const int jj = real ? j : count - 1;
+
+      // the region's 11 coordinates an axis, through genz_pre (the
+      // coordinate itself for the generated family)
+      for (int e = l; e < ndim * kCodeRow; e += G) {
+        const int d = e / kCodeRow, c = e % kCodeRow;
+        if (c < kCodes) {
+          T cen, len;
+          region_axis(ws.stage[d][jj], ws.stage[NMAX + d][jj], s_glo[d],
+                      s_grange[d], cen, len);
+          const T x = cen - s_lam[c] * len;
+          xt[d][c] = genz_pre<FAMILY, T>(x, a.s0, a.s1);
+        }
+      }
+      __syncwarp();
+
+      // points 0..8n, kept
+      {
+        int p = l;
+        for (; p + G < k5; p += 2 * G) {
+          const T v0 = value(s_codes[p]);
+          const T v1 = value(s_codes[p + G]);
+          vals[p] = v0;
+          vals[p + G] = v1;
+        }
+        if (p < k5) vals[p] = value(s_codes[p]);
+      }
+      const T s5 = orbit_sum(k5, k6);
+      const T s6 = orbit_sum(k6, k7);
+      const T s7 = orbit_sum(k7, k8);
+      // the corners: corner it * G + l, two words in flight
+      T s8;
+      {
+        T acc0 = T(0), acc1 = T(0);
+        int it = 0;
+        for (; it + 1 < words; it += 2) {
+          acc0 += value(code_or(s_corner[it], lane_word));
+          acc1 += value(code_or(s_corner[it + 1], lane_word));
+        }
+        if (it < words && lane_corner)
+          acc0 += value(code_or(s_corner[it], lane_word));
+        s8 = group_sum<G>(acc0 + acc1);
+      }
+      __syncwarp();
+
+      // lane d: the pair sums of axis d in orbits 1..4, its fourth
+      // difference
+      const T f0 = vals[0];
+      T o1 = T(0), o2 = T(0), o3 = T(0), o4 = T(0), diff = T(0);
+      if (l < ndim) {
+        o1 = vals[1 + 2 * l] + vals[2 + 2 * l];
+        o2 = vals[1 + 2 * ndim + 2 * l] + vals[2 + 2 * ndim + 2 * l];
+        o3 = vals[1 + 4 * ndim + 2 * l] + vals[2 + 4 * ndim + 2 * l];
+        o4 = vals[1 + 6 * ndim + 2 * l] + vals[2 + 6 * ndim + 2 * l];
+        diff = fourth_diff(c0, f0, a.ratio, o1, o2);
+      }
+      const bool any_nan =
+          (__ballot_sync(kFull, diff != diff) & group_mask) != 0u;
+      // the first largest positive difference: a NaN never wins
+      T top = (diff != diff) ? T(0) : diff;
+      int arg = l;
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) {
+        const T v = __shfl_xor_sync(kFull, top, off);
+        const int i = __shfl_xor_sync(kFull, arg, off);
+        if (v > top || (v == top && i < arg)) {
+          top = v;
+          arg = i;
+        }
+      }
+      o1 = group_sum<G>(o1);
+      o2 = group_sum<G>(o2);
+      o3 = group_sum<G>(o3);
+      o4 = group_sum<G>(o4);
+      if (l == 0 && real) {
+        T* o = ws.osum[j];
+        o[0] = f0; o[1] = o1; o[2] = o2; o[3] = o3; o[4] = o4;
+        o[5] = s5; o[6] = s6; o[7] = s7; o[8] = s8;
+        ws.best[j] = any_nan ? -2 : (top > T(0) ? arg : -1);
+      }
+      if (with_frac) {
+        // the split axis as region_outputs takes it (the widest axis by
+        // its scan where no positive difference wins), then the
+        // fraction's per-axis form, lane d axis d
+        T wl = ws.stage[NMAX][jj];
+        int widest = 0;
+        for (int d = 1; d < ndim; ++d) {
+          const T len = ws.stage[NMAX + d][jj];
+          if (len > wl) {
+            wl = len;
+            widest = d;
+          }
+        }
+        int sd = (any_nan || !(top > T(0))) ? widest : arg;
+        const bool active = l < ndim;
+        T kink = T(0.5), strength = T(0), jump = T(0.5);
+        if (active)
+          sfrac::axis_frac([&](int p) { return vals[p]; }, f0, s_faxis[l],
+                           l == sd, kink, strength, jump);
+        const T frac = sfrac::group_frac<G>(active, kink, strength, jump, sd);
+        if (l == 0 && real) {
+          ws.frac[j] = frac;
+          ws.sd[j] = sd;
+        }
+        if (a.kept != nullptr && real) {
+          const int n_kept = 4 * ndim + 1;
+          for (int p = l; p < n_kept; p += G)
+            a.kept[static_cast<size_t>(slot0 + j) * n_kept + p] = vals[p];
+        }
+      }
+      __syncwarp();
+    }
+
+    // ---- the tile's epilogue: lane j finishes region j -------------------
+    if (lane < count) {
+      T orbit_sums[kNsets];
+#pragma unroll
+      for (int k = 0; k < kNsets; ++k) orbit_sums[k] = ws.osum[lane][k];
+      T vol = T(1), wl = ws.stage[NMAX][lane];
+      int widest = 0;
+      for (int d = 0; d < ndim; ++d) {
+        const T len = ws.stage[NMAX + d][lane];
+        vol *= len;
+        if (d > 0 && len > wl) {
+          wl = len;
+          widest = d;
+        }
+      }
+      const int best = ws.best[lane];
+      T est, err;
+      int sdim;
+      region_outputs(orbit_sums, jac, vol, widest, best, best == -2, s_wts,
+                     s_scale, s_norm, est, err, sdim);
+      a.est[slot0 + lane] = est;
+      a.err[slot0 + lane] = err;
+      if (with_frac) {
+        a.split_dim[slot0 + lane] = ws.sd[lane];
+        a.frac[slot0 + lane] = ws.frac[lane];
+      } else {
+        a.split_dim[slot0 + lane] = sdim;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches.
 
 template <typename T>
@@ -875,13 +1154,31 @@ void launch_fill(T* est, T* err, int* split_dim, T* frac, int cap, int n,
                                                        frac, cap, n, blocked);
 }
 
+template <int FAMILY, typename T, int NMAX>
+int launch_generic_kernel(const RuleArgs<T>& a, int blocks,
+                          cudaStream_t stream) {
+  if (a.ndim > NMAX || a.tile > GenericClass<NMAX>::kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = rule_generic_kernel<FAMILY, T, NMAX>;
+  constexpr size_t smem = GenericLayout<T, NMAX>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<blocks, kGenericThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A Genz family's generic kernel: the class of its ndim.
 template <int FAMILY, typename T>
-void launch_generic_kernel(const RuleArgs<T>& a, cudaStream_t stream) {
-  const dim3 grid(a.n);
-  if (a.frac != nullptr)
-    rule_kernel<FAMILY, T, true><<<grid, kThreads, 0, stream>>>(a);
-  else
-    rule_kernel<FAMILY, T, false><<<grid, kThreads, 0, stream>>>(a);
+int launch_generic_classes(const RuleArgs<T>& a, int blocks,
+                           cudaStream_t stream) {
+  switch (generic_nmax(a.ndim)) {
+    case 4: return launch_generic_kernel<FAMILY, T, 4>(a, blocks, stream);
+    case 8: return launch_generic_kernel<FAMILY, T, 8>(a, blocks, stream);
+    case 12: return launch_generic_kernel<FAMILY, T, 12>(a, blocks, stream);
+    default: return launch_generic_kernel<FAMILY, T, 16>(a, blocks, stream);
+  }
 }
 
 template <int FAMILY, typename T, int NDIM, bool F>
@@ -896,26 +1193,24 @@ int launch_tile_kernel(const TileArgs<T>& a, int blocks, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launches of the families (and, tile route, dimensions) a source
-// compiles: defined by rule_eval.cu and gen_integrand.cu.  Each returns 0
-// or the error of the launch it could not make (cudaErrorInvalidValue for
-// a family or dimension the source lacks).
+// The launches of the families (and dimensions) a source compiles:
+// defined by rule_eval.cu and gen_integrand.cu.  Each returns 0 or the
+// error of the launch it could not make (cudaErrorInvalidValue for a
+// family or dimension the source lacks).
 template <typename T>
-int launch_generic_family(int family, const RuleArgs<T>& a,
+int launch_generic_family(int family, const RuleArgs<T>& a, int blocks,
                           cudaStream_t stream);
 template <typename T>
 int launch_tile_dims(int family, int ndim, const TileArgs<T>& a, int blocks,
                      cudaStream_t stream);
 
 template <typename T>
-int launch_generic(int family, const RuleArgs<T>& a, cudaStream_t stream) {
+int launch_generic(int family, const RuleArgs<T>& a, int blocks,
+                   cudaStream_t stream) {
   launch_fill(a.est, a.err, a.split_dim, a.frac, a.cap, a.n, a.blocked,
               stream);
-  if (a.n > 0) {
-    const int rc = launch_generic_family<T>(family, a, stream);
-    if (rc != 0) return rc;
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (a.n == 0) return static_cast<int>(cudaGetLastError());
+  return launch_generic_family<T>(family, a, blocks, stream);
 }
 
 template <typename T>
@@ -928,11 +1223,12 @@ int launch_tile(int family, int ndim, const TileArgs<T>& a, int blocks,
 }
 
 struct HostArgs {
-  int family, ndim, feval, cap, n, blocked;
-  const void *lows, *lengths, *glo, *grange, *gen, *orbit_wts, *scale, *norm;
+  int family, ndim, cap, n, blocked;
+  const void *lows, *lengths, *glo, *grange, *codes, *lam, *orbit_wts,
+      *scale, *norm;
   double ratio;
-  const int* orbit_bounds;
   const double* params;
+  int tile, blocks;
   void *est, *err;
   int* split_dim;
   // a crease run's: frac (cap,) or null; the stencil (host arrays); the
@@ -953,27 +1249,25 @@ void frac_args(const HostArgs& h, Args& a) {
     sfrac::load_stencil(a.st, h.ndim, h.frac_slots, h.frac_consts);
 }
 
-template <typename T>
-int generic_route(const HostArgs& h, cudaStream_t stream) {
-  RuleArgs<T> a;
+// The arguments both routes' kernels share.
+template <typename T, typename Args>
+void common_args(const HostArgs& h, Args& a) {
   a.lows = static_cast<const T*>(h.lows);
   a.lengths = static_cast<const T*>(h.lengths);
   a.glo = static_cast<const T*>(h.glo);
   a.grange = static_cast<const T*>(h.grange);
-  a.gen = static_cast<const T*>(h.gen);
+  a.lam = static_cast<const T*>(h.lam);
   a.orbit_wts = static_cast<const T*>(h.orbit_wts);
   a.scale = static_cast<const T*>(h.scale);
   a.norm = static_cast<const T*>(h.norm);
   a.est = static_cast<T*>(h.est);
   a.err = static_cast<T*>(h.err);
   a.split_dim = h.split_dim;
-  a.ndim = h.ndim;
-  a.feval = h.feval;
   a.cap = h.cap;
   a.n = h.n;
   a.blocked = h.blocked;
+  a.tile = h.tile;
   a.ratio = static_cast<T>(h.ratio);
-  for (int k = 0; k <= kNsets; ++k) a.orbit_bounds[k] = h.orbit_bounds[k];
   for (int d = 0; d < kMaxNdim; ++d) {
     a.coeffs[d] = static_cast<T>(h.params[d]);
     a.bounds[d] = static_cast<T>(h.params[kMaxNdim + d]);
@@ -981,115 +1275,98 @@ int generic_route(const HostArgs& h, cudaStream_t stream) {
   a.s0 = static_cast<T>(h.params[2 * kMaxNdim]);
   a.s1 = static_cast<T>(h.params[2 * kMaxNdim + 1]);
   frac_args<T>(h, a);
-  return launch_generic<T>(h.family, a, stream);
 }
 
 template <typename T>
-int tile_route(const HostArgs& h, const void* codes, const void* lam,
-               int tile, int blocks, cudaStream_t stream) {
+int generic_route(const HostArgs& h, cudaStream_t stream) {
+  RuleArgs<T> a;
+  common_args<T>(h, a);
+  a.codes = static_cast<const unsigned long long*>(h.codes);
+  a.ndim = h.ndim;
+  return launch_generic<T>(h.family, a, h.blocks, stream);
+}
+
+template <typename T>
+int tile_route(const HostArgs& h, cudaStream_t stream) {
   TileArgs<T> a;
-  a.lows = static_cast<const T*>(h.lows);
-  a.lengths = static_cast<const T*>(h.lengths);
-  a.glo = static_cast<const T*>(h.glo);
-  a.grange = static_cast<const T*>(h.grange);
-  a.codes = static_cast<const uint32_t*>(codes);
-  a.lam = static_cast<const T*>(lam);
-  a.orbit_wts = static_cast<const T*>(h.orbit_wts);
-  a.scale = static_cast<const T*>(h.scale);
-  a.norm = static_cast<const T*>(h.norm);
-  a.est = static_cast<T*>(h.est);
-  a.err = static_cast<T*>(h.err);
-  a.split_dim = h.split_dim;
-  a.cap = h.cap;
-  a.n = h.n;
-  a.blocked = h.blocked;
-  a.tile = tile;
+  common_args<T>(h, a);
+  a.codes = static_cast<const uint32_t*>(h.codes);
   const uintptr_t align = reinterpret_cast<uintptr_t>(h.lows) |
                           reinterpret_cast<uintptr_t>(h.lengths) |
                           (static_cast<uintptr_t>(h.cap) * sizeof(T)) |
                           (h.blocked ? static_cast<uintptr_t>(h.cap / 2) *
                                            sizeof(T)
                                      : 0) |
-                          (static_cast<uintptr_t>(tile) * sizeof(T));
+                          (static_cast<uintptr_t>(h.tile) * sizeof(T));
   a.bulk_ok = (align & 15u) == 0;
-  a.ratio = static_cast<T>(h.ratio);
-  for (int d = 0; d < kMaxNdim; ++d) {
-    a.coeffs[d] = static_cast<T>(h.params[d]);
-    a.bounds[d] = static_cast<T>(h.params[kMaxNdim + d]);
-  }
-  a.s0 = static_cast<T>(h.params[2 * kMaxNdim]);
-  a.s1 = static_cast<T>(h.params[2 * kMaxNdim + 1]);
-  frac_args<T>(h, a);
-  return launch_tile<T>(h.family, h.ndim, a, blocks, stream);
+  return launch_tile<T>(h.family, h.ndim, a, h.blocks, stream);
 }
 
 }  // namespace rule
 }  // namespace
 
-// C entry points for ctypes.  Pointers are device pointers except
-// orbit_bounds (10 ints), params (34 doubles: coeffs[16], bounds[16], s0,
-// s1), frac_slots (ndim, 4) int32 and frac_consts (ndim, 5) float64 (the
-// stencil, cuda_rule._frac_tables), which are host arrays copied into the
-// launch's arguments.  ``frac`` null launches the kernel without the cut
-// fraction; else the crease run's kernel writes it into frac (cap,), 0.5
-// in the padding slots, and split_dim the axis a jump overrides.
-// ``kept``, check-only and null on every production path, takes each real
-// region's 4 ndim + 1 collinear values as (cap, 4 ndim + 1) rows (with
-// frac only).  Each returns cudaGetLastError() after its launches (0 on
-// success) and never synchronises.
+// C entry points for ctypes, one a route, with the same arguments.
+// Pointers are device pointers except params (34 doubles: coeffs[16],
+// bounds[16], s0, s1), frac_slots (ndim, 4) int32 and frac_consts (ndim,
+// 5) float64 (the stencil, cuda_rule._frac_tables), which are host arrays
+// copied into the launch's arguments.  ``codes`` and ``lam`` (16,) of the
+// working type: cuda_rule.pack_generators (the tile route its (feval,)
+// codes as uint32, the generic route the (k8,) codes of orbits 0..7 as
+// uint64).  ``tile``: regions per tile; ``blocks``: persistent blocks of
+// 16 warps.  ``frac`` null launches the kernel without the cut fraction;
+// else the crease run's kernel writes it into frac (cap,), 0.5 in the
+// padding slots, and split_dim the axis a jump overrides.  ``kept``,
+// check-only and null on every production path, takes each real region's
+// 4 ndim + 1 collinear values as (cap, 4 ndim + 1) rows (with frac only).
+// Each returns cudaGetLastError() after its launches (0 on success) and
+// never synchronises.
 
-static bool bad_frac_args(const void* frac, const int* frac_slots,
-                          const double* frac_consts, const void* kept) {
-  return (frac != nullptr && (frac_slots == nullptr || frac_consts == nullptr))
+static bool bad_args(int family, int n, int cap, int blocked, int tile,
+                     int blocks, const void* frac, const int* frac_slots,
+                     const double* frac_consts, const void* kept) {
+  return family < 1 || family > kGenerated || n < 0 || n > cap ||
+         tile < 1 || blocks < 1 || (blocked && (n % 2 || cap % 2)) ||
+         (frac != nullptr && (frac_slots == nullptr || frac_consts == nullptr))
          || (kept != nullptr && frac == nullptr);
 }
 
-// The generic route, every ndim 2..16.
-extern "C" int rule_eval_launch(
-    int family, int is_double, int ndim, int feval, int cap, int n,
-    int blocked, const void* lows, const void* lengths, const void* glo,
-    const void* grange, const void* gen, const void* orbit_wts,
-    const void* scale, const void* norm, double ratio,
-    const int* orbit_bounds, const double* params, void* est, void* err,
-    int* split_dim, void* frac, const int* frac_slots,
-    const double* frac_consts, void* kept, void* stream) {
-  if (ndim < 2 || ndim > rule::kMaxNdim || family < 1 ||
-      family > kGenerated || n > cap ||
-      bad_frac_args(frac, frac_slots, frac_consts, kept))
+#define RULE_LAUNCH_ARGS                                                    \
+  int family, int is_double, int ndim, int cap, int n, int blocked,         \
+      const void *lows, const void *lengths, const void *glo,               \
+      const void *grange, const void *codes, const void *lam,               \
+      const void *orbit_wts, const void *scale, const void *norm,           \
+      double ratio, const double *params, int tile, int blocks, void *est,  \
+      void *err, int *split_dim, void *frac, const int *frac_slots,         \
+      const double *frac_consts, void *kept, void *stream
+
+#define RULE_HOST_ARGS                                                      \
+  rule::HostArgs {                                                          \
+    family, ndim, cap, n, blocked, lows, lengths, glo, grange, codes, lam,  \
+        orbit_wts, scale, norm, ratio, params, tile, blocks, est, err,      \
+        split_dim, frac, frac_slots, frac_consts, kept                      \
+  }
+
+// The generic route, every ndim 2..16; ``tile`` at most the class's
+// kTile (cuda_rule.generic_class).
+extern "C" int rule_eval_launch(RULE_LAUNCH_ARGS) {
+  if (ndim < 2 || ndim > rule::kMaxNdim ||
+      bad_args(family, n, cap, blocked, tile, blocks, frac, frac_slots,
+               frac_consts, kept))
     return static_cast<int>(cudaErrorInvalidValue);
-  const rule::HostArgs h{family, ndim,  feval,     cap,   n,    blocked,
-                         lows,   lengths, glo,     grange, gen,  orbit_wts,
-                         scale,  norm,  ratio,     orbit_bounds, params,
-                         est,    err,   split_dim, frac, frac_slots,
-                         frac_consts, kept};
+  const rule::HostArgs h = RULE_HOST_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double ? rule::generic_route<double>(h, s)
                    : rule::generic_route<float>(h, s);
 }
 
-// The tile route, ndim 3..8.  ``codes`` (feval,) uint32 and ``lam``
-// (16,) of the working type: cuda_rule.pack_generators.  ``tile``: regions
-// per tile, a multiple of 4 in 4..32.  ``blocks``: persistent blocks of 16
-// warps.
-extern "C" int rule_eval_tile_launch(
-    int family, int is_double, int ndim, int cap, int n, int blocked,
-    const void* lows, const void* lengths, const void* glo,
-    const void* grange, const void* codes, const void* lam,
-    const void* orbit_wts, const void* scale, const void* norm, double ratio,
-    const double* params, int tile, int blocks, void* est, void* err,
-    int* split_dim, void* frac, const int* frac_slots,
-    const double* frac_consts, void* kept, void* stream) {
-  if (family < 1 || family > kGenerated || n > cap || tile < 4 ||
-      tile > rule::kTile || tile % 4 || blocks < 1 ||
-      (blocked && (n % 2 || cap % 2)) ||
-      bad_frac_args(frac, frac_slots, frac_consts, kept))
+// The tile route, ndim 3..8.  ``tile``: a multiple of 4 in 4..32.
+extern "C" int rule_eval_tile_launch(RULE_LAUNCH_ARGS) {
+  if (tile < 4 || tile > rule::kTile || tile % 4 ||
+      bad_args(family, n, cap, blocked, tile, blocks, frac, frac_slots,
+               frac_consts, kept))
     return static_cast<int>(cudaErrorInvalidValue);
-  const rule::HostArgs h{family, ndim,    0,   cap,    n,       blocked,
-                         lows,   lengths, glo, grange, nullptr, orbit_wts,
-                         scale,  norm,    ratio, nullptr, params,
-                         est,    err,     split_dim, frac, frac_slots,
-                         frac_consts, kept};
+  const rule::HostArgs h = RULE_HOST_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? rule::tile_route<double>(h, codes, lam, tile, blocks, s)
-                   : rule::tile_route<float>(h, codes, lam, tile, blocks, s);
+  return is_double ? rule::tile_route<double>(h, s)
+                   : rule::tile_route<float>(h, s);
 }

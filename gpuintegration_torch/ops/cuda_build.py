@@ -10,7 +10,9 @@ rebuilt and an unchanged one is reused.  A failed build raises.
 its generated header (ops/integrand_gen.py ``emit_cuda``) is written to
 ``build/gen/<digest>.cuh``, never into csrc/ (whose headers every
 library's digest reads), and nvcc pre-includes it.  That library's digest
-also covers the generated header.
+also covers the generated header.  csrc/gen_values.cu, the check of the
+emitted integrand alone, is built the same way into a library of its own,
+only when a check asks for it (``source=GEN_VALUES_SOURCE``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 GEN_SOURCE = "gen_integrand.cu"
+GEN_VALUES_SOURCE = "gen_values.cu"
 GEN_DIR = BUILD_DIR / "gen"
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -61,8 +64,9 @@ def _target(name: str, generated: str = "") -> Path:
     return BUILD_DIR / f"lib{Path(name).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build_many(names, generated=()) -> list[Path]:
-    """Compile csrc/<name> for each name and csrc/gen_integrand.cu for each
+def build_many(names, generated=(), source: str = GEN_SOURCE) -> list[Path]:
+    """Compile csrc/<name> for each name and csrc/<source> (gen_integrand.cu
+    by default) for each
     generated header text in ``generated``, all nvcc processes started
     together, and return the libraries' paths in order (the sources', then
     the generated ones').  nvcc's report (ptxas registers and spills per
@@ -71,9 +75,9 @@ def build_many(names, generated=()) -> list[Path]:
     fails."""
     jobs = [(n, _target(n), ()) for n in names]
     for text in generated:
-        out = _target(GEN_SOURCE, text)
+        out = _target(source, text)
         header = GEN_DIR / f"{out.stem.rsplit('_', 1)[-1]}.cuh"
-        jobs.append((GEN_SOURCE, out, (header, text)))
+        jobs.append((source, out, (header, text)))
     running = []
     t0 = time.perf_counter()
     for name, out, gen in jobs:
@@ -109,23 +113,27 @@ def build_many(names, generated=()) -> list[Path]:
     return [out for _, out, _ in jobs]
 
 
-def build_generated(header: str) -> Path:
-    """Compile csrc/gen_integrand.cu with the generated ``header`` (once per
-    content of the flags, the sources and the header) and return the
-    library.  Raises RuntimeError with nvcc's report if it fails."""
-    return build_many([], [header])[0]
+def build_generated(header: str, source: str = GEN_SOURCE) -> Path:
+    """Compile csrc/<source> (gen_integrand.cu by default) with the
+    generated ``header`` (once per content of the flags, the sources and
+    the header) and return the library.  Raises RuntimeError with nvcc's
+    report if it fails."""
+    return build_many([], [header], source)[0]
 
 
-def load_generated(header: str, configure) -> ctypes.CDLL:
-    """The library of the generated ``header``, built at first use and
-    loaded once; ``configure(lib)`` declares the ctypes signatures of the
-    entry points its caller uses, once for each function ``configure``."""
-    lib = _libs.get(header)
+def load_generated(header: str, configure,
+                   source: str = GEN_SOURCE) -> ctypes.CDLL:
+    """The library of csrc/<source> with the generated ``header``, built at
+    first use and loaded once; ``configure(lib)`` declares the ctypes
+    signatures of the entry points its caller uses, once for each function
+    ``configure``."""
+    key = header if source == GEN_SOURCE else (source, header)
+    lib = _libs.get(key)
     if lib is None:
-        lib = _libs[header] = ctypes.CDLL(str(build_generated(header)))
-    if (header, configure) not in _configured:
+        lib = _libs[key] = ctypes.CDLL(str(build_generated(header, source)))
+    if (key, configure) not in _configured:
         configure(lib)
-        _configured.add((header, configure))
+        _configured.add((key, configure))
     return lib
 
 

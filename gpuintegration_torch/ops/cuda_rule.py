@@ -18,19 +18,26 @@ shape alone (never by catching a failure):
   alone, and a point is then ndim shared-memory reads and multiply-adds.
   Which coordinate each (point, axis) takes is a 4-bit code
   (``pack_generators``), staged once per block.
-* ``'generic'``, every ndim 2..16: one thread block per region that reads
-  the generator table from global memory.  It is also the kernel the tile
-  route is timed against.
+* ``'generic'``, every ndim 2..16: the same ideas where ndim is known at
+  run time only.  Four classes of dimensions (``generic_class``: NMAX 4,
+  8, 12, 16; a traced callable's library its own ndim) unroll the axis
+  loops to NMAX, axes past ndim folding a neutral row; persistent blocks
+  whose warps walk over tiles of consecutive slots (``generic_plan``); a
+  group of 32 lanes a region (8 at NMAX 4, four regions a warp); the
+  region's coordinate table in shared memory; orbits 0-7 from the packed
+  codes, the 2^n corners from the point index (``generic_point_codes``
+  mirrors the decoding); each orbit a strided loop into one running sum
+  (``generic_orbit_bounds``), a lane-parallel epilogue.
 
 What bounds them: for Genz integrands each region reads 2*ndim values and
 writes 3, against feval * (~6*ndim + 3) f64 (or f32) operations, so the
-kernels are bound by arithmetic, never by memory.  The tile route spends
-ndim multiply-adds and the family's finish per point on the f64/f32 pipe
-(in f64 an exp of some 19 f64 instructions for F4-F6, which the bound counts
-as one operation; tools/sass_report.py reads the count from the machine
-code); the generic route spends most of its scheduler slots on loads,
-address arithmetic and the search for a point's orbit.  No tensor cores, no
-TF32: the null-rule sums cancel.
+kernels are bound by arithmetic, never by memory.  Both routes spend one
+byte extraction, one shared-memory read and one multiply-add per (point,
+axis) and the family's finish per point (in f64 an exp of some 19 f64
+instructions for F4-F6, which the bound counts as one operation;
+tools/sass_report.py reads the count from the machine code); the generic
+route folds NMAX axes, not ndim.  No tensor cores, no TF32: the null-rule
+sums cancel.
 
 Both know the integrand as a Genz family id (F1..F6) and its parameters
 (models.genz.GenzIntegrand), or as a traced per-axis callable
@@ -79,6 +86,8 @@ to 0, and ``route_launches`` the same per route (``generated_launches``
 those of traced callables among them); ``split_launches`` counts
 the split route's two kernels, ``'points'`` and ``'contract'``,
 ``split_frac_launches`` the standalone split fraction kernel's,
+``generated_value_launches`` the check-only kernel of a traced callable's
+values alone (``generated_values``),
 ``frac_route_launches`` the folded forms' launches, by the kernel that
 computed the fraction (``FRAC_ROUTES``: ``'tile'``, ``'generic'``,
 ``'cluster'``, ``'contract_generic'``), and
@@ -115,6 +124,10 @@ TILE_NDIMS = (3, 4, 5, 6, 7, 8)
 TILE_WARPS = 16                 # warps of a persistent block, one per SM
 MAX_TILE = 32                   # regions of a tile: one per lane
 CODE_BITS = 4                   # bits of a (point, axis) code
+# The generic route's classes of dimensions (csrc/rule_eval.cuh
+# GenericClass): NMAX, lanes a region, most regions a tile.
+GENERIC_WARPS = 16
+GENERIC_NMAX = (4, 8, 12, 16)
 # The contraction's cluster route (csrc/rule_split.cu).  Its stage size,
 # ring and launch width were read off the H100 (PERF.md): bulk copies
 # of 1 KB a region's segment or more, two 32 KB stages a CTA so that two
@@ -157,6 +170,7 @@ CONTRACT_FRAC_ROUTE = {"cluster": "cluster", "generic": "contract_generic"}
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
 generated_launches = {r: 0 for r in ROUTES}   # a traced callable's, by route
+generated_value_launches = 0    # the check-only generated values kernel's
 split_launches = {"points": 0, "contract": 0}
 split_frac_launches = 0         # the standalone split fraction kernel's
 frac_route_launches = {r: 0 for r in FRAC_ROUTES}
@@ -164,8 +178,8 @@ contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + VECTOR_ROUTES}
 
 
 def reset_launches():
-    global launches, split_frac_launches
-    launches = split_frac_launches = 0
+    global launches, split_frac_launches, generated_value_launches
+    launches = split_frac_launches = generated_value_launches = 0
     for counts in (route_launches, generated_launches, split_launches,
                    contract_route_launches, frac_route_launches):
         for k in counts:
@@ -180,16 +194,12 @@ def build() -> Path:
 
 
 def _configure(lib):
-    fn = lib.rule_eval_launch
-    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
-                   + [ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_void_p] * 8)
-    fn.restype = ctypes.c_int
-    fn = lib.rule_eval_tile_launch
-    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 9
-                   + [ctypes.c_double, ctypes.c_void_p]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8)
-    fn.restype = ctypes.c_int
+    # both routes' entry points take the same arguments
+    for fn in (lib.rule_eval_launch, lib.rule_eval_tile_launch):
+        fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 9
+                       + [ctypes.c_double, ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8)
+        fn.restype = ctypes.c_int
 
 
 def _configure_split(lib):
@@ -348,6 +358,78 @@ def tile_slots(cap: int, n: int, blocked: bool, tile: int):
     return out
 
 
+def generic_class(ndim: int, nmax: int | None = None
+                  ) -> tuple[int, int, int]:
+    """(NMAX, lanes a region, most regions a tile) of the generic kernel
+    that takes ``ndim``: a Genz family's class (``GENERIC_NMAX``), or the
+    class ``nmax`` (a traced callable's library: its own ndim).  32 lanes
+    a region, 8 at NMAX <= 4; tiles of 32 regions up to NMAX 8, 16 up to
+    12, else 8 (the block's shared memory: csrc/rule_eval.cuh
+    GenericLayout)."""
+    if nmax is None:
+        nmax = next(c for c in GENERIC_NMAX if ndim <= c)
+    return (nmax, 8 if nmax <= 4 else 32,
+            32 if nmax <= 8 else 16 if nmax <= 12 else 8)
+
+
+def generic_plan(ndim: int, n: int, blocked: bool, sm_count: int,
+                 nmax: int | None = None) -> tuple[int, int]:
+    """(regions per tile, persistent blocks) of the generic kernel for
+    ``n`` real regions on a card of ``sm_count`` SMs: a tile at most the
+    class's and smaller, in steps of a warp's regions at once, where the
+    pool has too few regions to give every warp of the card a full one."""
+    _, group, most = generic_class(ndim, nmax)
+    step = 32 // group
+    workers = sm_count * GENERIC_WARPS
+    tile = min(most, max(step, step * -(-n // (step * workers))))
+    parts = 2 if blocked else 1
+    tiles = parts * -(-(n // parts) // tile)
+    return tile, max(1, min(sm_count, -(-tiles // GENERIC_WARPS)))
+
+
+def generic_orbit_bounds(ndim: int) -> tuple[int, ...]:
+    """The generic kernel's segments of the point list, as it computes them
+    from ndim: (0, 8n + 1, k6, k7, k8, feval): points 0..8n (the centre and
+    orbits 1-4, kept), orbits 5, 6, 7, then the 2^n corners."""
+    n = ndim
+    k5 = 8 * n + 1
+    k6 = k5 + 2 * n * (n - 1)
+    k7 = k6 + 4 * n * (n - 1)
+    k8 = k7 + 4 * n * (n - 1) * (n - 2) // 3
+    return (0, k5, k6, k7, k8, k8 + (1 << n))
+
+
+def generic_point_codes(ndim: int, nmax: int | None = None) -> np.ndarray:
+    """(feval, ndim) generator codes (indices into ``pack_generators``'
+    lam) of every rule point as the generic kernel decodes them: points of
+    orbits 0-7 from the packed codes, corner k = it * G + lane from two
+    words, the high axes' from ``it``'s bits and the low axes' from the
+    lane's (G the class's lanes a region; axis d is -lambda_5, code 10,
+    where bit n-1-d of k is set, else code 5)."""
+    codes, _ = pack_generators(ndim)
+    k8 = generic_orbit_bounds(ndim)[4]
+    shifts = (CODE_BITS * np.arange(ndim, dtype=np.uint64))[None, :]
+    table = ((codes[:k8, None] >> shifts)
+             & np.uint64((1 << CODE_BITS) - 1)).astype(np.int64)
+    _, group, _ = generic_class(ndim, nmax)
+    lane_axes = min(group.bit_length() - 1, ndim)
+    high = ndim - lane_axes
+
+    def word(bits: int, d0: int, count: int) -> np.ndarray:
+        w = np.zeros(ndim, dtype=np.int64)
+        for i in range(count):
+            w[d0 + i] = 10 if (bits >> (count - 1 - i)) & 1 else 5
+        return w
+
+    corners = np.zeros((1 << ndim, ndim), dtype=np.int64)
+    for it in range(1 << high):
+        for lane in range(1 << lane_axes):
+            corners[(it << lane_axes) + lane] = (word(it, 0, high)
+                                                 | word(lane, high,
+                                                        lane_axes))
+    return np.concatenate([table, corners])
+
+
 @functools.lru_cache(maxsize=None)
 def _tile_tables(ndim: int, dtype: torch.dtype, device: torch.device):
     """(codes (feval,) int32 bit patterns, lam (16,)) on the device.  The
@@ -355,6 +437,17 @@ def _tile_tables(ndim: int, dtype: torch.dtype, device: torch.device):
     codes, lam = pack_generators(ndim)
     return (torch.as_tensor(codes.astype(np.uint32).view(np.int32),
                             device=device),
+            torch.as_tensor(lam, dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _generic_tables(ndim: int, dtype: torch.dtype, device: torch.device):
+    """(codes of orbits 0-7 (k8,) int64 bit patterns, lam (16,)) on the
+    device: the generic kernel spreads the codes to byte offsets once a
+    block and decodes the corners from the point index."""
+    codes, lam = pack_generators(ndim)
+    k8 = generic_orbit_bounds(ndim)[4]
+    return (torch.as_tensor(codes[:k8].view(np.int64), device=device),
             torch.as_tensor(lam, dtype=dtype, device=device))
 
 
@@ -408,28 +501,24 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     lib = (cuda_build.load_generated(integrand_gen.header(integrand.program),
                                      _configure) if generated
            else cuda_build.load(_SOURCE, _configure))
-    is_double = int(dtype == torch.float64)
+    sm_count = torch.cuda.get_device_properties(
+        lows.device).multi_processor_count
     if route == "tile":
         codes, lam = _tile_tables(ndim, dtype, lows.device)
-        tile, blocks = tile_plan(n, blocked, torch.cuda.get_device_properties(
-            lows.device).multi_processor_count)
-        rc = lib.rule_eval_tile_launch(
-            kind, is_double, ndim, cap, n, int(bool(blocked)),
-            lows.data_ptr(), lengths.data_ptr(), global_lo.data_ptr(),
-            global_range.data_ptr(), codes.data_ptr(), lam.data_ptr(),
-            orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
-            float(tables.ratio), hp, tile, blocks, est.data_ptr(),
-            err.data_ptr(), sdim.data_ptr(), *crease[1:], stream)
+        tile, blocks = tile_plan(n, blocked, sm_count)
+        launch = lib.rule_eval_tile_launch
     else:
-        gen_t = _gen_dims_major(ndim, dtype, lows.device)
-        ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
-        rc = lib.rule_eval_launch(
-            kind, is_double, ndim, tables.feval, cap, n, int(bool(blocked)),
-            lows.data_ptr(), lengths.data_ptr(), global_lo.data_ptr(),
-            global_range.data_ptr(), gen_t.data_ptr(), orbit_wts.data_ptr(),
-            scale.data_ptr(), norm.data_ptr(), float(tables.ratio),
-            ctypes.cast(ob, ctypes.c_void_p), hp, est.data_ptr(),
-            err.data_ptr(), sdim.data_ptr(), *crease[1:], stream)
+        codes, lam = _generic_tables(ndim, dtype, lows.device)
+        tile, blocks = generic_plan(ndim, n, blocked, sm_count,
+                                    ndim if generated else None)
+        launch = lib.rule_eval_launch
+    rc = launch(
+        kind, int(dtype == torch.float64), ndim, cap, n, int(bool(blocked)),
+        lows.data_ptr(), lengths.data_ptr(), global_lo.data_ptr(),
+        global_range.data_ptr(), codes.data_ptr(), lam.data_ptr(),
+        orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
+        float(tables.ratio), hp, tile, blocks, est.data_ptr(),
+        err.data_ptr(), sdim.data_ptr(), *crease[1:], stream)
     if rc != 0:
         raise RuntimeError(f"CUDA rule kernel ({route} route) launch failed: "
                            f"error {rc}")
@@ -441,6 +530,47 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
         return est, err, sdim
     frac_route_launches[route] += 1
     return est, err, sdim, crease[0]
+
+
+def _configure_values(lib):
+    fn = lib.gen_values_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+
+
+def generated_values(integrand, x):
+    """A traced callable's values at the points ``x`` (ndim, N), planes of
+    coordinates: on CUDA tensors one launch of ``gen_values_kernel``
+    (csrc/gen_values.cu: the emitted ``gen_integrand`` alone, a check-only
+    library built at this first use), counted
+    in ``generated_value_launches``; on CPU tensors its plain version,
+    ``integrand_gen.evaluate``.  The check that the emitted header rounds
+    as the callable's own PyTorch calls do; no path launches it."""
+    global generated_value_launches
+    if not is_generated(integrand):
+        raise ValueError("generated_values takes a traced callable "
+                         "(integrand_gen.traced)")
+    ndim = integrand.ndim
+    if x.dim() != 2 or x.shape[0] != ndim or x.shape[1] < 1:
+        raise ValueError(f"points: need ({ndim}, N >= 1) coordinate "
+                         f"planes, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return integrand_gen.evaluate(integrand.program, x.unbind(0))
+    if x.dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"dtype {x.dtype} (float64 or float32)")
+    x = x.contiguous()
+    out = torch.empty(x.shape[1], dtype=x.dtype, device=x.device)
+    lib = cuda_build.load_generated(integrand_gen.header(integrand.program),
+                                    _configure_values,
+                                    cuda_build.GEN_VALUES_SOURCE)
+    rc = lib.gen_values_launch(
+        int(x.dtype == torch.float64), x.shape[1], x.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA generated values kernel launch failed: "
+                           f"error {rc}")
+    generated_value_launches += 1
+    return out
 
 
 def _fused_frac_args(ndim, cap, lows, with_split_frac, kept):
@@ -1028,12 +1158,3 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
                              cap, n, blocked, first, count, *out,
                              route=route)
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _gen_dims_major(ndim: int, dtype: torch.dtype, device: torch.device):
-    """(ndim, feval) generator table of the generic route, so neighbouring
-    threads read neighbouring points."""
-    t = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
-    return torch.as_tensor(np.ascontiguousarray(t.gen[:t.feval].T),
-                           device=device)

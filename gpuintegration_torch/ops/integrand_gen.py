@@ -31,10 +31,15 @@ integrand's expression is generated, at first use (ops/cuda_build.py
   with in each type (a Python number meeting a float32 tensor is rounded to
   float32 first).  Products, sums and differences take the
   round-to-nearest intrinsics (csrc/gen_integrand.cuh), so nvcc forms no
-  multiply-add that PyTorch's separate kernels do not.  A division by a
-  constant multiplies by the constant's reciprocal, as PyTorch's CUDA
-  kernel does with a host scalar; ``c / x`` is ``reciprocal(x) * c``, as
-  ``Tensor.__rtruediv__`` computes it; ``x ** 2`` is a product.
+  multiply-add that PyTorch's separate kernels do not.  A division takes
+  the form PyTorch's CUDA kernels give the call the step came from
+  (``Step.call``): by a number or a 0-d tensor on the CPU (a host scalar)
+  it multiplies by the scalar's reciprocal; by a 0-d tensor on the card it
+  divides; Python's ``number / x`` is ``Tensor.__rtruediv__``,
+  ``reciprocal(x) * number``; ``torch.div(c, x)``, ``torch.true_divide(c,
+  x)`` and ``c / x`` with ``c`` a 0-d tensor divide.  ``x ** e`` takes the
+  kernel PyTorch's pow sends e to: 2 and 3 products, 0.5 ``sqrt``, -0.5
+  ``rsqrt``, -1 and -2 reciprocals.
 """
 from __future__ import annotations
 
@@ -360,9 +365,10 @@ def emit_cuda(program: Program) -> str:
         kind = "bool" if s.op in COMPARE else "T"
         if s.op in _CMP:
             expr = f"({a[0]} {_CMP[s.op]} {a[1]})"
-        elif s.op == "div" and s.args[0].kind == "c":
+        elif s.op == "div" and _number_over(s, program):
             expr = f"gen_mul(gen_recip({a[1]}), {a[0]})"
-        elif s.op == "div" and s.args[1].kind == "c":
+        elif s.op == "div" and s.args[1].kind == "c" and _host_scalar(
+                program.consts[s.args[1].index]):
             expr = f"gen_mul({a[0]}, {_recip_literal(consts[s.args[1].index])})"
         elif s.op in BINARY:
             expr = f"gen_{s.op}({a[0]}, {a[1]})"
@@ -393,6 +399,23 @@ def emit_cuda(program: Program) -> str:
         "}\n")
 
 
+def _number_over(step: Step, program: Program) -> bool:
+    """Whether a ``div`` step is Python's ``number / x``: the operator with
+    a number (not a tensor) as numerator, which ``Tensor.__rtruediv__``
+    computes as ``reciprocal(x) * number``.  ``torch.div``,
+    ``torch.true_divide`` and a 0-d tensor numerator divide."""
+    num = step.args[0]
+    return (step.call == ("function", operator.truediv) and num.kind == "c"
+            and not isinstance(program.consts[num.index], torch.Tensor))
+
+
+def _host_scalar(c) -> bool:
+    """Whether PyTorch's CUDA kernels take the constant ``c`` as a host
+    scalar (a number, or a 0-d tensor on the CPU), by whose reciprocal a
+    division multiplies; a 0-d tensor on the card is divided by."""
+    return not isinstance(c, torch.Tensor) or c.device.type == "cpu"
+
+
 def _pow(a: str, e: float) -> str:
     """x ** e as PyTorch's CUDA kernel computes it for a number exponent."""
     if e == 2.0:
@@ -401,6 +424,8 @@ def _pow(a: str, e: float) -> str:
         return f"gen_mul(gen_mul({a}, {a}), {a})"
     if e == 0.5:
         return f"gen_sqrt({a})"
+    if e == -0.5:
+        return f"gen_rsqrt({a})"
     if e == -1.0:
         return f"gen_recip({a})"
     if e == -2.0:

@@ -9,7 +9,10 @@ type:
 * each value f_p = f(x_p) is uncertain by a few ulps of
   ``u_p = |f_p| + sum_d |df/dx_d| (|c_d| + |g_pd l_d|)`` (the coordinate
   x_pd = c_d - g_pd l_d is rounded, and f can amplify that: F4's
-  exponent is 2 a^2 |x - u| |x| ~ 600 times more sensitive than f);
+  exponent is 2 a^2 |x - u| |x| ~ 600 times more sensitive than f); the
+  derivative comes from autograd in the working type, and from an f64
+  pass where that backward over- or underflows (F2 in f32 from 9D on),
+  u_p and the scales below then in f64;
 * estimate: ``s_est = vol * jacobian * sum_p |w0_p| u_p``, the rounding
   bound of the degree-7 sum;
 * errorest: ``s_err = 5 max_r s_r`` with ``s_r = vol * jacobian * max_s
@@ -102,7 +105,20 @@ def _points_values_scales(integrand, tables: rule_eval.RuleTables, lows,
     size = (center_g.T.abs()[:, None, :]
             + (gen[None, :, :] * len_g.T[:, None, :]).abs())
     vals = vals.detach()
-    return (x.detach(), size, vals,
+    bad = ~torch.isfinite(grad)
+    if lows.dtype != torch.float64 and bool(bad.any()):
+        # the working type's backward can over- or underflow in an
+        # intermediate where the derivative is finite (F2's 1 / prod
+        # squares a prod of ~1e-25 from 9D on in f32), and the derivative
+        # itself can pass the type's largest value: those entries from an
+        # f64 pass at the same points, and u_p in f64, so that it stays
+        # finite wherever the value is
+        x64 = x.detach().double().requires_grad_(True)
+        with torch.enable_grad():
+            (g64,) = torch.autograd.grad(batched(x64).double().sum(), x64)
+        grad = torch.where(bad, g64, grad.double())
+        size = size.double()
+    return (x.detach(), size.to(lows.dtype), vals,
             vals.abs() + (grad.abs() * size).sum(dim=-1))
 
 

@@ -35,12 +35,18 @@ _BOOL = {"0": "false", "1": "true"}
 def kernel_name(mangled: str) -> str:
     """A readable name of rule_eval.cu's, rule_split.cu's and the VEGAS
     sources' kernels (their template arguments spelt out), fill_padding's
-    too, else the mangled one."""
+    too, else the mangled one; an older checkout's generic rule kernel
+    (``rule_kernel``) too."""
     m = re.search(r"rule_tile_kernelILi(\d)E([df])Li(\d+)E(?:Lb([01])E)?",
                   mangled)
     if m:
         tail = f", {_BOOL[m[4]]}" if m[4] else ""
         return (f"rule_tile_kernel<{m[1]}, {_TYPES[m[2]]}, {m[3]}{tail}>")
+    m = re.search(r"rule_generic_kernelILi(\d)E([df])Li(\d+)E", mangled)
+    if m:
+        return f"rule_generic_kernel<{m[1]}, {_TYPES[m[2]]}, {m[3]}>"
+    # the generic route's kernel before its classes of dimensions, as an
+    # older checkout's report names it
     m = re.search(r"rule_kernelILi(\d)E([df])(?:Lb([01])E)?", mangled)
     if m:
         tail = f", {_BOOL[m[3]]}" if m[3] else ""

@@ -31,8 +31,9 @@ from gpuintegration_torch.ops import cuda_build
 
 SOURCES = ("rule_eval.cu", "vegas_sample.cu", "vegas_lookup.cu")
 DEFAULT_PATTERNS = (
-    "rule_tile_kernel<4, double, 8>", "rule_kernel<4, double>",
-    "rule_tile_kernel<4, float, 8>", "rule_kernel<4, float>",
+    "rule_tile_kernel<4, double, 8>", "rule_generic_kernel<4, double, 8>",
+    "rule_generic_kernel<4, double, 12>", "rule_tile_kernel<4, float, 8>",
+    "rule_generic_kernel<4, float, 8>",
     "sample_pair_kernel<4, 6>", "sample_kernel<4>",
     "sample_pair_kernel<0, 6>", "sample_kernel<0>",
     "hist_grouped_kernel<6, float>", "hist_kernel",

@@ -56,12 +56,13 @@ def _pool(ndim, cap, dtype, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("ndim,route", [(3, "tile"), (3, "generic"),
-                                        (9, "generic")])
+                                        (9, "generic"), (12, "generic")])
 def test_generated_rule_kernel_against_plain(ndim, route, dtype):
     dev = _card()
     t = integrand_gen.traced(gauss(ndim, 9.0), ndim)
     tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
-    lows, lengths, n = _pool(ndim, 4096 if ndim == 3 else 512, dtype, dev)
+    lows, lengths, n = _pool(ndim, {3: 4096, 9: 512, 12: 4096}[ndim], dtype,
+                             dev)
     gl = torch.zeros(ndim, dtype=dtype, device=dev)
     gr = torch.ones(ndim, dtype=dtype, device=dev)
     cuda_rule.reset_launches()
@@ -72,6 +73,35 @@ def test_generated_rule_kernel_against_plain(ndim, route, dtype):
     with pytest.raises(ValueError, match="crease"):
         cuda_rule.cuda_apply_rule(t, tables, lows, lengths, gl, gr,
                                   with_split_frac=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_emitted_forms_round_as_pytorch_on_card(dtype):
+    """The generated values of a program of every division and power form
+    (``chip_smoke.rounding_forms``; ``cuda_rule.generated_values``, the
+    emitted gen_integrand alone) equal the callable's own PyTorch calls on
+    the card (``evaluate``) bit for bit, on 2^16 points of (0.05, 2)^3."""
+    import chip_smoke
+    dev = _card()
+    c_card = torch.tensor(1.3, dtype=torch.float64, device=dev)
+    t = integrand_gen.traced(chip_smoke.rounding_forms(c_card), 3,
+                             "rounding_forms")
+    header = integrand_gen.emit_cuda(t.program)
+    assert "gen_rsqrt(" in header and "gen_div(" in header
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = (0.05 + 1.95 * torch.rand((3, 1 << 16), generator=g,
+                                  dtype=torch.float64)).to(dtype).to(dev)
+    cuda_rule.reset_launches()
+    got = cuda_rule.generated_values(t, x)
+    want = integrand_gen.evaluate(t.program, x.unbind(0))
+    torch.cuda.synchronize()
+    assert cuda_rule.generated_value_launches == 1
+    assert got.dtype == want.dtype == dtype
+    differ = int((got.view(torch.uint8).view(-1, got.element_size())
+                  != want.view(torch.uint8).view(-1, got.element_size()))
+                 .any(1).sum())
+    assert differ == 0, f"{differ} of {got.numel()} values differ"
 
 
 @pytest.mark.gpu

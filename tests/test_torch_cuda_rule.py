@@ -11,6 +11,7 @@ import torch
 
 from gpuintegration_torch.models import genz
 from gpuintegration_torch.ops import cuda_rule, kernel_check, rule_eval
+from gpuintegration_torch.pagani import region_pool
 
 
 def _pool(ndim, cap, seed):
@@ -71,22 +72,65 @@ def test_both_routes_match_plain_and_each_other_on_card(ndim, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ndim", [2, 9, 10])
-def test_generic_route_takes_the_other_dimensions_on_card(ndim):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [2, 9, 10, 12, 16])
+def test_generic_route_takes_the_other_dimensions_on_card(ndim, dtype):
     """A dimension outside the tile route's set goes through the generic
-    kernel, is counted there, and naming the tile route raises."""
-    cap = 512
-    t = _card_pool(ndim, cap, torch.float64)
-    tables = rule_eval.rule_tables(ndim, "float64")
+    kernel (each of its classes of dimensions), every family within
+    kernel_check's limits, is counted there, and naming the tile route
+    raises.  16D on a small pool (71585 points a region)."""
+    cap, n = (64, 48) if ndim == 16 else (512, 400)
+    t = _card_pool(ndim, cap, dtype)
+    tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
     assert cuda_rule.rule_route(ndim) == "generic"
     cuda_rule.reset_launches()
     for g in genz.genz_suite(ndim):
-        kernel_check.check_against_plain(g, tables, *t, n=400, blocked=True,
+        kernel_check.check_against_plain(g, tables, *t, n=n, blocked=True,
                                          min_agree=0.0)
     assert cuda_rule.route_launches == {"tile": 0, "generic": 6}
     with pytest.raises(ValueError, match="does not take ndim"):
         cuda_rule.cuda_apply_rule(genz.f4_gaussian(ndim), tables, *t,
                                   route="tile")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [2, 3, 9, 12, 16])
+def test_generic_route_blocked_nan_and_fraction_on_card(ndim, dtype):
+    """The generic kernel on a blocked pool with padding slots (est = err
+    = 0, split_dim 0 there) holding a NaN region (NaN estimate, the plain
+    version's split axis) and a region where F4 underflows (no positive
+    fourth difference: the widest axis): within kernel_check's limits,
+    the same bits from two launches, and its crease form
+    (check_fused_frac: est and err the bits without the fraction, the
+    fraction and split axis EQUAL to the plain version on the collinear
+    values it writes out, padding 0.5) on F5 and F6."""
+    cap, n = (32, 20) if ndim == 16 else (256, 200)
+    lows, lengths, gl, gr = _card_pool(ndim, cap, dtype, seed=4)
+    lows[ndim - 1, 3] = float("nan")
+    lows[:, cap // 2 + 1] = 40.0
+    tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+    g = genz.f4_gaussian(ndim)
+    pool = (lows, lengths, gl, gr)
+    a, b = (cuda_rule.cuda_apply_rule(g, tables, *pool, n=n, blocked=True,
+                                      route="generic") for _ in range(2))
+    plain = rule_eval.apply_rule_plain(g, tables, *pool, n=n, blocked=True)
+    for x, y in zip(a, b):
+        assert kernel_check.same_bits(x, y)
+    assert torch.isnan(a[0][3]) and torch.isnan(plain[0][3])
+    assert int(a[2][3]) == int(plain[2][3])
+    far = cap // 2 + 1
+    assert float(a[0][far]) == 0.0 and int(a[2][far]) == int(plain[2][far])
+    pad = ~region_pool.block_mask(cap, n, True, lows.device)
+    assert not bool(a[0][pad].any() | a[1][pad].any() | a[2][pad].any())
+    lows[ndim - 1, 3] = 0.25        # the plain version's scales need values
+    lows[:, far] = 0.25
+    kernel_check.check_against_plain(g, tables, *pool, n=n, blocked=True,
+                                     min_agree=0.0, route="generic")
+    for f in (genz.f5_c0_continuous(ndim), genz.f6_discontinuous(ndim)):
+        r = kernel_check.check_fused_frac(f, tables, *pool, n=n,
+                                          blocked=True, route="generic")
+        assert r["regions"] == n
 
 
 @pytest.mark.gpu
