@@ -601,6 +601,13 @@ def compare(label, *args, **kw):
 
 VEGAS_NDIM = 6
 VEGAS_CHUNK = 1 << 20
+# (ndim, ncall, chunk, degree) where phase 5 holds the sampler's routes
+# redesigned for 1D, 2D and 9..16D: the 9D case the generic route took
+# before them, and ncall 1e9 at each dimension on chunks of its run's shape
+# (12D: npg 4; 16D: npg 23, 8 lanes a cube)
+NEW_ROUTE_CASES = [(9, 4e6, 1 << 18, 8), (1, 1e9, 1 << 18, 14),
+                   (2, 1e9, 1 << 18, 14), (9, 1e9, 1 << 18, 14),
+                   (12, 1e9, 1 << 16, 14), (16, 1e9, 1 << 15, 14)]
 # VEGAS run 3's estimate as this script printed it on an NVIDIA H100 80GB
 # HBM3 at commit 756fd3a, when the lookups had only their generic routes
 GENERIC_RUN3_ESTIMATE = 1.2700805996066006e-07
@@ -667,15 +674,15 @@ def vegas_checks(dev):
                         f"{k[:-5]} {v:.3g} (limit "
                         f"{vegas_check.ULPS[k[:-5]]:g})"
                         for k, v in r.items() if k[:-5] in vegas_check.ULPS)
-                    between = ", ".join(f"{k[:-5]} {v:.3g}"
-                                        for k, v in rr.items()
-                                        if k.endswith("_ulps"))
+                    equal = ", ".join(k[:-6] for k in rr
+                                      if k.endswith("_equal"))
+                    sums = (f"; sums {rr['sums_ulps']:.3g} f64 ulps apart"
+                            if "sums_ulps" in rr else "")
                     print(f"phase 5: sampler {what}hist={with_hist} rng={rng} "
                           f"chunk at the {position}: {r['samples']} samples"
                           f"{', bin ids equal' if with_hist else ''}; in ulps "
                           f"of the rounding scale: {readings}; paired vs "
-                          f"generic route, ulps of the value: {between}",
-                          flush=True)
+                          f"generic route: {equal} EQUAL{sums}", flush=True)
                     err["vegas_sample"] = max(err["vegas_sample"],
                                               r.get("max_abs_x", 0.0))
         try:
@@ -718,24 +725,49 @@ def vegas_checks(dev):
             if not w["kernel_f2_ulps"] <= vegas_check.ULPS["f2"]:
                 fail(f"witness: the kernel's f2 lies {w['kernel_f2_ulps']} "
                      "ulps from the f64 evaluation")
-    # the generic route at a shape the paired one does not take
-    case9 = vegas_check.sampler_case(9, 4e6, 1 << 18, nbins=100, degree=8,
-                                     device=dev)
-    if cuda_vegas.sampler_route(9, case9["pmap"].kp,
-                                case9["pmap"].kq) != "generic":
-        fail("a 9D map should take the sampler's generic route")
-    for integrand in (None, genz.f4_gaussian(9)):
-        try:
-            r = vegas_check.check_sampler(case9, integrand, with_hist=True,
-                                          rng="device")
-        except AssertionError as e:
-            fail(str(e))
-        readings = ", ".join(f"{k[:-5]} {v:.3g}" for k, v in r.items()
-                             if k.endswith("_ulps"))
-        print(f"phase 5: generic route, 9D degree 8, "
-              f"{'emit' if integrand is None else 'fused F4'}: "
-              f"{r['samples']} samples, bin ids equal; ulps: {readings}",
-              flush=True)
+    # the routes redesigned for 1D, 2D and 9..16D, each against the plain
+    # version and the generic route, and the generic route by name
+    for ndim, ncall, chunk, degree in NEW_ROUTE_CASES:
+        case = vegas_check.sampler_case(ndim, ncall, chunk, degree=degree,
+                                        position="end", device=dev)
+        pmap = case["pmap"]
+        want = "paired" if ndim <= 2 else "wide"
+        if cuda_vegas.sampler_route(ndim, pmap.kp, pmap.kq) != want:
+            fail(f"a {ndim}D map should take the sampler's {want} route")
+        for integrand in (None, genz.f4_gaussian(ndim)):
+            # the weights held to their f64 evaluation: at 1D and 2D the
+            # plain version's own roundings reach the limit (PERF.md)
+            witness = {"weight_witness": True} if integrand is None else {}
+            try:
+                r = vegas_check.check_sampler(case, integrand, with_hist=True,
+                                              rng="device", **witness)
+                g = vegas_check.check_sampler(case, integrand, with_hist=True,
+                                              rng="device", route="generic",
+                                              **witness)
+                rr = vegas_check.check_sampler_routes(
+                    case, integrand, with_hist=True, rng="input")
+            except AssertionError as e:
+                fail(f"{ndim}D: {e}")
+            readings = ", ".join(f"{k[:-5]} {v:.3g}" for k, v in r.items()
+                                 if k.endswith("_ulps"))
+            generic = ", ".join(f"{k[:-5]} {v:.3g}" for k, v in g.items()
+                                if k.endswith("_ulps"))
+            sums = (f"; sums {rr['sums_ulps']:.3g} f64 ulps apart"
+                    if "sums_ulps" in rr else "")
+            lanes = (cuda_vegas.wide_lanes(case["chunk_cubes"], case["npg"],
+                                           integrand is None)
+                     if want == "wide" else 1)
+            print(f"phase 5: {want} route, {ndim}D ncall {ncall:g} degree "
+                  f"{degree}, {case['chunk_cubes']} cubes of {case['npg']} "
+                  f"(lanes {lanes}), "
+                  f"{'emit' if integrand is None else 'fused F4'}, the chunk "
+                  f"past the lattice's end: {r['samples']} samples, bin ids "
+                  f"equal; ulps against the plain version: {readings} "
+                  f"(generic route by name: {generic}); against the generic "
+                  f"route coordinates, weights, bin ids and f^2 EQUAL{sums}",
+                  flush=True)
+            err["vegas_sample"] = max(err["vegas_sample"],
+                                      r.get("max_abs_x", 0.0))
     n = VEGAS_CHUNK * 2
     for nbins in (500, 50):
         try:
@@ -797,6 +829,27 @@ def vegas_checks(dev):
             err["vegas_hist"] = max(err["vegas_hist"],
                                     hr["grouped"]["max_abs"],
                                     hr["generic"]["max_abs"])
+    # the grouped histogram at 9..16D
+    for ndim in (9, 12, 16):
+        try:
+            hr = vegas_check.check_hist_routes(ndim, VEGAS_CHUNK * 2, 500,
+                                               device=dev)
+        except AssertionError as exc:
+            fail(str(exc))
+        if hr["routes"] != ["grouped", "generic"]:
+            fail(f"{ndim}D, 500 bins: the histogram should take both routes, "
+                 f"got {hr['routes']}")
+        print(f"phase 5: histogram {ndim}D, 500 bins, {VEGAS_CHUNK * 2} "
+              f"samples: grouped route max rel {hr['grouped']['max_rel']:.3g}"
+              f", accumulating {hr['grouped']['accum_max_rel']:.3g}; generic "
+              f"{hr['generic']['max_rel']:.3g}, "
+              f"{hr['generic']['accum_max_rel']:.3g} (limit "
+              f"{vegas_check.HIST_RTOL:g}); between the routes "
+              f"{hr['between_routes_max_rel']:.3g}; each route twice the same "
+              f"bits; {cuda_lookup.hist_plan(VEGAS_CHUNK * 2, ndim, 500)[1]} "
+              f"clusters, the card holds "
+              f"{cuda_lookup.hist_clusters_on_card(ndim, 500)}", flush=True)
+        err["vegas_hist"] = max(err["vegas_hist"], hr["grouped"]["max_abs"])
     return err
 
 
@@ -1211,6 +1264,227 @@ def vegas_times(dev, err, launches, walls):
               f"the {walls[run]:.3f} s wall = {100 * busy / walls[run]:.1f}%",
               flush=True)
     return entries
+
+
+# The shapes at which phase 7 times the sampler's routes redesigned for 1D,
+# 2D and 9..16D, (ndim, cubes) at ncall 1e9: about 2^21 samples (phase 7's
+# chunk) and, where it differs, the chunk a run at ncall 1e9 takes (12D:
+# 2^18 cubes of 4 samples; 16D: 2^15 of 23)
+NEW_ROUTE_TIMES = [(1, 1 << 20), (2, 1 << 20), (9, 1 << 20), (12, 1 << 19),
+                   (12, 1 << 18), (16, 91181), (16, 1 << 15)]
+
+
+def new_route_times(dev):
+    """Phase 7 (2): the sampler's paired route at 1D and 2D and wide route
+    at 9..16D, and the grouped histogram at 9..16D, each in turns with the
+    generic route (new, generic, generic, new; best of 5 series), its
+    plain version, its bound and, for the histogram, torch.bincount per
+    dimension with the add and the clamp.  Returns {'sampler': rows,
+    'hist': rows}."""
+    out = {"sampler": [], "hist": []}
+    nbins = 500
+    for ndim, cubes in NEW_ROUTE_TIMES:
+        case = vegas_check.sampler_case(ndim, 1e9, cubes, position="middle",
+                                        device=dev)
+        pmap, npg = case["pmap"], case["npg"]
+        n = case["chunk_cubes"] * npg
+        tail = (case["xjac"], case["cube0"], case["ncubes"], 0, 1)
+        route = "paired" if ndim <= 2 else "wide"
+        g4 = genz.f4_gaussian(ndim)
+        for label, integrand, with_hist in (
+                ("emit+ids", None, True), ("emit", None, False),
+                ("fused F4+ids+f2", g4, True), ("fused F4", g4, False)):
+            lanes = (cuda_vegas.wide_lanes(case["chunk_cubes"], npg,
+                                           integrand is None and with_hist)
+                     if route == "wide" else 1)
+            def call(fn, **kw):
+                return lambda: fn(pmap, integrand, case["ng"], npg,
+                                  case["chunk_cubes"], nbins, with_hist,
+                                  *tail, emit_points=integrand is None, **kw)
+
+            t = [queued_ms(call(cuda_vegas.sample_chunk, route=r), 5)
+                 for r in (route, "generic", "generic", route)]
+            ms, generic = min(t[0], t[3]), min(t[1], t[2])
+            plain = (time_ms(call(cuda_vegas.sample_chunk_plain), 1)
+                     if with_hist else None)
+            b, by = sampler_bound_ms(0 if integrand is None else 4, ndim,
+                                     pmap.kp, pmap.kq, n, with_hist)
+            out["sampler"].append({
+                "ndim": ndim, "cubes": case["chunk_cubes"], "npg": npg,
+                "samples": n, "mode": label, "route": route, "lanes": lanes,
+                "ms": ms, "generic_route_ms": generic, "series": t,
+                "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                "library_ms": None})
+            print(f"phase 7: sampler {label} {ndim}D, {case['chunk_cubes']} "
+                  f"cubes of {npg} ({n} samples): {route} route {ms:.4f} ms "
+                  f"(two series {t[0]:.4f}, {t[3]:.4f}; lanes {lanes}), "
+                  f"generic route {generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}; "
+                  f"{generic / ms:.2f} times), plain "
+                  + (f"{plain:.2f} ms" if plain is not None else "not timed")
+                  + f", bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% of it, "
+                  f"generic {100 * b / generic:.1f}%)", flush=True)
+        if ndim < 9 or cubes not in (1 << 20, 1 << 19, 91181):
+            continue
+        # the histogram on that chunk's ids and f^2: f2 in f32 (the fused
+        # sampler's) and in f64 (the 'hybrid' run's), ids 0-based
+        _, ia, f2 = cuda_vegas.sample_chunk(
+            pmap, g4, case["ng"], npg, case["chunk_cubes"], nbins, True,
+            *tail)
+        acc = torch.zeros((ndim, nbins), dtype=torch.float32, device=dev)
+        ids64 = ia.to(torch.int64)
+        for form, vals in (("f2 f32", f2), ("f2 f64", f2.double())):
+            t = [queued_ms(lambda r=r: cuda_lookup.hist_accum(
+                acc, ia, vals, nbins, route=r), 5)
+                 for r in ("grouped", "generic", "generic", "grouped")]
+            ms, generic = min(t[0], t[3]), min(t[1], t[2])
+            plain = time_ms(lambda: cuda_lookup.hist_accum_plain(
+                acc, ia, vals, nbins), 1)
+            vals32 = vals.to(torch.float32)
+            lib = queued_ms(lambda: torch.clamp(acc + torch.stack([
+                torch.bincount(ids64[d], weights=vals32, minlength=nbins)
+                for d in range(ndim)]), max=cuda_lookup.HIST_CAP), 5)
+            b = bytes_bound_ms(n * (4 * ndim + vals.element_size())
+                               + 2 * 4 * ndim * nbins)
+            warps, clusters = cuda_lookup.hist_plan(n, ndim, nbins)
+            out["hist"].append({
+                "ndim": ndim, "samples": n, "form": form, "ms": ms,
+                "generic_route_ms": generic, "series": t, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": b, "bound_by": "bytes",
+                "warps": warps, "clusters": clusters})
+            print(f"phase 7: histogram accumulating {ndim}D, {n} samples, "
+                  f"{form}: grouped route {ms:.4f} ms (two series "
+                  f"{t[0]:.4f}, {t[3]:.4f}; {clusters} clusters of "
+                  f"{cuda_lookup.HIST_CLUSTER} blocks of {warps} warps), "
+                  f"generic route {generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}; "
+                  f"{generic / ms:.2f} times), plain {plain:.3f} ms, "
+                  f"torch.bincount per dimension + add + clamp {lib:.4f} ms, "
+                  f"bound {b:.4f} ms (bytes; {100 * b / ms:.1f}% of it, "
+                  f"generic {100 * b / generic:.1f}%)", flush=True)
+        del ia, f2, ids64
+    return out
+
+
+# ---------------------------------------------------------------------------
+# BASELINE's 9D VEGAS Gaussian (phase 27)
+
+GAUSS9D = dict(epsrel=1e-3, ncall=1e9, sampler="hybrid")
+# the forms in turns: the routes the shapes take, and both kernels forced
+# to their generic routes (one run each: a run takes 4-5 s, and on an H100
+# the forms' walls lay 15-20 % apart, a form's repeats within 4 %; PERF.md)
+GAUSS9D_ORDER = ("new", "generic")
+# a 9D Gaussian VEGAS finds on the same lattice (Genz F4 at a = 10: a
+# peak of width 0.07 an axis, where gauss9d's is 0.005 of its axis)
+F4_9D = dict(a=10.0)
+
+
+class GenericSampling:
+    """While entered, the sampler and the histogram take their generic
+    routes (the first design's kernels, and around the histogram the first
+    design's PyTorch steps) whatever the shape."""
+
+    def __enter__(self):
+        self.kept = (cuda_vegas.sampler_route, cuda_lookup.hist_route)
+        cuda_vegas.sampler_route = lambda *a: "generic"
+        cuda_lookup.hist_route = lambda *a: "generic"
+        return self
+
+    def __exit__(self, *exc):
+        cuda_vegas.sampler_route, cuda_lookup.hist_route = self.kept
+        return False
+
+
+def nine_d_run(label, g, form, alone, **kw):
+    """One 9D VEGAS run at GAUSS9D in ``form`` ('new' or 'generic'),
+    timed; every sampler and histogram launch must take the form's routes.
+    Returns its row (the kernels' share of the wall from ``alone``, each
+    kernel's time alone at the run's shape)."""
+    torch.cuda.synchronize()
+    with LaunchCounts() as clock, (GenericSampling() if form == "generic"
+                                   else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        res = mcubes.integrate(g, epsabs=1e-40, **GAUSS9D, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pull = abs(res.estimate - g.true_value) / res.errorest
+    sampler_ms, hist_ms = alone[form]
+    busy = (clock.launches["vegas_sample"] * sampler_ms
+            + clock.launches["vegas_hist"] * hist_ms) / 1e3
+    print(f"phase 27: {label} ({form} routes): status {res.status} estimate "
+          f"{res.estimate!r} errorest {res.errorest!r} truth "
+          f"{g.true_value!r} pull {pull:.4g} chi_sq {res.chi_sq:.4f} iters "
+          f"{res.iters} neval {res.neval} wall {wall:.3f} s samples/s "
+          f"{res.neval / wall:.4e}; launches {clock.launches} (sampler by "
+          f"route {clock.sampler_routes}, histogram {clock.hist_routes}); "
+          f"the sampler and the histogram alone would take {busy:.4f} s = "
+          f"{100 * busy / wall:.1f}% of the wall", flush=True)
+    want_s, want_h = (("wide", "grouped") if form == "new"
+                      else ("generic", "generic"))
+    if (not (math.isfinite(res.estimate) and math.isfinite(res.errorest))
+            or clock.launches["vegas_sample"] <= 0
+            or clock.sampler_routes[want_s] != clock.launches["vegas_sample"]
+            or clock.launches["vegas_hist"] <= 0
+            or clock.hist_routes[want_h] != clock.launches["vegas_hist"]
+            or clock.launches["vegas_bin_resolve"] != 0):
+        fail(f"{label} ({form} routes): estimate {res.estimate}, errorest "
+             f"{res.errorest}, launches {clock.launches}, sampler "
+             f"{clock.sampler_routes}, histogram {clock.hist_routes}; all "
+             f"should take the {want_s} and the {want_h} route")
+    return {"label": label, "form": form, "status": res.status,
+            "estimate": res.estimate, "errorest": res.errorest,
+            "truth": g.true_value, "pull": pull, "iters": res.iters,
+            "neval": res.neval, "wall_s": wall, "launches": clock.launches,
+            "sampler_routes": clock.sampler_routes,
+            "hist_routes": clock.hist_routes, "kernels_alone_s": busy,
+            "kernels_share": busy / wall}
+
+
+def gauss9d_path(dev, times):
+    """Phase 27: ``mcubes.integrate`` of BASELINE.json's 9D Gaussian
+    (``misc.gauss9d``: sigma 0.01 over [-1, 1]^9, truth erf(1/(0.01
+    sqrt 2))^9) at epsrel 1e-3 and ncall 1e9, f64, 'hybrid', the poly map:
+    370 chunks of 2^20 cubes an iteration, on the routes the shapes take
+    (the sampler's wide route, the grouped histogram) and on both forced to
+    their generic routes, in turns (GAUSS9D_ORDER).  Whether it certifies,
+    and how far it lies from the truth, is reported as found; the forms
+    must give finite results and agree within 5 of their errorests.  Then
+    Genz F4 at 9D (F4_9D) on the same lattice, one run of each form: each
+    must certify within 5 errorest of its closed form.  The kernels' share
+    of a wall: launches times each kernel's time alone at the run's shape
+    (phase 7: 9D, 2^20 cubes; the histogram on f^2 in f64).  Returns the
+    rows."""
+    alone = {}
+    for form, key in (("new", "ms"), ("generic", "generic_route_ms")):
+        row = next(r for r in times["sampler"] if r["ndim"] == 9
+                   and r["mode"] == "emit+ids")
+        hist = next(r for r in times["hist"] if r["ndim"] == 9
+                    and r["form"] == "f2 f64")
+        alone[form] = (row[key], hist[key])
+    f, vol = misc.gauss9d()
+    rows = [nine_d_run("9D Gaussian (BASELINE)", f, form, alone, vol=vol)
+            for form in GAUSS9D_ORDER]
+    new, gen = (next(r for r in rows if r["form"] == form)
+                for form in ("new", "generic"))
+    apart = abs(new["estimate"] - gen["estimate"])
+    if not apart <= 5.0 * max(new["errorest"], gen["errorest"]):
+        fail(f"9D Gaussian: the forms' estimates lie {apart} apart, beyond "
+             "5 of their errorests")
+    walls = {form: min(r["wall_s"] for r in rows if r["form"] == form)
+             for form in ("new", "generic")}
+    print(f"phase 27: 9D Gaussian (BASELINE): status {new['status']}, "
+          f"{'certified' if new['status'] == 0 else 'not certified'} at "
+          f"epsrel {GAUSS9D['epsrel']:g} after {new['iters']} iterations; "
+          f"estimate {new['pull']:.4g} errorest from the truth; the forms "
+          f"{apart:.3g} apart; walls, best of each form: new routes "
+          f"{walls['new']:.3f} s, generic routes {walls['generic']:.3f} s "
+          f"({walls['new'] / walls['generic']:.3f} times)", flush=True)
+    g4 = genz.f4_gaussian(9, **F4_9D)
+    for form in ("new", "generic"):
+        r = nine_d_run(f"9D F4 a = {F4_9D['a']:g}", g4, form, alone)
+        if r["status"] != 0 or not r["pull"] <= 5.0:
+            fail(f"9D F4 ({form} routes): status {r['status']}, pull "
+                 f"{r['pull']}")
+        rows.append(r)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4264,7 +4538,7 @@ def g6(x0, x1, x2, x3, x4, x5):
 
 
 def g10(x0, x1, x2, x3, x4, x5, x6, x7, x8, x9):
-    """A 10D per-axis Gaussian: the sampler's generic route."""
+    """A 10D per-axis Gaussian: the sampler's wide route."""
     s = 0.0
     for x in (x0, x1, x2, x3, x4, x5, x6, x7, x8, x9):
         s = s + (x - 0.5) ** 2
@@ -4272,7 +4546,7 @@ def g10(x0, x1, x2, x3, x4, x5, x6, x7, x8, x9):
 
 
 # The callables of phase 25: f4_axes (8D, the rule's tile route), cos of
-# the sum at 12D (its generic route) and g10 (the sampler's generic route)
+# the sum at 12D (its generic route) and g10 (the sampler's wide route)
 # built with the other sources in phase 1, with phase 26's sin of the sum; the reference bench's g6 (6D)
 # built alone in phase 25, as a user's first call builds its library.
 GEN_F4 = integrand_gen.traced(f4_axes, NDIM)
@@ -4394,12 +4668,14 @@ def generated_checks(dev):
     del lows, lengths
     out["values"] = rounding_check(dev)
 
-    # the sampler: paired at 6D on one 2^21-sample chunk, generic at 10D
+    # the sampler: paired at 6D on one 2^21-sample chunk, wide and generic
+    # at 10D
     case = vegas_check.sampler_case(VEGAS_NDIM, 1e7, VEGAS_CHUNK,
                                     position="middle", device=dev)
     case10 = vegas_check.sampler_case(10, 1e6, 1 << 16, device=dev)
     for label, c, g, route in (("g6 6D paired", case, gen_g6, "paired"),
                                ("g6 6D generic", case, gen_g6, "generic"),
+                               ("g10 10D wide", case10, gen_g10, "wide"),
                                ("g10 10D generic", case10, gen_g10,
                                 "generic")):
         for with_hist in (True, False):
@@ -4442,6 +4718,23 @@ def generated_checks(dev):
           f"paired kernel {genz_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}); "
           f"generated generic route {generic:.4f} ms; plain {plain:.2f} ms; "
           f"bound {b:.4f} ms ({by}, {100 * b / ms:.1f}% of it)", flush=True)
+    # g10 on its chunk, the wide and the generic route in turns
+    def sample10(route):
+        return lambda: cuda_vegas.sample_chunk(
+            case10["pmap"], gen_g10, case10["ng"], case10["npg"],
+            case10["chunk_cubes"], 500, True, case10["xjac"],
+            case10["cube0"], case10["ncubes"], 0, 1, route=route)
+
+    t = [queued_ms(sample10(r), 5) for r in ("wide", "generic", "generic",
+                                              "wide")]
+    out["sampler"]["g10_wide_ms"] = min(t[0], t[3])
+    out["sampler"]["g10_generic_route_ms"] = min(t[1], t[2])
+    print(f"phase 25: sampler g10 fused+hist, {case10['chunk_cubes']} cubes "
+          f"of {case10['npg']}: generated wide kernel {min(t[0], t[3]):.4f} "
+          f"ms ({t[0]:.4f}, {t[3]:.4f}; lanes "
+          f"{cuda_vegas.wide_lanes(case10['chunk_cubes'], case10['npg'])}), "
+          f"generated generic route {min(t[1], t[2]):.4f} ms ({t[1]:.4f}, "
+          f"{t[2]:.4f})", flush=True)
     out["max_abs_err"] = errs
     return out
 
@@ -4737,12 +5030,15 @@ def generated_kernels(checks, pagani_launches, vegas_launches, walls,
         "source": "gpuintegration_torch/csrc/gen_integrand.cu",
         "replaces": "gpuintegration_tpu/mcubes/pallas_vegas.py:192",
         "held_against_plain_in": "phase 25 (g6 6D paired and generic on "
-                                 "2^21 samples, g10 10D generic)",
+                                 "2^21 samples, g10 10D wide and "
+                                 "generic)",
         "launches": sum(vegas_launches.values()),
         "launches_by_route": vegas_launches,
         "max_abs_err": checks["max_abs_err"]["sampler"],
         "ms": smp["ms"], "generic_route_ms": smp["generic_route_ms"],
         "genz_f4_paired_ms": smp["genz_f4_paired_ms"],
+        "g10_wide_ms": smp["g10_wide_ms"],
+        "g10_generic_route_ms": smp["g10_generic_route_ms"],
         "plain_ms": smp["plain_ms"], "bound_ms": smp["bound_ms"],
         "bound_by": smp["bound_by"], "library_ms": None,
     }, {
@@ -5213,6 +5509,7 @@ def main() -> int:
     vegas_launches, vegas_walls, vegas_runs = vegas_main_path(dev)
     phase_done("phase 6")
     vegas_kernels = vegas_times(dev, vegas_err, vegas_launches, vegas_walls)
+    new_times = new_route_times(dev)
     regs = vegas_registers()
     path_regs = {k: regs.get(k) for k in (
         f"sample_pair_kernel<0, {VEGAS_NDIM}>",
@@ -5303,7 +5600,11 @@ def main() -> int:
     situ_rows = generic_in_situ(dev, sin12)
     phase_done("phase 26")
 
-    # -- phase 27: the kernels line, the card line, the result line ---------
+    # -- phase 27: BASELINE's 9D VEGAS Gaussian -----------------------------
+    gauss9d_rows = gauss9d_path(dev, new_times)
+    phase_done("phase 27")
+
+    # -- phase 28: the kernels line, the card line, the result line ---------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",
@@ -5440,6 +5741,17 @@ def main() -> int:
     }] + folded_fraction_kernels(frac_rows, frac_launches, crease_rows,
                                  fused_rows)
     vegas_kernels[0]["vegas_phases"] = phase_rows
+    # the routes redesigned for 1D, 2D and 9..16D: times (phase 7) and the
+    # launches of phase 27's 9D runs
+    for entry, key, name, routes in (
+            (vegas_kernels[0], "sampler", "vegas_sample", "sampler_routes"),
+            (vegas_kernels[1], "hist", "vegas_hist", "hist_routes")):
+        entry["new_routes"] = new_times[key]
+        entry["launches_phase_27_9d"] = [
+            {"run": r["label"], "form": r["form"],
+             "launches": r["launches"][name], "by_route": r[routes],
+             "status": r["status"], "wall_s": r["wall_s"],
+             "kernels_share": r["kernels_share"]} for r in gauss9d_rows]
     kernels[0]["vegas_assisted_run"] = assisted_row
     # the launches of phases 20-21's paths, each counted from 0 over its run
     phys_fused, phys_host = physics_row["fused"], physics_row["host"]

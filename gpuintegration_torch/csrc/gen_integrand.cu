@@ -12,7 +12,8 @@
 // kGenNdim and gen_integrand) pre-included, so that a build instantiates
 // four kernels: the rule's tile route (kGenNdim 3..8) and generic route
 // (the class NMAX = kGenNdim) in f64 and f32, the sampler's paired route
-// (kGenNdim 3..8) and generic route in f32.  The check of the values
+// (kGenNdim 1..8) or wide route (kGenNdim 9..16, the class NMAX =
+// kGenNdim) and generic route in f32.  The check of the values
 // alone is a library of its own (gen_values.cu).  None is built with
 // the crease fraction (a crease run refuses this family, as the
 // reference's Pallas backend does), and the sampler has no emit mode
@@ -62,12 +63,18 @@ int launch_generated(int route, const SampleArgs& a, dim3 grid, size_t smem,
     sample_kernel<kGenerated><<<grid, kThreads, smem, s>>>(a);
     return 0;
   }
-  if constexpr (NDIM >= 3 && NDIM <= 8) {
-    sample_pair_kernel<kGenerated, NDIM><<<grid, kThreads, smem, s>>>(a);
-    return 0;
+  if constexpr (NDIM <= 8) {
+    if (route == 1) {
+      sample_pair_kernel<kGenerated, NDIM><<<grid, kThreads, smem, s>>>(a);
+      return 0;
+    }
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (route == 2) {
+      sample_wide_kernel<kGenerated, NDIM><<<grid, kThreads, smem, s>>>(a);
+      return 0;
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_sampler(int route, int family, int ndim, const SampleArgs& a,

@@ -28,19 +28,30 @@
 //     k of 4 the lanes hold samples 4l+k, ballots over the bits of the bins
 //     group the lanes of one bin, the group's lowest lane adds the group's
 //     values in lane order and adds that sum to the row.  ndim is compiled
-//     in (1..8), so the steps of all dimensions go through together, and a
-//     warp's next 128 samples are loaded while it adds these.  Then the
-//     warps' rows are summed in warp order; the 8 blocks of a
+//     in (1..16).  Up to 8D the steps of all dimensions go through
+//     together, and a warp's next 128 samples are loaded while it adds
+//     these.  At 9..16D a lane's ids of every dimension and the next
+//     segment's would not fit its registers, and a warp's private rows
+//     (ndim x nbins) would leave room for few warps on an SM: the
+//     dimensions are cut into 3 or 4 groups of 3 or 4 (kDimGroups), and a
+//     set of rows is shared by one warp of each group, each warp adding
+//     only its own dimensions' rows.  So a row still has one warp adding to
+//     it, a set's rows cost a warp a third or a quarter of a row each, and
+//     the warps of a set read the same f2 (once from device memory, the
+//     others from cache).  A block holds 2 sets (or 1 where 2 do not fit;
+//     cuda_lookup.hist_warps), and cuda_lookup.hist_plan sets the clusters
+//     by shape, from vegas_hist_clusters.  Then the
+//     sets of rows are summed in order; the 8 blocks of a
 //     thread-block cluster sum those in
 //     block-rank order through distributed shared memory, rank r taking
 //     the r-th eighth of the bins, into one partial per cluster; and the
 //     last cluster to finish each eighth (an integer ticket per eighth)
 //     sums the partials in cluster order and finishes the accumulator.  So
 //     a bin's order of addition is: a warp's steps in sample order (group
-//     sums in lane order), the warps, the cluster's blocks, the clusters:
+//     sums in lane order), the sets, the cluster's blocks, the clusters:
 //     fixed by indices, never by timing.  How many clusters there are is
-//     set by n alone (mcubes/cuda_lookup.py hist_plan), not by the card, so
-//     neither is the order.  It is not the generic route's order, so the
+//     set by the shape alone (mcubes/cuda_lookup.py hist_plan), not by the
+//     card, so neither is the order.  It is not the generic route's order, so the
 //     two agree within rounding, not bitwise.  The ticket
 //     words are zero between launches: the last block of an eighth sets
 //     its word back to 0, and the wrapper keeps one set of words per CUDA
@@ -302,26 +313,95 @@ __device__ __forceinline__ void add_grouped(float* rows, int nbins,
   __syncwarp();        // the next step's reads see this step's sums
 }
 
+// The bins of a warp's segment ``seg`` in the G id rows from row d0, lane l
+// holding samples 4l..4l+3.
+template <int G>
+__device__ __forceinline__ void load_group(const HistArgs& a, int d0,
+                                           long long seg, int lane,
+                                           int (&bin)[G][4]) {
+  const long long s0 = seg * kSegment + 4 * lane;
+#pragma unroll
+  for (int d = 0; d < G; ++d)
+    load_bins(a.ia + (d0 + d) * a.n, s0, a.n, a.vec, a.base, bin[d]);
+}
+
+// A warp's 4 steps over a segment for G rows from ``rows``: step k adds
+// each lane's value v[k] at its bins bin[.][k].
+template <int G>
+__device__ __forceinline__ void add_steps(float* rows, int nbins,
+                                          const int (&bin)[G][4],
+                                          const float (&v)[4], int lane) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int step_bin[G];
+#pragma unroll
+    for (int d = 0; d < G; ++d) step_bin[d] = bin[d][k];
+    add_grouped<G>(rows, nbins, step_bin, v[k], lane);
+  }
+}
+
+// Groups of dimensions a warp takes at 9..16D: NDIM split into 3 or 4
+// groups of 3 or 4 dimensions each (group g: dimensions g NDIM / groups up
+// to (g + 1) NDIM / groups).
+template <int NDIM>
+constexpr int kDimGroups = (NDIM + 3) / 4;
+
+// One warp's segments first, first + step, ... below stop for the G
+// dimensions from d0, into its rows: lane l takes samples 4l..4l+3 of a
+// segment, the next segment's loads go out before this one's adds.
+template <int G, typename T>
+__device__ __forceinline__ void warp_segments(const HistArgs& a, const T* f2,
+                                              float* rows, int d0,
+                                              long long seg, long long stop,
+                                              int step, int lane) {
+  float v[4];
+  int bin[G][4];
+  if (seg < stop) {
+    load_values(f2, seg * kSegment + 4 * lane, a.n, a.vec, a.cap, v);
+    load_group<G>(a, d0, seg, lane, bin);
+  }
+  for (; seg < stop; seg += step) {
+    float next_v[4];
+    int next_bin[G][4];
+    if (seg + step < stop) {
+      load_values(f2, (seg + step) * kSegment + 4 * lane, a.n, a.vec, a.cap,
+                  next_v);
+      load_group<G>(a, d0, seg + step, lane, next_bin);
+    }
+    add_steps<G>(rows + d0 * a.nbins, a.nbins, bin, v, lane);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = next_v[k];
+#pragma unroll
+      for (int d = 0; d < G; ++d) bin[d][k] = next_bin[d][k];
+    }
+  }
+}
+
 template <int NDIM, typename T>
 __global__ void __launch_bounds__(kThreads)
 hist_grouped_kernel(const HistArgs a) {
   extern __shared__ float4 s_hist[];
   __shared__ int s_last;
-  float* s_rows = reinterpret_cast<float*>(s_hist);  // (warps, NDIM, nbins)
+  float* s_rows = reinterpret_cast<float*>(s_hist);  // (sets, NDIM, nbins)
   cg::cluster_group cluster = cg::this_cluster();
   const int warps = blockDim.x >> 5;
+  // sets of private rows: one a warp up to 8D; at 9..16D one a group of
+  // kDimGroups warps, which share a set, each adding its dimensions
+  const int sets = NDIM <= 8 ? warps : warps / kDimGroups<NDIM>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rows = NDIM * a.nbins;
-  for (int i = threadIdx.x; i < warps * rows; i += blockDim.x) s_rows[i] = 0.0f;
+  for (int i = threadIdx.x; i < sets * rows; i += blockDim.x) s_rows[i] = 0.0f;
   __syncthreads();
 
-  // this block's contiguous range of 128-sample segments, a warp taking
-  // every warps-th; the next segment's loads go out before this one's adds
+  // this block's contiguous range of 128-sample segments, a set taking
+  // every sets-th; the next segment's loads go out before this one's adds
   const T* f2 = static_cast<const T*>(a.f2);
   const long long segments = (a.n + kSegment - 1) / kSegment;
   const long long per_block = (segments + gridDim.x - 1) / gridDim.x;
   const long long first = blockIdx.x * per_block;
   const long long stop = min(segments, first + per_block);
+  if constexpr (NDIM <= 8) {
   float* own = s_rows + warp * rows;
   float v[4];
   int bin[NDIM][4];
@@ -346,12 +426,24 @@ hist_grouped_kernel(const HistArgs a) {
       for (int d = 0; d < NDIM; ++d) bin[d][k] = next_bin[d][k];
     }
   }
+  } else {
+    // warp w takes group g = w % groups of the dimensions for the segments
+    // of set w / groups
+    constexpr int groups = kDimGroups<NDIM>;
+    const int g = warp % groups, set = warp / groups;
+    const int d0 = g * NDIM / groups, d1 = (g + 1) * NDIM / groups;
+    float* own = s_rows + set * rows;
+    if (d1 - d0 == 4)
+      warp_segments<4>(a, f2, own, d0, first + set, stop, sets, lane);
+    else
+      warp_segments<3>(a, f2, own, d0, first + set, stop, sets, lane);
+  }
   __syncthreads();
 
-  // the warps' rows in warp order, into warp 0's
+  // the sets of rows in order, into the first
   for (int i = threadIdx.x; i < rows; i += blockDim.x) {
     float s = s_rows[i];
-    for (int w = 1; w < warps; ++w) s += s_rows[w * rows + i];
+    for (int w = 1; w < sets; ++w) s += s_rows[w * rows + i];
     s_rows[i] = s;
   }
   cluster.sync();
@@ -420,6 +512,34 @@ cudaError_t allow_smem(size_t smem) {
   return e;
 }
 
+// Bytes of a grouped block's private rows: a set of NDIM x nbins f32 sums
+// for each warp, or at 9..16D for each kDimGroups warps.
+template <int NDIM>
+size_t row_bytes(int warps, int nbins) {
+  const int sets = NDIM <= 8 ? warps : warps / kDimGroups<NDIM>;
+  return sizeof(float) * static_cast<size_t>(sets) * NDIM * nbins;
+}
+
+// The configuration of a grouped launch: ``clusters`` clusters of kCluster
+// blocks of ``warps`` warps, ``smem`` bytes of rows a block; ``attr`` holds
+// the cluster's shape.
+cudaLaunchConfig_t cluster_config(int clusters, int warps, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute& attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // One launch of the grouped kernel for NDIM and f2 of type T, on
 // ``clusters`` clusters of kCluster blocks.
 template <int NDIM, typename T>
@@ -432,22 +552,14 @@ cudaError_t grouped_launch(const HistArgs& a, int warps, int clusters,
     return cudaFuncGetAttributes(&f, hist_grouped_kernel<NDIM, T>) == cudaSuccess
                ? f.sharedSizeBytes : size_t{0};
   }();
-  const size_t smem = sizeof(float) * static_cast<size_t>(warps) * NDIM * a.nbins;
+  if (NDIM > 8 && warps % kDimGroups<NDIM>) return cudaErrorInvalidValue;
+  const size_t smem = row_bytes<NDIM>(warps, a.nbins);
   if (smem + fixed > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem<hist_grouped_kernel<NDIM, T>>(smem);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cfg.gridDim = dim3(clusters * kCluster);
-  cfg.blockDim = dim3(32 * warps);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(clusters, warps, smem, stream, attr);
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
@@ -463,7 +575,58 @@ cudaError_t grouped_by_ndim(const HistArgs& a, int warps, int clusters,
     case 6: return grouped_launch<6, T>(a, warps, clusters, stream);
     case 7: return grouped_launch<7, T>(a, warps, clusters, stream);
     case 8: return grouped_launch<8, T>(a, warps, clusters, stream);
+    case 9: return grouped_launch<9, T>(a, warps, clusters, stream);
+    case 10: return grouped_launch<10, T>(a, warps, clusters, stream);
+    case 11: return grouped_launch<11, T>(a, warps, clusters, stream);
+    case 12: return grouped_launch<12, T>(a, warps, clusters, stream);
+    case 13: return grouped_launch<13, T>(a, warps, clusters, stream);
+    case 14: return grouped_launch<14, T>(a, warps, clusters, stream);
+    case 15: return grouped_launch<15, T>(a, warps, clusters, stream);
+    case 16: return grouped_launch<16, T>(a, warps, clusters, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// How many clusters of the grouped kernel for NDIM and T, kCluster blocks
+// of ``warps`` warps with their rows of nbins bins each, the card holds at
+// once, or minus a CUDA error.
+template <int NDIM, typename T>
+int grouped_clusters(int warps, int nbins) {
+  const size_t smem = row_bytes<NDIM>(warps, nbins);
+  if ((NDIM > 8 && warps % kDimGroups<NDIM>) ||
+      smem > static_cast<size_t>(kMaxSmem))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_smem<hist_grouped_kernel<NDIM, T>>(smem);
+  int clusters = 0;
+  if (e == cudaSuccess) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(1, warps, smem, 0, attr);
+    e = cudaOccupancyMaxActiveClusters(&clusters,
+                                       hist_grouped_kernel<NDIM, T>, &cfg);
+  }
+  return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
+template <typename T>
+int clusters_by_ndim(int ndim, int warps, int nbins) {
+  switch (ndim) {
+    case 1: return grouped_clusters<1, T>(warps, nbins);
+    case 2: return grouped_clusters<2, T>(warps, nbins);
+    case 3: return grouped_clusters<3, T>(warps, nbins);
+    case 4: return grouped_clusters<4, T>(warps, nbins);
+    case 5: return grouped_clusters<5, T>(warps, nbins);
+    case 6: return grouped_clusters<6, T>(warps, nbins);
+    case 7: return grouped_clusters<7, T>(warps, nbins);
+    case 8: return grouped_clusters<8, T>(warps, nbins);
+    case 9: return grouped_clusters<9, T>(warps, nbins);
+    case 10: return grouped_clusters<10, T>(warps, nbins);
+    case 11: return grouped_clusters<11, T>(warps, nbins);
+    case 12: return grouped_clusters<12, T>(warps, nbins);
+    case 13: return grouped_clusters<13, T>(warps, nbins);
+    case 14: return grouped_clusters<14, T>(warps, nbins);
+    case 15: return grouped_clusters<15, T>(warps, nbins);
+    case 16: return grouped_clusters<16, T>(warps, nbins);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -835,7 +998,7 @@ extern "C" int vegas_hist_launch(const void* ia, const void* f2, void* part,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Grouped histogram route (ndim 1..8): one launch of ``clusters`` clusters
+// Grouped histogram route (ndim 1..16): one launch of ``clusters`` clusters
 // of kCluster blocks of ``warps`` warps, returning 0 or the CUDA error.
 // part: (clusters, ndim * nbins) scratch; out: (ndim, nbins), read too when
 // ``accumulate``; tickets: kCluster int words, zero.
@@ -843,7 +1006,7 @@ extern "C" int vegas_hist_grouped_launch(
     const void* ia, const void* f2, int f2_f64, void* part, void* out,
     void* tickets, long long n, int ndim, int nbins, int base, int accumulate,
     int vec, int warps, int clusters, float cap, void* stream) {
-  if (n < 1 || ndim < 1 || ndim > 8 || nbins < 1 || warps < 1 ||
+  if (n < 1 || ndim < 1 || ndim > 16 || nbins < 1 || warps < 1 ||
       warps > kWarps || clusters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   HistArgs a;
@@ -864,6 +1027,20 @@ extern "C" int vegas_hist_grouped_launch(
       f2_f64 ? grouped_by_ndim<double>(a, warps, clusters, s)
              : grouped_by_ndim<float>(a, warps, clusters, s);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// How many clusters of the grouped histogram's kernel for ndim (1..16),
+// f2 in f64 or f32, blocks of ``warps`` warps (at 9..16D a multiple of
+// their groups of dimensions) and nbins bins the card holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error; launches
+// nothing.  The wrapper's cluster counts are constants by shape
+// (cuda_lookup.hist_plan); this is what they were read from.
+extern "C" int vegas_hist_clusters(int ndim, int nbins, int warps,
+                                   int f2_f64) {
+  const int invalid = -static_cast<int>(cudaErrorInvalidValue);
+  if (ndim < 1 || ndim > 16 || nbins < 1 || warps < 1 || warps > kWarps)
+    return invalid;
+  return f2_f64 ? clusters_by_ndim<double>(ndim, warps, nbins)
+                : clusters_by_ndim<float>(ndim, warps, nbins);
 }
 
 // Bin resolve.  xn null: the coordinates are drawn in the kernel for the

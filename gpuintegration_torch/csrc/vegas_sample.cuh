@@ -26,15 +26,14 @@
 // With a histogram wanted, the per-dimension bin ids of s (and, fused,
 // fx^2) are written too.
 //
-// Two kernels compute it; mcubes/cuda_vegas.py chooses by the shape alone.
-// Both: one thread per sub-cube (grid-stride); uniforms from the Philox
-// stream of philox.cuh, or from a tensor of bits (the parity hook);
-// sampling arithmetic f32 throughout, as in the TPU kernel; sums over cubes
-// f64, each thread adding its cubes, then a warp shuffle tree and the warps
-// in order, one (fb, f2b) pair per block written to a (n_blocks, 2) buffer
-// that the wrapper sums.  No atomics, so two runs agree bit for bit.
-// Emitted arrays are dims-major (ndim, N) in the flat order
-// n = cube * npg + sample.
+// Three kernels compute it; mcubes/cuda_vegas.py chooses by the shape alone.
+// All: uniforms from the Philox stream of philox.cuh, or from a tensor of
+// bits (the parity hook); sampling arithmetic f32 throughout, as in the TPU
+// kernel; sums over cubes f64, each thread adding its cubes, then a warp
+// shuffle tree and the warps in order, one (fb, f2b) pair per block
+// written to a (n_blocks, 2) buffer that the wrapper sums.  No atomics, so
+// two runs agree bit for bit.  Emitted arrays are dims-major (ndim, N) in
+// the flat order n = cube * npg + sample.
 //
 // What bounds the work: about kp + kq multiply-adds per (sample, dimension)
 // for the recurrence plus the generator's rounds, against 4 (ndim + 1)
@@ -44,8 +43,9 @@
 // crossover.  Every intermediate stays in registers and each output is
 // written once.
 //
-// The PAIRED route (sample_pair_kernel; ndim 3..8, any degree) is built
-// so that the multiply-adds are most of what a thread executes:
+// The PAIRED route (sample_pair_kernel; ndim 1..8, any degree; one thread
+// a cube) is built so that the multiply-adds are most of what a thread
+// executes:
 //   * ndim is a template argument: digits, Genz state and the loop over
 //     dimensions are registers and straight code;
 //   * the coefficients are packed by the host (cuda_vegas.pack_map): four
@@ -64,11 +64,27 @@
 //   * a pair's outputs are stored as 8-byte words when npg is even, so a
 //     warp writes whole sectors.
 //
+// The WIDE route (sample_wide_kernel; ndim 9..16) keeps all of that with
+// the dimension a compile-time class: NMAX 12 (ndim 9..12) or 16 (13..16),
+// a generated library its own ndim.  Loops over dimensions are unrolled to
+// NMAX and skip the dimensions past ndim by a predicate, so digits, the
+// Genz state and the generated family's coordinates are indexed statically
+// and stay in registers.  Where a chunk has too few cubes to fill the card
+// (16D at ncall 1e9: 2^15 cubes of 23 samples), a cube's samples are
+// spread over a group of ``lanes`` neighbouring lanes (a power of two the
+// wrapper sets from the shape and the mode, cuda_vegas.wide_lanes): in
+// each round lane j of the group takes the pair of slots 2j, 2j + 1 of the
+// next 2 lanes samples.  Each lane hands its samples' f and w * xjac to the group's
+// first lane by shuffles, which forms fx and adds fb and sum f^2 in sample
+// order with the generic kernel's expressions, so a cube's fb and f2b are
+// the generic kernel's.  The f64 sums over cubes group otherwise (a block
+// holds 256 / lanes cubes) and agree within their rounding.
+//
 // The GENERIC route (sample_kernel; every ndim 1..16): sample slots,
 // dimensions and terms are run-time loops, a coefficient is one 4-byte
-// shared-memory load per multiply-add, the decode is 64-bit.  It takes the
-// dimensions the paired route is not compiled for and is the kernel the
-// paired route is timed against.
+// shared-memory load per multiply-add, the decode is 64-bit.  It is the
+// first design and the kernel the other routes are checked and timed
+// against.
 //
 // Every kernel reads the iteration word of the Philox counter from device
 // memory, once a thread: a launch captured in a CUDA graph then draws the
@@ -94,10 +110,11 @@ constexpr int kMaxNdim = 16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kTiny = 1.0e-30f;   // per-cube variance floor
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct SampleArgs {
   const float* map;       // P folded (ndim*kp) | q (ndim*kq) | lo | hi
-                          // (generic) or the packed map (paired)
+                          // (generic) or the packed map (paired, wide)
   const unsigned* bits;   // (npg*ndim, chunk_cubes) words, or null: Philox
   double* partial;        // fused: (n_blocks, 2) block sums of fb, f2b
   float* xs;              // emit: (ndim, N) coordinates
@@ -107,8 +124,8 @@ struct SampleArgs {
   long long cube0;        // global id of the chunk's first cube
   long long ncubes;       // cubes of the whole lattice
   int chunk_cubes, ndim, ng, npg, kp, kq, nbins;
-  int kp4, kq4;           // paired: terms of P and q padded to fours
-  unsigned recip;         // paired: min(floor(2^32 / ng), 2^32 - 1)
+  int kp4, kq4;           // paired, wide: terms of P and q padded to fours
+  unsigned recip;         // paired, wide: min(floor(2^32 / ng), 2^32 - 1)
   float inv_ng, xjac;
   unsigned key0, key1;
   const unsigned* iteration;  // the counter's iteration word, in device
@@ -116,6 +133,7 @@ struct SampleArgs {
   float coeffs[kMaxNdim];  // Genz per-axis a_i
   float bounds[kMaxNdim];  // Genz per-axis b_i
   float s0, s1;
+  int lanes;              // wide: lanes a cube, a power of two 1..32
 };
 
 // Joint T_i recurrence at t in [-1, 1]: P from kp terms, q from the first
@@ -503,9 +521,221 @@ sample_pair_kernel(const SampleArgs a) {
   if (FAMILY != 0) block_sums(sum_fb, sum_f2b, s_part, a.partial);
 }
 
+// ---------------------------------------------------------------------------
+// The wide route.
+
+// sample_slots for the wide route: the first ``ndim`` of NMAX dimensions
+// (the loop unrolled to NMAX, the dimensions past ndim skipped), and
+// instead of adding to fb and sum f^2, each slot's integrand value fv and
+// its factor tw = w * xjac (fx = fv * tw) handed back for the group's first
+// lane to add.  (The paired route keeps its own form above, so that its
+// instances compile as they did.)
+template <int FAMILY, int NMAX>
+__device__ __forceinline__ void wide_slots(
+    const SampleArgs& a, unsigned it, const float* s_map, int ndim,
+    const float (&kg)[NMAX], long long cube, int local, int ps, int live,
+    long long n, long long n_total, bool wide, float (&fv)[2],
+    float (&tw)[2]) {
+  constexpr int S = 2;
+  const int per_dim = a.kp4 + a.kq4;
+  const float* s_lo = s_map + ndim * per_dim;
+  const float* s_hi = s_lo + ndim;
+  const float nbins_f = static_cast<float>(a.nbins);
+  float w[S];
+  GenzState<float> g[S];
+  float xv[S][NMAX];   // the generated family's coordinates
+  uint4 block[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    w[k] = 1.0f;
+    block[k] = make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int d = 0; d < NMAX; ++d) {
+    if (d >= ndim) continue;
+    float s[S], t[S], cp[S], cq[S], x[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int slot = ps + (k < live ? k : 0);
+      unsigned word;
+      if (a.bits) {
+        word = a.bits[static_cast<long long>(slot * ndim + d) * a.chunk_cubes
+                      + local];
+      } else {
+        if ((d & 3) == 0)
+          block[k] = vegas_block(cube, it, slot, d, a.key0, a.key1);
+        word = block_word(block[k], d);
+      }
+      const float u = word_uniform(word);
+      s[k] = (kg[d] + (1.0f - u)) * a.inv_ng;
+      t[k] = 2.0f * s[k] - 1.0f;
+    }
+    cheb_packed<S>(reinterpret_cast<const float4*>(s_map + d * per_dim),
+                   a.kp4, a.kq4, t, cp, cq);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      x[k] = fminf(fmaxf(cp[k], s_lo[d]), s_hi[d]);
+      w[k] *= cq[k] * cq[k];
+      if constexpr (FAMILY == kGenerated)
+        xv[k][d] = x[k];
+      else if constexpr (FAMILY != 0)
+        genz_axis<FAMILY, float>(g[k], x[k], a.coeffs[d], a.bounds[d], a.s0,
+                                 a.s1);
+    }
+    if (a.ia) {
+      int bin[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k)
+        bin[k] = min(max(static_cast<int>(s[k] * nbins_f), 0), a.nbins - 1);
+      store_slots(a.ia + d * n_total + n, bin, live, wide);
+    }
+    if (FAMILY == 0) store_slots(a.xs + d * n_total + n, x, live, wide);
+  }
+  if (FAMILY == 0) {
+    store_slots(a.wt + n, w, live, wide);
+  } else {
+    float f2[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if constexpr (FAMILY == kGenerated)
+        fv[k] = gen_integrand<float>(xv[k]);
+      else
+        fv[k] = genz_finish<FAMILY, float>(g[k], ndim, a.s0);
+      tw[k] = w[k] * a.xjac;
+      const float fx = fv[k] * tw[k];
+      f2[k] = fx * fx;
+    }
+    if (a.f2) store_slots(a.f2 + n, f2, live, wide);
+  }
+}
+
+// The first ``ndim`` of NMAX mixed-radix digits of ``cube``, most
+// significant first, 0-based (cube_digits with a run-time ndim; the digits
+// past it are 0).
+template <int NMAX>
+__device__ __forceinline__ void cube_digits_upto(long long cube, int ndim,
+                                                 unsigned ng, unsigned recip,
+                                                 bool small,
+                                                 unsigned (&digit)[NMAX]) {
+  if (small) {
+    unsigned m = static_cast<unsigned>(cube);
+#pragma unroll
+    for (int d = NMAX - 1; d >= 0; --d) {
+      digit[d] = 0u;
+      if (d < ndim) m = recip_divmod(m, ng, recip, digit[d]);
+    }
+  } else {
+    unsigned long long m = static_cast<unsigned long long>(cube);
+#pragma unroll
+    for (int d = NMAX - 1; d >= 0; --d) {
+      digit[d] = 0u;
+      if (d < ndim) {
+        const unsigned long long t = m / ng;
+        digit[d] = static_cast<unsigned>(m - t * ng);
+        m = t;
+      }
+    }
+  }
+}
+
+// F1's cosf keeps its range reduction's slow path as a call; at ptxas's
+// own register budget the 12-class instance spilled around it (80
+// registers, 104 spill bytes), so that family is held to two blocks an SM
+// (105 registers, no spill).
+template <int FAMILY, int NMAX>
+__global__ void __launch_bounds__(kThreads, FAMILY == 1 ? 2 : 1)
+sample_wide_kernel(const SampleArgs a) {
+  extern __shared__ __align__(16) float s_map[];
+  __shared__ double s_part[kWarps][2];
+  const unsigned it = __ldg(a.iteration);
+
+  const int ndim = a.ndim, npg = a.npg, lanes = a.lanes;
+  const int map_words = ndim * (a.kp4 + a.kq4 + 2);
+  for (int i = threadIdx.x; i < map_words; i += kThreads) s_map[i] = a.map[i];
+  __syncthreads();
+  const float* s_lo = s_map + ndim * (a.kp4 + a.kq4);
+  const long long n_total = static_cast<long long>(a.chunk_cubes) * npg;
+  const bool wide = (npg & 1) == 0;   // every pair starts at an even n
+  const bool small = a.ncubes <= 0xffffffffLL;
+  const unsigned ng = static_cast<unsigned>(a.ng);
+  // this lane's place in its cube's group, the group's lanes, and the
+  // samples the group takes in one round
+  const int lane = threadIdx.x & 31;
+  const int member = lane & (lanes - 1);
+  const unsigned group =
+      lanes == 32 ? kFullMask : ((1u << lanes) - 1u) << (lane - member);
+  const int round = 2 * lanes;
+  const int cubes_per_block = kThreads / lanes;
+
+  double sum_fb = 0.0, sum_f2b = 0.0;
+  for (int local = blockIdx.x * cubes_per_block + threadIdx.x / lanes;
+       local < a.chunk_cubes; local += gridDim.x * cubes_per_block) {
+    const long long cube = a.cube0 + local;
+    const long long n0 = static_cast<long long>(local) * npg;
+    if (cube >= a.ncubes) {
+      // beyond the lattice: a point inside the volume with weight 0; this
+      // lane's slots of the cube
+      for (int ps = member; ps < npg; ps += lanes) {
+        const long long n = n0 + ps;
+        for (int d = 0; d < ndim; ++d) {
+          if (FAMILY == 0) a.xs[d * n_total + n] = s_lo[d];
+          if (a.ia) a.ia[d * n_total + n] = 0;
+        }
+        if (FAMILY == 0) a.wt[n] = 0.0f;
+        if (FAMILY != 0 && a.f2) a.f2[n] = 0.0f;
+      }
+      continue;
+    }
+
+    unsigned digit[NMAX];
+    cube_digits_upto<NMAX>(cube, ndim, ng, a.recip, small, digit);
+    float kg[NMAX];
+#pragma unroll
+    for (int d = 0; d < NMAX; ++d) kg[d] = static_cast<float>(digit[d]);
+
+    float fb = 0.0f, f2s = 0.0f;
+    for (int ps0 = 0; ps0 < npg; ps0 += round) {
+      const int ps = ps0 + 2 * member;
+      const int live = min(2, npg - ps);   // 0 or less: no slot this round
+      float fv[2] = {0.0f, 0.0f}, tw[2] = {0.0f, 0.0f};
+      if (live > 0)
+        wide_slots<FAMILY, NMAX>(a, it, s_map, ndim, kg, cube, local, ps,
+                                 live, n0 + ps, n_total, wide, fv, tw);
+      if (FAMILY != 0) {
+        // the group's samples of this round in sample order: lane j's pair
+        // holds slots ps0 + 2j and ps0 + 2j + 1
+        for (int j = 0; j < lanes; ++j) {
+          const int live_j = min(2, npg - ps0 - 2 * j);
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float f =
+                lanes == 1 ? fv[k] : __shfl_sync(group, fv[k], j, lanes);
+            const float t =
+                lanes == 1 ? tw[k] : __shfl_sync(group, tw[k], j, lanes);
+            if (k < live_j) {
+              const float fx = f * t;
+              fb += fx;
+              f2s += fx * fx;
+            }
+          }
+        }
+      }
+    }
+    if (FAMILY != 0 && member == 0) {
+      // npg * sum(f^2) - fb^2 in the cancellation-safe form
+      const float sq = sqrtf(f2s * static_cast<float>(npg));
+      float f2b = (sq - fb) * (sq + fb);
+      if (f2b <= 0.0f) f2b = kTiny;
+      sum_fb += static_cast<double>(fb);
+      sum_f2b += static_cast<double>(f2b);
+    }
+  }
+  if (FAMILY != 0) block_sums(sum_fb, sum_f2b, s_part, a.partial);
+}
+
 // The launch of one sampler kernel: route 1 the paired kernel at ``ndim``,
-// route 0 the generic one, for the families a source compiles; defined by
-// vegas_sample.cu and gen_integrand.cu.  Returns 0 or
+// route 2 the wide one, route 0 the generic one, for the families a source
+// compiles; defined by vegas_sample.cu and gen_integrand.cu.  Returns 0 or
 // cudaErrorInvalidValue for a family or dimension the source lacks.
 int launch_sampler(int route, int family, int ndim, const SampleArgs& a,
                    dim3 grid, size_t smem, cudaStream_t s);
@@ -514,30 +744,34 @@ int launch_sampler(int route, int family, int ndim, const SampleArgs& a,
 }  // namespace
 
 // C entry point for ctypes.  route 0 is the generic kernel and ``map`` the
-// table of fold_map; route 1 the paired kernel (ndim 3..8) and
-// ``map`` the packed table of pack_map with kp4, kq4 its padded term counts
-// and recip = min(floor(2^32 / ng), 2^32 - 1).  family 0 emits points (xs,
-// wt[, ia]); 1..6 fuses that Genz family (partial[, ia, f2]).  Pointers are device pointers
-// (null where a mode has no such array) except genz (34 host doubles:
-// coeffs[16], bounds[16], s0, s1; may be null for family 0).  ``iteration``
-// is the device address of the counter's iteration word, which the kernel
-// reads when it runs (never null).  Returns cudaGetLastError() after the
-// launch (0 on success); never synchronises.
+// table of fold_map; route 1 the paired kernel (ndim 1..8) and route 2 the
+// wide kernel (ndim 9..16, ``lanes`` a cube: 1, 2, 4, 8, 16 or 32), both
+// with ``map`` the packed table of pack_map, kp4, kq4 its padded term
+// counts and recip = min(floor(2^32 / ng), 2^32 - 1).  family 0 emits
+// points (xs, wt[, ia]); 1..6 fuses that Genz family, 7 the generated one
+// (partial[, ia, f2]).  Pointers are device pointers (null where a mode has
+// no such array) except genz (34 host doubles: coeffs[16], bounds[16], s0,
+// s1; may be null for family 0).  ``iteration`` is the device address of
+// the counter's iteration word, which the kernel reads when it runs (never
+// null).  Returns cudaGetLastError() after the launch (0 on success); never
+// synchronises.
 extern "C" int vegas_sample_launch(
-    int route, int kp4, int kq4, unsigned recip, int family, int n_blocks, const void* map, const void* bits,
-    void* partial, void* xs, void* wt, void* ia, void* f2,
-    long long cube0, long long ncubes, int chunk_cubes, int ndim, int ng,
-    int npg, int kp, int kq, int nbins, float inv_ng, float xjac,
-    unsigned key0, unsigned key1, const void* iteration, const double* genz,
-    void* stream) {
+    int route, int kp4, int kq4, unsigned recip, int lanes, int family,
+    int n_blocks, const void* map, const void* bits, void* partial, void* xs,
+    void* wt, void* ia, void* f2, long long cube0, long long ncubes,
+    int chunk_cubes, int ndim, int ng, int npg, int kp, int kq, int nbins,
+    float inv_ng, float xjac, unsigned key0, unsigned key1,
+    const void* iteration, const double* genz, void* stream) {
   if (ndim < 1 || ndim > sampler::kMaxNdim || family < 0 ||
       family > kGenerated || kp < 2 ||
       kq < 1 || kq > kp || npg < 1 || chunk_cubes < 1 || n_blocks < 1 ||
-      (family != 0 && genz == nullptr) || route < 0 || route > 1 ||
+      (family != 0 && genz == nullptr) || route < 0 || route > 2 ||
       iteration == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == 1 && (kp4 < kp || kq4 < kq || kq4 > kp4 || kp4 % 4 || kq4 % 4 ||
+  if (route >= 1 && (kp4 < kp || kq4 < kq || kq4 > kp4 || kp4 % 4 || kq4 % 4 ||
                      kq4 < 4 || ng < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2 && (lanes < 1 || lanes > 32 || (lanes & (lanes - 1))))
     return static_cast<int>(cudaErrorInvalidValue);
   sampler::SampleArgs a;
   a.map = static_cast<const float*>(map);
@@ -559,6 +793,7 @@ extern "C" int vegas_sample_launch(
   a.kp4 = kp4;
   a.kq4 = kq4;
   a.recip = recip;
+  a.lanes = route == 2 ? lanes : 1;
   a.inv_ng = inv_ng;
   a.xjac = xjac;
   a.key0 = key0;
@@ -573,7 +808,7 @@ extern "C" int vegas_sample_launch(
   a.s1 = genz ? static_cast<float>(genz[2 * sampler::kMaxNdim + 1]) : 0.0f;
 
   const size_t smem = sizeof(float) * ndim *
-                      (route == 1 ? kp4 + kq4 + 2 : kp + kq + 2);
+                      (route >= 1 ? kp4 + kq4 + 2 : kp + kq + 2);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_blocks);

@@ -67,17 +67,27 @@ HIST_ROUTES = ("grouped", "generic")
 RESOLVE_ROUTES = ("sample", "generic")
 EDGE_ROUTES = ("vector", "generic")
 HIST_CLUSTER = 8           # blocks of a grouped-histogram cluster
-# the most clusters of a grouped launch: as many as an H100 SXM holds at
-# once at the main path's shape (6D, 500 bins, 8 warps a block)
+# the most clusters of a grouped launch at 1..8D: as many as an H100 SXM
+# holds at once at the main path's shape (6D, 500 bins, 8 warps a block)
 HIST_MAX_CLUSTERS = 30
+# at 9..16D, clusters an H100 SXM holds at once for each block an SM holds
+# (vegas_hist_clusters: 15 at one block an SM, 30 at two, 45 at three, 62
+# at four), and the most blocks an SM holds of the 9..16D instances (64-71
+# registers, blocks of 6 or 8 warps)
+HIST_CLUSTERS_A_BLOCK = 15
+HIST_WIDE_BLOCKS = 4
+SM_SMEM_BYTES = 228 * 1024  # shared memory of an SM, 1 KB of it a block's
+SM_THREADS = 2048
 # bytes of static shared memory the grouped kernel declares beside its rows
 # (ptxas reports 16)
 HIST_STATIC_SMEM = 16
 HIST_SEGMENT = 128         # samples a warp takes at once, 4 a lane
-HIST_WARPS = (8, 4)        # warps of a grouped block, the most that fit
-# the dimensions csrc/vegas_lookup.cu compiles the grouped and the sample
-# routes for
-ROUTE_NDIMS = tuple(range(1, 9))
+HIST_WARPS = (8, 4)        # warps of a grouped block at 1..8D, the most that fit
+HIST_SETS = (2, 1)         # sets of rows of a block at 9..16D, the most that fit
+# the dimensions csrc/vegas_lookup.cu compiles the grouped histogram and
+# the bin resolve's sample route for
+HIST_NDIMS = tuple(range(1, 17))
+RESOLVE_NDIMS = tuple(range(1, 9))
 
 # Launches of each kernel since its count was last set to 0.
 hist_launches = 0
@@ -109,9 +119,10 @@ def _configure(lib):
     lib.vegas_edge_launch.argtypes = [i, vp, vp, vp, vp, ll, i, i, i, i, i,
                                       vp]
     lib.vegas_resident_blocks.argtypes = [i, i, i]
+    lib.vegas_hist_clusters.argtypes = [i, i, i, i]
     for fn in (lib.vegas_hist_launch, lib.vegas_hist_grouped_launch,
                lib.vegas_resolve_launch, lib.vegas_edge_launch,
-               lib.vegas_resident_blocks):
+               lib.vegas_resident_blocks, lib.vegas_hist_clusters):
         fn.restype = ctypes.c_int
 
 
@@ -171,33 +182,84 @@ def hist_accum_plain(d, ia, f2, nbins: int, *, base: int = 0):
     return torch.clamp(d + hist_plain(ia - base, f2, nbins), max=HIST_CAP)
 
 
+def hist_groups(ndim: int) -> int:
+    """Groups of dimensions of the grouped kernel: 1 up to 8D (a warp adds
+    every dimension), at 9..16D 3 or 4 groups of 3 or 4 dimensions, one
+    warp of each sharing a set of rows (csrc/vegas_lookup.cu kDimGroups)."""
+    return 1 if ndim <= 8 else -(-ndim // 4)
+
+
 def hist_warps(ndim: int, nbins: int) -> int:
-    """Warps of a grouped-histogram block: the most of HIST_WARPS whose
-    private rows (ndim x nbins f32 each) fit a block's shared memory beside
-    the kernel's own HIST_STATIC_SMEM bytes, or 0 where none does."""
-    for warps in HIST_WARPS:
-        if 4 * warps * ndim * nbins + HIST_STATIC_SMEM <= SMEM_BYTES:
-            return warps
+    """Warps of a grouped-histogram block, or 0 where none fits a block's
+    shared memory beside the kernel's own HIST_STATIC_SMEM bytes: up to 8D
+    the most of HIST_WARPS, each with private rows of ndim x nbins f32; at
+    9..16D ``hist_groups`` warps a set of rows, the most of HIST_SETS."""
+    if ndim <= 8:
+        for warps in HIST_WARPS:
+            if 4 * warps * ndim * nbins + HIST_STATIC_SMEM <= SMEM_BYTES:
+                return warps
+        return 0
+    for sets in HIST_SETS:
+        if 4 * sets * ndim * nbins + HIST_STATIC_SMEM <= SMEM_BYTES:
+            return sets * hist_groups(ndim)
     return 0
+
+
+def hist_sets(ndim: int, nbins: int) -> int:
+    """Sets of private rows of a grouped block: the warps that take
+    segments side by side."""
+    return hist_warps(ndim, nbins) // hist_groups(ndim)
 
 
 def hist_route(ndim: int, nbins: int) -> str:
     """The histogram kernel a shape takes: 'grouped' for the dimensions the
     source compiles it for, where the rows of at least min(HIST_WARPS)
     warps fit the shared memory; else 'generic'."""
-    return ("grouped" if ndim in ROUTE_NDIMS and hist_warps(ndim, nbins)
+    return ("grouped" if ndim in HIST_NDIMS and hist_warps(ndim, nbins)
             else "generic")
 
 
+def hist_max_clusters(ndim: int, nbins: int) -> int:
+    """The most clusters of a grouped launch for a shape: HIST_MAX_CLUSTERS
+    at 1..8D (the count the route has had since its first design, which
+    sets those shapes' bits); at 9..16D HIST_CLUSTERS_A_BLOCK for each
+    block an SM holds by its shared memory (1 KB a block besides the
+    rows), its threads and HIST_WIDE_BLOCKS (0 where no block fits)."""
+    if ndim <= 8:
+        return HIST_MAX_CLUSTERS
+    warps = hist_warps(ndim, nbins)
+    if not warps:
+        return 0
+    block = 4 * hist_sets(ndim, nbins) * ndim * nbins + HIST_STATIC_SMEM
+    per_sm = min(SM_SMEM_BYTES // (block + 1024), SM_THREADS // (32 * warps),
+                 HIST_WIDE_BLOCKS)
+    return HIST_CLUSTERS_A_BLOCK * per_sm
+
+
 def hist_plan(n: int, ndim: int, nbins: int):
-    """(warps, clusters) of a grouped launch over n samples: n alone sets
-    the clusters, no more than HIST_MAX_CLUSTERS nor than give every warp
-    one segment of HIST_SEGMENT samples.  The clusters set the order of
-    the additions, so the card's model does not."""
+    """(warps, clusters) of a grouped launch over n samples: n and the
+    shape alone set the clusters, no more than ``hist_max_clusters`` nor
+    than give every set of rows one segment of HIST_SEGMENT samples.  The
+    clusters set the order of the additions, so the card's model does
+    not."""
     warps = hist_warps(ndim, nbins)
     segments = -(-n // HIST_SEGMENT)
-    return warps, max(1, min(HIST_MAX_CLUSTERS,
-                             -(-segments // (HIST_CLUSTER * warps))))
+    per_cluster = HIST_CLUSTER * hist_sets(ndim, nbins)
+    return warps, max(1, min(hist_max_clusters(ndim, nbins),
+                             -(-segments // per_cluster)))
+
+
+def hist_clusters_on_card(ndim: int, nbins: int, f2_type=torch.float32):
+    """How many clusters of the grouped kernel for this shape the current
+    card holds at once (cudaOccupancyMaxActiveClusters): what
+    HIST_MAX_CLUSTERS and HIST_ONE_BLOCK_CLUSTERS were read from, and what
+    the checks hold ``hist_plan`` to.  Needs a card; launches nothing."""
+    got = _lib().vegas_hist_clusters(ndim, nbins, hist_warps(ndim, nbins),
+                                     int(f2_type == torch.float64))
+    if got <= 0:
+        raise RuntimeError(f"CUDA grouped histogram {ndim} x {nbins}: no "
+                           f"cluster fits (error {-got})")
+    return got
 
 
 _tickets: dict = {}
@@ -256,7 +318,7 @@ def _pick_hist_route(ndim: int, nbins: int, route):
                                     and shape_route != "grouped"):
         raise ValueError(f"histogram route {route!r} does not take "
                          f"{ndim} x {nbins} bins (grouped: ndim in "
-                         f"{ROUTE_NDIMS}, the rows of {min(HIST_WARPS)} warps "
+                         f"{HIST_NDIMS}, the rows of {min(HIST_WARPS)} warps "
                          f"within {SMEM_BYTES} bytes)")
     if route == "generic" and 4 * 8 * nbins > SMEM_BYTES:
         raise ValueError(f"nbins={nbins} does not fit the generic histogram "
@@ -375,7 +437,7 @@ def resolve_route(ndim: int, nbins: int, n: int) -> str:
     the source compiles it for, all edges within a block's shared memory
     and n < 2^31 samples; else 'generic'."""
     fits = 4 * ndim * (nbins + 1) <= SMEM_BYTES and n < 2 ** 31
-    return "sample" if ndim in ROUTE_NDIMS and fits else "generic"
+    return "sample" if ndim in RESOLVE_NDIMS and fits else "generic"
 
 
 def _pick_resolve_route(ndim: int, nbins: int, n: int, route):
@@ -386,7 +448,7 @@ def _pick_resolve_route(ndim: int, nbins: int, n: int, route):
                                        and shape_route != "sample"):
         raise ValueError(f"bin-resolve route {route!r} does not take ndim "
                          f"{ndim}, {nbins} bins, {n} samples (sample: ndim "
-                         f"in {ROUTE_NDIMS}, the edges within {SMEM_BYTES} "
+                         f"in {RESOLVE_NDIMS}, the edges within {SMEM_BYTES} "
                          "bytes, n < 2^31)")
     if route == "generic" and 4 * (nbins + 1) > 48 * 1024:
         raise ValueError(f"nbins={nbins} does not fit the generic "

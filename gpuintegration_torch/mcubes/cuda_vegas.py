@@ -10,11 +10,11 @@ coordinates and weights for an integrand evaluated outside in the
 accumulator type -- the emit mode.  With ``with_hist`` the per-dimension
 bin ids (and, fused, f^2) come out too.
 
-Two kernels compute it, and ``sampler_route`` chooses between them by the
-shape alone (never by catching a failure):
+Three kernels compute it, and ``sampler_route`` chooses between them by
+the shape alone (never by catching a failure):
 
-* ``'paired'``, for ndim in ``PAIRED_NDIMS`` and a map whose packed form
-  fits the kernel's shared memory: ndim is a compile-time constant; the
+* ``'paired'``, for ndim in ``PAIRED_NDIMS`` (1..8) and a map whose packed
+  form fits the kernel's shared memory: ndim is a compile-time constant; the
   coefficients come packed (``pack_map``: four terms of P and four of q to
   a pair of 16-byte loads, q zero-padded to a multiple of four terms) so
   that the loops run four terms a pass without a test of the term index; a
@@ -23,9 +23,22 @@ shape alone (never by catching a failure):
   the reciprocal of ng (``stream.decode_reciprocal``) when the lattice has
   fewer than 2^32 cubes; a pair's outputs are stored as 8-byte words.
   Within a chain the order of operations is the generic kernel's.
+* ``'wide'``, for ndim in ``WIDE_NDIMS`` (9..16) under the same condition:
+  the paired design with the dimension a compile-time class
+  (``wide_class``: NMAX 12 or 16, loops unrolled to NMAX and the
+  dimensions past ndim skipped), and a cube's samples spread over a group
+  of ``wide_lanes(chunk_cubes, npg, emit_ids)`` lanes where a chunk has
+  few cubes of many samples; the group's first lane adds its values in
+  sample order.
 * ``'generic'``, every ndim 1..16: run-time loops over sample slots,
   dimensions and terms, one 4-byte coefficient load per multiply-add, a
-  64-bit decode.  It is also the kernel the paired route is timed against.
+  64-bit decode.  It is also the kernel the others are checked and timed
+  against.
+
+Within a chain every route keeps the generic kernel's order of operations,
+so coordinates, weights, bin ids and f^2 are the same bits on every route,
+and so is each cube's (fb, f2b); the f64 sums over a chunk's cubes group
+by route and agree within their rounding.
 
 The fused mode also takes a traced per-axis callable
 (``ops.integrand_gen.TracedIntegrand``, what ``vegas(sampler='fused')``
@@ -70,11 +83,17 @@ MAX_NDIM = 16
 THREADS = 256
 MAX_BLOCKS = 1 << 16
 MAX_CHUNK_CUBES = 1 << 30
-ROUTES = ("paired", "generic")
-# The dimensions csrc/vegas_sample.cu compiles the paired route for: the
-# same as the rule kernel's tile route (cuda_rule.TILE_NDIMS).
-PAIRED_NDIMS = (3, 4, 5, 6, 7, 8)
+ROUTES = ("paired", "wide", "generic")
+# The dimensions csrc/vegas_sample.cu compiles the paired and the wide
+# routes for.
+PAIRED_NDIMS = tuple(range(1, 9))
+WIDE_NDIMS = tuple(range(9, 17))
 SMEM_BYTES = 48 * 1024          # the map's room in a block's shared memory
+# Threads a fused or plain emit launch of the wide kernel spreads a cube's
+# samples over lanes to reach: 768 for each of an H100's 132 SMs (4 lanes
+# at 16D and ncall 1e9, 2^15 cubes of 23 samples; 1 at 12D, 2^18 of 4)
+RESIDENT_SLOTS = 132 * 768
+MAX_LANES = 32
 
 # Launches of the kernels since the counts were last set to 0.
 launches = 0
@@ -90,10 +109,14 @@ def reset_launches():
         generated_launches[r] = 0
 
 
+# the route argument of vegas_sample_launch
+_ROUTE_CODE = {"generic": 0, "paired": 1, "wide": 2}
+
+
 def _configure(lib):
     fn = lib.vegas_sample_launch
     fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_uint]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 2 + [ctypes.c_uint] * 2
                    + [ctypes.c_void_p] * 3)
@@ -105,8 +128,8 @@ class PolyMap:
     """The importance map as the sampler takes it: one f32 tensor holding
     the volume-folded P series (ndim*kp), the q series (ndim*kq), and the
     volume's low and high corners (ndim each).  ``packed`` is the same
-    map in the paired kernel's layout (``pack_map``); ``fold_map`` fills
-    it once per map, so that a launch does not."""
+    map in the paired and wide kernels' layout (``pack_map``);
+    ``fold_map`` fills it once per map, so that a launch does not."""
     table: torch.Tensor
     ndim: int
     kp: int
@@ -141,7 +164,7 @@ def padded_terms(kp: int, kq: int) -> tuple[int, int]:
 
 
 def pack_map(pmap: PolyMap) -> torch.Tensor:
-    """The map in the paired kernel's layout, one f32 tensor: per
+    """The map in the paired and wide kernels' layout, one f32 tensor: per
     dimension kq4/4 groups of (four terms of P, four of q), then
     (kp4 - kq4)/4 groups of four terms of P alone, both series padded with
     zeros; then the low and the high corners.  kp4 + kq4 words per
@@ -171,12 +194,37 @@ def unpack_map(packed: torch.Tensor, ndim: int, kp: int, kq: int):
 
 
 def sampler_route(ndim: int, kp: int, kq: int) -> str:
-    """The kernel a map of this shape takes: 'paired' where the source
-    compiles the dimension and the packed map fits the shared memory, else
+    """The kernel a map of this shape takes where the packed map fits the
+    shared memory: 'paired' at ndim 1..8, 'wide' at 9..16; else
     'generic'."""
     kp4, kq4 = padded_terms(kp, kq)
-    fits = 4 * ndim * (kp4 + kq4 + 2) <= SMEM_BYTES
-    return "paired" if ndim in PAIRED_NDIMS and fits else "generic"
+    if 4 * ndim * (kp4 + kq4 + 2) > SMEM_BYTES:
+        return "generic"
+    if ndim in PAIRED_NDIMS:
+        return "paired"
+    return "wide" if ndim in WIDE_NDIMS else "generic"
+
+
+def wide_class(ndim: int) -> int:
+    """NMAX of the wide kernel instance that vegas_sample.cu launches for
+    ``ndim`` (a generated library's instance is its own ndim)."""
+    return 12 if ndim <= 12 else 16
+
+
+def wide_lanes(chunk_cubes: int, npg: int, emit_ids: bool = False) -> int:
+    """Lanes of the wide route a cube, a power of two at most MAX_LANES.
+    Emitting points with bin ids: enough lanes that a cube's samples go in
+    one round (their stores then fill whole sectors; 16 at npg 23).
+    Otherwise doubled from 1 while a lane keeps a pair of samples to draw
+    and the chunk's threads stay below RESIDENT_SLOTS: more lanes would
+    leave slots idle and lengthen the first lane's in-order sum.  Set by
+    the shape and the mode alone, not the card: it groups the fused mode's
+    f64 sums over cubes."""
+    lanes, pairs = 1, -(-npg // 2)
+    while lanes < MAX_LANES and lanes < pairs and (
+            emit_ids or chunk_cubes * lanes < RESIDENT_SLOTS):
+        lanes *= 2
+    return lanes
 
 
 def _cheb_joint(p, q, t):
@@ -249,10 +297,10 @@ def sample_chunk_plain(pmap: PolyMap, integrand, ng: int, npg: int,
     return sums, ia, (f2.T.reshape(-1) if with_hist else None)
 
 
-def n_blocks(chunk_cubes: int) -> int:
-    """Thread blocks of one launch: one thread per cube up to MAX_BLOCKS
-    blocks, a grid-stride loop beyond."""
-    return min(-(-chunk_cubes // THREADS), MAX_BLOCKS)
+def n_blocks(chunk_cubes: int, lanes: int = 1) -> int:
+    """Thread blocks of one launch: ``lanes`` threads per cube up to
+    MAX_BLOCKS blocks, a grid-stride loop beyond."""
+    return min(-(-chunk_cubes * lanes // THREADS), MAX_BLOCKS)
 
 
 def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
@@ -300,12 +348,12 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
         raise ValueError(f"ng={ng} (1 .. 2^31 - 1)")
     if route is None:
         route = sampler_route(ndim, kp, kq)
-    if route not in ROUTES or (route == "paired"
-                               and sampler_route(ndim, kp, kq) != "paired"):
+    if route not in ROUTES or (route != "generic"
+                               and sampler_route(ndim, kp, kq) != route):
         raise ValueError(f"route {route!r} does not take a map of {ndim} x "
                          f"({kp} + {kq}) coefficients (paired: ndim in "
-                         f"{PAIRED_NDIMS}, the packed map within "
-                         f"{SMEM_BYTES} bytes)")
+                         f"{PAIRED_NDIMS}, wide: ndim in {WIDE_NDIMS}, the "
+                         f"packed map within {SMEM_BYTES} bytes)")
     if (pmap.table.dtype != torch.float32 or not pmap.table.is_contiguous()
             or pmap.table.numel() != ndim * (kp + kq + 2)):
         raise ValueError("PolyMap.table: need the contiguous float32 tensor "
@@ -325,7 +373,9 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
             raise ValueError(f"integrand ndim {integrand.ndim} != map {ndim}")
 
     n = chunk_cubes * npg
-    blocks = n_blocks(chunk_cubes)
+    lanes = (wide_lanes(chunk_cubes, npg, emit_points and with_hist)
+             if route == "wide" else 1)
+    blocks = n_blocks(chunk_cubes, lanes)
     i32, f32 = torch.int32, torch.float32
     xs = wt = partial = ia = f2 = None
     if emit_points:
@@ -345,7 +395,7 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
     word = stream.counter(iteration, dev)
     gp = None if genz is None else genz.ctypes.data_as(ctypes.c_void_p)
     kp4, kq4 = padded_terms(kp, kq)
-    if route == "paired":
+    if route != "generic":
         table = pmap.packed if pmap.packed is not None else pack_map(pmap)
         if (table.device != dev or table.dtype != torch.float32
                 or not table.is_contiguous()
@@ -359,7 +409,7 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
                                      _configure) if generated
            else cuda_build.load(_SOURCE, _configure))
     rc = lib.vegas_sample_launch(
-        int(route == "paired"), kp4, kq4, stream.decode_reciprocal(ng),
+        _ROUTE_CODE[route], kp4, kq4, stream.decode_reciprocal(ng), lanes,
         family, blocks, table.data_ptr(), ptr(bits), ptr(partial),
         ptr(xs), ptr(wt), ptr(ia), ptr(f2), int(cube0), int(ncubes),
         chunk_cubes, ndim, ng, npg, kp, kq, nbins,

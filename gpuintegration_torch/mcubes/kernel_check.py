@@ -73,6 +73,18 @@ def _top(t) -> float:
     return float(t.amax()) if t.numel() else 0.0
 
 
+def _same(a, b) -> bool:
+    """Two scalar tensors equal, or both NaN."""
+    return bool(a == b) or bool(torch.isnan(a) & torch.isnan(b))
+
+
+def _bits_equal(x, y) -> bool:
+    """Two tensors the same bits (NaNs included)."""
+    if x.is_floating_point():
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return torch.equal(x, y)
+
+
 def _chunk_start(ng: int, ndim: int, ncubes: int, chunk_cubes: int,
                  position: str) -> int:
     """First cube of the checked chunk: 'end' is the LAST chunk of the
@@ -123,12 +135,16 @@ def _case_bits(case, seed: int):
 
 def check_sampler(case, integrand=None, *, with_hist: bool, rng: str,
                   seed: int = 0, iteration: int = 1,
-                  route: str | None = None):
+                  route: str | None = None, weight_witness: bool = False):
     """One sampler launch (by ``route``; None: the route the shape takes)
     against ``sample_chunk_plain``: emit mode when ``integrand`` is None,
     else fused with that Genz family.  ``rng``: 'device' (the Philox
     stream of (seed, iteration)) or 'input' (the same words given to both
-    as a tensor)."""
+    as a tensor).  ``weight_witness`` (emit mode): the weights are held
+    to the f64 evaluation instead (``_weight_witness``: within ULPS['w']
+    of it, and no farther than the plain version lies plus one ulp), for
+    maps whose weight is one or two factors, where the plain version's own
+    roundings reach the limit; ``w_ulps`` is still read against it."""
     pmap = case["pmap"]
     args = (pmap, integrand, case["ng"], case["npg"], case["chunk_cubes"],
             case["nbins"], with_hist, case["xjac"], case["cube0"],
@@ -156,6 +172,15 @@ def check_sampler(case, integrand=None, *, with_hist: bool, rng: str,
         out["x_ulps"] = _top((k[0] - p[0]).abs() / (EPS32 * s_x[:, None]))
         s_w = float(torch.prod(q.abs().sum(dim=1) ** 2))
         out["w_ulps"] = _top((k[1] - p[1]).abs() / (EPS32 * s_w))
+        if weight_witness:
+            wk, wp = _weight_witness(case, k[1], p[1], kw["bits"], seed,
+                                     iteration, s_w)
+            out["kernel_w_f64_ulps"], out["plain_w_f64_ulps"] = wk, wp
+            if not (wk <= ULPS["w"] and wk <= wp + 1.0):
+                raise AssertionError(
+                    f"{label}: weights {wk:.3g} ulps from the f64 "
+                    f"evaluation (the plain version {wp:.3g}; limit "
+                    f"{ULPS['w']:g})")
     else:
         # rounding scale of each sample value, from the plain emit mode
         xs, wt, _ = cuda_vegas.sample_chunk_plain(
@@ -168,18 +193,21 @@ def check_sampler(case, integrand=None, *, with_hist: bool, rng: str,
         s_f2b_c = ((2.0 * (npg * fx_c - fb).abs() * u_c).double().sum(dim=1)
                    + npg * (fx_c * fx_c).double().sum(dim=1))
         unit = EPS32 * float(s_f2b_c.sum()) + TINY32
-        out["fb_ulps"] = abs(float(k[0][0] - p[0][0])) / (EPS32 * s_fb
-                                                          + TINY32)
+        # equal sums read 0 whatever their scale, infinite or NaN ones too
+        # (values past the f32 range: F2's peak and F6's exponent from 9D)
+        dfb, diff = (0.0 if _same(k[0][j], p[0][j])
+                     else float(k[0][j] - p[0][j]) for j in (0, 1))
+        out["fb_ulps"] = (abs(dfb) / (EPS32 * s_fb + TINY32) if dfb
+                          else 0.0)
         # cubes that may take the floor on one side only
         f2b_c = (npg * (fx_c.double() ** 2).sum(dim=1)
                  - fx_c.double().sum(dim=1) ** 2)
         cube = case["cube0"] + torch.arange(fx_c.shape[0], device=fx.device)
         ties = int(((f2b_c <= EPS32 * s_f2b_c + npg * npg * DENORM32)
                     & (cube < case["ncubes"])).sum())
-        diff = float(k[0][1] - p[0][1])
-        steps = max(-ties, min(ties, round(diff / TINY)))
-        out["f2b_ulps"] = abs(diff - steps * TINY) / unit
-        out["f2b_ulps_before_floor_ties"] = abs(diff) / unit
+        steps = max(-ties, min(ties, round(diff / TINY))) if diff else 0
+        out["f2b_ulps"] = abs(diff - steps * TINY) / unit if diff else 0.0
+        out["f2b_ulps_before_floor_ties"] = abs(diff) / unit if diff else 0.0
         out["f2b_floor_ties"], out["f2b_floor_steps"] = ties, steps
         out["sum_fb"], out["sum_f2b"] = float(k[0][0]), float(k[0][1])
         if with_hist:
@@ -187,10 +215,39 @@ def check_sampler(case, integrand=None, *, with_hist: bool, rng: str,
     for key, limit in (("x_ulps", ULPS["x"]), ("w_ulps", ULPS["w"]),
                        ("f2_ulps", ULPS["f2"]), ("fb_ulps", ULPS["fb"]),
                        ("f2b_ulps", ULPS["f2b"])):
-        if key in out and not out[key] <= limit:
+        if key in out and not out[key] <= limit and not (
+                key == "w_ulps" and weight_witness):
             raise AssertionError(f"{label}: {key} {out[key]:.3g} beyond the "
                                  f"limit {limit:g}")
     return out
+
+
+def _weight_witness(case, wk, wp, bits, seed, iteration, s_w):
+    """How far the kernel's weights ``wk`` and the plain version's ``wp``
+    lie from the weights evaluated in f64 from the same f32 positions
+    (which both share bit for bit) and the map's f32 coefficients, in f32
+    ulps of the weight's rounding scale ``s_w``, over the cubes inside the
+    lattice."""
+    pmap, npg, chunk = case["pmap"], case["npg"], case["chunk_cubes"]
+    ndim, dev = pmap.ndim, pmap.table.device
+    cube = case["cube0"] + torch.arange(chunk, dtype=torch.int64, device=dev)
+    kg = (stream.decode_cube(cube, case["ng"], ndim) - 1).T.to(torch.float32)
+    words = bits if bits is not None else stream.stream_bits(
+        seed, iteration, cube, npg, ndim)
+    uni = stream.bits_to_uniform(words).reshape(npg, ndim, chunk)
+    s32 = (kg[None] + (1.0 - uni)) * (1.0 / case["ng"])
+    pf, q, _, _ = (t.double() for t in pmap.parts())
+    w64 = 1.0
+    for d in range(ndim):
+        _, acc_q = cuda_vegas._cheb_joint(pf[d], q[d],
+                                          (2.0 * s32[:, d] - 1.0).double())
+        w64 = w64 * (acc_q * acc_q)
+    w64 = w64.T.reshape(-1)
+    inside = torch.repeat_interleave(cube < case["ncubes"], npg)
+
+    def ulps(w):
+        return _top((w.double() - w64).abs()[inside]) / (EPS32 * s_w)
+    return ulps(wk), ulps(wp)
 
 
 def _value_scales(integrand, xs, wt, xjac, s_x, s_w):
@@ -279,14 +336,19 @@ def sampler_f64_witness(case, integrand, *, rng: str, seed: int = 0,
             "sum_f2b_f64": sum64}
 
 
+_OUTPUT_NAMES = {"xs": "coordinates", "wt": "weights", "ia": "bin ids",
+                 "f2": "values of f^2"}
+
+
 def check_sampler_routes(case, integrand=None, *, with_hist: bool, rng: str,
                          seed: int = 0, iteration: int = 1):
-    """The two routes of the sampler on one chunk against each other, each
-    launched twice.  A route must repeat its bits.  Between the routes the
-    bin ids must be EQUAL; within a chain both keep the same order of
-    operations, so coordinates, weights, f^2 and the sums are read in f32
-    ulps of the larger value (f64 ulps for the sums) and reported: 0 where
-    the compiler contracts both alike.  Meaningful on CUDA tensors only."""
+    """The route the shape takes (``sampler_route``: 'paired' or 'wide')
+    and the generic route on one chunk, each launched twice.  A route must
+    repeat its bits.  Within a chain every route keeps the generic kernel's
+    order of operations, so between the routes the coordinates, weights,
+    bin ids and f^2 must be EQUAL; the f64 sums over the chunk's cubes,
+    which the routes group otherwise, are read in f64 ulps of the larger
+    value and reported.  Meaningful on CUDA tensors only."""
     pmap = case["pmap"]
     args = (pmap, integrand, case["ng"], case["npg"], case["chunk_cubes"],
             case["nbins"], with_hist, case["xjac"], case["cube0"],
@@ -295,27 +357,31 @@ def check_sampler_routes(case, integrand=None, *, with_hist: bool, rng: str,
           "emit_points": integrand is None}
     label = (f"sampler {'emit' if integrand is None else integrand.name} "
              f"hist={with_hist} rng={rng}")
+    routes = list(dict.fromkeys(
+        [cuda_vegas.sampler_route(pmap.ndim, pmap.kp, pmap.kq), "generic"]))
     outs = {}
-    for route in cuda_vegas.ROUTES:
+    for route in routes:
         a, b = (cuda_vegas.sample_chunk(*args, **kw, route=route)
                 for _ in range(2))
         if pmap.table.is_cuda:
             torch.cuda.synchronize()
         for x, y in zip(a, b):
-            if x is not None and not torch.equal(x, y):
+            if x is not None and not _bits_equal(x, y):
                 raise AssertionError(f"{label}: two launches of the {route} "
                                      "route differ")
         outs[route] = a
     names = ("xs", "wt", "ia") if integrand is None else ("sums", "ia", "f2")
-    out = {"samples": case["chunk_cubes"] * case["npg"]}
-    for name, x, y in zip(names, outs["paired"], outs["generic"]):
+    out = {"samples": case["chunk_cubes"] * case["npg"], "routes": routes}
+    for name, x, y in zip(names, outs[routes[0]], outs["generic"]):
         if x is None:
             continue
-        if name == "ia":
-            if not torch.equal(x, y):
-                raise AssertionError(f"{label}: {int((x != y).sum())} bin ids "
-                                     "differ between the routes")
-            out["ia_equal"] = True
+        if name != "sums":
+            if not _bits_equal(x, y):
+                raise AssertionError(
+                    f"{label}: {int((x != y).sum())} of {x.numel()} "
+                    f"{_OUTPUT_NAMES[name]} differ between the {routes[0]} "
+                    "and the generic route")
+            out[f"{name}_equal"] = True
             continue
         eps = float(torch.finfo(x.dtype).eps)
         size = torch.maximum(x.abs(), y.abs()).clamp_min(

@@ -8,12 +8,16 @@ finds (run it with ``PYTHONPATH`` set to another checkout's root to read
 that one), prints each kernel's registers, spill bytes and stack frame
 from nvcc's ``-Xptxas -v`` report, and runs the PAGANI main path,
 ``Workspace(8).integrate(f4_gaussian(8), 1e-3, 1e-40, fused=False)`` in
-f64, and VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
+f64, VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
 'hybrid'; ncall 1e9 f32 'fused', 10 iterations, 5 adjusting; the grid map,
-ncall 1e8), printing status, iterations, regions or neval and the estimate
-and errorest as hex floats (the bits).  Run once from each checkout in one
-call to the card: the two tables and the runs must match where the
-kernels are meant to be the same.  Needs a CUDA card.
+ncall 1e8) and BASELINE's 9D VEGAS Gaussian (``misc.gauss9d`` at 1e-3,
+ncall 1e9, 'hybrid'), printing status, iterations, regions or neval and
+the estimate and errorest as hex floats (the bits), and each run's
+sampler and histogram launches by route.  Run once from each checkout in
+one call to the card: the two tables and the runs must match where the
+kernels are meant to be the same (the 9D run's routes, and with them its
+histogram's order of addition, differ between checkouts that route 9D
+otherwise).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 
 import gpuintegration_torch
 from gpuintegration_torch import Workspace, mcubes
-from gpuintegration_torch.models import genz
+from gpuintegration_torch.mcubes import cuda_lookup, cuda_vegas
+from gpuintegration_torch.models import genz, misc
 from gpuintegration_torch.ops import cuda_build
 
 _TYPES = {"d": "double", "f": "float"}
@@ -51,12 +56,16 @@ def kernel_name(mangled: str) -> str:
     if m:
         tail = f", {_BOOL[m[3]]}" if m[3] else ""
         return f"rule_kernel<{m[1]}, {_TYPES[m[2]]}{tail}>"
-    m = re.search(r"(sample_pair_kernel|sample_kernel|resolve_sample_kernel|"
-                  r"resolve_kernel)I((?:L[ib]\d+E)+)", mangled)
+    m = re.search(r"(sample_pair_kernel|sample_wide_kernel|sample_kernel|"
+                  r"resolve_sample_kernel|resolve_kernel)I((?:L[ib]\d+E)+)",
+                  mangled)
     if m:
         args = [v if k == "i" else _BOOL[v]
                 for k, v in re.findall(r"L([ib])(\d+)E", m[2])]
         return f"{m[1]}<{', '.join(args)}>"
+    m = re.search(r"hist_grouped_kernelILi(\d+)E([df])E", mangled)
+    if m:
+        return f"hist_grouped_kernel<{m[1]}, {_TYPES[m[2]]}>"
     m = re.search(r"\d+([a-z_]+)I([df])((?:Lb[01]E)*)", mangled)
     if m:
         flags = "".join(f", {_BOOL[b]}" for b in re.findall(r"Lb([01])E",
@@ -109,14 +118,21 @@ def main() -> int:
           f"{float(res.estimate).hex()} errorest "
           f"{float(res.errorest).hex()}", flush=True)
     g6 = genz.f4_gaussian(6)
-    for run, kw in (("run 1", dict(ncall=1e8)),
-                    ("run 2", dict(ncall=1e9, eval_dtype=torch.float32,
-                                   total_iters=10, adjust_iters=5)),
-                    ("run 3", dict(ncall=1e8, importance="grid"))):
-        r = mcubes.integrate(g6, 1e-3, 1e-40, **kw)
+    g9, vol9 = misc.gauss9d()
+    for run, g, kw in (("run 1", g6, dict(ncall=1e8)),
+                       ("run 2", g6, dict(ncall=1e9, eval_dtype=torch.float32,
+                                          total_iters=10, adjust_iters=5)),
+                       ("run 3", g6, dict(ncall=1e8, importance="grid")),
+                       ("9D gauss9d", g9, dict(ncall=1e9, vol=vol9,
+                                               sampler="hybrid"))):
+        cuda_vegas.reset_launches()
+        cuda_lookup.reset_launches()
+        r = mcubes.integrate(g, 1e-3, 1e-40, **kw)
         print(f"vegas {run}: status {r.status} iters {r.iters} neval "
               f"{r.neval} estimate {float(r.estimate).hex()} errorest "
-              f"{float(r.errorest).hex()}", flush=True)
+              f"{float(r.errorest).hex()}; sampler launches "
+              f"{dict(cuda_vegas.route_launches)}, histogram "
+              f"{dict(cuda_lookup.hist_route_launches)}", flush=True)
     return 0
 
 

@@ -61,24 +61,40 @@ def _tool(name: str) -> str:
     raise RuntimeError(f"{name} not found (no CUDA toolkit)")
 
 
-def functions(library: Path) -> dict[str, list[tuple[int, str, str]]]:
-    """{demangled kernel name: [(address, opcode, operands)]} of a library."""
+def short_name(name: str) -> str:
+    """A demangled kernel name without its namespace and parameters."""
+    short = name.replace("(anonymous namespace)::", "")
+    return short.replace("(int)", "").replace("void ", "").split("(")[0]
+
+
+def functions(library: Path, patterns=()) -> dict[str, list[tuple[int, str,
+                                                                  str]]]:
+    """{demangled kernel name: [(address, opcode, operands)]} of a
+    library's kernels whose short name holds one of ``patterns`` (none:
+    every kernel).  Only those kernels' instructions are parsed."""
     sass = subprocess.run([_tool("cuobjdump"), "-sass", str(library)],
                           capture_output=True, text=True, check=True).stdout
+    lines = sass.splitlines()
+    names = [line.split("Function :")[1].strip() for line in lines
+             if "Function :" in line]
+    plain = subprocess.run([_tool("cu++filt"), *names], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    wanted = {n: p for n, p in zip(names, plain)
+              if not patterns or any(q in short_name(p) for q in patterns)}
     mangled, out = None, {}
-    for line in sass.splitlines():
+    for line in lines:
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            out[mangled] = []
+            if mangled in wanted:
+                out[mangled] = []
+            else:
+                mangled = None
         elif mangled:
             m = _INSTR.search(line)
             if m:
                 out[mangled].append((int(m.group(1), 16), m.group(2),
                                      m.group(3)))
-    names = list(out)
-    plain = subprocess.run([_tool("cu++filt"), *names], capture_output=True,
-                           text=True, check=True).stdout.splitlines()
-    return {p: out[n] for n, p in zip(names, plain)}
+    return {wanted[n]: instrs for n, instrs in out.items()}
 
 
 def loops(instrs):
@@ -108,12 +124,8 @@ def report(patterns=()):
     patterns = tuple(patterns) or DEFAULT_PATTERNS
     out = []
     for lib in cuda_build.build_many(list(SOURCES)):
-        for name, instrs in functions(lib).items():
-            short = name.replace("(anonymous namespace)::", "")
-            short = short.replace("(int)", "").replace("void ", "")
-            short = short.split("(")[0]
-            if not any(p in short for p in patterns):
-                continue
+        for name, instrs in functions(lib, patterns).items():
+            short = short_name(name)
             listed = [l for l in loops(instrs) if l[3]["all"] >= MIN_LOOP]
             inner = [(depth, c) for lo, hi, depth, c in listed
                      if not any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)

@@ -106,7 +106,9 @@ def test_emitted_forms_round_as_pytorch_on_card(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ndim,route", [(5, "paired"), (5, "generic"),
-                                        (9, "generic")])
+                                        (9, "generic"), (2, "paired"),
+                                        (9, "wide"), (12, "wide"),
+                                        (16, "wide")])
 def test_generated_sampler_against_plain(ndim, route):
     dev = _card()
     t = integrand_gen.traced(gauss(ndim, 25.0), ndim)

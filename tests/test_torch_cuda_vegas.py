@@ -172,7 +172,7 @@ def test_both_sampler_routes_match_plain_and_each_other_on_card(
     assert cuda_vegas.sampler_route(ndim, pmap.kp, pmap.kq) == "paired"
     for integrand in [None] + genz.genz_suite(ndim):
         for rng in ("input", "device"):
-            for route in cuda_vegas.ROUTES:
+            for route in ("paired", "generic"):
                 kernel_check.check_sampler(case, integrand, with_hist=True,
                                            rng=rng, route=route)
             r = kernel_check.check_sampler_routes(case, integrand,
@@ -180,8 +180,63 @@ def test_both_sampler_routes_match_plain_and_each_other_on_card(
             assert r["ia_equal"]
         kernel_check.check_sampler_routes(case, integrand, with_hist=False,
                                           rng="device")
-    for route in cuda_vegas.ROUTES:
+    for route in ("paired", "generic"):
         kernel_check.check_stream(case, route=route)
+
+
+# (ndim, ncall, chunk, degree): the dimensions the paired route took over
+# (1, 2) and the wide route's (9..16): npg 2 at 1D, 2D and 9D; 12D at npg 4;
+# 16D at ncall 1e9 (ng 3, npg 23) on a chunk of 2^12 cubes (16 lanes a
+# cube) and of 2^15 (8 lanes, the run's chunk); 13D at npg 9 (odd, 8
+# lanes); 10D at npg 33 (32 lanes, the whole warp); a degree whose term
+# counts are not multiples of four
+WIDE_SHAPES = [(1, 2e4, 4096, 8), (2, 1e6, 1 << 14, 14), (9, 4e6, 1 << 14, 8),
+               (9, 1e9, 1 << 16, 14), (12, 1e9, 1 << 14, 14),
+               (16, 1e9, 1 << 12, 14), (16, 1e9, 1 << 15, 14),
+               (13, 1.5e7, 4096, 5), (10, 2e6, 4096, 8)]
+
+
+def _wide_suite(ndim):
+    """F1..F6 at ndim, F2 at a = 2 from 9D: at its default a = 50 its peak,
+    2500^ndim, lies past f32's largest value (at a = 5, 25^16, its f^2
+    still does at 16D), and the fused f32 mode's values there are
+    infinities whose pattern follows the order of the denominator's
+    product (the plain version's torch.prod against the kernels' running
+    product) and which f32 value rounds past the largest, not the kernels'
+    roundings.  At a = 2 the peak is 4^ndim."""
+    return [genz.f2_product_peak(ndim, a=2.0) if g.kind == 2 and ndim > 8
+            else g for g in genz.genz_suite(ndim)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("position", ["end", "middle"])
+@pytest.mark.parametrize("ndim,ncall,chunk,degree", WIDE_SHAPES)
+def test_new_sampler_routes_match_generic_and_plain_on_card(
+        ndim, ncall, chunk, degree, position):
+    """The paired route at 1D and 2D and the wide route at 9..16D against
+    the plain version with kernel_check's limits and against the generic
+    route (coordinates, weights, bin ids and f^2 EQUAL, each route twice
+    the same bits), emit mode and every fused family, uniforms from a
+    tensor and from the stream, a chunk past the lattice's end; the
+    generator word for word."""
+    _card()
+    case = kernel_check.sampler_case(ndim, ncall, chunk, nbins=100,
+                                     degree=degree, position=position)
+    pmap = case["pmap"]
+    route = "paired" if ndim <= 2 else "wide"
+    assert cuda_vegas.sampler_route(ndim, pmap.kp, pmap.kq) == route
+    for integrand in [None] + _wide_suite(ndim):
+        for rng in ("input", "device"):
+            for r in (route, "generic"):
+                kernel_check.check_sampler(case, integrand, with_hist=True,
+                                           rng=rng, route=r)
+            got = kernel_check.check_sampler_routes(case, integrand,
+                                                    with_hist=True, rng=rng)
+            assert got["routes"] == [route, "generic"] and got["ia_equal"]
+        kernel_check.check_sampler_routes(case, integrand, with_hist=False,
+                                          rng="device")
+    for r in (route, "generic"):
+        kernel_check.check_stream(case, route=r)
 
 
 @pytest.mark.gpu
@@ -199,7 +254,7 @@ def test_sampler_routes_at_other_degrees_on_card(ndim, ncall, chunk, degree):
         case = kernel_check.sampler_case(ndim, ncall, chunk, degree=degree,
                                          position=position)
         for integrand in (None, fused):
-            for route in cuda_vegas.ROUTES:
+            for route in ("paired", "generic"):
                 kernel_check.check_sampler(case, integrand, with_hist=True,
                                            rng="device", route=route)
             kernel_check.check_sampler_routes(case, integrand, with_hist=True,
@@ -208,23 +263,28 @@ def test_sampler_routes_at_other_degrees_on_card(ndim, ncall, chunk, degree):
 
 @pytest.mark.gpu
 def test_sampler_launches_are_counted_by_route_on_card():
-    """A 9D map goes through the generic kernel and a 6D one through the
-    paired kernel; naming the paired route for 9D raises."""
+    """A 9D map goes through the wide kernel, a 6D and a 2D one through the
+    paired kernel, a named generic route through the generic one; naming
+    the paired route for 9D, or the wide one for 6D, raises."""
     _card()
     cuda_vegas.reset_launches()
-    for ndim, route in ((9, "generic"), (6, "paired")):
+    for ndim, route in ((9, "wide"), (6, "paired"), (2, "paired")):
         case = kernel_check.sampler_case(ndim, 2e5, 4096, nbins=50, degree=8)
         kernel_check.check_sampler(case, None, with_hist=True, rng="device")
-        assert cuda_vegas.route_launches[route] == 1
-    assert cuda_vegas.launches == 2
-    case = kernel_check.sampler_case(9, 2e5, 4096, nbins=50, degree=8)
-    with pytest.raises(ValueError, match="does not take a map"):
-        kernel_check.check_sampler(case, None, with_hist=True, rng="device",
-                                   route="paired")
+    kernel_check.check_sampler(case, None, with_hist=True, rng="device",
+                               route="generic")
+    assert cuda_vegas.route_launches == {"paired": 2, "wide": 1,
+                                         "generic": 1}
+    assert cuda_vegas.launches == 4
+    for ndim, route in ((9, "paired"), (6, "wide")):
+        case = kernel_check.sampler_case(ndim, 2e5, 4096, nbins=50, degree=8)
+        with pytest.raises(ValueError, match="does not take a map"):
+            kernel_check.check_sampler(case, None, with_hist=True,
+                                       rng="device", route=route)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", cuda_vegas.ROUTES)
+@pytest.mark.parametrize("route", ["paired", "generic"])
 @pytest.mark.parametrize("ndim,ncall,chunk,degree,position,family", [
     (6, 1e8, 1 << 20, 14, "end", "f1_oscillatory"),
     (6, 1e8, 1 << 14, 14, "end", "f3_corner_peak"),
@@ -258,7 +318,11 @@ def test_sampler_against_the_f64_witness_on_card(ndim, ncall, chunk, degree,
 @pytest.mark.parametrize("ndim,nbins", [(6, 50), (6, 500), (6, 2048),
                                         (1, 11), (8, 500), (8, 2048),
                                         (16, 500), (8, 908), (8, 1815),
-                                        (8, 1816)])
+                                        (8, 1816), (9, 500), (10, 500),
+                                        (11, 500), (12, 500), (13, 500),
+                                        (14, 500), (15, 500), (9, 50),
+                                        (16, 50), (9, 2048), (16, 2048),
+                                        (9, 3229), (9, 7000), (16, 4000)])
 @pytest.mark.parametrize("n", [30_011, 1 << 18])
 def test_both_hist_routes_match_plain_on_card(ndim, nbins, n):
     """Each histogram route against the plain version within HIST_RTOL,
@@ -266,15 +330,32 @@ def test_both_hist_routes_match_plain_on_card(ndim, nbins, n):
     bins near the cap EQUAL to min(d + the route's histogram, cap).  At 8D
     the rows of 4 warps fill the shared memory up to 1815 bins (908: 8
     warps' rows would fill it exactly, so 4 warps take it); from 1816 bins
-    they do not fit beside the kernel's static shared memory, and 16D is
-    not compiled: those shapes take the generic route."""
+    they do not fit beside the kernel's static shared memory.  9..16D take
+    the grouped route with their dimensions in groups, two sets of rows a
+    block (one at 16D and 2048 bins, 9D and 3229); 9D at 7000 bins and 16D
+    at 4000 do not fit one set and take the generic route, as 8D at 1816
+    and 2048 does."""
     _card()
     r = kernel_check.check_hist_routes(ndim, n, nbins)
     fits = cuda_lookup.hist_route(ndim, nbins) == "grouped"
-    assert fits == ((ndim, nbins) not in ((8, 2048), (16, 500), (8, 1816)))
+    assert fits == ((ndim, nbins) not in ((8, 2048), (8, 1816), (9, 7000),
+                                          (16, 4000)))
     assert r["routes"] == (["grouped", "generic"] if fits else ["generic"])
     if fits:
         assert r["between_routes_max_rel"] <= 2 * kernel_check.HIST_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ndim", range(9, 17))
+@pytest.mark.parametrize("nbins", [50, 500, 1000, 2048])
+def test_hist_clusters_fit_the_card(ndim, nbins):
+    """hist_plan's clusters at 9..16D, set by shape, are no more than the
+    card holds at once (the query its constants were read from)."""
+    _card()
+    _, clusters = cuda_lookup.hist_plan(1 << 21, ndim, nbins)
+    for f2_type in (torch.float32, torch.float64):
+        assert clusters <= cuda_lookup.hist_clusters_on_card(ndim, nbins,
+                                                             f2_type)
 
 
 @pytest.mark.gpu

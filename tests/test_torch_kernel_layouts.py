@@ -130,9 +130,11 @@ def test_launch_counts_reset():
     assert cuda_rule.route_launches == {"tile": 0, "generic": 0}
     cuda_vegas.launches = 3
     cuda_vegas.route_launches["generic"] = 3
+    cuda_vegas.route_launches["wide"] = 2
     cuda_vegas.reset_launches()
     assert cuda_vegas.launches == 0
-    assert cuda_vegas.route_launches == {"paired": 0, "generic": 0}
+    assert cuda_vegas.route_launches == {"paired": 0, "wide": 0,
+                                         "generic": 0}
 
 
 # -- sampler, paired route ------------------------------------------------------
@@ -219,18 +221,24 @@ def test_reciprocal_decode_gives_the_cube_digits(ng):
 @pytest.mark.parametrize("degree", [0, 8, 14, 40])
 @pytest.mark.parametrize("ndim", range(1, 17))
 def test_sampler_route(ndim, degree):
-    """'paired' for the dimensions the source compiles, at every degree
-    whose packed map fits the shared memory; 'generic' else."""
+    """'paired' at ndim 1..8 and 'wide' at 9..16, the dimensions the source
+    compiles them for, at every degree here: each packed map fits the
+    shared memory (16D at degree 40 takes 4 * 16 * (84 + 44 + 2) bytes)."""
     kp, kq = 2 * degree + 2, degree + 1
-    want = "paired" if 3 <= ndim <= 8 else "generic"
+    kp4, kq4 = cuda_vegas.padded_terms(kp, kq)
+    assert 4 * ndim * (kp4 + kq4 + 2) <= cuda_vegas.SMEM_BYTES
+    want = "paired" if ndim <= 8 else "wide"
     assert cuda_vegas.sampler_route(ndim, kp, kq) == want
 
 
 def test_sampler_route_by_map_size():
-    """A map too large for the paired kernel's shared memory goes the
-    generic way (which refuses it in turn if it is too large for it)."""
+    """A map too large for the paired or wide kernel's shared memory goes
+    the generic way (which refuses it in turn if it is too large for
+    it)."""
     assert cuda_vegas.sampler_route(8, 1000, 500) == "paired"
     assert cuda_vegas.sampler_route(8, 1024, 512) == "generic"
+    assert cuda_vegas.sampler_route(16, 500, 250) == "wide"
+    assert cuda_vegas.sampler_route(16, 512, 256) == "generic"
 
 
 def test_route_argument_is_ignored_on_the_cpu_and_checked_on_the_card():
@@ -446,3 +454,70 @@ def test_f64_witness_on_cpu(rng):
     assert w["sum_f2b_f64"] < 1e-3 * kernel_check.TINY
     assert abs(w["plain_f2b_floors"] - round(w["plain_f2b_floors"])) < 1e-3
     assert round(w["plain_f2b_floors"]) >= 3
+
+
+def test_route_bits_names_the_wide_routes():
+    """``tools/route_bits.py`` spells out the template arguments of the
+    sampler's wide instances and the grouped histogram's, so that the 9..16D
+    instances stand beside the 1..8D ones in its table."""
+    from gpuintegration_torch.tools.route_bits import kernel_name
+    for mangled, name in (
+            ("_ZN12_GLOBAL__N_17sampler18sample_wide_kernelILi4ELi16EEEvNS0_"
+             "10SampleArgsE", "sample_wide_kernel<4, 16>"),
+            ("_ZN12_GLOBAL__N_17sampler18sample_pair_kernelILi0ELi1EEEvNS0_"
+             "10SampleArgsE", "sample_pair_kernel<0, 1>"),
+            ("_ZN12_GLOBAL__N_119hist_grouped_kernelILi12EdEEvNS_8HistArgsE",
+             "hist_grouped_kernel<12, double>"),
+            ("_ZN12_GLOBAL__N_119hist_grouped_kernelILi6EfEEvNS_8HistArgsE",
+             "hist_grouped_kernel<6, float>")):
+        assert kernel_name(mangled) == name
+
+
+@pytest.mark.parametrize("chunk,npg,lanes,ids_lanes", [
+    (1 << 20, 2, 1, 1), (1 << 18, 4, 1, 2), (1 << 15, 23, 4, 16),
+    (91181, 23, 2, 16), (4096, 23, 16, 16), (4096, 33, 32, 32),
+    (1, 2, 1, 1), (1, 1000, 32, 32), (1 << 16, 33, 2, 32)])
+def test_wide_lanes_by_shape(chunk, npg, lanes, ids_lanes):
+    """The wide route's lanes a cube, a power of two up to 32: emitting
+    points with bin ids, enough that a cube's samples go in one round;
+    else doubled while a lane keeps a pair of samples and the chunk's
+    threads stay below RESIDENT_SLOTS (16D at ncall 1e9: 2^15 cubes of 23
+    samples, 4 lanes)."""
+    got = cuda_vegas.wide_lanes(chunk, npg)
+    assert got == lanes and cuda_vegas.wide_lanes(chunk, npg, True) == ids_lanes
+    pairs = -(-npg // 2)
+    assert ids_lanes == min(cuda_vegas.MAX_LANES, 1 << (pairs - 1).bit_length())
+    if got > 1:
+        assert (got // 2) * chunk < cuda_vegas.RESIDENT_SLOTS
+        assert got // 2 < pairs
+    assert cuda_vegas.n_blocks(chunk, got) == min(
+        -(-chunk * got // cuda_vegas.THREADS), cuda_vegas.MAX_BLOCKS)
+
+
+@pytest.mark.parametrize("ndim,ncall", [(1, 2e4), (2, 1e5), (9, 4e3)])
+def test_weight_witness_on_cpu(monkeypatch, ndim, ncall):
+    """The sampler check's f64 witness of the weights: on the CPU the
+    plain version stands in for the kernel, so both lie as far from the
+    f64 evaluation, within the limit; weights moved by twice the limit,
+    in ulps of their rounding scale, fail it."""
+    from gpuintegration_torch.mcubes import kernel_check
+    case = kernel_check.sampler_case(ndim, ncall, 256, nbins=50, degree=14,
+                                     device="cpu")
+    r = kernel_check.check_sampler(case, None, with_hist=True, rng="device",
+                                   weight_witness=True)
+    assert r["kernel_w_f64_ulps"] == r["plain_w_f64_ulps"]
+    assert r["kernel_w_f64_ulps"] <= kernel_check.ULPS["w"]
+    plain = cuda_vegas.sample_chunk_plain
+
+    q = case["pmap"].parts()[1]
+    shift = (2 * kernel_check.ULPS["w"] * kernel_check.EPS32
+             * float(torch.prod(q.abs().sum(dim=1) ** 2)))
+
+    def off(*a, **kw):
+        xs, wt, ia = plain(*a, **kw)
+        return xs, wt + shift, ia
+
+    monkeypatch.setattr(cuda_vegas, "sample_chunk", off)
+    with pytest.raises(AssertionError, match="from the f64 evaluation"):
+        kernel_check.check_sampler(case, None, with_hist=True, rng="device",
+                                   weight_witness=True)

@@ -88,14 +88,20 @@ def resolve_quads(n: int, npg: int, ng: int, ndim: int, cube0: int,
 # past 128 * 8 * 8 * 30 samples the plan reaches HIST_MAX_CLUSTERS
 @pytest.mark.parametrize("n", [1, 5, 127, 129, 30011, 245761, 1 << 21,
                                (1 << 21) - 3])
-@pytest.mark.parametrize("ndim,nbins", [(6, 500), (1, 11), (8, 1700)])
+@pytest.mark.parametrize("ndim,nbins", [(6, 500), (1, 11), (8, 1700),
+                                        (9, 500), (16, 500)])
 def test_grouped_plan_covers_every_sample_once(n, ndim, nbins):
-    """Blocks take contiguous ranges of 128-sample segments, warps take a
-    block's segments in turn and lane l samples 4l..4l+3 of each: every
-    sample below n is added once, by ragged n and by n below one block."""
+    """Blocks take contiguous ranges of 128-sample segments, the sets of
+    rows (a warp each up to 8D, a warp of each group of dimensions at
+    9..16D) take a block's segments in turn and lane l samples 4l..4l+3 of
+    each: every sample below n is added once to each dimension's row, by
+    ragged n and by n below one block."""
     warps, clusters = cuda_lookup.hist_plan(n, ndim, nbins)
-    assert warps == cuda_lookup.hist_warps(ndim, nbins) in (8, 4)
-    assert 1 <= clusters <= cuda_lookup.HIST_MAX_CLUSTERS
+    sets = cuda_lookup.hist_sets(ndim, nbins)
+    assert warps == cuda_lookup.hist_warps(ndim, nbins) == (
+        sets * cuda_lookup.hist_groups(ndim))
+    assert warps in ((8, 4) if ndim <= 8 else (8, 6))
+    assert 1 <= clusters <= cuda_lookup.hist_max_clusters(ndim, nbins)
     blocks = clusters * cuda_lookup.HIST_CLUSTER
     ranges = hist_block_segments(n, blocks)
     assert len(ranges) == blocks
@@ -103,8 +109,8 @@ def test_grouped_plan_covers_every_sample_once(n, ndim, nbins):
     hits = np.zeros(n, dtype=np.int64)
     lane_samples = (4 * np.arange(32)[:, None] + np.arange(4)).reshape(-1)
     for first, stop in ranges:
-        for w in range(warps):
-            for s in range(first + w, stop, warps):
+        for w in range(sets):
+            for s in range(first + w, stop, sets):
                 idx = s * seg + lane_samples
                 np.add.at(hits, idx[idx < n], 1)
     assert (hits == 1).all()
@@ -126,6 +132,46 @@ def test_grouped_plan_leaves_no_warp_without_a_segment_when_it_can():
     assert cuda_lookup.hist_plan(1 << 21, 6, 500) == (8, 30)
 
 
+@pytest.mark.parametrize("ndim,nbins,cap", [
+    (6, 500, 30), (8, 500, 30), (8, 50, 30), (9, 500, 60), (12, 500, 60),
+    (13, 500, 60), (14, 500, 60), (15, 500, 45), (16, 500, 45), (9, 50, 60),
+    (16, 50, 60), (9, 1000, 45), (10, 1000, 30), (9, 1067, 30),
+    (16, 599, 45), (16, 600, 30), (16, 1000, 15), (9, 2048, 15),
+    (16, 2048, 15), (9, 6456, 15), (9, 7000, 0)])
+def test_hist_clusters_by_shape(ndim, nbins, cap):
+    """At 1..8D the clusters stop at HIST_MAX_CLUSTERS, as they did when
+    the route took only those shapes (their bits stay).  At 9..16D they
+    stop at HIST_CLUSTERS_A_BLOCK for each block an SM holds: by its 228 KB
+    of shared memory (a block's rows, its static bytes and 1 KB), by its
+    2048 threads, and at most HIST_WIDE_BLOCKS; 2^21 samples reach the
+    stop."""
+    assert cuda_lookup.hist_max_clusters(ndim, nbins) == cap
+    if not cap:
+        return
+    warps, clusters = cuda_lookup.hist_plan(1 << 21, ndim, nbins)
+    assert (warps, clusters) == (cuda_lookup.hist_warps(ndim, nbins), cap)
+    if ndim > 8:
+        sets = cuda_lookup.hist_sets(ndim, nbins)
+        block = 4 * sets * ndim * nbins + cuda_lookup.HIST_STATIC_SMEM + 1024
+        assert cap == cuda_lookup.HIST_CLUSTERS_A_BLOCK * min(
+            cuda_lookup.SM_SMEM_BYTES // block, 2048 // (32 * warps),
+            cuda_lookup.HIST_WIDE_BLOCKS)
+
+
+@pytest.mark.parametrize("n", [1, 129, 30011, 1 << 20, (1 << 21) + 5])
+@pytest.mark.parametrize("ndim,nbins", [(9, 500), (12, 50), (16, 500),
+                                        (13, 1000)])
+def test_grouped_plan_at_wide_shapes(n, ndim, nbins):
+    """At 9..16D the clusters are the fewest that give each warp a
+    segment, up to the shape's stop."""
+    warps, clusters = cuda_lookup.hist_plan(n, ndim, nbins)
+    segments = -(-n // cuda_lookup.HIST_SEGMENT)
+    sets = cuda_lookup.hist_sets(ndim, nbins)
+    assert warps == cuda_lookup.hist_warps(ndim, nbins) in (8, 6)
+    assert clusters == max(1, min(cuda_lookup.hist_max_clusters(ndim, nbins),
+                                  -(-segments // (8 * sets))))
+
+
 @pytest.mark.parametrize("rows", [1, 7, 8, 9, 300, 3000, 12288, 6 * 2048])
 def test_cluster_shares_cover_each_bin_once(rows):
     """Rank r of a cluster sums (and the last cluster of each share
@@ -141,20 +187,48 @@ def test_cluster_shares_cover_each_bin_once(rows):
 @pytest.mark.parametrize("ndim,nbins,warps,route", [
     (6, 500, 8, "grouped"), (6, 50, 8, "grouped"), (1, 11, 8, "grouped"),
     (6, 2048, 4, "grouped"), (8, 1700, 4, "grouped"), (8, 1900, 0, "generic"),
-    (8, 2048, 0, "generic"), (8, 7000, 0, "generic"), (9, 50, 8, "generic"),
-    (16, 500, 4, "generic"), (8, 907, 8, "grouped"), (8, 908, 4, "grouped"),
-    (8, 1815, 4, "grouped"), (8, 1816, 0, "generic")])
+    (8, 2048, 0, "generic"), (8, 7000, 0, "generic"), (9, 50, 6, "grouped"),
+    (16, 500, 8, "grouped"), (8, 907, 8, "grouped"), (8, 908, 4, "grouped"),
+    (8, 1815, 4, "grouped"), (8, 1816, 0, "generic"),
+    (9, 500, 6, "grouped"), (12, 500, 6, "grouped"), (13, 500, 8, "grouped"),
+    (15, 500, 8, "grouped"), (16, 50, 8, "grouped"), (9, 2048, 6, "grouped"),
+    (16, 2048, 4, "grouped"), (9, 3228, 6, "grouped"),
+    (9, 3229, 3, "grouped"), (9, 6456, 3, "grouped"),
+    (9, 6457, 0, "generic"), (16, 1815, 8, "grouped"),
+    (16, 1816, 4, "grouped"), (16, 3631, 4, "grouped"),
+    (16, 3632, 0, "generic")])
 def test_hist_route_by_shape(ndim, nbins, warps, route):
-    """The grouped route for the dimensions the source compiles (1..8)
-    where the rows of 8, else 4, warps fit a block's 227 KB beside the
-    kernel's static shared memory; the generic route else.  Rows of
-    exactly 227 KB (8D at 908 bins on 8 warps, 1816 on 4) leave no room
-    for it."""
+    """The grouped route for the dimensions the source compiles (1..16)
+    where its rows fit a block's 227 KB beside the kernel's static shared
+    memory; the generic route else.  Up to 8D a warp has its own rows, 8
+    warps else 4: rows of exactly 227 KB (8D at 908 bins on 8 warps, 1816
+    on 4) leave no room.  At 9..16D a set of rows serves a warp of each of
+    3 (9..12D) or 4 (13..16D) groups of dimensions, 2 sets else 1: 9D takes
+    2 sets up to 3228 bins and 1 up to 6456, 16D 2 up to 1815 and 1 up to
+    3631."""
     assert cuda_lookup.hist_warps(ndim, nbins) == warps
     assert cuda_lookup.hist_route(ndim, nbins) == route
     if warps:
-        assert (4 * warps * ndim * nbins + cuda_lookup.HIST_STATIC_SMEM
+        sets = cuda_lookup.hist_sets(ndim, nbins)
+        assert sets * cuda_lookup.hist_groups(ndim) == warps
+        assert (4 * sets * ndim * nbins + cuda_lookup.HIST_STATIC_SMEM
                 <= cuda_lookup.SMEM_BYTES)
+
+
+@pytest.mark.parametrize("ndim", range(1, 17))
+def test_dimension_groups_cover_each_dimension_once(ndim):
+    """The groups of dimensions of the grouped kernel (group g of G: g ndim
+    / G to (g + 1) ndim / G, integer division): one up to 8D, at 9..16D 3
+    or 4 of 3 or 4 dimensions each, together each dimension once."""
+    groups = cuda_lookup.hist_groups(ndim)
+    bounds = [g * ndim // groups for g in range(groups + 1)]
+    assert bounds[0] == 0 and bounds[-1] == ndim
+    sizes = np.diff(bounds)
+    if ndim <= 8:
+        assert groups == 1
+    else:
+        assert groups == (3 if ndim <= 12 else 4)
+        assert set(sizes.tolist()) <= {3, 4}
 
 
 def test_hist_route_names_are_checked():
@@ -166,8 +240,11 @@ def test_hist_route_names_are_checked():
     assert pick(8, 2048, None) == "generic"
     with pytest.raises(ValueError, match="does not take"):
         pick(8, 2048, "grouped")
+    assert pick(9, 50, "grouped") == pick(16, 500, None) == "grouped"
     with pytest.raises(ValueError, match="does not take"):
-        pick(9, 50, "grouped")
+        pick(9, 6457, "grouped")
+    with pytest.raises(ValueError, match="does not take"):
+        pick(17, 50, "grouped")
     with pytest.raises(ValueError, match="does not take"):
         pick(6, 500, "atomic")
     with pytest.raises(ValueError, match="generic histogram"):

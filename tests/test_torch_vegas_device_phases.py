@@ -394,7 +394,8 @@ def test_replays_count_the_launches_they_run(monkeypatch):
     assert phases._launch_counts() == before
     phases._add_launches(recorded, 2)
     assert cuda_vegas.launches == cuda_lookup.hist_launches == 6
-    assert cuda_vegas.route_launches == {"paired": 6, "generic": 0}
+    assert cuda_vegas.route_launches == {"paired": 6, "wide": 0,
+                                         "generic": 0}
     cuda_vegas.reset_launches()
     cuda_lookup.reset_launches()
 
