@@ -61,7 +61,13 @@ timed beside the others in the same run.
    centre and at the lattice's end, and given xn over a ragged row) and of
    the edge lookup (EQUAL to the plain version and to each other, on
    random ids, on ids off a 16-byte boundary and on a chunk's stratified
-   ids);
+   ids); the bin resolve's wide route at 9D, 12D and 16D on the chunks of
+   the 1e9 runs and at 16D on chunks of about 2^21 samples, rows of a
+   multiple of 4 and ragged ones (``WIDE_RESOLVE_SHAPES``): rc, xo, ia
+   EQUAL to the generic route drawing xn at the centre and past the
+   lattice's end and given xn over n and a ragged n - 3 samples, each
+   route against the plain version, and a launch on a device counter
+   replayed from a CUDA graph EQUAL to launches given the iteration;
 6. the VEGAS main path, 6D Genz F4 (a = 25), epsabs 1e-40: (1) the
    default ``integrate(f, epsrel=1e-3, ncall=1e8)`` (f64, poly map,
    sampler 'hybrid'); (2) ``eval_dtype=float32, ncall=1e9, total_iters=10,
@@ -83,7 +89,12 @@ timed beside the others in the same run.
    and uniformly random ids) on both routes in turns, best of 5 series of
    launches back to back (``queued_ms``), beside the plain versions', a
    bound, and one PyTorch call computing the same function where there is
-   one;
+   one; the bin resolve's wide route against its generic route in turns at
+   9D, 12D and 16D on the 1e9 runs' chunks and at 16D on about 2^21
+   samples (rows of a multiple of 4 and ragged ones), drawing xn with ids
+   out and without, and given xn, beside the bytes bound, the plain
+   version and two ``torch.gather`` of the edges;
+   the wide route's two instances' registers (no spill, no stack frame);
 8. the diff path, 6D, 500 bins, gauss(x, a) = exp(-a sum (x - 1/2)^2) at
    a = 25: ``train_grid`` (ncall 1e7, 10 adjusting iterations, sampler and
    histogram by their card routes); ``frozen_grid_estimate`` on 2^24
@@ -316,7 +327,17 @@ timed beside the others in the same run.
    certified, every rule launch on the generic route (counts set to 0
    before and read after), the kernel's share of the wall by CUDA events
    (host loop) or torch.profiler (fused phase);
-27. the ``kernels`` JSON line, then the card line and the result line.
+27. BASELINE's 9D VEGAS Gaussian (``misc.gauss9d``, 1e-3, ncall 1e9,
+   'hybrid', the poly map) and 9D Genz F4 (a = 10) on the sampler's wide
+   route and grouped histogram and on both forced generic, in turns;
+28. the same two on the grid map (``importance='grid'``, f64, the default
+   sampler, ncall 1e9, 1e-3): each on the wide bin resolve and on its
+   generic route in turns, the same bits required of each pair, every
+   bin-resolve launch on the form's route (counts set to 0 before and read
+   after), F4 certified within 5 errorests of its closed form, the
+   Gaussian's status printed as found; walls, iterations, neval and the
+   bin resolve's share of each wall (launches times its time alone);
+29. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -608,6 +629,13 @@ VEGAS_CHUNK = 1 << 20
 NEW_ROUTE_CASES = [(9, 4e6, 1 << 18, 8), (1, 1e9, 1 << 18, 14),
                    (2, 1e9, 1 << 18, 14), (9, 1e9, 1 << 18, 14),
                    (12, 1e9, 1 << 16, 14), (16, 1e9, 1 << 15, 14)]
+# (ndim, cubes) of the bin resolve's wide route: the chunks a run at ncall
+# 1e9 takes at 9D (2^20 cubes of 2 samples), 12D (2^18 of 4) and 16D (2^15
+# of 23), and 16D on chunks of about 2^21 samples, rows of a multiple of 4
+# samples (91,180 cubes) and ragged ones (91,181: no 16-byte words); phase
+# 5 holds them all, phase 7 times them all
+WIDE_RESOLVE_SHAPES = [(9, 1 << 20), (12, 1 << 18), (16, 1 << 15),
+                       (16, 91180), (16, 91181)]
 # VEGAS run 3's estimate as this script printed it on an NVIDIA H100 80GB
 # HBM3 at commit 756fd3a, when the lookups had only their generic routes
 GENERIC_RUN3_ESTIMATE = 1.2700805996066006e-07
@@ -850,6 +878,28 @@ def vegas_checks(dev):
               f"clusters, the card holds "
               f"{cuda_lookup.hist_clusters_on_card(ndim, 500)}", flush=True)
         err["vegas_hist"] = max(err["vegas_hist"], hr["grouped"]["max_abs"])
+    # the bin resolve's wide route at 9..16D on the chunks of the 1e9 runs
+    # and on 16D chunks of about 2^21 samples: drawing xn at the centre and
+    # past the lattice's end, given xn over n and a ragged n - 3 samples,
+    # against the generic route and the plain version
+    err["vegas_bin_resolve_wide"] = 0.0
+    for ndim, cubes in WIDE_RESOLVE_SHAPES:
+        try:
+            rr = vegas_check.check_resolve_routes(ndim, 1e9, cubes, 500,
+                                                  device=dev)
+        except AssertionError as exc:
+            fail(str(exc))
+        if rr["routes"] != ["wide", "generic"]:
+            fail(f"{ndim}D, 500 bins: the bin resolve should take the wide "
+                 f"and the generic route, got {rr['routes']}")
+        print(f"phase 5: bin resolve {ndim}D, {cubes} cubes ({rr['samples']} "
+              f"samples), 500 bins: wide vs generic route, drawing xn at the "
+              f"centre and past the lattice's end, given xn over "
+              f"{rr['samples']} and {rr['samples'] - 3} samples: rc, xo, ia "
+              f"EQUAL; rc {rr['rc_ulps']} ulps from the plain version (limit "
+              f"{vegas_check.RC_ULP}), ia and xo EQUAL to it", flush=True)
+        err["vegas_bin_resolve_wide"] = max(err["vegas_bin_resolve_wide"],
+                                            rr["max_abs"])
     return err
 
 
@@ -1484,6 +1534,206 @@ def gauss9d_path(dev, times):
             fail(f"9D F4 ({form} routes): status {r['status']}, pull "
                  f"{r['pull']}")
         rows.append(r)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The bin resolve's wide route at 9..16D (phase 7) and BASELINE's 9D VEGAS
+# on the grid map (phase 28)
+
+def wide_resolve_times(dev):
+    """Phase 7 (3): the bin resolve's wide route against its generic route
+    in turns (wide, generic, generic, wide; best of 5 series back to back,
+    ``queued_ms``) at WIDE_RESOLVE_SHAPES, the chunk around the volume's
+    centre of the 1e9 lattice: drawing xn with ids out (as the grid map's
+    adjusting iterations launch it) and without (its frozen ones), and
+    given xn with ids out; each beside its bytes bound (rc, xo and ia
+    written once, xn read once where given, the edges once), the plain
+    version's time and two ``torch.gather`` of the edges (the edges alone,
+    no rc, xo or ia).  Returns the rows."""
+    rows = []
+    nbins = 500
+    for ndim, cubes in WIDE_RESOLVE_SHAPES:
+        ng, ncubes = vegas_module.compute_ncubes(1e9, ndim)
+        npg = vegas_module.samples_per_cube(1e9, ncubes)
+        cube0 = vegas_check._chunk_start(ng, ndim, ncubes, cubes, "middle")
+        n = cubes * npg
+        xi32 = torch.as_tensor(vegas_check.random_grid(ndim, nbins, 0),
+                               dtype=torch.float32, device=dev)
+        rargs = (xi32, nbins, ng, npg, cubes, cube0, ncubes, 0, 1)
+        xn, _ = cuda_lookup.stratified_xn_plain(ndim, ng, npg, nbins, cubes,
+                                                cube0, ncubes, 0, 1, dev)
+        xn = xn.contiguous()
+        forms = {
+            "drawing xn, ids out": lambda route: lambda: (
+                cuda_lookup.bin_resolve_stratified(*rargs, with_ia=True,
+                                                   route=route)),
+            "drawing xn, no ids": lambda route: lambda: (
+                cuda_lookup.bin_resolve_stratified(*rargs, route=route)),
+            "given xn, ids out": lambda route: lambda: cuda_lookup.bin_resolve(
+                xi32, xn, nbins, with_ia=True, route=route)}
+        edges = 4 * ndim * (nbins + 1)
+        bounds = {"drawing xn, ids out": n * ndim * 12 + edges,
+                  "drawing xn, no ids": n * ndim * 8 + edges,
+                  "given xn, ids out": n * ndim * 16 + edges}
+        row = {"ndim": ndim, "cubes": cubes, "npg": npg, "samples": n,
+               "blocks_on_card": cuda_lookup._resident_blocks(
+                   dev, "resolve wide drawing xn", ndim, nbins)}
+        for form, routed in forms.items():
+            t = [queued_ms(routed(r), 5)
+                 for r in ("wide", "generic", "generic", "wide")]
+            b = bytes_bound_ms(bounds[form])
+            row[form] = {"ms": min(t[0], t[3]),
+                         "generic_route_ms": min(t[1], t[2]), "series": t,
+                         "bound_ms": b, "bound_by": "bytes"}
+        row["plain_ms"] = time_ms(
+            lambda: cuda_lookup.bin_resolve_stratified_plain(
+                *rargs, with_ia=True), 1)
+        row["given_xn_plain_ms"] = time_ms(
+            lambda: cuda_lookup.bin_resolve_plain(xi32, xn, nbins,
+                                                  with_ia=True), 1)
+        idx = torch.clamp(xn.to(torch.int64), 1, nbins)
+        idx_lo = idx - 1
+        row["edges_only_two_gathers_ms"] = queued_ms(
+            lambda: (torch.gather(xi32, 1, idx_lo),
+                     torch.gather(xi32, 1, idx)), 5)
+        del idx, idx_lo, xn
+        rows.append(row)
+        parts = "; ".join(
+            f"{form}: wide route {v['ms']:.4f} ms (two series "
+            f"{v['series'][0]:.4f}, {v['series'][3]:.4f}), generic route "
+            f"{v['generic_route_ms']:.4f} ms ({v['series'][1]:.4f}, "
+            f"{v['series'][2]:.4f}; {v['generic_route_ms'] / v['ms']:.2f} "
+            f"times), bound {v['bound_ms']:.4f} ms (bytes; "
+            f"{100 * v['bound_ms'] / v['ms']:.1f}% of it, generic "
+            f"{100 * v['bound_ms'] / v['generic_route_ms']:.1f}%)"
+            for form, v in row.items() if isinstance(v, dict))
+        print(f"phase 7: bin resolve {ndim}D, {cubes} cubes of {npg} ({n} "
+              f"samples), 500 bins, {row['blocks_on_card']} blocks: {parts}; "
+              f"plain {row['plain_ms']:.2f} ms drawing, "
+              f"{row['given_xn_plain_ms']:.2f} ms given xn; two torch.gather "
+              f"(the edges alone) {row['edges_only_two_gathers_ms']:.4f} ms",
+              flush=True)
+    return rows
+
+
+def wide_resolve_registers():
+    """{kernel: (registers, spill bytes, stack frame bytes)} of the bin
+    resolve's wide route's two instances, from nvcc's report (phase 1's
+    build); fails where one spills."""
+    log = cuda_build._target("vegas_lookup.cu").with_suffix(".log").read_text()
+    got = {k: v for k, v in route_bits.ptxas_kernels(log).items()
+           if k.startswith("resolve_wide_kernel")}
+    if len(got) != 2 or any(spills or stack for _, spills, stack in
+                            got.values()):
+        fail(f"the wide bin resolve's instances: {got}; both should be "
+             "built, with no spill and no stack frame")
+    return got
+
+
+# BASELINE's VEGAS configuration on the grid map (vegasT.cuh's): f64, the
+# default sampler, ncall 1e9 at 1e-3; the forms in turns: the routes the
+# shapes take, and the bin resolve alone forced to its generic route
+GRID9D = dict(epsrel=1e-3, ncall=1e9, importance="grid")
+GRID9D_ORDER = ("new", "generic")
+
+
+class GenericResolve:
+    """While entered, the bin resolve takes its generic route whatever the
+    shape; the histogram keeps its own."""
+
+    def __enter__(self):
+        self.kept = cuda_lookup.resolve_route
+        cuda_lookup.resolve_route = lambda *a: "generic"
+        return self
+
+    def __exit__(self, *exc):
+        cuda_lookup.resolve_route = self.kept
+        return False
+
+
+def grid9d_run(label, g, form, alone, **kw):
+    """One 9D grid-map run at GRID9D in ``form`` ('new' or 'generic'),
+    timed; every bin-resolve launch must take the form's route ('wide' or
+    'generic') and every histogram launch the grouped route, and the
+    sampler must not launch.  Returns its row (the bin resolve's share of
+    the wall: launches times ``alone[form]``, its time alone at the run's
+    chunk drawing xn with ids out)."""
+    torch.cuda.synchronize()
+    with LaunchCounts() as clock, (GenericResolve() if form == "generic"
+                                   else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        res = mcubes.integrate(g, epsabs=1e-40, **GRID9D, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pull = abs(res.estimate - g.true_value) / res.errorest
+    resolves = clock.launches["vegas_bin_resolve"]
+    busy = resolves * alone[form] / 1e3
+    want = "wide" if form == "new" else "generic"
+    print(f"phase 28: {label} grid map ({form} form): status {res.status} "
+          f"estimate {res.estimate!r} errorest {res.errorest!r} truth "
+          f"{g.true_value!r} pull {pull:.4g} chi_sq {res.chi_sq:.4f} iters "
+          f"{res.iters} neval {res.neval} wall {wall:.3f} s samples/s "
+          f"{res.neval / wall:.4e}; launches {clock.launches} (bin resolve "
+          f"by route {clock.resolve_routes}, histogram {clock.hist_routes}); "
+          f"the bin resolve alone would take {busy:.4f} s = "
+          f"{100 * busy / wall:.1f}% of the wall", flush=True)
+    if (not (math.isfinite(res.estimate) and math.isfinite(res.errorest))
+            or resolves <= 0 or clock.resolve_routes[want] != resolves
+            or clock.launches["vegas_hist"] <= 0
+            or clock.hist_routes["grouped"] != clock.launches["vegas_hist"]
+            or clock.launches["vegas_sample"] != 0):
+        fail(f"{label} grid map ({form} form): estimate {res.estimate}, "
+             f"errorest {res.errorest}, launches {clock.launches}, bin "
+             f"resolve {clock.resolve_routes}, histogram "
+             f"{clock.hist_routes}; every bin resolve should take the {want} "
+             f"route and every histogram the grouped one")
+    return {"label": label, "form": form, "status": res.status,
+            "estimate": res.estimate, "errorest": res.errorest,
+            "truth": g.true_value, "pull": pull, "iters": res.iters,
+            "neval": res.neval, "wall_s": wall, "launches": clock.launches,
+            "resolve_routes": clock.resolve_routes,
+            "hist_routes": clock.hist_routes, "resolve_alone_s": busy,
+            "resolve_share": busy / wall}
+
+
+def grid9d_path(dev, resolve_rows):
+    """Phase 28: ``mcubes.integrate(..., importance='grid', ncall=1e9,
+    epsrel=1e-3)`` in f64 at 9D (9^9 cubes of 2 samples, 370 chunks of
+    2^20 cubes an iteration), in turns on the wide bin resolve and on its
+    generic route (GRID9D_ORDER): Genz F4 (F4_9D), which must certify
+    within 5 errorests of its closed form, then BASELINE's ``misc.gauss9d``,
+    whose status is reported as found.  The two routes compute every
+    output alike, so each pair of runs must give the same bits.  Returns
+    the rows."""
+    row9 = next(r for r in resolve_rows if r["ndim"] == 9)
+    drawn = row9["drawing xn, ids out"]
+    alone = {"new": drawn["ms"], "generic": drawn["generic_route_ms"]}
+    f, vol = misc.gauss9d()
+    rows = []
+    for label, g, kw in ((f"9D F4 a = {F4_9D['a']:g}",
+                          genz.f4_gaussian(9, **F4_9D), {}),
+                         ("9D Gaussian (BASELINE)", f, {"vol": vol})):
+        pair = [grid9d_run(label, g, form, alone, **kw)
+                for form in GRID9D_ORDER]
+        new, gen = pair
+        same = ((new["estimate"], new["errorest"], new["iters"])
+                == (gen["estimate"], gen["errorest"], gen["iters"]))
+        print(f"phase 28: {label} grid map: wide and generic bin resolve "
+              f"{'the same bits' if same else 'NOT the same bits'}; walls "
+              f"{new['wall_s']:.3f} s and {gen['wall_s']:.3f} s "
+              f"({new['wall_s'] / gen['wall_s']:.3f} times); status "
+              f"{new['status']}, "
+              f"{'certified' if new['status'] == 0 else 'not certified'} at "
+              f"epsrel {GRID9D['epsrel']:g} after {new['iters']} iterations, "
+              f"{new['pull']:.4g} errorests from the truth", flush=True)
+        if not same:
+            fail(f"{label} grid map: the wide and the generic bin resolve "
+                 "give other results; they compute every output alike")
+        if g is not f and (new["status"] != 0 or not new["pull"] <= 5.0):
+            fail(f"{label} grid map: status {new['status']}, pull "
+                 f"{new['pull']}")
+        rows += pair
     return rows
 
 
@@ -3557,12 +3807,16 @@ def counter_checks(dev):
                                           route="generic")
         vegas_check.check_resolve_counter(VEGAS_NDIM, 1e8, 1 << 16, 500,
                                           route="generic")
+        for ndim, cubes in WIDE_RESOLVE_SHAPES[:3]:
+            vegas_check.check_resolve_counter(ndim, 1e9, cubes, 500,
+                                              route="wide")
     except AssertionError as e:
         fail(str(e))
     print(f"phase 5: device counter: the sampler (paired, {n} samples; "
-          f"generic at 9D) and the bin resolve (sample and generic) replayed "
-          f"from a graph at two iterations EQUAL to launches given them as "
-          f"host integers", flush=True)
+          f"generic at 9D) and the bin resolve (sample and generic at 6D, "
+          f"wide at 9, 12 and 16D on the 1e9 runs' chunks past the "
+          f"lattice's end) replayed from a graph at two iterations EQUAL to "
+          f"launches given them as host integers", flush=True)
 
 
 def vegas_registers() -> dict[str, int]:
@@ -5510,6 +5764,10 @@ def main() -> int:
     phase_done("phase 6")
     vegas_kernels = vegas_times(dev, vegas_err, vegas_launches, vegas_walls)
     new_times = new_route_times(dev)
+    resolve_rows = wide_resolve_times(dev)
+    wide_regs = wide_resolve_registers()
+    print(f"phase 7: the wide bin resolve's instances (registers, spill "
+          f"bytes, stack frame bytes): {wide_regs}", flush=True)
     regs = vegas_registers()
     path_regs = {k: regs.get(k) for k in (
         f"sample_pair_kernel<0, {VEGAS_NDIM}>",
@@ -5604,7 +5862,11 @@ def main() -> int:
     gauss9d_rows = gauss9d_path(dev, new_times)
     phase_done("phase 27")
 
-    # -- phase 28: the kernels line, the card line, the result line ---------
+    # -- phase 28: BASELINE's 9D VEGAS on the grid map ----------------------
+    grid9d_rows = grid9d_path(dev, resolve_rows)
+    phase_done("phase 28")
+
+    # -- phase 29: the kernels line, the card line, the result line ---------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",
@@ -5740,6 +6002,36 @@ def main() -> int:
         "shapes": frac_rows["standalone"],
     }] + folded_fraction_kernels(frac_rows, frac_launches, crease_rows,
                                  fused_rows)
+    # the bin resolve's wide route (9..16D): the numbers at the 9D chunk of
+    # the grid map's 1e9 run, drawing xn with ids out, as its adjusting
+    # iterations launch it; launches of phase 28's 9D F4 run on it
+    row9 = resolve_rows[0]
+    d9 = row9["drawing xn, ids out"]
+    kernels.append({
+        "name": "vegas_bin_resolve_wide",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/vegas_lookup.cu",
+        "replaces": "gpuintegration_tpu/mcubes/pallas_lookup.py:152",
+        "held_against_plain_in": "phase 5 (9D, 12D and 16D on the 1e9 "
+                                 "runs' chunks, drawing xn and given xn, "
+                                 "past the lattice's end and ragged: rc, "
+                                 "xo, ia EQUAL to the generic route; ia, xo "
+                                 "EQUAL to the plain version, rc within "
+                                 f"{vegas_check.RC_ULP} ulps)",
+        "launches": grid9d_rows[0]["launches"]["vegas_bin_resolve"],
+        "launches_by_run": {f"{r['label']} ({r['form']} form)":
+                            r["resolve_routes"] for r in grid9d_rows},
+        "max_abs_err": vegas_err["vegas_bin_resolve_wide"],
+        "ms": d9["ms"],
+        "generic_route_ms": d9["generic_route_ms"],
+        "plain_ms": row9["plain_ms"],
+        "bound_ms": d9["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "edges_only_two_gathers_ms": row9["edges_only_two_gathers_ms"],
+        "registers": wide_regs,
+        "shapes": resolve_rows,
+        "grid_map_9d_runs": grid9d_rows})
     vegas_kernels[0]["vegas_phases"] = phase_rows
     # the routes redesigned for 1D, 2D and 9..16D: times (phase 7) and the
     # launches of phase 27's 9D runs

@@ -70,10 +70,10 @@
 // xn comes from a tensor, or is formed in the kernel from the Philox stream
 // (philox.cuh) as (kg - u) * dxg + 1.  Both that expression and rc are
 // written with __fmul_rn/__fadd_rn: contracted to one FMA, a sample on a
-// bin edge would land in the other bin than in the plain version.  Both
-// routes compute every output by the same operations, so they agree bit
-// for bit.  Bound by bytes: 12 per (sample, dimension) written, 4 more read
-// when xn is given.
+// bin edge would land in the other bin than in the plain version.  The
+// three routes compute every output by the same operations, so they agree
+// bit for bit.  Bound by bytes: 12 per (sample, dimension) written, 4 more
+// read when xn is given.
 //   * SAMPLE route (resolve_sample_kernel, ndim 1..8 compiled in, the main
 //     path's).  A persistent grid, each block filling the edges of all
 //     dimensions into shared memory once.  A thread owns 4 consecutive
@@ -82,6 +82,24 @@
 //     divisions above 2^32 cubes), steps to the next cube by one carry,
 //     draws one Philox block per sample and 4 dimensions, and writes rc, xo
 //     and ia of its 4 samples as one 16-byte store per dimension.
+//   * WIDE route (resolve_wide_kernel, ndim 9..16 at run time, the grid
+//     map's at those dimensions).  The sample route's thread would hold 4
+//     samples' coordinates of every dimension (64 floats at 16D) and
+//     spill, so here a thread owns one item (4 consecutive samples, one
+//     group of 4 dimensions 4g..4g+3): exactly the one Philox block per
+//     sample that holds its group's words, and only its group's digits,
+//     decoded from cube / ng^(dimensions after the group) with 32-bit
+//     reciprocals (64-bit divisions above 2^32 cubes) and carried from
+//     sample to sample through the remainder below them.  Items run
+//     group-major, a warp's lanes on 32 neighbouring quads of one group,
+//     so neighbouring threads write neighbouring 16-byte words of the
+//     same rows.  Where rows cannot take 16-byte words (n % 4 != 0, or a
+//     pointer off a 16-byte boundary) an item's 4 samples lie 32 apart
+//     instead, each decoded on its own, so that a warp's 4-byte loads and
+//     stores still cover 32 neighbouring words.  The persistent grid, the
+//     edges of all dimensions in shared memory (32 KB at 16D and 500
+//     bins) and the 16-byte stores are the sample route's; so are the
+//     operations on every output, so the routes agree bit for bit.
 //   * GENERIC route (resolve_kernel, the first design, every ndim): one
 //     thread per (sample, dimension), a 64-bit decode and a Philox block
 //     per element, a block per (range, dimension) filling that dimension's
@@ -864,6 +882,240 @@ int sample_resident_blocks(bool draw, size_t smem) {
               : resident_blocks<resolve_sample_kernel<NDIM, false>>(smem);
 }
 
+// The wide route's weight of each group's last digit: group g holds
+// dimensions 4g..min(4g + 4, ndim) - 1, and its digits are those of
+// cube / place[g] (place[g] = ng^(ndim - min(4g + 4, ndim))); recip[g] is
+// min(floor(2^32 / place[g]), 2^32 - 1), 0 where place[g] has more than 32
+// bits.
+struct WidePlaces {
+  unsigned long long place[4];
+  unsigned recip[4];
+};
+
+// The digits of ``cube`` (inside the lattice) of the nd dimensions of a
+// group (digit[j] for its dimension j, 0-based), and the remainder below
+// them, cube mod place.
+__device__ __forceinline__ unsigned long long group_digits(
+    long long cube, unsigned long long place, unsigned recip, int nd,
+    unsigned ng, unsigned recip_ng, bool small, unsigned (&digit)[4]) {
+  unsigned long long low;
+  if (small) {
+    unsigned m = static_cast<unsigned>(cube);
+    if (place <= 0xffffffffull) {
+      unsigned r;
+      m = recip_divmod(m, static_cast<unsigned>(place), recip, r);
+      low = r;
+    } else {                           // every digit of the group is 0
+      low = m;
+      m = 0;
+    }
+#pragma unroll
+    for (int j = 3; j >= 0; --j)
+      if (j < nd) m = recip_divmod(m, ng, recip_ng, digit[j]);
+  } else {
+    unsigned long long m = static_cast<unsigned long long>(cube);
+    const unsigned long long top = m / place;
+    low = m - top * place;
+    m = top;
+#pragma unroll
+    for (int j = 3; j >= 0; --j) {
+      if (j < nd) {
+        const unsigned long long t = m / ng;
+        digit[j] = static_cast<unsigned>(m - t * ng);
+        m = t;
+      }
+    }
+  }
+  return low;
+}
+
+// xn[j][k] of the group's dimensions d0 + j for one sample (slot ``slot``
+// of ``cube``): one Philox block, word j for dimension d0 + j.
+__device__ __forceinline__ void group_xn(const ResolveArgs& a, long long cube,
+                                         unsigned it, unsigned slot, int d0,
+                                         const unsigned (&digit)[4], int k,
+                                         float (&xn)[4][4]) {
+  const uint4 b = vegas_block(cube, it, static_cast<int>(slot), d0, a.key0,
+                              a.key1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float kg = static_cast<float>(digit[j] + 1u);
+    const float u = word_uniform(block_word(b, j));
+    xn[j][k] = __fadd_rn(__fmul_rn(kg - u, a.dxg), 1.0f);
+  }
+}
+
+// rc, xo, ia of samples s[k] (those below n) of dimension d from their xn
+// and the dimension's edges, by resolve_four's operations, one 4-byte
+// store each; samples not ``inside`` the lattice get 0, 0, 1.
+__device__ __forceinline__ void resolve_spread(const ResolveArgs& a,
+                                               const float* edges, int d,
+                                               const unsigned (&s)[4],
+                                               const float (&xn)[4],
+                                               const bool (&inside)[4]) {
+  const long long row = static_cast<long long>(d) * a.n;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (s[k] >= static_cast<unsigned>(a.n)) continue;
+    int bin = static_cast<int>(xn[k]);
+    bin = min(max(bin, 1), a.nbins);
+    const float lo = edges[bin - 1], hi = edges[bin];
+    const float width = hi - lo;
+    a.rc[row + s[k]] = inside[k]
+        ? __fadd_rn(lo, __fmul_rn(xn[k] - static_cast<float>(bin), width))
+        : 0.0f;
+    a.xo[row + s[k]] = inside[k] ? width : 0.0f;
+    if (a.ia) a.ia[row + s[k]] = inside[k] ? bin : 1;
+  }
+}
+
+template <bool DRAW>
+__global__ void __launch_bounds__(kThreads)
+resolve_wide_kernel(const ResolveArgs a) {
+  extern __shared__ float s_edges[];   // (ndim, nbins + 1)
+  __shared__ WidePlaces s_w;
+  const unsigned it = DRAW ? __ldg(a.iteration) : 0u;
+  const int ndim = a.ndim;
+  const int row = a.nbins + 1;
+  const unsigned groups = static_cast<unsigned>(ndim + 3) >> 2;
+  for (int i = threadIdx.x; i < ndim * row; i += kThreads) s_edges[i] = a.xi[i];
+  if (DRAW && threadIdx.x < groups) {
+    const int stop = min(ndim, 4 * static_cast<int>(threadIdx.x) + 4);
+    unsigned long long place = 1;
+    for (int j = stop; j < ndim; ++j) place *= static_cast<unsigned>(a.ng);
+    s_w.place[threadIdx.x] = place;
+    s_w.recip[threadIdx.x] =
+        place == 1 ? 0xffffffffu
+                   : static_cast<unsigned>((1ull << 32) / place);
+  }
+  __syncthreads();
+
+  // items (group g, quad q) in the order g * span + q, span the quads of a
+  // row rounded up to whole warps: a warp's lanes take quads q0 .. q0 + 31
+  // of one group, q0 a multiple of 32, so neighbouring threads write
+  // neighbouring words of the same rows.  A thread steps by the grid's
+  // threads with one carry, no division in the loop.
+  const unsigned n = static_cast<unsigned>(a.n);     // < 2^31
+  const unsigned quads = (n + 3u) >> 2;
+  const unsigned span = (quads + 31u) & ~31u;
+  const unsigned stride = gridDim.x * kThreads;
+  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+  unsigned g = t / span, q = t - g * span;
+  const unsigned step_g = stride / span, step_q = stride - step_g * span;
+  const unsigned ng = static_cast<unsigned>(a.ng);
+  const unsigned npg = static_cast<unsigned>(a.npg);
+  const bool small = a.ncubes <= 0xffffffffLL;
+  for (; g < groups; g += step_g) {
+    const int d0 = 4 * static_cast<int>(g);
+    const int nd = min(4, ndim - d0);
+    float xn[4][4];      // [j][k]: dimension d0 + j of the item's sample k
+    bool inside[4] = {true, true, true, true};
+    if (a.vec) {
+      // 16-byte rows (n % 4 == 0): the item's samples are i0 .. i0 + 3
+      if (q < quads) {
+        const unsigned i0 = q << 2;
+        if (!DRAW) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j >= nd) continue;
+            const float4 x = *reinterpret_cast<const float4*>(
+                a.xn + static_cast<long long>(d0 + j) * a.n + i0);
+            xn[j][0] = x.x; xn[j][1] = x.y; xn[j][2] = x.z; xn[j][3] = x.w;
+          }
+        } else {
+          // the first sample's cube and slot and the group's digits of
+          // that cube; each next sample by a step, a carry through the
+          // remainder below the digits and, where it wraps, through them
+          unsigned slot;
+          long long cube = a.cube0 + recip_divmod(i0, npg, a.recip_npg, slot);
+          const unsigned long long place = s_w.place[g];
+          unsigned digit[4] = {0u, 0u, 0u, 0u};
+          unsigned long long low = 0;
+          if (cube < a.ncubes)
+            low = group_digits(cube, place, s_w.recip[g], nd, ng, a.recip_ng,
+                               small, digit);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (k > 0 && ++slot == npg) {
+              slot = 0;
+              ++cube;
+              if (++low == place) {
+                low = 0;
+#pragma unroll
+                for (int j = 3; j >= 0; --j) {
+                  if (j >= nd) continue;
+                  if (++digit[j] < ng) break;
+                  digit[j] = 0;
+                }
+              }
+            }
+            inside[k] = cube < a.ncubes;
+            group_xn(a, cube, it, slot, d0, digit, k, xn);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nd)
+            resolve_four(a, s_edges + (d0 + j) * row, d0 + j, i0, 4, xn[j],
+                         inside);
+      }
+    } else {
+      // ragged rows or an unaligned pointer: the item's samples lie 32
+      // apart, a warp's lanes taking 128 consecutive samples, so each
+      // 4-byte load and store of the warp is 32 neighbouring words; each
+      // sample's cube decoded on its own
+      const unsigned base = 4u * (q & ~31u) + (q & 31u);
+      const unsigned smp[4] = {base, base + 32u, base + 64u, base + 96u};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (smp[k] >= n) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) xn[j][k] = 1.0f;
+          continue;
+        }
+        if (!DRAW) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            xn[j][k] = j < nd
+                ? a.xn[static_cast<long long>(d0 + j) * a.n + smp[k]] : 1.0f;
+        } else {
+          unsigned slot;
+          const long long cube =
+              a.cube0 + recip_divmod(smp[k], npg, a.recip_npg, slot);
+          unsigned digit[4] = {0u, 0u, 0u, 0u};
+          inside[k] = cube < a.ncubes;
+          if (inside[k])
+            group_digits(cube, s_w.place[g], s_w.recip[g], nd, ng,
+                         a.recip_ng, small, digit);
+          group_xn(a, cube, it, slot, d0, digit, k, xn);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < nd)
+          resolve_spread(a, s_edges + (d0 + j) * row, d0 + j, smp, xn[j],
+                         inside);
+    }
+    q += step_q;
+    if (q >= span) {
+      q -= span;
+      ++g;
+    }
+  }
+}
+
+// The wide route's kernel (drawing xn, or given it) on ``blocks`` blocks.
+cudaError_t launch_wide(const ResolveArgs& a, size_t smem, int blocks,
+                        cudaStream_t stream) {
+  const auto kernel = a.xn ? resolve_wide_kernel<false>
+                           : resolve_wide_kernel<true>;
+  const cudaError_t e = a.xn ? allow_smem<resolve_wide_kernel<false>>(smem)
+                             : allow_smem<resolve_wide_kernel<true>>(smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Edge lookup.
 
@@ -1050,7 +1302,8 @@ extern "C" int vegas_hist_clusters(int ndim, int nbins, int warps,
 // kernel on n_blocks x ndim blocks; route 1 the sample kernel (ndim 1..8,
 // n < 2^31) on n_blocks blocks, with recip_ng and recip_npg =
 // min(floor(2^32 / x), 2^32 - 1) and vec = n % 4 == 0 with every pointer
-// 16-byte aligned.
+// 16-byte aligned; route 2 the wide kernel (ndim 1..16, n < 2^31; the
+// wrapper sends it 9..16) on n_blocks blocks, with the same arguments.
 extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
                                     void* rc, void* xo, void* ia, long long n,
                                     long long cube0, long long ncubes,
@@ -1060,7 +1313,7 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
                                     unsigned recip_npg, int vec, int n_blocks,
                                     void* stream) {
   if (n < 1 || ndim < 1 || nbins < 1 || ng < 1 || npg < 1 || n_blocks < 1 ||
-      route < 0 || route > 1 || (!xn && !iteration))
+      route < 0 || route > 2 || (!xn && !iteration))
     return static_cast<int>(cudaErrorInvalidValue);
   ResolveArgs a;
   a.xi = static_cast<const float*>(xi);
@@ -1083,6 +1336,13 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
   a.recip_npg = recip_npg;
   a.vec = vec;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    const size_t smem = sizeof(float) * ndim * (nbins + 1);
+    if (ndim > 16 || smem + sizeof(WidePlaces) > static_cast<size_t>(kMaxSmem)
+        || n >= (1LL << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_wide(a, smem, n_blocks, s));
+  }
   if (route == 1) {
     const size_t smem = sizeof(float) * ndim * (nbins + 1);
     if (smem > static_cast<size_t>(kMaxSmem) || n >= (1LL << 31))
@@ -1154,10 +1414,18 @@ extern "C" int vegas_edge_launch(int route, const void* xi, const void* ia,
 // How many blocks of a persistent-grid kernel the card holds at once for
 // ndim dimensions and nbins bins (> 0), or minus a CUDA error; launches
 // nothing.  kernel 0 is the bin resolve's sample route given xn, 1 the
-// same drawing xn, 2 the edge lookup's vector route.
+// same drawing xn, 2 the edge lookup's vector route, 3 the bin resolve's
+// wide route given xn, 4 the same drawing xn.
 extern "C" int vegas_resident_blocks(int kernel, int ndim, int nbins) {
   const int invalid = -static_cast<int>(cudaErrorInvalidValue);
-  if (ndim < 1 || nbins < 1 || kernel < 0 || kernel > 2) return invalid;
+  if (ndim < 1 || nbins < 1 || kernel < 0 || kernel > 4) return invalid;
+  if (kernel >= 3) {
+    const size_t smem = sizeof(float) * ndim * (nbins + 1);
+    if (ndim > 16 || smem + sizeof(WidePlaces) > static_cast<size_t>(kMaxSmem))
+      return invalid;
+    return kernel == 4 ? resident_blocks<resolve_wide_kernel<true>>(smem)
+                       : resident_blocks<resolve_wide_kernel<false>>(smem);
+  }
   if (kernel == 2) {
     const size_t smem = sizeof(float2) * ndim * nbins;
     if (smem > static_cast<size_t>(kMaxSmem)) return invalid;

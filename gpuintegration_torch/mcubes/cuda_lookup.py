@@ -16,12 +16,14 @@ its plain PyTorch version beside it:
   no path of ``vegas``; it is the bin-edge fetch of the frozen-grid
   estimate (``gpuintegration_torch.diff.frozen_grid_estimate``).
 
-Each kernel has two, and ``hist_route`` / ``resolve_route`` /
-``edge_route`` choose between them by the shape alone: ``'grouped'`` (a
-block per range of samples and all dimensions, lanes of one bin grouped,
-thread-block clusters) against ``'generic'`` for the histogram,
-``'sample'`` (a persistent grid, a thread per 4 samples of all dimensions)
-against ``'generic'`` for the bin resolve, ``'vector'`` (a persistent grid,
+Each kernel has two routes, the bin resolve three, and ``hist_route`` /
+``resolve_route`` / ``edge_route`` choose between them by the shape alone:
+``'grouped'`` (a block per range of samples and all dimensions, lanes of
+one bin grouped, thread-block clusters) against ``'generic'`` for the
+histogram, ``'sample'`` (ndim 1..8: a persistent grid, a thread per 4
+samples of all dimensions) and ``'wide'`` (ndim 9..16: a persistent grid,
+a thread per 4 samples of one group of 4 dimensions) against
+``'generic'`` for the bin resolve, ``'vector'`` (a persistent grid,
 the table as edge pairs, a thread per 4 elements) against ``'generic'`` for
 the edge lookup.  The generic kernels are the first design and what the
 others are timed against.  A wrapper's ``route=`` runs one by name; a route
@@ -64,7 +66,7 @@ HIST_PER_BLOCK = 8192      # samples per block of the generic histogram
 MAX_BLOCKS = 1 << 16
 SMEM_BYTES = 227 * 1024    # shared memory one block may have
 HIST_ROUTES = ("grouped", "generic")
-RESOLVE_ROUTES = ("sample", "generic")
+RESOLVE_ROUTES = ("sample", "wide", "generic")
 EDGE_ROUTES = ("vector", "generic")
 HIST_CLUSTER = 8           # blocks of a grouped-histogram cluster
 # the most clusters of a grouped launch at 1..8D: as many as an H100 SXM
@@ -85,9 +87,14 @@ HIST_SEGMENT = 128         # samples a warp takes at once, 4 a lane
 HIST_WARPS = (8, 4)        # warps of a grouped block at 1..8D, the most that fit
 HIST_SETS = (2, 1)         # sets of rows of a block at 9..16D, the most that fit
 # the dimensions csrc/vegas_lookup.cu compiles the grouped histogram and
-# the bin resolve's sample route for
+# the bin resolve's sample route for, and those the wrapper sends to the
+# bin resolve's wide route (its kernel takes ndim at run time)
 HIST_NDIMS = tuple(range(1, 17))
 RESOLVE_NDIMS = tuple(range(1, 9))
+RESOLVE_WIDE_NDIMS = tuple(range(9, 17))
+# bytes of static shared memory the wide route's kernel declares beside
+# the edges (WidePlaces: each group's place and its reciprocal)
+RESOLVE_WIDE_STATIC_SMEM = 48
 
 # Launches of each kernel since its count was last set to 0.
 hist_launches = 0
@@ -432,24 +439,45 @@ def stratified_xn_plain(ndim: int, ng: int, npg: int, nbins: int,
     return xn.permute(1, 2, 0).reshape(ndim, -1), valid
 
 
+def resolve_groups(ndim: int) -> int:
+    """Groups of 4 dimensions (the last one ragged) of the wide route: a
+    thread's item is 4 samples of one group, whose words are one Philox
+    block a sample."""
+    return -(-ndim // 4)
+
+
+def resolve_items(ndim: int, n: int) -> int:
+    """Threads' items of a wide-route launch over n samples: each group's
+    quads of 4 samples, rounded up to a multiple of 32 so that a warp's
+    lanes take 32 neighbouring quads of one group."""
+    return resolve_groups(ndim) * (-(-n // 128) * 32)
+
+
 def resolve_route(ndim: int, nbins: int, n: int) -> str:
-    """The bin-resolve kernel a shape takes: 'sample' for the dimensions
-    the source compiles it for, all edges within a block's shared memory
-    and n < 2^31 samples; else 'generic'."""
-    fits = 4 * ndim * (nbins + 1) <= SMEM_BYTES and n < 2 ** 31
-    return "sample" if ndim in RESOLVE_NDIMS and fits else "generic"
+    """The bin-resolve kernel a shape takes, where all edges fit a block's
+    shared memory and n < 2^31 samples: 'sample' at ndim 1..8, 'wide' at
+    9..16 (beside its RESOLVE_WIDE_STATIC_SMEM bytes); else 'generic'."""
+    edges = 4 * ndim * (nbins + 1)
+    if n < 2 ** 31:
+        if ndim in RESOLVE_NDIMS and edges <= SMEM_BYTES:
+            return "sample"
+        if (ndim in RESOLVE_WIDE_NDIMS
+                and edges + RESOLVE_WIDE_STATIC_SMEM <= SMEM_BYTES):
+            return "wide"
+    return "generic"
 
 
 def _pick_resolve_route(ndim: int, nbins: int, n: int, route):
     shape_route = resolve_route(ndim, nbins, n)
     if route is None:
         route = shape_route
-    if route not in RESOLVE_ROUTES or (route == "sample"
-                                       and shape_route != "sample"):
+    if route not in RESOLVE_ROUTES or (route != "generic"
+                                       and route != shape_route):
         raise ValueError(f"bin-resolve route {route!r} does not take ndim "
                          f"{ndim}, {nbins} bins, {n} samples (sample: ndim "
-                         f"in {RESOLVE_NDIMS}, the edges within {SMEM_BYTES} "
-                         "bytes, n < 2^31)")
+                         f"in {RESOLVE_NDIMS}, wide: ndim in "
+                         f"{RESOLVE_WIDE_NDIMS}, the edges within "
+                         f"{SMEM_BYTES} bytes, n < 2^31)")
     if route == "generic" and 4 * (nbins + 1) > 48 * 1024:
         raise ValueError(f"nbins={nbins} does not fit the generic "
                          "bin-resolve kernel's shared memory")
@@ -459,7 +487,10 @@ def _pick_resolve_route(ndim: int, nbins: int, n: int, route):
 _resident: dict = {}
 # the persistent-grid kernels vegas_resident_blocks knows, by its number
 _PERSISTENT = {"resolve given xn": 0, "resolve drawing xn": 1,
-               "edge vector": 2}
+               "edge vector": 2, "resolve wide given xn": 3,
+               "resolve wide drawing xn": 4}
+# the bin-resolve routes by their number in vegas_resolve_launch
+_RESOLVE_CODES = {"generic": 0, "sample": 1, "wide": 2}
 
 
 def _resident_blocks(dev, kernel: str, ndim: int, nbins: int) -> int:
@@ -488,16 +519,20 @@ def _launch_resolve(xi32, xn, n, with_ia, nbins, route, cube0=0, ncubes=0,
           if with_ia else None)
     k0, k1 = stream.seed_key(seed)
     word = None if xn is not None else stream.counter(iteration, dev)
-    if route == "sample":
-        # a persistent grid: a thread per 4 samples, no more blocks than the
-        # card holds at once
-        blocks = min(-(-n // (4 * THREADS)),
-                     _resident_blocks(dev, "resolve drawing xn" if xn is None
-                                      else "resolve given xn", ndim, nbins))
-    else:
+    if route == "generic":
         blocks = min(-(-n // THREADS), MAX_BLOCKS)
+    else:
+        # a persistent grid: a thread per 4 samples (on the wide route of
+        # one group of dimensions, a group's quads rounded up to whole
+        # warps), no more blocks than the card holds at once
+        items = (resolve_items(ndim, n) if route == "wide"
+                 else -(-n // 4))
+        kernel = ("resolve wide " if route == "wide" else "resolve ") + (
+            "drawing xn" if xn is None else "given xn")
+        blocks = min(-(-items // THREADS),
+                     _resident_blocks(dev, kernel, ndim, nbins))
     _check(_lib().vegas_resolve_launch(
-        int(route == "sample"), xi32.data_ptr(),
+        _RESOLVE_CODES[route], xi32.data_ptr(),
         None if xn is None else xn.data_ptr(), rc.data_ptr(), xo.data_ptr(),
         None if ia is None else ia.data_ptr(), n, int(cube0), int(ncubes),
         ndim, nbins, ng, npg, grid_step(nbins, ng), k0, k1,

@@ -579,7 +579,8 @@ def check_resolve_routes(ndim: int, ncall: float, chunk_cubes: int,
                            device=device)
     routes = [r for r in cuda_lookup.RESOLVE_ROUTES if r == "generic"
               or cuda_lookup.resolve_route(ndim, nbins, chunk_cubes * npg) == r]
-    out = {"samples": chunk_cubes * npg, "routes": routes, "rc_ulps": 0}
+    out = {"samples": chunk_cubes * npg, "routes": routes, "rc_ulps": 0,
+           "max_abs": 0.0}
     cases = []
     for position in ("middle", "end"):
         args = (xi32, nbins, ng, npg, chunk_cubes,
@@ -608,6 +609,7 @@ def check_resolve_routes(ndim: int, ncall: float, chunk_cubes: int,
             r = _judge_resolve(f"bin_resolve ({route} route, {label})",
                                got[route], plain, out["samples"])
             out["rc_ulps"] = max(out["rc_ulps"], r["rc_ulps"])
+            out["max_abs"] = max(out["max_abs"], r["max_abs"])
         for name, a, b in zip(("rc", "xo", "ia"), got[routes[0]],
                               got[routes[-1]]):
             if not torch.equal(a, b):

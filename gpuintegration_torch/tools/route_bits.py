@@ -10,14 +10,16 @@ from nvcc's ``-Xptxas -v`` report, and runs the PAGANI main path,
 ``Workspace(8).integrate(f4_gaussian(8), 1e-3, 1e-40, fused=False)`` in
 f64, VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
 'hybrid'; ncall 1e9 f32 'fused', 10 iterations, 5 adjusting; the grid map,
-ncall 1e8) and BASELINE's 9D VEGAS Gaussian (``misc.gauss9d`` at 1e-3,
-ncall 1e9, 'hybrid'), printing status, iterations, regions or neval and
-the estimate and errorest as hex floats (the bits), and each run's
-sampler and histogram launches by route.  Run once from each checkout in
-one call to the card: the two tables and the runs must match where the
-kernels are meant to be the same (the 9D run's routes, and with them its
-histogram's order of addition, differ between checkouts that route 9D
-otherwise).  Needs a CUDA card.
+ncall 1e8), BASELINE's 9D VEGAS Gaussian (``misc.gauss9d`` at 1e-3,
+ncall 1e9, 'hybrid') and 9D Genz F4 (a = 10) on the grid map at 1e-3,
+ncall 1e9, printing status, iterations, regions or neval and the estimate
+and errorest as hex floats (the bits), and each run's sampler, histogram
+and bin-resolve launches by route.  Run once from each checkout in one
+call to the card: the two tables and the runs must match where the
+kernels are meant to be the same (the 9D poly run's routes, and with them
+its histogram's order of addition, differ between checkouts that route 9D
+otherwise; the bin resolve's routes give the same bits, so the 9D grid
+run must not differ).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ def kernel_name(mangled: str) -> str:
         tail = f", {_BOOL[m[3]]}" if m[3] else ""
         return f"rule_kernel<{m[1]}, {_TYPES[m[2]]}{tail}>"
     m = re.search(r"(sample_pair_kernel|sample_wide_kernel|sample_kernel|"
-                  r"resolve_sample_kernel|resolve_kernel)I((?:L[ib]\d+E)+)",
+                  r"resolve_sample_kernel|resolve_wide_kernel|resolve_kernel)"
+                  r"I((?:L[ib]\d+E)+)",
                   mangled)
     if m:
         args = [v if k == "i" else _BOOL[v]
@@ -124,7 +127,9 @@ def main() -> int:
                                           total_iters=10, adjust_iters=5)),
                        ("run 3", g6, dict(ncall=1e8, importance="grid")),
                        ("9D gauss9d", g9, dict(ncall=1e9, vol=vol9,
-                                               sampler="hybrid"))):
+                                               sampler="hybrid")),
+                       ("9D F4 grid", genz.f4_gaussian(9, a=10.0),
+                        dict(ncall=1e9, importance="grid"))):
         cuda_vegas.reset_launches()
         cuda_lookup.reset_launches()
         r = mcubes.integrate(g, 1e-3, 1e-40, **kw)
@@ -132,7 +137,8 @@ def main() -> int:
               f"{r.neval} estimate {float(r.estimate).hex()} errorest "
               f"{float(r.errorest).hex()}; sampler launches "
               f"{dict(cuda_vegas.route_launches)}, histogram "
-              f"{dict(cuda_lookup.hist_route_launches)}", flush=True)
+              f"{dict(cuda_lookup.hist_route_launches)}, bin resolve "
+              f"{dict(cuda_lookup.resolve_route_launches)}", flush=True)
     return 0
 
 

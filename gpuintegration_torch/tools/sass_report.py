@@ -13,8 +13,8 @@ and how deep the loop is nested.  Loops of fewer than 50 instructions are
 left out (the compiler's small copy loops), and of the rest only the
 innermost are listed, equal ones once with their number.  With no pattern
 it reports the kernels of the two main paths: the rule kernels of 8D F4,
-the samplers of 6D F4, and both routes of the 6D histogram and bin
-resolve.
+the samplers of 6D F4, both routes of the 6D histogram and bin resolve,
+and the bin resolve's wide route (9..16D).
 
 Where the card's profilers cannot be run, this is what the machine code
 can say about the cost of a pass through a loop without them.
@@ -37,7 +37,7 @@ DEFAULT_PATTERNS = (
     "sample_pair_kernel<4, 6>", "sample_kernel<4>",
     "sample_pair_kernel<0, 6>", "sample_kernel<0>",
     "hist_grouped_kernel<6, float>", "hist_kernel",
-    "resolve_sample_kernel<6,", "resolve_kernel")
+    "resolve_sample_kernel<6,", "resolve_wide_kernel", "resolve_kernel")
 CLASSES = (
     ("f64", re.compile(r"^(DFMA|DADD|DMUL|DSETP|DMNMX)")),
     ("f32", re.compile(r"^(FFMA|FADD|FMUL|FSETP|FMNMX|MUFU|FSEL)")),

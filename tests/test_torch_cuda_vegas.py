@@ -103,7 +103,7 @@ def test_run_on_card_matches_cpu_and_launches_kernels(kw, cpu_sampler, counts):
     assert cuda_lookup.hist_route_launches == {
         "grouped": cuda_lookup.hist_launches, "generic": 0}
     assert cuda_lookup.resolve_route_launches == {
-        "sample": cuda_lookup.bin_resolve_launches, "generic": 0}
+        "sample": cuda_lookup.bin_resolve_launches, "wide": 0, "generic": 0}
     again = integrate(g, **args)
     assert (again.estimate, again.errorest) == (on_card.estimate,
                                                 on_card.errorest)
@@ -362,17 +362,20 @@ def test_hist_clusters_fit_the_card(ndim, nbins):
 @pytest.mark.parametrize("nbins", [50, 500, 2048])
 @pytest.mark.parametrize("ndim,ncall,chunk", [
     (6, 1e8, 1 << 16), (6, 3e6, 4099), (3, 5e4, 999), (1, 2e4, 4096),
-    (8, 1e7, 4096), (8, 5.2e10, 4096), (9, 4e6, 2048)])
+    (8, 1e7, 4096), (8, 5.2e10, 4096), (9, 4e6, 2048), (9, 1e9, 1 << 16),
+    (12, 1e9, 1 << 14), (16, 1e9, 1 << 12), (13, 1e7, 999),
+    (10, 2e10, 4096)])
 def test_resolve_routes_equal_on_card(ndim, ncall, chunk, nbins):
     """rc, xo, ia EQUAL between the routes, drawing xn (the main path's
-    lattice, odd npg and chunk, one dimension, a lattice of 20^8 > 2^32
-    cubes) at the centre and at the lattice's ragged end, and given xn over
-    a row of a multiple of 4 samples and a ragged one; each route against
-    the plain version.  9D has the generic route only."""
+    lattice, odd npg and chunk, one dimension, lattices of 20^8 and 10^10
+    > 2^32 cubes, the 1e9 runs' lattices at 9, 12 and 16D) at the centre
+    and at the lattice's ragged end, and given xn over a row of a multiple
+    of 4 samples and a ragged one; each route against the plain version.
+    9..16D take the wide route."""
     _card()
     r = kernel_check.check_resolve_routes(ndim, ncall, chunk, nbins)
     assert r["routes"] == (["sample", "generic"] if ndim <= 8
-                           else ["generic"])
+                           else ["wide", "generic"])
     assert r["rc_ulps"] <= kernel_check.RC_ULP
 
 
@@ -416,7 +419,11 @@ def test_lookup_launches_are_counted_by_route_on_card():
     kernel_check.check_hist(6, 4096, 500)
     assert cuda_lookup.hist_route_launches == {"grouped": 2, "generic": 0}
     kernel_check.check_bin_resolve(6, 4096, 500)
-    assert cuda_lookup.resolve_route_launches == {"sample": 1, "generic": 0}
+    assert cuda_lookup.resolve_route_launches == {"sample": 1, "wide": 0,
+                                                  "generic": 0}
+    kernel_check.check_bin_resolve(12, 4096, 500)
+    assert cuda_lookup.resolve_route_launches == {"sample": 1, "wide": 1,
+                                                  "generic": 0}
     ia = torch.zeros((8, 64), dtype=torch.int32, device="cuda")
     f2 = torch.ones(64, device="cuda")
     with pytest.raises(ValueError, match="does not take"):
@@ -425,6 +432,9 @@ def test_lookup_launches_are_counted_by_route_on_card():
     with pytest.raises(ValueError, match="does not take"):
         cuda_lookup.bin_resolve(xi, torch.ones((9, 64), device="cuda"), 50,
                                 route="sample")
+    with pytest.raises(ValueError, match="does not take"):
+        cuda_lookup.bin_resolve(xi[:6], torch.ones((6, 64), device="cuda"),
+                                50, route="wide")
     kernel_check.check_edge_lookup(6, 512, 2, 500)
     kernel_check.check_edge_lookup(6, 512, 2, 500, route="generic")
     assert cuda_lookup.edge_route_launches == {"vector": 1, "generic": 1}
@@ -434,5 +444,42 @@ def test_lookup_launches_are_counted_by_route_on_card():
                                            device="cuda"), 2048,
                                 route="vector")
     assert cuda_lookup.hist_launches == 2
-    assert cuda_lookup.bin_resolve_launches == 1
+    assert cuda_lookup.bin_resolve_launches == 2
     assert cuda_lookup.edge_lookup_launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ndim", [9, 12, 16])
+def test_wide_resolve_matches_plain_on_card(ndim):
+    """The wide route at the 1e9 runs' lattices: drawing xn on the chunk
+    shifted past the lattice's end, given xn over a ragged row (30011
+    samples), and drawing xn on a device counter as a replayed CUDA graph
+    does (EQUAL to launches given the iteration)."""
+    _card()
+    chunk = {9: 1 << 16, 12: 1 << 14, 16: 1 << 12}[ndim]
+    assert cuda_lookup.resolve_route(ndim, 500, 30_011) == "wide"
+    cuda_lookup.reset_launches()
+    kernel_check.check_bin_resolve(ndim, 30_011, 500)
+    kernel_check.check_bin_resolve_stratified(ndim, 1e9, chunk, 500)
+    assert cuda_lookup.resolve_route_launches["wide"] == 2
+    kernel_check.check_resolve_counter(ndim, 1e9, chunk, 500, route="wide")
+
+
+@pytest.mark.gpu
+def test_wide_grid_run_on_card_matches_cpu():
+    """A 9D grid-map run on the card equals the same run on the CPU (the
+    same uniforms, another roundoff), with every bin-resolve launch on the
+    wide route."""
+    _card()
+    g = genz.f4_gaussian(9, a=5.0)
+    args = dict(epsrel=1e-2, ncall=2e5, total_iters=8, adjust_iters=5,
+                seed=3, importance="grid")
+    cuda_lookup.reset_launches()
+    on_card = integrate(g, **args)
+    assert cuda_lookup.bin_resolve_launches > 0
+    assert cuda_lookup.resolve_route_launches == {
+        "sample": 0, "wide": cuda_lookup.bin_resolve_launches, "generic": 0}
+    on_cpu = integrate(g, device="cpu", **args)
+    assert (on_card.status, on_card.iters, on_card.neval) == (
+        on_cpu.status, on_cpu.iters, on_cpu.neval)
+    assert on_card.estimate == pytest.approx(on_cpu.estimate, rel=1e-6)

@@ -356,11 +356,19 @@ def test_sample_route_words_are_the_stream(ndim, npg):
     (6, 500, 1 << 21, "sample"), (8, 500, 1 << 21, "sample"),
     (1, 11, 30011, "sample"), (6, 2048, 1 << 21, "sample"),
     (8, 7000, 100, "sample"), (8, 8000, 100, "generic"),
-    (9, 500, 1 << 21, "generic"), (16, 50, 100, "generic"),
-    (6, 500, 2 ** 31, "generic")])
+    (9, 500, 1 << 21, "wide"), (16, 50, 100, "wide"),
+    (6, 500, 2 ** 31, "generic"),
+    # the wide route at the 1e9 runs' chunks and its edges' limit: 16D at
+    # 3630 bins fits beside the kernel's 48 static bytes, 3631 does not
+    (12, 500, (1 << 18) * 4, "wide"), (16, 500, (1 << 15) * 23, "wide"),
+    (9, 6000, 100, "wide"), (9, 6500, 100, "generic"),
+    (16, 3630, 100, "wide"), (16, 3631, 100, "generic"),
+    (12, 500, 2 ** 31, "generic"), (16, 500, 2 ** 31 - 1, "wide"),
+    (17, 50, 100, "generic")])
 def test_resolve_route_by_shape(ndim, nbins, n, route):
-    """The sample route for the dimensions the source compiles (1..8), all
-    edges within a block's 227 KB and n < 2^31; the generic route else."""
+    """The sample route at ndim 1..8, the wide route at 9..16, where all
+    edges fit a block's 227 KB (the wide route's beside its own static
+    shared memory) and n < 2^31; the generic route else."""
     assert cuda_lookup.resolve_route(ndim, nbins, n) == route
 
 
@@ -368,9 +376,14 @@ def test_resolve_route_names_are_checked():
     pick = cuda_lookup._pick_resolve_route
     assert pick(6, 500, 1 << 21, None) == "sample"
     assert pick(6, 500, 1 << 21, "generic") == "generic"
-    assert pick(9, 500, 1 << 21, None) == "generic"
+    assert pick(9, 500, 1 << 21, None) == "wide"
+    assert pick(16, 500, 1 << 21, "generic") == "generic"
     with pytest.raises(ValueError, match="does not take"):
         pick(9, 500, 1 << 21, "sample")
+    with pytest.raises(ValueError, match="does not take"):
+        pick(6, 500, 1 << 21, "wide")
+    with pytest.raises(ValueError, match="does not take"):
+        pick(12, 500, 2 ** 31, "wide")
     with pytest.raises(ValueError, match="does not take"):
         pick(6, 500, 1 << 21, "tile")
     with pytest.raises(ValueError, match="generic bin-resolve"):
@@ -395,7 +408,7 @@ def test_route_argument_is_ignored_on_the_cpu():
     plain = cuda_lookup.bin_resolve_plain(xi32, xn, nbins, with_ia=True)
     args = (xi32, nbins, 4, 2, 64, 0, 4 ** 3, 0, 1)
     strat = cuda_lookup.bin_resolve_stratified_plain(*args, with_ia=True)
-    for route in (None, "sample", "generic", "no such route"):
+    for route in (None, "sample", "wide", "generic", "no such route"):
         got = cuda_lookup.bin_resolve(xi32, xn, nbins, with_ia=True,
                                       route=route)
         assert all(torch.equal(a, b) for a, b in zip(got, plain))
@@ -423,7 +436,8 @@ def test_launch_counts_reset():
     assert (cuda_lookup.hist_launches, cuda_lookup.bin_resolve_launches,
             cuda_lookup.edge_lookup_launches) == (0, 0, 0)
     assert cuda_lookup.hist_route_launches == {"grouped": 0, "generic": 0}
-    assert cuda_lookup.resolve_route_launches == {"sample": 0, "generic": 0}
+    assert cuda_lookup.resolve_route_launches == {"sample": 0, "wide": 0,
+                                                  "generic": 0}
     assert cuda_lookup.edge_route_launches == {"vector": 0, "generic": 0}
 
 
@@ -466,7 +480,7 @@ def test_resolve_route_check_on_cpu(ndim, ncall, chunk):
     ng, ncubes = V.compute_ncubes(ncall, ndim)
     n = min(chunk, ncubes) * V.samples_per_cube(ncall, ncubes)
     assert r["routes"] == (["sample", "generic"] if ndim <= 8
-                           else ["generic"])
+                           else ["wide", "generic"])
     assert r["rc_ulps"] == 0 and r["samples"] == n
 
 
