@@ -328,16 +328,33 @@ timed beside the others in the same run.
    before and read after), the kernel's share of the wall by CUDA events
    (host loop) or torch.profiler (fused phase);
 27. BASELINE's 9D VEGAS Gaussian (``misc.gauss9d``, 1e-3, ncall 1e9,
-   'hybrid', the poly map) and 9D Genz F4 (a = 10) on the sampler's wide
-   route and grouped histogram and on both forced generic, in turns;
+   'hybrid', the poly map) on the sampler's wide route and grouped
+   histogram, and 9D Genz F4 (a = 10) on those and on both forced generic,
+   in turns;
 28. the same two on the grid map (``importance='grid'``, f64, the default
-   sampler, ncall 1e9, 1e-3): each on the wide bin resolve and on its
-   generic route in turns, the same bits required of each pair, every
-   bin-resolve launch on the form's route (counts set to 0 before and read
-   after), F4 certified within 5 errorests of its closed form, the
-   Gaussian's status printed as found; walls, iterations, neval and the
-   bin resolve's share of each wall (launches times its time alone);
-29. the ``kernels`` JSON line, then the card line and the result line.
+   sampler, ncall 1e9, 1e-3): F4 on the wide bin resolve and on its
+   generic route in turns, the same bits required of the pair, the
+   Gaussian on the wide route; every bin-resolve launch on the form's
+   route (counts set to 0 before and read after), F4 certified within 5
+   errorests of its closed form, the Gaussian's status printed as found;
+   walls, iterations, neval and the bin resolve's share of each wall
+   (launches times its time alone);
+29. VEGAS past 16D: phase 5 holds, and phase 7 times, the sampler's wide
+   route (NMAX 24 and 32) in its four modes, the grouped histogram (f^2 in
+   f32 and f64) and the wide bin resolve (three forms) against their
+   generic routes and plain versions at 17, 20, 24, 28D (ncall 1e9) and
+   32D (1e10) on the chunks ``vegas`` takes there (HIGH_ROWS), the
+   routes at 17D and 33D (the generic sampler above 32D), the edge lookup
+   at 20D and 32D on the diff path's draws and a traced 20D per-axis
+   callable in the fused sampler; phase 29 itself runs ``vegas(f,
+   ndim=17)`` with the card's defaults, then Genz F4 at 1e-3 and ncall
+   1e9: 20D (a = 5) on the poly map ('hybrid' f64 and 'fused' f32) and on
+   the grid map, 28D (a = 3) on the poly map, each certified within 5
+   errorests
+   with every launch on the wide sampler (or bin resolve) and the grouped
+   histogram (counts set to 0 before and read after); walls, iterations
+   and each kernel's launches times its time alone against the wall;
+30. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -1418,9 +1435,10 @@ def new_route_times(dev):
 # BASELINE's 9D VEGAS Gaussian (phase 27)
 
 GAUSS9D = dict(epsrel=1e-3, ncall=1e9, sampler="hybrid")
-# the forms in turns: the routes the shapes take, and both kernels forced
-# to their generic routes (one run each: a run takes 4-5 s, and on an H100
-# the forms' walls lay 15-20 % apart, a form's repeats within 4 %; PERF.md)
+# the forms in turns, for 9D F4: the routes the shapes take, and both
+# kernels forced to their generic routes (one run each: a run takes 4-5 s,
+# and on an H100 the forms' walls lay 15-20 % apart, a form's repeats within
+# 4 %; PERF.md); the Gaussian runs on the routes the shapes take only
 GAUSS9D_ORDER = ("new", "generic")
 # a 9D Gaussian VEGAS finds on the same lattice (Genz F4 at a = 10: a
 # peak of width 0.07 an axis, where gauss9d's is 0.005 of its axis)
@@ -1493,12 +1511,12 @@ def gauss9d_path(dev, times):
     (``misc.gauss9d``: sigma 0.01 over [-1, 1]^9, truth erf(1/(0.01
     sqrt 2))^9) at epsrel 1e-3 and ncall 1e9, f64, 'hybrid', the poly map:
     370 chunks of 2^20 cubes an iteration, on the routes the shapes take
-    (the sampler's wide route, the grouped histogram) and on both forced to
-    their generic routes, in turns (GAUSS9D_ORDER).  Whether it certifies,
-    and how far it lies from the truth, is reported as found; the forms
-    must give finite results and agree within 5 of their errorests.  Then
-    Genz F4 at 9D (F4_9D) on the same lattice, one run of each form: each
-    must certify within 5 errorest of its closed form.  The kernels' share
+    (the sampler's wide route, the grouped histogram).  Whether it
+    certifies, and how far it lies from the truth, is reported as found; it
+    must give finite results.  Then Genz F4 at 9D (F4_9D) on the same
+    lattice, on those routes and on both forced to their generic routes, in
+    turns (GAUSS9D_ORDER): each must certify within 5 errorest of its
+    closed form.  The kernels' share
     of a wall: launches times each kernel's time alone at the run's shape
     (phase 7: 9D, 2^20 cubes; the histogram on f^2 in f64).  Returns the
     rows."""
@@ -1510,25 +1528,15 @@ def gauss9d_path(dev, times):
                     and r["form"] == "f2 f64")
         alone[form] = (row[key], hist[key])
     f, vol = misc.gauss9d()
-    rows = [nine_d_run("9D Gaussian (BASELINE)", f, form, alone, vol=vol)
-            for form in GAUSS9D_ORDER]
-    new, gen = (next(r for r in rows if r["form"] == form)
-                for form in ("new", "generic"))
-    apart = abs(new["estimate"] - gen["estimate"])
-    if not apart <= 5.0 * max(new["errorest"], gen["errorest"]):
-        fail(f"9D Gaussian: the forms' estimates lie {apart} apart, beyond "
-             "5 of their errorests")
-    walls = {form: min(r["wall_s"] for r in rows if r["form"] == form)
-             for form in ("new", "generic")}
+    new = nine_d_run("9D Gaussian (BASELINE)", f, "new", alone, vol=vol)
     print(f"phase 27: 9D Gaussian (BASELINE): status {new['status']}, "
           f"{'certified' if new['status'] == 0 else 'not certified'} at "
           f"epsrel {GAUSS9D['epsrel']:g} after {new['iters']} iterations; "
-          f"estimate {new['pull']:.4g} errorest from the truth; the forms "
-          f"{apart:.3g} apart; walls, best of each form: new routes "
-          f"{walls['new']:.3f} s, generic routes {walls['generic']:.3f} s "
-          f"({walls['new'] / walls['generic']:.3f} times)", flush=True)
+          f"estimate {new['pull']:.4g} errorest from the truth; wall "
+          f"{new['wall_s']:.3f} s", flush=True)
+    rows = [new]
     g4 = genz.f4_gaussian(9, **F4_9D)
-    for form in ("new", "generic"):
+    for form in GAUSS9D_ORDER:
         r = nine_d_run(f"9D F4 a = {F4_9D['a']:g}", g4, form, alone)
         if r["status"] != 0 or not r["pull"] <= 5.0:
             fail(f"9D F4 ({form} routes): status {r['status']}, pull "
@@ -1541,11 +1549,12 @@ def gauss9d_path(dev, times):
 # The bin resolve's wide route at 9..16D (phase 7) and BASELINE's 9D VEGAS
 # on the grid map (phase 28)
 
-def wide_resolve_times(dev):
+def wide_resolve_times(dev, shapes=WIDE_RESOLVE_SHAPES, series=(5, 20)):
     """Phase 7 (3): the bin resolve's wide route against its generic route
-    in turns (wide, generic, generic, wide; best of 5 series back to back,
-    ``queued_ms``) at WIDE_RESOLVE_SHAPES, the chunk around the volume's
-    centre of the 1e9 lattice: drawing xn with ids out (as the grid map's
+    in turns (wide, generic, generic, wide; best of ``series`` (series,
+    launches a series) back to back, ``queued_ms``) at ``shapes`` ((ndim,
+    cubes[, ncall]); WIDE_RESOLVE_SHAPES), the chunk around the volume's
+    centre of the ncall (1e9) lattice: drawing xn with ids out (as the grid map's
     adjusting iterations launch it) and without (its frozen ones), and
     given xn with ids out; each beside its bytes bound (rc, xo and ia
     written once, xn read once where given, the edges once), the plain
@@ -1553,9 +1562,10 @@ def wide_resolve_times(dev):
     no rc, xo or ia).  Returns the rows."""
     rows = []
     nbins = 500
-    for ndim, cubes in WIDE_RESOLVE_SHAPES:
-        ng, ncubes = vegas_module.compute_ncubes(1e9, ndim)
-        npg = vegas_module.samples_per_cube(1e9, ncubes)
+    for ndim, cubes, *rest in shapes:
+        ncall = rest[0] if rest else 1e9
+        ng, ncubes = vegas_module.compute_ncubes(ncall, ndim)
+        npg = vegas_module.samples_per_cube(ncall, ncubes)
         cube0 = vegas_check._chunk_start(ng, ndim, ncubes, cubes, "middle")
         n = cubes * npg
         xi32 = torch.as_tensor(vegas_check.random_grid(ndim, nbins, 0),
@@ -1580,7 +1590,7 @@ def wide_resolve_times(dev):
                "blocks_on_card": cuda_lookup._resident_blocks(
                    dev, "resolve wide drawing xn", ndim, nbins)}
         for form, routed in forms.items():
-            t = [queued_ms(routed(r), 5)
+            t = [queued_ms(routed(r), *series)
                  for r in ("wide", "generic", "generic", "wide")]
             b = bytes_bound_ms(bounds[form])
             row[form] = {"ms": min(t[0], t[3]),
@@ -1596,7 +1606,7 @@ def wide_resolve_times(dev):
         idx_lo = idx - 1
         row["edges_only_two_gathers_ms"] = queued_ms(
             lambda: (torch.gather(xi32, 1, idx_lo),
-                     torch.gather(xi32, 1, idx)), 5)
+                     torch.gather(xi32, 1, idx)), *series)
         del idx, idx_lo, xn
         rows.append(row)
         parts = "; ".join(
@@ -1700,22 +1710,32 @@ def grid9d_run(label, g, form, alone, **kw):
 def grid9d_path(dev, resolve_rows):
     """Phase 28: ``mcubes.integrate(..., importance='grid', ncall=1e9,
     epsrel=1e-3)`` in f64 at 9D (9^9 cubes of 2 samples, 370 chunks of
-    2^20 cubes an iteration), in turns on the wide bin resolve and on its
-    generic route (GRID9D_ORDER): Genz F4 (F4_9D), which must certify
-    within 5 errorests of its closed form, then BASELINE's ``misc.gauss9d``,
-    whose status is reported as found.  The two routes compute every
-    output alike, so each pair of runs must give the same bits.  Returns
-    the rows."""
+    2^20 cubes an iteration): Genz F4 (F4_9D) in turns on the wide bin
+    resolve and on its generic route (GRID9D_ORDER), which must certify
+    within 5 errorests of its closed form; the two routes compute every
+    output alike, so the pair must give the same bits.  Then BASELINE's
+    ``misc.gauss9d`` on the wide route, whose status is reported as found.
+    Returns the rows."""
     row9 = next(r for r in resolve_rows if r["ndim"] == 9)
     drawn = row9["drawing xn, ids out"]
     alone = {"new": drawn["ms"], "generic": drawn["generic_route_ms"]}
     f, vol = misc.gauss9d()
     rows = []
-    for label, g, kw in ((f"9D F4 a = {F4_9D['a']:g}",
-                          genz.f4_gaussian(9, **F4_9D), {}),
-                         ("9D Gaussian (BASELINE)", f, {"vol": vol})):
-        pair = [grid9d_run(label, g, form, alone, **kw)
-                for form in GRID9D_ORDER]
+    for label, g, kw, forms in (
+            (f"9D F4 a = {F4_9D['a']:g}", genz.f4_gaussian(9, **F4_9D), {},
+             GRID9D_ORDER),
+            ("9D Gaussian (BASELINE)", f, {"vol": vol}, ("new",))):
+        pair = [grid9d_run(label, g, form, alone, **kw) for form in forms]
+        if len(pair) == 1:
+            new = pair[0]
+            print(f"phase 28: {label} grid map: wall {new['wall_s']:.3f} s; "
+                  f"status {new['status']}, "
+                  f"{'certified' if new['status'] == 0 else 'not certified'}"
+                  f" at epsrel {GRID9D['epsrel']:g} after {new['iters']} "
+                  f"iterations, {new['pull']:.4g} errorests from the truth",
+                  flush=True)
+            rows += pair
+            continue
         new, gen = pair
         same = ((new["estimate"], new["errorest"], new["iters"])
                 == (gen["estimate"], gen["errorest"], gen["iters"]))
@@ -1735,6 +1755,479 @@ def grid9d_path(dev, resolve_rows):
                  f"{new['pull']}")
         rows += pair
     return rows
+
+
+# ---------------------------------------------------------------------------
+# VEGAS past 16D (phases 5, 7 and 29)
+
+# (ndim, ncall) of the rows past 16D: the 1e9 lattices at 17..28D and 32D
+# at 1e10 (2^32 cubes), each on the chunk vegas's own policy gives it in
+# f64 (vegas.default_chunk_cubes): 17D 131072 cubes of 7, 20D 1024 of 953,
+# 24D 8192 of 59, 28D 262144 of 3, 32D 262144 of 2
+HIGH_ROWS = [(17, 1e9), (20, 1e9), (24, 1e9), (28, 1e9), (32, 1e10)]
+HIGH_NBINS = 500
+# the edge lookup on the diff path's draws (diff.frozen_draws): (ndim, ids
+# a dimension)
+HIGH_EDGE = ((20, 1 << 20), (32, 1 << 20))
+# Genz F4 of the rows and of phase 29's runs: a = 5, b = 0.5
+HIGH_F4 = dict(a=5.0, b=0.5)
+# phase 29's runs: (label, ndim, F4's a, vegas keywords), epsrel 1e-3,
+# ncall 1e9.  28D takes a = 3: at a = 5 a sample's share of the integral,
+# fx ~ 2.4e-13 / 8e8, squares to ~1e-43, below f32's normal range, so the
+# f32 f^2 histogram stops steering the map (15 iterations, no certificate,
+# on an H100); at a = 3 fx^2 ~ 3e-32
+HIGH_RUNS = (
+    ("20D poly f64 'hybrid'", 20, 5.0, dict(sampler="hybrid")),
+    ("20D poly f32 'fused'", 20, 5.0, dict(sampler="fused",
+                                           eval_dtype=torch.float32)),
+    ("20D grid f64", 20, 5.0, dict(importance="grid")),
+    ("28D poly f64 'hybrid'", 28, 3.0, dict(sampler="hybrid")))
+HIGH_EPSREL, HIGH_NCALL = 1e-3, 1e9
+# the timed series of a kernel past 16D: the generic routes there take
+# milliseconds a launch
+HIGH_SERIES = (3, 10)
+
+
+def gauss_axes(ndim: int, a: float):
+    """exp(-a^2 sum (x_d - 1/2)^2) as a per-axis callable of ndim
+    arguments: Genz F4's form, traced into the fused sampler."""
+    names = [f"x{d}" for d in range(ndim)]
+    body = " + ".join(f"({x} - 0.5) * ({x} - 0.5)" for x in names)
+    return eval(f"lambda {', '.join(names)}: torch.exp(-{a * a!r} * ({body}))",
+                {"torch": torch})
+
+
+GEN_GAUSS20 = integrand_gen.traced(gauss_axes(20, HIGH_F4["a"]), 20,
+                                   "gauss_axes20")
+
+
+def high_case(ndim: int, ncall: float, position: str, dev):
+    """sampler_case at the chunk vegas's policy gives a row in f64."""
+    ng, ncubes = vegas_module.compute_ncubes(ncall, ndim)
+    npg = vegas_module.samples_per_cube(ncall, ncubes)
+    chunk = vegas_module.default_chunk_cubes(npg, ndim, torch.float64)
+    return vegas_check.sampler_case(ndim, ncall, chunk, nbins=HIGH_NBINS,
+                                    position=position, device=dev)
+
+
+def high_dim_checks(dev):
+    """Phase 5 (past 16D): at each row of HIGH_ROWS, on the chunk past the
+    lattice's end, the sampler's wide route (NMAX 24 and 32) in emit mode
+    and fused on Genz F4 against the plain version (kernel_check's limits)
+    and the generic route (coordinates, weights, bin ids, f^2 EQUAL), the
+    generator word for word on both routes; the grouped histogram against
+    the plain version and the generic route on the row's sample count; the
+    wide bin resolve against the generic route (rc, xo, ia EQUAL) and the
+    plain version; the routes named at 17D and 33D, and the generic sampler
+    at 33D (emit mode, the route above 32D) against the plain version and
+    its words.  Returns the largest differences read, per kernel."""
+    err = {"vegas_sample": 0.0, "vegas_hist": 0.0,
+           "vegas_bin_resolve_wide": 0.0}
+    for ndim, ncall in HIGH_ROWS:
+        case = high_case(ndim, ncall, "end", dev)
+        pmap, chunk, npg = case["pmap"], case["chunk_cubes"], case["npg"]
+        n = chunk * npg
+        routes = (cuda_vegas.sampler_route(ndim, pmap.kp, pmap.kq),
+                  cuda_lookup.hist_route(ndim, HIGH_NBINS),
+                  cuda_lookup.resolve_route(ndim, HIGH_NBINS, n))
+        if routes != ("wide", "grouped", "wide"):
+            fail(f"{ndim}D: routes {routes}; the wide sampler, the grouped "
+                 "histogram and the wide bin resolve should take it")
+        for integrand in (None, genz.f4_gaussian(ndim, **HIGH_F4)):
+            witness = {"weight_witness": True} if integrand is None else {}
+            try:
+                r = vegas_check.check_sampler(case, integrand, with_hist=True,
+                                              rng="device", route="wide",
+                                              **witness)
+                vegas_check.check_sampler(case, integrand, with_hist=True,
+                                          rng="device", route="generic",
+                                          **witness)
+                rr = vegas_check.check_sampler_routes(
+                    case, integrand, with_hist=True, rng="input")
+            except AssertionError as e:
+                fail(f"{ndim}D: {e}")
+            readings = ", ".join(f"{k[:-5]} {v:.3g}" for k, v in r.items()
+                                 if k.endswith("_ulps"))
+            sums = (f"; sums {rr['sums_ulps']:.3g} f64 ulps apart"
+                    if "sums_ulps" in rr else "")
+            print(f"phase 5: wide route (NMAX "
+                  f"{cuda_vegas.wide_class(ndim)}), {ndim}D ncall {ncall:g}, "
+                  f"{chunk} cubes of {npg} (lanes "
+                  f"{cuda_vegas.wide_lanes(chunk, npg, integrand is None)}), "
+                  f"{'emit' if integrand is None else 'fused F4'}, the chunk "
+                  f"past the lattice's end: {r['samples']} samples, bin ids "
+                  f"equal; ulps against the plain version: {readings}; "
+                  f"against the generic route coordinates, weights, bin ids "
+                  f"and f^2 EQUAL{sums}", flush=True)
+            err["vegas_sample"] = max(err["vegas_sample"],
+                                      r.get("max_abs_x", 0.0))
+        try:
+            for route in ("wide", "generic"):
+                vegas_check.check_stream(case, route=route)
+            hr = vegas_check.check_hist_routes(ndim, n, HIGH_NBINS,
+                                               device=dev)
+            rr = vegas_check.check_resolve_routes(ndim, ncall, chunk,
+                                                  HIGH_NBINS, device=dev)
+        except AssertionError as e:
+            fail(f"{ndim}D: {e}")
+        if hr["routes"] != ["grouped", "generic"] or rr["routes"] != [
+                "wide", "generic"]:
+            fail(f"{ndim}D: histogram routes {hr['routes']}, bin resolve "
+                 f"{rr['routes']}")
+        print(f"phase 5: {ndim}D: the generator word for word on both "
+              f"sampler routes; histogram, {n} samples, 500 bins: grouped "
+              f"route max rel {hr['grouped']['max_rel']:.3g}, accumulating "
+              f"{hr['grouped']['accum_max_rel']:.3g}; generic "
+              f"{hr['generic']['max_rel']:.3g} (limit "
+              f"{vegas_check.HIST_RTOL:g}); between the routes "
+              f"{hr['between_routes_max_rel']:.3g}; each route twice the "
+              f"same bits; {cuda_lookup.hist_plan(n, ndim, 500)[1]} clusters "
+              f"of {cuda_lookup.hist_warps(ndim, 500)} warps, the card holds "
+              f"{cuda_lookup.hist_clusters_on_card(ndim, 500)}; bin resolve "
+              f"wide vs generic route, drawing xn at the centre and past the "
+              f"lattice's end, given xn over {rr['samples']} and "
+              f"{rr['samples'] - 3} samples: rc, xo, ia EQUAL; rc "
+              f"{rr['rc_ulps']} ulps from the plain version (limit "
+              f"{vegas_check.RC_ULP})", flush=True)
+        err["vegas_hist"] = max(err["vegas_hist"], hr["grouped"]["max_abs"])
+        err["vegas_bin_resolve_wide"] = max(err["vegas_bin_resolve_wide"],
+                                            rr["max_abs"])
+    # the routes at the edges of the range, and the generic sampler above it
+    for ndim, want in ((17, ("wide", "grouped", "wide")),
+                       (33, ("generic", "generic", "generic"))):
+        ncall = 2.1 * 2 ** ndim                # ng 2, npg 2
+        case = vegas_check.sampler_case(ndim, ncall, 4096, nbins=50,
+                                        degree=8, device=dev)
+        pmap = case["pmap"]
+        got = (cuda_vegas.sampler_route(ndim, pmap.kp, pmap.kq),
+               cuda_lookup.hist_route(ndim, 50),
+               cuda_lookup.resolve_route(ndim, 50, 4096 * case["npg"]))
+        if got != want:
+            fail(f"{ndim}D routes {got}, not {want}")
+        try:
+            vegas_check.check_stream(case)
+            r = vegas_check.check_sampler(case, None, with_hist=True,
+                                          rng="device", weight_witness=True)
+        except AssertionError as e:
+            fail(f"{ndim}D: {e}")
+        print(f"phase 5: {ndim}D routes {got}; the sampler's {got[0]} route "
+              f"emitting {r['samples']} samples: the generator word for "
+              f"word, " + ", ".join(f"{k[:-5]} {v:.3g}" for k, v in r.items()
+                                    if k.endswith("_ulps"))
+              + " ulps against the plain version", flush=True)
+    try:
+        vegas_check.check_sampler(case, genz.f4_gaussian(33), with_hist=False,
+                                  rng="device")
+        fail("the fused sampler took a 33D Genz family")
+    except ValueError:
+        pass
+    return err
+
+
+def high_sampler_rows(case, series=HIGH_SERIES):
+    """Phase 7 (past 16D): the sampler on ``case``'s chunk in its four
+    modes (emit with and without bin ids, fused Genz F4 with and without
+    them), the wide route in turns with the generic one (wide, generic,
+    generic, wide; best of ``series``), beside its plain version and its
+    bound.  Prints and returns a row a mode."""
+    reps, inner = series
+    pmap, npg, chunk = case["pmap"], case["npg"], case["chunk_cubes"]
+    ndim, n = pmap.ndim, chunk * npg
+    tail = (case["xjac"], case["cube0"], case["ncubes"], 0, 1)
+    g4 = genz.f4_gaussian(ndim, **HIGH_F4)
+    rows = []
+    for label, integrand, with_hist in (
+            ("emit+ids", None, True), ("emit", None, False),
+            ("fused F4+ids+f2", g4, True), ("fused F4", g4, False)):
+        def call(fn, integrand=integrand, with_hist=with_hist, **kw):
+            return lambda: fn(pmap, integrand, case["ng"], npg, chunk,
+                              HIGH_NBINS, with_hist, *tail,
+                              emit_points=integrand is None, **kw)
+        t = [queued_ms(call(cuda_vegas.sample_chunk, route=r), reps,
+                       inner)
+             for r in ("wide", "generic", "generic", "wide")]
+        ms, generic = min(t[0], t[3]), min(t[1], t[2])
+        plain = (time_ms(call(cuda_vegas.sample_chunk_plain), 1)
+                 if with_hist else None)
+        b, by = sampler_bound_ms(0 if integrand is None else 4, ndim,
+                                 pmap.kp, pmap.kq, n, with_hist)
+        lanes = cuda_vegas.wide_lanes(chunk, npg,
+                                      integrand is None and with_hist)
+        rows.append({
+            "ndim": ndim, "cubes": chunk, "npg": npg, "samples": n,
+            "mode": label, "route": "wide",
+            "nmax": cuda_vegas.wide_class(ndim), "lanes": lanes,
+            "ms": ms, "generic_route_ms": generic, "series": t,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": None,
+            "ns_a_sample_dimension": 1e6 * ms / (n * ndim)})
+        print(f"phase 7: sampler {label} {ndim}D (NMAX "
+              f"{cuda_vegas.wide_class(ndim)}), {chunk} cubes of {npg} "
+              f"({n} samples): wide route {ms:.4f} ms (two series "
+              f"{t[0]:.4f}, {t[3]:.4f}; lanes {lanes}; "
+              f"{1e6 * ms / (n * ndim):.4f} ns a sample and dimension), "
+              f"generic route {generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}; "
+              f"{generic / ms:.2f} times), plain "
+              + (f"{plain:.2f} ms" if plain is not None else "not timed")
+              + f", bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% of it)",
+              flush=True)
+    return rows
+
+
+def high_dim_times(dev):
+    """Phase 7 (past 16D): at each row's chunk (around the volume's centre)
+    the wide sampler in its four modes, the grouped histogram on the
+    chunk's ids and f^2 in f32 and f64, and the wide bin resolve drawing xn
+    with and without ids and given xn, each in turns with its generic
+    route (new, generic, generic, new; best of HIGH_SERIES series), beside
+    its plain version, its bound and the library call where one computes
+    the function (bincount per dimension; two gathers); the edge lookup
+    at 20D and 32D on the diff path's draws, EQUAL to its plain version on
+    both routes and timed; a traced 20D per-axis callable in the fused
+    sampler against its plain version, the generic route (EQUAL) and the
+    Genz F4 wide kernel in turns.  Returns the rows by kernel."""
+    reps, inner = HIGH_SERIES
+    out = {"sampler": [], "hist": [], "resolve": [], "edge": []}
+    for ndim, ncall in HIGH_ROWS:
+        case = high_case(ndim, ncall, "middle", dev)
+        pmap, npg, chunk = case["pmap"], case["npg"], case["chunk_cubes"]
+        n = chunk * npg
+        tail = (case["xjac"], case["cube0"], case["ncubes"], 0, 1)
+        g4 = genz.f4_gaussian(ndim, **HIGH_F4)
+        out["sampler"] += high_sampler_rows(case)
+        # the histogram on the chunk's ids and f^2 (the fused sampler's)
+        _, ia, f2 = cuda_vegas.sample_chunk(pmap, g4, case["ng"], npg, chunk,
+                                            HIGH_NBINS, True, *tail)
+        acc = torch.zeros((ndim, HIGH_NBINS), dtype=torch.float32, device=dev)
+        ids64 = ia.to(torch.int64)
+        for form, vals in (("f2 f32", f2), ("f2 f64", f2.double())):
+            t = [queued_ms(lambda r=r: cuda_lookup.hist_accum(
+                acc, ia, vals, HIGH_NBINS, route=r), reps, inner)
+                 for r in ("grouped", "generic", "generic", "grouped")]
+            ms, generic = min(t[0], t[3]), min(t[1], t[2])
+            plain = time_ms(lambda: cuda_lookup.hist_accum_plain(
+                acc, ia, vals, HIGH_NBINS), 1)
+            vals32 = vals.to(torch.float32)
+            lib = queued_ms(lambda: torch.clamp(acc + torch.stack([
+                torch.bincount(ids64[d], weights=vals32,
+                               minlength=HIGH_NBINS)
+                for d in range(ndim)]), max=cuda_lookup.HIST_CAP), reps,
+                inner)
+            b = bytes_bound_ms(n * (4 * ndim + vals.element_size())
+                               + 2 * 4 * ndim * HIGH_NBINS)
+            warps, clusters = cuda_lookup.hist_plan(n, ndim, HIGH_NBINS)
+            out["hist"].append({
+                "ndim": ndim, "samples": n, "form": form, "ms": ms,
+                "generic_route_ms": generic, "series": t, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": b, "bound_by": "bytes",
+                "warps": warps, "clusters": clusters})
+            print(f"phase 7: histogram accumulating {ndim}D, {n} samples, "
+                  f"{form}: grouped route {ms:.4f} ms (two series "
+                  f"{t[0]:.4f}, {t[3]:.4f}; {clusters} clusters of "
+                  f"{cuda_lookup.HIST_CLUSTER} blocks of {warps} warps), "
+                  f"generic route {generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}; "
+                  f"{generic / ms:.2f} times), plain {plain:.3f} ms, "
+                  f"torch.bincount per dimension + add + clamp {lib:.4f} ms, "
+                  f"bound {b:.4f} ms (bytes; {100 * b / ms:.1f}% of it)",
+                  flush=True)
+        del ia, f2, ids64
+        out["resolve"] += wide_resolve_times(dev, [(ndim, chunk, ncall)],
+                                             series=HIGH_SERIES)
+    for ndim, n in HIGH_EDGE:
+        xi32 = torch.as_tensor(vegas_check.random_grid(ndim, HIGH_NBINS, 1),
+                               dtype=torch.float32, device=dev)
+        ia, _ = diff.frozen_draws(DIFF_SEED, n, ndim, HIGH_NBINS, dev)
+        want = cuda_lookup.edge_lookup_plain(xi32, ia, HIGH_NBINS)
+        for r in ("vector", "generic"):
+            got = cuda_lookup.edge_lookup(xi32, ia, HIGH_NBINS, route=r)
+            if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                fail(f"edge lookup {ndim}D, {r} route, on the diff path's "
+                     "draws differs from the plain version")
+        del got, want
+        t = [queued_ms(lambda r=r: cuda_lookup.edge_lookup(
+            xi32, ia, HIGH_NBINS, route=r), reps, inner)
+             for r in ("vector", "generic", "generic", "vector")]
+        ms, generic = min(t[0], t[3]), min(t[1], t[2])
+        plain = time_ms(lambda: cuda_lookup.edge_lookup_plain(
+            xi32, ia, HIGH_NBINS), 1)
+        idx = torch.clamp(ia.to(torch.int64), 1, HIGH_NBINS).T.contiguous()
+        idx_lo = idx - 1
+        lib = queued_ms(lambda: (torch.gather(xi32, 1, idx_lo),
+                                 torch.gather(xi32, 1, idx)), reps, inner)
+        b = bytes_bound_ms(ia.numel() * 12 + 4 * ndim * (HIGH_NBINS + 1))
+        out["edge"].append({
+            "ndim": ndim, "samples": n, "ids": ia.numel(), "ms": ms,
+            "generic_route_ms": generic, "series": t, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": b, "bound_by": "bytes",
+            "route": cuda_lookup.edge_route(ndim, HIGH_NBINS)})
+        print(f"phase 7: edge lookup {ndim}D on the diff path's draws "
+              f"({ia.numel()} ids): vector and generic routes EQUAL to the "
+              f"plain version; vector {ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
+              f"generic {generic:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain "
+              f"{plain:.3f} ms, two torch.gather {lib:.4f} ms, bound "
+              f"{b:.4f} ms (bytes; {100 * b / ms:.1f}% of it)", flush=True)
+        del ia, idx, idx_lo
+    out["generated"] = generated_high(dev)
+    return out
+
+
+def generated_high(dev):
+    """Phase 7 (past 16D): GEN_GAUSS20 (built in phase 1) in the fused
+    sampler at the 20D row's chunk: against its plain version (kernel_check's
+    limits), its generic route (EQUAL), and timed against the Genz F4 wide
+    kernel in turns (F4, generated, generated, F4)."""
+    reps, inner = HIGH_SERIES
+    case = high_case(20, 1e9, "middle", dev)
+    pmap, npg, chunk = case["pmap"], case["npg"], case["chunk_cubes"]
+    n = chunk * npg
+    try:
+        r = vegas_check.check_sampler(case, GEN_GAUSS20, with_hist=True,
+                                      rng="device")
+        vegas_check.check_sampler_routes(case, GEN_GAUSS20, with_hist=True,
+                                         rng="input")
+    except AssertionError as e:
+        fail(f"generated 20D sampler: {e}")
+    tail = (case["xjac"], case["cube0"], case["ncubes"], 0, 1)
+
+    def call(fn, g, **kw):
+        return lambda: fn(pmap, g, case["ng"], npg, chunk, HIGH_NBINS, True,
+                          *tail, **kw)
+    k = call(cuda_vegas.sample_chunk, GEN_GAUSS20)()
+    p = call(cuda_vegas.sample_chunk_plain, GEN_GAUSS20)()
+    g4 = genz.f4_gaussian(20, **HIGH_F4)
+    t = [queued_ms(call(cuda_vegas.sample_chunk, g, route="wide"), reps,
+                   inner) for g in (g4, GEN_GAUSS20, GEN_GAUSS20, g4)]
+    ms, genz_ms = min(t[1], t[2]), min(t[0], t[3])
+    generic = queued_ms(call(cuda_vegas.sample_chunk, GEN_GAUSS20,
+                             route="generic"), reps, inner)
+    plain = time_ms(call(cuda_vegas.sample_chunk_plain, GEN_GAUSS20), 1)
+    b, by = generated_sampler_bound_ms(GEN_GAUSS20.program, 20, pmap.kp,
+                                       pmap.kq, n, True)
+    row = {"ndim": 20, "cubes": chunk, "npg": npg, "samples": n, "ms": ms,
+           "genz_f4_wide_ms": genz_ms, "series": t,
+           "generic_route_ms": generic, "plain_ms": plain, "bound_ms": b,
+           "bound_by": by, "library_ms": None,
+           "max_abs_err": float((k[0] - p[0]).abs().max()),
+           "ulps_against_plain": {kk: v for kk, v in r.items()
+                                  if kk.endswith("_ulps")}}
+    print(f"phase 7: generated sampler gauss_axes20 fused+ids+f2, {n} "
+          f"samples: against the plain version "
+          + ", ".join(f"{kk[:-5]} {v:.3g}" for kk, v in
+                      row["ulps_against_plain"].items())
+          + f" ulps; against the generic route coordinates, bin ids and f^2 "
+          f"EQUAL; generated wide kernel {ms:.4f} ms ({t[1]:.4f}, "
+          f"{t[2]:.4f}) against the Genz F4 wide kernel {genz_ms:.4f} ms "
+          f"({t[0]:.4f}, {t[3]:.4f}); generated generic route "
+          f"{generic:.4f} ms; plain {plain:.2f} ms; bound {b:.4f} ms ({by}, "
+          f"{100 * b / ms:.1f}% of it)", flush=True)
+    return row
+
+
+def _pull(res, truth: float) -> float:
+    """|estimate - truth| in errorests (inf at a zero errorest)."""
+    err = abs(res.estimate - truth)
+    return err / res.errorest if res.errorest > 0 else math.inf
+
+
+def high_dim_run(label, ndim, a, kw, times):
+    """One phase 29 run: Genz F4 (b = 0.5, ``a``) at ``ndim``, epsrel HIGH_EPSREL,
+    ncall HIGH_NCALL, f64 unless ``kw`` says otherwise; the counts set to
+    0 just before it and read just after.  It must certify within 5
+    errorests of the closed form with every launch on the wide sampler,
+    the grouped histogram and (grid map) the wide bin resolve.  Returns
+    its row: wall, iterations, launches by route, and each kernel's
+    launches times its time alone (phase 7, the row's chunk) against the
+    wall."""
+    g = genz.f4_gaussian(ndim, a=a, b=HIGH_F4["b"])
+    torch.cuda.synchronize()
+    with LaunchCounts() as clock:
+        t0 = time.perf_counter()
+        res = mcubes.integrate(g, epsrel=HIGH_EPSREL, epsabs=1e-40,
+                               ncall=HIGH_NCALL, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pull = _pull(res, g.true_value)
+    grid = kw.get("importance") == "grid"
+    fused = kw.get("sampler") == "fused"
+
+    def alone(kernel, key):
+        return next(r for r in times[kernel]
+                    if r["ndim"] == ndim and key(r))
+    c = clock.launches
+    hist_ms = alone("hist", lambda r: r["form"] == (
+        "f2 f32" if fused else "f2 f64"))["ms"]
+    busy = {"vegas_hist": c["vegas_hist"] * hist_ms}
+    if grid:
+        rr = alone("resolve", lambda r: True)
+        busy["vegas_bin_resolve"] = (
+            c["vegas_hist"] * rr["drawing xn, ids out"]["ms"]
+            + (c["vegas_bin_resolve"] - c["vegas_hist"])
+            * rr["drawing xn, no ids"]["ms"])
+    else:
+        modes = (("fused F4+ids+f2", "fused F4") if fused
+                 else ("emit+ids", "emit"))
+        with_ids, bare = (alone("sampler", lambda r, m=m: r["mode"] == m)
+                          ["ms"] for m in modes)
+        busy["vegas_sample"] = (c["vegas_hist"] * with_ids
+                                + (c["vegas_sample"] - c["vegas_hist"])
+                                * bare)
+    busy = {k: v / 1e3 for k, v in busy.items()}
+    share = sum(busy.values()) / wall
+    print(f"phase 29: {label}, Genz F4 a = {a:g}: status "
+          f"{res.status} estimate {res.estimate!r} errorest "
+          f"{res.errorest!r} truth {g.true_value!r} pull {pull:.4g} chi_sq "
+          f"{res.chi_sq:.4f} iters {res.iters} neval {res.neval} wall "
+          f"{wall:.3f} s samples/s {res.neval / wall:.4e}; launches "
+          f"{clock.launches} (sampler by route {clock.sampler_routes}, "
+          f"histogram {clock.hist_routes}, bin resolve "
+          f"{clock.resolve_routes}); the kernels alone (launches x their "
+          f"times in phase 7) "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in busy.items())
+          + f" = {100 * share:.1f}% of the wall", flush=True)
+    first = "vegas_bin_resolve" if grid else "vegas_sample"
+    routes = clock.resolve_routes if grid else clock.sampler_routes
+    if (res.status != 0 or not pull <= 5.0 or c[first] <= 0
+            or routes["wide"] != c[first] or c["vegas_hist"] <= 0
+            or clock.hist_routes["grouped"] != c["vegas_hist"]
+            or c["vegas_sample" if grid else "vegas_bin_resolve"] != 0):
+        fail(f"phase 29: {label}: status {res.status}, pull {pull}, launches "
+             f"{c}, sampler {clock.sampler_routes}, histogram "
+             f"{clock.hist_routes}, bin resolve {clock.resolve_routes}")
+    return {"label": label, "ndim": ndim, "a": a, "status": res.status,
+            "estimate": res.estimate, "errorest": res.errorest,
+            "truth": g.true_value, "pull": pull, "iters": res.iters,
+            "neval": res.neval, "wall_s": wall, "launches": c,
+            "sampler_routes": clock.sampler_routes,
+            "hist_routes": clock.hist_routes,
+            "resolve_routes": clock.resolve_routes, "kernels_alone_s": busy,
+            "kernels_share": share}
+
+
+def high_dim_path(dev, times):
+    """Phase 29: VEGAS past 16D on the card.  ``vegas(f, ndim=17)`` with
+    the card's defaults (the poly map, 'hybrid', f64) at ncall 1e7, then
+    HIGH_RUNS: Genz F4 at 20D (a = 5) on the poly map ('hybrid' f64,
+    'fused' f32) and on the grid map, and at 28D (a = 3) on the poly map
+    (the NMAX 32 instance in situ), each certified within 5 errorests.
+    Returns the rows."""
+    g17 = genz.f4_gaussian(17, **HIGH_F4)
+    with LaunchCounts() as clock:
+        t0 = time.perf_counter()
+        r17 = mcubes.integrate(g17, epsrel=1e-2, epsabs=1e-40, ncall=1e7)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pull = _pull(r17, g17.true_value)
+    print(f"phase 29: vegas(f4_gaussian(17), ncall=1e7) with the card's "
+          f"defaults: status {r17.status} estimate {r17.estimate!r} "
+          f"errorest {r17.errorest!r} pull {pull:.4g} iters {r17.iters} wall "
+          f"{wall:.3f} s; launches {clock.launches}, sampler by route "
+          f"{clock.sampler_routes}", flush=True)
+    if (not math.isfinite(r17.estimate) or clock.launches["vegas_sample"] <= 0
+            or clock.sampler_routes["wide"]
+            != clock.launches["vegas_sample"]):
+        fail(f"phase 29: the 17D default run: {r17}, {clock.launches}")
+    return [high_dim_run(label, ndim, a, kw, times)
+            for label, ndim, a, kw in HIGH_RUNS]
 
 
 # ---------------------------------------------------------------------------
@@ -5539,9 +6032,10 @@ def main() -> int:
     phase_t0 = t0 = time.perf_counter()
     sources = ["rule_eval.cu", "vegas_sample.cu", "vegas_lookup.cu",
                "rule_split.cu", "split_frac.cu"]
-    # and phase 25's generated libraries of f4_axes and cos(sum x) at 12D
+    # and phase 25's generated libraries of f4_axes and cos(sum x) at 12D,
+    # and phase 7's 20D one
     libs = cuda_build.build_many(sources, [
-        integrand_gen.header(t.program) for t in GEN_PHASE1])
+        integrand_gen.header(t.program) for t in GEN_PHASE1 + (GEN_GAUSS20,)])
     print(f"phase 1: built {len(libs)} libraries with nvcc in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:
@@ -5759,16 +6253,30 @@ def main() -> int:
     # -- phases 5-7: VEGAS ---------------------------------------------------
     vegas_err = vegas_checks(dev)
     counter_checks(dev)
+    high_err = high_dim_checks(dev)
     phase_done("phase 5")
     vegas_launches, vegas_walls, vegas_runs = vegas_main_path(dev)
     phase_done("phase 6")
     vegas_kernels = vegas_times(dev, vegas_err, vegas_launches, vegas_walls)
     new_times = new_route_times(dev)
     resolve_rows = wide_resolve_times(dev)
+    high_times = high_dim_times(dev)
     wide_regs = wide_resolve_registers()
     print(f"phase 7: the wide bin resolve's instances (registers, spill "
           f"bytes, stack frame bytes): {wide_regs}", flush=True)
     regs = vegas_registers()
+    # hist_max_clusters counts the run-time 17..32D histogram's registers
+    hist_regs = {t: regs.get(f"hist_grouped_kernel<0, {t}>")
+                 for t in ("float", "double")}
+    print(f"phase 7: registers of the run-time histogram instances: "
+          f"{hist_regs} (hist_max_clusters counts "
+          f"{cuda_lookup.HIST_RUNTIME_REGISTERS})", flush=True)
+    if not all(r is not None and r <= cuda_lookup.HIST_RUNTIME_REGISTERS
+               for r in hist_regs.values()):
+        fail(f"the run-time histogram takes {hist_regs} registers, more than "
+             f"cuda_lookup.HIST_RUNTIME_REGISTERS "
+             f"({cuda_lookup.HIST_RUNTIME_REGISTERS}) that its clusters "
+             "are counted with")
     path_regs = {k: regs.get(k) for k in (
         f"sample_pair_kernel<0, {VEGAS_NDIM}>",
         f"sample_pair_kernel<4, {VEGAS_NDIM}>",
@@ -5866,7 +6374,11 @@ def main() -> int:
     grid9d_rows = grid9d_path(dev, resolve_rows)
     phase_done("phase 28")
 
-    # -- phase 29: the kernels line, the card line, the result line ---------
+    # -- phase 29: VEGAS past 16D -------------------------------------------
+    high_rows = high_dim_path(dev, high_times)
+    phase_done("phase 29")
+
+    # -- phase 30: the kernels line, the card line, the result line ---------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",
@@ -6085,6 +6597,27 @@ def main() -> int:
         gen_checks, gen_launches, gen_vegas_launches,
         {"pagani_fused_backend": gen_wall, "pagani_fused_stats": gen_stats,
          "vegas": gen_vegas_walls}, gen_value_launches)
+    # VEGAS past 16D: each kernel's rows at the chunks of phase 29's
+    # lattices (phase 7), its largest difference read (phase 5) and its
+    # launches in phase 29's runs, each counted from 0 over its run
+    by_name = {k["name"]: k for k in kernels}
+    for name, key, launched in (
+            ("vegas_sample", "sampler", "vegas_sample"),
+            ("vegas_hist", "hist", "vegas_hist"),
+            ("vegas_bin_resolve_wide", "resolve", "vegas_bin_resolve"),
+            ("vegas_edge_lookup", "edge", None)):
+        by_name[name]["past_16d"] = {
+            "shapes": high_times[key],
+            "max_abs_err": high_err.get(name, 0.0),
+            "launches_phase_29": {r["label"]: r["launches"][launched]
+                                  for r in high_rows} if launched else None}
+    by_name["vegas_sample_generated"]["past_16d"] = high_times["generated"]
+    by_name["vegas_sample"]["phase_29_runs"] = [
+        {k: r[k] for k in ("label", "ndim", "a", "status", "pull", "iters",
+                           "wall_s", "launches", "sampler_routes",
+                           "hist_routes", "resolve_routes",
+                           "kernels_alone_s", "kernels_share")}
+        for r in high_rows]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

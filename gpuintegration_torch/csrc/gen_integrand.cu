@@ -12,8 +12,9 @@
 // kGenNdim and gen_integrand) pre-included, so that a build instantiates
 // four kernels: the rule's tile route (kGenNdim 3..8) and generic route
 // (the class NMAX = kGenNdim) in f64 and f32, the sampler's paired route
-// (kGenNdim 1..8) or wide route (kGenNdim 9..16, the class NMAX =
-// kGenNdim) and generic route in f32.  The check of the values
+// (kGenNdim 1..8) or wide route (kGenNdim 9..32, the class NMAX =
+// kGenNdim) and generic route in f32.  Above 16 axes, the rule kernels'
+// most (rule::kMaxNdim), the library holds the sampler's alone.  The check of the values
 // alone is a library of its own (gen_values.cu).  None is built with
 // the crease fraction (a crease run refuses this family, as the
 // reference's Pallas backend does), and the sampler has no emit mode
@@ -27,12 +28,21 @@
 namespace {
 namespace rule {
 
+template <typename T, int NDIM>
+int launch_generic_generated(const RuleArgs<T>& a, int blocks,
+                             cudaStream_t stream) {
+  if constexpr (NDIM <= kMaxNdim)
+    return launch_generic_kernel<kGenerated, T, NDIM>(a, blocks, stream);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int launch_generic_family(int family, const RuleArgs<T>& a, int blocks,
                           cudaStream_t stream) {
   if (family != kGenerated || a.ndim != kGenNdim || a.frac != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_generic_kernel<kGenerated, T, kGenNdim>(a, blocks, stream);
+  return launch_generic_generated<T, kGenNdim>(a, blocks, stream);
 }
 
 template <typename T, int NDIM>
@@ -60,7 +70,8 @@ template <int NDIM>
 int launch_generated(int route, const SampleArgs& a, dim3 grid, size_t smem,
                      cudaStream_t s) {
   if (route == 0) {
-    sample_kernel<kGenerated><<<grid, kThreads, smem, s>>>(a);
+    sample_kernel<kGenerated, (NDIM <= 16 ? 16 : 0)>
+        <<<grid, kThreads, smem, s>>>(a);
     return 0;
   }
   if constexpr (NDIM <= 8) {

@@ -5,9 +5,12 @@
 // as easy as 1, 2, 3", SC'11) written out by hand.  The stream has no state.
 // The key is the run's seed (low word, high word).  The counter of one draw
 // is
-//   (cube id low word, cube id high word, absolute iteration, 4*slot + d/4)
+//   (cube id low word, cube id high word, absolute iteration, B*slot + d/4)
 // and coordinate d of sample slot ``slot`` of that cube takes word d % 4 of
-// the block.  So the uniforms of a cube depend on the seed, the iteration
+// the block, B = max(4, ceil(ndim / 4)) blocks a slot (slot_blocks), so
+// that a slot's blocks never reach the next slot's.  Up to 16D B is 4; the
+// wrappers refuse B * npg >= 2^32 (mcubes/stream.py check_counter).  So
+// the uniforms of a cube depend on the seed, the iteration
 // and the cube only: not on the chunk decomposition, nor on which device or
 // which kernel draws them.  mcubes/stream.py::philox4x32 is the same
 // generator in integer tensor operations, word for word.
@@ -37,16 +40,22 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
   return c;
 }
 
+// B, the blocks of four words a sample slot owns: max(4, ceil(ndim / 4)).
+__host__ __device__ constexpr unsigned slot_blocks(int ndim) {
+  return ndim <= 16 ? 4u : static_cast<unsigned>(ndim + 3) >> 2;
+}
+
 // The block of four 32-bit words that holds coordinates 4*(d/4)..4*(d/4)+3
-// of sample slot ``slot`` of ``cube`` in iteration ``iteration``.
+// of sample slot ``slot`` of ``cube`` in iteration ``iteration``, ``blocks``
+// (slot_blocks of the ndim) blocks a slot.
 __device__ __forceinline__ uint4 vegas_block(long long cube,
                                              unsigned iteration, int slot,
-                                             int d, unsigned k0,
-                                             unsigned k1) {
+                                             int d, unsigned blocks,
+                                             unsigned k0, unsigned k1) {
   const unsigned long long c = static_cast<unsigned long long>(cube);
   return philox4x32_10(
       make_uint4(static_cast<unsigned>(c), static_cast<unsigned>(c >> 32),
-                 iteration, 4u * static_cast<unsigned>(slot) + (d >> 2)),
+                 iteration, blocks * static_cast<unsigned>(slot) + (d >> 2)),
       k0, k1);
 }
 

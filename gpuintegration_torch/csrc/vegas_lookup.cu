@@ -28,19 +28,21 @@
 //     k of 4 the lanes hold samples 4l+k, ballots over the bits of the bins
 //     group the lanes of one bin, the group's lowest lane adds the group's
 //     values in lane order and adds that sum to the row.  ndim is compiled
-//     in (1..16).  Up to 8D the steps of all dimensions go through
-//     together, and a warp's next 128 samples are loaded while it adds
-//     these.  At 9..16D a lane's ids of every dimension and the next
-//     segment's would not fit its registers, and a warp's private rows
-//     (ndim x nbins) would leave room for few warps on an SM: the
-//     dimensions are cut into 3 or 4 groups of 3 or 4 (kDimGroups), and a
-//     set of rows is shared by one warp of each group, each warp adding
-//     only its own dimensions' rows.  So a row still has one warp adding to
-//     it, a set's rows cost a warp a third or a quarter of a row each, and
-//     the warps of a set read the same f2 (once from device memory, the
-//     others from cache).  A block holds 2 sets (or 1 where 2 do not fit;
-//     cuda_lookup.hist_warps), and cuda_lookup.hist_plan sets the clusters
-//     by shape, from vegas_hist_clusters.  Then the
+//     in (1..16), or taken at run time (17..32: one instance, NDIM 0).  Up
+//     to 8D the steps of all dimensions go through together, and a warp's
+//     next 128 samples are loaded while it adds these.  From 9D a lane's
+//     ids of every dimension and the next segment's would not fit its
+//     registers, and a warp's private rows (ndim x nbins) would leave room
+//     for few warps on an SM: the dimensions are cut into ceil(ndim / 4)
+//     groups of 3 or 4 (dim_groups: 3 or 4 groups at 9..16D, 5..8 at
+//     17..32D), and a set of rows is shared by one warp of each group, each
+//     warp adding only its own dimensions' rows.  So a row still has one
+//     warp adding to it, a set's rows cost a warp a third or a quarter of a
+//     row each, and the warps of a set read the same f2 (once from device
+//     memory, the others from cache).  A block holds 2 sets at 9..16D (or
+//     1 where 2 do not fit) and 1 at 17..32D, whose 5..8 groups fill a
+//     block's 8 warps (cuda_lookup.hist_warps), and cuda_lookup.hist_plan
+//     sets the clusters by shape, from vegas_hist_clusters.  Then the
 //     sets of rows are summed in order; the 8 blocks of a
 //     thread-block cluster sum those in
 //     block-rank order through distributed shared memory, rank r taking
@@ -82,7 +84,7 @@
 //     divisions above 2^32 cubes), steps to the next cube by one carry,
 //     draws one Philox block per sample and 4 dimensions, and writes rc, xo
 //     and ia of its 4 samples as one 16-byte store per dimension.
-//   * WIDE route (resolve_wide_kernel, ndim 9..16 at run time, the grid
+//   * WIDE route (resolve_wide_kernel, ndim 9..32 at run time, the grid
 //     map's at those dimensions).  The sample route's thread would hold 4
 //     samples' coordinates of every dimension (64 floats at 16D) and
 //     spill, so here a thread owns one item (4 consecutive samples, one
@@ -98,7 +100,7 @@
 //     instead, each decoded on its own, so that a warp's 4-byte loads and
 //     stores still cover 32 neighbouring words.  The persistent grid, the
 //     edges of all dimensions in shared memory (32 KB at 16D and 500
-//     bins) and the 16-byte stores are the sample route's; so are the
+//     bins, 64 KB at 32D) and the 16-byte stores are the sample route's; so are the
 //     operations on every output, so the routes agree bit for bit.
 //   * GENERIC route (resolve_kernel, the first design, every ndim): one
 //     thread per (sample, dimension), a 64-bit decode and a Philox block
@@ -358,11 +360,12 @@ __device__ __forceinline__ void add_steps(float* rows, int nbins,
   }
 }
 
-// Groups of dimensions a warp takes at 9..16D: NDIM split into 3 or 4
-// groups of 3 or 4 dimensions each (group g: dimensions g NDIM / groups up
-// to (g + 1) NDIM / groups).
-template <int NDIM>
-constexpr int kDimGroups = (NDIM + 3) / 4;
+// Groups of dimensions a warp takes from 9D: ndim split into ceil(ndim / 4)
+// groups of 3 or 4 dimensions each (group g: dimensions g ndim / groups up
+// to (g + 1) ndim / groups).
+__host__ __device__ constexpr int dim_groups(int ndim) {
+  return (ndim + 3) / 4;
+}
 
 // One warp's segments first, first + step, ... below stop for the G
 // dimensions from d0, into its rows: lane l takes samples 4l..4l+3 of a
@@ -396,19 +399,21 @@ __device__ __forceinline__ void warp_segments(const HistArgs& a, const T* f2,
   }
 }
 
+// NDIM 1..16 compiled in, or 0: a.ndim at run time (17..32).
 template <int NDIM, typename T>
 __global__ void __launch_bounds__(kThreads)
 hist_grouped_kernel(const HistArgs a) {
   extern __shared__ float4 s_hist[];
   __shared__ int s_last;
-  float* s_rows = reinterpret_cast<float*>(s_hist);  // (sets, NDIM, nbins)
+  float* s_rows = reinterpret_cast<float*>(s_hist);  // (sets, ndim, nbins)
   cg::cluster_group cluster = cg::this_cluster();
+  const int ndim = NDIM > 0 ? NDIM : a.ndim;
   const int warps = blockDim.x >> 5;
-  // sets of private rows: one a warp up to 8D; at 9..16D one a group of
-  // kDimGroups warps, which share a set, each adding its dimensions
-  const int sets = NDIM <= 8 ? warps : warps / kDimGroups<NDIM>;
+  // sets of private rows: one a warp up to 8D; from 9D one a group of
+  // dim_groups warps, which share a set, each adding its dimensions
+  const int sets = NDIM >= 1 && NDIM <= 8 ? warps : warps / dim_groups(ndim);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = NDIM * a.nbins;
+  const int rows = ndim * a.nbins;
   for (int i = threadIdx.x; i < sets * rows; i += blockDim.x) s_rows[i] = 0.0f;
   __syncthreads();
 
@@ -419,7 +424,7 @@ hist_grouped_kernel(const HistArgs a) {
   const long long per_block = (segments + gridDim.x - 1) / gridDim.x;
   const long long first = blockIdx.x * per_block;
   const long long stop = min(segments, first + per_block);
-  if constexpr (NDIM <= 8) {
+  if constexpr (NDIM >= 1 && NDIM <= 8) {
   float* own = s_rows + warp * rows;
   float v[4];
   int bin[NDIM][4];
@@ -447,9 +452,9 @@ hist_grouped_kernel(const HistArgs a) {
   } else {
     // warp w takes group g = w % groups of the dimensions for the segments
     // of set w / groups
-    constexpr int groups = kDimGroups<NDIM>;
+    const int groups = dim_groups(ndim);
     const int g = warp % groups, set = warp / groups;
-    const int d0 = g * NDIM / groups, d1 = (g + 1) * NDIM / groups;
+    const int d0 = g * ndim / groups, d1 = (g + 1) * ndim / groups;
     float* own = s_rows + set * rows;
     if (d1 - d0 == 4)
       warp_segments<4>(a, f2, own, d0, first + set, stop, sets, lane);
@@ -530,12 +535,16 @@ cudaError_t allow_smem(size_t smem) {
   return e;
 }
 
-// Bytes of a grouped block's private rows: a set of NDIM x nbins f32 sums
-// for each warp, or at 9..16D for each kDimGroups warps.
-template <int NDIM>
-size_t row_bytes(int warps, int nbins) {
-  const int sets = NDIM <= 8 ? warps : warps / kDimGroups<NDIM>;
-  return sizeof(float) * static_cast<size_t>(sets) * NDIM * nbins;
+// Bytes of a grouped block's private rows: a set of ndim x nbins f32 sums
+// for each warp, or from 9D for each dim_groups warps.
+size_t row_bytes(int ndim, int warps, int nbins) {
+  const int sets = ndim <= 8 ? warps : warps / dim_groups(ndim);
+  return sizeof(float) * static_cast<size_t>(sets) * ndim * nbins;
+}
+
+// Whether a block of ``warps`` warps takes whole sets of rows at ndim.
+bool whole_sets(int ndim, int warps) {
+  return ndim <= 8 || warps % dim_groups(ndim) == 0;
 }
 
 // The configuration of a grouped launch: ``clusters`` clusters of kCluster
@@ -558,8 +567,8 @@ cudaLaunchConfig_t cluster_config(int clusters, int warps, size_t smem,
   return cfg;
 }
 
-// One launch of the grouped kernel for NDIM and f2 of type T, on
-// ``clusters`` clusters of kCluster blocks.
+// One launch of the grouped kernel for NDIM (0: a.ndim at run time) and f2
+// of type T, on ``clusters`` clusters of kCluster blocks.
 template <int NDIM, typename T>
 cudaError_t grouped_launch(const HistArgs& a, int warps, int clusters,
                            cudaStream_t stream) {
@@ -570,8 +579,8 @@ cudaError_t grouped_launch(const HistArgs& a, int warps, int clusters,
     return cudaFuncGetAttributes(&f, hist_grouped_kernel<NDIM, T>) == cudaSuccess
                ? f.sharedSizeBytes : size_t{0};
   }();
-  if (NDIM > 8 && warps % kDimGroups<NDIM>) return cudaErrorInvalidValue;
-  const size_t smem = row_bytes<NDIM>(warps, a.nbins);
+  if (!whole_sets(a.ndim, warps)) return cudaErrorInvalidValue;
+  const size_t smem = row_bytes(a.ndim, warps, a.nbins);
   if (smem + fixed > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem<hist_grouped_kernel<NDIM, T>>(smem);
   if (e != cudaSuccess) return e;
@@ -601,18 +610,19 @@ cudaError_t grouped_by_ndim(const HistArgs& a, int warps, int clusters,
     case 14: return grouped_launch<14, T>(a, warps, clusters, stream);
     case 15: return grouped_launch<15, T>(a, warps, clusters, stream);
     case 16: return grouped_launch<16, T>(a, warps, clusters, stream);
-    default: return cudaErrorInvalidValue;
+    default:
+      return a.ndim <= 32 ? grouped_launch<0, T>(a, warps, clusters, stream)
+                          : cudaErrorInvalidValue;
   }
 }
 
-// How many clusters of the grouped kernel for NDIM and T, kCluster blocks
-// of ``warps`` warps with their rows of nbins bins each, the card holds at
-// once, or minus a CUDA error.
+// How many clusters of the grouped kernel for NDIM (0: run time) and T at
+// ndim, kCluster blocks of ``warps`` warps with their rows of nbins bins
+// each, the card holds at once, or minus a CUDA error.
 template <int NDIM, typename T>
-int grouped_clusters(int warps, int nbins) {
-  const size_t smem = row_bytes<NDIM>(warps, nbins);
-  if ((NDIM > 8 && warps % kDimGroups<NDIM>) ||
-      smem > static_cast<size_t>(kMaxSmem))
+int grouped_clusters(int ndim, int warps, int nbins) {
+  const size_t smem = row_bytes(ndim, warps, nbins);
+  if (!whole_sets(ndim, warps) || smem > static_cast<size_t>(kMaxSmem))
     return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = allow_smem<hist_grouped_kernel<NDIM, T>>(smem);
   int clusters = 0;
@@ -628,23 +638,25 @@ int grouped_clusters(int warps, int nbins) {
 template <typename T>
 int clusters_by_ndim(int ndim, int warps, int nbins) {
   switch (ndim) {
-    case 1: return grouped_clusters<1, T>(warps, nbins);
-    case 2: return grouped_clusters<2, T>(warps, nbins);
-    case 3: return grouped_clusters<3, T>(warps, nbins);
-    case 4: return grouped_clusters<4, T>(warps, nbins);
-    case 5: return grouped_clusters<5, T>(warps, nbins);
-    case 6: return grouped_clusters<6, T>(warps, nbins);
-    case 7: return grouped_clusters<7, T>(warps, nbins);
-    case 8: return grouped_clusters<8, T>(warps, nbins);
-    case 9: return grouped_clusters<9, T>(warps, nbins);
-    case 10: return grouped_clusters<10, T>(warps, nbins);
-    case 11: return grouped_clusters<11, T>(warps, nbins);
-    case 12: return grouped_clusters<12, T>(warps, nbins);
-    case 13: return grouped_clusters<13, T>(warps, nbins);
-    case 14: return grouped_clusters<14, T>(warps, nbins);
-    case 15: return grouped_clusters<15, T>(warps, nbins);
-    case 16: return grouped_clusters<16, T>(warps, nbins);
-    default: return -static_cast<int>(cudaErrorInvalidValue);
+    case 1: return grouped_clusters<1, T>(ndim, warps, nbins);
+    case 2: return grouped_clusters<2, T>(ndim, warps, nbins);
+    case 3: return grouped_clusters<3, T>(ndim, warps, nbins);
+    case 4: return grouped_clusters<4, T>(ndim, warps, nbins);
+    case 5: return grouped_clusters<5, T>(ndim, warps, nbins);
+    case 6: return grouped_clusters<6, T>(ndim, warps, nbins);
+    case 7: return grouped_clusters<7, T>(ndim, warps, nbins);
+    case 8: return grouped_clusters<8, T>(ndim, warps, nbins);
+    case 9: return grouped_clusters<9, T>(ndim, warps, nbins);
+    case 10: return grouped_clusters<10, T>(ndim, warps, nbins);
+    case 11: return grouped_clusters<11, T>(ndim, warps, nbins);
+    case 12: return grouped_clusters<12, T>(ndim, warps, nbins);
+    case 13: return grouped_clusters<13, T>(ndim, warps, nbins);
+    case 14: return grouped_clusters<14, T>(ndim, warps, nbins);
+    case 15: return grouped_clusters<15, T>(ndim, warps, nbins);
+    case 16: return grouped_clusters<16, T>(ndim, warps, nbins);
+    default:
+      return ndim <= 32 ? grouped_clusters<0, T>(ndim, warps, nbins)
+                        : -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -667,6 +679,7 @@ struct ResolveArgs {
                                // advances)
   unsigned recip_ng, recip_npg;   // sample route: min(floor(2^32 / x), 2^32-1)
   int vec;             // sample route: n % 4 == 0, pointers 16-byte aligned
+  unsigned slot_blocks;   // the stream's blocks a sample slot (philox.cuh)
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -703,7 +716,7 @@ resolve_kernel(const ResolveArgs a) {
           % static_cast<unsigned>(a.ng);
       const float kg = static_cast<float>(digit + 1);
       const float u = word_uniform(block_word(
-          vegas_block(cube, it, slot, d, a.key0, a.key1), d));
+          vegas_block(cube, it, slot, d, a.slot_blocks, a.key0, a.key1), d));
       xn = __fadd_rn(__fmul_rn(kg - u, a.dxg), 1.0f);
     }
     int bin = static_cast<int>(xn);
@@ -829,7 +842,8 @@ resolve_sample_kernel(const ResolveArgs a) {
       uint4 block[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        block[k] = vegas_block(cubes[k], it, slots[k], 4 * g, a.key0, a.key1);
+        block[k] = vegas_block(cubes[k], it, slots[k], 4 * g,
+                               slot_blocks(NDIM), a.key0, a.key1);
 #pragma unroll
       for (int d = 4 * g; d < 4 * g + 4 && d < NDIM; ++d) {
         float xn[4];
@@ -888,8 +902,8 @@ int sample_resident_blocks(bool draw, size_t smem) {
 // min(floor(2^32 / place[g]), 2^32 - 1), 0 where place[g] has more than 32
 // bits.
 struct WidePlaces {
-  unsigned long long place[4];
-  unsigned recip[4];
+  unsigned long long place[8];   // groups of 4 dimensions up to 32D
+  unsigned recip[8];
 };
 
 // The digits of ``cube`` (inside the lattice) of the nd dimensions of a
@@ -935,8 +949,8 @@ __device__ __forceinline__ void group_xn(const ResolveArgs& a, long long cube,
                                          unsigned it, unsigned slot, int d0,
                                          const unsigned (&digit)[4], int k,
                                          float (&xn)[4][4]) {
-  const uint4 b = vegas_block(cube, it, static_cast<int>(slot), d0, a.key0,
-                              a.key1);
+  const uint4 b = vegas_block(cube, it, static_cast<int>(slot), d0,
+                              a.slot_blocks, a.key0, a.key1);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float kg = static_cast<float>(digit[j] + 1u);
@@ -1250,7 +1264,7 @@ extern "C" int vegas_hist_launch(const void* ia, const void* f2, void* part,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Grouped histogram route (ndim 1..16): one launch of ``clusters`` clusters
+// Grouped histogram route (ndim 1..32): one launch of ``clusters`` clusters
 // of kCluster blocks of ``warps`` warps, returning 0 or the CUDA error.
 // part: (clusters, ndim * nbins) scratch; out: (ndim, nbins), read too when
 // ``accumulate``; tickets: kCluster int words, zero.
@@ -1258,7 +1272,7 @@ extern "C" int vegas_hist_grouped_launch(
     const void* ia, const void* f2, int f2_f64, void* part, void* out,
     void* tickets, long long n, int ndim, int nbins, int base, int accumulate,
     int vec, int warps, int clusters, float cap, void* stream) {
-  if (n < 1 || ndim < 1 || ndim > 16 || nbins < 1 || warps < 1 ||
+  if (n < 1 || ndim < 1 || ndim > 32 || nbins < 1 || warps < 1 ||
       warps > kWarps || clusters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   HistArgs a;
@@ -1281,15 +1295,16 @@ extern "C" int vegas_hist_grouped_launch(
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// How many clusters of the grouped histogram's kernel for ndim (1..16),
-// f2 in f64 or f32, blocks of ``warps`` warps (at 9..16D a multiple of
-// their groups of dimensions) and nbins bins the card holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error; launches
+// How many clusters of the grouped histogram's kernel for ndim (1..32),
+// f2 in f64 or f32, blocks of ``warps`` warps (from 9D a multiple of their
+// groups of dimensions) and nbins bins the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error; launches
 // nothing.  The wrapper's cluster counts are constants by shape
 // (cuda_lookup.hist_plan); this is what they were read from.
 extern "C" int vegas_hist_clusters(int ndim, int nbins, int warps,
                                    int f2_f64) {
   const int invalid = -static_cast<int>(cudaErrorInvalidValue);
-  if (ndim < 1 || ndim > 16 || nbins < 1 || warps < 1 || warps > kWarps)
+  if (ndim < 1 || ndim > 32 || nbins < 1 || warps < 1 || warps > kWarps)
     return invalid;
   return f2_f64 ? clusters_by_ndim<double>(ndim, warps, nbins)
                 : clusters_by_ndim<float>(ndim, warps, nbins);
@@ -1302,8 +1317,9 @@ extern "C" int vegas_hist_clusters(int ndim, int nbins, int warps,
 // kernel on n_blocks x ndim blocks; route 1 the sample kernel (ndim 1..8,
 // n < 2^31) on n_blocks blocks, with recip_ng and recip_npg =
 // min(floor(2^32 / x), 2^32 - 1) and vec = n % 4 == 0 with every pointer
-// 16-byte aligned; route 2 the wide kernel (ndim 1..16, n < 2^31; the
-// wrapper sends it 9..16) on n_blocks blocks, with the same arguments.
+// 16-byte aligned; route 2 the wide kernel (ndim 1..32, n < 2^31; the
+// wrapper sends it 9..32) on n_blocks blocks, with the same arguments.
+// Drawing xn, slot_blocks(ndim) * npg must stay below 2^32.
 extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
                                     void* rc, void* xo, void* ia, long long n,
                                     long long cube0, long long ncubes,
@@ -1313,7 +1329,9 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
                                     unsigned recip_npg, int vec, int n_blocks,
                                     void* stream) {
   if (n < 1 || ndim < 1 || nbins < 1 || ng < 1 || npg < 1 || n_blocks < 1 ||
-      route < 0 || route > 2 || (!xn && !iteration))
+      route < 0 || route > 2 || (!xn && !iteration) ||
+      (!xn && static_cast<unsigned long long>(slot_blocks(ndim)) * npg >=
+                  (1ull << 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   ResolveArgs a;
   a.xi = static_cast<const float*>(xi);
@@ -1335,10 +1353,11 @@ extern "C" int vegas_resolve_launch(int route, const void* xi, const void* xn,
   a.recip_ng = recip_ng;
   a.recip_npg = recip_npg;
   a.vec = vec;
+  a.slot_blocks = slot_blocks(ndim);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2) {
     const size_t smem = sizeof(float) * ndim * (nbins + 1);
-    if (ndim > 16 || smem + sizeof(WidePlaces) > static_cast<size_t>(kMaxSmem)
+    if (ndim > 32 || smem + sizeof(WidePlaces) > static_cast<size_t>(kMaxSmem)
         || n >= (1LL << 31))
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_wide(a, smem, n_blocks, s));
@@ -1421,7 +1440,7 @@ extern "C" int vegas_resident_blocks(int kernel, int ndim, int nbins) {
   if (ndim < 1 || nbins < 1 || kernel < 0 || kernel > 4) return invalid;
   if (kernel >= 3) {
     const size_t smem = sizeof(float) * ndim * (nbins + 1);
-    if (ndim > 16 || smem + sizeof(WidePlaces) > static_cast<size_t>(kMaxSmem))
+    if (ndim > 32 || smem + sizeof(WidePlaces) > static_cast<size_t>(kMaxSmem))
       return invalid;
     return kernel == 4 ? resident_blocks<resolve_wide_kernel<true>>(smem)
                        : resident_blocks<resolve_wide_kernel<false>>(smem);

@@ -1,8 +1,9 @@
 // The emit mode's and the Genz families' instances of the fused VEGAS
 // sampler (vegas_sample.cuh, which holds the design): the paired route at
-// ndim 1..8, the wide route in its two classes of dimensions (NMAX 12 for
-// ndim 9..12, 16 for 13..16) and the generic route at every ndim 1..16,
-// for the emit mode (family 0) and F1..F6.
+// ndim 1..8, the wide route in its four classes of dimensions (NMAX 12 for
+// ndim 9..12, 16 for 13..16, 24 for 17..24, 32 for 25..32) and the generic
+// route in its two instances (NMAX 16 for ndim 1..16, 0 above), for the
+// emit mode (family 0) and F1..F6.
 //
 // Replaces gpuintegration_tpu/mcubes/pallas_vegas.py::poly_sample_chunk.
 
@@ -41,12 +42,29 @@ int launch_wide(int family, const SampleArgs& a, dim3 grid, size_t smem,
   }
 }
 
+template <int NMAX>
+int launch_generic(int family, const SampleArgs& a, dim3 grid, size_t smem,
+                   cudaStream_t s) {
+  switch (family) {
+    case 0: sample_kernel<0, NMAX><<<grid, kThreads, smem, s>>>(a); return 0;
+    case 1: sample_kernel<1, NMAX><<<grid, kThreads, smem, s>>>(a); return 0;
+    case 2: sample_kernel<2, NMAX><<<grid, kThreads, smem, s>>>(a); return 0;
+    case 3: sample_kernel<3, NMAX><<<grid, kThreads, smem, s>>>(a); return 0;
+    case 4: sample_kernel<4, NMAX><<<grid, kThreads, smem, s>>>(a); return 0;
+    case 5: sample_kernel<5, NMAX><<<grid, kThreads, smem, s>>>(a); return 0;
+    case 6: sample_kernel<6, NMAX><<<grid, kThreads, smem, s>>>(a); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int launch_sampler(int route, int family, int ndim, const SampleArgs& a,
                    dim3 grid, size_t smem, cudaStream_t s) {
   if (route == 2) {
     // the wide route's classes (cuda_vegas.WIDE_NDIMS, wide_class)
     if (ndim >= 9 && ndim <= 12) return launch_wide<12>(family, a, grid, smem, s);
     if (ndim >= 13 && ndim <= 16) return launch_wide<16>(family, a, grid, smem, s);
+    if (ndim >= 17 && ndim <= 24) return launch_wide<24>(family, a, grid, smem, s);
+    if (ndim >= 25 && ndim <= 32) return launch_wide<32>(family, a, grid, smem, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == 1) {
@@ -64,16 +82,8 @@ int launch_sampler(int route, int family, int ndim, const SampleArgs& a,
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  switch (family) {
-    case 0: sample_kernel<0><<<grid, kThreads, smem, s>>>(a); return 0;
-    case 1: sample_kernel<1><<<grid, kThreads, smem, s>>>(a); return 0;
-    case 2: sample_kernel<2><<<grid, kThreads, smem, s>>>(a); return 0;
-    case 3: sample_kernel<3><<<grid, kThreads, smem, s>>>(a); return 0;
-    case 4: sample_kernel<4><<<grid, kThreads, smem, s>>>(a); return 0;
-    case 5: sample_kernel<5><<<grid, kThreads, smem, s>>>(a); return 0;
-    case 6: sample_kernel<6><<<grid, kThreads, smem, s>>>(a); return 0;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return ndim <= 16 ? launch_generic<16>(family, a, grid, smem, s)
+                    : launch_generic<0>(family, a, grid, smem, s);
 }
 
 }  // namespace sampler

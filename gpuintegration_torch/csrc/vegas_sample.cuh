@@ -64,9 +64,9 @@
 //   * a pair's outputs are stored as 8-byte words when npg is even, so a
 //     warp writes whole sectors.
 //
-// The WIDE route (sample_wide_kernel; ndim 9..16) keeps all of that with
-// the dimension a compile-time class: NMAX 12 (ndim 9..12) or 16 (13..16),
-// a generated library its own ndim.  Loops over dimensions are unrolled to
+// The WIDE route (sample_wide_kernel; ndim 9..32) keeps all of that with
+// the dimension a compile-time class: NMAX 12 (ndim 9..12), 16 (13..16),
+// 24 (17..24) or 32 (25..32), a generated library its own ndim.  Loops over dimensions are unrolled to
 // NMAX and skip the dimensions past ndim by a predicate, so digits, the
 // Genz state and the generated family's coordinates are indexed statically
 // and stay in registers.  Where a chunk has too few cubes to fill the card
@@ -80,11 +80,16 @@
 // the generic kernel's.  The f64 sums over cubes group otherwise (a block
 // holds 256 / lanes cubes) and agree within their rounding.
 //
-// The GENERIC route (sample_kernel; every ndim 1..16): sample slots,
-// dimensions and terms are run-time loops, a coefficient is one 4-byte
-// shared-memory load per multiply-add, the decode is 64-bit.  It is the
-// first design and the kernel the other routes are checked and timed
-// against.
+// The GENERIC route (sample_kernel; every ndim): sample slots, dimensions
+// and terms are run-time loops, a coefficient is one 4-byte shared-memory
+// load per multiply-add, the decode is 64-bit.  It is the first design and
+// the kernel the other routes are checked and timed against.  Its NMAX 16
+// instance (ndim 1..16) is that design as it was, the digits of a cube
+// decoded once into an array; the NMAX 0 instance (ndim 17 and up, where
+// the map fits) decodes each digit again for each sample from the cube and
+// the digit's place, ng^(dimensions after it), so that no array bounds
+// ndim.  The fused modes take ndim up to kMaxNdim, the Genz parameters'
+// room; the emit mode any ndim.
 //
 // Every kernel reads the iteration word of the Philox counter from device
 // memory, once a thread: a launch captured in a CUDA graph then draws the
@@ -106,7 +111,7 @@
 namespace {
 namespace sampler {
 
-constexpr int kMaxNdim = 16;
+constexpr int kMaxNdim = 32;      // the fused modes' most dimensions
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kTiny = 1.0e-30f;   // per-cube variance floor
@@ -134,6 +139,7 @@ struct SampleArgs {
   float bounds[kMaxNdim];  // Genz per-axis b_i
   float s0, s1;
   int lanes;              // wide: lanes a cube, a power of two 1..32
+  unsigned slot_blocks;   // the stream's blocks a sample slot (philox.cuh)
 };
 
 // Joint T_i recurrence at t in [-1, 1]: P from kp terms, q from the first
@@ -187,7 +193,8 @@ __device__ __forceinline__ void block_sums(double sum_fb, double sum_f2b,
 // ---------------------------------------------------------------------------
 // The generic route.
 
-template <int FAMILY>
+// NMAX 16 (ndim 1..16) or 0 (any ndim; see the header).
+template <int FAMILY, int NMAX>
 __global__ void __launch_bounds__(kThreads)
 sample_kernel(const SampleArgs a) {
   extern __shared__ float s_map[];
@@ -204,6 +211,10 @@ sample_kernel(const SampleArgs a) {
   const float* s_hi = s_lo + ndim;
   const long long n_total = static_cast<long long>(a.chunk_cubes) * npg;
   const float nbins_f = static_cast<float>(a.nbins);
+  // NMAX 0: the place of the most significant digit, ng^(ndim - 1)
+  unsigned long long top = 1;
+  if (NMAX == 0)
+    for (int d = 1; d < ndim; ++d) top *= static_cast<unsigned>(a.ng);
 
   double sum_fb = 0.0, sum_f2b = 0.0;
   for (int local = blockIdx.x * kThreads + threadIdx.x; local < a.chunk_cubes;
@@ -225,12 +236,14 @@ sample_kernel(const SampleArgs a) {
     }
 
     // mixed-radix digits of the cube, most significant first, 0-based
-    float kg[kMaxNdim];
-    unsigned long long m = static_cast<unsigned long long>(cube);
-    for (int d = ndim - 1; d >= 0; --d) {
-      const unsigned long long t = m / static_cast<unsigned>(a.ng);
-      kg[d] = static_cast<float>(m - t * static_cast<unsigned>(a.ng));
-      m = t;
+    float kg[NMAX > 0 ? NMAX : 1];
+    if constexpr (NMAX > 0) {
+      unsigned long long m = static_cast<unsigned long long>(cube);
+      for (int d = ndim - 1; d >= 0; --d) {
+        const unsigned long long t = m / static_cast<unsigned>(a.ng);
+        kg[d] = static_cast<float>(m - t * static_cast<unsigned>(a.ng));
+        m = t;
+      }
     }
 
     float fb = 0.0f, f2s = 0.0f;
@@ -238,8 +251,12 @@ sample_kernel(const SampleArgs a) {
       const long long n = n0 + ps;
       float w = 1.0f;
       GenzState<float> g;
-      float xv[kMaxNdim];   // the generated family's coordinates
+      // the generated family's coordinates
+      float xv[NMAX > 0 ? NMAX : kMaxNdim];
       uint4 block = make_uint4(0u, 0u, 0u, 0u);
+      // NMAX 0: the digits below the next one, and that digit's place
+      unsigned long long rest = static_cast<unsigned long long>(cube);
+      unsigned long long place = top;
       for (int d = 0; d < ndim; ++d) {
         unsigned word;
         if (a.bits) {
@@ -247,11 +264,22 @@ sample_kernel(const SampleArgs a) {
                         + local];
         } else {
           if ((d & 3) == 0)
-            block = vegas_block(cube, it, ps, d, a.key0, a.key1);
+            block = vegas_block(cube, it, ps, d,
+                                NMAX > 0 ? slot_blocks(NMAX) : a.slot_blocks,
+                                a.key0, a.key1);
           word = block_word(block, d);
         }
+        float kgd;
+        if constexpr (NMAX > 0) {
+          kgd = kg[d];
+        } else {
+          const unsigned long long t = rest / place;
+          rest -= t * place;
+          place /= static_cast<unsigned>(a.ng);
+          kgd = static_cast<float>(t);
+        }
         const float u = word_uniform(word);
-        const float s = (kg[d] + (1.0f - u)) * a.inv_ng;
+        const float s = (kgd + (1.0f - u)) * a.inv_ng;
         float cp, cq;
         cheb_joint(s_p + d * kp, s_q + d * kq, kp, kq, 2.0f * s - 1.0f, cp,
                    cq);
@@ -410,7 +438,8 @@ __device__ __forceinline__ void sample_slots(
                       + local];
       } else {
         if ((d & 3) == 0)
-          block[k] = vegas_block(cube, it, slot, d, a.key0, a.key1);
+          block[k] = vegas_block(cube, it, slot, d, slot_blocks(NDIM),
+                                 a.key0, a.key1);
         word = block_word(block[k], d);
       }
       const float u = word_uniform(word);
@@ -563,7 +592,10 @@ __device__ __forceinline__ void wide_slots(
                       + local];
       } else {
         if ((d & 3) == 0)
-          block[k] = vegas_block(cube, it, slot, d, a.key0, a.key1);
+          block[k] = vegas_block(cube, it, slot, d,
+                                 NMAX <= 16 ? slot_blocks(NMAX)
+                                            : a.slot_blocks,
+                                 a.key0, a.key1);
         word = block_word(block[k], d);
       }
       const float u = word_uniform(word);
@@ -641,9 +673,12 @@ __device__ __forceinline__ void cube_digits_upto(long long cube, int ndim,
 // F1's cosf keeps its range reduction's slow path as a call; at ptxas's
 // own register budget the 12-class instance spilled around it (80
 // registers, 104 spill bytes), so that family is held to two blocks an SM
-// (105 registers, no spill).
+// (105 registers, no spill).  The 32-class instances are held there too:
+// at their own budget (140-152 registers, one block an SM) they ran
+// 1.2-2.0x slower on an H100 than at 128 registers, where the fused ones
+// spill 104-120 bytes (the emit mode none; tools/wide_times.py).
 template <int FAMILY, int NMAX>
-__global__ void __launch_bounds__(kThreads, FAMILY == 1 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, FAMILY == 1 || NMAX > 24 ? 2 : 1)
 sample_wide_kernel(const SampleArgs a) {
   extern __shared__ __align__(16) float s_map[];
   __shared__ double s_part[kWarps][2];
@@ -734,7 +769,8 @@ sample_wide_kernel(const SampleArgs a) {
 }
 
 // The launch of one sampler kernel: route 1 the paired kernel at ``ndim``,
-// route 2 the wide one, route 0 the generic one, for the families a source
+// route 2 the wide one, route 0 the generic one (NMAX 16 up to 16D, else
+// 0), for the families a source
 // compiles; defined by vegas_sample.cu and gen_integrand.cu.  Returns 0 or
 // cudaErrorInvalidValue for a family or dimension the source lacks.
 int launch_sampler(int route, int family, int ndim, const SampleArgs& a,
@@ -745,15 +781,16 @@ int launch_sampler(int route, int family, int ndim, const SampleArgs& a,
 
 // C entry point for ctypes.  route 0 is the generic kernel and ``map`` the
 // table of fold_map; route 1 the paired kernel (ndim 1..8) and route 2 the
-// wide kernel (ndim 9..16, ``lanes`` a cube: 1, 2, 4, 8, 16 or 32), both
+// wide kernel (ndim 9..32, ``lanes`` a cube: 1, 2, 4, 8, 16 or 32), both
 // with ``map`` the packed table of pack_map, kp4, kq4 its padded term
 // counts and recip = min(floor(2^32 / ng), 2^32 - 1).  family 0 emits
 // points (xs, wt[, ia]); 1..6 fuses that Genz family, 7 the generated one
-// (partial[, ia, f2]).  Pointers are device pointers (null where a mode has
-// no such array) except genz (34 host doubles: coeffs[16], bounds[16], s0,
-// s1; may be null for family 0).  ``iteration`` is the device address of
-// the counter's iteration word, which the kernel reads when it runs (never
-// null).  Returns cudaGetLastError() after the launch (0 on success); never
+// (partial[, ia, f2]), at ndim up to kMaxNdim; family 0 at any ndim whose
+// map fits.  Pointers are device pointers (null where a mode has no such
+// array) except genz (66 host doubles: coeffs[32], bounds[32], s0, s1;
+// cuda_rule.kernel_params at width 32; may be null for family 0).
+// ``iteration`` is the device address of the counter's iteration word,
+// which the kernel reads when it runs (never null).  Returns cudaGetLastError() after the launch (0 on success); never
 // synchronises.
 extern "C" int vegas_sample_launch(
     int route, int kp4, int kq4, unsigned recip, int lanes, int family,
@@ -762,11 +799,12 @@ extern "C" int vegas_sample_launch(
     int chunk_cubes, int ndim, int ng, int npg, int kp, int kq, int nbins,
     float inv_ng, float xjac, unsigned key0, unsigned key1,
     const void* iteration, const double* genz, void* stream) {
-  if (ndim < 1 || ndim > sampler::kMaxNdim || family < 0 ||
+  if (ndim < 1 || (family != 0 && ndim > sampler::kMaxNdim) || family < 0 ||
       family > kGenerated || kp < 2 ||
       kq < 1 || kq > kp || npg < 1 || chunk_cubes < 1 || n_blocks < 1 ||
       (family != 0 && genz == nullptr) || route < 0 || route > 2 ||
-      iteration == nullptr)
+      iteration == nullptr ||
+      static_cast<unsigned long long>(slot_blocks(ndim)) * npg >= (1ull << 32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route >= 1 && (kp4 < kp || kq4 < kq || kq4 > kp4 || kp4 % 4 || kq4 % 4 ||
                      kq4 < 4 || ng < 1))
@@ -799,6 +837,7 @@ extern "C" int vegas_sample_launch(
   a.key0 = key0;
   a.key1 = key1;
   a.iteration = static_cast<const unsigned*>(iteration);
+  a.slot_blocks = slot_blocks(ndim);
   for (int d = 0; d < sampler::kMaxNdim; ++d) {
     a.coeffs[d] = genz ? static_cast<float>(genz[d]) : 0.0f;
     a.bounds[d] =

@@ -21,7 +21,7 @@ Each kernel has two routes, the bin resolve three, and ``hist_route`` /
 ``'grouped'`` (a block per range of samples and all dimensions, lanes of
 one bin grouped, thread-block clusters) against ``'generic'`` for the
 histogram, ``'sample'`` (ndim 1..8: a persistent grid, a thread per 4
-samples of all dimensions) and ``'wide'`` (ndim 9..16: a persistent grid,
+samples of all dimensions) and ``'wide'`` (ndim 9..32: a persistent grid,
 a thread per 4 samples of one group of 4 dimensions) against
 ``'generic'`` for the bin resolve, ``'vector'`` (a persistent grid,
 the table as edge pairs, a thread per 4 elements) against ``'generic'`` for
@@ -72,12 +72,18 @@ HIST_CLUSTER = 8           # blocks of a grouped-histogram cluster
 # the most clusters of a grouped launch at 1..8D: as many as an H100 SXM
 # holds at once at the main path's shape (6D, 500 bins, 8 warps a block)
 HIST_MAX_CLUSTERS = 30
-# at 9..16D, clusters an H100 SXM holds at once for each block an SM holds
+# from 9D, clusters an H100 SXM holds at once for each block an SM holds
 # (vegas_hist_clusters: 15 at one block an SM, 30 at two, 45 at three, 62
 # at four), and the most blocks an SM holds of the 9..16D instances (64-71
 # registers, blocks of 6 or 8 warps)
 HIST_CLUSTERS_A_BLOCK = 15
 HIST_WIDE_BLOCKS = 4
+HIST_MAX_WARPS = 8         # a grouped block's most warps (its launch bounds)
+# registers a thread of the run-time 17..32D instance takes (ptxas: 69-71,
+# allocated by 8), against an SM's 64K: 3 blocks of 8 warps an SM, 4 of 5-7
+# (chip_smoke.py phase 7 fails where ptxas reports more)
+HIST_RUNTIME_REGISTERS = 72
+SM_REGISTERS = 65536
 SM_SMEM_BYTES = 228 * 1024  # shared memory of an SM, 1 KB of it a block's
 SM_THREADS = 2048
 # bytes of static shared memory the grouped kernel declares beside its rows
@@ -85,16 +91,16 @@ SM_THREADS = 2048
 HIST_STATIC_SMEM = 16
 HIST_SEGMENT = 128         # samples a warp takes at once, 4 a lane
 HIST_WARPS = (8, 4)        # warps of a grouped block at 1..8D, the most that fit
-HIST_SETS = (2, 1)         # sets of rows of a block at 9..16D, the most that fit
+HIST_SETS = (2, 1)         # sets of rows of a block from 9D, the most that fit
 # the dimensions csrc/vegas_lookup.cu compiles the grouped histogram and
 # the bin resolve's sample route for, and those the wrapper sends to the
 # bin resolve's wide route (its kernel takes ndim at run time)
-HIST_NDIMS = tuple(range(1, 17))
+HIST_NDIMS = tuple(range(1, 33))
 RESOLVE_NDIMS = tuple(range(1, 9))
-RESOLVE_WIDE_NDIMS = tuple(range(9, 17))
+RESOLVE_WIDE_NDIMS = tuple(range(9, 33))
 # bytes of static shared memory the wide route's kernel declares beside
-# the edges (WidePlaces: each group's place and its reciprocal)
-RESOLVE_WIDE_STATIC_SMEM = 48
+# the edges (WidePlaces: each of 8 groups' place and its reciprocal)
+RESOLVE_WIDE_STATIC_SMEM = 96
 
 # Launches of each kernel since its count was last set to 0.
 hist_launches = 0
@@ -191,23 +197,26 @@ def hist_accum_plain(d, ia, f2, nbins: int, *, base: int = 0):
 
 def hist_groups(ndim: int) -> int:
     """Groups of dimensions of the grouped kernel: 1 up to 8D (a warp adds
-    every dimension), at 9..16D 3 or 4 groups of 3 or 4 dimensions, one
-    warp of each sharing a set of rows (csrc/vegas_lookup.cu kDimGroups)."""
+    every dimension), from 9D ceil(ndim / 4) groups of 3 or 4 dimensions
+    (3 or 4 groups at 9..16D, 5..8 at 17..32D), one warp of each sharing a
+    set of rows (csrc/vegas_lookup.cu dim_groups)."""
     return 1 if ndim <= 8 else -(-ndim // 4)
 
 
 def hist_warps(ndim: int, nbins: int) -> int:
     """Warps of a grouped-histogram block, or 0 where none fits a block's
     shared memory beside the kernel's own HIST_STATIC_SMEM bytes: up to 8D
-    the most of HIST_WARPS, each with private rows of ndim x nbins f32; at
-    9..16D ``hist_groups`` warps a set of rows, the most of HIST_SETS."""
+    the most of HIST_WARPS, each with private rows of ndim x nbins f32;
+    from 9D ``hist_groups`` warps a set of rows, the most of HIST_SETS
+    within HIST_MAX_WARPS (2 sets at 9..16D, 1 at 17..32D)."""
     if ndim <= 8:
         for warps in HIST_WARPS:
             if 4 * warps * ndim * nbins + HIST_STATIC_SMEM <= SMEM_BYTES:
                 return warps
         return 0
     for sets in HIST_SETS:
-        if 4 * sets * ndim * nbins + HIST_STATIC_SMEM <= SMEM_BYTES:
+        if (sets * hist_groups(ndim) <= HIST_MAX_WARPS
+                and 4 * sets * ndim * nbins + HIST_STATIC_SMEM <= SMEM_BYTES):
             return sets * hist_groups(ndim)
     return 0
 
@@ -229,9 +238,10 @@ def hist_route(ndim: int, nbins: int) -> str:
 def hist_max_clusters(ndim: int, nbins: int) -> int:
     """The most clusters of a grouped launch for a shape: HIST_MAX_CLUSTERS
     at 1..8D (the count the route has had since its first design, which
-    sets those shapes' bits); at 9..16D HIST_CLUSTERS_A_BLOCK for each
-    block an SM holds by its shared memory (1 KB a block besides the
-    rows), its threads and HIST_WIDE_BLOCKS (0 where no block fits)."""
+    sets those shapes' bits); from 9D HIST_CLUSTERS_A_BLOCK for each block
+    an SM holds by its shared memory (1 KB a block besides the rows), its
+    threads, HIST_WIDE_BLOCKS and, at 17..32D, its registers (0 where no
+    block fits)."""
     if ndim <= 8:
         return HIST_MAX_CLUSTERS
     warps = hist_warps(ndim, nbins)
@@ -240,6 +250,9 @@ def hist_max_clusters(ndim: int, nbins: int) -> int:
     block = 4 * hist_sets(ndim, nbins) * ndim * nbins + HIST_STATIC_SMEM
     per_sm = min(SM_SMEM_BYTES // (block + 1024), SM_THREADS // (32 * warps),
                  HIST_WIDE_BLOCKS)
+    if ndim > 16:
+        per_sm = min(per_sm,
+                     SM_REGISTERS // (HIST_RUNTIME_REGISTERS * 32 * warps))
     return HIST_CLUSTERS_A_BLOCK * per_sm
 
 
@@ -456,7 +469,7 @@ def resolve_items(ndim: int, n: int) -> int:
 def resolve_route(ndim: int, nbins: int, n: int) -> str:
     """The bin-resolve kernel a shape takes, where all edges fit a block's
     shared memory and n < 2^31 samples: 'sample' at ndim 1..8, 'wide' at
-    9..16 (beside its RESOLVE_WIDE_STATIC_SMEM bytes); else 'generic'."""
+    9..32 (beside its RESOLVE_WIDE_STATIC_SMEM bytes); else 'generic'."""
     edges = 4 * ndim * (nbins + 1)
     if n < 2 ** 31:
         if ndim in RESOLVE_NDIMS and edges <= SMEM_BYTES:
@@ -518,7 +531,10 @@ def _launch_resolve(xi32, xn, n, with_ia, nbins, route, cube0=0, ncubes=0,
     ia = (torch.empty((ndim, n), dtype=torch.int32, device=dev)
           if with_ia else None)
     k0, k1 = stream.seed_key(seed)
-    word = None if xn is not None else stream.counter(iteration, dev)
+    word = None
+    if xn is None:
+        stream.check_counter(npg, ndim)
+        word = stream.counter(iteration, dev)
     if route == "generic":
         blocks = min(-(-n // THREADS), MAX_BLOCKS)
     else:

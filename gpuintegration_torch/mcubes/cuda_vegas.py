@@ -23,17 +23,22 @@ the shape alone (never by catching a failure):
   the reciprocal of ng (``stream.decode_reciprocal``) when the lattice has
   fewer than 2^32 cubes; a pair's outputs are stored as 8-byte words.
   Within a chain the order of operations is the generic kernel's.
-* ``'wide'``, for ndim in ``WIDE_NDIMS`` (9..16) under the same condition:
+* ``'wide'``, for ndim in ``WIDE_NDIMS`` (9..32) under the same condition:
   the paired design with the dimension a compile-time class
-  (``wide_class``: NMAX 12 or 16, loops unrolled to NMAX and the
+  (``wide_class``: NMAX 12, 16, 24 or 32, loops unrolled to NMAX and the
   dimensions past ndim skipped), and a cube's samples spread over a group
   of ``wide_lanes(chunk_cubes, npg, emit_ids)`` lanes where a chunk has
   few cubes of many samples; the group's first lane adds its values in
-  sample order.
-* ``'generic'``, every ndim 1..16: run-time loops over sample slots,
-  dimensions and terms, one 4-byte coefficient load per multiply-add, a
-  64-bit decode.  It is also the kernel the others are checked and timed
-  against.
+  sample order.  Emitting bin ids at npg <= 2 (a cube a lane), the NMAX 32
+  class leaves the launch to the generic route, which was faster there.
+* ``'generic'``, every ndim whose map fits (the route above 32D): run-time
+  loops over sample slots, dimensions and terms, one 4-byte coefficient
+  load per multiply-add, a 64-bit decode.  It is also the kernel the others
+  are checked and timed against.
+
+The fused mode takes ndim up to ``MAX_NDIM`` (the Genz parameters a kernel
+holds, packed by ``cuda_rule.kernel_params(integrand, MAX_NDIM)``; a
+traced callable's library up to the same); the emit mode any ndim.
 
 Within a chain every route keeps the generic kernel's order of operations,
 so coordinates, weights, bin ids and f^2 are the same bits on every route,
@@ -79,7 +84,7 @@ from gpuintegration_torch.mcubes.grid import TINY
 from gpuintegration_torch.ops import cuda_build, cuda_rule, integrand_gen
 
 _SOURCE = "vegas_sample.cu"
-MAX_NDIM = 16
+MAX_NDIM = 32          # the fused mode's most dimensions
 THREADS = 256
 MAX_BLOCKS = 1 << 16
 MAX_CHUNK_CUBES = 1 << 30
@@ -87,7 +92,7 @@ ROUTES = ("paired", "wide", "generic")
 # The dimensions csrc/vegas_sample.cu compiles the paired and the wide
 # routes for.
 PAIRED_NDIMS = tuple(range(1, 9))
-WIDE_NDIMS = tuple(range(9, 17))
+WIDE_NDIMS = tuple(range(9, 33))
 SMEM_BYTES = 48 * 1024          # the map's room in a block's shared memory
 # Threads a fused or plain emit launch of the wide kernel spreads a cube's
 # samples over lanes to reach: 768 for each of an H100's 132 SMs (4 lanes
@@ -195,7 +200,7 @@ def unpack_map(packed: torch.Tensor, ndim: int, kp: int, kq: int):
 
 def sampler_route(ndim: int, kp: int, kq: int) -> str:
     """The kernel a map of this shape takes where the packed map fits the
-    shared memory: 'paired' at ndim 1..8, 'wide' at 9..16; else
+    shared memory: 'paired' at ndim 1..8, 'wide' at 9..32; else
     'generic'."""
     kp4, kq4 = padded_terms(kp, kq)
     if 4 * ndim * (kp4 + kq4 + 2) > SMEM_BYTES:
@@ -208,7 +213,7 @@ def sampler_route(ndim: int, kp: int, kq: int) -> str:
 def wide_class(ndim: int) -> int:
     """NMAX of the wide kernel instance that vegas_sample.cu launches for
     ``ndim`` (a generated library's instance is its own ndim)."""
-    return 12 if ndim <= 12 else 16
+    return next(nmax for nmax in (12, 16, 24, 32) if ndim <= nmax)
 
 
 def wide_lanes(chunk_cubes: int, npg: int, emit_ids: bool = False) -> int:
@@ -336,11 +341,14 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
                                   iteration, bits=bits,
                                   emit_points=emit_points)
     ndim, kp, kq = pmap.ndim, pmap.kp, pmap.kq
-    if not 1 <= ndim <= MAX_NDIM:
-        raise ValueError(f"the sampler kernel takes ndim 1..{MAX_NDIM}, "
-                         f"not {ndim}")
+    if ndim < 1 or (not emit_points and ndim > MAX_NDIM):
+        raise ValueError(f"the fused sampler takes ndim 1..{MAX_NDIM}, not "
+                         f"{ndim}; the emit mode (sampler='hybrid') takes "
+                         "any")
     if not 1 <= chunk_cubes <= MAX_CHUNK_CUBES or npg < 1:
         raise ValueError(f"chunk_cubes={chunk_cubes}, npg={npg}")
+    if bits is None:
+        stream.check_counter(npg, ndim)
     if 4 * ndim * (kp + kq + 2) > SMEM_BYTES:
         raise ValueError(f"a map of {ndim} x ({kp} + {kq}) coefficients "
                          "does not fit the kernel's shared memory")
@@ -348,6 +356,13 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
         raise ValueError(f"ng={ng} (1 .. 2^31 - 1)")
     if route is None:
         route = sampler_route(ndim, kp, kq)
+        if (route == "wide" and emit_points and with_hist
+                and wide_class(ndim) == 32 and npg <= 2):
+            # one cube a lane (wide_lanes): there the generic route took
+            # 0.85-0.94 of the NMAX 32 instance's time at 30-32D on an
+            # H100, where in the other modes the instance took 0.72-0.80
+            # of the generic route's (tools/wide_times.py, PERF.md)
+            route = "generic"
     if route not in ROUTES or (route != "generic"
                                and sampler_route(ndim, kp, kq) != route):
         raise ValueError(f"route {route!r} does not take a map of {ndim} x "
@@ -368,7 +383,9 @@ def sample_chunk(pmap: PolyMap, integrand, ng: int, npg: int,
     if emit_points:
         family, genz = 0, None
     else:
-        family, genz = cuda_rule.kernel_params(integrand)
+        # the Genz parameters at the sampler's MAX_NDIM axes (the rule
+        # kernels keep their 16)
+        family, genz = cuda_rule.kernel_params(integrand, MAX_NDIM)
         if getattr(integrand, "ndim", ndim) != ndim:
             raise ValueError(f"integrand ndim {integrand.ndim} != map {ndim}")
 

@@ -8,10 +8,13 @@ The reference draws from Threefry (XLA path) or the TPU's hardware PRNG
 (Pallas path); neither exists here.  Philox has no state: the key is the
 run's seed, and the counter of a draw is
 
-    (cube id low word, cube id high word, absolute iteration, 4*slot + d//4)
+    (cube id low word, cube id high word, absolute iteration, B*slot + d//4)
 
 with coordinate ``d`` of sample slot ``slot`` taking word ``d % 4`` of the
-block.  That keeps what the reference promises -- a fixed seed repeats
+block, and B = max(4, ceil(ndim / 4)) blocks a slot (``slot_blocks``): a
+slot's blocks never reach the next slot's, so no two coordinates of a cube
+share a word.  Up to 16D B is 4.  The word is 32 bits, so B * npg must stay
+below 2^32 (``check_counter``).  That keeps what the reference promises -- a fixed seed repeats
 bitwise, a resumed run (``VegasState.it0``) draws fresh streams, streams do
 not depend on which device owns a cube -- and adds that they do not depend
 on ``chunk_cubes`` either.  A run on the CPU and a run on the card with the
@@ -58,13 +61,34 @@ def seed_key(seed: int) -> tuple[int, int]:
     return seed & MASK32, seed >> 32
 
 
+def slot_blocks(ndim: int) -> int:
+    """B, the Philox blocks of four words a sample slot owns in the fourth
+    counter word: max(4, ceil(ndim / 4))."""
+    return max(4, -(-ndim // 4))
+
+
+def check_counter(npg: int, ndim: int) -> int:
+    """``slot_blocks(ndim)``, or ValueError where a cube's npg slots of it
+    would pass the 32-bit counter word (B * npg >= 2^32: only a one-cube
+    lattice has so many samples a cube)."""
+    blocks = slot_blocks(ndim)
+    if blocks * npg >= 2 ** 32:
+        raise ValueError(
+            f"npg={npg} samples a cube at {ndim}D: the stream's 32-bit "
+            f"counter word takes {blocks} blocks a sample slot, so npg * "
+            f"{blocks} must stay below 2^32")
+    return blocks
+
+
 def stream_bits(seed: int, iteration, cube_ids, npg: int, ndim: int):
     """The stream's words for cubes ``cube_ids`` ((C,) int64) in absolute
     iteration ``iteration``: (npg * ndim, C) int64 in [0, 2^32), row
     ``slot * ndim + d`` the word of coordinate d of sample slot ``slot``.
     ``iteration`` is a host integer or a 0-d integer tensor whose value the
     card holds (a counter a captured graph advances; no host read); both
-    give the same words."""
+    give the same words.  ValueError where B * npg >= 2^32
+    (``check_counter``)."""
+    blocks = check_counter(npg, ndim)
     k0, k1 = seed_key(seed)
     c0, c1 = cube_ids & MASK32, cube_ids >> 32
     if isinstance(iteration, torch.Tensor):
@@ -72,14 +96,21 @@ def stream_bits(seed: int, iteration, cube_ids, npg: int, ndim: int):
               & MASK32).expand_as(cube_ids)
     else:
         c2 = torch.full_like(cube_ids, int(iteration) & MASK32)
+    # every (slot, block) of a pass of slots at once: rows (slot, block)
+    # against the cubes, about 2^22 words a pass
+    nb, n = -(-ndim // 4), cube_ids.shape[0]
+    per_pass = max(1, (1 << 22) // max(nb * n, 1))
     rows = []
-    for slot in range(npg):
-        for b in range(-(-ndim // 4)):
-            words = philox4x32(c0, c1, c2,
-                               torch.full_like(cube_ids, 4 * slot + b),
-                               k0, k1)
-            rows.extend(words[:min(4, ndim - 4 * b)])
-    return torch.stack(rows)
+    for s0 in range(0, npg, per_pass):
+        slot = torch.arange(s0, min(npg, s0 + per_pass), dtype=torch.int64,
+                            device=cube_ids.device)
+        c3 = (blocks * slot[:, None] + torch.arange(
+            nb, dtype=torch.int64, device=cube_ids.device)).reshape(-1, 1)
+        words = torch.stack(philox4x32(c0, c1, c2, c3.expand(-1, n), k0, k1),
+                            dim=1)                     # (slots * nb, 4, C)
+        rows.append(words.reshape(slot.shape[0], 4 * nb, n)[:, :ndim]
+                    .reshape(-1, n))
+    return torch.cat(rows)
 
 
 def counter(iteration, dev):

@@ -86,6 +86,15 @@ def samples_per_cube(ncall: float, ncubes: int) -> int:
     return max(int(ncall / ncubes), 2)
 
 
+def default_chunk_cubes(npg: int, ndim: int, dtype) -> int:
+    """The cubes of a chunk when the caller names none: a power of two
+    that bounds the (chunk, npg, ndim) activations in ``dtype`` to
+    CHUNK_BYTES_BUDGET (at least 1024 cubes, at most DEFAULT_MAX_CHUNK)."""
+    per_cube = npg * ndim * torch.finfo(dtype).bits // 8 * 6
+    budget = max(CHUNK_BYTES_BUDGET // per_cube, 1024)
+    return int(min(1 << (int(budget).bit_length() - 1), DEFAULT_MAX_CHUNK))
+
+
 def get_status(estimate, errorest, iteration, epsrel, epsabs) -> int:
     """0 = converged (needs >= 5 iterations), 1 = not
     (vegas_utils.cuh:225-248).  A zero estimate (e.g. a peak so narrow
@@ -382,9 +391,14 @@ def _kernel_twin(integrand, ndim: int | None = None):
     (models.genz) itself, a scalar-per-axis callable f(x0, ..., x{n-1})
     its trace (``integrand_gen.traced``, the reference's ``f_axes`` in its
     Pallas kernel).  ValueError naming sampler='hybrid' for any other
-    callable, or a per-axis one that does not trace."""
+    callable, a per-axis one that does not trace, or past the fused
+    sampler's cuda_vegas.MAX_NDIM axes."""
     if cuda_rule.is_genz_family(integrand) or cuda_rule.is_generated(
             integrand):
+        if integrand.ndim > cuda_vegas.MAX_NDIM:
+            raise ValueError(
+                f"sampler='fused' takes ndim up to {cuda_vegas.MAX_NDIM}, not "
+                f"{integrand.ndim}; pass sampler='hybrid'")
         return integrand
     arity = _positional_arity(integrand)
     if arity is None or arity < 2:
@@ -510,8 +524,9 @@ def vegas(
     ``sampler`` (importance='poly'), with the reference's names beside:
     'torch' = the reference's 'xla', the plain PyTorch chunk body;
     'fused' = 'pallas', the whole chunk body in the CUDA sampler kernel,
-    integrand in f32 -- needs a Genz family (models.genz) or a
-    scalar-per-axis callable f(x0, ..., x{n-1}) that traces into the
+    integrand in f32, up to cuda_vegas.MAX_NDIM (32) axes -- needs a Genz
+    family (models.genz) or a scalar-per-axis callable f(x0, ..., x{n-1})
+    that traces into the
     kernel (ops/integrand_gen.py: elementwise arithmetic, exp, log, sin,
     cos, tan, tanh, sqrt, abs, expm1, log1p, minimum, maximum, where over
     comparisons, clamp, number and 0-d tensor constants), any other
@@ -575,11 +590,7 @@ def vegas(
     n_dev = 1 if mesh is None else mesh.size()
     shard_cubes = -(-ncubes // n_dev)
     if chunk_cubes is None:
-        # bound (chunk, npg, ndim) activations; a power of two
-        per_cube = npg * ndim * torch.finfo(dtype).bits // 8 * 6
-        budget = max(CHUNK_BYTES_BUDGET // per_cube, 1024)
-        chunk_cubes = 1 << (int(budget).bit_length() - 1)
-        chunk_cubes = int(min(chunk_cubes, DEFAULT_MAX_CHUNK))
+        chunk_cubes = default_chunk_cubes(npg, ndim, dtype)
         if chunk_cubes >= shard_cubes:
             chunk_cubes = shard_cubes  # single chunk: exact size, no padding
     num_chunks = -(-shard_cubes // chunk_cubes)     # a rank's

@@ -247,11 +247,15 @@ def is_generated(integrand) -> bool:
     return isinstance(integrand, integrand_gen.TracedIntegrand)
 
 
-def kernel_params(integrand) -> tuple[int, np.ndarray]:
-    """(family id, 34 host doubles: coeffs[16], bounds[16], s0, s1) of a
-    Genz integrand, or (integrand_gen.KIND, zeros) of a traced callable;
-    NotImplementedError for a callable the kernels lack."""
-    p = np.zeros(2 * MAX_NDIM + 2, dtype=np.float64)
+def kernel_params(integrand, width: int = MAX_NDIM
+                  ) -> tuple[int, np.ndarray]:
+    """(family id, 2 width + 2 host doubles: coeffs[width], bounds[width],
+    s0, s1) of a Genz integrand, or (integrand_gen.KIND, zeros) of a traced
+    callable; NotImplementedError for a callable the kernels lack,
+    ValueError for per-axis parameters past ``width`` axes.  The rule
+    kernels take width MAX_NDIM (34 doubles), the sampler its own
+    (cuda_vegas.MAX_NDIM)."""
+    p = np.zeros(2 * width + 2, dtype=np.float64)
     if is_generated(integrand):
         return integrand_gen.KIND, p
     if not is_genz_family(integrand):
@@ -264,21 +268,24 @@ def kernel_params(integrand) -> tuple[int, np.ndarray]:
     kind, params = integrand.kind, integrand.params
     if kind in (1, 3, 6):
         coeffs = np.asarray(params["coeffs"], dtype=np.float64)
+        if coeffs.size > width:
+            raise ValueError(f"{coeffs.size} per-axis coefficients: the "
+                             f"kernels hold {width}")
         p[:coeffs.size] = coeffs
     if kind == 1:
-        p[2 * MAX_NDIM] = params["offset"]
+        p[2 * width] = params["offset"]
     elif kind == 2:
-        p[2 * MAX_NDIM] = 1.0 / params["a"] ** 2
-        p[2 * MAX_NDIM + 1] = params["b"]
+        p[2 * width] = 1.0 / params["a"] ** 2
+        p[2 * width + 1] = params["b"]
     elif kind == 4:
-        p[2 * MAX_NDIM] = params["a"] * params["a"]
-        p[2 * MAX_NDIM + 1] = params["b"]
+        p[2 * width] = params["a"] * params["a"]
+        p[2 * width + 1] = params["b"]
     elif kind == 5:
-        p[2 * MAX_NDIM] = params["a"]
-        p[2 * MAX_NDIM + 1] = params["b"]
+        p[2 * width] = params["a"]
+        p[2 * width + 1] = params["b"]
     elif kind == 6:
         bounds = np.asarray(params["bounds"], dtype=np.float64)
-        p[MAX_NDIM:MAX_NDIM + bounds.size] = bounds
+        p[width:width + bounds.size] = bounds
     return kind, p
 
 

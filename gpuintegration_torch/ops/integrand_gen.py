@@ -54,7 +54,11 @@ import torch
 
 from gpuintegration_torch.integrand import _positional_arity
 
-MAX_NDIM = 16          # cuda_rule.MAX_NDIM, cuda_vegas.MAX_NDIM
+# The most axes of each consumer's kernels: the sampler's library
+# (cuda_vegas.MAX_NDIM) and the rule kernels' (cuda_rule.MAX_NDIM), which a
+# library of more axes leaves out (csrc/gen_integrand.cu).
+MAX_NDIM = 32
+RULE_MAX_NDIM = 16
 KIND = 7               # kGenerated of csrc/gen_integrand.cuh
 
 UNARY = ("exp", "log", "sin", "cos", "tan", "tanh", "sqrt", "abs", "expm1",
@@ -126,13 +130,15 @@ def _per_axis_wrapper(f: Callable, ndim: int) -> Callable:
     return eval(f"lambda {names}: f({names})", {"f": f})
 
 
-def trace_axes(f: Callable, ndim: int, name: str | None = None) -> Program:
+def trace_axes(f: Callable, ndim: int, name: str | None = None,
+               max_ndim: int = MAX_NDIM) -> Program:
     """The program of the scalar-per-axis callable ``f(x0, ..., x{n-1})``
-    (its required positional arity must be ``ndim``, 2 <= ndim <= 16).
+    (its required positional arity must be ``ndim``, 2 <= ndim <=
+    ``max_ndim``: MAX_NDIM for the sampler, RULE_MAX_NDIM for the rule).
     ValueError, naming what was refused, for a callable that does not
     trace into the steps of OPS over the axes and number constants."""
-    if not 2 <= ndim <= MAX_NDIM:
-        raise ValueError(f"ndim {ndim}: the fused kernels take 2..{MAX_NDIM} "
+    if not 2 <= ndim <= max_ndim:
+        raise ValueError(f"ndim {ndim}: the fused kernels take 2..{max_ndim} "
                          "axes")
     if _positional_arity(f) != ndim:
         raise ValueError(
@@ -292,12 +298,12 @@ class TracedIntegrand:
         return evaluate(self.program, x.unbind(-1))
 
 
-def traced(f: Callable, ndim: int, name: str | None = None
-           ) -> TracedIntegrand:
-    """``trace_axes(f, ndim)`` as a ``TracedIntegrand`` named ``name`` (the
-    callable's ``__name__`` by default)."""
+def traced(f: Callable, ndim: int, name: str | None = None,
+           max_ndim: int = MAX_NDIM) -> TracedIntegrand:
+    """``trace_axes(f, ndim, name, max_ndim)`` as a ``TracedIntegrand``
+    named ``name`` (the callable's ``__name__`` by default)."""
     name = name or getattr(f, "__name__", "integrand")
-    return TracedIntegrand(trace_axes(f, ndim, name), name)
+    return TracedIntegrand(trace_axes(f, ndim, name, max_ndim), name)
 
 
 # ---------------------------------------------------------------------------

@@ -471,7 +471,8 @@ class Workspace:
                 raise ValueError("crease_split needs rule_backend='cuda'")
             if self.mesh is not None:
                 raise ValueError("mesh mode requires rule_backend='cuda'")
-            integrand = integrand_gen.traced(integrand, ndim)
+            integrand = integrand_gen.traced(
+                integrand, ndim, max_ndim=integrand_gen.RULE_MAX_NDIM)
         if crease_split and ncomp > 1:
             raise ValueError(_CREASE_SCALAR_ONLY)
         if ncomp > 1 and vegas_assisted:

@@ -14,7 +14,7 @@ left out (the compiler's small copy loops), and of the rest only the
 innermost are listed, equal ones once with their number.  With no pattern
 it reports the kernels of the two main paths: the rule kernels of 8D F4,
 the samplers of 6D F4, both routes of the 6D histogram and bin resolve,
-and the bin resolve's wide route (9..16D).
+and the bin resolve's wide route (9..32D).
 
 Where the card's profilers cannot be run, this is what the machine code
 can say about the cost of a pass through a loop without them.

@@ -224,7 +224,8 @@ def call_cubature_rules(
         if _positional_arity(integrand) != ndim:
             raise ValueError("backend='fused' needs a scalar-per-axis "
                              f"integrand f(x0, ..., x{ndim - 1})")
-        f = integrand_gen.traced(integrand, ndim)
+        f = integrand_gen.traced(integrand, ndim,
+                                 max_ndim=integrand_gen.RULE_MAX_NDIM)
     else:
         f = integrand
     apply = (rule_eval.apply_rule_plain if backend == "torch"

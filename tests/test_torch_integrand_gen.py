@@ -268,11 +268,17 @@ def test_arity_and_ndim_refusals():
         G.trace_axes(lambda x: x[..., 0], 3)
     with pytest.raises(ValueError, match="scalar-per-axis"):
         G.trace_axes(lambda x, y: x + y, 3)
-    with pytest.raises(ValueError, match="2..16"):
+    with pytest.raises(ValueError, match="2..32"):
         G.trace_axes(lambda x: x, 1)
+    # the sampler's library takes 32 axes, the rule kernels 16
     names = ", ".join(f"x{d}" for d in range(17))
+    assert G.trace_axes(eval(f"lambda {names}: x0"), 17).ndim == 17
     with pytest.raises(ValueError, match="2..16"):
-        G.trace_axes(eval(f"lambda {names}: x0"), 17)
+        G.trace_axes(eval(f"lambda {names}: x0"), 17,
+                     max_ndim=G.RULE_MAX_NDIM)
+    names = ", ".join(f"x{d}" for d in range(33))
+    with pytest.raises(ValueError, match="2..32"):
+        G.trace_axes(eval(f"lambda {names}: x0"), 33)
 
 
 def test_special_constants_spelt_out():

@@ -219,16 +219,20 @@ def test_reciprocal_decode_gives_the_cube_digits(ng):
 
 
 @pytest.mark.parametrize("degree", [0, 8, 14, 40])
-@pytest.mark.parametrize("ndim", range(1, 17))
+@pytest.mark.parametrize("ndim", range(1, 35))
 def test_sampler_route(ndim, degree):
-    """'paired' at ndim 1..8 and 'wide' at 9..16, the dimensions the source
+    """'paired' at ndim 1..8 and 'wide' at 9..32, the dimensions the source
     compiles them for, at every degree here: each packed map fits the
-    shared memory (16D at degree 40 takes 4 * 16 * (84 + 44 + 2) bytes)."""
+    shared memory (32D at degree 40 takes 4 * 32 * (84 + 44 + 2) bytes);
+    'generic' above 32D."""
     kp, kq = 2 * degree + 2, degree + 1
     kp4, kq4 = cuda_vegas.padded_terms(kp, kq)
     assert 4 * ndim * (kp4 + kq4 + 2) <= cuda_vegas.SMEM_BYTES
-    want = "paired" if ndim <= 8 else "wide"
+    want = "paired" if ndim <= 8 else "wide" if ndim <= 32 else "generic"
     assert cuda_vegas.sampler_route(ndim, kp, kq) == want
+    if want == "wide":
+        assert cuda_vegas.wide_class(ndim) == next(
+            nmax for nmax in (12, 16, 24, 32) if ndim <= nmax)
 
 
 def test_sampler_route_by_map_size():

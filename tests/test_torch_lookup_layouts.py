@@ -137,14 +137,18 @@ def test_grouped_plan_leaves_no_warp_without_a_segment_when_it_can():
     (13, 500, 60), (14, 500, 60), (15, 500, 45), (16, 500, 45), (9, 50, 60),
     (16, 50, 60), (9, 1000, 45), (10, 1000, 30), (9, 1067, 30),
     (16, 599, 45), (16, 600, 30), (16, 1000, 15), (9, 2048, 15),
-    (16, 2048, 15), (9, 6456, 15), (9, 7000, 0)])
+    (16, 2048, 15), (9, 6456, 15), (9, 7000, 0),
+    # 17..32D, one set of 5..8 warps: by registers 4 blocks an SM up to 7
+    # warps, 3 at 8 (29..32D)
+    (17, 500, 60), (20, 1000, 30), (24, 50, 60), (28, 50, 60), (29, 50, 45),
+    (32, 500, 45), (32, 1815, 15), (32, 1816, 0)])
 def test_hist_clusters_by_shape(ndim, nbins, cap):
     """At 1..8D the clusters stop at HIST_MAX_CLUSTERS, as they did when
-    the route took only those shapes (their bits stay).  At 9..16D they
-    stop at HIST_CLUSTERS_A_BLOCK for each block an SM holds: by its 228 KB
-    of shared memory (a block's rows, its static bytes and 1 KB), by its
-    2048 threads, and at most HIST_WIDE_BLOCKS; 2^21 samples reach the
-    stop."""
+    the route took only those shapes (their bits stay).  From 9D they stop
+    at HIST_CLUSTERS_A_BLOCK for each block an SM holds: by its 228 KB of
+    shared memory (a block's rows, its static bytes and 1 KB), by its 2048
+    threads, at most HIST_WIDE_BLOCKS, and at 17..32D by its 64K registers
+    (HIST_RUNTIME_REGISTERS a thread); 2^21 samples reach the stop."""
     assert cuda_lookup.hist_max_clusters(ndim, nbins) == cap
     if not cap:
         return
@@ -153,9 +157,11 @@ def test_hist_clusters_by_shape(ndim, nbins, cap):
     if ndim > 8:
         sets = cuda_lookup.hist_sets(ndim, nbins)
         block = 4 * sets * ndim * nbins + cuda_lookup.HIST_STATIC_SMEM + 1024
+        by_registers = (65536 // (cuda_lookup.HIST_RUNTIME_REGISTERS * 32
+                                  * warps) if ndim > 16 else 4)
         assert cap == cuda_lookup.HIST_CLUSTERS_A_BLOCK * min(
             cuda_lookup.SM_SMEM_BYTES // block, 2048 // (32 * warps),
-            cuda_lookup.HIST_WIDE_BLOCKS)
+            cuda_lookup.HIST_WIDE_BLOCKS, by_registers)
 
 
 @pytest.mark.parametrize("n", [1, 129, 30011, 1 << 20, (1 << 21) + 5])
@@ -196,16 +202,23 @@ def test_cluster_shares_cover_each_bin_once(rows):
     (9, 3229, 3, "grouped"), (9, 6456, 3, "grouped"),
     (9, 6457, 0, "generic"), (16, 1815, 8, "grouped"),
     (16, 1816, 4, "grouped"), (16, 3631, 4, "grouped"),
-    (16, 3632, 0, "generic")])
+    (16, 3632, 0, "generic"),
+    # 17..32D: one set of rows for a warp of each of 5..8 groups
+    (17, 500, 5, "grouped"), (20, 500, 5, "grouped"), (24, 500, 6, "grouped"),
+    (28, 500, 7, "grouped"), (32, 500, 8, "grouped"), (17, 3418, 5, "grouped"),
+    (17, 3419, 0, "generic"), (32, 1815, 8, "grouped"),
+    (32, 1816, 0, "generic"), (33, 50, 0, "generic")])
 def test_hist_route_by_shape(ndim, nbins, warps, route):
-    """The grouped route for the dimensions the source compiles (1..16)
-    where its rows fit a block's 227 KB beside the kernel's static shared
-    memory; the generic route else.  Up to 8D a warp has its own rows, 8
-    warps else 4: rows of exactly 227 KB (8D at 908 bins on 8 warps, 1816
-    on 4) leave no room.  At 9..16D a set of rows serves a warp of each of
-    3 (9..12D) or 4 (13..16D) groups of dimensions, 2 sets else 1: 9D takes
-    2 sets up to 3228 bins and 1 up to 6456, 16D 2 up to 1815 and 1 up to
-    3631."""
+    """The grouped route for the dimensions the source compiles or takes
+    at run time (1..32) where its rows fit a block's 227 KB beside the
+    kernel's static shared memory; the generic route else.  Up to 8D a warp
+    has its own rows, 8 warps else 4: rows of exactly 227 KB (8D at 908 bins
+    on 8 warps, 1816 on 4) leave no room.  From 9D a set of rows serves a
+    warp of each of 3 (9..12D), 4 (13..16D) or 5..8 (17..32D) groups of
+    dimensions, 2 sets else 1 within a block's 8 warps: 9D takes 2 sets up
+    to 3228 bins and 1 up to 6456, 16D 2 up to 1815 and 1 up to 3631, 17D
+    1 up to 3418 and 32D 1 up to 1815; 33D has 9 groups, more than a block
+    holds."""
     assert cuda_lookup.hist_warps(ndim, nbins) == warps
     assert cuda_lookup.hist_route(ndim, nbins) == route
     if warps:
@@ -215,11 +228,12 @@ def test_hist_route_by_shape(ndim, nbins, warps, route):
                 <= cuda_lookup.SMEM_BYTES)
 
 
-@pytest.mark.parametrize("ndim", range(1, 17))
+@pytest.mark.parametrize("ndim", range(1, 33))
 def test_dimension_groups_cover_each_dimension_once(ndim):
     """The groups of dimensions of the grouped kernel (group g of G: g ndim
-    / G to (g + 1) ndim / G, integer division): one up to 8D, at 9..16D 3
-    or 4 of 3 or 4 dimensions each, together each dimension once."""
+    / G to (g + 1) ndim / G, integer division): one up to 8D, from 9D
+    ceil(ndim / 4) of 3 or 4 dimensions each (3 or 4 groups at 9..16D, 5..8
+    at 17..32D), together each dimension once."""
     groups = cuda_lookup.hist_groups(ndim)
     bounds = [g * ndim // groups for g in range(groups + 1)]
     assert bounds[0] == 0 and bounds[-1] == ndim
@@ -227,7 +241,7 @@ def test_dimension_groups_cover_each_dimension_once(ndim):
     if ndim <= 8:
         assert groups == 1
     else:
-        assert groups == (3 if ndim <= 12 else 4)
+        assert groups == -(-ndim // 4)
         assert set(sizes.tolist()) <= {3, 4}
 
 
@@ -243,8 +257,9 @@ def test_hist_route_names_are_checked():
     assert pick(9, 50, "grouped") == pick(16, 500, None) == "grouped"
     with pytest.raises(ValueError, match="does not take"):
         pick(9, 6457, "grouped")
+    assert pick(17, 50, "grouped") == pick(32, 500, None) == "grouped"
     with pytest.raises(ValueError, match="does not take"):
-        pick(17, 50, "grouped")
+        pick(33, 50, "grouped")
     with pytest.raises(ValueError, match="does not take"):
         pick(6, 500, "atomic")
     with pytest.raises(ValueError, match="generic histogram"):
@@ -359,14 +374,18 @@ def test_sample_route_words_are_the_stream(ndim, npg):
     (9, 500, 1 << 21, "wide"), (16, 50, 100, "wide"),
     (6, 500, 2 ** 31, "generic"),
     # the wide route at the 1e9 runs' chunks and its edges' limit: 16D at
-    # 3630 bins fits beside the kernel's 48 static bytes, 3631 does not
+    # 3629 bins fits beside the kernel's 96 static bytes, 3630 does not
     (12, 500, (1 << 18) * 4, "wide"), (16, 500, (1 << 15) * 23, "wide"),
     (9, 6000, 100, "wide"), (9, 6500, 100, "generic"),
-    (16, 3630, 100, "wide"), (16, 3631, 100, "generic"),
+    (16, 3629, 100, "wide"), (16, 3630, 100, "generic"),
     (12, 500, 2 ** 31, "generic"), (16, 500, 2 ** 31 - 1, "wide"),
-    (17, 50, 100, "generic")])
+    # 17..32D: the 1e9 runs' chunks, 32D's edges' limit (1814 bins)
+    (17, 50, 100, "wide"), (20, 500, 1024 * 953, "wide"),
+    (28, 500, (1 << 18) * 3, "wide"), (32, 500, (1 << 18) * 2, "wide"),
+    (32, 1814, 100, "wide"), (32, 1815, 100, "generic"),
+    (33, 50, 100, "generic")])
 def test_resolve_route_by_shape(ndim, nbins, n, route):
-    """The sample route at ndim 1..8, the wide route at 9..16, where all
+    """The sample route at ndim 1..8, the wide route at 9..32, where all
     edges fit a block's 227 KB (the wide route's beside its own static
     shared memory) and n < 2^31; the generic route else."""
     assert cuda_lookup.resolve_route(ndim, nbins, n) == route

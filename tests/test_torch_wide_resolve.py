@@ -1,4 +1,4 @@
-"""The bin resolve at 9..16D, where the CUDA kernel takes its wide route
+"""The bin resolve at 9..32D, where the CUDA kernel takes its wide route
 (csrc/vegas_lookup.cu resolve_wide_kernel: a thread per 4 samples of one
 group of 4 dimensions).
 
@@ -50,7 +50,8 @@ def _one_thread():
 # -- the plain version against the reference's kernel and XLA branch --------
 
 @pytest.mark.parametrize("with_ia", [False, True])
-@pytest.mark.parametrize("ndim,nbins", [(9, 500), (12, 50), (16, 500)])
+@pytest.mark.parametrize("ndim,nbins", [(9, 500), (12, 50), (16, 500),
+                                        (20, 500), (32, 50)])
 def test_bin_resolve_matches_pallas_and_xla(ndim, nbins, with_ia):
     xi32 = kernel_check.random_grid(ndim, nbins, 20 + ndim).astype(
         np.float32)
@@ -216,7 +217,9 @@ def item_samples(q: int, n: int, vec: bool):
     (16, 23 * 300, 256 * 3, True), (16, 23 * 300, 256 * 3, False),
     (13, 4 * 97 + 1, 256, False), (16, 3, 256, False),
     (11, 1001, 4096, False), (14, 2 * 2049, 256 * 5, False),
-    (10, 4 * 3001, 2048, True)])
+    (10, 4 * 3001, 2048, True), (17, 7 * 300, 256 * 3, False),
+    (20, 953 * 4, 256 * 5, True), (32, 2 * 1000, 256 * 7, True),
+    (29, 4 * 77 + 3, 256, False)])
 def test_wide_items_write_each_sample_and_dimension_once(ndim, n, threads,
                                                          vec):
     """The items of all threads cover each (dimension, sample) exactly
@@ -333,10 +336,11 @@ def wide_decode(n, npg, ng, ndim, g, cube0, ncubes, vec):
     return cube_out, slot_out, dig_out
 
 
-# (ndim, ncall): the 1e9 runs' lattices at 9, 12 and 16D, an npg of 5 and
-# of 152, and lattices of more than 2^32 cubes (the 64-bit decode)
+# (ndim, ncall): the 1e9 runs' lattices at 9, 12, 16 and 17D (5 groups),
+# an npg of 5 and of 152, and lattices of more than 2^32 cubes (the 64-bit
+# decode; 32D at 1e10, 8 groups, has 2^32 exactly)
 WIDE_DECODE_SHAPES = [(9, 1e9), (12, 1e9), (16, 1e9), (9, 1e7), (16, 1e7),
-                      (10, 2e10), (9, 5e10)]
+                      (10, 2e10), (9, 5e10), (17, 1e9), (32, 1e10)]
 
 
 @pytest.mark.parametrize("vec", [True, False])
@@ -369,12 +373,14 @@ def test_wide_group_decode_gives_the_cube_digits(ndim, ncall, position, vec):
         assert cube0 > 2 ** 32
 
 
-@pytest.mark.parametrize("ndim,npg", [(9, 2), (12, 4), (16, 23), (13, 3)])
+@pytest.mark.parametrize("ndim,npg", [(9, 2), (12, 4), (16, 23), (13, 3),
+                                      (17, 7), (20, 5), (32, 2)])
 def test_wide_thread_words_are_the_stream(ndim, npg):
     """A thread's item draws one Philox block a sample, counter (cube,
-    iteration, 4 slot + g), and takes word j for dimension 4g + j: the
-    words of stream.stream_bits, row slot * ndim + d, for every item of a
-    chunk (samples n = cube * npg + slot)."""
+    iteration, B slot + g) with B = stream.slot_blocks(ndim) (4 up to
+    16D), and takes word j for dimension 4g + j: the words of
+    stream.stream_bits, row slot * ndim + d, for every item of a chunk
+    (samples n = cube * npg + slot)."""
     seed, iteration = 987, 11
     chunk = 37
     cubes = 2 ** 32 - 5 + torch.arange(chunk)       # across 2^32
@@ -389,8 +395,9 @@ def test_wide_thread_words_are_the_stream(ndim, npg):
         k = torch.as_tensor(item_samples(q, n, n % 4 == 0), dtype=torch.int64)
         if not len(k):
             continue
-        block = stream.philox4x32(c0[k], c1[k], c2[k], 4 * slot[k] + g, k0,
-                                  k1)
+        block = stream.philox4x32(c0[k], c1[k], c2[k],
+                                  stream.slot_blocks(ndim) * slot[k] + g,
+                                  k0, k1)
         for d in range(4 * g, min(ndim, 4 * g + 4)):
             assert torch.equal(block[d - 4 * g],
                                want[slot[k] * ndim + d, k // npg])
@@ -409,3 +416,4 @@ def test_wide_route_check_on_cpu(ndim, ncall, chunk):
     assert r["routes"] == ["wide", "generic"] and r["rc_ulps"] == 0
     kernel_check.check_resolve_counter(ndim, ncall, chunk, 50, route="wide",
                                        device="cpu")
+

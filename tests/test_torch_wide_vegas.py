@@ -1,12 +1,17 @@
 """The sampler and the histogram at the dimensions whose CUDA routes were
 redesigned after the first design (the sampler's paired route at 1D and
-2D, its wide route at 9..16D, the grouped histogram at 9..16D): the plain
+2D, its wide route at 9..32D, the grouped histogram at 9..32D): the plain
 PyTorch versions against the JAX package's Pallas kernels in interpret
 mode, as its own tests run them, on the same numpy inputs.
 
 Each case takes a chunk of 256 cubes whose last 40 lie beyond the lattice,
 uniforms given as words (the parity hook), a map fitted to a random grid
-and a non-unit volume.  Tolerances are those of
+and a non-unit volume.  Past 16D the lattices are 2^20, 2^24 and 2^28
+cubes of 2 samples (the wide route's NMAX 24 and 32 classes; the
+reference's int32 cube ids hold no 2^32 lattice, so 32D is held by the
+histogram alone), the fused mode at 20D and 28D and the emit mode with
+bin ids at 24D and 28D: the reference's interpret-mode compile grows
+with npg * ndim, 17-28 s a case there.  Tolerances are those of
 tests/test_torch_vegas_kernels.py at 3D: bin ids EQUAL; the sums of fb
 within rtol 2e-5 and of f2b within 2e-4, or for f2b within the rounding
 of its f32 form, 8 eps npg sum f^2 (a cube's (sq - fb)(sq + fb) with
@@ -34,7 +39,7 @@ EPS32 = np.finfo(np.float32).eps
 CHUNK, A, NBINS, XJAC = 256, 1, 50, 0.37
 # (ndim, ng, npg): ng^ndim cubes, npg samples a cube
 SHAPES = {1: (1, 300, 2), 2: (2, 17, 2), 9: (9, 3, 2), 12: (12, 2, 3),
-          16: (16, 2, 2)}
+          16: (16, 2, 2), 20: (20, 2, 2), 24: (24, 2, 2), 28: (28, 2, 2)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -107,7 +112,7 @@ def test_sampler_routes_are_the_ones_redesigned(ndim):
         "paired" if ndim <= 2 else "wide")
 
 
-@pytest.mark.parametrize("ndim", sorted(SHAPES))
+@pytest.mark.parametrize("ndim", [d for d in sorted(SHAPES) if d != 24])
 def test_fused_sampler_matches_pallas_interpret(ndim):
     shape = SHAPES[ndim]
     _, _, npg = shape
@@ -136,8 +141,9 @@ def test_fused_sampler_matches_pallas_interpret(ndim):
     assert torch.equal(sums, sums2) and none_ia is None and none_f2 is None
 
 
-@pytest.mark.parametrize("with_hist", [False, True])
-@pytest.mark.parametrize("ndim", sorted(SHAPES))
+@pytest.mark.parametrize("ndim,with_hist", [
+    (ndim, with_hist) for ndim in sorted(SHAPES) for with_hist in (False, True)
+    if ndim <= 16 or (with_hist and ndim != 20)])
 def test_emit_sampler_matches_pallas_interpret(ndim, with_hist):
     shape = SHAPES[ndim]
     _, _, npg = shape
@@ -167,7 +173,7 @@ def test_emit_sampler_matches_pallas_interpret(ndim, with_hist):
 
 
 @pytest.mark.parametrize("nbins", [50, 500])
-@pytest.mark.parametrize("ndim", [9, 16])
+@pytest.mark.parametrize("ndim", [9, 16, 32])
 def test_hist_matches_pallas_interpret(ndim, nbins):
     """The histogram at the dimensions of the grouped route's second
     design, dims-major as the sampler emits it, values of a wide range."""
