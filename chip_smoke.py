@@ -354,7 +354,18 @@ timed beside the others in the same run.
    with every launch on the wide sampler (or bin resolve) and the grouped
    histogram (counts set to 0 before and read after); walls, iterations
    and each kernel's launches times its time alone against the wall;
-30. the ``kernels`` JSON line, then the card line and the result line.
+30. PAGANI past 16D on B1's wide route (a Genz family at 17-24D,
+   csrc/rule_wide.cuh): the kernel against its plain version
+   (kernel_check, F1-F6 f64 and F4, F5 f32 at 17D and 20D on blocked
+   pools, F4 f64 at 24D); 17D F4 (a = 1) at 1e-3 on the fused phase and
+   the host loop (the same bits, status 0, every launch wide) and with
+   ``rule_backend='torch'`` (the same iterations, regions and neval, the
+   estimate within 1e-12); 20D F4 (a = 1) at 1e-4 certified against its
+   closed form (status 0, |est - truth| <= errorest) on both; walls and the
+   kernel's share by CUDA events (host loop); the kernel timed at 17D, 20D
+   and 24D on pools of 132 k regions, f64 and f32, beside its operations
+   bound and the plain version;
+31. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -382,8 +393,9 @@ from gpuintegration_torch.mcubes import vegas as vegas_module
 from gpuintegration_torch.mcubes import kernel_check as vegas_check
 from gpuintegration_torch.mcubes import phases as vegas_phases
 from gpuintegration_torch.models import genz, misc, physics
-from gpuintegration_torch.ops import (cuda_build, cuda_rule, integrand_gen,
-                                      interp, kernel_check, quad1d, rule_eval)
+from gpuintegration_torch.ops import (cuda_build, cuda_rule, genz_malik,
+                                      integrand_gen, interp, kernel_check,
+                                      quad1d, rule_eval)
 from gpuintegration_torch.parallel.launch import run_on_ranks
 from gpuintegration_torch.pagani import (fused_loop, oneshot, region_pool,
                                          vegas_assisted)
@@ -463,7 +475,7 @@ def bound_ms(kind: int, ndim: int, n: int, dtype,
     at the peak rate, or its bytes (the bounds read, est, err and split_dim
     written) at the memory rate, whichever is larger; with ``frac`` the
     split fraction's operations and the fraction written too."""
-    feval = rule_eval.rule_tables(ndim).feval
+    feval = genz_malik.feval_per_region(ndim)
     ops = n * (feval * ops_per_point(kind, ndim) + ops_per_region(kind, ndim)
                + (ndim * FRAC_OPS_PER_AXIS + FRAC_KINK_OPS if frac else 0))
     item = torch.finfo(dtype).bits // 8
@@ -561,7 +573,8 @@ def ptxas_by_kernel(log: str) -> dict[str, tuple[str, int, int]]:
     instance of an nvcc report (``route_bits.ptxas_kernels``)."""
     groups: dict[str, list] = {}
     for name, rs in route_bits.ptxas_kernels(log).items():
-        key = re.sub(r"^(rule_(?:tile_|generic_)?kernel<)\d", r"\1*", name)
+        key = re.sub(r"^(rule_(?:tile_|generic_|wide_)?kernel<)\d", r"\1*",
+                     name)
         groups.setdefault(key, []).append(rs)
     out = {}
     for k, v in sorted(groups.items()):
@@ -597,6 +610,18 @@ def queued_ms(fn, reps: int, inner: int = 20) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / inner)
     return best
+
+
+@contextlib.contextmanager
+def device_profile():
+    """torch.profiler over the card's activity alone, with no trace file:
+    the kernels', copies' and memsets' device times that phases 13 and 18
+    read from ``key_averages()``.  ``utils.profiling.trace`` (phases 17 and
+    26) also records every host operation and writes a Chrome trace, which
+    those phases do not read."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield prof
 
 
 def compare_routes(label, *args, **kw):
@@ -3517,14 +3542,13 @@ ROUTE_KERNEL = {cuda_rule.COMPONENTS_CLUSTER: "rule_contract_comp_cluster_kernel
 
 def in_situ(label, f, ndim, epsrel, route):
     """``Workspace(ndim).integrate(f, epsrel)`` traced by
-    ``utils.profiling.trace`` (torch.profiler) with every vector
+    ``device_profile`` (torch.profiler) with every vector
     contraction forced onto ``route``: the contraction kernel's launches
     and mean device duration as the trace reads them, the device's busy
     time (its kernels', copies' and memsets' self time) and idle share of
     the wall.  Returns {launches, ms, wall_s, busy_s, idle}."""
     from torch.autograd import DeviceType
 
-    from gpuintegration_torch.utils.profiling import trace
     kept = cuda_rule._contract_comp_launch
 
     def forced(*args, **kw):
@@ -3532,17 +3556,16 @@ def in_situ(label, f, ndim, epsrel, route):
 
     cuda_rule._contract_comp_launch = forced
     try:
-        with tempfile.TemporaryDirectory() as log_dir:
-            with trace(log_dir) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = Workspace(ndim).integrate(f, epsrel=epsrel,
-                                                epsabs=1e-40, **HOST)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation]
+        with device_profile() as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = Workspace(ndim).integrate(f, epsrel=epsrel,
+                                            epsabs=1e-40, **HOST)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
     finally:
         cuda_rule._contract_comp_launch = kept
     busy = sum(e.self_device_time_total for e in events) / 1e6
@@ -4325,25 +4348,23 @@ def vegas_registers() -> dict[str, int]:
 
 
 def vegas_traced(label, kw, form):
-    """One VEGAS run in ``form`` traced by ``utils.profiling.trace``: its
+    """One VEGAS run in ``form`` traced by ``device_profile``: its
     wall, the device's busy time (kernels', copies' and memsets' self time)
     and idle share of the wall."""
     from torch.autograd import DeviceType
 
-    from gpuintegration_torch.utils.profiling import trace
     g6 = genz.f4_gaussian(VEGAS_NDIM)
     vegas_phases.FORM = FORMS[form]
     try:
-        with tempfile.TemporaryDirectory() as log_dir:
-            with trace(log_dir) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                mcubes.integrate(g6, epsabs=1e-40, **kw)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation]
+        with device_profile() as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mcubes.integrate(g6, epsabs=1e-40, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
     finally:
         vegas_phases.FORM = None
     busy = sum(e.self_device_time_total for e in events) / 1e6
@@ -6006,6 +6027,218 @@ def generic_in_situ(dev, sin12):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# PAGANI past 16D: B1's wide route (phase 30)
+
+# (ndim, pool capacity) of the checks against the plain version: a blocked
+# pool, three quarters real; the plain version and the rounding scales 8
+# regions at a time (0.17 GB of points a region at 20D in f64)
+WIDE_CHECKS = ((17, 48), (20, 32))
+WIDE_F32 = ("f4_gaussian", "f5_c0")       # the families also held in f32
+WIDE_24D_REGIONS = 4                      # 3.2 GB of points each in f64
+# the runs, (label, ndim, F4's a, epsrel): Genz F4 (a = 1) at 17D and 1e-3
+# (certifies on the CPU in 6 iterations, 32 regions) and at 20D and 1e-4:
+# at 1e-3 the 20D run ends at status 0 with |est - truth| 1.16 times its
+# errorest on 1024 regions (H100 80GB HBM3, 700 W; PERF.md), at 1e-4
+# within 0.70 of it on 8192
+WIDE17 = ("17D F4", 17, 1.0, 1e-3)
+WIDE20 = ("20D F4", 20, 1.0, 1e-4)
+# the plain version's chunk for the 17D run on the card (rule_backend
+# 'torch'): 64 regions of 138,281 points, 1.2 GB in f64
+WIDE_TORCH_CHUNK = 64
+# (ndim, k): the kernel timed on pools of 132 k regions, F4 f64 and f32
+WIDE_TIMES = ((17, 8), (20, 2), (24, 1))
+
+
+def wide_pool(ndim, cap, seed, dtype, dev):
+    """``cap`` random sub-boxes of the unit cube."""
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.uniform(0.0, 0.5, (ndim, cap)), dtype=dtype,
+                            device=dev),
+            torch.as_tensor(rng.uniform(0.01, 0.5, (ndim, cap)), dtype=dtype,
+                            device=dev))
+
+
+def wide_checks(dev) -> float:
+    """Phase 30 (a): the wide route against the plain version through
+    kernel_check: F1-F6 in f64 and F4, F5 in f32 at 17D and 20D on blocked
+    pools with padding slots, F4 in f64 at 24D on WIDE_24D_REGIONS
+    regions; every launch on the wide route.  Returns the largest
+    |est - plain est|."""
+    worst = 0.0
+    cuda_rule.reset_launches()
+    checks = 0
+    cases = [(ndim, cap, dtype, g) for ndim, cap in WIDE_CHECKS
+             for dtype in (torch.float64, torch.float32)
+             for g in genz.genz_suite(ndim)
+             if dtype == torch.float64 or g.name in WIDE_F32]
+    cases.append((24, WIDE_24D_REGIONS, torch.float64,
+                  genz.f4_gaussian(24, a=1.0)))
+    for ndim, cap, dtype, g in cases:
+        lows, lengths = wide_pool(ndim, cap, ndim, dtype, dev)
+        gl = torch.zeros(ndim, dtype=dtype, device=dev)
+        gr = torch.ones(ndim, dtype=dtype, device=dev)
+        tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+        kw = (dict(n=cap - cap // 4, blocked=True, chunk=8, plain_chunk=8)
+              if ndim < 24 else dict(chunk=1, plain_chunk=1))
+        r = compare(f"phase 30: wide route {ndim}D {g.name} "
+                    f"{str(dtype)[6:]}", g, tables, lows, lengths, gl, gr,
+                    min_agree=0.0, **kw)
+        worst = max(worst, r["max_abs_est"])
+        checks += 1
+    if not cuda_rule.wide_launches == cuda_rule.launches == checks:
+        fail(f"phase 30: {checks} checks launched the rule kernel "
+             f"{cuda_rule.launches} times, {cuda_rule.wide_launches} on the "
+             "wide route")
+    return worst
+
+
+def wide_run(label, ndim, a, epsrel, events=False, ws_kw=None, **kw):
+    """One phase 30 run: ``Workspace(ndim, **ws_kw).integrate`` of Genz F4
+    (``a``) at ``epsrel``, the counts set to 0 before and read after; with
+    ``events``, CUDA events around each launch of the wrapper (the host
+    loop) give the kernel's share of the wall and its time each
+    iteration."""
+    g = genz.f4_gaussian(ndim, a=a)
+    ws = Workspace(ndim, **(ws_kw or {}))
+    spans = []
+    launch = cuda_rule._wide_apply_rule
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    cuda_rule.reset_launches()
+    fused_loop.reset_stats()
+    torch.cuda.synchronize()
+    if events:
+        cuda_rule._wide_apply_rule = timed
+    t0 = time.perf_counter()
+    try:
+        res = ws.integrate(g, epsrel, **kw)
+        torch.cuda.synchronize()
+    finally:
+        cuda_rule._wide_apply_rule = launch
+    wall = time.perf_counter() - t0
+    per_launch = [s.elapsed_time(e) for s, e in spans]
+    kernel_s = sum(per_launch) / 1e3
+    err = abs(res.estimate - g.true_value)
+    row = {"label": label, "ndim": ndim, "a": a, "epsrel": epsrel,
+           "status": res.status, "iters": res.iters,
+           "nregions": res.nregions, "neval": res.neval,
+           "estimate": res.estimate, "errorest": res.errorest,
+           "truth": g.true_value, "abs_err": err, "wall_s": wall,
+           "launches": cuda_rule.launches,
+           "wide_launches": cuda_rule.wide_launches,
+           "kernel_s": kernel_s if events else None,
+           "kernel_share": kernel_s / wall if events else None,
+           "kernel_ms_by_iteration": per_launch if events else None,
+           "fused_stats": dict(fused_loop.stats),
+           "bits": (res.status, res.iters, res.nregions, res.neval,
+                    float(res.estimate).hex(), float(res.errorest).hex())}
+    share = (f", the wide kernel {kernel_s:.4f} s ({100 * kernel_s / wall:.1f}"
+             "% of the wall, CUDA events; by iteration "
+             f"{', '.join(f'{ms:.3f}' for ms in per_launch)} ms)"
+             if events else "")
+    print(f"phase 30: {label}: status {res.status} estimate "
+          f"{res.estimate!r} errorest {res.errorest!r} truth "
+          f"{g.true_value!r} |est - truth| {err:.3e} iters {res.iters} "
+          f"nregions {res.nregions} neval {res.neval} wall {wall:.3f} s; "
+          f"rule launches {cuda_rule.launches} (wide "
+          f"{cuda_rule.wide_launches}, split "
+          f"{dict(cuda_rule.split_launches)}); fused phase "
+          f"{dict(fused_loop.stats)}{share}", flush=True)
+    return row
+
+
+def wide_path(dev) -> dict:
+    """Phase 30 (b), (c): 17D F4 at 1e-3 on the fused phase and the host
+    loop (the same bits required, every launch on the wide route, status
+    0) and with ``rule_backend='torch'`` on the card (the same iterations,
+    regions and neval, the estimate within 1e-12); the 20D run on the
+    host loop, certified against its closed form (status 0, |est - truth|
+    <= errorest), and on the fused phase (the same bits)."""
+    label, ndim, a, eps = WIDE17
+    host = wide_run(f"{label} host loop", ndim, a, eps, events=True,
+                    fused=False)
+    fused = wide_run(f"{label} fused phase", ndim, a, eps)
+    plain = wide_run(f"{label} rule_backend='torch'", ndim, a, eps,
+                     ws_kw=dict(rule_backend="torch",
+                                chunk_size=WIDE_TORCH_CHUNK))
+    for row in (host, fused):
+        if row["status"] != 0 or not row["wide_launches"] == \
+                row["launches"] > 0:
+            fail(f"phase 30: {row['label']}: status {row['status']}, "
+                 f"launches {row['launches']} ({row['wide_launches']} wide)")
+    if host["bits"] != fused["bits"]:
+        fail(f"phase 30: {label}: the fused phase {fused['bits']} and the "
+             f"host loop {host['bits']} differ")
+    same = all(plain[k] == host[k] for k in ("status", "iters", "nregions",
+                                             "neval"))
+    drift = abs(plain["estimate"] - host["estimate"]) / abs(host["estimate"])
+    print(f"phase 30: {label}: fused phase and host loop EQUAL; "
+          f"rule_backend='torch' {'the same' if same else 'OTHER'} "
+          f"decisions, estimates {drift:.3e} apart (relative), no kernel "
+          f"launched ({plain['launches']})", flush=True)
+    if not same or not drift <= 1e-12 or plain["launches"] != 0:
+        fail(f"phase 30: {label}: rule_backend='torch' differs from the "
+             f"kernel's run (same decisions {same}, drift {drift})")
+    label, ndim, a, eps = WIDE20
+    host20 = wide_run(f"{label} host loop", ndim, a, eps, events=True,
+                      fused=False)
+    fused20 = wide_run(f"{label} fused phase", ndim, a, eps)
+    if (host20["status"] != 0 or not host20["abs_err"] <= host20["errorest"]
+            or host20["bits"] != fused20["bits"]
+            or not host20["wide_launches"] == host20["launches"] > 0):
+        fail(f"phase 30: {label} does not certify on the wide route: "
+             f"{host20}; fused {fused20['bits']}")
+    return {"17d": [host, fused, plain], "20d": [host20, fused20]}
+
+
+def wide_times(dev) -> list[dict]:
+    """Phase 30 (d): the wide kernel alone on pools of 132 k regions, F4
+    (a = 1) in f64 and f32, best of 3 by CUDA events, beside bound_ms's
+    operations bound and, at 17D and 20D in f64, the plain version's time
+    (its chunk: 64 regions at 17D, 8 at 20D)."""
+    rows = []
+    for ndim, k in WIDE_TIMES:
+        n = 132 * k
+        for dtype in (torch.float64, torch.float32):
+            g = genz.f4_gaussian(ndim, a=1.0)
+            lows, lengths = wide_pool(ndim, n, 30 + ndim, dtype, dev)
+            gl = torch.zeros(ndim, dtype=dtype, device=dev)
+            gr = torch.ones(ndim, dtype=dtype, device=dev)
+            tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+            ms = time_ms(lambda: cuda_rule.cuda_apply_rule(
+                g, tables, lows, lengths, gl, gr), 3)
+            b, by = bound_ms(4, ndim, n, dtype)
+            plain = None
+            if ndim < 24 and dtype == torch.float64:
+                plain = once_ms(lambda: rule_eval.apply_rule_plain(
+                    g, tables, lows, lengths, gl, gr,
+                    chunk_size=64 if ndim == 17 else 8))
+            feval = genz_malik.feval_per_region(ndim)
+            rows.append({"ndim": ndim, "dtype": str(dtype)[6:], "regions": n,
+                         "ms": ms, "bound_ms": b, "bound_by": by,
+                         "plain_ms": plain,
+                         "evals_per_s": n * feval / ms * 1e3})
+            print(f"phase 30: wide route {ndim}D F4 {str(dtype)[6:]} {n} "
+                  f"regions ({feval} points each): {ms:.3f} ms = "
+                  f"{n * feval / ms * 1e3:.4e} evals/s, bound {b:.3f} ms "
+                  f"({by}, {100 * b / ms:.1f}% of it), plain "
+                  f"{'not measured' if plain is None else f'{plain:.1f} ms'}",
+                  flush=True)
+            del lows, lengths
+    torch.cuda.empty_cache()
+    return rows
+
+
+
 def _launch_totals(launches) -> dict:
     """A case's launches on a rank by the kernels line's names."""
     return {"rule_eval": launches["rule_total"],
@@ -6378,7 +6611,13 @@ def main() -> int:
     high_rows = high_dim_path(dev, high_times)
     phase_done("phase 29")
 
-    # -- phase 30: the kernels line, the card line, the result line ---------
+    # -- phase 30: PAGANI past 16D, B1's wide route -------------------------
+    wide_err = wide_checks(dev)
+    wide_runs = wide_path(dev)
+    wide_rows = wide_times(dev)
+    phase_done("phase 30")
+
+    # -- phase 31: the kernels line, the card line, the result line ---------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",
@@ -6618,6 +6857,32 @@ def main() -> int:
                            "hist_routes", "resolve_routes",
                            "kernels_alone_s", "kernels_share")}
         for r in high_rows]
+    # B1's wide route (17..24D): the numbers at 20D on 264 regions, f64; its
+    # launches on phase 30's 20D host-loop run, each run counted from 0
+    row20 = next(r for r in wide_rows
+                 if r["ndim"] == 20 and r["dtype"] == "float64")
+    kernels.append({
+        "name": "rule_eval_wide",
+        "route": "cuda",
+        "source": "gpuintegration_torch/csrc/rule_wide.cuh",
+        "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86",
+        "held_against_plain_in": "phase 30 (F1-F6 f64, F4 and F5 f32 at 17D "
+                                 "and 20D; F4 f64 at 24D)",
+        "launches": wide_runs["20d"][0]["wide_launches"],
+        "launches_by_run": {r["label"]: r["wide_launches"]
+                            for rows in wide_runs.values() for r in rows},
+        "max_abs_err": wide_err,
+        "ms": row20["ms"],
+        "plain_ms": row20["plain_ms"],
+        "bound_ms": row20["bound_ms"],
+        "bound_by": row20["bound_by"],
+        "library_ms": None,
+        "shapes": wide_rows,
+        "runs": [{k: r[k] for k in ("label", "status", "iters", "nregions",
+                                    "neval", "estimate", "errorest",
+                                    "truth", "wall_s", "kernel_share",
+                                    "kernel_ms_by_iteration")}
+                 for rows in wide_runs.values() for r in rows]})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

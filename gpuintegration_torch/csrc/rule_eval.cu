@@ -2,12 +2,15 @@
 // holds the design): the generic route for F1..F6 in four classes of
 // dimensions (NMAX 4, 8, 12, 16: every ndim 2..16; the crease fraction a
 // run-time switch), the tile route for F1..F6 at ndim 3..8 with and
-// without the crease fraction, each in f64 and f32.
+// without the crease fraction, each in f64 and f32; and the wide route for
+// F1..F6 at ndim 17..24 (rule_wide.cuh, its own entry point
+// rule_wide_launch), f64 and f32.
 //
 // Replaces gpuintegration_tpu/ops/pallas_rule.py::pallas_apply_rule (the
 // f32 Pallas kernel) and, in f64, the XLA path rule_eval._eval_chunk.
 
 #include "rule_eval.cuh"
+#include "rule_wide.cuh"
 
 namespace {
 namespace rule {

@@ -28,6 +28,17 @@ shape alone (never by catching a failure):
   codes, the 2^n corners from the point index (``generic_point_codes``
   mirrors the decoding); each orbit a strided loop into one running sum
   (``generic_orbit_bounds``), a lane-parallel epilogue.
+* ``'wide'``, a Genz family at ndim 17..``WIDE_MAX_NDIM`` (24), where the
+  generic route's packed codes, byte offsets and corner table no longer
+  fit (csrc/rule_wide.cuh): one block of 16 warps a region, ndim at run
+  time; points of orbits 0-7 from a table of one 32-bit word a point, up
+  to three (axis, code) pairs (``wide_orbit_codes``, ``wide_point_codes``
+  mirrors the decoding), the 2^n corners from the point index with the
+  generic route's convention; each thread's running sums, xor-shuffle
+  trees a warp, the warps' sums added in an order fixed by ndim alone.
+  Its launches are counted in ``wide_launches`` (and in ``launches``).
+  No crease run and no traced callable takes it: past 16D they raise, as
+  the split route does, naming ``rule_backend='torch'``.
 
 What bounds them: for Genz integrands each region reads 2*ndim values and
 writes 3, against feval * (~6*ndim + 3) f64 (or f32) operations, so the
@@ -109,7 +120,8 @@ import numpy as np
 import torch
 
 from gpuintegration_torch.integrand import make_integrand
-from gpuintegration_torch.ops import cuda_build, integrand_gen, rule_eval
+from gpuintegration_torch.ops import (cuda_build, genz_malik, integrand_gen,
+                                      rule_eval)
 from gpuintegration_torch.ops.genz_malik import GENERATORS
 
 _SOURCE = "rule_eval.cu"
@@ -117,6 +129,17 @@ _SPLIT_SOURCE = "rule_split.cu"
 _FRAC_SOURCE = "split_frac.cu"
 MAX_NDIM = 16
 ROUTES = ("tile", "generic")
+# The wide route (csrc/rule_wide.cuh): a Genz family at MAX_NDIM + 1 ..
+# WIDE_MAX_NDIM, one block of WIDE_WARPS warps a region; a point of orbits
+# 0-7 is WIDE_PAIRS (axis, code) pairs of WIDE_PAIR_BITS bits, the axis in
+# the low WIDE_AXIS_BITS.
+WIDE = "wide"
+WIDE_MAX_NDIM = 24
+WIDE_WARPS = 16
+WIDE_BLOCKS_PER_SM = 2          # a launch's blocks at most, per SM
+WIDE_PAIRS = 3
+WIDE_AXIS_BITS = 5
+WIDE_PAIR_BITS = WIDE_AXIS_BITS + 4
 # The dimensions csrc/rule_eval.cu compiles the tile route for: every one
 # whose point codes fit a 32-bit word (4 bits an axis) above 2D, where the 33
 # points would leave a warp idle most of the time.
@@ -169,6 +192,7 @@ CONTRACT_FRAC_ROUTE = {"cluster": "cluster", "generic": "contract_generic"}
 # them to show that a run went through the kernel, and by which route.
 launches = 0
 route_launches = {r: 0 for r in ROUTES}
+wide_launches = 0               # the wide route's (also in launches)
 generated_launches = {r: 0 for r in ROUTES}   # a traced callable's, by route
 generated_value_launches = 0    # the check-only generated values kernel's
 split_launches = {"points": 0, "contract": 0}
@@ -179,7 +203,9 @@ contract_route_launches = {r: 0 for r in CONTRACT_ROUTES + VECTOR_ROUTES}
 
 def reset_launches():
     global launches, split_frac_launches, generated_value_launches
+    global wide_launches
     launches = split_frac_launches = generated_value_launches = 0
+    wide_launches = 0
     for counts in (route_launches, generated_launches, split_launches,
                    contract_route_launches, frac_route_launches):
         for k in counts:
@@ -194,11 +220,18 @@ def build() -> Path:
 
 
 def _configure(lib):
-    # both routes' entry points take the same arguments
+    # both routes' entry points take the same arguments; rule_eval.cu's
+    # library (not a generated one) also holds the wide route's
     for fn in (lib.rule_eval_launch, lib.rule_eval_tile_launch):
         fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 9
                        + [ctypes.c_double, ctypes.c_void_p]
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8)
+        fn.restype = ctypes.c_int
+    if hasattr(lib, "rule_wide_launch"):
+        fn = lib.rule_wide_launch
+        fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 9
+                       + [ctypes.c_double, ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
 
 
@@ -253,8 +286,8 @@ def kernel_params(integrand, width: int = MAX_NDIM
     s0, s1) of a Genz integrand, or (integrand_gen.KIND, zeros) of a traced
     callable; NotImplementedError for a callable the kernels lack,
     ValueError for per-axis parameters past ``width`` axes.  The rule
-    kernels take width MAX_NDIM (34 doubles), the sampler its own
-    (cuda_vegas.MAX_NDIM)."""
+    kernels take width MAX_NDIM (34 doubles), the wide route
+    WIDE_MAX_NDIM (50), the sampler its own (cuda_vegas.MAX_NDIM)."""
     p = np.zeros(2 * width + 2, dtype=np.float64)
     if is_generated(integrand):
         return integrand_gen.KIND, p
@@ -292,37 +325,73 @@ def kernel_params(integrand, width: int = MAX_NDIM
 # ---------------------------------------------------------------------------
 # Host-side layouts of the tile route
 
+def past_16d(what: str, ndim: int) -> str:
+    """The refusal of a pool past MAX_NDIM that ``what`` does not take."""
+    return (f"{what} takes ndim 2..{MAX_NDIM}, not {ndim} (past {MAX_NDIM}D "
+            f"only the {WIDE!r} route runs on the card: a Genz family of "
+            f"models.genz, scalar, without crease_split, up to "
+            f"{WIDE_MAX_NDIM}D); rule_backend='torch' runs the plain "
+            f"version at any ndim")
+
+
 def rule_route(ndim: int, integrand=None, ncomp: int = 1) -> str:
     """The route a pool of this dimension takes: 'split' for an integrand
     that is neither a Genz family (``is_genz_family``) nor a traced
     callable (``is_generated``) and for any vector integrand (``ncomp`` >
     1: no fused kernel evaluates one); else 'tile' where the source
-    compiles it, else 'generic'.  A crease run takes the same route: each
-    route's kernel computes the cut fraction from the values it holds.
-    The working type does not enter: every route is compiled for float64
-    and float32."""
+    compiles it, else 'generic' up to MAX_NDIM, and past it 'wide' for a
+    Genz family (``integrand`` None stands for one) up to WIDE_MAX_NDIM.
+    ValueError, naming rule_backend='torch', for a pool past MAX_NDIM that
+    no route takes.  A crease run takes the same route up to MAX_NDIM:
+    each route's kernel computes the cut fraction from the values it
+    holds.  The working type does not enter: every route is compiled for
+    float64 and float32."""
     if ncomp > 1 or (integrand is not None and not (
             is_genz_family(integrand) or is_generated(integrand))):
+        if ndim > MAX_NDIM:
+            raise ValueError(past_16d("the split route (any callable "
+                                      "other than a Genz family)", ndim))
         return "split"
-    return "tile" if ndim in TILE_NDIMS else "generic"
+    if ndim <= MAX_NDIM:
+        return "tile" if ndim in TILE_NDIMS else "generic"
+    if integrand is not None and is_generated(integrand):
+        raise ValueError(past_16d("a traced callable's kernels", ndim))
+    if ndim > WIDE_MAX_NDIM:
+        raise ValueError(past_16d(f"the CUDA rule kernel (the {WIDE!r} route "
+                                  f"to {WIDE_MAX_NDIM}D)", ndim))
+    return WIDE
 
 
-@functools.lru_cache(maxsize=None)
-def pack_generators(ndim: int) -> tuple[np.ndarray, np.ndarray]:
-    """The generator table as codes: (codes (feval,) uint64, lam (16,)
-    float64) with ``gen[p, d] == lam[(codes[p] >> 4 d) & 15]`` exactly.
-    lam[0] = 0, lam[1..5] the rule's five generators, lam[6..10] their
-    negatives; the codes 11..15 are unused and their lam is 0."""
-    gen = rule_eval.rule_tables(ndim).gen
-    gen = gen[:rule_eval.rule_tables(ndim).feval]
+def generator_lam() -> np.ndarray:
+    """(16,) float64, the generator of each code: lam[0] = 0, lam[1..5] the
+    rule's five generators, lam[6..10] their negatives; the codes 11..15
+    are unused and their lam is 0."""
     lam = np.zeros(1 << CODE_BITS, dtype=np.float64)
     lam[1:6] = GENERATORS
     lam[6:11] = -lam[1:6]
+    return lam
+
+
+def generator_codes(gen: np.ndarray, lam: np.ndarray) -> np.ndarray:
+    """(P, ndim) int64 codes of abscissae ``gen``: ``lam[code] == gen``
+    exactly; AssertionError where an abscissa is none of the 11."""
     code = np.full(gen.shape, -1, dtype=np.int64)
     for c in range(11):
         code[gen == lam[c]] = c
     if (code < 0).any():
         raise AssertionError("a rule abscissa is none of the 11 generators")
+    return code
+
+
+@functools.lru_cache(maxsize=None)
+def pack_generators(ndim: int) -> tuple[np.ndarray, np.ndarray]:
+    """The generator table as codes: (codes (feval,) uint64, lam (16,)
+    float64, ``generator_lam``) with ``gen[p, d] == lam[(codes[p] >> 4 d) &
+    15]`` exactly."""
+    gen = rule_eval.rule_tables(ndim).gen
+    gen = gen[:rule_eval.rule_tables(ndim).feval]
+    lam = generator_lam()
+    code = generator_codes(gen, lam)
     shifts = (CODE_BITS * np.arange(ndim, dtype=np.uint64))[None, :]
     return ((code.astype(np.uint64) << shifts).sum(axis=1, dtype=np.uint64),
             lam)
@@ -458,6 +527,116 @@ def _generic_tables(ndim: int, dtype: torch.dtype, device: torch.device):
             torch.as_tensor(lam, dtype=dtype, device=device))
 
 
+# ---------------------------------------------------------------------------
+# Host-side layouts of the wide route
+
+@functools.lru_cache(maxsize=None)
+def wide_orbit_codes(ndim: int) -> np.ndarray:
+    """(k8,) uint32, the wide route's table of orbits 0-7 (points 0 ..
+    k8 - 1 of ``rule_eval.rule_tables(ndim).gen``, built from
+    ``genz_malik.orbit_head``, which makes those rows, without the
+    table's 2^n corners): a point's nonzero axes,
+    at most WIDE_PAIRS of them (orbit 7 has three), in ascending order as
+    pairs of WIDE_PAIR_BITS bits, pair i at bit WIDE_PAIR_BITS i, its axis
+    in the low WIDE_AXIS_BITS and its code (``generator_lam``) above; the
+    pairs a point lacks are 0, which names no coordinate but the centre."""
+    k8 = generic_orbit_bounds(ndim)[4]
+    code = generator_codes(genz_malik.orbit_head(ndim)[0], generator_lam())
+    if code.shape[0] != k8:
+        raise AssertionError(f"{code.shape[0]} points of orbits 0-7, not {k8}")
+    nonzero = code != 0
+    if (nonzero.sum(axis=1) > WIDE_PAIRS).any():
+        raise AssertionError(f"a point of orbits 0-7 has more than "
+                             f"{WIDE_PAIRS} nonzero axes")
+    rank = np.cumsum(nonzero, axis=1) - 1
+    rows, axes = np.nonzero(nonzero)
+    pairs = ((axes | code[rows, axes] << WIDE_AXIS_BITS)
+             << (WIDE_PAIR_BITS * rank[rows, axes]))
+    words = np.zeros(k8, dtype=np.uint64)
+    np.bitwise_or.at(words, rows, pairs.astype(np.uint64))
+    return words.astype(np.uint32)
+
+
+def wide_point_codes(ndim: int, points=None) -> np.ndarray:
+    """(P, ndim) generator codes (indices into ``generator_lam``) of rule
+    points ``points`` (indices; all of them where None) as the wide kernel
+    decodes them: a point of orbits 0-7 from its word of
+    ``wide_orbit_codes`` (the axes no pair names take code 0), corner k
+    (point k8 + k) from its index, axis d code 10 (-lambda_5) where bit
+    n-1-d of k is set, else 5: ``generic_point_codes``' convention."""
+    k8 = generic_orbit_bounds(ndim)[4]
+    p = (np.arange(rule_eval.rule_tables(ndim).feval) if points is None
+         else np.asarray(points, dtype=np.int64))
+    out = np.zeros((p.size, ndim), dtype=np.int64)
+    orbit = p < k8
+    words = wide_orbit_codes(ndim)[p[orbit]].astype(np.int64)
+    rows = np.nonzero(orbit)[0]
+    for i in range(WIDE_PAIRS):
+        pair = words >> (WIDE_PAIR_BITS * i)
+        axis = pair & ((1 << WIDE_AXIS_BITS) - 1)
+        code = (pair >> WIDE_AXIS_BITS) & ((1 << CODE_BITS) - 1)
+        out[rows, axis] |= code
+    k = p[~orbit] - k8
+    bits = (k[:, None] >> (ndim - 1 - np.arange(ndim))[None, :]) & 1
+    out[~orbit] = np.where(bits == 1, 10, 5)
+    return out
+
+
+def wide_plan(n: int, sm_count: int) -> int:
+    """Blocks of a wide launch over ``n`` real regions: one a region, at
+    most WIDE_BLOCKS_PER_SM a SM, each walking the regions
+    blockIdx.x, blockIdx.x + blocks, ...; the bits do not depend on it."""
+    return max(1, min(n, WIDE_BLOCKS_PER_SM * sm_count))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_tables(ndim: int, dtype: torch.dtype, device: torch.device):
+    """(orbit codes (k8,) int32 bit patterns, lam (16,), orbit_wts, scale,
+    norm) on the device; not the (feval, ndim) points, which the kernel
+    never reads (3.2 GB at 24D in f64)."""
+    t = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return (put(wide_orbit_codes(ndim).view(np.int32)),
+            torch.as_tensor(generator_lam(), dtype=dtype, device=device),
+            put(t.orbit_wts), put(t.scale), put(t.norm))
+
+
+def _wide_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
+                     global_lo, global_range, n, blocked):
+    """One launch of the wide route (``cuda_apply_rule``'s, route 'wide')."""
+    global launches, wide_launches
+    ndim = tables.ndim
+    kind, params = kernel_params(integrand, WIDE_MAX_NDIM)
+    cap, n = _check_pool("cuda_apply_rule", tables, lows, lengths, global_lo,
+                         global_range, n, blocked, WIDE_MAX_NDIM)
+    dtype = lows.dtype
+    codes, lam, orbit_wts, scale, norm = _wide_tables(ndim, dtype,
+                                                      lows.device)
+    est = torch.empty(cap, dtype=dtype, device=lows.device)
+    err = torch.empty(cap, dtype=dtype, device=lows.device)
+    sdim = torch.empty(cap, dtype=torch.int32, device=lows.device)
+    lib = cuda_build.load(_SOURCE, _configure)
+    blocks = wide_plan(n, torch.cuda.get_device_properties(
+        lows.device).multi_processor_count)
+    rc = lib.rule_wide_launch(
+        kind, int(dtype == torch.float64), ndim, cap, n, int(bool(blocked)),
+        lows.data_ptr(), lengths.data_ptr(), global_lo.data_ptr(),
+        global_range.data_ptr(), codes.data_ptr(), lam.data_ptr(),
+        orbit_wts.data_ptr(), scale.data_ptr(), norm.data_ptr(),
+        float(tables.ratio), params.ctypes.data_as(ctypes.c_void_p), blocks,
+        est.data_ptr(), err.data_ptr(), sdim.data_ptr(),
+        torch.cuda.current_stream(lows.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA rule kernel ({WIDE} route) launch failed: "
+                           f"error {rc}")
+    launches += 1
+    wide_launches += 1
+    return est, err, sdim
+
+
 def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
                     global_lo, global_range, *, n: int | None = None,
                     blocked: bool = False, route: str | None = None,
@@ -475,21 +654,31 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     ``rule_route(ndim)``; naming a route runs that kernel (the checks and
     timings hold the two against each other) and raises if it does not
     take the shape.  A traced callable's (``is_generated``) launches its
-    generated library's kernels, which take no crease fraction."""
+    generated library's kernels, which take no crease fraction.  Past
+    MAX_NDIM a Genz family takes the wide route (``rule_route``), which
+    computes no crease fraction either."""
     global launches
-    kind, params = kernel_params(integrand)
+    ndim = tables.ndim
+    kind, params = kernel_params(
+        integrand, WIDE_MAX_NDIM if ndim > MAX_NDIM else MAX_NDIM)
     generated = is_generated(integrand)
     if generated and with_split_frac:
         raise ValueError("a traced callable's kernels compute no crease "
                          "fraction: crease_split needs rule_backend='cuda'")
-    ndim = tables.ndim
     if getattr(integrand, "ndim", ndim) != ndim:
         raise ValueError(f"integrand ndim {integrand.ndim} != rule {ndim}")
     if route is None:
-        route = rule_route(ndim)
+        route = rule_route(ndim, integrand)
+    if route == WIDE and MAX_NDIM < ndim <= WIDE_MAX_NDIM and not generated:
+        if with_split_frac:
+            raise ValueError(past_16d("crease_split", ndim))
+        return _wide_apply_rule(integrand, tables, lows, lengths, global_lo,
+                                global_range, n, blocked)
     if route not in ROUTES or (route == "tile" and ndim not in TILE_NDIMS):
         raise ValueError(f"route {route!r} does not take ndim {ndim} "
-                         f"(tile: {TILE_NDIMS}; generic: 2..{MAX_NDIM})")
+                         f"(tile: {TILE_NDIMS}; generic: 2..{MAX_NDIM}; "
+                         f"{WIDE}: a Genz family at {MAX_NDIM + 1}.."
+                         f"{WIDE_MAX_NDIM})")
     cap, n = _check_pool("cuda_apply_rule", tables, lows, lengths, global_lo,
                          global_range, n, blocked)
     dtype = lows.dtype
@@ -607,15 +796,16 @@ def _fused_frac_args(ndim, cap, lows, with_split_frac, kept):
 
 
 def _check_pool(what: str, tables: rule_eval.RuleTables, lows, lengths,
-                global_lo, global_range, n, blocked) -> tuple[int, int]:
+                global_lo, global_range, n, blocked,
+                max_ndim: int = MAX_NDIM) -> tuple[int, int]:
     """(cap, n) of a pool that the kernels take; ValueError for one they do
-    not: another device than CUDA, another type than f64/f32, a shape,
-    device or type that differs, a non-contiguous tensor, or an ``n`` that
-    the layout cannot hold."""
+    not: a dimension past ``max_ndim``, another device than CUDA, another
+    type than f64/f32, a shape, device or type that differs, a
+    non-contiguous tensor, or an ``n`` that the layout cannot hold."""
     ndim = tables.ndim
-    if not 2 <= ndim <= MAX_NDIM:
-        raise ValueError(f"the CUDA rule kernel takes ndim 2..{MAX_NDIM}, "
-                         f"not {ndim}")
+    if ndim < 2 or ndim > max_ndim:
+        raise ValueError(past_16d(what, ndim) if ndim > max_ndim == MAX_NDIM
+                         else f"{what} takes ndim 2..{max_ndim}, not {ndim}")
     if lows.device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {lows.device}")
     dtype = lows.dtype

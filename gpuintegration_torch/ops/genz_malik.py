@@ -218,6 +218,28 @@ def _orbit_points(ndim: int):
     Orbits 3+ may be in any fixed order.
     """
     n = ndim
+    head, head_sid = orbit_head(n)
+    # Orbit 8: all 2^n sign corners of (l, ..., l), in the order of
+    # itertools.product((+1, -1), repeat=n): axis d of corner k is -l where
+    # bit n-1-d of k is set.  Built as one array (2^n points: 16.8M at 24D)
+    # with the bits of _AL * (+-1.0).
+    k = np.arange(1 << n, dtype=np.int64)
+    corners = np.empty((1 << n, n))
+    for d in range(n):
+        corners[:, d] = np.where((k >> (n - 1 - d)) & 1, -_AL, _AL)
+
+    points = np.concatenate([head, corners])
+    set_id = np.concatenate([head_sid, np.full(1 << n, 8, dtype=np.int64)])
+    assert points.shape[0] == feval_per_region(n), (
+        points.shape, feval_per_region(n))
+    return points, set_id
+
+
+def orbit_head(ndim: int):
+    """Orbits 0-7 of ``_orbit_points``' list, every point but the 2^n
+    corners, in its order: (points (k8, ndim) float64, set_id (k8,)), at
+    any ndim without the corners' memory (3.2 GB at 24D)."""
+    n = ndim
     pts: list[np.ndarray] = []
     sid: list[int] = []
 
@@ -263,15 +285,7 @@ def _orbit_points(ndim: int):
                     v[j] = sj * _A1
                     v[k] = sk * _A1
                     add(v, 7)
-    # Orbit 8: all 2^n sign corners of (l, ..., l).
-    for signs in itertools.product((+1.0, -1.0), repeat=n):
-        add(_AL * np.asarray(signs), 8)
-
-    points = np.stack(pts)
-    set_id = np.asarray(sid, dtype=np.int64)
-    assert points.shape[0] == feval_per_region(n), (
-        points.shape, feval_per_region(n))
-    return points, set_id
+    return np.stack(pts), np.asarray(sid, dtype=np.int64)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -243,14 +243,15 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
                         lengths, global_lo, global_range, *,
                         n: int | None = None, blocked: bool = False,
                         min_agree: float = 0.999, chunk: int = 4096,
-                        route: str | None = None):
+                        route: str | None = None, plain_chunk: int = 4096):
     """One kernel launch (by ``route``; None: the route the shape takes)
     over a CUDA pool against
     ``rule_eval.apply_rule_plain`` on the same pool: the padding slots
     must hold est = err = 0, and the real slots pass ``judge``, read in
     chunks of ``chunk`` regions (a chunk's rule values are held in
-    memory).  Raises AssertionError on a disagreement; returns the
-    summary."""
+    memory).  ``plain_chunk``: the plain version's chunk (its (chunk,
+    feval, ndim) points: 0.17 GB a region at 20D, 3.2 GB at 24D in f64).
+    Raises AssertionError on a disagreement; returns the summary."""
     k = cuda_rule.cuda_apply_rule(integrand, tables, lows, lengths,
                                   global_lo, global_range, n=n,
                                   blocked=blocked,
@@ -259,23 +260,26 @@ def check_against_plain(integrand, tables: rule_eval.RuleTables, lows,
     return check_outputs_against_plain(
         {"kernel": k}, integrand, tables, lows, lengths, global_lo,
         global_range, n=n, blocked=blocked, min_agree=min_agree,
-        chunk=chunk)["kernel"]
+        chunk=chunk, plain_chunk=plain_chunk)["kernel"]
 
 
 def check_outputs_against_plain(outputs: dict, integrand,
                                 tables: rule_eval.RuleTables, lows, lengths,
                                 global_lo, global_range, *,
                                 n: int | None = None, blocked: bool = False,
-                                min_agree: float = 0.999, chunk: int = 4096):
+                                min_agree: float = 0.999, chunk: int = 4096,
+                                plain_chunk: int = 4096):
     """Rule outputs (estimate, errorest, split_dim) over a CUDA pool, each
     entry of ``outputs`` another route's (or another entry point's), against
-    one run of ``rule_eval.apply_rule_plain`` on the same pool: the padding
-    slots must hold est = err = 0, and the real slots pass ``judge``, read in
-    chunks of ``chunk`` regions (a chunk's rule values are held in memory).
-    Raises AssertionError on a disagreement; returns the summaries by key."""
+    one run of ``rule_eval.apply_rule_plain`` on the same pool, in chunks
+    of ``plain_chunk`` regions: the padding slots must hold est = err = 0,
+    and the real slots pass ``judge``, read in chunks of ``chunk`` regions
+    (a chunk's rule values are held in memory).  Raises AssertionError on
+    a disagreement; returns the summaries by key."""
     p = rule_eval.apply_rule_plain(integrand, tables, lows, lengths,
-                                   global_lo, global_range, chunk_size=4096,
-                                   n=n, blocked=blocked)
+                                   global_lo, global_range,
+                                   chunk_size=plain_chunk, n=n,
+                                   blocked=blocked)
     torch.cuda.synchronize()
     cap = lows.shape[1]
     mask = block_mask(cap, cap if n is None else int(n), blocked, lows.device)

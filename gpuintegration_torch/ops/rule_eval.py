@@ -15,10 +15,12 @@ error model (Sample.cuh:264-288).
 PyTorch version here (``apply_rule_plain``), a CUDA pool the hand-written
 kernels (``ops/cuda_rule.py``) or raises.  On the card the integrand
 chooses the route (``cuda_rule.rule_route``): a Genz family F1..F6
-(``models.genz``) is fused into the tile or generic kernel; any other
-callable, and every vector-valued one, takes the split route, a points
-kernel, the callable on the points as torch operations, and a contraction
-kernel, chunk by chunk.  A crease run's cut fraction (``split_fraction``)
+(``models.genz``) is fused into the tile or generic kernel, and from 17D
+to 24D into the wide one; any other callable, and every vector-valued
+one, takes the split route, a points kernel, the callable on the points
+as torch operations, and a contraction kernel, chunk by chunk, up to 16D.
+Past 16D what no kernel takes raises ValueError (``rule_route``) naming
+``rule_backend='torch'``.  A crease run's cut fraction (``split_fraction``)
 is computed by the route's kernel that holds the values, the fused kernel
 or the contraction.  The split kernels' plain versions are
 ``rule_points`` and ``rule_outputs`` (``rule_outputs_vector`` for a

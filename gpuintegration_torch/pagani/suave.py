@@ -25,8 +25,9 @@ prospective half is the normalized p-norm of |w f| over its samples, p =
 min(flatness, 16), in ratios-to-max form.
 
 The draws come from the Philox stream of mcubes/stream.py with a counter
-of their own, (slot id, sample slot, cycle, SUAVE_STREAM + 16 pass +
-block): ``vegas_assisted.region_draws`` with ``stream_base=SUAVE_STREAM``.
+of their own, (slot id, sample slot, cycle, SUAVE_STREAM + B pass +
+block), B = ``vegas_assisted.pass_blocks(ndim)``:
+``vegas_assisted.region_draws`` with ``stream_base=SUAVE_STREAM``.
 They repeat bitwise on the CPU and the card.
 
 Pool surgery (split and bookkeeping) runs on the host in NumPy, as in the
@@ -49,10 +50,10 @@ from gpuintegration_torch.pagani.workspace import _resolve_device
 from gpuintegration_torch.types import IntegrationResult, Volume
 from gpuintegration_torch.utils.stats import chi2_prob
 
-# The fourth counter word's base of Suave's draws (below it: 16 pass +
-# block, passes < vegas_assisted.MAX_PASSES).  Apart from the VEGAS
-# sampler's 4 slot + d / 4 (below 2^31), vegas_assisted.ASSISTED_STREAM's
-# [0xA55A0000, 0xA55B0000) and diff.FROZEN_STREAM (0xD1FF0000).
+# The fourth counter word's base of Suave's draws (above it: B pass +
+# block, below diff.FROZEN_STREAM: vegas_assisted.max_passes).  Apart from
+# the VEGAS sampler's 4 slot + d / 4 (below 2^31) and
+# vegas_assisted.ASSISTED_STREAM's words (below this base).
 SUAVE_STREAM = 0xB5A40000
 
 
@@ -195,8 +196,11 @@ def suave(
     f, ndim = make_integrand(integrand, ndim)
     if vol is None:
         vol = Volume(ndim=ndim)
-    if nmin > vegas_assisted.MAX_PASSES:
-        raise ValueError(f"nmin {nmin}: at most {vegas_assisted.MAX_PASSES}")
+    most = vegas_assisted.max_passes(ndim, SUAVE_STREAM)
+    if nmin > most:
+        raise ValueError(
+            f"nmin {nmin} at {ndim}D: passes past {most} would overlap the "
+            f"next stream's words (vegas_assisted.max_passes)")
     ncomp = deduce_ncomp(f, ndim, dtype, dev)
     p = float(min(flatness, 16.0))
     gl = torch.as_tensor(np.asarray(vol.lows), dtype=dtype, device=dev)

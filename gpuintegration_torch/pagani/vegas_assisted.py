@@ -17,9 +17,10 @@ host scalar as a product with its rounded reciprocal.
 
 The draws come from the Philox stream of mcubes/stream.py with a counter
 of their own, (global region id, sample slot, iteration, ASSISTED_STREAM +
-16 pass + block), block b holding uniforms 4b..4b+3 of the sample's 2 ndim
-(bin draws, then in-bin positions): they do not depend on how the regions
-are chunked, and repeat bitwise on the CPU and on the card.  The
+B pass + block), block b holding uniforms 4b..4b+3 of the sample's 2 ndim
+(bin draws, then in-bin positions), B = ``pass_blocks(ndim)`` blocks a
+pass (16 up to 32D): they do not depend on how the regions are chunked,
+and repeat bitwise on the CPU and on the card.  The
 per-(region, dimension) f^2 histogram is a stable sort by bin and a
 segmented sum (``torch.segment_reduce``), with no float atomics, so a run
 repeats bitwise too.
@@ -33,11 +34,15 @@ from gpuintegration_torch.mcubes import stream
 
 # The fourth counter word's base: the VEGAS sampler's fourth word is
 # 4 slot + d / 4 and the frozen estimate's diff.FROZEN_STREAM, so the
-# streams of one seed stay apart.  Below it: 16 pass + block.
+# streams of one seed stay apart.  Above it: B pass + block.
 ASSISTED_STREAM = 0xA55A0000
-MAX_PASSES = 1 << 12
-# 16 blocks of 4 uniforms a pass: 2 ndim <= 64
-MAX_NDIM = 32
+# The bases of the streams keyed this way, in counter order: ASSISTED_STREAM,
+# suave.SUAVE_STREAM, diff.FROZEN_STREAM (copies: those modules import this
+# one; tests hold them equal).  A stream's words stay below the next base,
+# the last one's below 2^32.
+STREAM_BASES = (ASSISTED_STREAM, 0xB5A40000, 0xD1FF0000)
+# Blocks of 4 uniforms a pass takes at least: 2 ndim <= 64 up to 32D
+PASS_BLOCKS = 16
 # bins a dimension of a region's grid (the reference's 100, Sample.cuh)
 NBINS = 100
 
@@ -92,20 +97,43 @@ def _refine_grids(grids, hist):
     return torch.where(dt > 0, refined, grids)
 
 
+def pass_blocks(ndim: int) -> int:
+    """B, the blocks of 4 uniforms that a pass of ``ndim`` dimensions owns:
+    PASS_BLOCKS up to 32D (the counter words of every earlier run), else
+    the ceil(2 ndim / 4) its 2 ndim uniforms fill, so that a pass's last
+    block never is the next pass's first."""
+    return max(PASS_BLOCKS, -(-2 * ndim // 4))
+
+
+def stream_limit(stream_base: int) -> int:
+    """The first fourth word above ``stream_base`` that another stream
+    owns: the next of STREAM_BASES, or 2^32."""
+    return min([b for b in STREAM_BASES if b > stream_base] + [1 << 32])
+
+
+def max_passes(ndim: int, stream_base: int = ASSISTED_STREAM) -> int:
+    """The passes of ``ndim`` dimensions whose words stay below
+    ``stream_limit(stream_base)``: pass p takes the words stream_base +
+    B p .. stream_base + B (p + 1) - 1."""
+    return (stream_limit(stream_base) - stream_base) // pass_blocks(ndim)
+
+
 def region_draws(seed: int, iteration: int, pass_: int, region_ids,
                  spp: int, ndim: int, stream_base: int = ASSISTED_STREAM):
     """(u_bin, u_pos): the uniforms of pass ``pass_`` for regions
     ``region_ids`` ((R,) int64 global ids below 2^32), each (R, spp, ndim)
     f32 in [0, 1): 24-bit uniforms of the Philox stream keyed on ``seed``,
-    counter (region id, slot, iteration, stream_base + 16 pass_ + block).
-    ``stream_base``: ASSISTED_STREAM here, suave.SUAVE_STREAM for Suave's
-    draws.  A pass holds at most 16 blocks (ndim <= 32), or its last
-    blocks would be the next pass's first."""
-    if not 0 <= pass_ < MAX_PASSES:
-        raise ValueError(f"pass {pass_}: 0 .. {MAX_PASSES - 1}")
-    if ndim > MAX_NDIM:
-        raise ValueError(f"{ndim} dimensions: a pass's 2 ndim uniforms take "
-                         f"at most 16 blocks of 4 (ndim <= {MAX_NDIM})")
+    counter (region id, slot, iteration, stream_base + B pass_ + block),
+    B = ``pass_blocks(ndim)``.  ``stream_base``: ASSISTED_STREAM here,
+    suave.SUAVE_STREAM for Suave's draws.  ValueError for a pass whose
+    words would overlap the next stream's (``max_passes``)."""
+    blocks = pass_blocks(ndim)
+    limit = stream_limit(stream_base)
+    if not 0 <= pass_ < max_passes(ndim, stream_base):
+        raise ValueError(
+            f"pass {pass_} at {ndim}D: its {blocks} blocks would overlap "
+            f"the next stream's words (base {limit:#x}); passes 0 .. "
+            f"{max_passes(ndim, stream_base) - 1}")
     k0, k1 = stream.seed_key(seed)
     ids = region_ids.to(torch.int64) & stream.MASK32
     dev = ids.device
@@ -118,7 +146,7 @@ def region_draws(seed: int, iteration: int, pass_: int, region_ids,
     nvals = 2 * ndim
     words = []
     for b in range(-(-nvals // 4)):
-        c3 = torch.full(shape, stream_base + 16 * pass_ + b,
+        c3 = torch.full(shape, stream_base + blocks * pass_ + b,
                         dtype=torch.int64, device=dev)
         words.extend(stream.philox4x32(c0, c1, c2, c3, k0, k1)[
             :min(4, nvals - 4 * b)])

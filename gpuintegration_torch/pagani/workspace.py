@@ -61,7 +61,8 @@ import torch
 
 from gpuintegration_torch.integrand import (_positional_arity, deduce_ncomp,
                                             make_integrand)
-from gpuintegration_torch.ops import integrand_gen, rule_eval
+from gpuintegration_torch.ops import (cuda_rule, genz_malik, integrand_gen,
+                                      rule_eval)
 from gpuintegration_torch.pagani import (fused_loop, region_pool, two_level,
                                          vegas_assisted as assisted)
 from gpuintegration_torch.pagani.classifier import HeuristicClassifier
@@ -242,9 +243,12 @@ class Workspace:
     rule_backend:     "cuda" (default): rule evaluation dispatched on the
                       pool's device -- on the card the CUDA kernels (a Genz
                       family of models.genz fused into the tile or generic
-                      kernel; any other callable through the split route's
-                      points and contraction kernels), on the CPU the plain
-                      version.  "torch": the plain PyTorch version on any
+                      kernel, past 16D into the wide one up to 24D; any
+                      other callable through the split route's points and
+                      contraction kernels, up to 16D), on the CPU the plain
+                      version.  Past 16D on the card, any other callable,
+                      a traced one, ``crease_split`` and more than 24D
+                      raise ValueError before the first launch.  "torch": the plain PyTorch version on any
                       device.  "fused" (the reference's "pallas"): a
                       scalar-per-axis callable f(x0, ..., x{n-1}) traced
                       into the fused tile or generic kernel
@@ -300,9 +304,11 @@ class Workspace:
                 1 << (pool_bytes_budget // per_region).bit_length() - 1,
                 16 * 1024 * 1024)
         self.max_pool_regions = max_pool_regions
-        tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
         if chunk_size is None:
-            per_region = tables.feval_padded * itemsize * 4
+            # the tables' padded point count, without building them (their
+            # 2^n corners take 3.2 GB at 24D)
+            feval_padded = -(-genz_malik.feval_per_region(ndim) // 128) * 128
+            per_region = feval_padded * itemsize * 4
             chunk_size = max(min(
                 region_pool.next_pow2(chunk_budget_bytes // per_region) // 2,
                 16384), 1024)
@@ -471,10 +477,21 @@ class Workspace:
                 raise ValueError("crease_split needs rule_backend='cuda'")
             if self.mesh is not None:
                 raise ValueError("mesh mode requires rule_backend='cuda'")
+            if ndim > integrand_gen.RULE_MAX_NDIM:
+                raise ValueError(cuda_rule.past_16d(
+                    "rule_backend='fused' (a traced callable's kernels)",
+                    ndim))
             integrand = integrand_gen.traced(
                 integrand, ndim, max_ndim=integrand_gen.RULE_MAX_NDIM)
         if crease_split and ncomp > 1:
             raise ValueError(_CREASE_SCALAR_ONLY)
+        if (self.rule_backend == "cuda" and device.type == "cuda"
+                and ndim > cuda_rule.MAX_NDIM):
+            # past 16D the card runs the wide route alone: what it does not
+            # take is refused here, before the first launch
+            if crease_split:
+                raise ValueError(cuda_rule.past_16d("crease_split", ndim))
+            cuda_rule.rule_route(ndim, integrand, ncomp)
         if ncomp > 1 and vegas_assisted:
             raise ValueError(
                 "vector-valued integrands refuse vegas_assisted (a scalar "

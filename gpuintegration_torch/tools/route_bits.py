@@ -8,7 +8,8 @@ finds (run it with ``PYTHONPATH`` set to another checkout's root to read
 that one), prints each kernel's registers, spill bytes and stack frame
 from nvcc's ``-Xptxas -v`` report, and runs the PAGANI main path,
 ``Workspace(8).integrate(f4_gaussian(8), 1e-3, 1e-40, fused=False)`` in
-f64, VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
+f64, the same at 10D (the generic route) and at 17D with a = 1 (the wide
+route; a checkout without it prints the refusal), VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
 'hybrid'; ncall 1e9 f32 'fused', 10 iterations, 5 adjusting; the grid map,
 ncall 1e8), BASELINE's 9D VEGAS Gaussian (``misc.gauss9d`` at 1e-3,
 ncall 1e9, 'hybrid') and 9D Genz F4 (a = 10) on the grid map at 1e-3,
@@ -52,6 +53,9 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"rule_generic_kernelILi(\d)E([df])Li(\d+)E", mangled)
     if m:
         return f"rule_generic_kernel<{m[1]}, {_TYPES[m[2]]}, {m[3]}>"
+    m = re.search(r"rule_wide_kernelILi(\d)E([df])E", mangled)
+    if m:
+        return f"rule_wide_kernel<{m[1]}, {_TYPES[m[2]]}>"
     # the generic route's kernel before its classes of dimensions, as an
     # older checkout's report names it
     m = re.search(r"rule_kernelILi(\d)E([df])(?:Lb([01])E)?", mangled)
@@ -114,12 +118,18 @@ def main() -> int:
                 lib.with_suffix(".log").read_text()).items()):
             print(f"ptxas: {name}: {regs} registers, {spills} spill bytes, "
                   f"{stack} bytes stack frame")
-    g = genz.f4_gaussian(8)
-    res = Workspace(8).integrate(g, 1e-3, 1e-40, fused=False)
-    print(f"main path: status {res.status} iters {res.iters} nregions "
-          f"{res.nregions} neval {res.neval} estimate "
-          f"{float(res.estimate).hex()} errorest "
-          f"{float(res.errorest).hex()}", flush=True)
+    for label, ndim, g in (("main path", 8, genz.f4_gaussian(8)),
+                           ("10D generic", 10, genz.f4_gaussian(10)),
+                           ("17D wide", 17, genz.f4_gaussian(17, a=1.0))):
+        try:
+            res = Workspace(ndim).integrate(g, 1e-3, 1e-40, fused=False)
+        except ValueError as e:      # a checkout without the wide route
+            print(f"{label}: refused ({e})", flush=True)
+            continue
+        print(f"{label}: status {res.status} iters {res.iters} nregions "
+              f"{res.nregions} neval {res.neval} estimate "
+              f"{float(res.estimate).hex()} errorest "
+              f"{float(res.errorest).hex()}", flush=True)
     g6 = genz.f4_gaussian(6)
     g9, vol9 = misc.gauss9d()
     for run, g, kw in (("run 1", g6, dict(ncall=1e8)),

@@ -30,7 +30,8 @@ from gpuintegration_tpu.pagani import region_pool as jax_region_pool
 from gpuintegration_torch import Workspace
 from gpuintegration_torch.integrand import make_integrand
 from gpuintegration_torch.models import genz
-from gpuintegration_torch.ops import cuda_build, cuda_rule, rule_eval
+from gpuintegration_torch.ops import (cuda_build, cuda_rule, integrand_gen,
+                                      rule_eval)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ["f1_oscillatory", "f2_product_peak", "f3_corner_peak",
@@ -218,16 +219,19 @@ def test_device_pool_goes_to_kernel(monkeypatch):
 def test_kernel_refuses_callable_and_non_cuda():
     """A callable on a pool off the CPU reaches the split route, whose
     wrapper refuses a pool that is not on the card (no plain fallback);
-    the fused wrapper refuses it too, and a dimension past 16."""
+    the fused wrapper refuses it too, and a traced callable past 16D
+    (past 16D only a Genz family's wide route runs)."""
     tables = rule_eval.rule_tables(3)
     with pytest.raises(ValueError,
                        match="cuda_apply_rule_split needs CUDA tensors"):
         rule_eval.apply_rule(lambda x, y, z: x * y * z, tables, *_meta_pool())
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         cuda_rule.cuda_apply_rule(genz.f4_gaussian(3), tables, *_meta_pool())
+    names = ", ".join(f"x{d}" for d in range(17))
+    traced = integrand_gen.traced(eval(f"lambda {names}: x0 * x1"), 17)
     with pytest.raises(ValueError, match="ndim 2..16"):
-        cuda_rule.cuda_apply_rule(genz.f4_gaussian(17),
-                                  rule_eval.rule_tables(17), *_meta_pool(17))
+        cuda_rule.cuda_apply_rule(traced, rule_eval.rule_tables(17),
+                                  *_meta_pool(17))
 
 
 def test_kernel_params_of_each_family():

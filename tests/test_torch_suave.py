@@ -395,15 +395,21 @@ def test_port_against_reference_statistically(case):
 
 # -- the draws' counter words -------------------------------------------------
 
-def test_stream_ranges_disjoint():
+@pytest.mark.parametrize("ndim", [1, 32, 33, 64])
+def test_stream_ranges_disjoint(ndim):
     """Fourth counter words: the VEGAS sampler's 4 slot + d / 4 (below 2^31
-    for any npg below 2^29), ASSISTED's and SUAVE's [base, base + 16
-    MAX_PASSES), diff.FROZEN_STREAM's one word: pairwise disjoint."""
-    passes = TA.MAX_PASSES
+    for any npg below 2^29), ASSISTED's and SUAVE's [base, base + B
+    max_passes) at this ndim, diff.FROZEN_STREAM's one word: pairwise
+    disjoint; the module's copies of the bases are the streams' own."""
+    assert TA.STREAM_BASES == (TA.ASSISTED_STREAM, TS.SUAVE_STREAM,
+                               diff.FROZEN_STREAM)
+    blocks = TA.pass_blocks(ndim)
     ranges = {
         "sampler": (0, 1 << 31),
-        "assisted": (TA.ASSISTED_STREAM, TA.ASSISTED_STREAM + 16 * passes),
-        "suave": (TS.SUAVE_STREAM, TS.SUAVE_STREAM + 16 * passes),
+        "assisted": (TA.ASSISTED_STREAM, TA.ASSISTED_STREAM + blocks
+                     * TA.max_passes(ndim, TA.ASSISTED_STREAM)),
+        "suave": (TS.SUAVE_STREAM, TS.SUAVE_STREAM + blocks
+                  * TA.max_passes(ndim, TS.SUAVE_STREAM)),
         "frozen": (diff.FROZEN_STREAM, diff.FROZEN_STREAM + 1),
     }
     names = list(ranges)
@@ -448,10 +454,69 @@ def test_assisted_words_unchanged_and_suave_stream(ndim):
     assert not torch.equal(s_bin, u_bin)
 
 
-def test_region_draws_refuses_overlapping_blocks():
-    """Past 32 dimensions a pass's 2 ndim uniforms need more than 16
-    blocks, and block 16 of pass p would be block 0 of pass p + 1."""
-    ids = torch.arange(2, dtype=torch.int64)
-    TA.region_draws(0, 0, 0, ids, 2, TA.MAX_NDIM)
-    with pytest.raises(ValueError, match="ndim <= 32"):
-        TA.region_draws(0, 0, 0, ids, 2, TA.MAX_NDIM + 1)
+@pytest.mark.parametrize("base", [TA.ASSISTED_STREAM, TS.SUAVE_STREAM])
+@pytest.mark.parametrize("ndim", [33, 64])
+def test_region_draws_refuses_overlapping_blocks(ndim, base):
+    """Past 32 dimensions a pass's 2 ndim uniforms fill more than 16
+    blocks, and a pass owns B = ceil(2 ndim / 4) of them: its draws are the
+    words base + B p + b, written out here, pass p's last word below pass
+    p + 1's first; the last pass whose words stay below the next stream's
+    base draws, the next one raises."""
+    blocks = TA.pass_blocks(ndim)
+    used = -(-2 * ndim // 4)
+    assert blocks == used > 16
+    ids = torch.arange(3, dtype=torch.int64) * 5 + 2
+    spp, it = 3, 6
+    last = TA.max_passes(ndim, base) - 1
+    for p in (0, 1, 7, last):
+        first_word = base + blocks * p
+        assert first_word + used - 1 < base + blocks * (p + 1)
+        u_bin, u_pos = TA.region_draws(5, it, p, ids, spp, ndim,
+                                       stream_base=base)
+        words = []
+        for b in range(used):
+            words.extend(_philox_words(5, ids, spp, it, first_word + b)[
+                :min(4, 2 * ndim - 4 * b)])
+        want = stream.bits_to_uniform(torch.stack(words, dim=-1))
+        assert torch.equal(torch.cat([u_bin, u_pos], dim=-1), want)
+    assert base + blocks * (last + 1) <= TA.stream_limit(base)
+    assert base + blocks * (last + 2) > TA.stream_limit(base)
+    with pytest.raises(ValueError, match="overlap the next stream"):
+        TA.region_draws(5, it, last + 1, ids, spp, ndim, stream_base=base)
+
+
+@pytest.mark.parametrize("ndim", range(1, 33))
+def test_region_draws_keep_the_words_up_to_32d(ndim):
+    """Up to 32D a pass owns 16 blocks, as before the blocks grew with
+    ndim: the draws are the words base + 16 pass + block, written out
+    here, bit for bit, on both streams and at the 4096 passes the draws
+    took before (the last one 4095)."""
+    assert TA.pass_blocks(ndim) == 16
+    ids = torch.arange(2, dtype=torch.int64) * 7 + 1
+    spp, it = 2, 3
+    for base in (TA.ASSISTED_STREAM, TS.SUAVE_STREAM):
+        for p in (0, 5, 4095):
+            got = torch.cat(TA.region_draws(9, it, p, ids, spp, ndim,
+                                            stream_base=base), dim=-1)
+            words = []
+            for b in range(-(-2 * ndim // 4)):
+                words.extend(_philox_words(9, ids, spp, it,
+                                           base + 16 * p + b)[
+                    :min(4, 2 * ndim - 4 * b)])
+            assert torch.equal(got, stream.bits_to_uniform(
+                torch.stack(words, dim=-1)))
+
+
+def test_suave_past_32d_against_reference():
+    """33D Genz F4 (a = 1) at 1e-2, nnew 256, 3 cycles: the reference runs
+    there and so does the port now (its draws took at most 32D).  Their
+    draws differ (Philox against Threefry), so the estimates are held to
+    each other statistically: within 3 of their errorests together; both
+    end where the reference does, at the cycle budget."""
+    kw = dict(nnew=256, max_cycles=3)
+    ref = JS.suave(jax_genz.f4_gaussian(33, a=1.0), 1e-2, **kw)
+    got = TS.suave(genz.f4_gaussian(33, a=1.0), 1e-2, **kw, **CPU)
+    assert ref.status == got.status == 1 and got.iters == ref.iters == 3
+    assert np.isfinite(got.estimate) and got.errorest > 0
+    assert abs(got.estimate - ref.estimate) <= 3 * (got.errorest
+                                                    + ref.errorest)

@@ -147,7 +147,7 @@ def test_draws_repeat_and_do_not_depend_on_chunking():
         assert not torch.equal(a[0], other[0])
     assert not torch.equal(a[0], a[1])
     with pytest.raises(ValueError, match="pass"):
-        TA.region_draws(3, 2, TA.MAX_PASSES, ids, 16, 5)
+        TA.region_draws(3, 2, TA.max_passes(5), ids, 16, 5)
 
 
 def test_estimates_match_reference_statistically():
