@@ -365,7 +365,20 @@ timed beside the others in the same run.
    kernel's share by CUDA events (host loop); the kernel timed at 17D, 20D
    and 24D on pools of 132 k regions, f64 and f32, beside its operations
    bound and the plain version;
-31. the ``kernels`` JSON line, then the card line and the result line.
+31. PAGANI past 16D on B1's split route (any callable, a vector, at
+   17-24D: ``rule_points_wide_kernel`` and the contractions' wide
+   instances, csrc/rule_split.cu): the split route against its plain
+   version at 17D (64 regions), 20D (8) and 24D (1 in f64, 2 in f32),
+   points and values EQUAL, each scalar contraction route within
+   kernel_check's limits, split_dim EQUAL, and a vector's 4 components on
+   both vector routes; the points kernel on a 17D f32 chunk of 1024
+   regions (past 2^31 coordinates); 17D F4 (a = 1) as a plain callable at
+   1e-3 against phase 30's wide-route run and ``rule_backend='torch'``
+   (the same decisions), a 17D vector [F4, F3], 20D F4 as a callable at
+   1e-3 against the wide route's run, each with the wall's shares by CUDA
+   events; the refusals (25D, a 17D crease run, a 17D traced callable);
+   the kernels timed at the chunks past 16D;
+32. the ``kernels`` JSON line, then the card line and the result line.
 
 Phases 1-14 run PAGANI's host loop (``fused=False``, ``HOST``), as they
 did before the fused phase became ``integrate``'s default.
@@ -6239,6 +6252,485 @@ def wide_times(dev) -> list[dict]:
 
 
 
+# ---------------------------------------------------------------------------
+# PAGANI past 16D on B1's split route: any callable, a vector (phase 31)
+
+# (ndim, regions in f64, regions in f32) where the split kernels are held
+# alone against their plain versions
+SPLIT_WIDE_CHECKS = ((17, 64, 64), (20, 8, 8), (24, 1, 2))
+SPLIT_WIDE_NCOMP = 4
+# a 17D f32 points chunk of 1024 regions: 2.41e9 coordinates, 9.6 GB
+SPLIT_WIDE_BIG = (17, 1024)
+# the vector run's corner peak: Genz F3 with every a_i = F3_17_COEFF (the
+# default a_i = 1..17 leave the integral at 2.9e-30, which 12 iterations
+# on the CPU did not resolve, 14 % off; below 0.1 the closed form's
+# alternating sum over the 2^17 corners cancels to a few per cent), at most
+# VEC17_ITERS iterations: on the CPU 8 gave F3 within 2.4e-4 of its closed
+# form, its errorest at 1.2 % (status 1)
+F3_17_COEFF = 0.1
+VEC17_ITERS = 10
+
+
+def wrapped_f4(ndim):
+    """Genz F4 (a = 1, b = 1/2) and the same function as a plain callable,
+    which no fused kernel knows (``is_genz_family`` false): the split
+    route's integrand."""
+    g = genz.f4_gaussian(ndim, a=1.0)
+    return g, (lambda x: g(x))
+
+
+def wide_vector(ndim):
+    """Four components on one point set: wrapped F4, sin_sum, their product
+    and cos of the sum, stacked component-minor."""
+    g, _ = wrapped_f4(ndim)
+    s = misc.sin_sum(ndim)
+
+    def f(x):
+        a, b = g(x), s(x)
+        return torch.stack([a, b, a * b, torch.cos(x.sum(-1))], dim=-1)
+
+    f.ndim = ndim
+    return f
+
+
+def split_wide_checks(dev) -> dict:
+    """Phase 31 (a): at 17D (64 regions), 20D (8) and 24D (1 region f64, 2
+    f32), f64 and f32: the split route against its plain version, points
+    EQUAL (bits and strides) and values EQUAL, est and err within
+    kernel_check's limits and split_dim EQUAL, on each scalar contraction
+    route; the vector contraction (4 components, component-minor) on both
+    vector routes against rule_outputs_vector, split_dim EQUAL.  Returns
+    the largest |d est| by kernel."""
+    worst = {"contract": 0.0, "components": 0.0}
+    for ndim, n64, n32 in SPLIT_WIDE_CHECKS:
+        for dtype, count in ((torch.float64, n64), (torch.float32, n32)):
+            lows, lengths = wide_pool(ndim, count, 40 + ndim, dtype, dev)
+            gl = torch.zeros(ndim, dtype=dtype, device=dev)
+            gr = torch.ones(ndim, dtype=dtype, device=dev)
+            tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+            args = (tables, lows, lengths, gl, gr)
+            _, f = wrapped_f4(ndim)
+            label = f"phase 31: {ndim}D {str(dtype)[6:]} {count} regions"
+            for route in cuda_rule.CONTRACT_ROUTES:
+                r = compare_split(label, f, *args, route=route,
+                                  chunk_size=count, min_agree=0.0)
+                worst["contract"] = max(worst["contract"], r["max_abs_est"])
+            fv = wide_vector(ndim)
+            x = cuda_rule.split_points(*args, 0, count)
+            vals = fv(x).to(dtype)
+            del x
+            plain = rule_eval.rule_outputs_vector(vals, tables, lengths, gr)
+
+            def component(k):
+                return lambda y: fv(y)[..., k]
+
+            u = torch.stack([kernel_check.value_scales(component(k), *args)[1]
+                             for k in range(SPLIT_WIDE_NCOMP)], dim=-1)
+            for route in cuda_rule.VECTOR_ROUTES:
+                cuda_rule.reset_launches()
+                got = cuda_rule.split_contract_components(vals, *args, 0,
+                                                          route=route)
+                torch.cuda.synchronize()
+                try:
+                    r = kernel_check.check_components(
+                        got, plain, vals, u, tables, lengths, gr,
+                        name=f"{label} {route}")
+                except AssertionError as e:
+                    fail(str(e))
+                print(f"{label}, vector of {SPLIT_WIDE_NCOMP} "
+                      f"(component-minor), contraction {route}: est "
+                      f"{r['est_ulps']:.3g}, err {r['err_ulps']:.3g} ulps "
+                      f"beyond rtol (limits 1/1); split_dim EQUAL in "
+                      f"{r['split_dim_equal']} of {count}; launches "
+                      f"{dict(cuda_rule.contract_route_launches)}",
+                      flush=True)
+                if cuda_rule.contract_route_launches[route] != 1:
+                    fail(f"{label}: the vector contraction did not take "
+                         f"{route}")
+                worst["components"] = max(worst["components"],
+                                          r["max_abs_est"])
+            del vals, u
+            torch.cuda.empty_cache()
+    return worst
+
+
+def split_wide_big(dev) -> dict:
+    """Phase 31 (b): the points kernel on a 17D f32 chunk of 1024 regions
+    (more than 2^31 coordinates), its first and last regions EQUAL to
+    rule_points of those two regions, and timed (best of 3 by events)
+    beside its bytes bound."""
+    ndim, count = SPLIT_WIDE_BIG
+    lows, lengths = wide_pool(ndim, count, 51, torch.float32, dev)
+    gl = torch.zeros(ndim, dtype=torch.float32, device=dev)
+    gr = torch.ones(ndim, dtype=torch.float32, device=dev)
+    tables = rule_eval.rule_tables(ndim, "float32")
+    args = (tables, lows, lengths, gl, gr)
+    x = cuda_rule.split_points(*args, 0, count)
+    ends = torch.tensor([0, count - 1], device=dev)
+    want, _, _ = rule_eval.rule_points(tables, lows[:, ends],
+                                       lengths[:, ends], gl, gr)
+    same = torch.equal(x[ends].contiguous().view(torch.int32),
+                       want.contiguous().view(torch.int32))
+    elements = x.numel()
+    del x, want
+    ms = time_ms(lambda: cuda_rule.split_points(*args, 0, count), 3)
+    b = bytes_bound_ms(elements * 4)
+    print(f"phase 31: points kernel, 17D f32 chunk of {count} regions "
+          f"({elements} coordinates, {elements * 4 / 1e9:.2f} GB): first "
+          f"and last regions EQUAL to rule_points: {same}; {ms:.3f} ms, "
+          f"bound {b:.3f} ms (bytes, {100 * b / ms:.1f}% of it)", flush=True)
+    torch.cuda.empty_cache()
+    if not same or elements <= 2 ** 31:
+        fail("phase 31: the points kernel past 2^31 coordinates differs "
+             "from rule_points")
+    return {"regions": count, "coordinates": elements, "ms": ms,
+            "bound_ms": b}
+
+
+def split_wide_run(label, ndim, f, epsrel, ws_kw=None, per_call=False,
+                   **kw) -> dict:
+    """One phase 31 run: ``Workspace(ndim, **ws_kw).integrate(f, epsrel,
+    1e-40, fused=False)`` with the counts set to 0 before and read after,
+    CUDA events around each split launch and call of the callable
+    (``SplitEvents``) on the split route; with ``per_call`` the points
+    launches of each rule evaluation (the chunks an iteration)."""
+    ws = Workspace(ndim, **(ws_kw or {}))
+    chunks = []
+    split = cuda_rule.cuda_apply_rule_split
+
+    def counted(*args, **kwargs):
+        before = cuda_rule.split_launches["points"]
+        out = split(*args, **kwargs)
+        chunks.append(cuda_rule.split_launches["points"] - before)
+        return out
+
+    torch.cuda.synchronize()
+    cuda_rule.reset_launches()
+    fused_loop.reset_stats()
+    if per_call:
+        cuda_rule.cuda_apply_rule_split = counted
+    try:
+        with SplitEvents(f) as ev:
+            t0 = time.perf_counter()
+            res = ws.integrate(ev.f, epsrel, 1e-40, fused=False, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        cuda_rule.cuda_apply_rule_split = split
+    parts = ev.seconds
+    vector = res.estimates is not None
+    row = {"label": label, "ndim": ndim, "status": res.status,
+           "iters": res.iters, "nregions": res.nregions, "neval": res.neval,
+           "estimate": (res.estimates.tolist() if vector
+                        else res.estimate),
+           "errorest": (res.errorests.tolist() if vector
+                        else res.errorest),
+           "wall_s": wall, "split_launches": dict(cuda_rule.split_launches),
+           "contract_routes": dict(cuda_rule.contract_route_launches),
+           "fused_launches": cuda_rule.launches,
+           "seconds": parts, "chunks_by_iteration": chunks or None,
+           "bits": (res.status, res.iters, res.nregions, res.neval,
+                    float(res.estimate).hex(), float(res.errorest).hex())}
+    print(f"phase 31: {label}: status {res.status} estimate "
+          f"{row['estimate']!r} errorest {row['errorest']!r} iters "
+          f"{res.iters} nregions {res.nregions} neval {res.neval} wall "
+          f"{wall:.3f} s; split launches {row['split_launches']}, "
+          f"contraction by route {row['contract_routes']}, fused kernels "
+          f"{cuda_rule.launches}; by CUDA events: points kernel "
+          f"{parts['points']:.4f} s, the callable {parts['callable']:.4f} s, "
+          f"contraction {parts['contract']:.4f} s, the rest "
+          f"{wall - sum(parts.values()):.4f} s ("
+          f"{100 * parts['points'] / wall:.1f} / "
+          f"{100 * parts['callable'] / wall:.1f} / "
+          f"{100 * parts['contract'] / wall:.1f} % of the wall)"
+          + (f"; chunks by iteration {chunks}" if chunks else ""),
+          flush=True)
+    return row
+
+
+def same_decisions(a, b) -> bool:
+    return all(a[k] == b[k] for k in ("status", "iters", "nregions",
+                                      "neval"))
+
+
+def split_wide_path(dev, wide_runs) -> dict:
+    """Phase 31 (c)-(f).  (c) 17D F4 (a = 1) as a plain callable at 1e-3
+    on the host loop: the wide route's decisions (phase 30's host run:
+    status 0, 6 iterations, 32 regions, neval 8,711,703), the estimate
+    within 1e-12, and ``rule_backend='torch'`` on the card the same; every
+    rule evaluation through the split kernels.  (d) A 17D vector [wrapped
+    F4, F3 (a_i = F3_17_COEFF)] at 1e-3, VEC17_ITERS iterations at most:
+    each component within epsrel of its closed form (its status printed),
+    and ``rule_backend='torch'`` the same decisions.  (e)
+    20D wrapped F4 at 1e-3 against the wide route's run at 1e-3: the same
+    decisions, the chunks an iteration printed.  (f) The refusals: a 25D
+    callable, a 17D crease run, a 17D traced callable."""
+    label, ndim, a, eps = WIDE17
+    _, f17 = wrapped_f4(ndim)
+    host = split_wide_run("17D F4 as a callable, host loop", ndim, f17, eps)
+    wide = wide_runs["17d"][0]
+    plain = split_wide_run("17D F4 as a callable, rule_backend='torch'", ndim,
+                           f17, eps, ws_kw=dict(rule_backend="torch",
+                                                chunk_size=WIDE_TORCH_CHUNK))
+    for other in (wide, plain):
+        drift = abs(other["estimate"] - host["estimate"]) / abs(
+            host["estimate"])
+        print(f"phase 31: 17D callable against {other['label']}: the same "
+              f"decisions {same_decisions(host, other)}, estimates "
+              f"{drift:.3e} apart (relative)", flush=True)
+        if not same_decisions(host, other) or not drift <= 1e-12:
+            fail(f"phase 31: the 17D callable's run {host['bits']} differs "
+                 f"from {other['label']} {other['bits']}")
+    launches = host["split_launches"]
+    if (host["status"] != 0 or host["fused_launches"] or not launches["points"]
+            or launches["points"] != launches["contract"]
+            or plain["fused_launches"] or plain["split_launches"]["points"]):
+        fail(f"phase 31: the 17D callable's launches {launches}, fused "
+             f"{host['fused_launches']}; rule_backend='torch' "
+             f"{plain['split_launches']}")
+
+    g4 = genz.f4_gaussian(ndim, a=1.0)
+    g3 = genz.f3_corner_peak(ndim, coeffs=[F3_17_COEFF] * ndim)
+
+    def fvec(x):
+        return torch.stack([g4(x), g3(x)], dim=-1)
+
+    fvec.ndim = ndim
+    truths = np.array([g4.true_value, g3.true_value])
+    vec = split_wide_run("17D vector [F4 as a callable, F3], host loop", ndim,
+                         fvec, eps, max_iterations=VEC17_ITERS)
+    vec_plain = split_wide_run("17D vector, rule_backend='torch'", ndim, fvec,
+                               eps, ws_kw=dict(rule_backend="torch",
+                                               chunk_size=WIDE_TORCH_CHUNK),
+                               max_iterations=VEC17_ITERS)
+    est = np.array(vec["estimate"])
+    rel = np.abs(est - truths) / np.abs(truths)
+    drift = float(np.max(np.abs(est - np.array(vec_plain["estimate"]))
+                         / np.abs(est)))
+    print(f"phase 31: 17D vector: truths {truths.tolist()}, relative errors "
+          f"{rel.tolist()}; rule_backend='torch' the same decisions "
+          f"{same_decisions(vec, vec_plain)}, estimates {drift:.3e} apart",
+          flush=True)
+    if (not np.all(rel <= eps)
+            or not same_decisions(vec, vec_plain) or not drift <= 1e-12
+            or not vec["contract_routes"]["components_cluster"]
+            + vec["contract_routes"]["components"]):
+        fail(f"phase 31: the 17D vector run: {vec}")
+
+    _, f20 = wrapped_f4(20)
+    wide20 = wide_run("20D F4 at 1e-3, wide route", 20, 1.0, 1e-3,
+                      fused=False)
+    run20 = split_wide_run("20D F4 as a callable at 1e-3, host loop", 20, f20,
+                           1e-3, per_call=True)
+    drift = abs(wide20["estimate"] - run20["estimate"]) / abs(
+        wide20["estimate"])
+    print(f"phase 31: 20D callable against the wide route: the same "
+          f"decisions {same_decisions(run20, wide20)}, estimates "
+          f"{drift:.3e} apart; chunk of {cuda_rule.split_chunk_size(20, torch.float64, None)} "
+          f"regions", flush=True)
+    if not same_decisions(run20, wide20) or not drift <= 1e-12 or \
+            run20["fused_launches"] or not run20["split_launches"]["points"]:
+        fail(f"phase 31: the 20D callable's run {run20['bits']} differs "
+             f"from the wide route's {wide20['bits']}")
+
+    names = ", ".join(f"x{d}" for d in range(17))
+    per_axis = eval(f"lambda {names}: x0 * x1", {"torch": torch})
+    refusals = {}
+    for what, ws, f, kw in (
+            ("a 25D callable", Workspace(25), lambda x: torch.exp(-x.sum(-1)),
+             {}),
+            ("a 17D crease run", Workspace(17), f17, {"crease_split": True}),
+            ("a 17D traced callable", Workspace(17, rule_backend="fused"),
+             per_axis, {})):
+        cuda_rule.reset_launches()
+        try:
+            ws.integrate(f, 1e-3, **kw)
+            refusals[what] = None
+        except ValueError as e:
+            refusals[what] = str(e)
+        launched = cuda_rule.launches + sum(cuda_rule.split_launches.values())
+        print(f"phase 31: {what}: {refusals[what]!r}; launches {launched}",
+              flush=True)
+        if not refusals[what] or "rule_backend='torch'" not in refusals[what] \
+                or launched:
+            fail(f"phase 31: {what} was not refused before any launch")
+    return {"17d": [host, plain], "17d_vector": [vec, vec_plain],
+            "20d": [run20, wide20], "refusals": refusals}
+
+
+def split_wide_kernels(err, big, runs, rows) -> list[dict]:
+    """The kernels line's entries of the split route past 16D: the numbers
+    at the 20D f64 chunk (25 regions), the launches of phase 31's 20D
+    host-loop run (counted from 0 over the run) and of each run, every
+    timed shape."""
+    row = next(r for r in rows if r["ndim"] == 20 and r["dtype"] == "float64")
+    run20 = runs["20d"][0]
+    by_run = {r["label"]: r["split_launches"]
+              for key in ("17d", "17d_vector", "20d") for r in runs[key]
+              if "split_launches" in r}
+    held = ("phase 31 (17D 64 regions, 20D 8, 24D 1 f64 / 2 f32; f64 and "
+            "f32)")
+    common = {"route": "cuda",
+              "source": "gpuintegration_torch/csrc/rule_split.cu",
+              "replaces": "gpuintegration_tpu/ops/pallas_rule.py:86"}
+    return [{
+        "name": "rule_split_points_wide", **common,
+        "held_against_plain_in": f"{held}: EQUAL to rule_eval.rule_points; "
+                                 "a 17D f32 chunk past 2^31 coordinates",
+        "launches": run20["split_launches"]["points"],
+        "launches_by_run": {k: v["points"] for k, v in by_run.items()},
+        "max_abs_err": 0.0,
+        "ms": row["points_ms"], "plain_ms": row["plain_points_ms"],
+        "bound_ms": row["points_bound_ms"], "bound_by": "bytes",
+        "library_ms": row["addcmul_ms"],
+        "past_2_31": big,
+        "shapes": [{k: r[k] for k in ("ndim", "dtype", "regions",
+                                      "points_ms", "points_bound_ms")
+                    } | {"plain_ms": r.get("plain_points_ms"),
+                         "library_ms": r.get("addcmul_ms")} for r in rows],
+    }, {
+        "name": "rule_split_contract_wide", **common,
+        "held_against_plain_in": f"{held}: rule_eval.rule_outputs, both "
+                                 "routes, split_dim EQUAL",
+        "launches": run20["split_launches"]["contract"],
+        "launches_by_route": run20["contract_routes"],
+        "launches_by_run": {k: v["contract"] for k, v in by_run.items()},
+        "max_abs_err": err["contract"],
+        "ms": row["cluster_ms"], "generic_route_ms": row["generic_ms"],
+        "plain_ms": row["plain_contract_ms"],
+        "bound_ms": row["contract_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "sums_only_matmul_ms": row["sums_only_matmul_ms"],
+        "shapes": [{k: r.get(k) for k in (
+            "ndim", "dtype", "regions", "cluster_ms", "generic_ms",
+            "contract_bound_ms", "plain_contract_ms",
+            "sums_only_matmul_ms")} for r in rows],
+    }, {
+        "name": "rule_contract_components_wide", **common,
+        "counterpart_of": "gpuintegration_tpu/ops/rule_eval.py:386 "
+                          "(_eval_chunk_vector, XLA in the reference)",
+        "held_against_plain_in": f"{held}: rule_eval.rule_outputs_vector, "
+                                 f"{SPLIT_WIDE_NCOMP} components, both "
+                                 "routes, split_dim EQUAL",
+        "launches": (runs["17d_vector"][0]["contract_routes"]
+                     ["components_cluster"]
+                     + runs["17d_vector"][0]["contract_routes"]
+                     ["components"]),
+        "launches_by_route": {r: runs["17d_vector"][0]["contract_routes"][r]
+                              for r in cuda_rule.VECTOR_ROUTES},
+        "max_abs_err": err["components"],
+        "ms": row["components_cluster_ms"],
+        "components_route_ms": row["components_ms"],
+        "plain_ms": row["plain_components_ms"],
+        "bound_ms": row["components_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "sums_only_matmul_ms": row["vector_sums_only_matmul_ms"],
+        "shapes": [{k: r.get(k) for k in (
+            "ndim", "dtype", "regions", "components_cluster_ms",
+            "components_ms", "components_bound_ms", "plain_components_ms",
+            "vector_sums_only_matmul_ms")} for r in rows],
+        "runs": [{k: r[k] for k in ("label", "status", "iters", "nregions",
+                                    "neval", "estimate", "errorest",
+                                    "wall_s", "seconds",
+                                    "chunks_by_iteration")}
+                 for key in ("17d", "17d_vector", "20d")
+                 for r in runs[key] if "seconds" in r],
+    }]
+
+
+def split_wide_times(dev) -> list[dict]:
+    """Phase 31 (g): the split kernels alone at the chunks past 16D (17D
+    228 regions, 20D 25, 24D 1 in f64; 456, 50, 2 in f32), wrapped F4's
+    values as rows: the points kernel beside its bytes bound, rule_points
+    and torch.addcmul; the scalar contraction on each route beside its
+    bytes bound, rule_outputs and torch.matmul of the rule sums alone
+    (TF32 off); the vector contraction (4 components) on each route beside
+    rule_outputs_vector and the sums alone.  Best of 3 by CUDA events
+    (``time_ms``; the generic routes at 24D once, after a warm call); the
+    plain versions once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for ndim in (17, 20, 24):
+        for dtype in (torch.float64, torch.float32):
+            count = cuda_rule.split_chunk_size(ndim, dtype, None)
+            item = torch.finfo(dtype).bits // 8
+            lows, lengths = wide_pool(ndim, count, 60 + ndim, dtype, dev)
+            gl = torch.zeros(ndim, dtype=dtype, device=dev)
+            gr = torch.ones(ndim, dtype=dtype, device=dev)
+            tables = rule_eval.rule_tables(ndim, rule_eval.dtype_name(dtype))
+            args = (tables, lows, lengths, gl, gr)
+            feval = tables.feval
+            row = {"ndim": ndim, "dtype": str(dtype)[6:], "regions": count,
+                   "feval": feval}
+            row["points_ms"] = time_ms(
+                lambda: cuda_rule.split_points(*args, 0, count), 3)
+            row["points_bound_ms"] = bytes_bound_ms(
+                count * feval * ndim * item + 4 * ndim * count * item)
+            if dtype == torch.float64:
+                row["plain_points_ms"] = once_ms(
+                    lambda: rule_eval.rule_points(*args))
+                _, cen, ln = rule_eval.rule_points(*args)
+                gen = rule_eval.device_tables(ndim, dtype, dev)[0]
+                cen3, ln3 = cen.T[:, None, :], ln.T[:, None, :]
+                row["addcmul_ms"] = time_ms(lambda: torch.addcmul(
+                    cen3, gen[None], ln3, value=-1), 3)
+                del cen3, ln3, gen
+            x = cuda_rule.split_points(*args, 0, count)
+            g, _ = wrapped_f4(ndim)
+            vals = g(x).to(dtype)
+            vvals = wide_vector(ndim)(x).to(dtype)
+            del x
+            row["contract_bound_ms"] = bytes_bound_ms(count * feval * item)
+            # the generic routes' 24D launch, a lane of one block for the
+            # region's 16.8M points, is timed once after its warm call
+            reps = {"cluster": 3, "components_cluster": 3,
+                    "generic": 1 if ndim == 24 else 3,
+                    "components": 1 if ndim == 24 else 3}
+            for route in cuda_rule.CONTRACT_ROUTES:
+                row[f"{route}_ms"] = time_ms(lambda: cuda_rule.split_contract(
+                    vals, *args, 0, route=route), reps[route])
+            row["components_bound_ms"] = bytes_bound_ms(
+                count * feval * SPLIT_WIDE_NCOMP * item)
+            for route in cuda_rule.VECTOR_ROUTES:
+                row[f"{route}_ms"] = time_ms(
+                    lambda: cuda_rule.split_contract_components(
+                        vvals, *args, 0, route=route), reps[route])
+            wts = torch.as_tensor(np.ascontiguousarray(
+                tables.wts[:feval, :5]), device=dev)
+            row["sums_only_matmul_ms"] = time_ms(
+                lambda: torch.matmul(vals, wts), 3)
+            row["vector_sums_only_matmul_ms"] = time_ms(
+                lambda: torch.matmul(vvals.transpose(1, 2), wts), 3)
+            if dtype == torch.float64:
+                row["plain_contract_ms"] = once_ms(
+                    lambda: rule_eval.rule_outputs(vals, tables, lengths, gr))
+                row["plain_components_ms"] = once_ms(
+                    lambda: rule_eval.rule_outputs_vector(vvals, tables,
+                                                          lengths, gr))
+            del vals, vvals, wts
+            torch.cuda.empty_cache()
+            rows.append(row)
+            print(f"phase 31: split kernels at {ndim}D {row['dtype']}, a "
+                  f"chunk of {count} regions x {feval} points: points "
+                  f"{row['points_ms']:.4f} ms (bound "
+                  f"{row['points_bound_ms']:.4f}, plain "
+                  f"{row.get('plain_points_ms', float('nan')):.3f}, "
+                  f"addcmul {row.get('addcmul_ms', float('nan')):.4f}); "
+                  f"contraction cluster {row['cluster_ms']:.4f} / generic "
+                  f"{row['generic_ms']:.4f} ms (bound "
+                  f"{row['contract_bound_ms']:.4f}, plain "
+                  f"{row.get('plain_contract_ms', float('nan')):.3f}, sums "
+                  f"alone by matmul {row['sums_only_matmul_ms']:.4f}); "
+                  f"vector of {SPLIT_WIDE_NCOMP} components_cluster "
+                  f"{row['components_cluster_ms']:.4f} / components "
+                  f"{row['components_ms']:.4f} ms (bound "
+                  f"{row['components_bound_ms']:.4f}, plain "
+                  f"{row.get('plain_components_ms', float('nan')):.3f}, "
+                  f"sums alone {row['vector_sums_only_matmul_ms']:.4f})",
+                  flush=True)
+    return rows
+
+
 def _launch_totals(launches) -> dict:
     """A case's launches on a rank by the kernels line's names."""
     return {"rule_eval": launches["rule_total"],
@@ -6617,7 +7109,14 @@ def main() -> int:
     wide_rows = wide_times(dev)
     phase_done("phase 30")
 
-    # -- phase 31: the kernels line, the card line, the result line ---------
+    # -- phase 31: PAGANI past 16D on B1's split route ----------------------
+    split_wide_err = split_wide_checks(dev)
+    split_wide_points = split_wide_big(dev)
+    split_wide_runs = split_wide_path(dev, wide_runs)
+    split_wide_rows = split_wide_times(dev)
+    phase_done("phase 31")
+
+    # -- phase 32: the kernels line, the card line, the result line ---------
     kernels = [{
         "name": "rule_eval",
         "route": "cuda",
@@ -6883,6 +7382,8 @@ def main() -> int:
                                     "truth", "wall_s", "kernel_share",
                                     "kernel_ms_by_iteration")}
                  for rows in wide_runs.values() for r in rows]})
+    kernels += split_wide_kernels(split_wide_err, split_wide_points,
+                                  split_wide_runs, split_wide_rows)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -143,6 +143,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxNdim = 16;
+// Past kMaxNdim, up to kWideMaxNdim: the wide points kernel and the
+// contractions' wide instances (fourth-difference rows for 24 axes, sums in
+// runs of kRun values whose sums add into runs of kRun * kRun)
+constexpr int kWideMaxNdim = 24;
+constexpr int kRun = 32;
 constexpr int kNsets = 9;
 constexpr int kNrules = 5;
 constexpr int kPointThreads = 128;  // regions of a points block
@@ -200,6 +205,58 @@ __device__ __forceinline__ int64_t real_slot(int64_t r, int64_t cap,
   return (blocked && r >= half_n) ? cap / 2 + (r - half_n) : r;
 }
 
+// N running sums that take one value each a point.  RUNS (the wide
+// instances, 17..24D): each sum in runs of kRun points, a run's sum added
+// into a run of kRun runs, that one's into the total, so that an f32 sum of
+// 2^18 corners loses some hundred ulps less; the order is fixed by the
+// points' order alone.  Without RUNS one running sum each, the ≤ 16D
+// kernels' own arithmetic.
+template <typename T, int N, bool RUNS>
+struct Sums {
+  T acc[N];
+  T mid[RUNS ? N : 1], total[RUNS ? N : 1];
+  int n_run, n_mid;
+
+  __device__ __forceinline__ void zero(int k) {
+    acc[k] = T(0);
+    if constexpr (RUNS) mid[k] = total[k] = T(0);
+  }
+  __device__ __forceinline__ void restart() {
+    if constexpr (RUNS) n_run = n_mid = 0;
+  }
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int k = 0; k < N; ++k) zero(k);
+    restart();
+  }
+  __device__ __forceinline__ void add(int k, T v) { acc[k] += v; }
+  // after each point's values
+  __device__ __forceinline__ void next() {
+    if constexpr (RUNS) {
+      if (++n_run == kRun) {
+        n_run = 0;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          mid[k] += acc[k];
+          acc[k] = T(0);
+        }
+        if (++n_mid == kRun) {
+          n_mid = 0;
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            total[k] += mid[k];
+            mid[k] = T(0);
+          }
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ T get(int k) const {
+    if constexpr (RUNS) return total[k] + (mid[k] + acc[k]);
+    return acc[k];
+  }
+};
+
 // ---------------------------------------------------------------------------
 // 1. The points.
 
@@ -241,6 +298,74 @@ rule_points_kernel(const PointArgs<T> a) {
     for (int p = p0; p < p1; ++p)
       out[p * a.sp] = r_sub(cen, r_mul(__ldg(a.gen + p * ndim + d), len));
   }
+}
+
+// The points past kMaxNdim, where the (feval, ndim) generator table is 170 MB
+// (20D) to 3.2 GB (24D) in f64 and feval passes gridDim.y's reach.
+template <typename T>
+struct WidePointArgs {
+  const T* lows;          // (ndim, cap) unit-space lower bounds
+  const T* lengths;       // (ndim, cap) unit-space lengths
+  const T* glo;           // (ndim,) global lower bounds
+  const T* grange;        // (ndim,) global ranges
+  const uint32_t* codes;  // (k8,) orbits 0-7: three (axis, code) pairs
+  const T* lam;           // (16,) the signed generator of each code
+  T* x;                   // (count, feval, ndim) at strides sc, sp, sd
+  int64_t cap, n, first, count;
+  int64_t sc, sp, sd;
+  int ndim, feval, k8, blocked;
+};
+
+// One thread an element of x, in the order of its layout so that a warp's
+// stores are contiguous: the planes' (sc = 1: region fastest, then point;
+// blockIdx.y the axis) or any other (axis fastest, then point, then
+// region).  Point p < k8 takes its generator codes from its word of the
+// orbit table (cuda_rule.wide_orbit_codes: up to three (axis, code) pairs
+// of 5 + 4 bits, every axis no pair names the centre, code 0), corner k =
+// p - k8 from its index: axis d at -lambda_5 (code 10) where bit ndim-1-d
+// of k is set, else +lambda_5 (code 5), the generic route's convention.
+// Each coordinate is rounded as rule_eval.rule_points rounds it.
+template <typename T>
+__global__ void __launch_bounds__(kPointThreads)
+rule_points_wide_kernel(const WidePointArgs<T> a) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kPointThreads + threadIdx.x;
+  int64_t c, p;
+  int d;
+  if (a.sc == 1) {
+    if (i >= a.count * a.feval) return;
+    p = i / a.count;
+    c = i - p * a.count;
+    d = blockIdx.y;
+  } else {
+    if (i >= a.count * a.feval * a.ndim) return;
+    const int64_t q = i / a.ndim;
+    d = static_cast<int>(i - q * a.ndim);
+    c = q / a.feval;
+    p = q - c * a.feval;
+  }
+  int code = 0;
+  if (p < a.k8) {
+    const uint32_t w = __ldg(a.codes + p);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint32_t pair = w >> (9 * k);
+      if (static_cast<int>(pair & 31u) == d) code |= (pair >> 5) & 15u;
+    }
+  } else {
+    code = ((p - a.k8) >> (a.ndim - 1 - d)) & 1 ? 10 : 5;
+  }
+  const int64_t slot = real_slot(a.first + c, a.cap, a.n, a.blocked);
+  const T lo = a.lows[d * a.cap + slot];
+  const T ln = a.lengths[d * a.cap + slot];
+  const T rg = a.grange[d];
+  // rule_eval.rule_points: len_g = lengths * range, center_g = gl +
+  // (lows + 0.5 lengths) * range, then center_g - gen * len_g, each
+  // operation rounded on its own
+  const T len = r_mul(ln, rg);
+  const T cen = r_add(a.glo[d], r_mul(r_add(lo, r_mul(T(0.5), ln)), rg));
+  a.x[c * a.sc + p * a.sp + d * a.sd] = r_sub(cen, r_mul(__ldg(a.lam + code),
+                                                         len));
 }
 
 // ---------------------------------------------------------------------------
@@ -344,10 +469,10 @@ __device__ __forceinline__ void rule_epilogue(const ContractArgs<T>& a,
 // per region: warp g sums the values of points g, g + kContractGroups, ...
 // of each orbit, and warp 0 adds the groups' partial sums in a fixed order
 // and runs the epilogue, a lane per region.  WITH_FRAC (a crease run's):
-// the epilogue's lane also takes the region's cut fraction.
-template <typename T, bool WITH_FRAC>
-__global__ void __launch_bounds__(32 * kContractGroups)
-rule_contract_kernel(const ContractArgs<T> a) {
+// the epilogue's lane also takes the region's cut fraction.  WIDE (17..24D,
+// rule_contract_wide_kernel): each warp's sums in runs (Sums).
+template <typename T, bool WITH_FRAC, bool WIDE>
+__device__ __forceinline__ void contract_body(const ContractArgs<T>& a) {
   __shared__ T s_part[kContractGroups][kNsets][32];
   const int lane = threadIdx.x, g = threadIdx.y;
   const int64_t c = static_cast<int64_t>(blockIdx.x) * 32 + lane;
@@ -355,12 +480,15 @@ rule_contract_kernel(const ContractArgs<T> a) {
   const T* row = a.vals + c * a.sc;
 #pragma unroll
   for (int s = 0; s < kNsets; ++s) {
-    T v = T(0);
+    Sums<T, 1, WIDE> v;
+    v.clear();
     if (real)
       for (int p = a.orbit_bounds[s] + g; p < a.orbit_bounds[s + 1];
-           p += kContractGroups)
-        v += row[p * a.sp];
-    s_part[g][s][lane] = v;
+           p += kContractGroups) {
+        v.add(0, row[p * a.sp]);
+        v.next();
+      }
+    s_part[g][s][lane] = v.get(0);
   }
   __syncthreads();
   if (g != 0 || !real) return;
@@ -407,6 +535,18 @@ rule_contract_kernel(const ContractArgs<T> a) {
   a.split_dim[slot] = sd;
 }
 
+template <typename T, bool WITH_FRAC>
+__global__ void __launch_bounds__(32 * kContractGroups)
+rule_contract_kernel(const ContractArgs<T> a) {
+  contract_body<T, WITH_FRAC, false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kContractGroups)
+rule_contract_wide_kernel(const ContractArgs<T> a) {
+  contract_body<T, false, true>(a);
+}
+
 // Components of a point the components kernel reads in one pass: one
 // 32-byte sector of them where they lie component-minor (4 f64, 8 f32).
 template <typename T>
@@ -429,10 +569,10 @@ __host__ __device__ constexpr int comp_group() {
 // the passes warp 0 takes the split axis from the component-wise maximum
 // of the fourth differences, a NaN in any component propagating (as
 // torch.amax does in the plain version), so that the widest axis is then
-// the split axis.  No atomics.
-template <typename T>
-__global__ void __launch_bounds__(32 * kContractGroups)
-rule_contract_comp_kernel(const ContractArgs<T> a) {
+// the split axis.  No atomics.  WIDE (17..24D,
+// rule_contract_comp_wide_kernel): each warp's sums in runs (Sums).
+template <typename T, bool WIDE>
+__device__ __forceinline__ void contract_comp_body(const ContractArgs<T>& a) {
   constexpr int G = comp_group<T>();
   static_assert(G <= kContractGroups, "a warp reduces each component");
   __shared__ T s_part[kContractGroups][G][32];
@@ -450,19 +590,19 @@ rule_contract_comp_kernel(const ContractArgs<T> a) {
   for (int k0 = 0; k0 < a.ncomp; k0 += G) {
     const int nk = a.ncomp - k0 < G ? a.ncomp - k0 : G;
     for (int s = 0; s < kNsets; ++s) {
-      T v[G];
-#pragma unroll
-      for (int k = 0; k < G; ++k) v[k] = T(0);
+      Sums<T, G, WIDE> v;
+      v.clear();
       if (real)
         for (int p = a.orbit_bounds[s] + g; p < a.orbit_bounds[s + 1];
              p += kContractGroups) {
           const T* pt = row + p * a.sp + k0 * a.sk;
 #pragma unroll
           for (int k = 0; k < G; ++k)
-            if (k < nk) v[k] += pt[k * a.sk];
+            if (k < nk) v.add(k, pt[k * a.sk]);
+          v.next();
         }
 #pragma unroll
-      for (int k = 0; k < G; ++k) s_part[g][k][lane] = v[k];
+      for (int k = 0; k < G; ++k) s_part[g][k][lane] = v.get(k);
       __syncthreads();
       if (g < nk) {
         T w = s_part[0][g][lane];
@@ -507,6 +647,18 @@ rule_contract_comp_kernel(const ContractArgs<T> a) {
     }
   }
   a.split_dim[slot] = (!any_nan && top > T(0)) ? best : widest;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kContractGroups)
+rule_contract_comp_kernel(const ContractArgs<T> a) {
+  contract_comp_body<T, false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kContractGroups)
+rule_contract_comp_wide_kernel(const ContractArgs<T> a) {
+  contract_comp_body<T, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -595,14 +747,15 @@ __host__ __device__ constexpr size_t tile_elements(int points) {
 // orbits 0-2: the leader's), the warps' partial orbit sums [warps][9][32],
 // the CTA's [9][32] and the cluster's [9][32].  The epilogue's rows reuse
 // the warps' partial sums once the CTA's are formed: fourth differences
-// [16][32], rule sums [5][32], null-rule terms [3][32], volumes [32], and
-// two int rows [32] (widest axis, split axis by fourth difference).
-template <typename T>
+// [FD][32] (FD: kMaxNdim, or kWideMaxNdim in the wide instances), rule
+// sums [5][32], null-rule terms [3][32], volumes [32], and two int rows
+// [32] (widest axis, split axis by fourth difference).
+template <typename T, int FD>
 struct ClusterSmem {
   T *ring, *head, *part, *cta, *osum, *fd, *sums, *e, *vol;
   int *widest, *best;
 
-  static_assert((kMaxNdim + kNrules + 3 + 1) * 32 * sizeof(T) +
+  static_assert((FD + kNrules + 3 + 1) * 32 * sizeof(T) +
                         2 * 32 * sizeof(int) <=
                     kClusterWarps * kNsets * 32 * sizeof(T),
                 "the epilogue's rows fit in the warps' partial sums");
@@ -618,7 +771,7 @@ struct ClusterSmem {
     cta = part + kClusterWarps * kNsets * 32;
     osum = cta + kNsets * 32;
     fd = part;
-    sums = fd + kMaxNdim * 32;
+    sums = fd + FD * 32;
     e = sums + kNrules * 32;
     vol = e + 3 * 32;
     widest = reinterpret_cast<int*>(vol + 32);
@@ -706,10 +859,12 @@ struct ClusterShape {
 // w + 8, ... of each stage, a running sum per orbit and region.  Then the
 // warps' sums in warp order, the ranks' in rank order, and the leader's
 // epilogue, rounded as rule_eval.rule_outputs.  WITH_FRAC (a crease
-// run's): the leader's warp 1 also takes the regions' cut fractions.
-template <typename T, bool ROWS, bool WITH_FRAC>
-__global__ void __launch_bounds__(kClusterThreads)
-rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
+// run's): the leader's warp 1 also takes the regions' cut fractions.  WIDE
+// (17..24D, rule_contract_cluster_wide_kernel): fourth-difference rows for
+// kWideMaxNdim axes, each warp's sums in runs (Sums).
+template <typename T, bool ROWS, bool WITH_FRAC, bool WIDE>
+__device__ __forceinline__ void contract_cluster_body(const ContractArgs<T>& a,
+                                                      const ClusterShape& cs) {
   extern __shared__ __align__(128) unsigned char s_dyn[];
   __shared__ unsigned long long s_full[kMaxStages];
   __shared__ unsigned long long s_empty[kMaxStages];
@@ -718,7 +873,8 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
   __shared__ T s_jac;
   const int ndim = a.ndim, feval = a.feval, head_pts = 4 * ndim + 1;
   const int k = cs.k, R = cs.points, stages = cs.stages;
-  const ClusterSmem<T> sm(reinterpret_cast<T*>(s_dyn), ndim, R, stages);
+  const ClusterSmem<T, WIDE ? kWideMaxNdim : kMaxNdim> sm(
+      reinterpret_cast<T*>(s_dyn), ndim, R, stages);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t c0 = static_cast<int64_t>(blockIdx.x / k) * 32;
@@ -761,7 +917,8 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
     T* part = sm.part + warp * kNsets * 32 + lane;
 #pragma unroll
     for (int s = 0; s < kNsets; ++s) part[s * 32] = T(0);
-    T acc = T(0);
+    Sums<T, 1, WIDE> acc;
+    acc.clear();
     int s = 0, bound = s_ob[1];
     // the warp's points j = warp, warp + 8, ... < points of a tile from
     // point p0, in order: ROWS, region lane's segment is contiguous (one
@@ -773,11 +930,12 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
       for (int j = warp; j < points; j += kClusterWarps) {
         const T v = ROWS ? row[j] : row[j * pitch + seg.off(seg.at(0, p0 + j))];
         while (p0 + j >= bound) {
-          part[s * 32] = acc;
-          acc = T(0);
+          part[s * 32] = acc.get(0);
+          acc.clear();
           bound = s_ob[++s + 1];
         }
-        acc += v;
+        acc.add(0, v);
+        acc.next();
       }
     };
     if (rank == 0) {
@@ -792,7 +950,7 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
       __syncwarp();
       if (lane == 0) mbar_arrive(smem_addr(&s_empty[slot]));
     }
-    part[s * 32] = acc;
+    part[s * 32] = acc.get(0);
   }
   __syncthreads();
 
@@ -926,6 +1084,19 @@ rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
   }
 }
 
+template <typename T, bool ROWS, bool WITH_FRAC>
+__global__ void __launch_bounds__(kClusterThreads)
+rule_contract_cluster_kernel(const ContractArgs<T> a, const ClusterShape cs) {
+  contract_cluster_body<T, ROWS, WITH_FRAC, false>(a, cs);
+}
+
+template <typename T, bool ROWS>
+__global__ void __launch_bounds__(kClusterThreads)
+rule_contract_cluster_wide_kernel(const ContractArgs<T> a,
+                                  const ClusterShape cs) {
+  contract_cluster_body<T, ROWS, false, true>(a, cs);
+}
+
 // ---------------------------------------------------------------------------
 // 4. The contraction of a vector's values, cluster route.
 
@@ -948,16 +1119,17 @@ constexpr size_t kPairSmem = 112 * 1024;
 // the leader first fills with its head tile (points 0..4n, every
 // component), leaving room for one tile before it where two CTAs still
 // share an SM, so that the first stage streams in beside the head; the
-// CTA's orbit sums [9][ncomp][32]; the fourth differences [16][32]; the
-// mailbox of the warps' sums of the orbit being added up [8][ncomp][32].
-template <typename T>
+// CTA's orbit sums [9][ncomp][32]; the fourth differences [FD][32] (FD:
+// kMaxNdim, or kWideMaxNdim in the wide instance); the mailbox of the
+// warps' sums of the orbit being added up [8][ncomp][32].
+template <typename T, int FD>
 struct CompClusterSmem {
   T *ring, *head, *cta, *fd, *mbox;
   int stage_pitch, head_pitch;
   size_t tile, head_elements;
 
   __host__ __device__ static size_t other_elements(int ncomp) {
-    return (kNsets + kClusterWarps) * ncomp * 32 + kMaxNdim * 32;
+    return (kNsets + kClusterWarps) * ncomp * 32 + FD * 32;
   }
   __host__ __device__ static size_t ring_elements(int ndim, int ncomp,
                                                   int points, int stages) {
@@ -987,7 +1159,7 @@ struct CompClusterSmem {
     cta = ring + ring_elements(ndim, ncomp, points, stages);
     head = cta - head_elements;
     fd = cta + kNsets * ncomp * 32;
-    mbox = fd + kMaxNdim * 32;
+    mbox = fd + FD * 32;
   }
 };
 
@@ -1028,11 +1200,12 @@ __device__ __forceinline__ void wait_flag(const int* flag) {
 // ranks' in rank order through distributed shared memory; warp k runs component k's epilogue, the
 // producer warp the split axis from the fourth differences, which the
 // consumer warps took from the head tile (every component, the largest,
-// NaN propagating) before the stages overwrote it.
-template <typename T>
-__global__ void __launch_bounds__(kClusterThreads)
-rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
-                                  const CompClusterShape cs) {
+// NaN propagating) before the stages overwrote it.  WIDE (17..24D,
+// rule_contract_comp_cluster_wide_kernel): fourth-difference rows for
+// kWideMaxNdim axes, each warp's sums in runs (Sums).
+template <typename T, bool WIDE>
+__device__ __forceinline__ void contract_comp_cluster_body(
+    const ContractArgs<T>& a, const CompClusterShape& cs) {
   extern __shared__ __align__(128) unsigned char s_dyn[];
   __shared__ unsigned long long s_full[kMaxStages];
   __shared__ unsigned long long s_empty[kMaxStages];
@@ -1041,8 +1214,8 @@ rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
   __shared__ int s_closed[kNsets], s_added[kNsets];
   const int ndim = a.ndim, feval = a.feval, head_pts = 4 * ndim + 1;
   const int nk = a.ncomp, k = cs.k, R = cs.points, stages = cs.stages;
-  const CompClusterSmem<T> sm(reinterpret_cast<T*>(s_dyn), ndim, nk, R,
-                              stages);
+  const CompClusterSmem<T, WIDE ? kWideMaxNdim : kMaxNdim> sm(
+      reinterpret_cast<T*>(s_dyn), ndim, nk, R, stages);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t c0 = static_cast<int64_t>(blockIdx.x / k) * 32;
@@ -1105,9 +1278,8 @@ rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
     }
   } else {
     // ---- consumers: a running sum per component over the warp's points
-    T acc[kMaxComp];
-#pragma unroll
-    for (int c = 0; c < kMaxComp; ++c) acc[c] = T(0);
+    Sums<T, kMaxComp, WIDE> acc;
+    acc.clear();
     int s = first_orbit, bound = s_ob[first_orbit + 1];
     // the warp's sums of orbit s into the mailbox; the last warp to leave
     // them adds the eight up in warp order into the CTA's sums
@@ -1120,9 +1292,10 @@ rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
 #pragma unroll
       for (int c = 0; c < kMaxComp; ++c)
         if (c < nk) {
-          box[c * 32] = acc[c];
-          acc[c] = T(0);
+          box[c * 32] = acc.get(c);
+          acc.zero(c);
         }
+      acc.restart();
       __syncwarp();
       int last = 0;
       if (lane == 0) {
@@ -1156,7 +1329,8 @@ rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
         const T* v = row + j * nk;
 #pragma unroll
         for (int c = 0; c < kMaxComp; ++c)
-          if (c < nk) acc[c] += v[c];
+          if (c < nk) acc.add(c, v[c]);
+        acc.next();
       }
       // an orbit that ends within the tile has no point left for any warp
       while (s <= last_orbit && bound <= p0 + n) close();
@@ -1239,8 +1413,23 @@ rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+rule_contract_comp_cluster_kernel(const ContractArgs<T> a,
+                                  const CompClusterShape cs) {
+  contract_comp_cluster_body<T, false>(a, cs);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+rule_contract_comp_cluster_wide_kernel(const ContractArgs<T> a,
+                                       const CompClusterShape cs) {
+  contract_comp_cluster_body<T, true>(a, cs);
+}
+
 // ---------------------------------------------------------------------------
 // Launches.
+
 
 struct HostArgs {
   int ndim, feval, blocked;
@@ -1277,15 +1466,65 @@ int points_launch(const HostArgs& h, const void* lows, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Points 0 .. k8 - 1 of the rule: the centre and orbits 1-7, the 2^n
+// corners after them (cuda_rule.generic_orbit_bounds).
+__host__ __device__ inline int64_t orbit_points(int n) {
+  return 1 + 8 * n + 2 * n * (n - 1) + 4 * n * (n - 1) +
+         4 * n * (n - 1) * (n - 2) / 3;
+}
+
+template <typename T>
+int points_wide_launch(const HostArgs& h, const void* lows,
+                       const void* lengths, const void* glo,
+                       const void* grange, const void* codes,
+                       const void* lam, void* x, cudaStream_t stream) {
+  WidePointArgs<T> a;
+  a.lows = static_cast<const T*>(lows);
+  a.lengths = static_cast<const T*>(lengths);
+  a.glo = static_cast<const T*>(glo);
+  a.grange = static_cast<const T*>(grange);
+  a.codes = static_cast<const uint32_t*>(codes);
+  a.lam = static_cast<const T*>(lam);
+  a.x = static_cast<T*>(x);
+  a.cap = h.cap;
+  a.n = h.n;
+  a.first = h.first;
+  a.count = h.count;
+  a.sc = h.sc;
+  a.sp = h.sp;
+  a.sd = h.sd;
+  a.ndim = h.ndim;
+  a.feval = h.feval;
+  a.k8 = static_cast<int>(orbit_points(h.ndim));
+  a.blocked = h.blocked;
+  // the planes' layout: a grid row an axis; any other: one flat span
+  const int64_t span = h.count * h.feval * (h.sc == 1 ? 1 : h.ndim);
+  const dim3 grid(
+      static_cast<unsigned>((span + kPointThreads - 1) / kPointThreads),
+      h.sc == 1 ? h.ndim : 1);
+  rule_points_wide_kernel<T><<<grid, kPointThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster route's kernel of a type, layout, crease form and class of
+// dimensions (WIDE: 17..24D).
+template <typename T, bool ROWS, bool F, bool WIDE>
+inline auto cluster_kernel() {
+  if constexpr (WIDE)
+    return rule_contract_cluster_wide_kernel<T, ROWS>;
+  else
+    return rule_contract_cluster_kernel<T, ROWS, F>;
+}
+
 // Let the cluster kernel have ``smem`` bytes of dynamic shared memory: the
 // attribute is raised once for each size it grows to, so that a launch
 // spends no host time on it.
-template <typename T, bool ROWS, bool F>
+template <typename T, bool ROWS, bool F, bool WIDE>
 cudaError_t allow_cluster_smem(size_t smem) {
   static size_t granted = 48 * 1024;  // one for each kernel
   if (smem <= granted) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      rule_contract_cluster_kernel<T, ROWS, F>,
+      cluster_kernel<T, ROWS, F, WIDE>(),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e == cudaSuccess) granted = smem;
   return e;
@@ -1310,82 +1549,121 @@ struct ClusterConfig {
   }
 };
 
-template <typename T, bool ROWS, bool F>
+template <typename T, bool ROWS, bool F, bool WIDE>
 cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
                            const ContractArgs<T>& a, cudaStream_t stream) {
-  const ClusterConfig c(h.count, cs.k,
-                        ClusterSmem<T>::bytes(h.ndim, cs.points, cs.stages),
-                        stream);
+  const ClusterConfig c(
+      h.count, cs.k,
+      ClusterSmem<T, WIDE ? kWideMaxNdim : kMaxNdim>::bytes(h.ndim, cs.points,
+                                                            cs.stages),
+      stream);
   if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
     return cudaErrorInvalidValue;
   const cudaError_t e =
-      allow_cluster_smem<T, ROWS, F>(c.cfg.dynamicSmemBytes);
+      allow_cluster_smem<T, ROWS, F, WIDE>(c.cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
-  return cudaLaunchKernelEx(&c.cfg, rule_contract_cluster_kernel<T, ROWS, F>,
-                            a, cs);
+  return cudaLaunchKernelEx(&c.cfg, cluster_kernel<T, ROWS, F, WIDE>(), a,
+                            cs);
 }
 
 template <typename T, bool ROWS>
 cudaError_t cluster_launch(const HostArgs& h, const ClusterShape& cs,
                            const ContractArgs<T>& a, cudaStream_t stream) {
-  return a.frac != nullptr ? cluster_launch<T, ROWS, true>(h, cs, a, stream)
-                           : cluster_launch<T, ROWS, false>(h, cs, a, stream);
+  if (h.ndim > kMaxNdim)  // no crease fraction there (bad_args)
+    return cluster_launch<T, ROWS, false, true>(h, cs, a, stream);
+  return a.frac != nullptr
+             ? cluster_launch<T, ROWS, true, false>(h, cs, a, stream)
+             : cluster_launch<T, ROWS, false, false>(h, cs, a, stream);
+}
+
+template <typename T, bool ROWS, bool WIDE>
+cudaError_t cluster_occupancy(int ndim, const ClusterShape& cs,
+                              int* clusters) {
+  const ClusterConfig c(
+      32 * 1024, cs.k,
+      ClusterSmem<T, WIDE ? kWideMaxNdim : kMaxNdim>::bytes(ndim, cs.points,
+                                                            cs.stages),
+      nullptr);
+  const cudaError_t e =
+      allow_cluster_smem<T, ROWS, false, WIDE>(c.cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(
+      clusters, cluster_kernel<T, ROWS, false, WIDE>(), &c.cfg);
 }
 
 template <typename T, bool ROWS>
 cudaError_t cluster_occupancy(int ndim, const ClusterShape& cs,
                               int* clusters) {
-  const ClusterConfig c(32 * 1024, cs.k,
-                        ClusterSmem<T>::bytes(ndim, cs.points, cs.stages),
-                        nullptr);
-  const cudaError_t e =
-      allow_cluster_smem<T, ROWS, false>(c.cfg.dynamicSmemBytes);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveClusters(
-      clusters, rule_contract_cluster_kernel<T, ROWS, false>, &c.cfg);
+  return ndim > kMaxNdim ? cluster_occupancy<T, ROWS, true>(ndim, cs, clusters)
+                         : cluster_occupancy<T, ROWS, false>(ndim, cs,
+                                                             clusters);
 }
 
 // The same for the components cluster route.
-template <typename T>
+template <typename T, bool WIDE>
+inline auto comp_cluster_kernel() {
+  if constexpr (WIDE)
+    return rule_contract_comp_cluster_wide_kernel<T>;
+  else
+    return rule_contract_comp_cluster_kernel<T>;
+}
+
+template <typename T, bool WIDE>
 cudaError_t allow_comp_cluster_smem(size_t smem) {
   static size_t granted = 48 * 1024;
   if (smem <= granted) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      rule_contract_comp_cluster_kernel<T>,
+      comp_cluster_kernel<T, WIDE>(),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e == cudaSuccess) granted = smem;
   return e;
 }
 
-template <typename T>
+template <typename T, bool WIDE>
+size_t comp_cluster_bytes(int ndim, int ncomp, const CompClusterShape& cs) {
+  return CompClusterSmem<T, WIDE ? kWideMaxNdim : kMaxNdim>::bytes(
+      ndim, ncomp, cs.points, cs.stages);
+}
+
+template <typename T, bool WIDE>
 cudaError_t comp_cluster_launch(int64_t count, int ncomp,
                                 const CompClusterShape& cs,
                                 const ContractArgs<T>& a,
                                 cudaStream_t stream) {
-  const ClusterConfig c(
-      count, cs.k,
-      CompClusterSmem<T>::bytes(a.ndim, ncomp, cs.points, cs.stages), stream);
+  const ClusterConfig c(count, cs.k,
+                        comp_cluster_bytes<T, WIDE>(a.ndim, ncomp, cs),
+                        stream);
   if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
     return cudaErrorInvalidValue;
-  const cudaError_t e = allow_comp_cluster_smem<T>(c.cfg.dynamicSmemBytes);
+  const cudaError_t e =
+      allow_comp_cluster_smem<T, WIDE>(c.cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
-  return cudaLaunchKernelEx(&c.cfg, rule_contract_comp_cluster_kernel<T>, a,
-                            cs);
+  return cudaLaunchKernelEx(&c.cfg, comp_cluster_kernel<T, WIDE>(), a, cs);
+}
+
+template <typename T, bool WIDE>
+cudaError_t comp_cluster_occupancy(int ndim, int ncomp,
+                                   const CompClusterShape& cs,
+                                   int* clusters) {
+  const ClusterConfig c(32 * 1024, cs.k,
+                        comp_cluster_bytes<T, WIDE>(ndim, ncomp, cs),
+                        nullptr);
+  if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
+    return cudaErrorInvalidValue;
+  const cudaError_t e =
+      allow_comp_cluster_smem<T, WIDE>(c.cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(
+      clusters, comp_cluster_kernel<T, WIDE>(), &c.cfg);
 }
 
 template <typename T>
 cudaError_t comp_cluster_occupancy(int ndim, int ncomp,
                                    const CompClusterShape& cs,
                                    int* clusters) {
-  const ClusterConfig c(
-      32 * 1024, cs.k,
-      CompClusterSmem<T>::bytes(ndim, ncomp, cs.points, cs.stages), nullptr);
-  if (c.cfg.dynamicSmemBytes > static_cast<size_t>(kMaxSmem))
-    return cudaErrorInvalidValue;
-  const cudaError_t e = allow_comp_cluster_smem<T>(c.cfg.dynamicSmemBytes);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveClusters(
-      clusters, rule_contract_comp_cluster_kernel<T>, &c.cfg);
+  return ndim > kMaxNdim
+             ? comp_cluster_occupancy<T, true>(ndim, ncomp, cs, clusters)
+             : comp_cluster_occupancy<T, false>(ndim, ncomp, cs, clusters);
 }
 
 template <typename T>
@@ -1427,18 +1705,20 @@ ContractArgs<T> contract_args(const HostArgs& h, const void* vals,
 }
 
 // One launch of the contraction: the generic kernel where ``cs.k`` is 0,
-// else the cluster kernel of shape ``cs``.
+// else the cluster kernel of shape ``cs``; past kMaxNdim their wide
+// instances.
 template <typename T>
 int contract_launch(const HostArgs& h, const ClusterShape& cs,
                     const ContractArgs<T>& a, cudaStream_t stream) {
   if (cs.k == 0) {
     const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
-    if (a.frac != nullptr)
-      rule_contract_kernel<T, true>
-          <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+    const dim3 block(32, kContractGroups);
+    if (h.ndim > kMaxNdim)
+      rule_contract_wide_kernel<T><<<blocks, block, 0, stream>>>(a);
+    else if (a.frac != nullptr)
+      rule_contract_kernel<T, true><<<blocks, block, 0, stream>>>(a);
     else
-      rule_contract_kernel<T, false>
-          <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+      rule_contract_kernel<T, false><<<blocks, block, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   // the rows' layout where a region's points are contiguous, else the
@@ -1451,27 +1731,35 @@ int contract_launch(const HostArgs& h, const ClusterShape& cs,
 
 // One launch of a vector's contraction over ``ncomp`` components: the
 // components kernel where ``cs.k`` is 0, else the components cluster
-// kernel of shape ``cs``.
+// kernel of shape ``cs``; past kMaxNdim their wide instances.
 template <typename T>
 int contract_comp_launch(const HostArgs& h, ContractArgs<T> a, int ncomp,
                          const CompClusterShape& cs, cudaStream_t stream) {
   a.ncomp = ncomp;
+  const bool wide = h.ndim > kMaxNdim;
   if (cs.k == 0) {
     const unsigned blocks = static_cast<unsigned>((h.count + 31) / 32);
-    rule_contract_comp_kernel<T>
-        <<<blocks, dim3(32, kContractGroups), 0, stream>>>(a);
+    const dim3 block(32, kContractGroups);
+    if (wide)
+      rule_contract_comp_wide_kernel<T><<<blocks, block, 0, stream>>>(a);
+    else
+      rule_contract_comp_kernel<T><<<blocks, block, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  const cudaError_t e = comp_cluster_launch<T>(h.count, ncomp, cs, a, stream);
+  const cudaError_t e =
+      wide ? comp_cluster_launch<T, true>(h.count, ncomp, cs, a, stream)
+           : comp_cluster_launch<T, false>(h.count, ncomp, cs, a, stream);
   const cudaError_t last = cudaGetLastError();  // and clear it
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 bool bad_args(const HostArgs& h) {
-  return h.ndim < 2 || h.ndim > kMaxNdim || h.feval < 4 * h.ndim + 1 ||
+  return h.ndim < 2 || h.ndim > kWideMaxNdim || h.feval < 4 * h.ndim + 1 ||
          h.n > h.cap || h.first < 0 || h.count < 1 ||
          h.first + h.count > h.n || (h.blocked && (h.n % 2 || h.cap % 2)) ||
-         h.count >= (int64_t(1) << 36) || h.feval > 65535 * kPointTile;
+         h.count >= (int64_t(1) << 36) ||
+         (h.ndim > kMaxNdim &&
+          h.feval != orbit_points(h.ndim) + (int64_t(1) << h.ndim));
 }
 
 // What the cluster route takes beyond bad_args: the values as rows (sp =
@@ -1513,10 +1801,11 @@ static_assert(kClusterThreads == kNsets * 32,
 // first .. first + count - 1 of a pool of ``n`` real regions in ``cap``
 // slots (blocked: the first n/2 of each half).  Each returns
 // cudaGetLastError() after its launch (0 on success) and never
-// synchronises.
+// synchronises.  ndim 2..16; the contractions and
+// rule_split_points_wide_launch also 17..24.
 
 // Writes x (count, feval, ndim) of the working type at strides (sc, sp,
-// sd) in elements: the layout rule_eval.rule_points gives.
+// sd) in elements: the layout rule_eval.rule_points gives.  ndim 2..16.
 extern "C" int rule_split_points_launch(
     int is_double, int ndim, int feval, long long cap, long long n,
     int blocked, long long first, long long count, long long sc,
@@ -1524,11 +1813,33 @@ extern "C" int rule_split_points_launch(
     const void* glo, const void* grange, const void* gen, void* x,
     void* stream) {
   const HostArgs h{ndim, feval, blocked, cap, n, first, count, sc, sp, sd};
-  if (bad_args(h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(h) || ndim > kMaxNdim || feval > 65535 * kPointTile)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double
              ? points_launch<double>(h, lows, lengths, glo, grange, gen, x, s)
              : points_launch<float>(h, lows, lengths, glo, grange, gen, x, s);
+}
+
+// The same at ndim 17..24, from the orbit table ``codes`` (k8,) uint32
+// (cuda_rule.wide_orbit_codes) and ``lam`` (16,) of the working type
+// (cuda_rule.generator_lam) instead of the generator table.
+extern "C" int rule_split_points_wide_launch(
+    int is_double, int ndim, int feval, long long cap, long long n,
+    int blocked, long long first, long long count, long long sc,
+    long long sp, long long sd, const void* lows, const void* lengths,
+    const void* glo, const void* grange, const void* codes, const void* lam,
+    void* x, void* stream) {
+  const HostArgs h{ndim, feval, blocked, cap, n, first, count, sc, sp, sd};
+  if (bad_args(h) || ndim <= kMaxNdim ||
+      (h.sc == 1 ? h.count * h.feval : h.count * h.feval * h.ndim) /
+              kPointThreads >= 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? points_wide_launch<double>(h, lows, lengths, glo, grange,
+                                                codes, lam, x, s)
+                   : points_wide_launch<float>(h, lows, lengths, glo, grange,
+                                               codes, lam, x, s);
 }
 
 // Reads vals (count, feval) at strides (sc, sp) in elements; writes est,
@@ -1537,7 +1848,8 @@ extern "C" int rule_split_points_launch(
 // clusters of that many CTAs, each with a ring of ``stages`` tiles of
 // ``points`` points (rows or planes: bad_cluster_args).  A cluster the
 // card cannot launch is refused with the launch's error, never run
-// another way.  ``frac`` (cap,), null outside a crease run: also the cut
+// another way.  ``frac`` (cap,), null outside a crease run (and past 16D,
+// where none runs): also the cut
 // fraction at the regions' slots, split_dim the axis a jump overrides,
 // from the stencil frac_slots (ndim, 4) int32 and frac_consts (ndim, 5)
 // float64, host arrays copied into the launch's arguments.
@@ -1554,7 +1866,8 @@ extern "C" int rule_split_contract_launch(
   const ClusterShape cs{cluster, points, stages};
   if (bad_args(h) || orbit_bounds[kNsets] != feval ||
       orbit_bounds[3] != 4 * ndim + 1 ||
-      (frac != nullptr && (frac_slots == nullptr || frac_consts == nullptr)) ||
+      (frac != nullptr && (frac_slots == nullptr || frac_consts == nullptr ||
+                           ndim > kMaxNdim)) ||
       (cluster != 0 && bad_cluster_args(h, cs, vals, is_double ? 8 : 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1617,8 +1930,8 @@ extern "C" int rule_split_contract_comp_launch(
 
 // How many clusters of the cluster route's shape (clusters of ``cluster``
 // CTAs, rings of ``stages`` tiles of ``points`` points; type by is_double,
-// layout by rows, head tile by ndim) the card holds at once
-// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+// layout by rows, head tile and class of dimensions by ndim) the card
+// holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
 extern "C" int rule_split_cluster_occupancy(int is_double, int rows, int ndim,
                                             int cluster, int points,
                                             int stages) {
@@ -1635,8 +1948,9 @@ extern "C" int rule_split_cluster_occupancy(int is_double, int rows, int ndim,
 
 // How many clusters of the components cluster route's shape (clusters of
 // ``cluster`` CTAs, rings of ``stages`` tiles of ``points`` points of
-// ``ncomp`` components; type by is_double, head tile by ndim) the card
-// holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+// ``ncomp`` components; type by is_double, head tile and class of
+// dimensions by ndim) the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
 extern "C" int rule_split_comp_cluster_occupancy(int is_double, int ndim,
                                                  int ncomp, int cluster,
                                                  int points, int stages) {

@@ -37,8 +37,8 @@ shape alone (never by catching a failure):
   generic route's convention; each thread's running sums, xor-shuffle
   trees a warp, the warps' sums added in an order fixed by ndim alone.
   Its launches are counted in ``wide_launches`` (and in ``launches``).
-  No crease run and no traced callable takes it: past 16D they raise, as
-  the split route does, naming ``rule_backend='torch'``.
+  No crease run and no traced callable takes it: past 16D they raise,
+  naming ``rule_backend='torch'``.
 
 What bounds them: for Genz integrands each region reads 2*ndim values and
 writes 3, against feval * (~6*ndim + 3) f64 (or f32) operations, so the
@@ -61,7 +61,10 @@ route.  No crease run takes them.  Any other integrand takes a third route,
 ``'split'`` (``cuda_apply_rule_split``, csrc/rule_split.cu): chunk by chunk,
 a points kernel writes every rule point, the callable runs on them as
 ordinary torch operations, and a contraction kernel reduces its values to
-est, err and split_dim.  ``rule_route(ndim, integrand)`` chooses the route
+est, err and split_dim, at ndim 2..``WIDE_MAX_NDIM`` (24): past 16D the
+kernels' wide instances (the points from ``wide_orbit_codes``, the sums in
+runs) on chunks cut to ``SPLIT_CHUNK_BYTES`` of points
+(``split_chunk_size``).  ``rule_route(ndim, integrand)`` chooses the route
 from the integrand and the shape.  The contraction has two routes of its
 own, which ``contract_route`` chooses from the values' type, shape and
 strides: ``'cluster'`` (the points of each group of 32 regions split
@@ -140,6 +143,15 @@ WIDE_BLOCKS_PER_SM = 2          # a launch's blocks at most, per SM
 WIDE_PAIRS = 3
 WIDE_AXIS_BITS = 5
 WIDE_PAIR_BITS = WIDE_AXIS_BITS + 4
+# The split route takes any callable up to WIDE_MAX_NDIM too.  Past
+# MAX_NDIM its kernels are the wide instances of csrc/rule_split.cu: the
+# points kernel from ``wide_orbit_codes`` (no generator table, 3.2 GB at
+# 24D in f64), the contractions with fourth-difference rows for
+# WIDE_MAX_NDIM axes (``fd_rows``) and their sums in runs; and a chunk
+# holds at most the regions whose points fit SPLIT_CHUNK_BYTES
+# (``split_chunk_size``), at least one: the Workspace's chunk of at least
+# 1024 regions would be 19.3 GB of points at 17D and 3.3 TB at 24D in f64.
+SPLIT_CHUNK_BYTES = 4 << 30
 # The dimensions csrc/rule_eval.cu compiles the tile route for: every one
 # whose point codes fit a 32-bit word (4 bits an axis) above 2D, where the 33
 # points would leave a warp idle most of the time.
@@ -241,6 +253,9 @@ def _configure_split(lib):
     fn = lib.rule_split_points_launch
     fn.argtypes = head + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
+    fn = lib.rule_split_points_wide_launch
+    fn.argtypes = head + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
     fn = lib.rule_split_contract_launch
     fn.argtypes = (head + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
@@ -325,32 +340,37 @@ def kernel_params(integrand, width: int = MAX_NDIM
 # ---------------------------------------------------------------------------
 # Host-side layouts of the tile route
 
-def past_16d(what: str, ndim: int) -> str:
-    """The refusal of a pool past MAX_NDIM that ``what`` does not take."""
-    return (f"{what} takes ndim 2..{MAX_NDIM}, not {ndim} (past {MAX_NDIM}D "
-            f"only the {WIDE!r} route runs on the card: a Genz family of "
-            f"models.genz, scalar, without crease_split, up to "
-            f"{WIDE_MAX_NDIM}D); rule_backend='torch' runs the plain "
-            f"version at any ndim")
+def past_16d(what: str, ndim: int, max_ndim: int = MAX_NDIM) -> str:
+    """The refusal of a pool past ``max_ndim`` that ``what`` does not
+    take."""
+    return (f"{what} takes ndim 2..{max_ndim}, not {ndim} (past {MAX_NDIM}D "
+            f"the card runs, up to {WIDE_MAX_NDIM}D, a Genz family of "
+            f"models.genz on the {WIDE!r} route and any other scalar or "
+            f"vector callable on the split route; a traced callable and "
+            f"crease_split stop at {MAX_NDIM}D); rule_backend='torch' runs "
+            f"the plain version at any ndim")
 
 
 def rule_route(ndim: int, integrand=None, ncomp: int = 1) -> str:
     """The route a pool of this dimension takes: 'split' for an integrand
     that is neither a Genz family (``is_genz_family``) nor a traced
     callable (``is_generated``) and for any vector integrand (``ncomp`` >
-    1: no fused kernel evaluates one); else 'tile' where the source
-    compiles it, else 'generic' up to MAX_NDIM, and past it 'wide' for a
-    Genz family (``integrand`` None stands for one) up to WIDE_MAX_NDIM.
-    ValueError, naming rule_backend='torch', for a pool past MAX_NDIM that
-    no route takes.  A crease run takes the same route up to MAX_NDIM:
+    1: no fused kernel evaluates one), up to WIDE_MAX_NDIM; else 'tile'
+    where the source compiles it, else 'generic' up to MAX_NDIM, and past
+    it 'wide' for a Genz family (``integrand`` None stands for one) up to
+    WIDE_MAX_NDIM.  ValueError, naming rule_backend='torch', for a pool
+    that no route takes: a traced callable past MAX_NDIM, anything past
+    WIDE_MAX_NDIM.  A crease run takes the same route up to MAX_NDIM:
     each route's kernel computes the cut fraction from the values it
-    holds.  The working type does not enter: every route is compiled for
-    float64 and float32."""
+    holds; past it the kernels compute none and the wrappers refuse one.
+    The working type does not enter: every route is compiled for float64
+    and float32."""
     if ncomp > 1 or (integrand is not None and not (
             is_genz_family(integrand) or is_generated(integrand))):
-        if ndim > MAX_NDIM:
+        if ndim > WIDE_MAX_NDIM:
             raise ValueError(past_16d("the split route (any callable "
-                                      "other than a Genz family)", ndim))
+                                      "other than a Genz family)", ndim,
+                                      WIDE_MAX_NDIM))
         return "split"
     if ndim <= MAX_NDIM:
         return "tile" if ndim in TILE_NDIMS else "generic"
@@ -610,8 +630,9 @@ def _wide_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
     global launches, wide_launches
     ndim = tables.ndim
     kind, params = kernel_params(integrand, WIDE_MAX_NDIM)
+    _check_ndim("cuda_apply_rule", ndim, WIDE_MAX_NDIM)
     cap, n = _check_pool("cuda_apply_rule", tables, lows, lengths, global_lo,
-                         global_range, n, blocked, WIDE_MAX_NDIM)
+                         global_range, n, blocked)
     dtype = lows.dtype
     codes, lam, orbit_wts, scale, norm = _wide_tables(ndim, dtype,
                                                       lows.device)
@@ -679,6 +700,7 @@ def cuda_apply_rule(integrand, tables: rule_eval.RuleTables, lows, lengths,
                          f"(tile: {TILE_NDIMS}; generic: 2..{MAX_NDIM}; "
                          f"{WIDE}: a Genz family at {MAX_NDIM + 1}.."
                          f"{WIDE_MAX_NDIM})")
+    _check_ndim("cuda_apply_rule", ndim, MAX_NDIM)
     cap, n = _check_pool("cuda_apply_rule", tables, lows, lengths, global_lo,
                          global_range, n, blocked)
     dtype = lows.dtype
@@ -795,17 +817,23 @@ def _fused_frac_args(ndim, cap, lows, with_split_frac, kept):
             None if kept is None else kept.data_ptr())
 
 
+def _check_ndim(what: str, ndim: int, max_ndim: int):
+    """ValueError for a dimension that ``what`` does not take: below 2, or
+    past ``max_ndim`` (``past_16d``, naming rule_backend='torch')."""
+    if ndim < 2:
+        raise ValueError(f"{what} takes ndim 2..{max_ndim}, not {ndim}")
+    if ndim > max_ndim:
+        raise ValueError(past_16d(what, ndim, max_ndim))
+
+
 def _check_pool(what: str, tables: rule_eval.RuleTables, lows, lengths,
-                global_lo, global_range, n, blocked,
-                max_ndim: int = MAX_NDIM) -> tuple[int, int]:
+                global_lo, global_range, n, blocked) -> tuple[int, int]:
     """(cap, n) of a pool that the kernels take; ValueError for one they do
-    not: a dimension past ``max_ndim``, another device than CUDA, another
-    type than f64/f32, a shape, device or type that differs, a
-    non-contiguous tensor, or an ``n`` that the layout cannot hold."""
+    not: another device than CUDA, another type than f64/f32, a shape,
+    device or type that differs, a non-contiguous tensor, or an ``n`` that
+    the layout cannot hold.  The callers check the dimension first
+    (``_check_ndim``)."""
     ndim = tables.ndim
-    if ndim < 2 or ndim > max_ndim:
-        raise ValueError(past_16d(what, ndim) if ndim > max_ndim == MAX_NDIM
-                         else f"{what} takes ndim 2..{max_ndim}, not {ndim}")
     if lows.device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {lows.device}")
     dtype = lows.dtype
@@ -830,6 +858,20 @@ def _check_pool(what: str, tables: rule_eval.RuleTables, lows, lengths,
 
 # ---------------------------------------------------------------------------
 # The split route: any integrand
+
+def split_chunk_size(ndim: int, dtype: torch.dtype,
+                     chunk_size: int | None) -> int | None:
+    """Regions a chunk of the split route: ``chunk_size`` (None: every real
+    region in one) up to MAX_NDIM; past it no more than the regions whose
+    points, (feval, ndim) values of ``dtype`` each, fit SPLIT_CHUNK_BYTES,
+    and at least one.  A region's outputs do not depend on its chunk."""
+    if ndim <= MAX_NDIM:
+        return chunk_size
+    item = torch.finfo(dtype).bits // 8
+    fit = max(1, SPLIT_CHUNK_BYTES
+              // (genz_malik.feval_per_region(ndim) * ndim * item))
+    return fit if chunk_size is None else max(1, min(fit, int(chunk_size)))
+
 
 def split_chunks(n: int, chunk_size: int | None) -> list[tuple[int, int]]:
     """[(first real region, regions)] of every chunk the split route walks
@@ -869,13 +911,19 @@ def _points_launch(lib, tables, lows, lengths, global_lo, global_range,
     strides = points_strides(count, tables.feval, tables.ndim)
     x = torch.empty_strided((count, tables.feval, tables.ndim), strides,
                             dtype=lows.dtype, device=lows.device)
-    gen, _, _, _ = rule_eval.device_tables(tables.ndim, lows.dtype,
-                                           lows.device)
-    rc = lib.rule_split_points_launch(
+    if tables.ndim > MAX_NDIM:
+        codes, lam = _wide_tables(tables.ndim, lows.dtype, lows.device)[:2]
+        launch, gen = lib.rule_split_points_wide_launch, (codes.data_ptr(),
+                                                          lam.data_ptr())
+    else:
+        launch = lib.rule_split_points_launch
+        gen = (rule_eval.device_tables(tables.ndim, lows.dtype,
+                                       lows.device)[0].data_ptr(),)
+    rc = launch(
         int(lows.dtype == torch.float64), tables.ndim, tables.feval, cap, n,
         int(bool(blocked)), first, count, *strides, lows.data_ptr(),
         lengths.data_ptr(), global_lo.data_ptr(), global_range.data_ptr(),
-        gen.data_ptr(), x.data_ptr(),
+        *gen, x.data_ptr(),
         torch.cuda.current_stream(lows.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA rule points kernel launch failed: error "
@@ -984,6 +1032,12 @@ def _seg_pitch(item: int, n: int) -> int:
     return (n + 2 * slack - 1) // slack * slack
 
 
+def fd_rows(ndim: int) -> int:
+    """The contractions' fourth-difference rows for a pool of ``ndim``:
+    MAX_NDIM in the instances up to it, WIDE_MAX_NDIM in the wide ones."""
+    return MAX_NDIM if ndim <= MAX_NDIM else WIDE_MAX_NDIM
+
+
 def comp_cluster_smem(dtype: torch.dtype, ndim: int, ncomp: int,
                       points: int, ring: int) -> int:
     """Bytes of a components cluster CTA's dynamic shared memory, as
@@ -992,11 +1046,12 @@ def comp_cluster_smem(dtype: torch.dtype, ndim: int, ncomp: int,
     tile (points 0..4n) and one tile beside it where that is larger and two
     CTAs still share an SM (PAIR_SMEM), else the head tile over the ring's
     slots where it is larger; the CTA's orbit sums [9][ncomp][32], the
-    fourth differences [16][32] and the warps' mailbox [8][ncomp][32]."""
+    fourth differences [``fd_rows``][32] and the warps' mailbox
+    [8][ncomp][32]."""
     item = torch.finfo(dtype).bits // 8
     tile = 32 * _seg_pitch(item, points * ncomp)
     head = 32 * _seg_pitch(item, (4 * ndim + 1) * ncomp)
-    other = (9 + CLUSTER_WARPS) * ncomp * 32 + MAX_NDIM * 32
+    other = (9 + CLUSTER_WARPS) * ncomp * 32 + fd_rows(ndim) * 32
     area = max(ring * tile, head + tile)
     if (area + other) * item > PAIR_SMEM:
         area = max(ring * tile, head)
@@ -1073,6 +1128,15 @@ def comp_cluster_occupancy(dtype: torch.dtype, ndim: int, count: int,
     return got
 
 
+def _weight_tables(ndim: int, dtype: torch.dtype, device: torch.device):
+    """(orbit_wts, scale, norm) on the device for the contractions; past
+    MAX_NDIM as the wide route takes them, without the (feval, ndim)
+    generator table."""
+    if ndim > MAX_NDIM:
+        return _wide_tables(ndim, dtype, device)[2:]
+    return rule_eval.device_tables(ndim, dtype, device)[1:]
+
+
 def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
                      blocked, first, count, est, err, sdim, frac=None,
                      route=None):
@@ -1088,8 +1152,7 @@ def _contract_launch(lib, tables, vals, lengths, global_range, cap, n,
                          f"{dtype})")
     cluster, points, _, ring = (cluster_plan(*shape) if route == "cluster"
                                 else (0, 0, 0, 0))
-    _, orbit_wts, scale, norm = rule_eval.device_tables(
-        tables.ndim, dtype, vals.device)
+    orbit_wts, scale, norm = _weight_tables(tables.ndim, dtype, vals.device)
     ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
     stencil = (None, None)
     if frac is not None:
@@ -1128,8 +1191,7 @@ def _contract_comp_launch(lib, tables, vals, lengths, global_range, cap, n,
                          f"({count} regions, {ncomp} components, {dtype})")
     plan = (comp_cluster_plan(*shape, ncomp) if route == COMPONENTS_CLUSTER
             else (0, 0, 0, 0))
-    _, orbit_wts, scale, norm = rule_eval.device_tables(
-        tables.ndim, dtype, vals.device)
+    orbit_wts, scale, norm = _weight_tables(tables.ndim, dtype, vals.device)
     ob = (ctypes.c_int * 10)(*tables.orbit_bounds)
     rc = lib.rule_split_contract_comp_launch(
         int(dtype == torch.float64), tables.ndim, tables.feval, cap, n,
@@ -1157,7 +1219,10 @@ def split_points(tables: rule_eval.RuleTables, lows, lengths, global_lo,
                  n: int | None = None, blocked: bool = False):
     """One launch of the points kernel: the rule points (count, feval,
     ndim) of real regions first .. first + count - 1 of a CUDA pool, EQUAL
-    to ``rule_eval.rule_points`` of the same regions."""
+    to ``rule_eval.rule_points`` of the same regions.  Past MAX_NDIM the
+    wide points kernel (``rule_points_wide_kernel``), from the orbit
+    table."""
+    _check_ndim("split_points", tables.ndim, WIDE_MAX_NDIM)
     cap, n = _check_pool("split_points", tables, lows, lengths, global_lo,
                          global_range, n, blocked)
     _check_chunk(cap, n, first, count)
@@ -1179,7 +1244,11 @@ def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
     split_dim the axis a jump overrides.  ``route`` None takes
     ``contract_route``'s; naming one runs it (the checks and timings hold
     the two against each other) and raises ValueError where the values'
-    layout does not take it."""
+    layout does not take it.  Past MAX_NDIM the contraction's wide
+    instances, which compute no cut fraction: ``with_split_frac`` raises
+    there."""
+    _refuse_frac_past_16d(tables.ndim, with_split_frac)
+    _check_ndim("split_contract", tables.ndim, WIDE_MAX_NDIM)
     cap, n = _check_pool("split_contract", tables, lows, lengths, global_lo,
                          global_range, n, blocked)
     count = vals.shape[0] if vals.dim() == 2 else 0
@@ -1197,6 +1266,11 @@ def split_contract(vals, tables: rule_eval.RuleTables, lows, lengths,
                      vals, lengths, global_range, cap, n, blocked, first,
                      count, *out, route=route)
     return out
+
+
+def _refuse_frac_past_16d(ndim: int, with_split_frac: bool):
+    if with_split_frac and ndim > MAX_NDIM:
+        raise ValueError(past_16d("crease_split", ndim))
 
 
 def _check_vals(vals, count, tables, lows, ncomp: int = 1):
@@ -1235,6 +1309,7 @@ def split_contract_components(vals, tables: rule_eval.RuleTables, lows,
     'components_cluster' what ``comp_cluster_takes`` (component k bit for
     bit ``split_contract(vals[..., k].contiguous(), route='cluster')``) and
     raises ValueError for other values."""
+    _check_ndim("split_contract_components", tables.ndim, WIDE_MAX_NDIM)
     cap, n = _check_pool("split_contract_components", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
     count, ncomp = vals.shape[::2] if vals.dim() == 3 else (0, 0)
@@ -1312,10 +1387,11 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
                           route: str | None = None, ncomp: int = 1,
                           with_split_frac: bool = False):
     """The split route over the ``n`` real regions of a CUDA pool (all of
-    it when ``n`` is None), ``chunk_size`` regions at a time
-    (``split_chunks``): the points kernel, ``integrand`` (any form ``make_integrand`` takes) on
-    the (C, feval, ndim) points, its values cast to the pool's type (no
-    copy where they have it), the contraction kernel.  Arguments and
+    it when ``n`` is None), ``chunk_size`` regions at a time, past MAX_NDIM
+    fewer (``split_chunk_size``, ``split_chunks``): the points kernel,
+    ``integrand`` (any form ``make_integrand`` takes) on the (C, feval,
+    ndim) points, its values cast to the pool's type (no copy where they
+    have it), the contraction kernel; ndim 2..WIDE_MAX_NDIM.  Arguments and
     outputs as ``rule_eval.apply_rule_plain``: (estimate, errorest,
     split_dim (cap,) int32), zeros in the padding slots; estimate and
     errorest (cap,), or (ncomp, cap) for a vector integrand (``ncomp`` >
@@ -1325,7 +1401,10 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
     ``contract_route``'s for each).  ``with_split_frac`` (a scalar
     integrand): each chunk's contraction also computes the cut fraction
     from the values it reads, and a fourth output, the cut fraction (cap,),
-    0.5 in the padding slots, split_dim the axis a jump overrides."""
+    0.5 in the padding slots, split_dim the axis a jump overrides; past
+    MAX_NDIM it raises ValueError, as a traced callable does there."""
+    _refuse_frac_past_16d(tables.ndim, with_split_frac)
+    _check_ndim("cuda_apply_rule_split", tables.ndim, WIDE_MAX_NDIM)
     cap, n = _check_pool("cuda_apply_rule_split", tables, lows, lengths,
                          global_lo, global_range, n, blocked)
     if ncomp > 1 and route not in (None,) + VECTOR_ROUTES:
@@ -1340,7 +1419,8 @@ def cuda_apply_rule_split(integrand, tables: rule_eval.RuleTables, lows,
     if with_split_frac:
         out += (torch.full((cap,), 0.5, dtype=lows.dtype,
                            device=lows.device),)
-    for first, count in split_chunks(n, chunk_size):
+    for first, count in split_chunks(
+            n, split_chunk_size(tables.ndim, lows.dtype, chunk_size)):
         x = _points_launch(lib, tables, lows, lengths, global_lo,
                            global_range, cap, n, blocked, first, count)
         vals = batched(x).to(lows.dtype)

@@ -355,8 +355,9 @@ def check_split_against_plain(integrand, tables: rule_eval.RuleTables, lows,
                               chunk_size: int = 4096,
                               min_agree: float = 0.999,
                               route: str | None = None):
-    """The split route over a CUDA pool, ``chunk_size`` regions at a time,
-    its contraction by ``route`` (None: the one ``contract_route`` names),
+    """The split route over a CUDA pool, ``chunk_size`` regions at a time
+    (past 16D fewer: the route's own ``split_chunk_size``), its contraction
+    by ``route`` (None: the one ``contract_route`` names),
     against the plain version: the padding slots must hold zeros; for each
     chunk the points kernel's points must be EQUAL to ``rule_points``' (bits
     and strides), the integrand's values on them EQUAL to its values on the
@@ -379,7 +380,8 @@ def check_split_against_plain(integrand, tables: rule_eval.RuleTables, lows,
                              "slots")
     batched, _ = make_integrand(integrand, tables.ndim)
     parts, equal = [], 0
-    for first, count in cuda_rule.split_chunks(n, chunk_size):
+    for first, count in cuda_rule.split_chunks(n, cuda_rule.split_chunk_size(
+            tables.ndim, lows.dtype, chunk_size)):
         slots = torch.as_tensor(
             cuda_rule.split_slots(cap, n, blocked, first, count),
             device=lows.device)

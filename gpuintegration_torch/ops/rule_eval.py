@@ -18,8 +18,10 @@ chooses the route (``cuda_rule.rule_route``): a Genz family F1..F6
 (``models.genz``) is fused into the tile or generic kernel, and from 17D
 to 24D into the wide one; any other callable, and every vector-valued
 one, takes the split route, a points kernel, the callable on the points
-as torch operations, and a contraction kernel, chunk by chunk, up to 16D.
-Past 16D what no kernel takes raises ValueError (``rule_route``) naming
+as torch operations, and a contraction kernel, chunk by chunk, up to 24D
+(past 16D the kernels' wide instances, on chunks whose points fit
+``cuda_rule.SPLIT_CHUNK_BYTES``).  What no kernel takes (a traced callable
+or a crease run past 16D, anything past 24D) raises ValueError naming
 ``rule_backend='torch'``.  A crease run's cut fraction (``split_fraction``)
 is computed by the route's kernel that holds the values, the fused kernel
 or the contraction.  The split kernels' plain versions are

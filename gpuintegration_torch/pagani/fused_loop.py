@@ -90,9 +90,11 @@ SCALAR_LAYOUT = ("n", "cum_est", "cum_err", "result_nregions", "iters",
 # eager iterations, graph captures, graph replays and packed reads
 # (device-to-host transfers); and each burst's exit status, in order.
 # ``uncaptured`` counts the eager iterations of bursts on the card whose
-# mesh's backend cannot be captured (gloo).
+# mesh's backend cannot be captured (gloo); ``split_past_16d`` the
+# ``Workspace.integrate`` calls with ``fused`` that ran the host loop
+# instead, a callable or a vector on the card's split route past 16D.
 stats = {"bursts": 0, "eager": 0, "captures": 0, "replays": 0, "reads": 0,
-         "uncaptured": 0}
+         "uncaptured": 0, "split_past_16d": 0}
 exits: list[int] = []
 # Iterations between two reads of the packed vector (graph replays on the
 # card); no result depends on it.

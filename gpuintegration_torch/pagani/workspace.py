@@ -406,7 +406,12 @@ class Workspace:
         reads the card from the host) raises RuntimeError: pass
         ``fused=False`` for the host loop throughout.  After a fused exit
         ``final_pool_errors`` is None (the continuation then slices the
-        pool in its order).
+        pool in its order).  On the card a callable or a vector past 16D
+        (the split route, chunk by chunk) runs the host loop throughout:
+        the phase's graph would evaluate the whole bucket at once, 1024
+        regions of points or more (174 GB at 20D in f64); the host loop
+        gives the same bits, and ``fused_loop.stats["split_past_16d"]``
+        counts such runs.
 
         ``crease_split``: split where the rule's collinear samples along
         the split axis show a C0 kink (at the crease, less a margin) or a
@@ -485,13 +490,16 @@ class Workspace:
                 integrand, ndim, max_ndim=integrand_gen.RULE_MAX_NDIM)
         if crease_split and ncomp > 1:
             raise ValueError(_CREASE_SCALAR_ONLY)
+        split_past_16d = False
         if (self.rule_backend == "cuda" and device.type == "cuda"
                 and ndim > cuda_rule.MAX_NDIM):
-            # past 16D the card runs the wide route alone: what it does not
-            # take is refused here, before the first launch
+            # past 16D the card runs the wide route (a Genz family) and the
+            # split route (any other callable, a vector) up to 24D: what
+            # neither takes is refused here, before the first launch
             if crease_split:
                 raise ValueError(cuda_rule.past_16d("crease_split", ndim))
-            cuda_rule.rule_route(ndim, integrand, ncomp)
+            split_past_16d = cuda_rule.rule_route(
+                ndim, integrand, ncomp) == "split"
         if ncomp > 1 and vegas_assisted:
             raise ValueError(
                 "vector-valued integrands refuse vegas_assisted (a scalar "
@@ -550,7 +558,11 @@ class Workspace:
                     assisted.NBINS, dtype, seed, it, lows, lengths,
                     global_lo, global_range, chunk=self.chunk_size,
                     ranges=ranges)
-        if (fused and not predict_split and not vegas_assisted
+        if fused and split_past_16d:
+            # the fused phase would evaluate the whole bucket, >= 1024
+            # regions of points an iteration (174 GB at 20D in f64)
+            fused_loop.stats["split_past_16d"] += 1
+        elif (fused and not predict_split and not vegas_assisted
                 and recorder is None):
             phase = self._fused_phase(
                 integrand, tables, global_lo, global_range, ncomp=ncomp,

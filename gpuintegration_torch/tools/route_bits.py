@@ -5,11 +5,15 @@
 Builds csrc/rule_eval.cu, rule_split.cu, split_frac.cu, vegas_sample.cu and
 vegas_lookup.cu of the ``gpuintegration_torch`` package that ``import``
 finds (run it with ``PYTHONPATH`` set to another checkout's root to read
-that one), prints each kernel's registers, spill bytes and stack frame
-from nvcc's ``-Xptxas -v`` report, and runs the PAGANI main path,
-``Workspace(8).integrate(f4_gaussian(8), 1e-3, 1e-40, fused=False)`` in
-f64, the same at 10D (the generic route) and at 17D with a = 1 (the wide
-route; a checkout without it prints the refusal), VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
+that one), prints each kernel's registers, spill bytes, stack frame and
+static shared memory from nvcc's ``-Xptxas -v`` report, and runs the
+PAGANI main path, ``Workspace(8).integrate(f4_gaussian(8), 1e-3, 1e-40,
+fused=False)`` in f64, the same at 10D (the generic route) and at 17D with
+a = 1 (the wide route; a checkout without it prints the refusal), the
+split route's main path (8D F4, a = 25, as a plain callable at 1e-3),
+``misc.sin_sum(12)`` at 1e-8 and 17D F4 (a = 1) as a plain callable at
+1e-3 (the split route past 16D; a checkout without it prints the
+refusal), VEGAS runs 1-3 (6D F4 at 1e-3: ncall 1e8,
 'hybrid'; ncall 1e9 f32 'fused', 10 iterations, 5 adjusting; the grid map,
 ncall 1e8), BASELINE's 9D VEGAS Gaussian (``misc.gauss9d`` at 1e-3,
 ncall 1e9, 'hybrid') and 9D Genz F4 (a = 10) on the grid map at 1e-3,
@@ -104,6 +108,30 @@ def ptxas_kernels(log: str) -> dict[str, tuple[int, int, int]]:
     return out
 
 
+def ptxas_smem(log: str) -> dict[str, int]:
+    """{kernel: static shared memory bytes} from an nvcc ``-Xptxas -v``
+    report (the "bytes smem" of each kernel's "Used N registers" line; 0
+    where the line has none)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m[1])
+            continue
+        m = re.search(r"Used \d+ registers", line)
+        if m and name:
+            s = re.search(r"(\d+) bytes smem", line)
+            out[name] = int(s[1]) if s else 0
+            name = None
+    return out
+
+
+def f4_callable(ndim: int, a: float):
+    """Genz F4 (b = 1/2) as a plain batched callable, which no fused kernel
+    knows: the split route's integrand."""
+    return lambda x: torch.exp(-torch.sum((a * a) * (x - 0.5) ** 2, dim=-1))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -114,16 +142,23 @@ def main() -> int:
     for lib in cuda_build.build_many(["rule_eval.cu", "rule_split.cu",
                                       "split_frac.cu", "vegas_sample.cu",
                                       "vegas_lookup.cu"]):
+        log = lib.with_suffix(".log").read_text()
+        smem = ptxas_smem(log)
         for name, (regs, spills, stack) in sorted(ptxas_kernels(
-                lib.with_suffix(".log").read_text()).items()):
+                log).items()):
             print(f"ptxas: {name}: {regs} registers, {spills} spill bytes, "
-                  f"{stack} bytes stack frame")
-    for label, ndim, g in (("main path", 8, genz.f4_gaussian(8)),
-                           ("10D generic", 10, genz.f4_gaussian(10)),
-                           ("17D wide", 17, genz.f4_gaussian(17, a=1.0))):
+                  f"{stack} bytes stack frame, {smem.get(name, 0)} bytes "
+                  "smem")
+    for label, ndim, g, eps in (
+            ("main path", 8, genz.f4_gaussian(8), 1e-3),
+            ("10D generic", 10, genz.f4_gaussian(10), 1e-3),
+            ("17D wide", 17, genz.f4_gaussian(17, a=1.0), 1e-3),
+            ("8D split main path", 8, f4_callable(8, 25.0), 1e-3),
+            ("12D split sin_sum", 12, misc.sin_sum(12), 1e-8),
+            ("17D split", 17, f4_callable(17, 1.0), 1e-3)):
         try:
-            res = Workspace(ndim).integrate(g, 1e-3, 1e-40, fused=False)
-        except ValueError as e:      # a checkout without the wide route
+            res = Workspace(ndim).integrate(g, eps, 1e-40, fused=False)
+        except ValueError as e:      # a checkout without the route
             print(f"{label}: refused ({e})", flush=True)
             continue
         print(f"{label}: status {res.status} iters {res.iters} nregions "

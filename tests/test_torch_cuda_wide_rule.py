@@ -109,15 +109,19 @@ def test_wide_fused_phase_equals_host_loop_on_card():
 
 @pytest.mark.gpu
 def test_refusals_past_16d_on_card():
-    """Past 16D only the wide route runs on the card: another callable, a
-    traced one (rule_backend='fused'), crease_split and 25D raise
-    ValueError naming rule_backend='torch' before any launch."""
+    """Past 16D the card runs the wide route and the split route (any
+    other callable, tests/test_torch_cuda_split_wide.py): a traced callable
+    (rule_backend='fused'), crease_split of a Genz family or a callable,
+    and 25D raise ValueError naming rule_backend='torch' before any
+    launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     names = ", ".join(f"x{d}" for d in range(17))
     per_axis = eval(f"lambda {names}: x0 * x1")
     cases = [
-        (Workspace(17), lambda x: torch.exp(-x.sum(-1)), {}),
+        (Workspace(17), lambda x: torch.exp(-x.sum(-1)),
+         {"crease_split": True}),
+        (Workspace(25), lambda x: torch.exp(-x.sum(-1)), {}),
         (Workspace(17, rule_backend="fused"), per_axis, {}),
         (Workspace(17), genz.f4_gaussian(17), {"crease_split": True}),
         (Workspace(25), genz.f4_gaussian(25), {}),

@@ -131,8 +131,8 @@ def test_wide_corners_follow_generic_convention(ndim):
 
 def test_rule_route_choices_and_refusals():
     """A Genz family: 'generic' at 16D, 'wide' at 17D and 24D, refused at
-    25D; a callable: 'split' up to 16D and refused past it, a vector too;
-    a traced callable: 'generic' at 16D, refused at 17D.  Each refusal
+    25D; a callable and a vector: 'split' up to 24D, refused at 25D; a
+    traced callable: 'generic' at 16D, refused at 17D.  Each refusal
     names rule_backend='torch'."""
     torch_backend = "rule_backend='torch'"
     g = genz.f4_gaussian
@@ -147,13 +147,17 @@ def test_rule_route_choices_and_refusals():
 
     assert cuda_rule.rule_route(16, plain) == "split"
     assert cuda_rule.rule_route(16, g(16), ncomp=2) == "split"
+    for ndim in (17, 24):
+        assert cuda_rule.rule_route(ndim, plain) == "split"
+        assert cuda_rule.rule_route(ndim, g(ndim), ncomp=2) == "split"
+        assert cuda_rule.rule_route(ndim, None, ncomp=3) == "split"
     names16 = ", ".join(f"x{d}" for d in range(16))
     names17 = ", ".join(f"x{d}" for d in range(17))
     t16 = integrand_gen.traced(eval(f"lambda {names16}: x0 * x1"), 16)
     t17 = integrand_gen.traced(eval(f"lambda {names17}: x0 * x1"), 17)
     assert cuda_rule.rule_route(16, t16) == "generic"
-    for args in ((25, g(25)), (25,), (17, plain), (17, g(17), 2),
-                 (17, t17), (24, plain)):
+    for args in ((25, g(25)), (25,), (25, plain), (25, g(25), 2),
+                 (17, t17)):
         with pytest.raises(ValueError, match=torch_backend):
             cuda_rule.rule_route(*args)
 
@@ -164,19 +168,38 @@ def _meta_pool(ndim, cap=8):
     return lows, lows.clone(), glo, glo.clone()
 
 
+def _bare_tables(ndim):
+    """RuleTables of ``ndim`` with its dimension and point count alone: the
+    wrappers refuse the pools below before reading anything else (the 24D
+    table's points are 3.2 GB)."""
+    return rule_eval.RuleTables(
+        ndim=ndim, feval=genz_malik.feval_per_region(ndim), feval_padded=0,
+        gen=None, wts=None, orbit_wts=None, orbit_bounds=(), scale=None,
+        norm=None, ratio=0.0)
+
+
 def test_pool_past_16d_reaches_the_wide_wrapper():
-    """A 17D Genz pool off the CPU goes to the wide route's launch (whose
-    pool check refuses a tensor that is not on the card, with no plain
-    fallback); a 25D one, a crease run and a callable at 17D are refused
-    before, naming rule_backend='torch'."""
+    """A 17D Genz pool off the CPU goes to the wide route's launch, and a
+    callable's and a vector's at 17D and 24D to the split route's (whose
+    pool checks refuse a tensor that is not on the card, with no plain
+    fallback); a crease run at 17D (a Genz family or a callable) and a
+    callable at 25D are refused before, naming rule_backend='torch'."""
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         rule_eval.apply_rule(genz.f4_gaussian(17), rule_eval.rule_tables(17),
                              *_meta_pool(17))
-    for f, kw in ((genz.f4_gaussian(17), {"with_split_frac": True}),
-                  (lambda x: x.sum(-1), {})):
+    for ndim in (17, 24):
+        for kw in ({}, {"ncomp": 2}):
+            with pytest.raises(ValueError,
+                               match="cuda_apply_rule_split needs CUDA"):
+                rule_eval.apply_rule(lambda x: x.sum(-1), _bare_tables(ndim),
+                                     *_meta_pool(ndim), **kw)
+    for f, ndim, kw in ((genz.f4_gaussian(17), 17, {"with_split_frac": True}),
+                        (lambda x: x.sum(-1), 17, {"with_split_frac": True}),
+                        (lambda x: x.sum(-1), 25, {}),
+                        (lambda x: x.sum(-1), 25, {"ncomp": 2})):
         with pytest.raises(ValueError, match="rule_backend='torch'"):
-            rule_eval.apply_rule(f, rule_eval.rule_tables(17),
-                                 *_meta_pool(17), **kw)
+            rule_eval.apply_rule(f, _bare_tables(ndim), *_meta_pool(ndim),
+                                 **kw)
     with pytest.raises(ValueError, match="takes ndim 2..16, not 17"):
         cuda_rule.cuda_apply_rule(genz.f4_gaussian(17),
                                   rule_eval.rule_tables(17), *_meta_pool(17),
